@@ -4,13 +4,14 @@ The JAX package (go_jpeg2000_tpu) stays as the reference; this package mirrors
 its module names and is held to it byte for byte.  It imports torch and
 numpy, never jax.
 
-This slice runs the HTJ2K lossless batch path:
+The ported slices run the HTJ2K batch paths, lossless 5/3 and lossy 9/7:
 
     encode_batch(images, opts=None, device="cuda") -> List[bytes]
     decode_batch(streams, config=None, device="cuda") -> List[np.ndarray]
 
-with DC shift, RCT and the 5/3 DWT on the device (hand-written CUDA level
-kernels on an NVIDIA Hopper card, csrc/dwt53.cu) and HT block coding plus
+with DC shift, RCT and the 5/3 DWT, or ICT, the 9/7 DWT and deadzone
+quantization, on the device (hand-written CUDA level kernels on an NVIDIA
+Hopper card, csrc/dwt53.cu and csrc/dwt97.cu) and HT block coding plus
 Tier-2 on the host (the JAX package's native C++ coder, built from its one
 source).  Tensors carry an explicit device: "cuda" without a card raises;
 tests pass device="cpu".  Options outside the slice raise

@@ -1,16 +1,19 @@
-"""Batch decoder: HTJ2K lossless J2K codestreams -> frames.
+"""Batch decoder: HTJ2K J2K codestreams -> frames.
 
 Port of the host-HT branch of go_jpeg2000_tpu/models/decoder.py
 `_decode_batch_fused`: the native C++ library parses Tier-2 and decodes
 every HT code-block of every frame in one call (ht_t2_decode_frames); the
 block slots become pyramid leaves on the host (`_blocks_to_pyramid`), ride
-one flat upload, and the device runs the inverse 5/3 (the CUDA level
-kernels on the card), inverse RCT, DC shift, clamp and narrowing for the
-whole batch.
+one flat upload, and the device runs, for the whole batch, the inverse 5/3
+and inverse RCT, or the midpoint dequantization (as the JAX package's
+ops/ht_tpu_decode.py does it), inverse 9/7 and inverse ICT; then DC shift,
+clamp and narrowing.  The DWT levels go through the CUDA level kernels on
+the card.  The JAX package sends lossy streams to its device MagSgn decode
+instead (ROADMAP Queue 1 item 4); the native call gives the same indices.
 
-The slice: single-tile, single-layer, lossless HT J2K streams of one shape,
-without SOP/EPH/PPM/PPT, decoded whole.  Everything else raises
-NotImplementedError naming the ROADMAP item that brings it.
+The slices: single-tile, single-layer, lossless 5/3 or lossy 9/7 HT J2K
+streams of one shape, without SOP/EPH/PPM/PPT, decoded whole.  Everything
+else raises NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -63,8 +66,8 @@ def _check_slice(parsed, config: Config) -> None:
             raise _not_ported("batches of differing stream geometry", "6")
         if hdr.num_tiles != 1:
             raise _not_ported("multi-tile decoding", "6")
-        if cs.transform != 1:
-            raise _not_ported("lossy 9/7 decoding", "7")
+        if cs.transform != h0.coding_style.transform:
+            raise _not_ported("batches mixing 5/3 and 9/7 streams", "6")
         if not cs.cb_style & mk.CBSTYLE_HT:
             raise _not_ported("EBCOT (Part 1) decoding", "6")
         if cs.num_layers != 1:
@@ -75,6 +78,13 @@ def _check_slice(parsed, config: Config) -> None:
         if any(c.signed or not 8 <= c.precision <= 16
                for c in hdr.components):
             raise _not_ported("signed or out-of-range sample precision", "6")
+
+
+def _leaf_level(lev: int, name: str, nl: int) -> int:
+    """Pyramid list index of a plan band (LL sits with the top level)."""
+    if name == "LL":
+        return nl - 1 if nl > 0 else 0
+    return lev - 1
 
 
 def _blocks_to_pyramid(coeffs: np.ndarray, plan, n: int, n_comps: int,
@@ -99,19 +109,26 @@ def _blocks_to_pyramid(coeffs: np.ndarray, plan, n: int, n_comps: int,
              .reshape(n, gy * eh, gx * ew)[:, oy:oy + bh, ox:ox + bw])
         per_band.setdefault((lev, name), []).append(a)
     for (lev, name), comps in per_band.items():
-        arr = np.stack(comps, axis=1)         # [N, C, bh, bw]
-        li = (nl - 1 if name == "LL" and nl > 0 else
-              (lev - 1 if name != "LL" else 0))
-        stacked[li][name] = arr
+        # [N, C, bh, bw]
+        stacked[_leaf_level(lev, name, nl)][name] = np.stack(comps, axis=1)
     return stacked
+
+
+def _pyramid_deltas(plan, nl: int):
+    """The plan's per-band quantizer steps, shaped like _blocks_to_pyramid's
+    result: per level, band -> one step per component."""
+    deltas = [dict() for _ in range(max(1, nl))]
+    for (_c, lev, name, *_), d in zip(plan.band_specs, plan.deltas):
+        deltas[_leaf_level(lev, name, nl)].setdefault(name, []).append(d)
+    return deltas
 
 
 def decode_batch(streams, config: Optional[Config] = None,
                  device="cuda") -> List[np.ndarray]:
-    """Decode same-shape single-tile HTJ2K lossless codestreams to frames
-    ([H, W] gray or [H, W, C]): host T2 + HT decode in one native call,
-    then one inverse transform on `device` for the whole batch.  "cuda"
-    without a card raises."""
+    """Decode same-shape single-tile HTJ2K codestreams, lossless or lossy,
+    to frames ([H, W] gray or [H, W, C]): host T2 + HT decode in one native
+    call, then one inverse transform on `device` for the whole batch.
+    "cuda" without a card raises."""
     config = config or Config()
     dev = transforms.resolve_device(device)
     if not streams:
@@ -127,7 +144,8 @@ def decode_batch(streams, config: Optional[Config] = None,
 
     header = parsed[0][0]
     tile = geo.build_tile(header, 0)
-    plan = fused_encode.plan_for(header, tile)
+    lossless = header.coding_style.transform == 1
+    plan = fused_encode.plan_for(header, tile, lossy=not lossless)
     if plan is None:
         raise _not_ported("this code-block/precinct geometry", "6")
     geom = fused_encode.t2_geom(header, tile, plan)
@@ -152,8 +170,10 @@ def decode_batch(streams, config: Optional[Config] = None,
                           "6")
     stacked = _blocks_to_pyramid(coeffs, plan, n_frames, n_comps, nl)
     out = transforms.dispatch_inverse_stacked(
-        stacked, n_frames, n_comps, max(1, nl), dwt.REV53, use_mct,
-        precision, signed, tile.comps[0].x0, tile.comps[0].y0, dev)
+        stacked, n_frames, n_comps, max(1, nl),
+        dwt.REV53 if lossless else dwt.IRR97, use_mct, precision, signed,
+        tile.comps[0].x0, tile.comps[0].y0, dev,
+        None if lossless else _pyramid_deltas(plan, nl))
 
     dt = np.uint8 if precision <= 8 else np.uint16
     th, tw = tile.comps[0].h, tile.comps[0].w

@@ -1,16 +1,20 @@
-"""Batch encoder: same-shape frames -> HTJ2K lossless J2K codestreams.
+"""Batch encoder: same-shape frames -> HTJ2K J2K codestreams.
 
 Port of the chunked branch of go_jpeg2000_tpu/models/encoder.py
 `encode_batch`, with the functions it runs.  The device (torch, and the
-CUDA 5/3 level kernels on the card) runs DC shift, RCT and the
-multi-level DWT for the whole batch; the host runs the native C++ HT block
-coder and the Python Tier-2 packet assembly per frame.  The codestreams are
-byte-identical to the JAX package's `encode_batch`.
+CUDA DWT level kernels on the card) runs DC shift, RCT or ICT, the
+multi-level 5/3 or 9/7 DWT and, for 9/7, the deadzone quantization for the
+whole batch; the host runs the native C++ HT block coder and the Python
+Tier-2 packet assembly per frame.  Lossless codestreams are byte-identical
+to the JAX package's `encode_batch`; lossy ones decode within one grey
+level of it (float32 lifting drifts by ulps between program shapes, so a
+quantizer index can flip at a step boundary).
 
-The slice: HTJ2K, lossless 5/3, one tile, one quality layer, J2K, frames of
-one shape, gray or 3-component RGB (RCT), 8 to 16-bit unsigned samples.
-Everything else raises NotImplementedError naming the ROADMAP item that
-brings it.
+The slices: HTJ2K, lossless 5/3 or lossy 9/7, one tile, one quality layer
+without a byte budget or HT refinement passes for 9/7, J2K, frames of one
+shape, gray or 3-component RGB (RCT for 5/3, ICT for 9/7), 8 to 16-bit
+unsigned samples.  Everything else raises NotImplementedError naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -62,6 +66,17 @@ def effective_ht_refinement(opts: Options) -> bool:
             and (opts.num_layers > 1 or opts.compression_ratio > 1.0))
 
 
+def _effective_quality(opts: Options) -> int:
+    """Base-quantizer quality.  A compression_ratio budget makes PCRD
+    truncation set the operating point, so the base quantizer should be as
+    fine as practical, except for HT, whose few truncation points per block
+    leave the quality-derived step the primary rate instrument."""
+    if (opts.compression_ratio > 1.0 and not opts.lossless
+            and not opts.high_throughput):
+        return 100
+    return opts.quality
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
@@ -71,8 +86,8 @@ def check_slice(images: Sequence[np.ndarray], opts: Options) -> None:
     """Raise NotImplementedError for anything outside the port's slice."""
     if not opts.high_throughput:
         raise _not_ported("EBCOT (Part 1) coding", "6")
-    if not opts.lossless:
-        raise _not_ported("lossy 9/7 coding", "7")
+    if not opts.lossless and effective_ht_refinement(opts):
+        raise _not_ported("lossy 9/7 coding with HT refinement passes", "7")
     if opts.format != Format.J2K:
         raise _not_ported(f"the {opts.format} format", "6")
     if (opts.tile_size != (0, 0) or opts.tile_offset != (0, 0)
@@ -100,8 +115,8 @@ def check_slice(images: Sequence[np.ndarray], opts: Options) -> None:
 
 
 def build_header(image: np.ndarray, opts: Options) -> Header:
-    """Main header of a lossless HT single-tile codestream (the slice's part
-    of the JAX package's build_header)."""
+    """Main header of an HT single-tile codestream (the slices' part of the
+    JAX package's build_header)."""
     comps = _image_components(image)
     h_img, w_img = comps[0].shape
     precision, signed = _natural_precision(image, opts)
@@ -130,31 +145,37 @@ def build_header(image: np.ndarray, opts: Options) -> Header:
     else:
         cs.cb_width_exp, cs.cb_height_exp = opts.code_block_size
     cs.cb_style = opts.code_block_style | mk.CBSTYLE_HT
-    cs.transform = 1
+    cs.transform = 1 if opts.lossless else 0
     if opts.precinct_size:
         cs.scod |= mk.SCOD_PRECINCTS_DEFINED
         cs.precincts = [tuple(p) for p in opts.precinct_size]
     h.coding_style = cs
     # HT needs one extra guard bit: decoders bound U_q <= (Mb - 1) + 1.
-    h.quantization = quant_ops.make_reversible_quant(
-        precision, cs.num_decompositions, guard_bits=3)
+    h.quantization = component_quant(h, opts, 0, precision)
     h.capabilities = Capabilities(pcap=mk.pcap_bit(15))
     return h
 
 
-def component_quant(h: Header, comp: int, precision: int) -> Quantization:
-    """Per-component quantization accounting for MCT range expansion
-    (RCT chroma gains one bit)."""
-    eff_prec = precision
-    if h.coding_style.mct and comp in (1, 2):
-        eff_prec = precision + 1
-    return quant_ops.make_reversible_quant(
-        eff_prec, h.coding_style.num_decompositions, guard_bits=3)
+def component_quant(h: Header, opts: Options, comp: int,
+                    precision: int) -> Quantization:
+    """Per-component quantization (three guard bits, HT) accounting for MCT
+    range expansion: RCT chroma gains one bit; ICT chroma stays in range
+    and shares the luma steps."""
+    nl = h.coding_style.num_decompositions
+    if opts.lossless:
+        eff_prec = precision + 1 if h.coding_style.mct and comp in (1, 2) \
+            else precision
+        return quant_ops.make_reversible_quant(eff_prec, nl, guard_bits=3)
+    base_delta = rate_mod.base_delta_for_quality(_effective_quality(opts),
+                                                 precision)
+    return quant_ops.make_irreversible_quant(precision, nl, base_delta,
+                                             guard_bits=3)
 
 
-def _apply_comp_quants(header: Header, n_comps: int, precision: int) -> None:
+def _apply_comp_quants(header: Header, opts: Options, n_comps: int,
+                       precision: int) -> None:
     """Per-component quantization; registers QCC for differing components."""
-    comp_quants = [component_quant(header, c, precision)
+    comp_quants = [component_quant(header, opts, c, precision)
                    for c in range(n_comps)]
     header.quantization = comp_quants[0]
     for c, q in enumerate(comp_quants):
@@ -202,10 +223,26 @@ def _walk_geometry(tile: geo.Tile):
     return enc_state, job_slots
 
 
+def _leaf_deltas(tile: geo.Tile, nl: int) -> Tuple[float, ...]:
+    """Per-leaf quantizer steps in tree-leaves order (levels ascending,
+    band keys sorted: HH, HL, LH [, LL at the top level]) for the device
+    quantization in transforms.forward_transform_batch.  Component 0's
+    steps serve every component: under the ICT all share one quantizer."""
+    by = {}
+    for res in tile.comps[0].resolutions:
+        for band in res.bands:
+            lev = nl if band.name == "LL" else band.dec_level
+            by[(lev, band.name)] = float(band.delta)
+    if nl == 0:
+        return (by[(0, "LL")],)
+    return tuple(by[(lev, k)] for lev in range(1, nl + 1)
+                 for k in ["HH", "HL", "LH"] + (["LL"] if lev == nl else []))
+
+
 def _entropy_jobs(tile: geo.Tile, pyramids):
-    """Code-block split of a lossless pyramid: returns (enc_state,
-    job_slots, block_jobs) with block_jobs = (coeff_array, band_name,
-    cb_style, mb)."""
+    """Code-block split of a pyramid of integers (lossless coefficients or
+    device-quantized 9/7 indices): returns (enc_state, job_slots,
+    block_jobs) with block_jobs = (coeff_array, band_name, cb_style, mb)."""
     enc_state, job_slots = _walk_geometry(tile)
     block_jobs = []
     for c, tc in enumerate(tile.comps):
@@ -227,18 +264,23 @@ def _entropy_jobs(tile: geo.Tile, pyramids):
     return enc_state, job_slots, block_jobs
 
 
+MCT_NORMS_ICT = (1.7321, 1.8051, 1.5734)   # sqrt(3.0, 3.2584, 2.4756)
 MCT_NORMS_RCT = (1.7321, 0.8292, 0.8292)   # sqrt(3.0, 0.6876, 0.6876)
 
 
-def mct_comp_weights(header: Header, n_comps: int) -> Optional[List[float]]:
-    """Per-component PCRD distortion weights under the RCT (OpenJPEG's
-    opj_mct_get_mct_norms values); None when no MCT is active."""
+def mct_comp_weights(header: Header, lossless: bool,
+                     n_comps: int) -> Optional[List[float]]:
+    """Per-component PCRD distortion weights under the active MCT, ICT or
+    RCT (OpenJPEG's opj_mct_get_mct_norms values); None when no MCT is
+    active."""
     if not header.coding_style.mct or n_comps < 3:
         return None
-    return [MCT_NORMS_RCT[c] ** 2 if c < 3 else 1.0 for c in range(n_comps)]
+    base = MCT_NORMS_RCT if lossless else MCT_NORMS_ICT
+    return [base[c] ** 2 if c < 3 else 1.0 for c in range(n_comps)]
 
 
-def _build_blocks(job_slots, results, num_layers: int, comp_weights=None
+def _build_blocks(job_slots, results, num_layers: int,
+                  reversible: bool = True, comp_weights=None
                   ) -> Tuple[List[t2.EncBlock], List[float]]:
     """Wire coder results into EncBlocks (direct slot references,
     order-safe); returns (blocks, PCRD distortion weights): the coder's
@@ -259,7 +301,8 @@ def _build_blocks(job_slots, results, num_layers: int, comp_weights=None
         blk._passes = r.passes  # for PCRD
         blocks[i] = blk
         all_blocks.append(blk)
-        norm = quant_ops.band_norm_true(True, band.name, band.dec_level)
+        norm = quant_ops.band_norm_true(reversible, band.name,
+                                        band.dec_level)
         w = (band.delta * norm) ** 2
         if comp_weights is not None:
             w *= comp_weights[c]
@@ -302,11 +345,11 @@ def _entropy_and_packets(header: Header, tile: geo.Tile, pyramids,
     enc_state, job_slots, block_jobs = _entropy_jobs(tile, pyramids)
     results = encode_blocks_batch(
         block_jobs, ht_refinement=effective_ht_refinement(opts),
-        ht_require_exact=True)
+        ht_require_exact=opts.lossless)
     num_layers = header.coding_style.num_layers
     all_blocks, weights = _build_blocks(
-        job_slots, results, num_layers,
-        mct_comp_weights(header, len(tile.comps)))
+        job_slots, results, num_layers, opts.lossless,
+        mct_comp_weights(header, opts.lossless, len(tile.comps)))
     rate_mod.assign_layers(all_blocks, weights, num_layers, None)
     return _packets_to_tile_part(header, tile, enc_state, t_idx, opts)
 
@@ -326,9 +369,9 @@ def encode_batch(images: Sequence[np.ndarray],
                  opts: Optional[Options] = None,
                  device="cuda") -> List[bytes]:
     """Encode same-shape frames to J2K codestreams: one device transform
-    per chunk of frames (DC shift, RCT, 5/3 DWT), then host HT entropy and
-    Tier-2 per frame.  `device` is where the transform runs; "cuda" without
-    a card raises."""
+    per chunk of frames (DC shift, RCT and 5/3 DWT, or ICT, 9/7 DWT and
+    deadzone quantization), then host HT entropy and Tier-2 per frame.
+    `device` is where the transform runs; "cuda" without a card raises."""
     opts = opts or default_options()
     dev = transforms.resolve_device(device)
     images = [np.asarray(im) for im in images]
@@ -340,13 +383,15 @@ def encode_batch(images: Sequence[np.ndarray],
     precision = header.components[0].precision
     signed = header.components[0].signed
     n_comps = header.num_components
-    _apply_comp_quants(header, n_comps, precision)
+    _apply_comp_quants(header, opts, n_comps, precision)
     main = _write_main_header(header, opts, n_comps)
 
     tile = geo.build_tile(header, 0)
     use_mct = bool(header.coding_style.mct) and n_comps >= 3
     nl0 = tile.comps[0].coding.num_decompositions
     x0, y0 = tile.comps[0].x0, tile.comps[0].y0
+    kind = dwt.REV53 if opts.lossless else dwt.IRR97
+    deltas = None if opts.lossless else _leaf_deltas(tile, nl0)
     # frames ship in their narrow dtype; the cast to int32 runs on device
     batch = np.stack([np.stack(_image_components(im)) for im in images])
     n_frames, c, h, w = batch.shape
@@ -356,7 +401,7 @@ def encode_batch(images: Sequence[np.ndarray],
     for s in range(0, n_frames, chunk):
         sub = batch[s:s + chunk]
         flat = transforms.dispatch_forward_batch(
-            sub, nl0, dwt.REV53, use_mct, precision, signed, x0, y0, dev)
+            sub, nl0, kind, use_mct, precision, signed, x0, y0, dev, deltas)
         pyrs = transforms.fetch_forward_batch(flat, sub.shape[0], c, h, w,
                                               nl0, x0, y0)
         for pyr in pyrs:

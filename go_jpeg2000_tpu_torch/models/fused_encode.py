@@ -5,8 +5,8 @@ per-configuration block geometry (`BlockPlan`, `plan_for`, `plan_blocks`)
 and the flattened single-layer packet walk (`t2_geom`) that the native
 ht_t2_{en,de}code_frames consume.  The decoder uses them to run T2 and HT
 block decoding in one native call.  The device half (block extraction and
-the HT cleanup field, packing and compaction kernels) arrives with slice 2
-(ROADMAP Queue 2).
+the HT cleanup field, packing and compaction kernels) arrives with slice 3
+(ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -57,15 +57,16 @@ def plan_for(header: Header, tile: geo.Tile,
     grid).  lossy=True admits the irreversible 9/7 path: the plan carries
     per-band quantizer steps and the kernel quantizes on device."""
     cs = tile.comps[0].coding
+    # every component's quantization: it sets each block's Mb and, lossy,
+    # each band's step (a QCC may differ from the QCD)
     key = [header.num_components,
            header.components[0].precision, header.components[0].signed,
            cs.num_decompositions, cs.cb_width_exp, cs.cb_height_exp,
-           cs.mct, tuple(cs.precincts or ()),
-           tile.comps[0].quant.guard_bits, ht, lossy,
-           (tile.comps[0].quant.style,
-            tuple((s.exponent, s.mantissa)
-                  for s in tile.comps[0].quant.step_sizes)) if lossy
-           else None]
+           cs.mct, tuple(cs.precincts or ()), ht, lossy,
+           tuple((tc.quant.guard_bits, tc.quant.style,
+                  tuple((s.exponent, s.mantissa)
+                        for s in tc.quant.step_sizes))
+                 for tc in tile.comps)]
     if multi_tile:
         mx = 1 << (cs.cb_width_exp + cs.num_decompositions)
         my = 1 << (cs.cb_height_exp + cs.num_decompositions)

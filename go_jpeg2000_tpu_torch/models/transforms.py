@@ -1,23 +1,25 @@
 """Device transform stages of the codec pipeline, as torch ops.
 
 Port of go_jpeg2000_tpu/models/transforms.py (the batched programs):
-DC shift + RCT + multi-level 5/3 DWT forward, and the inverse chain.  Each
-level goes through the hand-written CUDA kernel (ops/dwt_cuda.py) when the
-tensor is on the card and `dwt_cuda.usable` admits the level, and through
-the plain torch lifting (ops/dwt.py) otherwise; a CUDA level that takes
-the plain version is counted in `dwt_cuda.PLAIN_LEVELS`.  Components of
-equal shape batch as [N, C, H, W] so one launch covers every frame and
-component.  Nothing here falls back to the CPU: tensors stay on the device
-they were given, and a failed kernel build or launch raises.
+DC shift + RCT/ICT + multi-level 5/3 or 9/7 DWT forward (+ deadzone
+quantization for 9/7), and the inverse chain (midpoint dequantization for
+9/7).  Each level goes through the hand-written CUDA kernel
+(ops/dwt_cuda.py) when the tensor is on the card and `dwt_cuda.usable`
+admits the level, and through the plain torch lifting (ops/dwt.py)
+otherwise; a CUDA level that takes the plain version is counted in
+`dwt_cuda.PLAIN_LEVELS`.  Components of equal shape batch as [N, C, H, W]
+so one launch covers every frame and component.  Nothing here falls back
+to the CPU: tensors stay on the device they were given, and a failed
+kernel build or launch raises.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import dwt, dwt_cuda, mct
+from ..ops import dwt, dwt_cuda, mct, quant
 
 
 def resolve_device(device) -> torch.device:
@@ -32,33 +34,38 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _forward_level(x: torch.Tensor, u0: int, v0: int
+_FORWARD_KERNEL = {dwt.REV53: dwt_cuda.forward_2d_53,
+                   dwt.IRR97: dwt_cuda.forward_2d_97}
+_INVERSE_KERNEL = {dwt.REV53: dwt_cuda.inverse_2d_53,
+                   dwt.IRR97: dwt_cuda.inverse_2d_97}
+
+
+def _forward_level(x: torch.Tensor, kind: str, u0: int, v0: int
                    ) -> Dict[str, torch.Tensor]:
     h, w = x.shape[-2:]
-    if x.is_cuda and dwt_cuda.usable(h, w, u0, v0):
-        return dwt_cuda.forward_2d_53(x)
+    if x.is_cuda and dwt_cuda.usable(h, w, u0, v0, kind):
+        return _FORWARD_KERNEL[kind](x)
     if x.is_cuda:
         dwt_cuda.count_plain_level()
-    return dwt.forward_2d(x, dwt.REV53, u0=u0, v0=v0)
+    return dwt.forward_2d(x, kind, u0=u0, v0=v0)
 
 
-def _inverse_level(bands: Dict[str, torch.Tensor], u0: int, v0: int
-                   ) -> torch.Tensor:
+def _inverse_level(bands: Dict[str, torch.Tensor], kind: str, u0: int,
+                   v0: int) -> torch.Tensor:
     ll = bands["LL"]
     h = ll.shape[-2] + bands["LH"].shape[-2]
     w = ll.shape[-1] + bands["HL"].shape[-1]
-    if ll.is_cuda and dwt_cuda.usable(h, w, u0, v0):
-        return dwt_cuda.inverse_2d_53(bands)
+    if ll.is_cuda and dwt_cuda.usable(h, w, u0, v0, kind):
+        return _INVERSE_KERNEL[kind](bands)
     if ll.is_cuda:
         dwt_cuda.count_plain_level()
-    return dwt.inverse_2d(bands, dwt.REV53, u0=u0, v0=v0)
+    return dwt.inverse_2d(bands, kind, u0=u0, v0=v0)
 
 
 def _decompose(x: torch.Tensor, levels: int, kind: str, u0: int, v0: int
                ) -> List[Dict[str, torch.Tensor]]:
     """Multi-level decomposition of x [..., H, W], one level at a time on
     the flattened [N, H, W] batch (the same result as dwt.decompose)."""
-    dwt.require_53(kind)
     if levels == 0:
         return [{"LL": x}]
     lead = tuple(x.shape[:-2])
@@ -67,7 +74,7 @@ def _decompose(x: torch.Tensor, levels: int, kind: str, u0: int, v0: int
     out = []
     origins = dwt.level_origins(u0, v0, levels)
     for lev in range(1, levels + 1):
-        bands = _forward_level(cur, *origins[lev - 1])
+        bands = _forward_level(cur, kind, *origins[lev - 1])
         entry = {k: bands[k].reshape(lead + tuple(bands[k].shape[-2:]))
                  for k in ("HL", "LH", "HH")}
         cur = bands["LL"].contiguous()
@@ -80,7 +87,6 @@ def _decompose(x: torch.Tensor, levels: int, kind: str, u0: int, v0: int
 def _reconstruct(pyramid: List[Dict[str, torch.Tensor]], kind: str,
                  u0: int, v0: int) -> torch.Tensor:
     """Inverse of _decompose (the same result as dwt.reconstruct)."""
-    dwt.require_53(kind)
     levels = len(pyramid) if "HL" in pyramid[-1] else len(pyramid) - 1
     if levels == 0:
         return pyramid[0]["LL"]
@@ -97,7 +103,7 @@ def _reconstruct(pyramid: List[Dict[str, torch.Tensor]], kind: str,
         entry = pyramid[lev - 1]
         bands = {k: flat(entry[k]) for k in ("HL", "LH", "HH")}
         bands["LL"] = cur
-        cur = _inverse_level(bands, *origins[lev - 1])
+        cur = _inverse_level(bands, kind, *origins[lev - 1])
     return cur.reshape(lead + tuple(cur.shape[-2:]))
 
 
@@ -114,33 +120,47 @@ def _upload(batch: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def forward_transform_batch(x: torch.Tensor, levels: int, kind: str,
                             use_mct: bool, precision: int, signed: bool,
-                            u0: int, v0: int) -> torch.Tensor:
+                            u0: int, v0: int,
+                            quant_deltas: Optional[Sequence[float]] = None
+                            ) -> torch.Tensor:
     """int32 [N, C, H, W] samples -> the whole pyramid packed into one flat
     tensor in the JAX package's tree-leaves order (levels ascending; keys
-    sorted: HH, HL, LH [, LL at the top level]), narrowed to int16 when a
-    lossless pyramid fits (precision <= 13)."""
-    dwt.require_53(kind)
+    sorted: HH, HL, LH [, LL at the top level]).  5/3 (RCT): narrowed to
+    int16 when a lossless pyramid fits (precision <= 13).  9/7 (ICT, float32
+    lifting): with `quant_deltas`, one deadzone step per leaf in that order
+    (encoder._leaf_deltas), the leaves are quantized on the device and come
+    back as int32 indices, int16 when precision <= 10."""
     x = mct.dc_shift_forward(x.to(torch.int32), precision, signed)
     c = x.shape[1]
     if use_mct and c >= 3:
-        y, u, v = mct.forward_rct(x[:, 0], x[:, 1], x[:, 2])
+        fwd = mct.forward_rct if kind == dwt.REV53 else mct.forward_ict
+        y, u, v = fwd(x[:, 0], x[:, 1], x[:, 2])
         x = torch.stack([y, u, v] + [x[:, i] for i in range(3, c)], dim=1)
+    if kind == dwt.IRR97:
+        x = x.to(torch.float32)
     pyr = _decompose(x, levels, kind, u0, v0)
-    flat = torch.cat([entry[k].reshape(-1) for entry in pyr
-                      for k in sorted(entry)])
-    if precision <= 13:
+    leaves = [entry[k] for entry in pyr for k in sorted(entry)]
+    if quant_deltas is not None:
+        d = torch.tensor(quant_deltas, dtype=torch.float32, device=x.device)
+        flat = torch.cat([quant.quantize(leaf, d[i]).reshape(-1)
+                          for i, leaf in enumerate(leaves)])
+        return flat.to(torch.int16) if precision <= 10 else flat
+    flat = torch.cat([leaf.reshape(-1) for leaf in leaves])
+    if kind == dwt.REV53 and precision <= 13:
         flat = flat.to(torch.int16)
     return flat
 
 
 def dispatch_forward_batch(batch: np.ndarray, levels: int, kind: str,
                            use_mct: bool, precision: int, signed: bool,
-                           u0: int, v0: int, device) -> torch.Tensor:
+                           u0: int, v0: int, device,
+                           quant_deltas: Optional[Sequence[float]] = None
+                           ) -> torch.Tensor:
     """Upload the batch [N, C, H, W] in its narrow dtype and run the forward
     transform on `device`; returns the packed flat pyramid there."""
     return forward_transform_batch(_upload(batch, torch.device(device)),
                                    levels, kind, use_mct, precision, signed,
-                                   u0, v0)
+                                   u0, v0, quant_deltas)
 
 
 def fetch_forward_batch(dev_flat: torch.Tensor, n: int, c: int, h: int,
@@ -170,25 +190,36 @@ def fetch_forward_batch(dev_flat: torch.Tensor, n: int, c: int, h: int,
 def inverse_transform_batch(flat: torch.Tensor, n: int, c: int, levels: int,
                             kind: str, use_mct: bool, precision: int,
                             signed: bool, u0: int, v0: int,
-                            flat_shapes: Tuple = ()) -> torch.Tensor:
+                            flat_shapes: Tuple = (),
+                            leaf_deltas: Tuple = ()) -> torch.Tensor:
     """Batched inverse: the flat upload of pyramid leaves [N, C, h, w]
     (`flat_shapes`: (level, band, h, w) in upload order) -> reconstructed
-    samples [N, C, H, W], clamped and narrowed, returned flat.  16-bit
-    unsigned output comes back as its int16 bit pattern (torch has no
-    uint16 arithmetic); the caller views it as uint16 on the host."""
-    dwt.require_53(kind)
+    samples [N, C, H, W], clamped and narrowed, returned flat.  9/7 leaves
+    are quantizer indices, dequantized at the midpoint with `leaf_deltas`
+    (per leaf in upload order, one step per component) before the float32
+    inverse, and the result is rounded half to even.  16-bit unsigned output
+    comes back as its int16 bit pattern (torch has no uint16 arithmetic);
+    the caller views it as uint16 on the host."""
+    lossy = kind == dwt.IRR97
+    if lossy:
+        deltas = torch.tensor(leaf_deltas, dtype=torch.float32,
+                              device=flat.device).reshape(-1, 1, c, 1, 1)
     pyramid: List[Dict[str, torch.Tensor]] = [dict() for _ in range(levels)]
     pos = 0
-    for (lev, band, h, w) in flat_shapes:
+    for i, (lev, band, h, w) in enumerate(flat_shapes):
         cnt = n * c * h * w
         # leaves may arrive narrowed (int16) to cut h2d bytes; widen here
-        pyramid[lev][band] = (flat[pos:pos + cnt].reshape(n, c, h, w)
-                              .to(torch.int32))
+        leaf = flat[pos:pos + cnt].reshape(n, c, h, w).to(torch.int32)
+        pyramid[lev][band] = (quant.dequantize(leaf, deltas[i]) if lossy
+                              else leaf)
         pos += cnt
     x = _reconstruct(pyramid, kind, u0, v0)
     if use_mct and c >= 3:
-        r, g, b = mct.inverse_rct(x[:, 0], x[:, 1], x[:, 2])
+        inv = mct.inverse_ict if lossy else mct.inverse_rct
+        r, g, b = inv(x[:, 0], x[:, 1], x[:, 2])
         x = torch.stack([r, g, b] + [x[:, i] for i in range(3, c)], dim=1)
+    if lossy:
+        x = torch.round(x).to(torch.int32)    # half to even, as jnp.rint
     x = mct.dc_shift_inverse(x, precision, signed)
     x = mct.clamp_to_precision(x, precision, signed)
     if precision <= 8:
@@ -200,19 +231,26 @@ def inverse_transform_batch(flat: torch.Tensor, n: int, c: int, levels: int,
 
 def dispatch_inverse_stacked(stacked, n: int, c: int, levels: int, kind: str,
                              use_mct: bool, precision: int, signed: bool,
-                             u0: int, v0: int, device) -> torch.Tensor:
+                             u0: int, v0: int, device,
+                             deltas=None) -> torch.Tensor:
     """Pre-stacked numpy leaves [N, C, h, w] -> one flat upload to `device`
-    (int16 when a lossless pyramid fits) -> inverse_transform_batch."""
-    dwt.require_53(kind)
-    dt = np.int16 if precision <= 13 else np.int32
+    -> inverse_transform_batch.  5/3 leaves travel as int16 when a lossless
+    pyramid fits; 9/7 leaves are quantizer indices and travel as int32, with
+    `deltas` shaped like `stacked` (per level, band -> one step per
+    component)."""
+    narrow = kind == dwt.REV53 and precision <= 13
+    dt = np.int16 if narrow else np.int32
     flat_shapes = []
+    leaf_deltas = []
     chunks = []
     for lev in range(len(stacked)):
         for k in sorted(stacked[lev]):
             a = stacked[lev][k].astype(dt)
             flat_shapes.append((lev, k) + a.shape[-2:])
+            if kind == dwt.IRR97:
+                leaf_deltas.append(tuple(deltas[lev][k]))
             chunks.append(a.reshape(-1))
     flat = torch.from_numpy(np.concatenate(chunks)).to(torch.device(device))
     return inverse_transform_batch(flat, n, c, levels, kind, use_mct,
                                    precision, signed, u0, v0,
-                                   tuple(flat_shapes))
+                                   tuple(flat_shapes), tuple(leaf_deltas))

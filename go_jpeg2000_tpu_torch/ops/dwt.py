@@ -1,19 +1,23 @@
-"""Discrete wavelet transform (ISO/IEC 15444-1 Annex F), 5/3, as torch ops.
+"""Discrete wavelet transform (ISO/IEC 15444-1 Annex F) as torch ops.
 
-Port of go_jpeg2000_tpu/ops/dwt.py: the reversible (integer) 5/3 lifting
-DWT, 2-D and multi-level, for any subband coordinate parity (tile origins
-need not be even), with whole-sample symmetric extension.  It runs on the
-tensor's own device and is the plain version of the hand-written CUDA level
-kernels in ops/dwt_cuda.py (csrc/dwt53.cu): the CPU path, the oracle the
-kernels are held to on the card, and the route for levels the kernels do
-not take (odd sizes or origins).
+Port of go_jpeg2000_tpu/ops/dwt.py: the reversible (integer) 5/3 and the
+irreversible (float32) 9/7 lifting DWT, 2-D and multi-level, for any
+subband coordinate parity (tile origins need not be even), with
+whole-sample symmetric extension.  It runs on the tensor's own device and
+is the plain version of the hand-written CUDA level kernels in
+ops/dwt_cuda.py (csrc/dwt53.cu, csrc/dwt97.cu): the CPU path, the oracle
+the kernels are held to on the card, and the route for levels the kernels
+do not take (odd sizes or origins).
 
   5/3:  H[2n+1] -= floor((X[2n] + X[2n+2]) / 2)
         L[2n]   += floor((H[2n-1] + H[2n+1] + 2) / 4)
+  9/7:  four lifting steps (alpha, beta, gamma, delta) + K scaling.
 
 `>>` on a signed int32 tensor is an arithmetic shift, i.e. the floor the
-standard asks for.  The 9/7 lifting is not ported yet (ROADMAP Queue 1
-item 7).
+standard asks for.  The 9/7 steps keep the JAX package's operation order,
+`c + ALPHA * (l + r)` and `x * (1.0 / K)`, each a separately rounded
+float32 op, so the result equals the JAX package's eager lifting bit for
+bit (and the CUDA kernel's, which rounds the same ops the same way).
 """
 from __future__ import annotations
 
@@ -21,18 +25,19 @@ from typing import Dict, List, Tuple
 
 import torch
 
+# 9/7 lifting constants (Table F.4)
+ALPHA = -1.586134342059924
+BETA = -0.052980118572961
+GAMMA = 0.882911075530934
+DELTA = 0.443506852043971
+K = 1.230174104914001
+
 REV53 = "53"
 IRR97 = "97"
 
 
 def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def require_53(kind: str) -> None:
-    if kind != REV53:
-        raise NotImplementedError(
-            "the 9/7 transform is not ported yet (ROADMAP Queue 1 item 7)")
 
 
 # ---------------------------------------------------------------- 1-D core
@@ -93,6 +98,37 @@ def _inverse_1d_53(x: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
     return x
 
 
+def _scale_by_parity(x: torch.Tensor, axis: int, parity: int,
+                     even_scale: float, odd_scale: float) -> torch.Tensor:
+    odd = _parity_mask(x.shape[axis], parity, True, x.ndim, axis, x.device)
+    return torch.where(odd, x * odd_scale, x * even_scale)
+
+
+def _forward_1d_97(x: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
+    if x.shape[axis] <= 1:
+        return x
+    x = _lift(x, axis, parity, True, lambda c, l, r: c + ALPHA * (l + r))
+    x = _lift(x, axis, parity, False, lambda c, l, r: c + BETA * (l + r))
+    x = _lift(x, axis, parity, True, lambda c, l, r: c + GAMMA * (l + r))
+    x = _lift(x, axis, parity, False, lambda c, l, r: c + DELTA * (l + r))
+    return _scale_by_parity(x, axis, parity, 1.0 / K, K)
+
+
+def _inverse_1d_97(x: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
+    if x.shape[axis] <= 1:
+        return x
+    x = _scale_by_parity(x, axis, parity, K, 1.0 / K)
+    x = _lift(x, axis, parity, False, lambda c, l, r: c - DELTA * (l + r))
+    x = _lift(x, axis, parity, True, lambda c, l, r: c - GAMMA * (l + r))
+    x = _lift(x, axis, parity, False, lambda c, l, r: c - BETA * (l + r))
+    x = _lift(x, axis, parity, True, lambda c, l, r: c - ALPHA * (l + r))
+    return x
+
+
+_FORWARD_1D = {REV53: _forward_1d_53, IRR97: _forward_1d_97}
+_INVERSE_1D = {REV53: _inverse_1d_53, IRR97: _inverse_1d_97}
+
+
 def _take(x: torch.Tensor, axis: int, start: int) -> torch.Tensor:
     idx = [slice(None)] * x.ndim
     idx[axis] = slice(start, None, 2)
@@ -129,11 +165,11 @@ def forward_2d(a: torch.Tensor, kind: str = REV53, u0: int = 0, v0: int = 0
 
     Column (vertical) transform first, then rows — the Annex F 2D_SD
     ordering whose inverse (2D_SR) interleaves rows first.  Returns a dict
-    with LL/HL/LH/HH.
+    with LL/HL/LH/HH.  `kind` is REV53 (int32 samples) or IRR97 (float32).
     """
-    require_53(kind)
-    a = _forward_1d_53(a, a.ndim - 2, v0 & 1)          # vertical
-    a = _forward_1d_53(a, a.ndim - 1, u0 & 1)          # horizontal
+    fwd = _FORWARD_1D[kind]
+    a = fwd(a, a.ndim - 2, v0 & 1)                     # vertical
+    a = fwd(a, a.ndim - 1, u0 & 1)                     # horizontal
     lo_y, hi_y = _deinterleave(a, a.ndim - 2, v0 & 1)
     ll, hl = _deinterleave(lo_y, lo_y.ndim - 1, u0 & 1)
     lh, hh = _deinterleave(hi_y, hi_y.ndim - 1, u0 & 1)
@@ -142,13 +178,13 @@ def forward_2d(a: torch.Tensor, kind: str = REV53, u0: int = 0, v0: int = 0
 
 def inverse_2d(bands: Dict[str, torch.Tensor], kind: str = REV53,
                u0: int = 0, v0: int = 0) -> torch.Tensor:
-    require_53(kind)
+    inv = _INVERSE_1D[kind]
     ll, hl, lh, hh = bands["LL"], bands["HL"], bands["LH"], bands["HH"]
     lo_y = _interleave(ll, hl, ll.ndim - 1, u0 & 1)
     hi_y = _interleave(lh, hh, lh.ndim - 1, u0 & 1)
     a = _interleave(lo_y, hi_y, lo_y.ndim - 2, v0 & 1)
-    a = _inverse_1d_53(a, a.ndim - 1, u0 & 1)          # horizontal first
-    a = _inverse_1d_53(a, a.ndim - 2, v0 & 1)          # then vertical
+    a = inv(a, a.ndim - 1, u0 & 1)                     # horizontal first
+    a = inv(a, a.ndim - 2, v0 & 1)                     # then vertical
     return a
 
 

@@ -1,18 +1,20 @@
-"""Hand-written CUDA kernels for one 2-D 5/3 DWT level (csrc/dwt53.cu).
+"""Hand-written CUDA kernels for one 2-D DWT level (csrc/dwt53.cu, dwt97.cu).
 
 The port's counterpart of go_jpeg2000_tpu/ops/dwt_pallas.py:
 
   forward_2d_53 -> dwt53_fwd_level, replaces _dwt53_level_kernel
   inverse_2d_53 -> dwt53_inv_level, replaces _idwt53_level_kernel
+  forward_2d_97 -> dwt97_fwd_level, replaces _dwt97_level_kernel
+  inverse_2d_97 -> dwt97_inv_level, replaces _idwt97_level_kernel
 
 A CPU tensor goes to the plain torch lifting in ops/dwt.py.  A CUDA tensor
 goes to the kernel, or the call raises: there is no fallback, and a failed
-build or launch is an error.  The 9/7 kernels are not ported yet (ROADMAP
-Queue 2).
+build or launch is an error.
 
-The kernels are compiled with nvcc on first use into
-go_jpeg2000_tpu_torch/_build/ (keyed by a hash of the source) and bound
-with ctypes; nothing is built or imported when this module is imported.
+Each source is compiled with nvcc on first use into
+go_jpeg2000_tpu_torch/_build/ (keyed by a hash of the source and flags;
+the sources build in parallel, one nvcc each) and bound with ctypes;
+nothing is built or imported when this module is imported.
 
 Counts: LAUNCHES[name] goes up by one each time a kernel is launched, and
 only there; PLAIN_LEVELS counts levels of CUDA tensors that took the plain
@@ -26,29 +28,34 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
 from . import dwt
 
-# must equal STRIP and HALO in csrc/dwt53.cu (checked when the library loads)
+# must equal STRIP and HALO in csrc/dwt53.cu and csrc/dwt97.cu (checked
+# when the library loads)
 STRIP_ROWS = 16
-HALO_ROWS = 3
+HALO_ROWS = {dwt.REV53: 3, dwt.IRR97: 7}
 # dynamic shared memory a Hopper block may opt into (227 KB)
 MAX_SMEM_BYTES = 232448
 
-LAUNCHES: Dict[str, int] = {"dwt53_fwd_level": 0, "dwt53_inv_level": 0}
+LAUNCHES: Dict[str, int] = {"dwt53_fwd_level": 0, "dwt53_inv_level": 0,
+                            "dwt97_fwd_level": 0, "dwt97_inv_level": 0}
 PLAIN_LEVELS = 0
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "dwt53.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# library name -> (source, kind, sample dtype)
+_LIBS = {"dwt53": ("dwt53.cu", dwt.REV53, torch.int32),
+         "dwt97": ("dwt97.cu", dwt.IRR97, torch.float32)}
+_LIB_OF_KIND = {kind: name for name, (_s, kind, _t) in _LIBS.items()}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_counts() -> None:
@@ -63,13 +70,13 @@ def count_plain_level() -> None:
     PLAIN_LEVELS += 1
 
 
-def usable(h: int, w: int, u0: int, v0: int) -> bool:
+def usable(h: int, w: int, u0: int, v0: int, kind: str = dwt.REV53) -> bool:
     """Kernel eligibility for one level: even origin, even sizes of at
-    least 2, and a strip of STRIP_ROWS + HALO_ROWS full-width int32 rows
-    that fits the shared memory of one block."""
+    least 2, and a strip of STRIP_ROWS + HALO_ROWS[kind] full-width 4-byte
+    rows that fits the shared memory of one block."""
     if (u0 & 1) or (v0 & 1) or (h & 1) or (w & 1) or h < 2 or w < 2:
         return False
-    return (STRIP_ROWS + HALO_ROWS) * w * 4 <= MAX_SMEM_BYTES
+    return (STRIP_ROWS + HALO_ROWS[kind]) * w * 4 <= MAX_SMEM_BYTES
 
 
 def _nvcc() -> str:
@@ -83,56 +90,75 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile csrc/dwt53.cu into _build/ unless a library built from the
-    same source is there already; returns its path."""
-    with open(_SRC, "rb") as f:
+def _so_path(name: str) -> str:
+    src = os.path.join(_PKG, "csrc", _LIBS[name][0])
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"dwt53_{digest}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
 
 
-def load() -> ctypes.CDLL:
-    """Build (if needed) and bind the kernel library."""
-    global _lib
+def build() -> Dict[str, str]:
+    """Compile every csrc/*.cu library that _build/ lacks (a library built
+    from the same source and flags is reused), one nvcc per source, all
+    started together; returns {library name: path}."""
+    paths = {name: _so_path(name) for name in _LIBS}
+    procs = []
+    for name, so in paths.items():
+        if os.path.exists(so):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        src = os.path.join(_PKG, "csrc", _LIBS[name][0])
+        tmp = f"{so}.{os.getpid()}.tmp"
+        procs.append((src, so, tmp, subprocess.Popen(
+            [_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for src, so, tmp, proc in procs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src}:\n{err}")
+        else:
+            os.replace(tmp, so)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def load() -> Dict[str, ctypes.CDLL]:
+    """Build (if needed) and bind every kernel library."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build())
-        if (lib.dwt53_strip_rows() != STRIP_ROWS
-                or lib.dwt53_halo_rows() != HALO_ROWS):
-            raise RuntimeError("csrc/dwt53.cu and ops/dwt_cuda.py disagree "
-                               "on STRIP/HALO")
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.dwt53_fwd_level.restype = ctypes.c_int
-        lib.dwt53_fwd_level.argtypes = [p, p, p, p, p, i, i, i, p]
-        lib.dwt53_inv_level.restype = ctypes.c_int
-        lib.dwt53_inv_level.argtypes = [p, p, p, p, p, i, i, i, p]
-        _lib = lib
-        return lib
+        if _libs:
+            return _libs
+        libs = {}
+        for name, so in build().items():
+            lib = ctypes.CDLL(so)
+            kind = _LIBS[name][1]
+            if (getattr(lib, f"{name}_strip_rows")() != STRIP_ROWS
+                    or getattr(lib, f"{name}_halo_rows")()
+                    != HALO_ROWS[kind]):
+                raise RuntimeError(f"csrc/{_LIBS[name][0]} and "
+                                   f"ops/dwt_cuda.py disagree on STRIP/HALO")
+            p = ctypes.c_void_p
+            i = ctypes.c_int
+            for fn in (f"{name}_fwd_level", f"{name}_inv_level"):
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = [p, p, p, p, p, i, i, i, p]
+            libs[name] = lib
+        _libs.update(libs)
+        return _libs
 
 
-def _check_cuda(t: torch.Tensor, what: str) -> None:
+def _check_cuda(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32 or t.dim() != 3 or not t.is_contiguous():
-        raise ValueError(f"{what}: expected a contiguous int32 [N, H, W] "
+    if t.dtype != dtype or t.dim() != 3 or not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous {dtype} [N, H, W] "
                          f"tensor, got {t.dtype} {tuple(t.shape)}")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    lib = load()
+def _launch(lib_name: str, name: str, device: torch.device, *args) -> None:
+    lib = load()[lib_name]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, name)(*args, stream)
@@ -141,45 +167,69 @@ def _launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def forward_2d_53(x: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One 2-D forward 5/3 level of x [N, H, W] int32 at an even origin.
-    Returns {LL, HL, LH, HH}, each [N, H/2, W/2]."""
+def _forward(x: torch.Tensor, kind: str) -> Dict[str, torch.Tensor]:
     if x.device.type == "cpu":
-        return dwt.forward_2d(x, dwt.REV53)
-    _check_cuda(x, "dwt53_fwd_level")
+        return dwt.forward_2d(x, kind)
+    lib = _LIB_OF_KIND[kind]
+    name = f"{lib}_fwd_level"
+    _check_cuda(x, name, _LIBS[lib][2])
     n, h, w = x.shape
-    if not usable(h, w, 0, 0):
-        raise ValueError(f"dwt53_fwd_level: shape {tuple(x.shape)} not "
-                         f"supported (see usable)")
-    bands = {k: torch.empty((n, h // 2, w // 2), dtype=torch.int32,
+    if not usable(h, w, 0, 0, kind):
+        raise ValueError(f"{name}: shape {tuple(x.shape)} not supported "
+                         f"(see usable)")
+    bands = {k: torch.empty((n, h // 2, w // 2), dtype=x.dtype,
                             device=x.device)
              for k in ("LL", "HL", "LH", "HH")}
     if n:
-        _launch("dwt53_fwd_level", x.device, x.data_ptr(),
+        _launch(lib, name, x.device, x.data_ptr(),
                 bands["LL"].data_ptr(), bands["HL"].data_ptr(),
                 bands["LH"].data_ptr(), bands["HH"].data_ptr(), n, h, w)
     return bands
 
 
-def inverse_2d_53(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One 2-D inverse 5/3 level at an even origin: {LL, HL, LH, HH}, each
-    [N, H/2, W/2] int32 -> [N, H, W]."""
+def _inverse(bands: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:
     ll = bands["LL"]
     if ll.device.type == "cpu":
-        return dwt.inverse_2d(bands, dwt.REV53)
+        return dwt.inverse_2d(bands, kind)
+    lib = _LIB_OF_KIND[kind]
+    name = f"{lib}_inv_level"
     for k in ("LL", "HL", "LH", "HH"):
-        _check_cuda(bands[k], "dwt53_inv_level")
+        _check_cuda(bands[k], name, _LIBS[lib][2])
         if bands[k].shape != ll.shape or bands[k].device != ll.device:
-            raise ValueError("dwt53_inv_level: the four bands must share "
-                             "one shape and device")
+            raise ValueError(f"{name}: the four bands must share one shape "
+                             "and device")
     n, h2, w2 = ll.shape
     h, w = 2 * h2, 2 * w2
-    if not usable(h, w, 0, 0):
-        raise ValueError(f"dwt53_inv_level: shape {(n, h, w)} not supported "
+    if not usable(h, w, 0, 0, kind):
+        raise ValueError(f"{name}: shape {(n, h, w)} not supported "
                          f"(see usable)")
-    out = torch.empty((n, h, w), dtype=torch.int32, device=ll.device)
+    out = torch.empty((n, h, w), dtype=ll.dtype, device=ll.device)
     if n:
-        _launch("dwt53_inv_level", ll.device, ll.data_ptr(),
+        _launch(lib, name, ll.device, ll.data_ptr(),
                 bands["HL"].data_ptr(), bands["LH"].data_ptr(),
                 bands["HH"].data_ptr(), out.data_ptr(), n, h, w)
     return out
+
+
+def forward_2d_53(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One 2-D forward 5/3 level of x [N, H, W] int32 at an even origin.
+    Returns {LL, HL, LH, HH}, each [N, H/2, W/2]."""
+    return _forward(x, dwt.REV53)
+
+
+def inverse_2d_53(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One 2-D inverse 5/3 level at an even origin: {LL, HL, LH, HH}, each
+    [N, H/2, W/2] int32 -> [N, H, W]."""
+    return _inverse(bands, dwt.REV53)
+
+
+def forward_2d_97(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One 2-D forward 9/7 level of x [N, H, W] float32 at an even origin.
+    Returns {LL, HL, LH, HH}, each [N, H/2, W/2]."""
+    return _forward(x, dwt.IRR97)
+
+
+def inverse_2d_97(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One 2-D inverse 9/7 level at an even origin: {LL, HL, LH, HH}, each
+    [N, H/2, W/2] float32 -> [N, H, W]."""
+    return _inverse(bands, dwt.IRR97)

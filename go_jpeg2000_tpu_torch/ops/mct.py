@@ -1,15 +1,18 @@
 """Multiple component transforms (ISO/IEC 15444-1 Annex G) as torch ops.
 
-Port of go_jpeg2000_tpu/ops/mct.py: DC level shift, the exact integer RCT
-and the clamp, element-wise on the tensor's own device.  Integer math is
-exact in int32; `>>` on a signed torch integer tensor is an arithmetic
-shift (floor division by a power of two), as in jnp.  The float ICT and
-the custom NxN MCT are not ported yet (ROADMAP Queue 1 item 7).
+Port of go_jpeg2000_tpu/ops/mct.py: DC level shift, the exact integer RCT,
+the float32 ICT and the clamp, element-wise on the tensor's own device.
+Integer math is exact in int32; `>>` on a signed torch integer tensor is an
+arithmetic shift (floor division by a power of two), as in jnp.  The ICT
+uses the JAX package's float32 constants and its left-to-right sums, each
+a separately rounded torch op, so it equals the JAX version bit for bit.
+The custom NxN MCT is not ported yet (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -63,4 +66,45 @@ def inverse_rct(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor
     g = y - ((u + v) >> 2)
     r = v + g
     b = u + g
+    return r, g, b
+
+
+# --- Irreversible color transform (G.3, BT.601 weights) --------------------
+
+_ICT_FWD = np.array([
+    [0.299, 0.587, 0.114],
+    [-0.168736, -0.331264, 0.5],
+    [0.5, -0.418688, -0.081312],
+], dtype=np.float32).tolist()
+
+_ICT_INV = np.array([
+    [1.0, 0.0, 1.402],
+    [1.0, -0.344136, -0.714136],
+    [1.0, 1.772, 0.0],
+], dtype=np.float32).tolist()
+
+
+def forward_ict(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """float32 (Y, Cb, Cr) from R, G, B (Equation G-5)."""
+    r = r.to(torch.float32)
+    g = g.to(torch.float32)
+    b = b.to(torch.float32)
+    m = _ICT_FWD
+    y = m[0][0] * r + m[0][1] * g + m[0][2] * b
+    cb = m[1][0] * r + m[1][1] * g + m[1][2] * b
+    cr = m[2][0] * r + m[2][1] * g + m[2][2] * b
+    return y, cb, cr
+
+
+def inverse_ict(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """float32 R, G, B from (Y, Cb, Cr) (Equation G-6)."""
+    y = y.to(torch.float32)
+    cb = cb.to(torch.float32)
+    cr = cr.to(torch.float32)
+    m = _ICT_INV
+    r = y + m[0][2] * cr
+    g = y + m[1][1] * cb + m[1][2] * cr
+    b = y + m[2][1] * cb
     return r, g, b

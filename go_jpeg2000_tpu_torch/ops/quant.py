@@ -22,15 +22,21 @@ from ..utils import markers as mk
 BAND_GAIN = {"LL": 0, "HL": 1, "LH": 1, "HH": 2}
 
 
-def quantize(coeffs: torch.Tensor, delta: float) -> torch.Tensor:
-    """Deadzone quantize: q = sign(c) * floor(|c| / delta) (Equation E-1)."""
+def quantize(coeffs: torch.Tensor, delta) -> torch.Tensor:
+    """Deadzone quantize: q = sign(c) * floor(|c| / delta) (Equation E-1),
+    in float32, then int32.  `delta` (a float or a float32 tensor) divides
+    as a tensor on the coefficients' device: ATen's CUDA division by a host
+    scalar multiplies by its reciprocal instead, which rounds differently
+    from the true division of the JAX package and of the CPU."""
     c = coeffs.to(torch.float32)
-    return (torch.sign(c) * torch.floor(torch.abs(c) / delta)).to(torch.int32)
+    d = torch.as_tensor(delta, dtype=torch.float32, device=c.device)
+    return (torch.sign(c) * torch.floor(torch.abs(c) / d)).to(torch.int32)
 
 
-def dequantize(q: torch.Tensor, delta: float, r: float = 0.5) -> torch.Tensor:
+def dequantize(q: torch.Tensor, delta, r: float = 0.5) -> torch.Tensor:
     """Midpoint reconstruction: c = sign(q) * (|q| + r) * delta for q != 0
-    (E.1.1.2 decoder reconstruction with bias r)."""
+    (E.1.1.2 decoder reconstruction with bias r), float32.  `delta` is a
+    float or a float32 tensor that broadcasts against q."""
     qa = torch.abs(q).to(torch.float32)
     rec = (qa + r) * delta
     return torch.where(q == 0, torch.zeros_like(rec),

@@ -1,7 +1,10 @@
-"""The port's 5/3 DWT (go_jpeg2000_tpu_torch.ops.dwt, and the CPU side of
-the CUDA level wrappers in ops/dwt_cuda.py) against the JAX package: the
-Pallas level kernels in interpret mode, and the parity-general jnp lifting
-at odd sizes and origins.  Tolerance: exact equality (integer lifting)."""
+"""The port's DWT (go_jpeg2000_tpu_torch.ops.dwt, and the CPU side of the
+CUDA level wrappers in ops/dwt_cuda.py) against the JAX package: the Pallas
+level kernels in interpret mode, and the parity-general jnp lifting at odd
+sizes and origins.  Tolerances: 5/3, exact equality (integer lifting); 9/7,
+exact equality with the JAX package's eager lifting (the same float32 ops
+in the same order), and test_dwt_pallas.py's tolerance against the Pallas
+9/7 kernels, whose XLA program may round differently."""
 import functools
 
 import jax
@@ -101,6 +104,121 @@ def test_wrappers_refuse_other_devices():
         dwt_cuda.inverse_2d_53(bands)
 
 
-def test_97_not_ported():
-    with pytest.raises(NotImplementedError):
-        dwt.forward_2d(torch.zeros((4, 4), dtype=torch.int32), dwt.IRR97)
+def _floats(shape, seed):
+    return (np.random.RandomState(seed).randn(*shape) * 100).astype(
+        np.float32)
+
+
+# (n, h, w, u0, v0): even and odd sizes and origins, 1- and 2-sample axes
+CASES_97 = [(2, 64, 64, 0, 0), (1, 33, 47, 1, 0), (2, 17, 9, 1, 1),
+            (2, 1, 5, 0, 1), (2, 5, 1, 1, 0), (1, 2, 2, 1, 1),
+            (1, 2, 3, 0, 1), (3, 6, 10, 0, 0), (1, 1, 1, 0, 0)]
+
+
+@pytest.mark.parametrize("case", CASES_97)
+def test_97_level_matches_jax_eager(case):
+    n, h, w, u0, v0 = case
+    x = _floats((n, h, w), h * w + u0)
+    ref = jdwt.forward_2d(x, jdwt.IRR97, u0=u0, v0=v0)
+    got = dwt.forward_2d(torch.from_numpy(x), dwt.IRR97, u0=u0, v0=v0)
+    for k in BANDS:
+        _eq(got[k], ref[k])
+    rec_ref = jdwt.inverse_2d(ref, jdwt.IRR97, u0=u0, v0=v0)
+    rec = dwt.inverse_2d(got, dwt.IRR97, u0=u0, v0=v0)
+    _eq(rec, rec_ref)
+    np.testing.assert_allclose(rec.numpy(), x, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64), (1, 32, 96), (3, 8, 8),
+                                   (1, 2, 2)])
+def test_97_level_matches_pallas(shape):
+    x = _floats(shape, shape[1] + 2)
+    ref = dwt_pallas.forward_2d_97(x, interpret=True)
+    got = dwt_cuda.forward_2d_97(torch.from_numpy(x))
+    for k in BANDS:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-5, atol=1e-3)
+    ref_inv = dwt_pallas.inverse_2d_97(ref, interpret=True)
+    got_inv = dwt_cuda.inverse_2d_97(got)
+    np.testing.assert_allclose(got_inv.numpy(), np.asarray(ref_inv),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(got_inv.numpy(), x, rtol=1e-4, atol=0.02)
+
+
+@pytest.mark.parametrize("case", [(33, 47, 1, 0, 3), (64, 64, 0, 0, 5),
+                                  (8, 8, 3, 2, 3), (2, 3, 1, 1, 2)])
+def test_97_decompose_reconstruct(case):
+    h, w, u0, v0, levels = case
+    x = _floats((2, h, w), h + w)
+    kw = dict(kind=jdwt.IRR97, u0=u0, v0=v0)
+    ref = jdwt.decompose(x, levels, **kw)
+    got = dwt.decompose(torch.from_numpy(x), levels, dwt.IRR97, u0=u0, v0=v0)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert sorted(g) == sorted(r)
+        for k in r:
+            _eq(g[k], r[k])
+    rec = dwt.reconstruct(got, dwt.IRR97, u0=u0, v0=v0)
+    _eq(rec, jdwt.reconstruct(ref, **kw))
+    np.testing.assert_allclose(rec.numpy(), x, rtol=0, atol=2e-3)
+
+
+def _reflect(i, n):
+    while i < 0 or i >= n:
+        i = -i if i < 0 else 2 * n - 2 - i
+    return i
+
+
+def _strips_97(x, inverse, above, below):
+    """The CUDA kernels' strip scheme on the interleaved signal, in plain
+    torch: each strip of STRIP_ROWS rows lifts only its rows plus `above`
+    and `below` halo rows, read through repeated symmetric reflection."""
+    h = x.shape[1]
+    lift = dwt._inverse_1d_97 if inverse else dwt._forward_1d_97
+    out = []
+    for r0 in range(0, h, dwt_cuda.STRIP_ROWS):
+        rr = min(dwt_cuda.STRIP_ROWS, h - r0)
+        sub = x[:, [_reflect(g, h) for g in range(r0 - above,
+                                                  r0 + rr + below)]]
+        if inverse:                                   # rows, then columns
+            sub = lift(lift(sub, 2, 0), 1, above & 1)[:, above:above + rr]
+        else:                                         # columns, then rows
+            sub = lift(sub, 1, above & 1)[:, above:above + rr]
+            sub = lift(sub, 2, 0)
+        out.append(sub)
+    return torch.cat(out, dim=1)
+
+
+@pytest.mark.parametrize("h", [2, 4, 6, 10, 34])
+def test_97_strip_halo_depth(h):
+    # csrc/dwt97.cu's halo (forward 4 rows above and 3 below, inverse 3 and
+    # 4) gives the plain result bit for bit; one row fewer on a side does not
+    x = torch.from_numpy(_floats((2, h, 8), h))
+    fwd = dwt._forward_1d_97(dwt._forward_1d_97(x, 1, 0), 2, 0)
+    inv = dwt._inverse_1d_97(dwt._inverse_1d_97(x, 2, 0), 1, 0)
+    assert torch.equal(_strips_97(x, False, 4, 3), fwd)
+    assert torch.equal(_strips_97(x, True, 3, 4), inv)
+    assert dwt_cuda.HALO_ROWS[dwt.IRR97] == 4 + 3
+    if h > dwt_cuda.STRIP_ROWS:
+        for above, below in ((3, 3), (4, 2)):
+            assert not torch.equal(_strips_97(x, False, above, below), fwd)
+        for above, below in ((2, 4), (3, 3)):
+            assert not torch.equal(_strips_97(x, True, above, below), inv)
+
+
+def test_97_usable_and_refusals():
+    assert dwt_cuda.usable(512, 512, 0, 0, dwt.IRR97)
+    assert dwt_cuda.usable(2048, 2048, 0, 0, dwt.IRR97)
+    assert dwt_cuda.usable(2, 2, 0, 0, dwt.IRR97)
+    assert not dwt_cuda.usable(512, 511, 0, 0, dwt.IRR97)
+    assert not dwt_cuda.usable(512, 512, 0, 1, dwt.IRR97)
+    # (16 + 7) float32 rows of 2560 do not fit 227 KB; 5/3's 19 int32 do
+    assert not dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97)
+    assert dwt_cuda.usable(16, 2560, 0, 0, dwt.REV53)
+    x = torch.empty((1, 4, 4), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError):
+        dwt_cuda.forward_2d_97(x)
+    bands = {k: torch.empty((1, 2, 2), dtype=torch.float32, device="meta")
+             for k in BANDS}
+    with pytest.raises(ValueError):
+        dwt_cuda.inverse_2d_97(bands)
