@@ -7,33 +7,45 @@ Needs one CUDA device, nvcc and g++; builds every kernel it runs from the
 sources in this checkout.  Phases, each of which raises on failure:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
-2. build: the CUDA 5/3 and 9/7 level kernels (one nvcc per source, run in
-   parallel) and the native HT coder (g++);
-3. each kernel against its plain torch version on the card: the 5/3 pair at
-   every level shape of a [32, 512, 512] batch down to 16x16, the 9/7 pair
-   at every level shape of [16, 512, 512] down to 16x16, both at
+2. build: the CUDA sources dwt53.cu, dwt97.cu and ht_enc.cu (one nvcc per
+   source, run in parallel) and the native HT coder (g++);
+3. each DWT kernel against its plain torch version on the card: the 5/3
+   pair at every level shape of a [32, 512, 512] batch down to 16x16, the
+   9/7 pair at every level shape of [16, 512, 512] down to 16x16, both at
    [1, 2048, 2048], [3, 2, 2] and [2, 6, 10]: exact equality required, and
    for 9/7 inverse(forward(x)) within 1e-3 of x; kernel and plain times
    with CUDA events at [32, 512, 512] (5/3) and [16, 512, 512] (9/7);
-4. the lossless main path, through the public entry points: encode_batch
+4. each HT encode kernel (block extraction, cleanup fields, bit packing,
+   pool compaction) against its plain torch version on the card, on the
+   block batches of the main paths (32 gray 512x512 lossless, 2240 blocks;
+   2 RGB 2048x2048 lossy, 6144 blocks) and of 16-bit RGB, pure noise,
+   all-zero and ragged (96x80) frames: every integer output equal, the
+   distortion within a relative 1e-5 (a float32 sum taken in another
+   order); kernel and plain times with CUDA events on the 2240 blocks;
+5. the lossless main path, through the public entry points: encode_batch
    then decode_batch on 32 gray 8-bit 512x512 frames with the bench
    headline options (HTJ2K, lossless 5/3, 6 resolutions, J2K), then on 4
    RGB frames.  Pixels must round-trip exactly, the codestreams must equal
-   the CPU run's byte for byte, and every level must have gone through the
+   the CPU run's byte for byte, every encode must have taken the fused
+   device HT encode (enc.fused_chunks > 0, enc.host_entropy_frames 0) and
+   launched every HT kernel, and every level must have gone through the
    5/3 kernels (launch counts > 0, no plain levels).  Then encode and
-   decode wall Mpix/s after that warm-up;
-5. the lossy main path, the same way: the JAX bench's htlossy97_512
+   decode wall Mpix/s after that warm-up, the encode's stages (device
+   program, device-to-host copy, native Tier-2), its peak device bytes per
+   sample and the device's idle share during one encode (torch.profiler);
+6. the lossy main path, the same way: the JAX bench's htlossy97_512
    options (HTJ2K, 9/7 + ICT, quality 85, 6 resolutions, one layer) on 16
-   gray 8-bit 512x512 frames, then on 2 RGB 8-bit 2048x2048 frames.  Every
-   level must have gone through the 9/7 kernels (launch counts > 0, no
-   plain levels), the codestreams must equal the CPU run's byte for byte
-   and the decodes the CPU decodes; PSNR against the input, and encode and
-   decode wall Mpix/s after that warm-up.
+   gray 8-bit 512x512 frames, then on 2 RGB 8-bit 2048x2048 frames, with
+   the same checks against the 9/7 and HT kernels; the decodes must equal
+   the CPU decodes; PSNR against the input, encode and decode wall Mpix/s
+   after that warm-up, and the RGB encode's stages and idle share.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  The line before the last is a JSON summary of the
-kernels; the last line is {"ok": true, "device": {...}}.  Without a CUDA
-device it exits non-zero and prints no result.
+kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
+and its operations over the card's peak rate for their type; the last line
+is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
+and prints no result.
 """
 import json
 import subprocess
@@ -49,11 +61,32 @@ N_RGB = 4
 N_LOSSY_GRAY = 16
 LOSSY_RGB = (2, 2048, 2048)      # frames, height, width
 SRC = {"dwt53": "go_jpeg2000_tpu_torch/csrc/dwt53.cu",
-       "dwt97": "go_jpeg2000_tpu_torch/csrc/dwt97.cu"}
+       "dwt97": "go_jpeg2000_tpu_torch/csrc/dwt97.cu",
+       "ht_enc": "go_jpeg2000_tpu_torch/csrc/ht_enc.cu"}
 REPLACES = {"dwt53_fwd_level": "go_jpeg2000_tpu/ops/dwt_pallas.py:101",
             "dwt53_inv_level": "go_jpeg2000_tpu/ops/dwt_pallas.py:108",
             "dwt97_fwd_level": "go_jpeg2000_tpu/ops/dwt_pallas.py:116",
-            "dwt97_inv_level": "go_jpeg2000_tpu/ops/dwt_pallas.py:123"}
+            "dwt97_inv_level": "go_jpeg2000_tpu/ops/dwt_pallas.py:123",
+            "ht_extract_blocks":
+                "go_jpeg2000_tpu/models/fused_encode.py:191",
+            "ht_cleanup_fields": "go_jpeg2000_tpu/ops/ht_tpu.py:286",
+            "ht_pack_bits": "go_jpeg2000_tpu/ops/ht_tpu.py:124",
+            "ht_compact_pool": "go_jpeg2000_tpu/ops/ht_tpu.py:498"}
+HT_KERNELS = ("ht_extract_blocks", "ht_cleanup_fields", "ht_pack_bits",
+              "ht_compact_pool")
+# NVIDIA H100 SXM data-sheet peaks (700 W): device memory 3.35 TB/s,
+# float32 outside the tensor cores 67 TFLOP/s (128 lanes an SM, an FMA
+# counted as two); int32 64 lanes an SM, 132 SMs at 1.98 GHz
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 16.7e12
+# operations per element, counted from the kernel sources: per sample for
+# the DWT levels (float32 for 9/7, int32 for 5/3) and for block extraction
+# and the cleanup fields (per code-block sample); per field for packing;
+# per pool word for compaction
+OPS_PER_ELEMENT = {"dwt53": 10, "dwt97": 30, "ht_extract_blocks": 12,
+                   "ht_cleanup_fields": 40, "ht_pack_bits": 12,
+                   "ht_compact_pool": 4}
 
 
 def natural_image(h, w, seed=0):
@@ -127,25 +160,300 @@ def check_kernels(dwt, dwt_cuda, dev, card, kind):
 
     x = sample((n, H, W))
     bands = {k: v.contiguous() for k, v in dwt.forward_2d(x, kind).items()}
+    # a level reads each sample once and writes each band sample once
+    rate = INT32_OPS_PER_S if kind == dwt.REV53 else FP32_OPS_PER_S
+    lim = bound(8 * x.numel(), OPS_PER_ELEMENT[lib] * x.numel(), rate)
     times = {
         f"{lib}_fwd_level": (cuda_ms(lambda: fwd_kernel(x)),
-                             cuda_ms(lambda: dwt.forward_2d(x, kind))),
+                             cuda_ms(lambda: dwt.forward_2d(x, kind)))
+        + lim,
         f"{lib}_inv_level": (cuda_ms(lambda: inv_kernel(bands)),
-                             cuda_ms(lambda: dwt.inverse_2d(bands, kind))),
+                             cuda_ms(lambda: dwt.inverse_2d(bands, kind)))
+        + lim,
     }
-    for name, (ms, plain_ms) in times.items():
+    for name, (ms, plain_ms, bound_ms, _by) in times.items():
         gbs = 8 * x.numel() / (ms * 1e-3) / 1e9
         print(f"time {name} [{n},{H},{W}]: kernel {ms:.4f} ms "
-              f"({gbs:.1f} GB/s at 8 B/sample), plain torch "
-              f"{plain_ms:.4f} ms [{card}]", flush=True)
+              f"({gbs:.1f} GB/s at 8 B/sample, bound {bound_ms:.4f} ms), "
+              f"plain torch {plain_ms:.4f} ms [{card}]", flush=True)
     return err, times
+
+
+def bound(nbytes, ops, ops_per_s):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_setup(tp, frames, opts):
+    """Header, tile, plan and stacked batch [N, C, H, W] of an encode."""
+    from go_jpeg2000_tpu_torch.models import encoder, fused_encode
+    from go_jpeg2000_tpu_torch.tcd import geometry as geo
+    header = encoder.build_header(frames[0], opts)
+    prec = header.components[0].precision
+    encoder._apply_comp_quants(header, opts, header.num_components, prec)
+    tile = geo.build_tile(header, 0)
+    plan = fused_encode.plan_for(header, tile, lossy=not opts.lossless)
+    if plan is None:
+        raise AssertionError("the fused encode refused the configuration")
+    batch = np.stack([np.stack(encoder._image_components(f))
+                      for f in frames])
+    return header, tile, plan, batch
+
+
+def fused_args(header, batch, opts, dev):
+    """fused_encode_chunk's arguments after the plan: levels, kind, MCT,
+    precision, signedness, device."""
+    from go_jpeg2000_tpu_torch.ops import dwt
+    return (header.coding_style.num_decompositions,
+            dwt.REV53 if opts.lossless else dwt.IRR97,
+            bool(header.coding_style.mct) and batch.shape[1] >= 3,
+            header.components[0].precision, False, dev)
+
+
+def ht_case(tp, frames, opts, dev):
+    """The HT kernels and their plain versions on one frame batch: returns
+    (max |diff| per kernel, distortion relative error, inputs for timing).
+    Each plain stage takes the plain version's output of the stage before,
+    so each kernel is held against its plain version on the same
+    inputs."""
+    from go_jpeg2000_tpu_torch.models import fused_encode, transforms
+    from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
+    header, _tile, plan, batch = fused_setup(tp, frames, opts)
+    levels, kind, use_mct, prec, signed, _ = fused_args(header, batch, opts,
+                                                        dev)
+    n = len(frames)
+    pyr = transforms.forward_pyramid(transforms.upload(batch, dev), levels,
+                                     kind, use_mct, prec, signed, 0, 0)
+    err = {}
+    blocks = fused_encode.extract_blocks(pyr, plan, n, levels)
+    got = K.extract_blocks(pyr, plan, n, levels)
+    err["ht_extract_blocks"] = (got - blocks).abs().max().item()
+    hs, ws = fused_encode._block_dims(plan, n, dev)
+    ref = ht_enc.cleanup_values(blocks, hs, ws)
+    got = K.cleanup_values(blocks, hs, ws)
+    err["ht_cleanup_fields"] = max((got[k] - ref[k]).abs().max().item()
+                                   for k in ref if k != "dist")
+    d_ref = ref["dist"].double()
+    dist_rel = ((got["dist"].double() - d_ref).abs()
+                / d_ref.clamp(min=1)).max().item()
+    widths = ht_enc.stream_words(plan.cbh, plan.cbw, plan.max_mn)
+    fields = [(ref[f"{s}_vals"], ref[f"{s}_lens"], nw)
+              for s, nw in zip(("ms", "vlc", "mel"), widths)]
+    packed, diff = [], 0
+    for vals, lens, nw in fields:
+        words, bits = ht_enc.pack_bits(vals, lens, nw)
+        kw, kb = K.pack_bits(vals, lens, nw)
+        diff = max(diff, (kw.long() - words.long()).abs().max().item(),
+                   (kb - bits).abs().max().item())
+        packed += [words, bits]
+    err["ht_pack_bits"] = diff
+    pool_args = packed + [ref["numbps"], ref["u_max"], ref["dist"]]
+    pool, totals = ht_enc.assemble_pool(*pool_args)
+    kpool, ktotals = K.assemble_pool(*pool_args)
+    err["ht_compact_pool"] = max(
+        (ktotals - totals).abs().max().item(),
+        (kpool[:pool.numel()].long() - pool.long()).abs().max().item())
+    torch.cuda.synchronize()
+    inputs = dict(pyr=pyr, plan=plan, n=n, levels=levels, blocks=blocks,
+                  hs=hs, ws=ws, ref=ref, fields=fields, pool_args=pool_args,
+                  pool=pool)
+    return err, dist_rel, inputs
+
+
+def check_ht_kernels(tp, dev, card):
+    """Phase 4: every HT encode kernel against its plain version on the
+    main paths' block batches and on 16-bit, noise, all-zero and ragged
+    frames; times and bounds on the lossless gray batch."""
+    from go_jpeg2000_tpu_torch.models import fused_encode
+    from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
+    lossless = tp.Options(format=tp.Format.J2K, lossless=True,
+                          num_resolutions=6, high_throughput=True)
+    lossy = tp.Options(format=tp.Format.J2K, lossless=False, quality=85,
+                       num_resolutions=6, high_throughput=True)
+    rng = np.random.RandomState(5)
+    cases = [
+        ("gray", main_gray(), lossless),
+        ("rgb", lossy_rgb(), lossy),
+        ("rgb16", [rng.randint(0, 1 << 16, (H, W, 3)).astype(np.uint16)
+                   for _ in range(2)], lossless),
+        ("rgb16", [rng.randint(0, 1 << 16, (256, 256, 3)).astype(np.uint16)
+                   for _ in range(2)], lossy),
+        ("noise", [rng.randint(0, 256, (H, W)).astype(np.uint8)
+                   for _ in range(4)], lossless),
+        ("zeros", [np.zeros((256, 256), np.uint8)] * 2, lossless),
+        ("zeros", [np.zeros((256, 256), np.uint8)] * 2, lossy),
+        ("ragged", [natural_image(96, 80, seed=400 + i) for i in range(4)],
+         lossless),
+        ("ragged", [np.stack([natural_image(96, 80, seed=410 + 3 * i + c)
+                              for c in range(3)], axis=-1)
+                    for i in range(4)], lossy),
+    ]
+    err = {k: 0 for k in HT_KERNELS}
+    timing = None
+    for name, frames, opts in cases:
+        label = (f"{name} {len(frames)}x"
+                 f"{'x'.join(map(str, frames[0].shape))} "
+                 f"{'lossless' if opts.lossless else 'lossy'}")
+        e, dist_rel, inputs = ht_case(tp, frames, opts, dev)
+        print(f"kernel check {label} ({inputs['plan'].nb * inputs['n']} "
+              f"blocks, max_mn {inputs['plan'].max_mn}): max|diff| {e}, "
+              f"distortion relative error {dist_rel:.3g}", flush=True)
+        if any(e.values()) or not dist_rel <= 1e-5:
+            raise AssertionError(f"{label}: an HT kernel disagrees with its "
+                                 "plain version")
+        for k in err:
+            err[k] = max(err[k], e[k])
+        if timing is None:
+            timing = inputs
+
+    t = timing
+    pyr, plan, n, levels = t["pyr"], t["plan"], t["n"], t["levels"]
+    blocks, hs, ws, ref = t["blocks"], t["hs"], t["ws"], t["ref"]
+    fields, pool_args, pool = t["fields"], t["pool_args"], t["pool"]
+    leaf_bytes = sum(4 * v.numel() for e in pyr for v in e.values())
+    field_count = sum(v.numel() for v, _l, _nw in fields)
+    word_bytes = sum(4 * a.numel() for a in pool_args[0:6:2])
+    nb = blocks.shape[0]
+    used = pool.numel() - 6 * nb
+    times = {
+        "ht_extract_blocks": (
+            cuda_ms(lambda: K.extract_blocks(pyr, plan, n, levels)),
+            cuda_ms(lambda: fused_encode.extract_blocks(pyr, plan, n,
+                                                        levels), reps=5),
+            bound(leaf_bytes + 4 * blocks.numel(),
+                  OPS_PER_ELEMENT["ht_extract_blocks"] * blocks.numel(),
+                  INT32_OPS_PER_S)),
+        "ht_cleanup_fields": (
+            cuda_ms(lambda: K.cleanup_values(blocks, hs, ws)),
+            cuda_ms(lambda: ht_enc.cleanup_values(blocks, hs, ws), reps=3,
+                    warmup=1),
+            bound(4 * blocks.numel() + 8 * nb + 4 * 8192
+                  + sum(4 * v.numel() for v in ref.values()),
+                  OPS_PER_ELEMENT["ht_cleanup_fields"] * blocks.numel(),
+                  INT32_OPS_PER_S)),
+        "ht_pack_bits": (
+            cuda_ms(lambda: [K.pack_bits(*f) for f in fields]),
+            cuda_ms(lambda: [ht_enc.pack_bits(*f) for f in fields], reps=3,
+                    warmup=1),
+            bound(8 * field_count + word_bytes + 12 * nb,
+                  OPS_PER_ELEMENT["ht_pack_bits"] * field_count,
+                  INT32_OPS_PER_S)),
+        "ht_compact_pool": (
+            cuda_ms(lambda: K.assemble_pool(*pool_args)),
+            cuda_ms(lambda: ht_enc.assemble_pool(*pool_args), reps=5),
+            # reads the bit counts, the meta inputs and the used words;
+            # writes the meta rows, the used words and the totals
+            bound(24 * nb + 4 * used + 24 * nb + 4 * used + 24,
+                  OPS_PER_ELEMENT["ht_compact_pool"] * used,
+                  INT32_OPS_PER_S)),
+    }
+    for name, (ms, plain_ms, (bound_ms, by)) in times.items():
+        print(f"time {name} ({nb} blocks of {plan.cbh}x{plan.cbw}): kernel "
+              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
+              f"{100 * bound_ms / ms:.1f}% reached), plain torch "
+              f"{plain_ms:.4f} ms [{card}]", flush=True)
+    return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
+
+
+def main_gray():
+    return [natural_image(H, W, seed=i) for i in range(N_GRAY)]
+
+
+def lossy_rgb():
+    n, h, w = LOSSY_RGB
+    return [np.stack([natural_image(h, w, seed=300 + 3 * i + c)
+                      for c in range(3)], axis=-1) for i in range(n)]
+
+
+def encode_stages(tp, frames, opts, dev):
+    """One fused encode of frames in its stages, synchronised: (device
+    program s, device-to-host copy s, native Tier-2 s, fetched bytes,
+    peak device bytes per sample)."""
+    from go_jpeg2000_tpu_torch.models import fused_encode
+    header, tile, plan, batch = fused_setup(tp, frames, opts)
+    args = fused_args(header, batch, opts, dev)
+    n = len(frames)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, totals = fused_encode.fused_encode_chunk(batch, plan, *args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    meta, pool, tot = fused_encode.fetch_pool(out, totals, n, plan)
+    t2 = time.perf_counter()
+    fused_encode.t2_bodies(meta, pool, tot, n, plan, header, tile)
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - base
+    return (t1 - t0, t2 - t1, t3 - t2, meta.nbytes + pool.nbytes,
+            peak / batch.size)
+
+
+def idle_share(fn):
+    """(device idle share, device busy ms, wall ms) of fn() under
+    torch.profiler: busy is the sum of the card's kernel and copy events,
+    wall the host clock to the end of a synchronise.  None where the
+    profiler records no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not busy_us:
+        return None
+    return 1 - busy_us * 1e-6 / wall, busy_us * 1e-3, wall * 1e3
+
+
+def idle_line(tp, frames, opts, dev, label, card):
+    share = idle_share(lambda: tp.encode_batch(frames, opts, device=dev))
+    if share is None:
+        print(f"device idle share {label} encode: not measured (the "
+              f"profiler recorded no device event)", flush=True)
+        return
+    print(f"device idle share {label} encode: {share[0]:.3f} (device busy "
+          f"{share[1]:.2f} ms of {share[2]:.2f} ms wall under "
+          f"torch.profiler) [{card}]", flush=True)
+
+
+def counted_run(tp, dwt_cuda, ht_enc_cuda, run, label, dwt_lib):
+    """Run one main path with every count set to 0 just before it; check
+    that it went through the fused encode, every HT kernel and the DWT
+    kernels of dwt_lib, with no plain levels.  Returns (result, launches
+    of the DWT and HT kernels)."""
+    dwt_cuda.reset_counts()
+    ht_enc_cuda.reset_counts()
+    tp.counters.reset()
+    result = run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
+                if k.startswith(dwt_lib)}
+    launches.update(ht_enc_cuda.LAUNCHES)
+    snap = tp.counters.snapshot()
+    fused = snap.get("enc.fused_chunks", 0)
+    host = snap.get("enc.host_entropy_frames", 0)
+    plain = dwt_cuda.PLAIN_LEVELS
+    print(f"{label} launches {launches}, plain levels {plain}, "
+          f"enc.fused_chunks {fused}, enc.host_entropy_frames {host}",
+          flush=True)
+    if min(launches.values()) <= 0 or plain != 0 or fused <= 0 or host:
+        raise AssertionError(f"the {label} did not run every level and "
+                             "every HT stage through the kernels")
+    return result, launches
 
 
 def run_main_path(tp, dev):
     """Phase 4a: the counted main-path run; returns the streams."""
     opts = tp.Options(format=tp.Format.J2K, lossless=True,
                       num_resolutions=6, high_throughput=True)
-    gray = [natural_image(H, W, seed=i) for i in range(N_GRAY)]
+    gray = main_gray()
     rgb = [np.stack([natural_image(H, W, seed=100 + 3 * i + c)
                      for c in range(3)], axis=-1) for i in range(N_RGB)]
     out = {}
@@ -173,9 +481,7 @@ def run_lossy_path(tp, dev):
     opts = tp.Options(format=tp.Format.J2K, lossless=False, quality=85,
                       num_resolutions=6, high_throughput=True)
     gray = [natural_image(H, W, seed=200 + i) for i in range(N_LOSSY_GRAY)]
-    n, h, w = LOSSY_RGB
-    rgb = [np.stack([natural_image(h, w, seed=300 + 3 * i + c)
-                     for c in range(3)], axis=-1) for i in range(n)]
+    rgb = lossy_rgb()
     out = {}
     for label, frames in (("lossy gray", gray), ("lossy rgb", rgb)):
         streams = tp.encode_batch(frames, opts, device=dev)
@@ -217,9 +523,9 @@ def main():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     import go_jpeg2000_tpu_torch as tp
-    from go_jpeg2000_tpu_torch.models import transforms
     from go_jpeg2000_tpu_torch.native import loader
-    from go_jpeg2000_tpu_torch.ops import dwt, dwt_cuda
+    from go_jpeg2000_tpu_torch.ops import (cuda_build, dwt, dwt_cuda,
+                                           ht_enc_cuda)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -228,88 +534,83 @@ def main():
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
+    cuda_build.build()
     dwt_cuda.load()
+    ht_enc_cuda.load()
     t1 = time.perf_counter()
     if not loader.available():
         raise RuntimeError("native library j2k_native.cpp did not build")
     t2 = time.perf_counter()
-    print(f"build: dwt53.cu and dwt97.cu (nvcc, in parallel) {t1 - t0:.1f} "
-          f"s, j2k_native.cpp (g++) {t2 - t1:.1f} s", flush=True)
+    print(f"build: dwt53.cu, dwt97.cu and ht_enc.cu (nvcc, in parallel) "
+          f"{t1 - t0:.1f} s, j2k_native.cpp (g++) {t2 - t1:.1f} s",
+          flush=True)
 
     err, times = check_kernels(dwt, dwt_cuda, dev, card, dwt.REV53)
     err97, times97 = check_kernels(dwt, dwt_cuda, dev, card, dwt.IRR97)
     err.update(err97)
     times.update(times97)
+    ht_err, ht_times = check_ht_kernels(tp, dev, card)
+    err.update(ht_err)
+    times.update(ht_times)
+    torch.cuda.empty_cache()
 
-    dwt_cuda.reset_counts()
-    opts, runs = run_main_path(tp, dev)
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
-                if k.startswith("dwt53")}
-    plain = dwt_cuda.PLAIN_LEVELS
-    print(f"launches {launches}, plain levels {plain}", flush=True)
-    if min(launches.values()) <= 0 or plain != 0:
-        raise AssertionError("the main path did not run every level "
-                             "through the kernels")
-
+    (opts, runs), launches = counted_run(
+        tp, dwt_cuda, ht_enc_cuda, lambda: run_main_path(tp, dev),
+        "lossless main path", "dwt53")
     for label, (frames, streams) in runs.items():
+        t0 = time.perf_counter()
         if tp.encode_batch(frames, opts, device="cpu") != streams:
             raise AssertionError(f"{label}: CUDA and CPU codestreams differ")
-        print(f"{label}: CUDA and CPU codestreams byte-identical",
-              flush=True)
+        print(f"{label}: CUDA and CPU codestreams byte-identical (CPU run "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
     frames, streams = runs["gray"]
-    mpix = N_GRAY * H * W / 1e6
-    enc_s, dec_s, fwd_s = [], [], []
-    batch = np.stack(frames)[:, None]
-    for _ in range(3):
-        t0 = time.perf_counter()
-        tp.encode_batch(frames, opts, device=dev)
-        t1 = time.perf_counter()
-        tp.decode_batch(streams, device=dev)
-        t2 = time.perf_counter()
-        flat = transforms.dispatch_forward_batch(batch, 5, dwt.REV53, False,
-                                                 8, False, 0, 0, dev)
-        flat.cpu()
-        t3 = time.perf_counter()
-        enc_s.append(t1 - t0)
-        dec_s.append(t2 - t1)
-        fwd_s.append(t3 - t2)
-    enc, dec, fwd = (float(np.median(v)) for v in (enc_s, dec_s, fwd_s))
-    print(f"wall {N_GRAY}x{H}x{W} gray (median of 3): encode "
-          f"{mpix / enc:.2f} Mpix/s ({enc * 1e3:.1f} ms), decode "
-          f"{mpix / dec:.2f} Mpix/s ({dec * 1e3:.1f} ms); of encode, the "
-          f"device transform with upload and fetch {fwd * 1e3:.1f} ms "
-          f"[{card}]", flush=True)
+    wall_mpix(tp, opts, frames, streams, dev, card, "gray")
+    stages = [encode_stages(tp, frames, opts, dev) for _ in range(3)]
+    dev_s, d2h_s, t2_s = (float(np.median([st[i] for st in stages]))
+                          for i in range(3))
+    print(f"encode stages gray {N_GRAY}x{H}x{W} (median of 3): device "
+          f"program {dev_s * 1e3:.2f} ms, device-to-host copy of "
+          f"{stages[0][3]} bytes {d2h_s * 1e3:.2f} ms, native Tier-2 "
+          f"{t2_s * 1e3:.2f} ms; peak device memory "
+          f"{stages[0][4]:.1f} bytes/sample [{card}]", flush=True)
+    idle_line(tp, frames, opts, dev, "gray", card)
 
-    dwt_cuda.reset_counts()
-    lossy_opts, lossy_runs = run_lossy_path(tp, dev)
-    torch.cuda.synchronize()
-    lossy_launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
-                      if k.startswith("dwt97")}
-    plain = dwt_cuda.PLAIN_LEVELS
-    print(f"lossy launches {lossy_launches}, plain levels {plain}",
-          flush=True)
-    if min(lossy_launches.values()) <= 0 or plain != 0:
-        raise AssertionError("the lossy main path did not run every level "
-                             "through the 9/7 kernels")
-    launches.update(lossy_launches)
+    (lossy_opts, lossy_runs), lossy_launches = counted_run(
+        tp, dwt_cuda, ht_enc_cuda, lambda: run_lossy_path(tp, dev),
+        "lossy main path", "dwt97")
+    for k, v in lossy_launches.items():
+        launches[k] = launches.get(k, 0) + v
 
     for label, (frames, streams, decoded) in lossy_runs.items():
+        t0 = time.perf_counter()
         if tp.encode_batch(frames, lossy_opts, device="cpu") != streams:
             raise AssertionError(f"{label}: CUDA and CPU codestreams differ")
+        t1 = time.perf_counter()
         on_cpu = tp.decode_batch(streams, device="cpu")
         if not all(np.array_equal(d, c) for d, c in zip(decoded, on_cpu)):
             raise AssertionError(f"{label}: CUDA and CPU decodes differ")
         print(f"{label}: CUDA and CPU codestreams byte-identical, decodes "
-              f"equal", flush=True)
+              f"equal (CPU encode {t1 - t0:.1f} s)", flush=True)
     for label, (frames, streams, _dec) in lossy_runs.items():
         wall_mpix(tp, lossy_opts, frames, streams, dev, card, label)
+    frames = lossy_runs["lossy rgb"][0]
+    st = encode_stages(tp, frames, lossy_opts, dev)
+    print(f"encode stages lossy rgb {LOSSY_RGB}: device program "
+          f"{st[0] * 1e3:.2f} ms, device-to-host copy of {st[3]} bytes "
+          f"{st[1] * 1e3:.2f} ms, native Tier-2 {st[2] * 1e3:.2f} ms; peak "
+          f"device memory {st[4]:.1f} bytes/sample [{card}]", flush=True)
+    idle_line(tp, frames, lossy_opts, dev, "lossy rgb", card)
 
-    kernels = [{"name": name, "route": "cuda", "source": SRC[name[:5]],
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": err[name], "ms": times[name][0],
-                "plain_ms": times[name][1]} for name in REPLACES]
+    kernels = []
+    for name in REPLACES:
+        ms, plain_ms, bound_ms, bound_by = times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": SRC["ht_enc" if name.startswith("ht_") else name[:5]],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,542 @@
+// The device half of the fused HTJ2K encode, for NVIDIA Hopper (sm_90a):
+// code-block extraction, the HT cleanup-pass fields, bit packing and stream
+// compaction.
+//
+// Replaces the JAX package's TPU programs (written in jnp):
+//   ht_extract_blocks  <- go_jpeg2000_tpu/models/fused_encode.py
+//                         _extract_blocks (with the deadzone quantization
+//                         of lossy plans)
+//   ht_cleanup_fields  <- go_jpeg2000_tpu/ops/ht_tpu.py cleanup_fields (the
+//                         field computation, with _direct_enc_table, _bitlen
+//                         and _uvlc_fields)
+//   ht_pack_bits       <- go_jpeg2000_tpu/ops/ht_tpu.py _pack_bits and
+//                         _segmented_or_scan
+//   ht_compact_pool    <- go_jpeg2000_tpu/ops/ht_tpu.py compact_pool and
+//                         cleanup_fields_compact
+// The plain torch versions are go_jpeg2000_tpu_torch/models/fused_encode.py
+// extract_blocks and ops/ht_enc.py cleanup_values, pack_bits and
+// assemble_pool; the wrappers, build and launch counts are in
+// ops/ht_enc_cuda.py.  Every kernel's integer output equals its plain
+// version's exactly.
+//
+// What bounds them on the H100: bytes.  Each does a few dozen integer
+// operations per sample or field, well under the card's integer rate, and
+// moves 8 to 30 bytes per sample (the block, the field values and lengths
+// as int32, the word rows, the pool), so the time is the bytes over the
+// 3.35 TB/s of device memory, plus launch latency on small batches.  What
+// the TPU forms did about the TPU does not carry over: they sorted and
+// OR-scanned because scatters serialize there.  Here:
+//
+// * ht_extract_blocks: one CUDA block per code-block slot.  Thread 0 finds
+//   the slot's band in a small device table (leaf pointer, band h/w, grid
+//   width gx, cell eh/ew, grid offset oy/ox, first slot, quantizer step);
+//   the threads walk the slot row by row, so leaf reads and slot writes are
+//   coalesced, and pad with zeros.  Each band's leaf is its own tensor,
+//   hence the pointers.  9/7 leaves are quantized on the way:
+//   sign(c) * floor(|c| / delta) with IEEE division (__fdiv_rn; this file
+//   must not be built with --use_fast_math), which is what ops/quant.py
+//   quantize computes on the card and on the CPU.
+// * ht_cleanup_fields: one CUDA block per code-block.  Every field is a pure
+//   function of the block's coefficients, and the line state of a quad
+//   needs only the quad row above, so nothing walks the block in sequence:
+//   phase 1, one thread per quad, puts rho, the quad's largest exponent and
+//   the n1/n3 exponents into shared memory (4 bytes a quad); phase 2, one
+//   thread per quad pair, reads its neighbours there, looks up the
+//   8192-entry direct VLC table through the read-only cache (__ldg: lookups
+//   diverge, which constant memory would serialize) and writes the pair's 8
+//   MagSgn, 6 VLC and 3 MEL fields.  numbps, u_max and the distortion are
+//   block reductions (warp shuffles; the distortion sums float32 squares in
+//   double, so it can differ from a float32 sum in its last bits).
+// * ht_pack_bits: one CUDA block per row.  Each thread takes a run of
+//   fields; a block-wide exclusive scan of the runs' lengths gives every
+//   field its bit offset; each field ORs its low word and, if it spills,
+//   its high word into a shared-memory row (atomicOr; at most 3968 words,
+//   15.5 KB, for a 64x64 MagSgn row); one coalesced store writes the row.
+//   Shifts by 32 are undefined in C++, so the spill is guarded explicitly.
+// * ht_compact_pool: one 1024-thread block scans the per-row word counts of
+//   the three streams (block scans of 1024 rows with a carry), writes the
+//   row offsets, the three totals and the six meta rows; then a grid of
+//   (row, stream) blocks copies each row's used words to its place.  The
+//   output is allocated at its bound by the wrapper, and only the used
+//   prefix [6*Nb | MagSgn | VLC | MEL] is copied to the host.
+//
+// Kernels launch on the caller's stream and allocate nothing; each entry
+// point returns cudaGetLastError() after its launches.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define THREADS 256
+#define SCAN_THREADS 1024
+#define COPY_THREADS 128
+#define TABLE_SIZE 8192
+
+// band table of ht_extract_blocks: BAND_FIELDS int64 per band, bands in
+// slot order (must match ops/ht_enc_cuda.py)
+#define BAND_FIELDS 11
+enum { B_PTR, B_COMP, B_BH, B_BW, B_GX, B_EH, B_EW, B_OY, B_OX, B_SLOT0,
+       B_DELTA };
+
+// ---------------------------------------------------------------- helpers
+
+__device__ __forceinline__ int bitlen(unsigned v) { return 32 - __clz(v); }
+
+// Exclusive scan of v over the block (blockDim.x a multiple of 32, at most
+// 1024).  Returns the thread's exclusive prefix and puts the block total in
+// *total; sh holds 32 ints.
+__device__ int block_exclusive_scan(int v, int* sh, int* total) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sh[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    int s = lane < nwarps ? sh[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < nwarps) sh[lane] = s;
+  }
+  __syncthreads();
+  const int prefix = (wid ? sh[wid - 1] : 0) + x - v;
+  *total = sh[nwarps - 1];
+  __syncthreads();
+  return prefix;
+}
+
+struct Uvlc {
+  int p, pl, s, sl;
+};
+
+// UVLC prefix/suffix for a biased value t >= 1 (ops/ht.py
+// _uvlc_encode_value)
+__device__ __forceinline__ Uvlc uvlc(int t) {
+  Uvlc r;
+  r.p = t == 1 ? 1 : (t == 2 ? 2 : (t <= 4 ? 4 : 0));
+  r.pl = t == 1 ? 1 : (t == 2 ? 2 : 3);
+  r.s = t <= 2 ? 0 : (t <= 4 ? t - 3 : t - 5);
+  r.sl = t <= 2 ? 0 : (t <= 4 ? 1 : 5);
+  return r;
+}
+
+// ------------------------------------------------------ ht_extract_blocks
+
+__global__ void __launch_bounds__(THREADS) extract_kernel(
+    const long long* __restrict__ table, int n_bands, int n_comps, int nb,
+    int cbh, int cbw, int is_float, int* __restrict__ out) {
+  __shared__ long long d[BAND_FIELDS];
+  const int j = blockIdx.x, n = blockIdx.y;
+  if (threadIdx.x == 0) {
+    int b = 0;
+    while (b + 1 < n_bands && table[(b + 1) * BAND_FIELDS + B_SLOT0] <= j) ++b;
+    for (int f = 0; f < BAND_FIELDS; ++f) d[f] = table[b * BAND_FIELDS + f];
+  }
+  __syncthreads();
+  const int bh = (int)d[B_BH], bw = (int)d[B_BW], gx = (int)d[B_GX];
+  const int eh = (int)d[B_EH], ew = (int)d[B_EW];
+  const int oy = (int)d[B_OY], ox = (int)d[B_OX];
+  const int k = j - (int)d[B_SLOT0];
+  const int yy = k / gx, xx = k - (k / gx) * gx;
+  // first-row and first-column cells of an offset grid hold their samples
+  // from the slot's top-left corner (the JAX version's roll)
+  const int rows = yy == 0 ? eh - oy : eh;
+  const int cols = xx == 0 ? ew - ox : ew;
+  const int y0 = yy == 0 ? 0 : yy * eh - oy;
+  const int x0 = xx == 0 ? 0 : xx * ew - ox;
+  const int64_t plane = ((int64_t)n * n_comps + d[B_COMP]) * bh * bw;
+  const float delta = __int_as_float((int)d[B_DELTA]);
+  int* dst = out + ((int64_t)n * nb + j) * cbh * cbw;
+  for (int i = threadIdx.x; i < cbh * cbw; i += blockDim.x) {
+    const int r = i / cbw, c = i - (i / cbw) * cbw;
+    const int y = y0 + r, x = x0 + c;
+    int val = 0;
+    if (r < rows && c < cols && y < bh && x < bw) {
+      const int64_t at = plane + (int64_t)y * bw + x;
+      if (is_float) {
+        const float f = ((const float*)d[B_PTR])[at];
+        const int q = (int)floorf(__fdiv_rn(fabsf(f), delta));
+        val = f < 0.f ? -q : (f > 0.f ? q : 0);
+      } else {
+        val = ((const int*)d[B_PTR])[at];
+      }
+    }
+    dst[i] = val;
+  }
+}
+
+// ------------------------------------------------------ ht_cleanup_fields
+
+// The four samples of quad (qy, qx), n0..n3 = TL, BL, TR, BR: magnitude and
+// MagSgn value v = 2*(mag-1) + sign (0 for a zero or padded sample).
+__device__ __forceinline__ void load_quad(const int* blk, int w, int hb,
+                                          int wb, int qy, int qx, int qw,
+                                          unsigned* v, unsigned* mag) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int y = 2 * qy + (i & 1), x = 2 * qx + (i >> 1);
+    unsigned m = 0u, neg = 0u;
+    if (qx < qw && y < hb && x < wb) {
+      const int c = blk[y * w + x];
+      m = (unsigned)abs(c);
+      neg = c < 0 ? 1u : 0u;
+    }
+    mag[i] = m;
+    v[i] = m ? ((m - 1u) << 1) | neg : 0u;
+  }
+}
+
+// quad info word in shared memory: rho | emax << 8 | e(n1) << 16 | e(n3) << 24
+__global__ void __launch_bounds__(THREADS) fields_kernel(
+    const int* __restrict__ coeffs, const int* __restrict__ hs,
+    const int* __restrict__ ws, int h, int w,
+    const int* __restrict__ tbl, int* __restrict__ ms_vals,
+    int* __restrict__ ms_lens, int* __restrict__ vlc_vals,
+    int* __restrict__ vlc_lens, int* __restrict__ mel_vals,
+    int* __restrict__ mel_lens, int* __restrict__ numbps,
+    int* __restrict__ u_max, float* __restrict__ dist) {
+  extern __shared__ int qinfo[];
+  __shared__ unsigned s_maxmag;
+  __shared__ int s_umax;
+  __shared__ double s_dist[THREADS / 32];
+  const int b = blockIdx.x;
+  const int qh = h >> 1, qw = w >> 1, qwp = qw + (qw & 1), pairs = qwp >> 1;
+  const int hb = min(hs[b], h), wb = min(ws[b], w);
+  const int* blk = coeffs + (int64_t)b * h * w;
+  if (threadIdx.x == 0) {
+    s_maxmag = 0u;
+    s_umax = 0;
+  }
+
+  // phase 1: one thread per quad
+  unsigned maxmag = 0u;
+  double dsum = 0.0;
+  for (int q = threadIdx.x; q < qh * qwp; q += blockDim.x) {
+    const int qy = q / qwp, qx = q - (q / qwp) * qwp;
+    unsigned v[4], mag[4];
+    load_quad(blk, w, hb, wb, qy, qx, qw, v, mag);
+    int rho = 0, emax = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (mag[i]) rho |= 1 << i;
+      emax = max(emax, bitlen(v[i]));
+      maxmag = max(maxmag, mag[i]);
+      const float fm = (float)mag[i];
+      dsum += (double)__fmul_rn(fm, fm);
+    }
+    qinfo[q] = rho | (emax << 8) | (bitlen(v[1]) << 16) | (bitlen(v[3]) << 24);
+  }
+  __syncthreads();
+
+  // phase 2: one thread per quad pair
+  const int qh_b = (hb + 1) >> 1, qw_b = (wb + 1) >> 1;
+  const int fm = 8 * qh * pairs, fv = 6 * qh * pairs, fe = 3 * qh * pairs;
+  int* msv = ms_vals + (int64_t)b * fm;
+  int* msl = ms_lens + (int64_t)b * fm;
+  int umax = 0;
+  for (int pi = threadIdx.x; pi < qh * pairs; pi += blockDim.x) {
+    const int qy = pi / pairs, p = pi - (pi / pairs) * pairs;
+    const bool init = qy == 0;
+    const int* row = qinfo + qy * qwp;
+    const int* up = row - qwp;  // the quad row above (not read when init)
+    int u[2], kap[2], uoff[2], rhos[2], azc[2], cwd[2], cwdl[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int qx = 2 * p + k;
+      const int info = row[qx];
+      const int rho = info & 15, emax = (info >> 8) & 0xFF;
+      const int rho_w = qx > 0 ? (row[qx - 1] & 15) : 0;
+      int ctx, kappa;
+      if (init) {
+        ctx = ((rho_w & 1) | (rho_w >> 1)) & 7;
+        kappa = 1;
+      } else {
+        // line state entry q <- n1 of quad q and n3 of quad q-1 (row above)
+        int ls_sig[2], ls_e[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int q = qx + t;
+          int s = 0, e = 0;
+          if (q < qwp) {
+            s |= (up[q] >> 1) & 1;
+            e = max(e, (up[q] >> 16) & 0xFF);
+          }
+          if (q >= 1) {
+            s |= (up[q - 1] >> 3) & 1;
+            e = max(e, (up[q - 1] >> 24) & 0xFF);
+          }
+          ls_sig[t] = s;
+          ls_e[t] = e;
+        }
+        ctx = ls_sig[0] | (((rho_w & 0xC) != 0) << 1) | (ls_sig[1] << 2);
+        kappa = __popc(rho) > 1 ? max(1, max(ls_e[0], ls_e[1]) - 1) : 1;
+      }
+      const bool exists = qx < qw_b && qy < qh_b;
+      const bool coded = exists && (ctx != 0 || rho != 0);
+      const int uu = max(kappa, emax);
+      const int uo = (uu - kappa > 0) && coded;
+      if (coded) umax = max(umax, uu);
+
+      unsigned v[4], mag[4];
+      load_quad(blk, w, hb, wb, qy, qx, qw, v, mag);
+      const int ush = max(uu - 1, 0);
+      int msb = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) msb |= (int)((v[i] >> ush) & 1u) << i;
+      const int idx =
+          ((((init ? 0 : 1) * 8 + ctx) * 16 + rho) * 2 + uo) * 16 + msb;
+      const int entry = __ldg(tbl + idx);
+      const int cl = coded ? (entry >> 16) & 0xF : 0;
+      const int ek = (entry >> 4) & 0xF;
+      const int base = (pi * 2 + k) * 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = min(max(uu - ((ek >> i) & 1), 0), 31);
+        const int len = (((rho >> i) & 1) && coded) ? m : 0;
+        msv[base + i] = len ? (int)(v[i] & ((1u << len) - 1u)) : 0;
+        msl[base + i] = len;
+      }
+      u[k] = uu;
+      kap[k] = kappa;
+      uoff[k] = uo;
+      rhos[k] = rho;
+      azc[k] = exists && ctx == 0;
+      cwd[k] = cl ? (entry >> 8) & 0xFF : 0;
+      cwdl[k] = cl;
+    }
+
+    // per-pair u coding (initial stripe: the "big" pair form) and MEL
+    const int mode = uoff[0] + 2 * uoff[1];
+    const int u0i = u[0] - 1, u1i = u[1] - 1;
+    const bool big = u0i > 2 && u1i > 2;
+    const bool m3 = mode == 3, m1 = mode == 1, m2 = mode == 2;
+    int sv[4], sl[4];
+    if (init) {
+      const Uvlc I0 = uvlc(max(u0i, 1)), I1 = uvlc(max(u1i, 1));
+      const Uvlc B0 = uvlc(max(u0i - 2, 1)), B1 = uvlc(max(u1i - 2, 1));
+      const bool u0b = u0i > 2;
+      sv[0] = m3 ? (big ? B0.p : I0.p) : (m1 ? I0.p : (m2 ? I1.p : 0));
+      sl[0] = m3 ? (big ? B0.pl : I0.pl) : (m1 ? I0.pl : (m2 ? I1.pl : 0));
+      sv[1] = m3 ? (big ? B1.p : (u0b ? u1i - 1 : I1.p))
+                 : (m1 ? I0.s : (m2 ? I1.s : 0));
+      sl[1] = m3 ? (big ? B1.pl : (u0b ? 1 : I1.pl))
+                 : (m1 ? I0.sl : (m2 ? I1.sl : 0));
+      sv[2] = m3 ? (big ? B0.s : I0.s) : 0;
+      sl[2] = m3 ? (big ? B0.sl : I0.sl) : 0;
+      sv[3] = m3 ? (big ? B1.s : (u0b ? 0 : I1.s)) : 0;
+      sl[3] = m3 ? (big ? B1.sl : (u0b ? 0 : I1.sl)) : 0;
+    } else {
+      const Uvlc N0 = uvlc(max(u[0] - kap[0], 1));
+      const Uvlc N1 = uvlc(max(u[1] - kap[1], 1));
+      sv[0] = (m3 || m1) ? N0.p : (m2 ? N1.p : 0);
+      sl[0] = (m3 || m1) ? N0.pl : (m2 ? N1.pl : 0);
+      sv[1] = m3 ? N1.p : (m1 ? N0.s : (m2 ? N1.s : 0));
+      sl[1] = m3 ? N1.pl : (m1 ? N0.sl : (m2 ? N1.sl : 0));
+      sv[2] = m3 ? N0.s : 0;
+      sl[2] = m3 ? N0.sl : 0;
+      sv[3] = m3 ? N1.s : 0;
+      sl[3] = m3 ? N1.sl : 0;
+    }
+    int* vv = vlc_vals + (int64_t)b * fv + pi * 6;
+    int* vl = vlc_lens + (int64_t)b * fv + pi * 6;
+    vv[0] = cwd[0];
+    vl[0] = cwdl[0];
+    vv[1] = cwd[1];
+    vl[1] = cwdl[1];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      vv[2 + t] = sl[t] ? sv[t] : 0;
+      vl[2 + t] = sl[t];
+    }
+    int* ev = mel_vals + (int64_t)b * fe + pi * 3;
+    int* el = mel_lens + (int64_t)b * fe + pi * 3;
+    const int mv[3] = {rhos[0] != 0, rhos[1] != 0, big};
+    const int ml[3] = {azc[0], azc[1], init && m3};
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      ev[t] = ml[t] ? mv[t] : 0;
+      el[t] = ml[t];
+    }
+  }
+
+  // block reductions: numbps, u_max, distortion
+  for (int o = 16; o > 0; o >>= 1) {
+    maxmag = max(maxmag, __shfl_down_sync(0xffffffffu, maxmag, o));
+    umax = max(umax, __shfl_down_sync(0xffffffffu, umax, o));
+    dsum += __shfl_down_sync(0xffffffffu, dsum, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(&s_maxmag, maxmag);
+    atomicMax(&s_umax, umax);
+    s_dist[threadIdx.x >> 5] = dsum;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double t = 0.0;
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) t += s_dist[i];
+    numbps[b] = bitlen(s_maxmag);
+    u_max[b] = max(1, s_umax);
+    dist[b] = (float)t;
+  }
+}
+
+// ----------------------------------------------------------- ht_pack_bits
+
+__global__ void __launch_bounds__(THREADS) pack_kernel(
+    const int* __restrict__ vals, const int* __restrict__ lens, int f,
+    int n_words, int* __restrict__ words, int* __restrict__ bits) {
+  extern __shared__ unsigned sw[];
+  __shared__ int sh[32];
+  const int row = blockIdx.x;
+  const int* rv = vals + (int64_t)row * f;
+  const int* rl = lens + (int64_t)row * f;
+  const int per = (f + blockDim.x - 1) / blockDim.x;
+  const int i0 = min(f, (int)threadIdx.x * per), i1 = min(f, i0 + per);
+  int run = 0;
+  for (int i = i0; i < i1; ++i) run += rl[i];
+  for (int i = threadIdx.x; i < n_words; i += blockDim.x) sw[i] = 0u;
+  int total;
+  int off = block_exclusive_scan(run, sh, &total);  // syncs the zeroing too
+  for (int i = i0; i < i1; ++i) {
+    const int len = rl[i];
+    if (len <= 0) continue;
+    const unsigned v = (unsigned)rv[i] & (len >= 32 ? 0xffffffffu
+                                                     : (1u << len) - 1u);
+    const int wi = off >> 5, bit = off & 31;
+    if (wi < n_words) atomicOr(&sw[wi], v << bit);
+    if (bit != 0 && len > 32 - bit && wi + 1 < n_words)
+      atomicOr(&sw[wi + 1], v >> (32 - bit));
+    off += len;
+  }
+  __syncthreads();
+  int* dst = words + (int64_t)row * n_words;
+  for (int i = threadIdx.x; i < n_words; i += blockDim.x) dst[i] = (int)sw[i];
+  if (threadIdx.x == 0) bits[row] = total;
+}
+
+// -------------------------------------------------------- ht_compact_pool
+
+__global__ void __launch_bounds__(SCAN_THREADS) compact_scan_kernel(
+    const int* __restrict__ ms_bits, const int* __restrict__ vlc_bits,
+    const int* __restrict__ mel_bits, const int* __restrict__ numbps,
+    const int* __restrict__ u_max, const float* __restrict__ dist, int nb,
+    long long* __restrict__ offs, long long* __restrict__ totals,
+    int* __restrict__ out) {
+  __shared__ int sh[32];
+  const int* bits_of[3] = {ms_bits, vlc_bits, mel_bits};
+  for (int s = 0; s < 3; ++s) {
+    const int* bits = bits_of[s];
+    long long carry = 0;
+    for (int base = 0; base < nb; base += blockDim.x) {
+      const int i = base + threadIdx.x;
+      const int nw = i < nb ? (bits[i] + 31) >> 5 : 0;
+      int tot;
+      const int excl = block_exclusive_scan(nw, sh, &tot);
+      if (i < nb) offs[(int64_t)s * nb + i] = carry + excl;
+      carry += tot;
+    }
+    if (threadIdx.x == 0) totals[s] = carry;
+  }
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+    out[i] = ms_bits[i];
+    out[nb + i] = vlc_bits[i];
+    out[2 * (int64_t)nb + i] = mel_bits[i];
+    out[3 * (int64_t)nb + i] = numbps[i];
+    out[4 * (int64_t)nb + i] = u_max[i];
+    out[5 * (int64_t)nb + i] = __float_as_int(dist[i]);
+  }
+}
+
+__global__ void __launch_bounds__(COPY_THREADS) compact_copy_kernel(
+    const int* __restrict__ ms_words, int mw, const int* __restrict__ vlc_words,
+    int vw, const int* __restrict__ mel_words, int ew,
+    const int* __restrict__ ms_bits, const int* __restrict__ vlc_bits,
+    const int* __restrict__ mel_bits, const long long* __restrict__ offs,
+    const long long* __restrict__ totals, int nb, int* __restrict__ out) {
+  const int row = blockIdx.x, s = blockIdx.y;
+  const int* words = s == 0 ? ms_words : (s == 1 ? vlc_words : mel_words);
+  const int width = s == 0 ? mw : (s == 1 ? vw : ew);
+  const int* bits = s == 0 ? ms_bits : (s == 1 ? vlc_bits : mel_bits);
+  const int nw = min(width, (bits[row] + 31) >> 5);
+  const int64_t base = 6 * (int64_t)nb + (s >= 1 ? totals[0] : 0) +
+                       (s == 2 ? totals[1] : 0) + offs[(int64_t)s * nb + row];
+  const int* src = words + (int64_t)row * width;
+  for (int i = threadIdx.x; i < nw; i += blockDim.x) out[base + i] = src[i];
+}
+
+static int set_smem(const void* kernel, size_t bytes) {
+  if (bytes > 48 * 1024)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return 0;
+}
+
+extern "C" {
+
+int ht_enc_band_fields(void) { return BAND_FIELDS; }
+int ht_enc_table_size(void) { return TABLE_SIZE; }
+
+int ht_extract_blocks(const void* table, int n_bands, int n_comps,
+                      int n_frames, int nb, int cbh, int cbw, int is_float,
+                      void* out, void* stream) {
+  dim3 grid(nb, n_frames);
+  extract_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)table, n_bands, n_comps, nb, cbh, cbw, is_float,
+      (int*)out);
+  return (int)cudaGetLastError();
+}
+
+int ht_cleanup_fields(const void* coeffs, const void* hs, const void* ws,
+                      int nblocks, int h, int w, const void* tbl,
+                      void* ms_vals, void* ms_lens, void* vlc_vals,
+                      void* vlc_lens, void* mel_vals, void* mel_lens,
+                      void* numbps, void* u_max, void* dist, void* stream) {
+  const int qw = w >> 1;
+  const size_t smem = (size_t)(h >> 1) * (size_t)(qw + (qw & 1)) * sizeof(int);
+  const int rc = set_smem((const void*)fields_kernel, smem);
+  if (rc) return rc;
+  fields_kernel<<<nblocks, THREADS, smem, (cudaStream_t)stream>>>(
+      (const int*)coeffs, (const int*)hs, (const int*)ws, h, w,
+      (const int*)tbl, (int*)ms_vals, (int*)ms_lens, (int*)vlc_vals,
+      (int*)vlc_lens, (int*)mel_vals, (int*)mel_lens, (int*)numbps,
+      (int*)u_max, (float*)dist);
+  return (int)cudaGetLastError();
+}
+
+int ht_pack_bits(const void* vals, const void* lens, int nrows, int f,
+                 int n_words, void* words, void* bits, void* stream) {
+  const size_t smem = (size_t)n_words * sizeof(unsigned);
+  const int rc = set_smem((const void*)pack_kernel, smem);
+  if (rc) return rc;
+  pack_kernel<<<nrows, THREADS, smem, (cudaStream_t)stream>>>(
+      (const int*)vals, (const int*)lens, f, n_words, (int*)words,
+      (int*)bits);
+  return (int)cudaGetLastError();
+}
+
+int ht_compact_pool(const void* ms_words, int mw, const void* ms_bits,
+                    const void* vlc_words, int vw, const void* vlc_bits,
+                    const void* mel_words, int ew, const void* mel_bits,
+                    const void* numbps, const void* u_max, const void* dist,
+                    int nb, void* offs, void* totals, void* out,
+                    void* stream) {
+  compact_scan_kernel<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)ms_bits, (const int*)vlc_bits, (const int*)mel_bits,
+      (const int*)numbps, (const int*)u_max, (const float*)dist, nb,
+      (long long*)offs, (long long*)totals, (int*)out);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  dim3 grid(nb, 3);
+  compact_copy_kernel<<<grid, COPY_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)ms_words, mw, (const int*)vlc_words, vw,
+      (const int*)mel_words, ew, (const int*)ms_bits, (const int*)vlc_bits,
+      (const int*)mel_bits, (const long long*)offs,
+      (const long long*)totals, nb, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

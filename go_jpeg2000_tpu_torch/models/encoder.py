@@ -1,13 +1,18 @@
 """Batch encoder: same-shape frames -> HTJ2K J2K codestreams.
 
-Port of the chunked branch of go_jpeg2000_tpu/models/encoder.py
-`encode_batch`, with the functions it runs.  The device (torch, and the
-CUDA DWT level kernels on the card) runs DC shift, RCT or ICT, the
-multi-level 5/3 or 9/7 DWT and, for 9/7, the deadzone quantization for the
-whole batch; the host runs the native C++ HT block coder and the Python
-Tier-2 packet assembly per frame.  Lossless codestreams are byte-identical
-to the JAX package's `encode_batch`; lossy ones decode within one grey
-level of it (float32 lifting drifts by ulps between program shapes, so a
+Port of go_jpeg2000_tpu/models/encoder.py `encode_batch`: its fused branch
+and its chunked host-entropy branch, with the functions they run.  The
+fused branch (models/fused_encode.py) runs the whole device half on the
+card, with hand-written CUDA kernels for the DWT levels, block extraction,
+the HT cleanup fields, bit packing and pool compaction, and leaves the
+host only segment serialization and Tier-2 in C++ (or, with PLT, Python
+Tier-2 on natively serialized segments).  The chunked branch, for what
+fused_encode.plan_for refuses (a band of several precincts, HT refinement
+passes), runs DC shift, RCT or ICT, the DWT and, for 9/7, the deadzone
+quantization on the device and the native HT block coder and the Python
+Tier-2 per frame on the host.  Lossless codestreams are byte-identical to
+the JAX package's `encode_batch`; lossy ones decode within one grey level
+of it (float32 lifting drifts by ulps between program shapes, so a
 quantizer index can flip at a step boundary).
 
 The slices: HTJ2K, lossless 5/3 or lossy 9/7, one tile, one quality layer
@@ -26,13 +31,14 @@ import numpy as np
 from ..codestream import writer as cw
 from ..codestream.header import (Capabilities, CodingStyle, ComponentInfo,
                                  Header, Quantization)
-from ..ops import dwt, quant as quant_ops
+from ..ops import dwt, quant as quant_ops, t1
 from ..options import Format, Options, default_options
 from ..tcd import geometry as geo
 from ..tcd import t2
 from ..utils import markers as mk
 from ..utils.bio import BitWriter
 from ..utils.metrics import counters
+from . import fused_encode
 from . import rate as rate_mod
 from . import transforms
 from .entropy_backend import encode_blocks_batch
@@ -339,13 +345,9 @@ def _packets_to_tile_part(header: Header, tile: geo.Tile, enc_state,
     return cw.write_sot(t_idx, sot_len, 0, 1) + plt + cw.write_sod() + body
 
 
-def _entropy_and_packets(header: Header, tile: geo.Tile, pyramids,
-                         t_idx: int, opts: Options) -> bytes:
-    """Single-tile entropy + PCRD + packets for one frame."""
-    enc_state, job_slots, block_jobs = _entropy_jobs(tile, pyramids)
-    results = encode_blocks_batch(
-        block_jobs, ht_refinement=effective_ht_refinement(opts),
-        ht_require_exact=opts.lossless)
+def _assemble_packets(header: Header, tile: geo.Tile, enc_state, job_slots,
+                      results, t_idx: int, opts: Options) -> bytes:
+    """Single-tile path: build blocks, run PCRD locally, assemble packets."""
     num_layers = header.coding_style.num_layers
     all_blocks, weights = _build_blocks(
         job_slots, results, num_layers, opts.lossless,
@@ -354,10 +356,35 @@ def _entropy_and_packets(header: Header, tile: geo.Tile, pyramids,
     return _packets_to_tile_part(header, tile, enc_state, t_idx, opts)
 
 
+def _entropy_and_packets(header: Header, tile: geo.Tile, pyramids,
+                         t_idx: int, opts: Options) -> bytes:
+    """Single-tile host entropy + PCRD + packets for one frame."""
+    enc_state, job_slots, block_jobs = _entropy_jobs(tile, pyramids)
+    results = encode_blocks_batch(
+        block_jobs, ht_refinement=effective_ht_refinement(opts),
+        ht_require_exact=opts.lossless)
+    return _assemble_packets(header, tile, enc_state, job_slots, results,
+                             t_idx, opts)
+
+
+# Peak device bytes per sample (frame pixels times components) of one chunk
+# of the fused encode: the int32 block batch (4 B, plus the padding of small
+# bands) and the int32 values and lengths of its fields (17 B: one MagSgn,
+# 3/4 VLC and 3/8 MEL field a sample) are alive together.  chip_smoke.py
+# measured 23.5 (32 x 512^2 gray, lossless, max_mn 14) and 21.0 (2 x 2048^2
+# RGB, lossy); the MagSgn word rows and the pool grow with max_mn, by up to
+# 4 B a sample at max_mn 31.
+FUSED_BYTES_PER_SAMPLE = 28
+# device memory one chunk of the fused encode may take
+FUSED_CHUNK_BYTES = 1 << 31
+
+
 def _chunk_frames(n_frames: int, pixels_per_frame: int,
                   target_pix: int = 1 << 26) -> int:
-    """Frames per device transform: bounded device memory (about 16 bytes
-    of int32 buffers per sample per chunk), equal-sized chunks."""
+    """Frames per device chunk: at most target_pix samples (the host
+    entropy branch keeps about 16 bytes of int32 buffers per sample;
+    the fused branch passes FUSED_CHUNK_BYTES // FUSED_BYTES_PER_SAMPLE),
+    in equal-sized chunks."""
     per = max(1, target_pix // max(1, pixels_per_frame))
     if per >= n_frames:
         return n_frames
@@ -365,13 +392,57 @@ def _chunk_frames(n_frames: int, pixels_per_frame: int,
     return max(1, -(-n_frames // n_chunks))
 
 
+def _encode_batch_fused(batch: np.ndarray, header: Header, tile: geo.Tile,
+                        plan, opts: Options, precision: int, signed: bool,
+                        nl0: int, use_mct: bool, main: bytes, kind: str,
+                        dev) -> List[bytes]:
+    """The fused device HT encode (models/fused_encode.py), one device
+    program per chunk of frames, then native serialization and Tier-2 (or,
+    with PLT, the Python Tier-2 on natively serialized segments)."""
+    n_frames = batch.shape[0]
+    chunk = _chunk_frames(n_frames, int(np.prod(batch.shape[1:])),
+                          FUSED_CHUNK_BYTES // FUSED_BYTES_PER_SAMPLE)
+    out: List[bytes] = []
+    for s in range(0, n_frames, chunk):
+        sub = batch[s:s + chunk]
+        n = sub.shape[0]
+        pool, totals = fused_encode.fused_encode_chunk(
+            sub, plan, nl0, kind, use_mct, precision, signed, dev)
+        counters.add("enc.fused_chunks")
+        if not opts.enable_plt:
+            for body in fused_encode.fetch_bodies(pool, totals, n, plan,
+                                                  header, tile):
+                out.append(main + cw.write_sot(0, 12 + 2 + len(body), 0, 1)
+                           + cw.write_sod() + body + cw.write_eoc())
+            continue
+        for segs in fused_encode.fetch_segments(pool, totals, n, plan):
+            enc_state, job_slots = _walk_geometry(tile)
+            results = []
+            for seg, numbps, dist in segs:
+                if numbps == 0:
+                    results.append(t1.T1EncodeResult(b"", 0, [], []))
+                else:
+                    p = t1.PassInfo(2, 0, len(seg), dist, True)
+                    results.append(t1.T1EncodeResult(seg, 1, [p],
+                                                     [len(seg)]))
+            out.append(main + _assemble_packets(header, tile, enc_state,
+                                                job_slots, results, 0, opts)
+                       + cw.write_eoc())
+    return out
+
+
 def encode_batch(images: Sequence[np.ndarray],
                  opts: Optional[Options] = None,
                  device="cuda") -> List[bytes]:
-    """Encode same-shape frames to J2K codestreams: one device transform
-    per chunk of frames (DC shift, RCT and 5/3 DWT, or ICT, 9/7 DWT and
-    deadzone quantization), then host HT entropy and Tier-2 per frame.
-    `device` is where the transform runs; "cuda" without a card raises."""
+    """Encode same-shape frames to J2K codestreams.  Where
+    fused_encode.plan_for admits the configuration (one precinct per band,
+    no HT refinement), each chunk of frames runs the fused device HT encode
+    (DC shift, RCT/ICT, DWT, block extraction and quantization, HT cleanup
+    fields, bit packing, pool compaction) and the host serializes and
+    assembles packets in C++; otherwise the device transforms and the host
+    codes blocks and packets per frame.  `device` is where the device work
+    runs; "cuda" without a card raises.  Counters: enc.fused_chunks,
+    enc.host_entropy_frames."""
     opts = opts or default_options()
     dev = transforms.resolve_device(device)
     images = [np.asarray(im) for im in images]
@@ -395,18 +466,26 @@ def encode_batch(images: Sequence[np.ndarray],
     # frames ship in their narrow dtype; the cast to int32 runs on device
     batch = np.stack([np.stack(_image_components(im)) for im in images])
     n_frames, c, h, w = batch.shape
-    chunk = _chunk_frames(n_frames, c * h * w)
-
-    out: List[bytes] = []
-    for s in range(0, n_frames, chunk):
-        sub = batch[s:s + chunk]
-        flat = transforms.dispatch_forward_batch(
-            sub, nl0, kind, use_mct, precision, signed, x0, y0, dev, deltas)
-        pyrs = transforms.fetch_forward_batch(flat, sub.shape[0], c, h, w,
-                                              nl0, x0, y0)
-        for pyr in pyrs:
-            body = _entropy_and_packets(header, tile, pyr, 0, opts)
-            out.append(main + body + cw.write_eoc())
+    plan = None
+    if not effective_ht_refinement(opts):
+        plan = fused_encode.plan_for(header, tile, lossy=not opts.lossless)
+    if plan is not None:
+        out = _encode_batch_fused(batch, header, tile, plan, opts, precision,
+                                  signed, nl0, use_mct, main, kind, dev)
+    else:
+        counters.add("enc.host_entropy_frames", n_frames)
+        chunk = _chunk_frames(n_frames, c * h * w)
+        out = []
+        for s in range(0, n_frames, chunk):
+            sub = batch[s:s + chunk]
+            flat = transforms.dispatch_forward_batch(
+                sub, nl0, kind, use_mct, precision, signed, x0, y0, dev,
+                deltas)
+            pyrs = transforms.fetch_forward_batch(flat, sub.shape[0], c, h,
+                                                  w, nl0, x0, y0)
+            for pyr in pyrs:
+                body = _entropy_and_packets(header, tile, pyr, 0, opts)
+                out.append(main + body + cw.write_eoc())
     counters.add("enc.pixels_in", int(batch.size))
     counters.add("enc.bytes_out", sum(len(b) for b in out))
     return out

@@ -1,12 +1,21 @@
-"""Host-side block plan of the fused HT encode (numpy only).
+"""Fused device HT encode: image batch -> compacted HT bitstreams.
 
-Port of the host half of go_jpeg2000_tpu/models/fused_encode.py: the static
-per-configuration block geometry (`BlockPlan`, `plan_for`, `plan_blocks`)
-and the flattened single-layer packet walk (`t2_geom`) that the native
-ht_t2_{en,de}code_frames consume.  The decoder uses them to run T2 and HT
-block decoding in one native call.  The device half (block extraction and
-the HT cleanup field, packing and compaction kernels) arrives with slice 3
-(ROADMAP Queue 1 item 3).
+Port of go_jpeg2000_tpu/models/fused_encode.py.  The host half is the
+static per-configuration block geometry (`BlockPlan`, `plan_for`,
+`plan_blocks`) and the flattened single-layer packet walk (`t2_geom`) that
+the native ht_t2_{en,de}code_frames consume; the decoder uses them too.
+
+The device half, `fused_encode_chunk`, runs on the tensor's device: upload,
+DC shift, RCT/ICT and the DWT levels (models/transforms.py), then block
+extraction (with deadzone quantization for 9/7), the HT cleanup fields, bit
+packing and pool compaction (ops/ht_enc_cuda.py: the CUDA kernels on the
+card, their plain torch versions on the CPU).  What reaches the host is one
+int32 array, [6 x Nb meta | MagSgn | VLC | MEL], of which only the used
+prefix is copied (`fetch_pool`), never the coefficient pyramid.  The host
+then only serializes segments and assembles Tier-2 packets in C++
+(`fetch_bodies`, or `fetch_segments` for the Python Tier-2 with PLT).
+The pools hold exactly the streams' words, so nothing overflows and nothing
+is retried.
 """
 from __future__ import annotations
 
@@ -14,10 +23,14 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..codestream.header import Header
+from ..native import loader
+from ..ops import ht_enc, ht_enc_cuda, quant
 from ..tcd import geometry as geo
 from ..utils import markers as mk
+from . import transforms
 
 
 @dataclasses.dataclass
@@ -179,6 +192,157 @@ def plan_blocks(header: Header, tile: geo.Tile,
                      deltas=tuple(deltas) if lossy else None)
 
 
+def extract_blocks(pyr, plan: BlockPlan, n: int, nl: int) -> torch.Tensor:
+    """Pyramid leaves [N, C, bh, bw] -> block batch int32 [N*nb, CBH, CBW]
+    in canonical job order (frame-major); the plain version of the
+    ht_extract_blocks kernel.  Lossy plans quantize each band with its own
+    step (plan.deltas: one per band and component) as quant.quantize does.
+
+    Offset grids (multi-tile plans): the band content is padded into its
+    grid-aligned footprint, which leaves first-row/first-column slots with
+    their valid samples at (oy, ox) instead of the kernel's expected
+    top-left anchor; those slots are rolled up/left (the vacated area is
+    zero padding, so the roll is clean)."""
+    per_band = []
+    for bi, (c, lev, name, gy, gx, eh, ew, bh, bw, oy, ox) in \
+            enumerate(plan.band_specs):
+        a = ht_enc_cuda.band_leaf(pyr, lev, name, nl)[:, c]
+        if plan.deltas is not None:
+            a = quant.quantize(a, plan.deltas[bi])
+        ph, pw = gy * eh, gx * ew
+        grid = a.new_zeros((n, ph, pw), dtype=torch.int32)
+        grid[:, oy:oy + bh, ox:ox + bw] = a
+        a = grid.reshape(n, gy, eh, gx, ew).permute(0, 1, 3, 2, 4)
+        if oy:
+            a = torch.cat([torch.roll(a[:, :1], -oy, dims=-2), a[:, 1:]],
+                          dim=1)
+        if ox:
+            a = torch.cat([torch.roll(a[:, :, :1], -ox, dims=-1),
+                           a[:, :, 1:]], dim=2)
+        a = a.reshape(n, gy * gx, eh, ew)
+        if (eh, ew) != (plan.cbh, plan.cbw):
+            slots = a.new_zeros((n, gy * gx, plan.cbh, plan.cbw))
+            slots[:, :, :eh, :ew] = a
+            a = slots
+        per_band.append(a)
+    blocks = torch.cat(per_band, dim=1)             # [N, nb, CBH, CBW]
+    return blocks.reshape(n * plan.nb, plan.cbh, plan.cbw)
+
+
+_DIMS = {}
+
+
+def _block_dims(plan: BlockPlan, n: int, device: torch.device):
+    """True block sizes (hs, ws) of n frames, int32 on `device`, cached."""
+    key = (id(plan), n, str(device))
+    if key not in _DIMS:
+        _DIMS[key] = tuple(
+            torch.from_numpy(np.tile(a, n).astype(np.int32)).to(device)
+            for a in (plan.hs, plan.ws))
+    return _DIMS[key]
+
+
+def fused_encode_chunk(batch: np.ndarray, plan: BlockPlan, levels: int,
+                       kind: str, use_mct: bool, precision: int,
+                       signed: bool, device) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """The device program of one chunk of frames [N, C, H, W] (narrow host
+    samples): upload, DC shift, MCT, the DWT levels, then block extraction,
+    the HT cleanup fields, bit packing of the three streams and pool
+    compaction.  Returns the int32 array [6*Nb meta | MagSgn | VLC | MEL]
+    (valid up to 6*Nb + sum(totals)) and the pools' word totals int64 [3],
+    both on `device`."""
+    dev = torch.device(device)
+    n = batch.shape[0]
+    pyr = transforms.forward_pyramid(transforms.upload(batch, dev), levels,
+                                     kind, use_mct, precision, signed, 0, 0)
+    blocks = ht_enc_cuda.extract_blocks(pyr, plan, n, levels)
+    del pyr
+    hs, ws = _block_dims(plan, n, dev)
+    f = ht_enc_cuda.cleanup_values(blocks, hs, ws)
+    del blocks
+    packed = {}
+    for name, n_words in zip(("ms", "vlc", "mel"), ht_enc.stream_words(
+            plan.cbh, plan.cbw, plan.max_mn)):
+        packed[name] = ht_enc_cuda.pack_bits(
+            f.pop(f"{name}_vals"), f.pop(f"{name}_lens"), n_words)
+    return ht_enc_cuda.assemble_pool(
+        *packed["ms"], *packed["vlc"], *packed["mel"], f["numbps"],
+        f["u_max"], f["dist"])
+
+
+def fetch_pool(out: torch.Tensor, totals: torch.Tensor, n: int,
+               plan: BlockPlan):
+    """Copy the used prefix of a chunk's array to the host: the word totals
+    first (this waits for the device), then meta and the three pools in one
+    copy into pinned memory.  Returns (meta int32 [6, Nb], pool uint32,
+    totals int64 [3])."""
+    nmeta = 6 * plan.nb * n
+    tot = totals.cpu().numpy()
+    used = out[:nmeta + int(tot.sum())]
+    if used.is_cuda:
+        host = torch.empty(used.shape, dtype=used.dtype, pin_memory=True)
+        host.copy_(used)
+        used = host
+    arr = used.numpy()
+    return arr[:nmeta].reshape(6, -1), arr[nmeta:].view(np.uint32), tot
+
+
+def _pool_placement(meta: np.ndarray, tot: np.ndarray):
+    """Host twin of ht_compact_pool's placement: (offset, word count, bits)
+    of each stream in the pool.  Raises if it disagrees with the device's
+    totals."""
+    out = []
+    base = 0
+    for s in range(3):
+        off, nw = ht_enc.pool_offsets(meta[s], base)
+        if int(nw.sum()) != int(tot[s]):
+            raise RuntimeError(f"stream {s}: the device pool holds "
+                               f"{int(tot[s])} words, the bit counts "
+                               f"{int(nw.sum())}")
+        out += [off, nw, meta[s]]
+        base += int(tot[s])
+    return out
+
+
+def fetch_bodies(out: torch.Tensor, totals: torch.Tensor, n: int,
+                 plan: BlockPlan, header: Header, tile: geo.Tile
+                 ) -> List[bytes]:
+    """Single-layer path: fetch, then native segment serialization and
+    Tier-2 in one C++ call per chunk.  Returns per-frame tile-body bytes
+    (packets only)."""
+    return t2_bodies(*fetch_pool(out, totals, n, plan), n, plan, header,
+                     tile)
+
+
+def t2_bodies(meta: np.ndarray, pool: np.ndarray, tot: np.ndarray, n: int,
+              plan: BlockPlan, header: Header, tile: geo.Tile
+              ) -> List[bytes]:
+    """The host tail of fetch_bodies: ht_t2_encode_frames on a fetched
+    pool."""
+    numbps = meta[3]
+    geom = t2_geom(header, tile, plan)
+    mb = np.tile(geom["mb"], n)
+    # cleanup-only HT convention (matches the host path + OpenJPEG interop):
+    # one coding pass -> signal a single magnitude bitplane (zbp = Mb - 1)
+    zbp = np.where(numbps > 0, mb - 1, mb).astype(np.int32)
+    return loader.ht_t2_encode_frames(
+        pool, *_pool_placement(meta, tot), numbps, zbp, n, plan.nb, geom)
+
+
+def fetch_segments(out: torch.Tensor, totals: torch.Tensor, n: int,
+                   plan: BlockPlan) -> List[List[Tuple[bytes, int, float]]]:
+    """Fetch and serialize every block natively.  Returns per-frame lists
+    of (segment, numbps, distortion)."""
+    meta, pool, tot = fetch_pool(out, totals, n, plan)
+    numbps = meta[3]
+    dist = meta[5].view(np.float32)
+    segs = loader.ht_serialize_blocks(pool, *_pool_placement(meta, tot),
+                                      numbps)
+    nb = plan.nb
+    return [[(segs[i * nb + j], int(numbps[i * nb + j]),
+              float(dist[i * nb + j])) for j in range(nb)]
+            for i in range(n)]
 
 
 # ---------------------------------------------------------------------------

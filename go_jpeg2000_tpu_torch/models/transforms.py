@@ -107,7 +107,7 @@ def _reconstruct(pyramid: List[Dict[str, torch.Tensor]], kind: str,
     return cur.reshape(lead + tuple(cur.shape[-2:]))
 
 
-def _upload(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+def upload(batch: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host samples -> int32 tensor on `device`, shipped narrow.  uint16 has
     no torch arithmetic, so it travels as its int16 bit pattern and is
     masked back to 0..65535 after the widening cast."""
@@ -116,6 +116,23 @@ def _upload(batch: np.ndarray, device: torch.device) -> torch.Tensor:
         t = torch.from_numpy(batch.view(np.int16)).to(device)
         return t.to(torch.int32) & 0xFFFF
     return torch.from_numpy(batch).to(device).to(torch.int32)
+
+
+def forward_pyramid(x: torch.Tensor, levels: int, kind: str, use_mct: bool,
+                    precision: int, signed: bool, u0: int, v0: int
+                    ) -> List[Dict[str, torch.Tensor]]:
+    """int32 [N, C, H, W] samples -> DC shift, RCT (5/3) or ICT (9/7, then
+    float32) and the multi-level DWT: the pyramid, leaves [N, C, h, w]
+    (int32 for 5/3, float32 for 9/7)."""
+    x = mct.dc_shift_forward(x.to(torch.int32), precision, signed)
+    c = x.shape[1]
+    if use_mct and c >= 3:
+        fwd = mct.forward_rct if kind == dwt.REV53 else mct.forward_ict
+        y, u, v = fwd(x[:, 0], x[:, 1], x[:, 2])
+        x = torch.stack([y, u, v] + [x[:, i] for i in range(3, c)], dim=1)
+    if kind == dwt.IRR97:
+        x = x.to(torch.float32)
+    return _decompose(x, levels, kind, u0, v0)
 
 
 def forward_transform_batch(x: torch.Tensor, levels: int, kind: str,
@@ -130,15 +147,8 @@ def forward_transform_batch(x: torch.Tensor, levels: int, kind: str,
     lifting): with `quant_deltas`, one deadzone step per leaf in that order
     (encoder._leaf_deltas), the leaves are quantized on the device and come
     back as int32 indices, int16 when precision <= 10."""
-    x = mct.dc_shift_forward(x.to(torch.int32), precision, signed)
-    c = x.shape[1]
-    if use_mct and c >= 3:
-        fwd = mct.forward_rct if kind == dwt.REV53 else mct.forward_ict
-        y, u, v = fwd(x[:, 0], x[:, 1], x[:, 2])
-        x = torch.stack([y, u, v] + [x[:, i] for i in range(3, c)], dim=1)
-    if kind == dwt.IRR97:
-        x = x.to(torch.float32)
-    pyr = _decompose(x, levels, kind, u0, v0)
+    pyr = forward_pyramid(x, levels, kind, use_mct, precision, signed, u0,
+                          v0)
     leaves = [entry[k] for entry in pyr for k in sorted(entry)]
     if quant_deltas is not None:
         d = torch.tensor(quant_deltas, dtype=torch.float32, device=x.device)
@@ -158,7 +168,7 @@ def dispatch_forward_batch(batch: np.ndarray, levels: int, kind: str,
                            ) -> torch.Tensor:
     """Upload the batch [N, C, H, W] in its narrow dtype and run the forward
     transform on `device`; returns the packed flat pyramid there."""
-    return forward_transform_batch(_upload(batch, torch.device(device)),
+    return forward_transform_batch(upload(batch, torch.device(device)),
                                    levels, kind, use_mct, precision, signed,
                                    u0, v0, quant_deltas)
 

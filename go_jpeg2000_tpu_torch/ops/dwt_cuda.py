@@ -12,9 +12,10 @@ goes to the kernel, or the call raises: there is no fallback, and a failed
 build or launch is an error.
 
 Each source is compiled with nvcc on first use into
-go_jpeg2000_tpu_torch/_build/ (keyed by a hash of the source and flags;
-the sources build in parallel, one nvcc each) and bound with ctypes;
-nothing is built or imported when this module is imported.
+go_jpeg2000_tpu_torch/_build/ by ops/cuda_build.py (keyed by a hash of the
+source and flags; every source of the port builds in parallel, one nvcc
+each) and bound with ctypes; nothing is built when this module is
+imported.
 
 Counts: LAUNCHES[name] goes up by one each time a kernel is launched, and
 only there; PLAIN_LEVELS counts levels of CUDA tensors that took the plain
@@ -23,16 +24,12 @@ version because `usable` refused them (models/transforms.py).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from typing import Dict
 
 import torch
 
-from . import dwt
+from . import cuda_build, dwt
 
 # must equal STRIP and HALO in csrc/dwt53.cu and csrc/dwt97.cu (checked
 # when the library loads)
@@ -45,14 +42,12 @@ LAUNCHES: Dict[str, int] = {"dwt53_fwd_level": 0, "dwt53_inv_level": 0,
                             "dwt97_fwd_level": 0, "dwt97_inv_level": 0}
 PLAIN_LEVELS = 0
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BUILD_DIR = os.path.join(_PKG, "_build")
+BUILD_DIR = cuda_build.BUILD_DIR
+NVCC_FLAGS = cuda_build.NVCC_FLAGS
 # library name -> (source, kind, sample dtype)
 _LIBS = {"dwt53": ("dwt53.cu", dwt.REV53, torch.int32),
          "dwt97": ("dwt97.cu", dwt.IRR97, torch.float32)}
 _LIB_OF_KIND = {kind: name for name, (_s, kind, _t) in _LIBS.items()}
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -79,60 +74,22 @@ def usable(h: int, w: int, u0: int, v0: int, kind: str = dwt.REV53) -> bool:
     return (STRIP_ROWS + HALO_ROWS[kind]) * w * 4 <= MAX_SMEM_BYTES
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
-
-
-def _so_path(name: str) -> str:
-    src = os.path.join(_PKG, "csrc", _LIBS[name][0])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
-
-
 def build() -> Dict[str, str]:
-    """Compile every csrc/*.cu library that _build/ lacks (a library built
-    from the same source and flags is reused), one nvcc per source, all
-    started together; returns {library name: path}."""
-    paths = {name: _so_path(name) for name in _LIBS}
-    procs = []
-    for name, so in paths.items():
-        if os.path.exists(so):
-            continue
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        src = os.path.join(_PKG, "csrc", _LIBS[name][0])
-        tmp = f"{so}.{os.getpid()}.tmp"
-        procs.append((src, so, tmp, subprocess.Popen(
-            [_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    errors = []
-    for src, so, tmp, proc in procs:
-        _out, err = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed on {src}:\n{err}")
-        else:
-            os.replace(tmp, so)
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return paths
+    """Compile every csrc/*.cu library that _build/ lacks (ops/cuda_build.py:
+    one nvcc per source, all started together); returns {library name:
+    path} for the DWT libraries."""
+    paths = cuda_build.build()
+    return {name: paths[name] for name in _LIBS}
 
 
 def load() -> Dict[str, ctypes.CDLL]:
-    """Build (if needed) and bind every kernel library."""
+    """Build (if needed) and bind every DWT kernel library."""
     with _lock:
         if _libs:
             return _libs
         libs = {}
-        for name, so in build().items():
-            lib = ctypes.CDLL(so)
+        for name in _LIBS:
+            lib = cuda_build.load(name)
             kind = _LIBS[name][1]
             if (getattr(lib, f"{name}_strip_rows")() != STRIP_ROWS
                     or getattr(lib, f"{name}_halo_rows")()

@@ -1,0 +1,225 @@
+"""Hand-written CUDA kernels of the fused HT encode (csrc/ht_enc.cu).
+
+The port's counterpart of the JAX package's device HT encode program:
+
+  extract_blocks -> ht_extract_blocks, replaces fused_encode._extract_blocks
+  cleanup_values -> ht_cleanup_fields, replaces ht_tpu.cleanup_fields
+  pack_bits      -> ht_pack_bits, replaces ht_tpu._pack_bits
+  assemble_pool  -> ht_compact_pool, replaces ht_tpu.compact_pool and
+                    cleanup_fields_compact
+
+A CPU tensor goes to the plain torch version (models/fused_encode.py
+extract_blocks, ops/ht_enc.py).  A CUDA tensor goes to the kernel, or the
+call raises: there is no fallback, and a failed build or launch is an
+error.  The library is built by ops/cuda_build.py on first use, with the
+port's other CUDA sources.
+
+Counts: LAUNCHES[name] goes up by one each time a wrapper launches its
+kernel, and only there.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import cuda_build, ht_enc
+
+LAUNCHES: Dict[str, int] = {"ht_extract_blocks": 0, "ht_cleanup_fields": 0,
+                            "ht_pack_bits": 0, "ht_compact_pool": 0}
+# int64 fields per band in ht_extract_blocks' table (checked at load)
+BAND_FIELDS = 11
+MAX_SMEM_BYTES = 232448
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and bind csrc/ht_enc.cu."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = cuda_build.load("ht_enc")
+        if (lib.ht_enc_band_fields() != BAND_FIELDS
+                or lib.ht_enc_table_size() != ht_enc.direct_enc_table().size):
+            raise RuntimeError("csrc/ht_enc.cu and ops/ht_enc_cuda.py "
+                               "disagree on the band table or VLC table")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        sigs = {"ht_extract_blocks": [p, i, i, i, i, i, i, i, p, p],
+                "ht_cleanup_fields": [p, p, p, i, i, i, p] + [p] * 10,
+                "ht_pack_bits": [p, p, i, i, i, p, p, p],
+                "ht_compact_pool": [p, i, p, p, i, p, p, i, p,
+                                    p, p, p, i, p, p, p, p]}
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = args
+        _lib = lib
+        return _lib
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _check(t: torch.Tensor, what: str, dtype: torch.dtype, dim: int,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{what}: expected a tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous {dim}-d {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def band_leaf(pyr, lev: int, name: str, levels: int) -> torch.Tensor:
+    """The pyramid leaf [N, C, bh, bw] of one band spec (LL of the top
+    level for `name` "LL")."""
+    if name == "LL":
+        return pyr[levels - 1]["LL"] if levels > 0 else pyr[0]["LL"]
+    return pyr[lev - 1][name]
+
+
+def extract_blocks(pyr, plan, n: int, levels: int) -> torch.Tensor:
+    """Pyramid leaves -> the block batch int32 [n*nb, cbh, cbw] in canonical
+    job order, zero-padded; lossy plans (plan.deltas) quantize on the way.
+    Leaves are int32 (5/3) or float32 (9/7) [n, C, bh, bw]."""
+    leaves = [band_leaf(pyr, lev, name, levels)
+              for (_c, lev, name, *_rest) in plan.band_specs]
+    dev = leaves[0].device
+    if dev.type == "cpu":
+        from ..models import fused_encode
+        return fused_encode.extract_blocks(pyr, plan, n, levels)
+    name = "ht_extract_blocks"
+    leaves = [leaf.contiguous() for leaf in leaves]
+    lossy = plan.deltas is not None
+    dtype = torch.float32 if lossy else torch.int32
+    n_comps = leaves[0].shape[1]
+    table = np.zeros((len(leaves), BAND_FIELDS), np.int64)
+    slot = 0
+    for bi, (leaf, spec) in enumerate(zip(leaves, plan.band_specs)):
+        c, _lev, _name, gy, gx, eh, ew, bh, bw, oy, ox = spec
+        _check(leaf, name, dtype, 4, dev)
+        if tuple(leaf.shape) != (n, n_comps, bh, bw):
+            raise ValueError(f"{name}: leaf {tuple(leaf.shape)} does not "
+                             f"match band {spec}")
+        delta = np.float32(plan.deltas[bi] if lossy else 1.0)
+        table[bi] = (leaf.data_ptr(), c, bh, bw, gx, eh, ew, oy, ox, slot,
+                     int(delta.view(np.int32)))
+        slot += gy * gx
+    if slot != plan.nb or n > 65535:
+        raise ValueError(f"{name}: {slot} slots for a plan of {plan.nb}, "
+                         f"{n} frames")
+    out = torch.empty((n * plan.nb, plan.cbh, plan.cbw), dtype=torch.int32,
+                      device=dev)
+    if n:
+        table_dev = torch.from_numpy(table).to(dev)
+        _launch(name, dev, table_dev.data_ptr(), len(leaves), n_comps, n,
+                plan.nb, plan.cbh, plan.cbw, int(lossy), out.data_ptr())
+    return out
+
+
+def cleanup_values(blocks: torch.Tensor, hs, ws) -> Dict[str, torch.Tensor]:
+    """Every HT cleanup field of int32 blocks [Nb, H, W] (H, W even) with
+    true sizes hs, ws [Nb]; the outputs of ht_enc.cleanup_values."""
+    if blocks.device.type == "cpu":
+        return ht_enc.cleanup_values(blocks, hs, ws)
+    name = "ht_cleanup_fields"
+    dev = blocks.device
+    _check(blocks, name, torch.int32, 3, dev)
+    nb, h, w = blocks.shape
+    qw = w // 2
+    if h % 2 or w % 2 or (h // 2) * (qw + (qw & 1)) * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: blocks {tuple(blocks.shape)} not "
+                         "supported (even sizes, quads in shared memory)")
+    hs = torch.as_tensor(hs, dtype=torch.int32, device=dev).contiguous()
+    ws = torch.as_tensor(ws, dtype=torch.int32, device=dev).contiguous()
+    if hs.shape != (nb,) or ws.shape != (nb,):
+        raise ValueError(f"{name}: hs, ws must be [{nb}]")
+    out = {}
+    for stream, f in zip(("ms", "vlc", "mel"), ht_enc.field_counts(h, w)):
+        for part in ("vals", "lens"):
+            out[f"{stream}_{part}"] = torch.empty(
+                (nb, f), dtype=torch.int32, device=dev)
+    out["numbps"] = torch.empty(nb, dtype=torch.int32, device=dev)
+    out["u_max"] = torch.empty(nb, dtype=torch.int32, device=dev)
+    out["dist"] = torch.empty(nb, dtype=torch.float32, device=dev)
+    if nb:
+        tbl = ht_enc.enc_table(dev, torch.int32)
+        _launch(name, dev, blocks.data_ptr(), hs.data_ptr(), ws.data_ptr(),
+                nb, h, w, tbl.data_ptr(),
+                *(out[k].data_ptr() for k in (
+                    "ms_vals", "ms_lens", "vlc_vals", "vlc_lens",
+                    "mel_vals", "mel_lens", "numbps", "u_max", "dist")))
+    return out
+
+
+def pack_bits(vals: torch.Tensor, lens: torch.Tensor, n_words: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's LSB-first fields [Nb, F] -> (words int32 [Nb, n_words]
+    holding uint32 bit patterns, total bits int32 [Nb]); ht_enc.pack_bits."""
+    if vals.device.type == "cpu":
+        return ht_enc.pack_bits(vals, lens, n_words)
+    name = "ht_pack_bits"
+    dev = vals.device
+    _check(vals, name, torch.int32, 2, dev)
+    _check(lens, name, torch.int32, 2, dev)
+    if lens.shape != vals.shape or n_words * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: fields {tuple(vals.shape)}, "
+                         f"{tuple(lens.shape)} with {n_words} words")
+    nb, f = vals.shape
+    words = torch.empty((nb, n_words), dtype=torch.int32, device=dev)
+    bits = torch.empty(nb, dtype=torch.int32, device=dev)
+    if nb:
+        _launch(name, dev, vals.data_ptr(), lens.data_ptr(), nb, f, n_words,
+                words.data_ptr(), bits.data_ptr())
+    return words, bits
+
+
+def assemble_pool(ms_words, ms_bits, vlc_words, vlc_bits, mel_words,
+                  mel_bits, numbps, u_max, dist):
+    """One int32 array [6*Nb meta | MagSgn | VLC | MEL] and the pools' word
+    totals int64 [3] (ht_enc.assemble_pool).  On the card the array is
+    allocated at its bound, Nb * (6 + the three row widths); only its
+    first 6*Nb + sum(totals) entries are written."""
+    if ms_words.device.type == "cpu":
+        return ht_enc.assemble_pool(ms_words, ms_bits, vlc_words, vlc_bits,
+                                    mel_words, mel_bits, numbps, u_max, dist)
+    name = "ht_compact_pool"
+    dev = ms_words.device
+    nb = ms_words.shape[0]
+    for w in (ms_words, vlc_words, mel_words):
+        _check(w, name, torch.int32, 2, dev)
+        if w.shape[0] != nb:
+            raise ValueError(f"{name}: word rows disagree")
+    for t in (ms_bits, vlc_bits, mel_bits, numbps, u_max):
+        _check(t, name, torch.int32, 1, dev)
+    _check(dist, name, torch.float32, 1, dev)
+    widths = [int(w.shape[1]) for w in (ms_words, vlc_words, mel_words)]
+    out = torch.empty(nb * (6 + sum(widths)), dtype=torch.int32, device=dev)
+    offs = torch.empty(3 * nb, dtype=torch.int64, device=dev)
+    totals = torch.zeros(3, dtype=torch.int64, device=dev)
+    if nb:
+        _launch(name, dev, ms_words.data_ptr(), widths[0],
+                ms_bits.data_ptr(), vlc_words.data_ptr(), widths[1],
+                vlc_bits.data_ptr(), mel_words.data_ptr(), widths[2],
+                mel_bits.data_ptr(), numbps.data_ptr(), u_max.data_ptr(),
+                dist.data_ptr(), nb, offs.data_ptr(), totals.data_ptr(),
+                out.data_ptr())
+    return out, totals

@@ -5,8 +5,11 @@ other's streams pixel-exactly.  Lossy 9/7: the float32 lifting may round
 differently in the JAX package's jitted programs, so a quantizer index can
 flip at a step boundary; every decode of either package's streams by
 either decoder must agree within one grey level, and the port's PSNR must
-be at least the JAX package's minus 0.05 dB.  Everything outside the
-slices must raise NotImplementedError."""
+be at least the JAX package's minus 0.05 dB.  Encodes inside the fused
+device HT encode's reach must take it (enc.fused_chunks > 0 and no
+enc.host_entropy_frames); what fused_encode.plan_for refuses takes the
+counted host branch.  Everything outside the slices must raise
+NotImplementedError."""
 import dataclasses
 import os
 import subprocess
@@ -45,8 +48,10 @@ def _frames(n, shape, seed, dtype=np.uint8):
                                      (2, (64, 64, 3))])
 def test_encode_matches_jax_and_decodes_both_ways(n, shape):
     frames = _frames(n, shape, seed=shape[0] + n)
+    tp.counters.reset()
     ours = tp.encode_batch(frames, tp.options_from_reference(OPTS),
                            device="cpu")
+    _assert_fused()
     ref = jax_encode_batch(frames, OPTS)
     assert len(ours) == len(ref)
     assert all(a == b for a, b in zip(ours, ref))
@@ -54,6 +59,48 @@ def test_encode_matches_jax_and_decodes_both_ways(n, shape):
         assert got.dtype == f.dtype and np.array_equal(got, f)
     for got, f in zip(jax_decode_batch(ours), frames):
         assert np.array_equal(got, f)
+
+
+def _assert_fused():
+    """The last encode ran the fused device HT encode and no host entropy."""
+    snap = tp.counters.snapshot()
+    assert snap.get("enc.fused_chunks", 0) > 0
+    assert snap.get("enc.host_entropy_frames", 0) == 0
+
+
+@pytest.mark.parametrize("case", ["plt", "gray16", "noise"])
+def test_fused_encode_cases_match_jax(case):
+    opts = OPTS
+    if case == "plt":
+        opts = dataclasses.replace(OPTS, enable_plt=True)
+        frames = _frames(2, (96, 80, 3), seed=11)
+    elif case == "gray16":
+        frames = _frames(2, (72, 64), seed=12, dtype=np.uint16)
+    else:
+        rng = np.random.RandomState(13)
+        frames = [rng.randint(0, 256, (80, 64)).astype(np.uint8)
+                  for _ in range(2)]
+    tp.counters.reset()
+    ours = tp.encode_batch(frames, tp.options_from_reference(opts),
+                           device="cpu")
+    _assert_fused()
+    assert ours == jax_encode_batch(frames, opts)
+    for got, f in zip(tp.decode_batch(ours, device="cpu"), frames):
+        assert np.array_equal(got, f)
+
+
+def test_plan_refused_takes_counted_host_branch():
+    # 32x32 precincts at the top resolution give its 64x64 bands two
+    # precincts a side: plan_for refuses, the host entropy branch runs
+    opts = dataclasses.replace(OPTS, precinct_size=[(5, 5)] * 6)
+    frames = _frames(2, (128, 128), seed=14)
+    tp.counters.reset()
+    ours = tp.encode_batch(frames, tp.options_from_reference(opts),
+                           device="cpu")
+    snap = tp.counters.snapshot()
+    assert snap.get("enc.host_entropy_frames", 0) == 2
+    assert snap.get("enc.fused_chunks", 0) == 0
+    assert ours == jax_encode_batch(frames, opts)
 
 
 def _psnr(a, b):
@@ -65,8 +112,10 @@ def _psnr(a, b):
                                      (2, (64, 64, 3))])
 def test_lossy_decodes_agree_across_packages(n, shape):
     frames = _frames(n, shape, seed=shape[1] + 7)
+    tp.counters.reset()
     ours = tp.encode_batch(frames, tp.options_from_reference(LOSSY),
                            device="cpu")
+    _assert_fused()
     ref = jax_encode_batch(frames, LOSSY)
     decodes = [tp.decode_batch(ours, device="cpu"),
                tp.decode_batch(ref, device="cpu"),
@@ -234,7 +283,9 @@ def test_cuda_without_card_raises():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, go_jpeg2000_tpu_torch; "
+    code = ("import sys, go_jpeg2000_tpu_torch, "
+            "go_jpeg2000_tpu_torch.ops.ht_enc_cuda, "
+            "go_jpeg2000_tpu_torch.models.fused_encode; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'go_jpeg2000_tpu')))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -1,18 +1,22 @@
-"""The hand-written CUDA DWT level kernels (go_jpeg2000_tpu_torch/csrc/
-dwt53.cu, dwt97.cu) against their plain torch version, on the card.  Needs
-a CUDA device and nvcc; skips without a card.  Imports neither jax nor the
-JAX package, so it runs where only torch is installed:
+"""The hand-written CUDA kernels (go_jpeg2000_tpu_torch/csrc/dwt53.cu,
+dwt97.cu, ht_enc.cu) against their plain torch versions, on the card.
+Needs a CUDA device and nvcc; skips without a card.  Imports neither jax
+nor the JAX package, so it runs where only torch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerance: exact equality, for 9/7 too (the kernel rounds the plain
-version's float32 ops in the same order, without FMA contraction)."""
+version's float32 ops in the same order, without FMA contraction), and for
+every integer output of the HT encode kernels; their distortion, a sum of
+float32 squares taken in another order, within a relative 1e-5."""
 import numpy as np
 import pytest
 import torch
 
 import go_jpeg2000_tpu_torch as tp
-from go_jpeg2000_tpu_torch.ops import dwt, dwt_cuda
+from go_jpeg2000_tpu_torch.models import encoder, fused_encode, transforms
+from go_jpeg2000_tpu_torch.ops import dwt, dwt_cuda, ht_enc, ht_enc_cuda
+from go_jpeg2000_tpu_torch.tcd import geometry as geo
 
 BANDS = ("LL", "HL", "LH", "HH")
 
@@ -101,3 +105,85 @@ def test_lossy_codec_on_card_matches_cpu(cuda):
     assert on_card == tp.encode_batch(frames, opts, device="cpu")
     on_cpu = tp.decode_batch(on_card, device="cpu")
     assert all(np.array_equal(d, c) for d, c in zip(decoded, on_cpu))
+
+
+def _block_batch(frames, lossless, dev):
+    """The plan and the pyramid of frames on `dev`, as the fused encode
+    builds them."""
+    opts = tp.Options(format=tp.Format.J2K, lossless=lossless, quality=85,
+                      high_throughput=True, num_resolutions=6)
+    header = encoder.build_header(frames[0], opts)
+    nc = header.num_components
+    prec = header.components[0].precision
+    encoder._apply_comp_quants(header, opts, nc, prec)
+    tile = geo.build_tile(header, 0)
+    plan = fused_encode.plan_for(header, tile, lossy=not lossless)
+    batch = np.stack([np.stack(encoder._image_components(f))
+                      for f in frames])
+    pyr = transforms.forward_pyramid(
+        transforms.upload(batch, dev), 5,
+        dwt.REV53 if lossless else dwt.IRR97, nc >= 3, prec, False, 0, 0)
+    return plan, pyr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lossless", [True, False])
+@pytest.mark.parametrize("case", ["gray", "ragged", "rgb16", "noise",
+                                  "zeros"])
+def test_ht_kernels_match_plain(cuda, case, lossless):
+    rng = np.random.RandomState(len(case))
+    shape, dtype = {"gray": ((256, 256), np.uint8),
+                    "ragged": ((96, 80), np.uint8),
+                    "rgb16": ((128, 96, 3), np.uint16),
+                    "noise": ((128, 128), np.uint8),
+                    "zeros": ((64, 64), np.uint8)}[case]
+    hi = 1 if case == "zeros" else np.iinfo(dtype).max + 1
+    frames = [rng.randint(0, hi, shape).astype(dtype) for _ in range(3)]
+    plan, pyr = _block_batch(frames, lossless, cuda)
+    before = dict(ht_enc_cuda.LAUNCHES)
+    blocks = ht_enc_cuda.extract_blocks(pyr, plan, 3, 5)
+    assert torch.equal(blocks, fused_encode.extract_blocks(pyr, plan, 3, 5))
+    hs, ws = fused_encode._block_dims(plan, 3, cuda)
+    got = ht_enc_cuda.cleanup_values(blocks, hs, ws)
+    ref = ht_enc.cleanup_values(blocks, hs, ws)
+    for k in ref:
+        if k == "dist":
+            torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(got[k], ref[k]), k
+    packed = []
+    for name, n_words in zip(("ms", "vlc", "mel"), ht_enc.stream_words(
+            plan.cbh, plan.cbw, plan.max_mn)):
+        w, b = ht_enc_cuda.pack_bits(ref[f"{name}_vals"],
+                                     ref[f"{name}_lens"], n_words)
+        rw, rb = ht_enc.pack_bits(ref[f"{name}_vals"], ref[f"{name}_lens"],
+                                  n_words)
+        assert torch.equal(w, rw) and torch.equal(b, rb), name
+        packed += [rw, rb]
+    args = packed + [ref["numbps"], ref["u_max"], ref["dist"]]
+    out, totals = ht_enc_cuda.assemble_pool(*args)
+    rout, rtotals = ht_enc.assemble_pool(*args)
+    assert torch.equal(totals, rtotals)
+    assert torch.equal(out[:rout.numel()], rout)
+    torch.cuda.synchronize()
+    for k, n in (("ht_extract_blocks", 1), ("ht_cleanup_fields", 1),
+                 ("ht_pack_bits", 3), ("ht_compact_pool", 1)):
+        assert ht_enc_cuda.LAUNCHES[k] == before[k] + n, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lossless", [True, False])
+def test_fused_encode_on_card_matches_cpu(cuda, lossless):
+    rng = np.random.RandomState(2)
+    frames = [rng.randint(0, 256, (96, 80, 3)).astype(np.uint8)
+              for _ in range(2)]
+    opts = tp.Options(format=tp.Format.J2K, lossless=lossless, quality=85,
+                      high_throughput=True, num_resolutions=6)
+    ht_enc_cuda.reset_counts()
+    tp.counters.reset()
+    on_card = tp.encode_batch(frames, opts, device=cuda)
+    snap = tp.counters.snapshot()
+    assert snap.get("enc.fused_chunks", 0) > 0
+    assert snap.get("enc.host_entropy_frames", 0) == 0
+    assert min(ht_enc_cuda.LAUNCHES.values()) > 0
+    assert on_card == tp.encode_batch(frames, opts, device="cpu")
