@@ -7,8 +7,9 @@ Needs one CUDA device, nvcc and g++; builds every kernel it runs from the
 sources in this checkout.  Phases, each of which raises on failure:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
-2. build: the CUDA sources dwt53.cu, dwt97.cu and ht_enc.cu (one nvcc per
-   source, run in parallel) and the native HT coder (g++);
+2. build: the CUDA sources dwt53.cu, dwt97.cu, ht_enc.cu and ht_dec.cu
+   (one nvcc per source, run in parallel) and the native HT coder (g++,
+   from the port's own copy of j2k_native.cpp);
 3. each DWT kernel against its plain torch version on the card: the 5/3
    pair at every level shape of a [32, 512, 512] batch down to 16x16, the
    9/7 pair at every level shape of [16, 512, 512] down to 16x16, both at
@@ -21,27 +22,39 @@ sources in this checkout.  Phases, each of which raises on failure:
    2 RGB 2048x2048 lossy, 6144 blocks) and of 16-bit RGB, pure noise,
    all-zero and ragged (96x80) frames: every integer output equal, the
    distortion within a relative 1e-5 (a float32 sum taken in another
-   order); kernel and plain times with CUDA events on the 2240 blocks;
-5. the lossless main path, through the public entry points: encode_batch
+   order); kernel and plain times with CUDA events on the 2240 blocks, and
+   each kernel's device time alone (torch.profiler);
+5. each HT decode kernel (MagSgn extraction, block-to-pyramid assembly
+   with the midpoint dequantization of lossy plans) against its plain
+   torch version on the card, on the native parse of the same frames'
+   streams: integer outputs equal, float32 leaves equal bit for bit;
+   kernel and plain times with CUDA events on the 2240 blocks, and each
+   kernel's device time alone;
+6. the lossless main paths, through the public entry points: encode_batch
    then decode_batch on 32 gray 8-bit 512x512 frames with the bench
    headline options (HTJ2K, lossless 5/3, 6 resolutions, J2K), then on 4
    RGB frames.  Pixels must round-trip exactly, the codestreams must equal
-   the CPU run's byte for byte, every encode must have taken the fused
-   device HT encode (enc.fused_chunks > 0, enc.host_entropy_frames 0) and
-   launched every HT kernel, and every level must have gone through the
-   5/3 kernels (launch counts > 0, no plain levels).  Then encode and
-   decode wall Mpix/s after that warm-up, the encode's stages (device
-   program, device-to-host copy, native Tier-2), its peak device bytes per
-   sample and the device's idle share during one encode (torch.profiler);
-6. the lossy main path, the same way: the JAX bench's htlossy97_512
+   the CPU run's byte for byte and the decodes the CPU decodes, every
+   encode must have taken the fused device HT encode (enc.fused_chunks > 0,
+   enc.host_entropy_frames 0) and launched every HT encode kernel, every
+   decode the device HT decode (dec.device_ht_chunks > 0,
+   dec.host_ht_frames 0) and launched both HT decode kernels, and every
+   level must have gone through the 5/3 kernels (launch counts > 0, no
+   plain levels).  Then encode and decode wall Mpix/s after that warm-up,
+   the encode's stages (device program, device-to-host copy, native
+   Tier-2) and the decode's (native parse, upload, device program,
+   download), each with its peak device bytes per sample, and the device's
+   idle share during one encode and one decode (torch.profiler);
+7. the lossy main paths, the same way: the JAX bench's htlossy97_512
    options (HTJ2K, 9/7 + ICT, quality 85, 6 resolutions, one layer) on 16
    gray 8-bit 512x512 frames, then on 2 RGB 8-bit 2048x2048 frames, with
    the same checks against the 9/7 and HT kernels; the decodes must equal
    the CPU decodes; PSNR against the input, encode and decode wall Mpix/s
-   after that warm-up, and the RGB encode's stages and idle share.
+   after that warm-up, and the RGB encode's and decode's stages and idle
+   shares.
 
-Each main path runs with the launch counts set to 0 just before it and
-read just after.  The line before the last is a JSON summary of the
+Each of the four main paths runs with the launch counts set to 0 just
+before it and read just after.  The line before the last is a JSON summary of the
 kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the card's peak rate for their type; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -62,18 +75,34 @@ N_LOSSY_GRAY = 16
 LOSSY_RGB = (2, 2048, 2048)      # frames, height, width
 SRC = {"dwt53": "go_jpeg2000_tpu_torch/csrc/dwt53.cu",
        "dwt97": "go_jpeg2000_tpu_torch/csrc/dwt97.cu",
-       "ht_enc": "go_jpeg2000_tpu_torch/csrc/ht_enc.cu"}
-REPLACES = {"dwt53_fwd_level": "go_jpeg2000_tpu/ops/dwt_pallas.py:101",
-            "dwt53_inv_level": "go_jpeg2000_tpu/ops/dwt_pallas.py:108",
-            "dwt97_fwd_level": "go_jpeg2000_tpu/ops/dwt_pallas.py:116",
-            "dwt97_inv_level": "go_jpeg2000_tpu/ops/dwt_pallas.py:123",
+       "ht_enc": "go_jpeg2000_tpu_torch/csrc/ht_enc.cu",
+       "ht_dec": "go_jpeg2000_tpu_torch/csrc/ht_dec.cu"}
+# kernel -> (the TPU kernel it replaces, its source's key in SRC)
+REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
+                                "dwt53"),
+            "dwt53_inv_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:108",
+                                "dwt53"),
+            "dwt97_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:116",
+                                "dwt97"),
+            "dwt97_inv_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:123",
+                                "dwt97"),
             "ht_extract_blocks":
-                "go_jpeg2000_tpu/models/fused_encode.py:191",
-            "ht_cleanup_fields": "go_jpeg2000_tpu/ops/ht_tpu.py:286",
-            "ht_pack_bits": "go_jpeg2000_tpu/ops/ht_tpu.py:124",
-            "ht_compact_pool": "go_jpeg2000_tpu/ops/ht_tpu.py:498"}
+                ("go_jpeg2000_tpu/models/fused_encode.py:191", "ht_enc"),
+            "ht_cleanup_fields": ("go_jpeg2000_tpu/ops/ht_tpu.py:286",
+                                  "ht_enc"),
+            "ht_pack_bits": ("go_jpeg2000_tpu/ops/ht_tpu.py:124", "ht_enc"),
+            "ht_compact_pool": ("go_jpeg2000_tpu/ops/ht_tpu.py:498",
+                                "ht_enc"),
+            "ht_magsgn_decode": ("go_jpeg2000_tpu/ops/ht_tpu_decode.py:34",
+                                 "ht_dec"),
+            "ht_blocks_to_pyramid":
+                ("go_jpeg2000_tpu/ops/ht_tpu_decode.py:80", "ht_dec")}
 HT_KERNELS = ("ht_extract_blocks", "ht_cleanup_fields", "ht_pack_bits",
               "ht_compact_pool")
+HT_DEC_KERNELS = ("ht_magsgn_decode", "ht_blocks_to_pyramid")
+# int64 fields per band in the block tables of ht_extract_blocks and
+# ht_blocks_to_pyramid
+BAND_TABLE_FIELDS = 11
 # NVIDIA H100 SXM data-sheet peaks (700 W): device memory 3.35 TB/s,
 # float32 outside the tensor cores 67 TFLOP/s (128 lanes an SM, an FMA
 # counted as two); int32 64 lanes an SM, 132 SMs at 1.98 GHz
@@ -83,10 +112,12 @@ INT32_OPS_PER_S = 16.7e12
 # operations per element, counted from the kernel sources: per sample for
 # the DWT levels (float32 for 9/7, int32 for 5/3) and for block extraction
 # and the cleanup fields (per code-block sample); per field for packing;
-# per pool word for compaction
+# per pool word for compaction; per block sample for MagSgn extraction;
+# per leaf sample for assembly
 OPS_PER_ELEMENT = {"dwt53": 10, "dwt97": 30, "ht_extract_blocks": 12,
                    "ht_cleanup_fields": 40, "ht_pack_bits": 12,
-                   "ht_compact_pool": 4}
+                   "ht_compact_pool": 4, "ht_magsgn_decode": 20,
+                   "ht_blocks_to_pyramid": 12}
 
 
 def natural_image(h, w, seed=0):
@@ -179,6 +210,44 @@ def check_kernels(dwt, dwt_cuda, dev, card, kind):
     return err, times
 
 
+# the kernels' symbols, for their device time under torch.profiler
+KERNEL_SYMBOLS = {"ht_extract_blocks": ("extract_kernel",),
+                  "ht_cleanup_fields": ("fields_kernel",),
+                  "ht_pack_bits": ("pack_kernel",),
+                  "ht_compact_pool": ("compact_scan_kernel",
+                                      "compact_copy_kernel"),
+                  "ht_magsgn_decode": ("magsgn_kernel",),
+                  "ht_blocks_to_pyramid": ("to_pyramid_kernel",)}
+
+
+def device_ms(fn, name, reps=20):
+    """Device time of the kernel `name` alone per call of fn: the sum of
+    its launches' device events under torch.profiler over reps calls, after
+    a warm-up, over reps.  The CUDA-event time of the wrapper also holds the
+    gaps in which the card waits for the host.  None where the profiler
+    records no such event."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.name for k in KERNEL_SYMBOLS[name]))
+    return us * 1e-3 / reps if us else None
+
+
+def time_line(name, ms, plain_ms, bound_ms, by, dev_ms, what, card):
+    alone = ("not measured (no profiler event)" if dev_ms is None else
+             f"{dev_ms:.4f} ms")
+    print(f"time {name} ({what}): kernel {ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({by}, {100 * bound_ms / ms:.1f}% reached), device time of "
+          f"the kernel alone {alone}, plain torch {plain_ms:.4f} ms "
+          f"[{card}]", flush=True)
+
+
 def bound(nbytes, ops, ops_per_s):
     """(least ms, "bytes" or "operations"): the larger of the bytes over
     the memory rate and the operations over their peak rate."""
@@ -263,18 +332,15 @@ def ht_case(tp, frames, opts, dev):
     return err, dist_rel, inputs
 
 
-def check_ht_kernels(tp, dev, card):
-    """Phase 4: every HT encode kernel against its plain version on the
-    main paths' block batches and on 16-bit, noise, all-zero and ragged
-    frames; times and bounds on the lossless gray batch."""
-    from go_jpeg2000_tpu_torch.models import fused_encode
-    from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
+def ht_cases(tp):
+    """The HT kernels' cases: (name, frames, options), the lossless gray
+    main path first (the one timed)."""
     lossless = tp.Options(format=tp.Format.J2K, lossless=True,
                           num_resolutions=6, high_throughput=True)
     lossy = tp.Options(format=tp.Format.J2K, lossless=False, quality=85,
                        num_resolutions=6, high_throughput=True)
     rng = np.random.RandomState(5)
-    cases = [
+    return [
         ("gray", main_gray(), lossless),
         ("rgb", lossy_rgb(), lossy),
         ("rgb16", [rng.randint(0, 1 << 16, (H, W, 3)).astype(np.uint16)
@@ -291,12 +357,23 @@ def check_ht_kernels(tp, dev, card):
                               for c in range(3)], axis=-1)
                     for i in range(4)], lossy),
     ]
+
+
+def case_label(name, frames, opts):
+    return (f"{name} {len(frames)}x{'x'.join(map(str, frames[0].shape))} "
+            f"{'lossless' if opts.lossless else 'lossy'}")
+
+
+def check_ht_kernels(tp, dev, card):
+    """Phase 4: every HT encode kernel against its plain version on the
+    main paths' block batches and on 16-bit, noise, all-zero and ragged
+    frames; times and bounds on the lossless gray batch."""
+    from go_jpeg2000_tpu_torch.models import fused_encode
+    from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
     err = {k: 0 for k in HT_KERNELS}
     timing = None
-    for name, frames, opts in cases:
-        label = (f"{name} {len(frames)}x"
-                 f"{'x'.join(map(str, frames[0].shape))} "
-                 f"{'lossless' if opts.lossless else 'lossy'}")
+    for name, frames, opts in ht_cases(tp):
+        label = case_label(name, frames, opts)
         e, dist_rel, inputs = ht_case(tp, frames, opts, dev)
         print(f"kernel check {label} ({inputs['plan'].nb * inputs['n']} "
               f"blocks, max_mn {inputs['plan'].max_mn}): max|diff| {e}, "
@@ -350,11 +427,110 @@ def check_ht_kernels(tp, dev, card):
                   OPS_PER_ELEMENT["ht_compact_pool"] * used,
                   INT32_OPS_PER_S)),
     }
+    kernel_fns = {
+        "ht_extract_blocks": lambda: K.extract_blocks(pyr, plan, n, levels),
+        "ht_cleanup_fields": lambda: K.cleanup_values(blocks, hs, ws),
+        "ht_pack_bits": lambda: [K.pack_bits(*f) for f in fields],
+        "ht_compact_pool": lambda: K.assemble_pool(*pool_args)}
     for name, (ms, plain_ms, (bound_ms, by)) in times.items():
-        print(f"time {name} ({nb} blocks of {plan.cbh}x{plan.cbw}): kernel "
-              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
-              f"{100 * bound_ms / ms:.1f}% reached), plain torch "
-              f"{plain_ms:.4f} ms [{card}]", flush=True)
+        time_line(name, ms, plain_ms, bound_ms, by,
+                  device_ms(kernel_fns[name], name),
+                  f"{nb} blocks of {plan.cbh}x{plan.cbw}", card)
+    return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
+
+
+def magsgn_bits(qinfo):
+    """The MagSgn bits the quad words ask for: the sum over samples of
+    m = rho_n ? U - ek_n : 0."""
+    q = qinfo.long() & 0xFFFFFFFF
+    i4 = torch.arange(4, device=q.device)
+    sig = ((q >> 8)[..., None] >> i4) & 1
+    ek = ((q >> 12)[..., None] >> i4) & 1
+    return int((sig * ((q & 0xFF)[..., None] - ek)).sum().item())
+
+
+def check_ht_dec_kernels(tp, dev, card):
+    """Phase 5: both HT decode kernels against their plain versions on the
+    native parse of the HT kernel cases' streams: equal, float32 leaves bit
+    for bit; times and bounds on the lossless gray batch."""
+    from go_jpeg2000_tpu_torch.models import decoder
+    from go_jpeg2000_tpu_torch.ops import dwt, ht_dec, ht_dec_cuda as K
+    err = {k: 0 for k in HT_DEC_KERNELS}
+    timing = None
+    for name, frames, opts in ht_cases(tp):
+        label = case_label(name, frames, opts)
+        streams = tp.encode_batch(frames, opts, device=dev)
+        batch = decoder.prepare_batch(streams)
+        plan, n = batch.plan, len(frames)
+        qinfo, pool, woff = decoder.upload_parsed(
+            *decoder.parse_chunk(batch, batch.bodies), dev)
+        blocks = ht_dec.magsgn_decode_blocks(qinfo, pool, woff, plan.cbh,
+                                             plan.cbw)
+        got = K.magsgn_decode_blocks(qinfo, pool, woff, plan.cbh, plan.cbw)
+        e = {"ht_magsgn_decode": (got - blocks).abs().max().item()}
+        diff = 0
+        dequant = batch.kind == dwt.IRR97
+        ref = ht_dec.blocks_to_pyramid(blocks, plan, n, batch.n_comps,
+                                       batch.nl, dequant)
+        kp = K.blocks_to_pyramid(blocks, plan, n, batch.n_comps, batch.nl,
+                                 dequant)
+        for r_lev, k_lev in zip(ref, kp):
+            if sorted(r_lev) != sorted(k_lev):
+                raise AssertionError(f"{label}: pyramid bands differ")
+            for k in r_lev:
+                # bit patterns: float32 leaves must agree bit for bit
+                a = k_lev[k].view(torch.int32).long()
+                b = r_lev[k].contiguous().view(torch.int32).long()
+                diff = max(diff, (a - b).abs().max().item())
+        e["ht_blocks_to_pyramid"] = diff
+        torch.cuda.synchronize()
+        print(f"kernel check decode {label} ({blocks.shape[0]} blocks, "
+              f"{'float32' if dequant else 'int32'} leaves): max|diff| {e}",
+              flush=True)
+        if any(e.values()):
+            raise AssertionError(f"{label}: an HT decode kernel disagrees "
+                                 "with its plain version")
+        for k in err:
+            err[k] = max(err[k], e[k])
+        if timing is None:
+            timing = (batch, n, qinfo, pool, woff, blocks, ref)
+
+    batch, n, qinfo, pool, woff, blocks, ref = timing
+    plan = batch.plan
+    leaf_samples = sum(v.numel() for e in ref for v in e.values())
+    bits = magsgn_bits(qinfo)
+    nb = blocks.shape[0]
+    kernel_fns = {
+        "ht_magsgn_decode": lambda: K.magsgn_decode_blocks(
+            qinfo, pool, woff, plan.cbh, plan.cbw),
+        "ht_blocks_to_pyramid": lambda: K.blocks_to_pyramid(
+            blocks, plan, n, batch.n_comps, batch.nl)}
+    times = {
+        "ht_magsgn_decode": (
+            cuda_ms(kernel_fns["ht_magsgn_decode"]),
+            cuda_ms(lambda: ht_dec.magsgn_decode_blocks(
+                qinfo, pool, woff, plan.cbh, plan.cbw), reps=5),
+            # reads the quad words, the pool words the fields need and the
+            # block offsets; writes the slots
+            bound(4 * qinfo.numel() + 4 * -(-bits // 32) + 8 * nb
+                  + 4 * blocks.numel(),
+                  OPS_PER_ELEMENT["ht_magsgn_decode"] * blocks.numel(),
+                  INT32_OPS_PER_S)),
+        "ht_blocks_to_pyramid": (
+            cuda_ms(kernel_fns["ht_blocks_to_pyramid"]),
+            cuda_ms(lambda: ht_dec.blocks_to_pyramid(
+                blocks, plan, n, batch.n_comps, batch.nl), reps=5),
+            # reads each leaf sample's slot value once, writes the leaf
+            bound(8 * leaf_samples + 8 * BAND_TABLE_FIELDS
+                  * len(plan.band_specs),
+                  OPS_PER_ELEMENT["ht_blocks_to_pyramid"] * leaf_samples,
+                  INT32_OPS_PER_S)),
+    }
+    for name, (ms, plain_ms, (bound_ms, by)) in times.items():
+        time_line(name, ms, plain_ms, bound_ms, by,
+                  device_ms(kernel_fns[name], name),
+                  f"{nb} blocks of {plan.cbh}x{plan.cbw}, {bits} MagSgn "
+                  f"bits, {leaf_samples} leaf samples", card)
     return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
 
 
@@ -412,63 +588,97 @@ def idle_share(fn):
     return 1 - busy_us * 1e-6 / wall, busy_us * 1e-3, wall * 1e3
 
 
-def idle_line(tp, frames, opts, dev, label, card):
-    share = idle_share(lambda: tp.encode_batch(frames, opts, device=dev))
-    if share is None:
-        print(f"device idle share {label} encode: not measured (the "
-              f"profiler recorded no device event)", flush=True)
-        return
-    print(f"device idle share {label} encode: {share[0]:.3f} (device busy "
-          f"{share[1]:.2f} ms of {share[2]:.2f} ms wall under "
-          f"torch.profiler) [{card}]", flush=True)
+def decode_stages(tp, streams, dev):
+    """One device HT decode of streams in its stages, synchronised: (native
+    parse s, upload s, device program s, download s, uploaded bytes, peak
+    device bytes per sample).  The smoke batches fit one chunk."""
+    from go_jpeg2000_tpu_torch.models import decoder
+    from go_jpeg2000_tpu_torch.ops import ht_dec
+    batch = decoder.prepare_batch(streams)
+    n = len(streams)
+    samples = n * batch.n_comps * batch.tile.comps[0].h * batch.tile.comps[0].w
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    parsed = decoder.parse_chunk(batch, batch.bodies)
+    t1 = time.perf_counter()
+    qinfo, pool, woff = decoder.upload_parsed(*parsed, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = ht_dec.fused_decode(qinfo, pool, woff, batch.plan, n,
+                              batch.n_comps, batch.nl, batch.kind,
+                              batch.use_mct, batch.precision, batch.signed)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    out.cpu()
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - base
+    return (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+            sum(a.nbytes for a in parsed), peak / samples)
 
 
-def counted_run(tp, dwt_cuda, ht_enc_cuda, run, label, dwt_lib):
+def stage_lines(tp, label, frames, opts, streams, dev, card, reps):
+    """The encode's and the decode's stages (medians of reps), and the
+    device idle share of one encode and one decode."""
+    enc = [encode_stages(tp, frames, opts, dev) for _ in range(reps)]
+    e = [float(np.median([st[i] for st in enc])) for i in range(3)]
+    print(f"encode stages {label} {len(frames)}x{frames[0].shape} (median of "
+          f"{reps}): device program {e[0] * 1e3:.2f} ms, device-to-host "
+          f"copy of {enc[0][3]} bytes {e[1] * 1e3:.2f} ms, native Tier-2 "
+          f"{e[2] * 1e3:.2f} ms; peak device memory {enc[0][4]:.1f} "
+          f"bytes/sample [{card}]", flush=True)
+    dec = [decode_stages(tp, streams, dev) for _ in range(reps)]
+    d = [float(np.median([st[i] for st in dec])) for i in range(4)]
+    print(f"decode stages {label} {len(frames)}x{frames[0].shape} (median of "
+          f"{reps}): native parse {d[0] * 1e3:.2f} ms, upload of "
+          f"{dec[0][4]} bytes {d[1] * 1e3:.2f} ms, device program "
+          f"{d[2] * 1e3:.2f} ms, download {d[3] * 1e3:.2f} ms; peak device "
+          f"memory {dec[0][5]:.1f} bytes/sample [{card}]", flush=True)
+    for what, fn in (
+            ("encode", lambda: tp.encode_batch(frames, opts, device=dev)),
+            ("decode", lambda: tp.decode_batch(streams, device=dev))):
+        share = idle_share(fn)
+        if share is None:
+            print(f"device idle share {label} {what}: not measured (the "
+                  f"profiler recorded no device event)", flush=True)
+            continue
+        print(f"device idle share {label} {what}: {share[0]:.3f} (device "
+              f"busy {share[1]:.2f} ms of {share[2]:.2f} ms wall under "
+              f"torch.profiler) [{card}]", flush=True)
+
+
+def counted_run(tp, kernels, run, label, dwt_lib):
     """Run one main path with every count set to 0 just before it; check
-    that it went through the fused encode, every HT kernel and the DWT
-    kernels of dwt_lib, with no plain levels.  Returns (result, launches
-    of the DWT and HT kernels)."""
-    dwt_cuda.reset_counts()
-    ht_enc_cuda.reset_counts()
+    that its encode went through the fused encode and every HT encode
+    kernel, its decode through the device HT decode and both HT decode
+    kernels, and its levels through the DWT kernels of dwt_lib, with no
+    plain levels.  Returns (result, launches of those kernels)."""
+    dwt_cuda, ht_enc_cuda, ht_dec_cuda = kernels
+    for k in kernels:
+        k.reset_counts()
     tp.counters.reset()
     result = run()
     torch.cuda.synchronize()
     launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
                 if k.startswith(dwt_lib)}
     launches.update(ht_enc_cuda.LAUNCHES)
+    launches.update(ht_dec_cuda.LAUNCHES)
     snap = tp.counters.snapshot()
-    fused = snap.get("enc.fused_chunks", 0)
-    host = snap.get("enc.host_entropy_frames", 0)
+    paths = {k: snap.get(k, 0) for k in (
+        "enc.fused_chunks", "enc.host_entropy_frames",
+        "dec.device_ht_chunks", "dec.host_ht_frames")}
     plain = dwt_cuda.PLAIN_LEVELS
-    print(f"{label} launches {launches}, plain levels {plain}, "
-          f"enc.fused_chunks {fused}, enc.host_entropy_frames {host}",
+    print(f"{label} launches {launches}, plain levels {plain}, {paths}",
           flush=True)
-    if min(launches.values()) <= 0 or plain != 0 or fused <= 0 or host:
+    if (min(launches.values()) <= 0 or plain != 0
+            or paths["enc.fused_chunks"] <= 0
+            or paths["enc.host_entropy_frames"]
+            or paths["dec.device_ht_chunks"] <= 0
+            or paths["dec.host_ht_frames"]):
         raise AssertionError(f"the {label} did not run every level and "
                              "every HT stage through the kernels")
     return result, launches
-
-
-def run_main_path(tp, dev):
-    """Phase 4a: the counted main-path run; returns the streams."""
-    opts = tp.Options(format=tp.Format.J2K, lossless=True,
-                      num_resolutions=6, high_throughput=True)
-    gray = main_gray()
-    rgb = [np.stack([natural_image(H, W, seed=100 + 3 * i + c)
-                     for c in range(3)], axis=-1) for i in range(N_RGB)]
-    out = {}
-    for label, frames in (("gray", gray), ("rgb", rgb)):
-        streams = tp.encode_batch(frames, opts, device=dev)
-        decoded = tp.decode_batch(streams, device=dev)
-        for d, f in zip(decoded, frames):
-            if d.shape != f.shape or d.dtype != f.dtype \
-                    or not np.array_equal(d, f):
-                raise AssertionError(f"{label}: round trip is not exact")
-        out[label] = (frames, streams)
-        print(f"main path {label}: {len(frames)} frames {frames[0].shape} "
-              f"round-trip exact, {sum(map(len, streams))} bytes",
-              flush=True)
-    return opts, out
 
 
 def psnr(a, b):
@@ -476,27 +686,38 @@ def psnr(a, b):
     return 10 * np.log10(255.0 ** 2 / mse)
 
 
-def run_lossy_path(tp, dev):
-    """Phase 5a: the counted lossy main-path run; returns the runs."""
-    opts = tp.Options(format=tp.Format.J2K, lossless=False, quality=85,
-                      num_resolutions=6, high_throughput=True)
+def main_path(tp, dev, label, frames, opts):
+    """encode_batch then decode_batch of frames on dev; a lossless decode
+    must give the frames back.  Returns (streams, decoded)."""
+    streams = tp.encode_batch(frames, opts, device=dev)
+    decoded = tp.decode_batch(streams, device=dev)
+    for d, f in zip(decoded, frames):
+        if d.shape != f.shape or d.dtype != f.dtype:
+            raise AssertionError(f"{label}: decoded {d.shape} {d.dtype}, "
+                                 f"expected {f.shape} {f.dtype}")
+        if opts.lossless and not np.array_equal(d, f):
+            raise AssertionError(f"{label}: round trip is not exact")
+    quality = ("round-trip exact" if opts.lossless else
+               f"PSNR {min(psnr(d, f) for d, f in zip(decoded, frames)):.3f}"
+               f" dB (lowest frame)")
+    print(f"main path {label}: {len(frames)} frames {frames[0].shape}, "
+          f"{sum(map(len, streams))} bytes, {quality}", flush=True)
+    return streams, decoded
+
+
+def main_paths(tp):
+    """(label, frames, options, DWT library) of the four main paths."""
+    lossless = tp.Options(format=tp.Format.J2K, lossless=True,
+                          num_resolutions=6, high_throughput=True)
+    lossy = tp.Options(format=tp.Format.J2K, lossless=False, quality=85,
+                       num_resolutions=6, high_throughput=True)
+    rgb = [np.stack([natural_image(H, W, seed=100 + 3 * i + c)
+                     for c in range(3)], axis=-1) for i in range(N_RGB)]
     gray = [natural_image(H, W, seed=200 + i) for i in range(N_LOSSY_GRAY)]
-    rgb = lossy_rgb()
-    out = {}
-    for label, frames in (("lossy gray", gray), ("lossy rgb", rgb)):
-        streams = tp.encode_batch(frames, opts, device=dev)
-        decoded = tp.decode_batch(streams, device=dev)
-        for d, f in zip(decoded, frames):
-            if d.shape != f.shape or d.dtype != f.dtype:
-                raise AssertionError(f"{label}: decoded {d.shape} "
-                                     f"{d.dtype}, expected {f.shape} "
-                                     f"{f.dtype}")
-        out[label] = (frames, streams, decoded)
-        print(f"main path {label}: {len(frames)} frames {frames[0].shape}, "
-              f"{sum(map(len, streams))} bytes, PSNR "
-              f"{min(psnr(d, f) for d, f in zip(decoded, frames)):.3f} dB "
-              f"(lowest frame)", flush=True)
-    return opts, out
+    return [("gray", main_gray(), lossless, "dwt53"),
+            ("rgb", rgb, lossless, "dwt53"),
+            ("lossy gray", gray, lossy, "dwt97"),
+            ("lossy rgb", lossy_rgb(), lossy, "dwt97")]
 
 
 def wall_mpix(tp, opts, frames, streams, dev, card, label):
@@ -525,7 +746,7 @@ def main():
     import go_jpeg2000_tpu_torch as tp
     from go_jpeg2000_tpu_torch.native import loader
     from go_jpeg2000_tpu_torch.ops import (cuda_build, dwt, dwt_cuda,
-                                           ht_enc_cuda)
+                                           ht_dec_cuda, ht_enc_cuda)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -537,81 +758,64 @@ def main():
     cuda_build.build()
     dwt_cuda.load()
     ht_enc_cuda.load()
+    ht_dec_cuda.load()
     t1 = time.perf_counter()
     if not loader.available():
         raise RuntimeError("native library j2k_native.cpp did not build")
     t2 = time.perf_counter()
-    print(f"build: dwt53.cu, dwt97.cu and ht_enc.cu (nvcc, in parallel) "
-          f"{t1 - t0:.1f} s, j2k_native.cpp (g++) {t2 - t1:.1f} s",
+    print(f"build: dwt53.cu, dwt97.cu, ht_enc.cu and ht_dec.cu (nvcc, in "
+          f"parallel) {t1 - t0:.1f} s, j2k_native.cpp (g++) {t2 - t1:.1f} s",
           flush=True)
 
     err, times = check_kernels(dwt, dwt_cuda, dev, card, dwt.REV53)
     err97, times97 = check_kernels(dwt, dwt_cuda, dev, card, dwt.IRR97)
     err.update(err97)
     times.update(times97)
-    ht_err, ht_times = check_ht_kernels(tp, dev, card)
-    err.update(ht_err)
-    times.update(ht_times)
+    for check in (check_ht_kernels, check_ht_dec_kernels):
+        e, t = check(tp, dev, card)
+        err.update(e)
+        times.update(t)
     torch.cuda.empty_cache()
 
-    (opts, runs), launches = counted_run(
-        tp, dwt_cuda, ht_enc_cuda, lambda: run_main_path(tp, dev),
-        "lossless main path", "dwt53")
-    for label, (frames, streams) in runs.items():
+    kernels = (dwt_cuda, ht_enc_cuda, ht_dec_cuda)
+    launches = {}
+    runs = {}
+    for label, frames, opts, lib in main_paths(tp):
+        (streams, decoded), counts = counted_run(
+            tp, kernels, lambda: main_path(tp, dev, label, frames, opts),
+            f"{label} main path", lib)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        runs[label] = (frames, opts, streams, decoded)
+
+    for label, (frames, opts, streams, decoded) in runs.items():
         t0 = time.perf_counter()
         if tp.encode_batch(frames, opts, device="cpu") != streams:
-            raise AssertionError(f"{label}: CUDA and CPU codestreams differ")
-        print(f"{label}: CUDA and CPU codestreams byte-identical (CPU run "
-              f"{time.perf_counter() - t0:.1f} s)", flush=True)
-
-    frames, streams = runs["gray"]
-    wall_mpix(tp, opts, frames, streams, dev, card, "gray")
-    stages = [encode_stages(tp, frames, opts, dev) for _ in range(3)]
-    dev_s, d2h_s, t2_s = (float(np.median([st[i] for st in stages]))
-                          for i in range(3))
-    print(f"encode stages gray {N_GRAY}x{H}x{W} (median of 3): device "
-          f"program {dev_s * 1e3:.2f} ms, device-to-host copy of "
-          f"{stages[0][3]} bytes {d2h_s * 1e3:.2f} ms, native Tier-2 "
-          f"{t2_s * 1e3:.2f} ms; peak device memory "
-          f"{stages[0][4]:.1f} bytes/sample [{card}]", flush=True)
-    idle_line(tp, frames, opts, dev, "gray", card)
-
-    (lossy_opts, lossy_runs), lossy_launches = counted_run(
-        tp, dwt_cuda, ht_enc_cuda, lambda: run_lossy_path(tp, dev),
-        "lossy main path", "dwt97")
-    for k, v in lossy_launches.items():
-        launches[k] = launches.get(k, 0) + v
-
-    for label, (frames, streams, decoded) in lossy_runs.items():
-        t0 = time.perf_counter()
-        if tp.encode_batch(frames, lossy_opts, device="cpu") != streams:
             raise AssertionError(f"{label}: CUDA and CPU codestreams differ")
         t1 = time.perf_counter()
         on_cpu = tp.decode_batch(streams, device="cpu")
         if not all(np.array_equal(d, c) for d, c in zip(decoded, on_cpu)):
             raise AssertionError(f"{label}: CUDA and CPU decodes differ")
         print(f"{label}: CUDA and CPU codestreams byte-identical, decodes "
-              f"equal (CPU encode {t1 - t0:.1f} s)", flush=True)
-    for label, (frames, streams, _dec) in lossy_runs.items():
-        wall_mpix(tp, lossy_opts, frames, streams, dev, card, label)
-    frames = lossy_runs["lossy rgb"][0]
-    st = encode_stages(tp, frames, lossy_opts, dev)
-    print(f"encode stages lossy rgb {LOSSY_RGB}: device program "
-          f"{st[0] * 1e3:.2f} ms, device-to-host copy of {st[3]} bytes "
-          f"{st[1] * 1e3:.2f} ms, native Tier-2 {st[2] * 1e3:.2f} ms; peak "
-          f"device memory {st[4]:.1f} bytes/sample [{card}]", flush=True)
-    idle_line(tp, frames, lossy_opts, dev, "lossy rgb", card)
+              f"equal (CPU encode {t1 - t0:.1f} s, CPU decode "
+              f"{time.perf_counter() - t1:.1f} s)", flush=True)
 
-    kernels = []
-    for name in REPLACES:
+    for label, (frames, opts, streams, _dec) in runs.items():
+        if label != "rgb":
+            wall_mpix(tp, opts, frames, streams, dev, card, label)
+    for label, reps in (("gray", 3), ("lossy rgb", 1)):
+        frames, opts, streams, _dec = runs[label]
+        stage_lines(tp, label, frames, opts, streams, dev, card, reps)
+
+    out = []
+    for name, (replaces, src) in REPLACES.items():
         ms, plain_ms, bound_ms, bound_by = times[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": SRC["ht_enc" if name.startswith("ht_") else name[:5]],
-            "replaces": REPLACES[name], "launches": launches[name],
+        out.append({
+            "name": name, "route": "cuda", "source": SRC[src],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

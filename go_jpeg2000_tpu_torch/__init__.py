@@ -9,13 +9,18 @@ The ported slices run the HTJ2K batch paths, lossless 5/3 and lossy 9/7:
     encode_batch(images, opts=None, device="cuda") -> List[bytes]
     decode_batch(streams, config=None, device="cuda") -> List[np.ndarray]
 
-with DC shift, RCT and the 5/3 DWT, or ICT, the 9/7 DWT and deadzone
-quantization, on the device (hand-written CUDA level kernels on an NVIDIA
-Hopper card, csrc/dwt53.cu and csrc/dwt97.cu) and HT block coding plus
-Tier-2 on the host (the JAX package's native C++ coder, built from its one
-source).  Tensors carry an explicit device: "cuda" without a card raises;
-tests pass device="cpu".  Options outside the slice raise
-NotImplementedError naming the ROADMAP item that brings them.
+Encode runs DC shift, RCT or ICT, the DWT, deadzone quantization and the
+HT cleanup coding on the device, and Tier-2 on the host; decode runs
+Tier-2 and the HT cleanup's MEL/VLC control phase on the host, and the
+MagSgn decode, block assembly, dequantization, inverse DWT and inverse
+colour transform on the device.  On an NVIDIA Hopper card the DWT levels
+and the HT stages run in hand-written CUDA kernels (csrc/*.cu), the
+elementwise colour and level steps as torch ops; the host work runs in the
+native C++ coder (native/j2k_native.cpp, the port's copy of the JAX
+package's).
+Tensors carry an explicit device: "cuda" without a card raises; tests pass
+device="cpu".  Options outside the slices raise NotImplementedError naming
+the ROADMAP item that brings them.
 """
 
 from .options import (Config, Format, Options, config_from_reference,

@@ -1,15 +1,18 @@
 """Batch decoder: HTJ2K J2K codestreams -> frames.
 
-Port of the host-HT branch of go_jpeg2000_tpu/models/decoder.py
-`_decode_batch_fused`: the native C++ library parses Tier-2 and decodes
-every HT code-block of every frame in one call (ht_t2_decode_frames); the
-block slots become pyramid leaves on the host (`_blocks_to_pyramid`), ride
-one flat upload, and the device runs, for the whole batch, the inverse 5/3
-and inverse RCT, or the midpoint dequantization (as the JAX package's
-ops/ht_tpu_decode.py does it), inverse 9/7 and inverse ICT; then DC shift,
-clamp and narrowing.  The DWT levels go through the CUDA level kernels on
-the card.  The JAX package sends lossy streams to its device MagSgn decode
-instead (ROADMAP Queue 1 item 4); the native call gives the same indices.
+Port of go_jpeg2000_tpu/models/decoder.py `_decode_batch_fused`.  The
+device branch (every stream whose tile origin is (0, 0)): the native C++
+library runs Tier-2 and the HT cleanup's control phase, MEL, CxtVLC and
+UVLC, for every block of a chunk of frames in one call
+(ht_t2_parse_frames); only its per-quad words and the unstuffed MagSgn pool
+go to the device, where ops/ht_dec.py `fused_decode` extracts the MagSgn
+values and assembles the pyramid (the CUDA kernels of csrc/ht_dec.cu on the
+card), with the midpoint dequantization of 9/7 plans, and runs the inverse
+DWT (the CUDA level kernels), inverse RCT/ICT, DC shift, clamp and
+narrowing.  The host branch, for a tile origin off (0, 0): the native call
+decodes every block on the host (ht_t2_decode_frames), the slots become
+leaves in numpy (`_blocks_to_pyramid`) and ride one flat upload to the
+same inverse chain.  Counters: dec.device_ht_chunks, dec.host_ht_frames.
 
 The slices: single-tile, single-layer, lossless 5/3 or lossy 9/7 HT J2K
 streams of one shape, without SOP/EPH/PPM/PPT, decoded whole.  Everything
@@ -17,19 +20,33 @@ else raises NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import dataclasses
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..codestream.parser import Parser
 from ..native import loader
-from ..ops import dwt
+from ..ops import dwt, ht_dec
 from ..options import Config, Format
 from ..tcd import geometry as geo
 from ..utils import markers as mk
 from ..utils.metrics import counters
 from . import fused_encode, transforms
+from .encoder import _chunk_frames
 from .entropy_backend import require_native
+
+
+# Peak device bytes per sample (frame pixels times components) of one chunk
+# of the device HT decode: the int32 block slots (4 B and the padding of
+# small bands), the quad words (1 B), the pool (about the stream's size),
+# the leaves (4 B) and the inverse chain's int32 or float32 tensors.
+# chip_smoke.py measured 13.9 (32 x 512^2 gray, lossless) and 21.7
+# (2 x 2048^2 RGB, lossy) on an H100; 16-bit streams carry a larger pool.
+DECODE_BYTES_PER_SAMPLE = 28
+# device memory one chunk of the decode may take
+DECODE_CHUNK_BYTES = 1 << 31
 
 
 class DecodeError(ValueError):
@@ -80,13 +97,6 @@ def _check_slice(parsed, config: Config) -> None:
             raise _not_ported("signed or out-of-range sample precision", "6")
 
 
-def _leaf_level(lev: int, name: str, nl: int) -> int:
-    """Pyramid list index of a plan band (LL sits with the top level)."""
-    if name == "LL":
-        return nl - 1 if nl > 0 else 0
-    return lev - 1
-
-
 def _blocks_to_pyramid(coeffs: np.ndarray, plan, n: int, n_comps: int,
                        nl: int):
     """Inverse of the fused encode's block extraction: padded block slots
@@ -110,7 +120,7 @@ def _blocks_to_pyramid(coeffs: np.ndarray, plan, n: int, n_comps: int,
         per_band.setdefault((lev, name), []).append(a)
     for (lev, name), comps in per_band.items():
         # [N, C, bh, bw]
-        stacked[_leaf_level(lev, name, nl)][name] = np.stack(comps, axis=1)
+        stacked[ht_dec.leaf_level(lev, name, nl)][name] = np.stack(comps, axis=1)
     return stacked
 
 
@@ -119,20 +129,31 @@ def _pyramid_deltas(plan, nl: int):
     result: per level, band -> one step per component."""
     deltas = [dict() for _ in range(max(1, nl))]
     for (_c, lev, name, *_), d in zip(plan.band_specs, plan.deltas):
-        deltas[_leaf_level(lev, name, nl)].setdefault(name, []).append(d)
+        deltas[ht_dec.leaf_level(lev, name, nl)].setdefault(name, []).append(d)
     return deltas
 
 
-def decode_batch(streams, config: Optional[Config] = None,
-                 device="cuda") -> List[np.ndarray]:
-    """Decode same-shape single-tile HTJ2K codestreams, lossless or lossy,
-    to frames ([H, W] gray or [H, W, C]): host T2 + HT decode in one native
-    call, then one inverse transform on `device` for the whole batch.
-    "cuda" without a card raises."""
+@dataclasses.dataclass
+class Batch:
+    """A batch of same-shape streams, parsed to their tile bodies, with what
+    both decode branches need to know of them."""
+    bodies: List[bytes]       # each stream's tile-part data, joined
+    tile: geo.Tile
+    plan: fused_encode.BlockPlan
+    geom: Dict
+    kind: str
+    use_mct: bool
+    precision: int
+    signed: bool
+    n_comps: int
+    nl: int
+    on_device: bool           # tile origin (0, 0): the device HT branch
+
+
+def prepare_batch(streams, config: Optional[Config] = None) -> Batch:
+    """Parse the streams' headers and tile parts, check that they are in
+    the slice, and find the block plan and packet walk."""
     config = config or Config()
-    dev = transforms.resolve_device(device)
-    if not streams:
-        return []
     parsed = []
     for s in streams:
         _fmt, codestream, _jp2 = sniff_format(s)
@@ -141,43 +162,111 @@ def decode_batch(streams, config: Optional[Config] = None,
         parsed.append((header, parser.read_all_tile_parts(header),
                        codestream))
     _check_slice(parsed, config)
-
     header = parsed[0][0]
     tile = geo.build_tile(header, 0)
     lossless = header.coding_style.transform == 1
-    plan = fused_encode.plan_for(header, tile, lossy=not lossless)
+    on_device = tile.comps[0].x0 == 0 and tile.comps[0].y0 == 0
+    # a tile origin off (0, 0) gives offset code-block grids, which only
+    # the multi-tile plans describe
+    plan = fused_encode.plan_for(header, tile, multi_tile=not on_device,
+                                 lossy=not lossless)
     if plan is None:
-        raise _not_ported("this code-block/precinct geometry", "6")
-    geom = fused_encode.t2_geom(header, tile, plan)
+        raise _not_ported("this code-block/precinct geometry or origin", "6")
     require_native()
-
-    n_frames = len(parsed)
-    nl = tile.comps[0].coding.num_decompositions
     n_comps = header.num_components
-    precision = header.components[0].precision
-    signed = header.components[0].signed
-    use_mct = bool(header.coding_style.mct) and n_comps >= 3
-    datas = [b"".join(cs[tp.data_start:tp.data_end] for tp in tps)
-             for _hdr, tps, cs in parsed]
-    frame_off = np.zeros(n_frames + 1, np.int64)
-    np.cumsum([len(d) for d in datas], out=frame_off[1:])
-    buf = np.frombuffer(b"".join(datas), dtype=np.uint8)
-    coeffs = loader.ht_t2_decode_frames(
-        buf, frame_off, n_frames, plan.nb, geom, geom["mb"], plan.ws,
-        plan.hs, plan.cbh, plan.cbw)
-    if coeffs is None:
-        raise _not_ported("HT refinement passes (or truncated streams)",
-                          "6")
-    stacked = _blocks_to_pyramid(coeffs, plan, n_frames, n_comps, nl)
-    out = transforms.dispatch_inverse_stacked(
-        stacked, n_frames, n_comps, max(1, nl),
-        dwt.REV53 if lossless else dwt.IRR97, use_mct, precision, signed,
-        tile.comps[0].x0, tile.comps[0].y0, dev,
-        None if lossless else _pyramid_deltas(plan, nl))
+    return Batch(
+        bodies=[b"".join(cs[tp.data_start:tp.data_end] for tp in tps)
+                for _hdr, tps, cs in parsed],
+        tile=tile, plan=plan, geom=fused_encode.t2_geom(header, tile, plan),
+        kind=dwt.REV53 if lossless else dwt.IRR97,
+        use_mct=bool(header.coding_style.mct) and n_comps >= 3,
+        precision=header.components[0].precision,
+        signed=header.components[0].signed, n_comps=n_comps,
+        nl=tile.comps[0].coding.num_decompositions, on_device=on_device)
 
-    dt = np.uint8 if precision <= 8 else np.uint16
-    th, tw = tile.comps[0].h, tile.comps[0].w
-    arr = out.cpu().numpy().view(dt).reshape(n_frames, n_comps, th, tw)
+
+def _native_args(batch: Batch, bodies: List[bytes]):
+    """The native T2 calls' arguments for these bodies."""
+    frame_off = np.zeros(len(bodies) + 1, np.int64)
+    np.cumsum([len(d) for d in bodies], out=frame_off[1:])
+    plan = batch.plan
+    return (np.frombuffer(b"".join(bodies), dtype=np.uint8), frame_off,
+            len(bodies), plan.nb, batch.geom, batch.geom["mb"], plan.ws,
+            plan.hs, plan.cbh, plan.cbw)
+
+
+def _refused() -> NotImplementedError:
+    return _not_ported("HT refinement passes (or truncated streams)", "6")
+
+
+def parse_chunk(batch: Batch, bodies: List[bytes]):
+    """The host's control phase (native T2 + MEL/VLC parse) of some frames:
+    (quad words uint32 [n*nb, qh, qw], MagSgn pool uint32 [P], block word
+    offsets int64 [n*nb])."""
+    out = loader.ht_t2_parse_frames(*_native_args(batch, bodies))
+    if out is None:
+        raise _refused()
+    return out[:3]
+
+
+def upload_parsed(qinfo: np.ndarray, pool: np.ndarray, woff: np.ndarray,
+                  dev: torch.device):
+    """The parse's arrays on the device; uint32 words travel as their int32
+    bit patterns."""
+    return (torch.from_numpy(qinfo.view(np.int32)).to(dev),
+            torch.from_numpy(pool.view(np.int32)).to(dev),
+            torch.from_numpy(woff).to(dev))
+
+
+def decode_chunk(batch: Batch, bodies: List[bytes], dev: torch.device
+                 ) -> torch.Tensor:
+    """Decode some frames of the batch to their narrow pixels, flat, on
+    `dev`.  Device branch: host parse, upload of the quad words and the
+    MagSgn pool, then ht_dec.fused_decode (MagSgn and assembly kernels,
+    inverse DWT, inverse MCT).  Host branch (a tile origin off (0, 0)): the
+    native HT decode, assembly in numpy, and the inverse on `dev`."""
+    n = len(bodies)
+    if batch.on_device:
+        counters.add("dec.device_ht_chunks")
+        qinfo, pool, woff = upload_parsed(*parse_chunk(batch, bodies), dev)
+        return ht_dec.fused_decode(qinfo, pool, woff, batch.plan, n,
+                                   batch.n_comps, batch.nl, batch.kind,
+                                   batch.use_mct, batch.precision,
+                                   batch.signed)
+    counters.add("dec.host_ht_frames", n)
+    coeffs = loader.ht_t2_decode_frames(*_native_args(batch, bodies))
+    if coeffs is None:
+        raise _refused()
+    lossy = batch.kind == dwt.IRR97
+    return transforms.dispatch_inverse_stacked(
+        _blocks_to_pyramid(coeffs, batch.plan, n, batch.n_comps, batch.nl),
+        n, batch.n_comps, max(1, batch.nl), batch.kind, batch.use_mct,
+        batch.precision, batch.signed, batch.tile.comps[0].x0,
+        batch.tile.comps[0].y0, dev,
+        _pyramid_deltas(batch.plan, batch.nl) if lossy else None)
+
+
+def decode_batch(streams, config: Optional[Config] = None,
+                 device="cuda") -> List[np.ndarray]:
+    """Decode same-shape single-tile HTJ2K codestreams, lossless or lossy,
+    to frames ([H, W] gray or [H, W, C]), in chunks of frames
+    (decode_chunk), each one native call on the host and one device program
+    on `device`.  "cuda" without a card raises.  Counters:
+    dec.device_ht_chunks, dec.host_ht_frames."""
+    dev = transforms.resolve_device(device)
+    if not streams:
+        return []
+    batch = prepare_batch(streams, config)
+    n_frames = len(streams)
+    th, tw = batch.tile.comps[0].h, batch.tile.comps[0].w
+    chunk = _chunk_frames(n_frames, batch.n_comps * th * tw,
+                          DECODE_CHUNK_BYTES // DECODE_BYTES_PER_SAMPLE)
+    outs = [decode_chunk(batch, batch.bodies[s:s + chunk], dev)
+            for s in range(0, n_frames, chunk)]
+    dt = np.uint8 if batch.precision <= 8 else np.uint16
+    arr = np.concatenate([o.cpu().numpy() for o in outs]).view(dt).reshape(
+        n_frames, batch.n_comps, th, tw)
     counters.add("dec.bytes_in", sum(len(s) for s in streams))
     counters.add("dec.pixels_out", int(arr.size))
-    return [a[0] if n_comps == 1 else np.moveaxis(a, 0, -1) for a in arr]
+    return [a[0] if batch.n_comps == 1 else np.moveaxis(a, 0, -1)
+            for a in arr]

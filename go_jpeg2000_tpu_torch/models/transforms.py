@@ -197,33 +197,18 @@ def fetch_forward_batch(dev_flat: torch.Tensor, n: int, c: int, h: int,
     return pyrs
 
 
-def inverse_transform_batch(flat: torch.Tensor, n: int, c: int, levels: int,
-                            kind: str, use_mct: bool, precision: int,
-                            signed: bool, u0: int, v0: int,
-                            flat_shapes: Tuple = (),
-                            leaf_deltas: Tuple = ()) -> torch.Tensor:
-    """Batched inverse: the flat upload of pyramid leaves [N, C, h, w]
-    (`flat_shapes`: (level, band, h, w) in upload order) -> reconstructed
-    samples [N, C, H, W], clamped and narrowed, returned flat.  9/7 leaves
-    are quantizer indices, dequantized at the midpoint with `leaf_deltas`
-    (per leaf in upload order, one step per component) before the float32
-    inverse, and the result is rounded half to even.  16-bit unsigned output
-    comes back as its int16 bit pattern (torch has no uint16 arithmetic);
-    the caller views it as uint16 on the host."""
+def inverse_pyramid(pyramid: List[Dict[str, torch.Tensor]], kind: str,
+                    use_mct: bool, precision: int, signed: bool, u0: int,
+                    v0: int) -> torch.Tensor:
+    """The inverse chain's tail, shared by both decode branches: pyramid
+    leaves [N, C, h, w] on the device (int32 for 5/3, float32 dequantized
+    coefficients for 9/7) -> the inverse DWT, inverse RCT/ICT, rounding
+    half to even (9/7), DC shift, clamp and narrowing; returned flat.
+    16-bit output comes back as its int16 bit pattern (torch has no uint16
+    arithmetic); the caller views it as uint16 on the host."""
     lossy = kind == dwt.IRR97
-    if lossy:
-        deltas = torch.tensor(leaf_deltas, dtype=torch.float32,
-                              device=flat.device).reshape(-1, 1, c, 1, 1)
-    pyramid: List[Dict[str, torch.Tensor]] = [dict() for _ in range(levels)]
-    pos = 0
-    for i, (lev, band, h, w) in enumerate(flat_shapes):
-        cnt = n * c * h * w
-        # leaves may arrive narrowed (int16) to cut h2d bytes; widen here
-        leaf = flat[pos:pos + cnt].reshape(n, c, h, w).to(torch.int32)
-        pyramid[lev][band] = (quant.dequantize(leaf, deltas[i]) if lossy
-                              else leaf)
-        pos += cnt
     x = _reconstruct(pyramid, kind, u0, v0)
+    c = x.shape[1]
     if use_mct and c >= 3:
         inv = mct.inverse_ict if lossy else mct.inverse_rct
         r, g, b = inv(x[:, 0], x[:, 1], x[:, 2])
@@ -237,6 +222,33 @@ def inverse_transform_batch(flat: torch.Tensor, n: int, c: int, levels: int,
     elif precision <= 16:
         x = x.to(torch.int16)
     return x.reshape(-1)
+
+
+def inverse_transform_batch(flat: torch.Tensor, n: int, c: int, levels: int,
+                            kind: str, use_mct: bool, precision: int,
+                            signed: bool, u0: int, v0: int,
+                            flat_shapes: Tuple = (),
+                            leaf_deltas: Tuple = ()) -> torch.Tensor:
+    """Batched inverse: the flat upload of pyramid leaves [N, C, h, w]
+    (`flat_shapes`: (level, band, h, w) in upload order) -> reconstructed
+    samples [N, C, H, W], clamped and narrowed, returned flat
+    (inverse_pyramid).  9/7 leaves are quantizer indices, dequantized at the
+    midpoint with `leaf_deltas` (per leaf in upload order, one step per
+    component) before the float32 inverse."""
+    lossy = kind == dwt.IRR97
+    if lossy:
+        deltas = torch.tensor(leaf_deltas, dtype=torch.float32,
+                              device=flat.device).reshape(-1, 1, c, 1, 1)
+    pyramid: List[Dict[str, torch.Tensor]] = [dict() for _ in range(levels)]
+    pos = 0
+    for i, (lev, band, h, w) in enumerate(flat_shapes):
+        cnt = n * c * h * w
+        # leaves may arrive narrowed (int16) to cut h2d bytes; widen here
+        leaf = flat[pos:pos + cnt].reshape(n, c, h, w).to(torch.int32)
+        pyramid[lev][band] = (quant.dequantize(leaf, deltas[i]) if lossy
+                              else leaf)
+        pos += cnt
+    return inverse_pyramid(pyramid, kind, use_mct, precision, signed, u0, v0)
 
 
 def dispatch_inverse_stacked(stacked, n: int, c: int, levels: int, kind: str,

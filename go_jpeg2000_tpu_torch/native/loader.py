@@ -1,12 +1,14 @@
 """Native (C++) entropy backend: builds and binds j2k_native.so via ctypes.
 
 Copied from go_jpeg2000_tpu/native/loader.py.  The library is compiled from
-the JAX package's single C++ source, go_jpeg2000_tpu/native/j2k_native.cpp,
-read in place (it #includes ht_tables.inc beside it), without importing that
-package (its __init__ imports jax).  The .so goes into
-go_jpeg2000_tpu_torch/_build/; each process compiles to a file of its own
-and moves it into place with os.replace, so concurrent builds (one per test
-worker) cannot clobber each other.
+the port's own copy of the JAX package's C++ source, j2k_native.cpp beside
+this file (it #includes ht_tables.inc, also copied); both copies are kept
+byte-identical to go_jpeg2000_tpu/native/ (tests/test_torch_codec.py checks
+it) until a slice needs to change them.  The .so goes into
+go_jpeg2000_tpu_torch/_build/ and is rebuilt when either source is newer;
+each process compiles to a file of its own and moves it into place with
+os.replace, so concurrent builds (one per test worker) cannot clobber each
+other.
 
 The native library parallelizes T1/MQ and HT block coding across
 code-blocks with a thread pool, and runs the single-layer HT Tier-2 in C++.
@@ -23,8 +25,8 @@ import numpy as np
 
 from ..ops import t1 as t1_py
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "go_jpeg2000_tpu", "native")
+_NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_NATIVE_DIR)
 _SRC = os.path.join(_NATIVE_DIR, "j2k_native.cpp")
 _INC = os.path.join(_NATIVE_DIR, "ht_tables.inc")
 _SO = os.path.join(_PKG, "_build", "j2k_native.so")

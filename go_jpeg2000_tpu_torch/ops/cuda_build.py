@@ -1,7 +1,8 @@
 """nvcc builds of the port's CUDA sources (go_jpeg2000_tpu_torch/csrc/*.cu).
 
 Each source compiles into a shared library with a plain C interface, bound
-with ctypes by its wrapper module (ops/dwt_cuda.py, ops/ht_enc_cuda.py).
+with ctypes by its wrapper module (ops/dwt_cuda.py, ops/ht_enc_cuda.py,
+ops/ht_dec_cuda.py).
 The libraries go into go_jpeg2000_tpu_torch/_build/, named by a hash of the
 source and the flags, so a library built from the same source is reused.
 The first `load` builds every source that _build/ lacks, one nvcc process
@@ -22,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 # library name -> source file under csrc/
-SOURCES = {"dwt53": "dwt53.cu", "dwt97": "dwt97.cu", "ht_enc": "ht_enc.cu"}
+SOURCES = {"dwt53": "dwt53.cu", "dwt97": "dwt97.cu", "ht_enc": "ht_enc.cu",
+           "ht_dec": "ht_dec.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -103,9 +103,9 @@ def test_plan_refused_takes_counted_host_branch():
     assert ours == jax_encode_batch(frames, opts)
 
 
-def _psnr(a, b):
+def _psnr(a, b, peak=255.0):
     mse = np.mean((a.astype(np.float64) - b) ** 2)
-    return 10 * np.log10(255.0 ** 2 / mse)
+    return 10 * np.log10(peak ** 2 / mse)
 
 
 @pytest.mark.parametrize("n,shape", [(2, (128, 128)), (2, (96, 80)),
@@ -129,9 +129,10 @@ def test_lossy_decodes_agree_across_packages(n, shape):
 
 
 def test_lossy_native_decode_matches_jax_magsgn():
-    # the port decodes lossy HT blocks with the native ht_t2_decode_frames,
-    # which the JAX package never runs on lossy streams; it must give the
-    # indices of the JAX package's device MagSgn decode
+    # the port's host branch (a tile origin off (0, 0)) decodes lossy HT
+    # blocks with the native ht_t2_decode_frames, which the JAX package
+    # never runs on lossy streams; it must give the indices of the JAX
+    # package's device MagSgn decode
     from go_jpeg2000_tpu.codestream.parser import Parser as JParser
     from go_jpeg2000_tpu.models import fused_encode as jfe
     from go_jpeg2000_tpu.native import loader as jloader
@@ -171,6 +172,85 @@ def test_lossy_native_decode_matches_jax_magsgn():
     assert plan.deltas == jplan.deltas
     assert np.abs(ours).max() > 0
     np.testing.assert_array_equal(ours, ref.reshape(ours.shape))
+
+
+def _assert_device_decode(n_chunks=1):
+    """The last decode ran the device HT branch and no host HT decode."""
+    snap = tp.counters.snapshot()
+    assert snap.get("dec.device_ht_chunks", 0) == n_chunks
+    assert snap.get("dec.host_ht_frames", 0) == 0
+
+
+@pytest.mark.parametrize("lossless", [True, False])
+@pytest.mark.parametrize("n,shape,dtype", [(3, (96, 80), np.uint8),
+                                           (2, (64, 48, 3), np.uint8),
+                                           (2, (40, 56), np.uint16)])
+def test_decode_takes_device_branch_and_matches_jax(n, shape, dtype,
+                                                    lossless):
+    frames = _frames(n, shape, seed=shape[0] + n, dtype=dtype)
+    opts = OPTS if lossless else LOSSY
+    streams = jax_encode_batch(frames, opts)
+    tp.counters.reset()
+    ours = tp.decode_batch(streams, device="cpu")
+    _assert_device_decode()
+    ref = jax_decode_batch(streams)
+    peak = float(np.iinfo(dtype).max)
+    for o, r, f in zip(ours, ref, frames):
+        assert o.shape == f.shape and o.dtype == f.dtype
+        if lossless:
+            assert np.array_equal(o, f) and np.array_equal(o, r)
+        else:
+            assert np.abs(o.astype(np.int64) - r).max() <= 1
+            assert _psnr(o, f, peak) >= _psnr(r, f, peak) - 0.05
+
+
+def test_decode_chunks_on_the_device_branch(monkeypatch):
+    from go_jpeg2000_tpu_torch.models import decoder
+    frames = _frames(5, (48, 40, 3), seed=21)
+    streams = tp.encode_batch(frames, tp.options_from_reference(OPTS),
+                              device="cpu")
+    # room for two frames a chunk: 5 frames in 3 chunks of at most 2
+    monkeypatch.setattr(decoder, "DECODE_CHUNK_BYTES",
+                        2 * 48 * 40 * 3 * decoder.DECODE_BYTES_PER_SAMPLE)
+    tp.counters.reset()
+    got = tp.decode_batch(streams, device="cpu")
+    _assert_device_decode(n_chunks=3)
+    assert all(np.array_equal(g, f) for g, f in zip(got, frames))
+
+
+@pytest.mark.parametrize("lossless", [True, False])
+def test_offset_origin_takes_counted_host_branch(lossless):
+    # an image offset puts the tile origin off (0, 0): the device branch
+    # refuses it, as the JAX package's does, and the host HT branch runs
+    frames = _frames(2, (64, 72), seed=31)
+    opts = dataclasses.replace(OPTS if lossless else LOSSY,
+                               image_offset=(32, 64))
+    streams = jax_encode_batch(frames, opts)
+    tp.counters.reset()
+    ours = tp.decode_batch(streams, device="cpu")
+    snap = tp.counters.snapshot()
+    assert snap.get("dec.host_ht_frames", 0) == 2
+    assert snap.get("dec.device_ht_chunks", 0) == 0
+    for o, r, f in zip(ours, jax_decode_batch(streams), frames):
+        assert o.shape == f.shape
+        if lossless:
+            assert np.array_equal(o, f) and np.array_equal(o, r)
+        else:
+            assert np.abs(o.astype(np.int64) - r).max() <= 1
+
+
+def test_native_source_is_the_ports_own_identical_copy():
+    from go_jpeg2000_tpu_torch.native import loader
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port_dir = os.path.join(root, "go_jpeg2000_tpu_torch", "native")
+    assert os.path.dirname(loader._SRC) == port_dir
+    assert os.path.dirname(loader._INC) == port_dir
+    for name in ("j2k_native.cpp", "ht_tables.inc"):
+        with open(os.path.join(port_dir, name), "rb") as f:
+            ours = f.read()
+        with open(os.path.join(root, "go_jpeg2000_tpu", "native", name),
+                  "rb") as f:
+            assert ours == f.read(), name
 
 
 def test_plan_memo_keys_every_component():
@@ -285,6 +365,7 @@ def test_cuda_without_card_raises():
 def test_import_leaves_jax_out():
     code = ("import sys, go_jpeg2000_tpu_torch, "
             "go_jpeg2000_tpu_torch.ops.ht_enc_cuda, "
+            "go_jpeg2000_tpu_torch.ops.ht_dec_cuda, "
             "go_jpeg2000_tpu_torch.models.fused_encode; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'go_jpeg2000_tpu')))")

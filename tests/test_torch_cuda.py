@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (go_jpeg2000_tpu_torch/csrc/dwt53.cu,
-dwt97.cu, ht_enc.cu) against their plain torch versions, on the card.
+dwt97.cu, ht_enc.cu, ht_dec.cu) against their plain torch versions, on the
+card.
 Needs a CUDA device and nvcc; skips without a card.  Imports neither jax
 nor the JAX package, so it runs where only torch is installed:
 
@@ -8,14 +9,17 @@ nor the JAX package, so it runs where only torch is installed:
 Tolerance: exact equality, for 9/7 too (the kernel rounds the plain
 version's float32 ops in the same order, without FMA contraction), and for
 every integer output of the HT encode kernels; their distortion, a sum of
-float32 squares taken in another order, within a relative 1e-5."""
+float32 squares taken in another order, within a relative 1e-5.  The HT
+decode kernels' outputs are equal bit for bit, float32 leaves too."""
 import numpy as np
 import pytest
 import torch
 
 import go_jpeg2000_tpu_torch as tp
-from go_jpeg2000_tpu_torch.models import encoder, fused_encode, transforms
-from go_jpeg2000_tpu_torch.ops import dwt, dwt_cuda, ht_enc, ht_enc_cuda
+from go_jpeg2000_tpu_torch.models import (decoder, encoder, fused_encode,
+                                          transforms)
+from go_jpeg2000_tpu_torch.ops import (dwt, dwt_cuda, ht_dec, ht_dec_cuda,
+                                       ht_enc, ht_enc_cuda)
 from go_jpeg2000_tpu_torch.tcd import geometry as geo
 
 BANDS = ("LL", "HL", "LH", "HH")
@@ -126,11 +130,8 @@ def _block_batch(frames, lossless, dev):
     return plan, pyr
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("lossless", [True, False])
-@pytest.mark.parametrize("case", ["gray", "ragged", "rgb16", "noise",
-                                  "zeros"])
-def test_ht_kernels_match_plain(cuda, case, lossless):
+def _case_frames(case):
+    """Three frames of one of the HT kernel cases."""
     rng = np.random.RandomState(len(case))
     shape, dtype = {"gray": ((256, 256), np.uint8),
                     "ragged": ((96, 80), np.uint8),
@@ -138,7 +139,17 @@ def test_ht_kernels_match_plain(cuda, case, lossless):
                     "noise": ((128, 128), np.uint8),
                     "zeros": ((64, 64), np.uint8)}[case]
     hi = 1 if case == "zeros" else np.iinfo(dtype).max + 1
-    frames = [rng.randint(0, hi, shape).astype(dtype) for _ in range(3)]
+    return [rng.randint(0, hi, shape).astype(dtype) for _ in range(3)]
+
+
+HT_CASES = ["gray", "ragged", "rgb16", "noise", "zeros"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lossless", [True, False])
+@pytest.mark.parametrize("case", HT_CASES)
+def test_ht_kernels_match_plain(cuda, case, lossless):
+    frames = _case_frames(case)
     plan, pyr = _block_batch(frames, lossless, cuda)
     before = dict(ht_enc_cuda.LAUNCHES)
     blocks = ht_enc_cuda.extract_blocks(pyr, plan, 3, 5)
@@ -187,3 +198,63 @@ def test_fused_encode_on_card_matches_cpu(cuda, lossless):
     assert snap.get("enc.host_entropy_frames", 0) == 0
     assert min(ht_enc_cuda.LAUNCHES.values()) > 0
     assert on_card == tp.encode_batch(frames, opts, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lossless", [True, False])
+@pytest.mark.parametrize("case", HT_CASES)
+def test_ht_dec_kernels_match_plain(cuda, case, lossless):
+    opts = tp.Options(format=tp.Format.J2K, lossless=lossless, quality=85,
+                      high_throughput=True, num_resolutions=6)
+    streams = tp.encode_batch(_case_frames(case), opts, device="cpu")
+    batch = decoder.prepare_batch(streams)
+    plan = batch.plan
+    qinfo, pool, woff = decoder.upload_parsed(
+        *decoder.parse_chunk(batch, batch.bodies), cuda)
+    before = dict(ht_dec_cuda.LAUNCHES)
+    blocks = ht_dec_cuda.magsgn_decode_blocks(qinfo, pool, woff, plan.cbh,
+                                              plan.cbw)
+    assert torch.equal(blocks, ht_dec.magsgn_decode_blocks(
+        qinfo, pool, woff, plan.cbh, plan.cbw))
+    dequants = (False,) if lossless else (False, True)
+    for dequant in dequants:
+        got = ht_dec_cuda.blocks_to_pyramid(blocks, plan, 3, batch.n_comps,
+                                            batch.nl, dequant)
+        ref = ht_dec.blocks_to_pyramid(blocks, plan, 3, batch.n_comps,
+                                       batch.nl, dequant)
+        for g, r in zip(got, ref):
+            assert sorted(g) == sorted(r)
+            for k in r:
+                assert g[k].dtype == r[k].dtype
+                assert torch.equal(g[k].view(torch.int32),
+                                   r[k].contiguous().view(torch.int32)), k
+    torch.cuda.synchronize()
+    assert ht_dec_cuda.LAUNCHES["ht_magsgn_decode"] == \
+        before["ht_magsgn_decode"] + 1
+    assert ht_dec_cuda.LAUNCHES["ht_blocks_to_pyramid"] == \
+        before["ht_blocks_to_pyramid"] + len(dequants)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lossless", [True, False])
+def test_decode_on_card_matches_cpu(cuda, lossless):
+    rng = np.random.RandomState(3)
+    # even sizes at every level: no plain DWT level
+    frames = [rng.randint(0, 256, (64, 96, 3)).astype(np.uint8)
+              for _ in range(2)]
+    opts = tp.Options(format=tp.Format.J2K, lossless=lossless, quality=85,
+                      high_throughput=True, num_resolutions=6)
+    streams = tp.encode_batch(frames, opts, device="cpu")
+    ht_dec_cuda.reset_counts()
+    dwt_cuda.reset_counts()
+    tp.counters.reset()
+    on_card = tp.decode_batch(streams, device=cuda)
+    snap = tp.counters.snapshot()
+    assert snap.get("dec.device_ht_chunks", 0) > 0
+    assert snap.get("dec.host_ht_frames", 0) == 0
+    assert min(ht_dec_cuda.LAUNCHES.values()) > 0
+    assert dwt_cuda.PLAIN_LEVELS == 0
+    on_cpu = tp.decode_batch(streams, device="cpu")
+    assert all(np.array_equal(d, c) for d, c in zip(on_card, on_cpu))
+    if lossless:
+        assert all(np.array_equal(d, f) for d, f in zip(on_card, frames))
