@@ -7,9 +7,9 @@ Needs one CUDA device, nvcc and g++; builds every kernel it runs from the
 sources in this checkout.  Phases, each of which raises on failure:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
-2. build: the CUDA sources dwt53.cu, dwt97.cu, ht_enc.cu and ht_dec.cu
-   (one nvcc per source, run in parallel) and the native HT coder (g++,
-   from the port's own copy of j2k_native.cpp);
+2. build: the CUDA sources dwt53.cu, dwt97.cu, ht_enc.cu, ht_dec.cu and
+   ebcot_enc.cu (one nvcc per source, run in parallel) and the native coder
+   (g++, from the port's own copy of j2k_native.cpp);
 3. each DWT kernel against its plain torch version on the card: the 5/3
    pair at every level shape of a [32, 512, 512] batch down to 16x16, the
    9/7 pair at every level shape of [16, 512, 512] down to 16x16, both at
@@ -51,9 +51,28 @@ sources in this checkout.  Phases, each of which raises on failure:
    the same checks against the 9/7 and HT kernels; the decodes must equal
    the CPU decodes; PSNR against the input, encode and decode wall Mpix/s
    after that warm-up, and the RGB encode's and decode's stages and idle
+   shares;
+8. each EBCOT encode kernel (decision slots, decision compaction, MQ coder,
+   segment pool) against its plain torch version on the card, on the block
+   batches of the EBCOT main path (8 gray 512x512, 560 blocks) and of
+   16-bit RGB, pure noise, all-zero and ragged (96x80) frames: slots,
+   decision pools, segment pools and lengths equal; the MQ segments also
+   equal to the native mq_encode_streams on every block, and to the plain
+   lockstep chain on a subset of blocks; kernel and plain times with CUDA
+   events on the 560 blocks, and each kernel's device time alone;
+9. the Part-1 (EBCOT) lossless main paths: encode_batch then decode_batch
+   on 8 gray 8-bit 512x512 frames with the JAX bench's ebcot53_512 options
+   (Part 1, lossless 5/3, 6 resolutions, J2K), then on 4 RGB frames, with
+   backend "device" (path A): round trip exact, every encode through the
+   device EBCOT encode (enc.ebcot_device_chunks > 0, no host-entropy
+   frame) and its four kernels, block extraction and the 5/3 kernels, no
+   plain level, every decode through the EBCOT branch (dec.ebcot_frames)
+   and the assembly kernel; then path B ("hybrid") and path C ("native")
+   must give the same bytes.  Encode Mpix/s of A, B and C and decode
+   Mpix/s, the stages of a path A encode and of a decode, and the idle
    shares.
 
-Each of the four main paths runs with the launch counts set to 0 just
+Each of the six main paths runs with the launch counts set to 0 just
 before it and read just after.  The line before the last is a JSON summary of the
 kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the card's peak rate for their type; the last line
@@ -76,7 +95,8 @@ LOSSY_RGB = (2, 2048, 2048)      # frames, height, width
 SRC = {"dwt53": "go_jpeg2000_tpu_torch/csrc/dwt53.cu",
        "dwt97": "go_jpeg2000_tpu_torch/csrc/dwt97.cu",
        "ht_enc": "go_jpeg2000_tpu_torch/csrc/ht_enc.cu",
-       "ht_dec": "go_jpeg2000_tpu_torch/csrc/ht_dec.cu"}
+       "ht_dec": "go_jpeg2000_tpu_torch/csrc/ht_dec.cu",
+       "ebcot_enc": "go_jpeg2000_tpu_torch/csrc/ebcot_enc.cu"}
 # kernel -> (the TPU kernel it replaces, its source's key in SRC)
 REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
                                 "dwt53"),
@@ -96,10 +116,22 @@ REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
             "ht_magsgn_decode": ("go_jpeg2000_tpu/ops/ht_tpu_decode.py:34",
                                  "ht_dec"),
             "ht_blocks_to_pyramid":
-                ("go_jpeg2000_tpu/ops/ht_tpu_decode.py:80", "ht_dec")}
+                ("go_jpeg2000_tpu/ops/ht_tpu_decode.py:80", "ht_dec"),
+            "ebcot_decision_slots":
+                ("go_jpeg2000_tpu/ops/ebcot_device.py:254", "ebcot_enc"),
+            "ebcot_compact_rows": ("go_jpeg2000_tpu/ops/mq_device.py:207",
+                                   "ebcot_enc"),
+            "ebcot_mq_encode": ("go_jpeg2000_tpu/ops/mq_device.py:165",
+                                "ebcot_enc"),
+            "ebcot_pool_rows": ("go_jpeg2000_tpu/ops/mq_device.py:220",
+                                "ebcot_enc")}
 HT_KERNELS = ("ht_extract_blocks", "ht_cleanup_fields", "ht_pack_bits",
               "ht_compact_pool")
 HT_DEC_KERNELS = ("ht_magsgn_decode", "ht_blocks_to_pyramid")
+EBCOT_KERNELS = ("ebcot_decision_slots", "ebcot_compact_rows",
+                 "ebcot_mq_encode", "ebcot_pool_rows")
+N_EBCOT_GRAY = 8
+N_EBCOT_RGB = 4
 # int64 fields per band in the block tables of ht_extract_blocks and
 # ht_blocks_to_pyramid
 BAND_TABLE_FIELDS = 11
@@ -113,11 +145,21 @@ INT32_OPS_PER_S = 16.7e12
 # the DWT levels (float32 for 9/7, int32 for 5/3) and for block extraction
 # and the cleanup fields (per code-block sample); per field for packing;
 # per pool word for compaction; per block sample for MagSgn extraction;
-# per leaf sample for assembly
+# per leaf sample for assembly; for the EBCOT decisions per block sample
+# and coded bitplane (five passes over the block with up to 8 neighbour
+# reads a sample, and one fixpoint sweep); per slot for the decision
+# compaction; per decision for the MQ coder; per segment byte for the pool
 OPS_PER_ELEMENT = {"dwt53": 10, "dwt97": 30, "ht_extract_blocks": 12,
                    "ht_cleanup_fields": 40, "ht_pack_bits": 12,
                    "ht_compact_pool": 4, "ht_magsgn_decode": 20,
-                   "ht_blocks_to_pyramid": 12}
+                   "ht_blocks_to_pyramid": 12, "ebcot_decision_slots": 200,
+                   "ebcot_compact_rows": 4, "ebcot_mq_encode": 30,
+                   "ebcot_pool_rows": 2}
+# the MQ coder's serial bound: cycles of one decision's dependent chain
+# (context state and Qe loads from shared memory, the interval update and
+# compare), at the SM clock the int32 rate above assumes
+MQ_DEPENDENT_CYCLES = 60
+SM_CLOCK_HZ = 1.98e9
 
 
 def natural_image(h, w, seed=0):
@@ -217,7 +259,13 @@ KERNEL_SYMBOLS = {"ht_extract_blocks": ("extract_kernel",),
                   "ht_compact_pool": ("compact_scan_kernel",
                                       "compact_copy_kernel"),
                   "ht_magsgn_decode": ("magsgn_kernel",),
-                  "ht_blocks_to_pyramid": ("to_pyramid_kernel",)}
+                  "ht_blocks_to_pyramid": ("to_pyramid_kernel",),
+                  "ebcot_decision_slots": ("decision_kernel",),
+                  "ebcot_compact_rows": ("count_kernel", "rows_scan_kernel",
+                                         "compact_write_kernel"),
+                  "ebcot_mq_encode": ("mq_kernel",),
+                  "ebcot_pool_rows": ("lens_scan_kernel",
+                                      "pool_copy_kernel")}
 
 
 def device_ms(fn, name, reps=20):
@@ -739,6 +787,384 @@ def wall_mpix(tp, opts, frames, streams, dev, card, label):
           flush=True)
 
 
+def ebcot_opts(tp, backend="device"):
+    """The JAX bench's ebcot53_512 options (bench.py:316-327)."""
+    return tp.Options(format=tp.Format.J2K, lossless=True, num_resolutions=6,
+                      high_throughput=False, backend=backend)
+
+
+def ebcot_gray():
+    return [natural_image(H, W, seed=500 + i) for i in range(N_EBCOT_GRAY)]
+
+
+def ebcot_rgb():
+    return [np.stack([natural_image(H, W, seed=600 + 3 * i + c)
+                      for c in range(3)], axis=-1)
+            for i in range(N_EBCOT_RGB)]
+
+
+def ebcot_cases(tp):
+    """The EBCOT kernels' cases: (name, frames), the main gray batch first
+    (the one timed)."""
+    rng = np.random.RandomState(7)
+    return [
+        ("gray", ebcot_gray()),
+        ("rgb16", [rng.randint(0, 1 << 16, (256, 256, 3)).astype(np.uint16)
+                   for _ in range(2)]),
+        ("noise", [rng.randint(0, 256, (H, W)).astype(np.uint8)
+                   for _ in range(4)]),
+        ("zeros", [np.zeros((256, 256), np.uint8)] * 2),
+        ("ragged", [natural_image(96, 80, seed=700 + i) for i in range(4)]),
+    ]
+
+
+def ebcot_inputs(tp, frames, dev):
+    """(plan, planes, the decision kernel's inputs) of the frames' Part-1
+    block batch, made on the card by the main path's own steps."""
+    from go_jpeg2000_tpu_torch.models import (ebcot_fused, encoder,
+                                              transforms)
+    from go_jpeg2000_tpu_torch.ops import dwt, ht_enc_cuda
+    from go_jpeg2000_tpu_torch.tcd import geometry as geo
+    opts = ebcot_opts(tp)
+    header = encoder.build_header(frames[0], opts)
+    prec = header.components[0].precision
+    encoder._apply_comp_quants(header, opts, header.num_components, prec)
+    plan = ebcot_fused.plan_for(header, geo.build_tile(header, 0))
+    if plan is None:
+        raise AssertionError("the device EBCOT encode refused the frames")
+    batch = np.stack([np.stack(encoder._image_components(f))
+                      for f in frames])
+    levels = header.coding_style.num_decompositions
+    pyr = transforms.forward_pyramid(
+        transforms.upload(batch, dev), levels, dwt.REV53,
+        bool(header.coding_style.mct) and batch.shape[1] >= 3, prec, False,
+        0, 0)
+    blocks = ht_enc_cuda.extract_blocks(pyr, plan, len(frames), levels)
+    return plan, ebcot_fused.max_planes(plan), ebcot_fused.block_inputs(
+        blocks, plan, len(frames))
+
+
+def split_pool(pool, lens):
+    """Host bytes of each row of a pool cut by lens."""
+    n = lens.cpu().numpy().astype(np.int64)
+    ends = np.cumsum(n)
+    data = pool.cpu().numpy()
+    return [data[e - k:e].tobytes() for e, k in zip(ends, n)]
+
+
+def strip_ff(seg):
+    return seg[:-1] if seg.endswith(b"\xff") else seg
+
+
+def ebcot_case(tp, frames, dev):
+    """The EBCOT kernels and their plain versions on one frame batch: each
+    plain stage takes the plain output of the stage before.  Returns (max
+    |diff| per kernel, number of blocks held against the plain lockstep
+    chain, inputs for timing)."""
+    from go_jpeg2000_tpu_torch.native import loader
+    from go_jpeg2000_tpu_torch.ops import (ebcot_cuda as K, ebcot_device,
+                                           mq_device)
+    plan, planes, (mags, signs, classes, valid) = ebcot_inputs(tp, frames,
+                                                               dev)
+    err = {}
+    slots = ebcot_device.decision_slots(mags, signs, classes, valid, planes)
+    got = K.decision_slots(mags, signs, classes, valid, planes)
+    err["ebcot_decision_slots"] = int((got != slots).sum().item())
+    pool, ndec, off, largest = K.compact_rows_plain(slots)
+    kp, kn, ko, kl = K.compact_rows(slots)
+    err["ebcot_compact_rows"] = max(
+        int((kn != ndec).sum().item()), int((ko != off).sum().item()),
+        abs(kl - largest), abs(kp.numel() - pool.numel()),
+        int((kp != pool).sum().item()) if kp.numel() == pool.numel() else 1)
+    rows, lens = K.mq_encode(pool, ndec, off, largest)
+    segs, total = K.pool_rows(rows, off, lens)
+    psegs, ptotal = K.pool_rows_plain(rows, off, lens)
+    used = int(ptotal.item())
+    err["ebcot_pool_rows"] = max(abs(int(total.item()) - used), int(
+        (segs[:used] != psegs[:used]).sum().item()))
+    # the MQ coder: every block against the native coder, and the blocks
+    # of a subset against the plain lockstep chain (tens of ops a step)
+    mine = [strip_ff(x) for x in split_pool(segs[:used], lens)]
+    streams = split_pool(pool, ndec)
+    native = loader.mq_encode_streams(streams)
+    counts = ndec.cpu().numpy()
+    pick = [int(i) for i in np.argsort(np.where(counts <= 3000, counts, -1))
+            [-4:] if counts[i] > 0]
+    sub = mq_device.encode_streams([streams[i] for i in pick])
+    err["ebcot_mq_encode"] = sum(a != b for a, b in zip(mine, native)) + sum(
+        mine[i] != x for i, x in zip(pick, sub))
+    torch.cuda.synchronize()
+    inputs = dict(plan=plan, planes=planes, mags=mags, signs=signs,
+                  classes=classes, valid=valid, slots=slots, pool=pool,
+                  ndec=ndec, off=off, largest=largest, rows=rows, lens=lens,
+                  used=used, nb=mags.shape[0])
+    return err, len(pick), inputs
+
+
+def check_ebcot_kernels(tp, dev, card):
+    """Phase 8: every EBCOT kernel against its plain version on the main
+    gray batch and on 16-bit RGB, noise, all-zero and ragged frames; times
+    and bounds on the main gray batch (the plain lockstep MQ chain once,
+    on every block)."""
+    from go_jpeg2000_tpu_torch.models import ebcot_fused
+    from go_jpeg2000_tpu_torch.ops import ebcot_cuda as K, ebcot_device
+    err = {k: 0 for k in EBCOT_KERNELS}
+    timing = None
+    for name, frames in ebcot_cases(tp):
+        label = f"{name} {len(frames)}x{'x'.join(map(str, frames[0].shape))}"
+        e, n_sub, inputs = ebcot_case(tp, frames, dev)
+        print(f"kernel check EBCOT {label} ({inputs['nb']} blocks, "
+              f"{inputs['planes']} planes, {int(inputs['ndec'].sum())} "
+              f"decisions, {inputs['used']} segment bytes): differing "
+              f"entries {e} (MQ against native on every block, against the "
+              f"plain chain on {n_sub})", flush=True)
+        if any(e.values()):
+            raise AssertionError(f"{label}: an EBCOT kernel disagrees with "
+                                 "its plain version")
+        for k in err:
+            err[k] = max(err[k], e[k])
+        if timing is None:
+            timing = inputs
+
+    t = timing
+    mags, signs, classes, valid = (t["mags"], t["signs"], t["classes"],
+                                   t["valid"])
+    planes, slots, pool = t["planes"], t["slots"], t["pool"]
+    ndec, off, largest, rows, lens = (t["ndec"], t["off"], t["largest"],
+                                      t["rows"], t["lens"])
+    nb, used = t["nb"], t["used"]
+    samples = mags.numel()
+    live = int(ebcot_fused.numbps(mags, valid, planes).sum().item()) \
+        * samples // nb
+    decisions = pool.numel()
+    kernel_fns = {
+        "ebcot_decision_slots": lambda: K.decision_slots(
+            mags, signs, classes, valid, planes),
+        "ebcot_compact_rows": lambda: K.compact_rows(slots),
+        "ebcot_mq_encode": lambda: K.mq_encode(pool, ndec, off, largest),
+        "ebcot_pool_rows": lambda: K.pool_rows(rows, off, lens)}
+    times = {
+        "ebcot_decision_slots": (
+            cuda_ms(kernel_fns["ebcot_decision_slots"]),
+            cuda_ms(lambda: ebcot_device.decision_slots(
+                mags, signs, classes, valid, planes), reps=3, warmup=1),
+            # reads mags, signs and the mask, writes every slot
+            bound(9 * samples + 4 * nb + slots.numel(),
+                  OPS_PER_ELEMENT["ebcot_decision_slots"] * live,
+                  INT32_OPS_PER_S)),
+        "ebcot_compact_rows": (
+            cuda_ms(kernel_fns["ebcot_compact_rows"]),
+            cuda_ms(lambda: K.compact_rows_plain(slots), reps=3, warmup=1),
+            # reads the slots, writes the decisions, counts and offsets
+            bound(slots.numel() + decisions + 12 * nb,
+                  OPS_PER_ELEMENT["ebcot_compact_rows"] * slots.numel(),
+                  INT32_OPS_PER_S)),
+        "ebcot_mq_encode": (
+            cuda_ms(kernel_fns["ebcot_mq_encode"]),
+            cuda_ms(lambda: K.mq_encode_plain(pool, ndec, off, largest),
+                    reps=1, warmup=0),
+            # reads the decisions, counts and offsets; writes the segments
+            # and their lengths
+            bound(decisions + 12 * nb + used + 4 * nb,
+                  OPS_PER_ELEMENT["ebcot_mq_encode"] * decisions,
+                  INT32_OPS_PER_S)),
+        "ebcot_pool_rows": (
+            cuda_ms(kernel_fns["ebcot_pool_rows"]),
+            cuda_ms(lambda: K.pool_rows_plain(rows, off, lens), reps=5),
+            # reads each segment byte and the lengths and offsets once,
+            # writes the pool
+            bound(2 * used + 12 * nb,
+                  OPS_PER_ELEMENT["ebcot_pool_rows"] * used,
+                  INT32_OPS_PER_S)),
+    }
+    serial_ms = (largest * MQ_DEPENDENT_CYCLES / SM_CLOCK_HZ * 1e3)
+    for name, (ms, plain_ms, (bound_ms, by)) in times.items():
+        time_line(name, ms, plain_ms, bound_ms, by,
+                  device_ms(kernel_fns[name], name),
+                  f"{nb} blocks of 64x64, {planes} planes, {decisions} "
+                  f"decisions, {used} segment bytes", card)
+    print(f"time ebcot_mq_encode: serial bound {serial_ms:.4f} ms (the "
+          f"longest block's {largest} decisions x {MQ_DEPENDENT_CYCLES} "
+          f"dependent cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz), "
+          f"{100 * serial_ms / times['ebcot_mq_encode'][0]:.1f}% of it "
+          f"reached [{card}]", flush=True)
+    return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
+
+
+def ebcot_counted_run(tp, kernels, run, label):
+    """Run one Part-1 main path (path A) with every count set to 0 just
+    before it; check that the encode went through the device EBCOT encode,
+    its four kernels, block extraction and the 5/3 kernels with no plain
+    level, and the decode through the EBCOT branch and the assembly
+    kernel.  Returns (result, launches of those kernels)."""
+    dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda = kernels
+    for k in kernels:
+        k.reset_counts()
+    tp.counters.reset()
+    result = run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
+                if k.startswith("dwt53")}
+    launches["ht_extract_blocks"] = ht_enc_cuda.LAUNCHES["ht_extract_blocks"]
+    launches["ht_blocks_to_pyramid"] = \
+        ht_dec_cuda.LAUNCHES["ht_blocks_to_pyramid"]
+    launches.update(ebcot_cuda.LAUNCHES)
+    snap = tp.counters.snapshot()
+    paths = {k: snap.get(k, 0) for k in (
+        "enc.ebcot_device_chunks", "enc.ebcot_hybrid_chunks",
+        "enc.host_entropy_frames", "dec.ebcot_frames",
+        "dec.device_ht_chunks")}
+    plain = dwt_cuda.PLAIN_LEVELS
+    print(f"{label} launches {launches}, plain levels {plain}, {paths}",
+          flush=True)
+    if (min(launches.values()) <= 0 or plain != 0
+            or paths["enc.ebcot_device_chunks"] <= 0
+            or paths["enc.ebcot_hybrid_chunks"]
+            or paths["enc.host_entropy_frames"]
+            or paths["dec.ebcot_frames"] <= 0
+            or paths["dec.device_ht_chunks"]):
+        raise AssertionError(f"the {label} did not run every level and "
+                             "every EBCOT stage through the kernels")
+    return result, launches
+
+
+def ebcot_other_paths(tp, frames, streams, dev, label):
+    """Paths B and C on the same frames must give path A's bytes, each
+    through its own branch."""
+    for backend, counter in (("hybrid", "enc.ebcot_hybrid_chunks"),
+                             ("native", "enc.host_entropy_frames")):
+        tp.counters.reset()
+        got = tp.encode_batch(frames, ebcot_opts(tp, backend), device=dev)
+        if tp.counters.snapshot().get(counter, 0) <= 0:
+            raise AssertionError(f"{label}: backend {backend} did not take "
+                                 "its branch")
+        if got != streams:
+            raise AssertionError(f"{label}: backend {backend} bytes differ "
+                                 "from path A")
+    print(f"{label}: paths A, B and C codestreams byte-identical",
+          flush=True)
+
+
+def ebcot_stages(tp, frames, streams, dev, card, reps=3):
+    """Path A encode in its stages (device program, fetch, host results and
+    Python Tier-2) and a decode in its stages (host Tier-2 and native T1,
+    upload, device program, download), medians of reps, with peak device
+    bytes per sample; then the device idle share of one encode and one
+    decode."""
+    from go_jpeg2000_tpu_torch.models import (decoder, ebcot_fused, encoder,
+                                              transforms)
+    from go_jpeg2000_tpu_torch.ops import ht_dec_cuda
+    from go_jpeg2000_tpu_torch.tcd import geometry as geo
+    opts = ebcot_opts(tp)
+    header = encoder.build_header(frames[0], opts)
+    prec = header.components[0].precision
+    n_comps = header.num_components
+    encoder._apply_comp_quants(header, opts, n_comps, prec)
+    tile = geo.build_tile(header, 0)
+    plan = ebcot_fused.plan_for(header, tile)
+    batch = np.stack([np.stack(encoder._image_components(f))
+                      for f in frames])
+    levels = header.coding_style.num_decompositions
+    use_mct = bool(header.coding_style.mct) and n_comps >= 3
+    n, samples = len(frames), batch.size
+    enc, dec = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = ebcot_fused.ebcot_encode_chunk(batch, plan, levels, use_mct,
+                                             prec, False, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fetched = ebcot_fused.fetch(out)
+        t2 = time.perf_counter()
+        results = [ebcot_fused._single_segment_result(s, int(b), float(x))
+                   for s, b, x in zip(ebcot_fused._split(fetched[0],
+                                                         fetched[1]),
+                                      fetched[2], fetched[3])]
+        for i in range(n):
+            es, js = encoder._walk_geometry(tile)
+            encoder._assemble_packets(header, tile, es, js,
+                                      results[i * plan.nb:(i + 1) * plan.nb],
+                                      0, opts)
+        t3 = time.perf_counter()
+        peak = (torch.cuda.max_memory_allocated() - base) / samples
+        enc.append((t1 - t0, t2 - t1, t3 - t2, peak))
+        del out
+        batch_d = decoder.prepare_batch(streams)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        slots = decoder.ebcot_slots(batch_d, batch_d.bodies)
+        t1 = time.perf_counter()
+        sl = torch.from_numpy(slots).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pix = transforms.inverse_pyramid(
+            ht_dec_cuda.blocks_to_pyramid(sl, batch_d.plan, n, n_comps,
+                                          batch_d.nl),
+            batch_d.kind, batch_d.use_mct, prec, False, 0, 0)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        pix.cpu()
+        t4 = time.perf_counter()
+        peak = (torch.cuda.max_memory_allocated() - base) / samples
+        dec.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, peak, slots.nbytes))
+    e = [float(np.median([x[i] for x in enc])) for i in range(4)]
+    d = [float(np.median([x[i] for x in dec])) for i in range(5)]
+    shape = frames[0].shape
+    print(f"EBCOT encode stages path A {n}x{shape} (median of {reps}): "
+          f"device program {e[0] * 1e3:.2f} ms, fetch {e[1] * 1e3:.2f} ms, "
+          f"results and Python Tier-2 {e[2] * 1e3:.2f} ms; peak device "
+          f"memory {e[3]:.1f} bytes/sample [{card}]", flush=True)
+    print(f"EBCOT decode stages {n}x{shape} (median of {reps}): Python "
+          f"Tier-2 and native T1 {d[0] * 1e3:.2f} ms, upload of "
+          f"{dec[0][5]} bytes {d[1] * 1e3:.2f} ms, device program "
+          f"{d[2] * 1e3:.2f} ms, download {d[3] * 1e3:.2f} ms; peak device "
+          f"memory {d[4]:.1f} bytes/sample [{card}]", flush=True)
+    for what, fn in (
+            ("encode", lambda: tp.encode_batch(frames, opts, device=dev)),
+            ("decode", lambda: tp.decode_batch(streams, device=dev))):
+        share = idle_share(fn)
+        if share is None:
+            print(f"device idle share EBCOT {what}: not measured (the "
+                  f"profiler recorded no device event)", flush=True)
+            continue
+        print(f"device idle share EBCOT {n}x{shape} {what} (path A): "
+              f"{share[0]:.3f} (device busy {share[1]:.2f} ms of "
+              f"{share[2]:.2f} ms wall under torch.profiler) [{card}]",
+              flush=True)
+
+
+def ebcot_wall(tp, frames, streams, dev, card, label):
+    """Encode Mpix/s of paths A, B and C and decode Mpix/s, medians of 3
+    after a warm-up."""
+    mpix = len(frames) * frames[0].shape[0] * frames[0].shape[1] / 1e6
+    parts = []
+    for backend, path in (("device", "A"), ("hybrid", "B"), ("native", "C")):
+        opts = ebcot_opts(tp, backend)
+        tp.encode_batch(frames, opts, device=dev)
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            tp.encode_batch(frames, opts, device=dev)
+            t.append(time.perf_counter() - t0)
+        med = float(np.median(t))
+        parts.append(f"encode path {path} ({backend}) {mpix / med:.2f} "
+                     f"Mpix/s ({med * 1e3:.1f} ms)")
+    t = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tp.decode_batch(streams, device=dev)
+        t.append(time.perf_counter() - t0)
+    med = float(np.median(t))
+    parts.append(f"decode {mpix / med:.2f} Mpix/s ({med * 1e3:.1f} ms)")
+    print(f"wall {label} {len(frames)}x{frames[0].shape} (median of "
+          f"3): {', '.join(parts)} [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -746,7 +1172,8 @@ def main():
     import go_jpeg2000_tpu_torch as tp
     from go_jpeg2000_tpu_torch.native import loader
     from go_jpeg2000_tpu_torch.ops import (cuda_build, dwt, dwt_cuda,
-                                           ht_dec_cuda, ht_enc_cuda)
+                                           ebcot_cuda, ht_dec_cuda,
+                                           ht_enc_cuda)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -759,13 +1186,14 @@ def main():
     dwt_cuda.load()
     ht_enc_cuda.load()
     ht_dec_cuda.load()
+    ebcot_cuda.load()
     t1 = time.perf_counter()
     if not loader.available():
         raise RuntimeError("native library j2k_native.cpp did not build")
     t2 = time.perf_counter()
-    print(f"build: dwt53.cu, dwt97.cu, ht_enc.cu and ht_dec.cu (nvcc, in "
-          f"parallel) {t1 - t0:.1f} s, j2k_native.cpp (g++) {t2 - t1:.1f} s",
-          flush=True)
+    print(f"build: dwt53.cu, dwt97.cu, ht_enc.cu, ht_dec.cu and ebcot_enc.cu "
+          f"(nvcc, in parallel) {t1 - t0:.1f} s, j2k_native.cpp (g++) "
+          f"{t2 - t1:.1f} s", flush=True)
 
     err, times = check_kernels(dwt, dwt_cuda, dev, card, dwt.REV53)
     err97, times97 = check_kernels(dwt, dwt_cuda, dev, card, dwt.IRR97)
@@ -806,6 +1234,26 @@ def main():
     for label, reps in (("gray", 3), ("lossy rgb", 1)):
         frames, opts, streams, _dec = runs[label]
         stage_lines(tp, label, frames, opts, streams, dev, card, reps)
+
+    e, t = check_ebcot_kernels(tp, dev, card)
+    err.update(e)
+    times.update(t)
+    torch.cuda.empty_cache()
+    ebcot_kernels = (dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda)
+    ebcot_runs = {}
+    for label, frames in (("EBCOT gray", ebcot_gray()),
+                          ("EBCOT rgb", ebcot_rgb())):
+        (streams, _decoded), counts = ebcot_counted_run(
+            tp, ebcot_kernels,
+            lambda: main_path(tp, dev, label, frames, ebcot_opts(tp)),
+            f"{label} main path")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        ebcot_other_paths(tp, frames, streams, dev, label)
+        ebcot_runs[label] = (frames, streams)
+    for label, (frames, streams) in ebcot_runs.items():
+        ebcot_wall(tp, frames, streams, dev, card, label)
+    ebcot_stages(tp, *ebcot_runs["EBCOT gray"], dev, card)
 
     out = []
     for name, (replaces, src) in REPLACES.items():

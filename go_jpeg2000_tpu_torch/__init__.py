@@ -4,20 +4,26 @@ The JAX package (go_jpeg2000_tpu) stays as the reference; this package mirrors
 its module names and is held to it byte for byte.  It imports torch and
 numpy, never jax.
 
-The ported slices run the HTJ2K batch paths, lossless 5/3 and lossy 9/7:
+The ported slices run the HTJ2K batch paths, lossless 5/3 and lossy 9/7,
+and the Part-1 (EBCOT) lossless 5/3 batch path:
 
     encode_batch(images, opts=None, device="cuda") -> List[bytes]
     decode_batch(streams, config=None, device="cuda") -> List[np.ndarray]
 
-Encode runs DC shift, RCT or ICT, the DWT, deadzone quantization and the
-HT cleanup coding on the device, and Tier-2 on the host; decode runs
+HTJ2K encode runs DC shift, RCT or ICT, the DWT, deadzone quantization and
+the HT cleanup coding on the device, and Tier-2 on the host; decode runs
 Tier-2 and the HT cleanup's MEL/VLC control phase on the host, and the
 MagSgn decode, block assembly, dequantization, inverse DWT and inverse
-colour transform on the device.  On an NVIDIA Hopper card the DWT levels
-and the HT stages run in hand-written CUDA kernels (csrc/*.cu), the
-elementwise colour and level steps as torch ops; the host work runs in the
-native C++ coder (native/j2k_native.cpp, the port's copy of the JAX
-package's).
+colour transform on the device.  Part-1 encode (high_throughput=False)
+runs DC shift, RCT, the DWT, the EBCOT Tier-1 decisions and, by default,
+the MQ coder on the device (backend "device"; "hybrid" MQ-codes the
+decision streams on the host, "native" codes blocks on the host), and
+Tier-2 on the host; decode runs Tier-2 and the EBCOT block decoder on the
+host and block assembly, the inverse DWT and inverse RCT on the device.
+On an NVIDIA Hopper card the DWT levels, the HT stages and the EBCOT
+stages run in hand-written CUDA kernels (csrc/*.cu), the elementwise
+colour and level steps as torch ops; the host work runs in the native C++
+coder (native/j2k_native.cpp, the port's copy of the JAX package's).
 Tensors carry an explicit device: "cuda" without a card raises; tests pass
 device="cpu".  Options outside the slices raise NotImplementedError naming
 the ROADMAP item that brings them.

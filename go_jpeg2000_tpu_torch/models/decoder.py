@@ -1,7 +1,8 @@
-"""Batch decoder: HTJ2K J2K codestreams -> frames.
+"""Batch decoder: HTJ2K or Part-1 J2K codestreams -> frames.
 
-Port of go_jpeg2000_tpu/models/decoder.py `_decode_batch_fused`.  The
-device branch (every stream whose tile origin is (0, 0)): the native C++
+Port of go_jpeg2000_tpu/models/decoder.py `_decode_batch_fused` (HTJ2K) and
+of the slice's part of `_decode_tile` (Part-1 EBCOT).  The device HT
+branch (every HT stream whose tile origin is (0, 0)): the native C++
 library runs Tier-2 and the HT cleanup's control phase, MEL, CxtVLC and
 UVLC, for every block of a chunk of frames in one call
 (ht_t2_parse_frames); only its per-quad words and the unstuffed MagSgn pool
@@ -12,11 +13,17 @@ DWT (the CUDA level kernels), inverse RCT/ICT, DC shift, clamp and
 narrowing.  The host branch, for a tile origin off (0, 0): the native call
 decodes every block on the host (ht_t2_decode_frames), the slots become
 leaves in numpy (`_blocks_to_pyramid`) and ride one flat upload to the
-same inverse chain.  Counters: dec.device_ht_chunks, dec.host_ht_frames.
+same inverse chain.  The EBCOT branch: the Python Tier-2 per frame, the
+native T1 decoder for every block of a chunk of frames in one call, one
+upload of the block slots, and on the device the block-to-pyramid
+assembly (the ht_blocks_to_pyramid kernel on the card), the inverse 5/3
+levels and the inverse RCT.  Counters: dec.device_ht_chunks,
+dec.host_ht_frames, dec.ebcot_frames.
 
 The slices: single-tile, single-layer, lossless 5/3 or lossy 9/7 HT J2K
-streams of one shape, without SOP/EPH/PPM/PPT, decoded whole.  Everything
-else raises NotImplementedError naming the ROADMAP item that brings it.
+streams and lossless 5/3 Part-1 streams of code-block style 0, of one
+shape, without SOP/EPH/PPM/PPT, decoded whole.  Everything else raises
+NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -28,14 +35,16 @@ import torch
 
 from ..codestream.parser import Parser
 from ..native import loader
-from ..ops import dwt, ht_dec
+from ..ops import dwt, ht_dec, ht_dec_cuda
 from ..options import Config, Format
 from ..tcd import geometry as geo
+from ..tcd import t2
 from ..utils import markers as mk
+from ..utils.bio import BitReader
 from ..utils.metrics import counters
 from . import fused_encode, transforms
 from .encoder import _chunk_frames
-from .entropy_backend import require_native
+from .entropy_backend import decode_blocks_batch, require_native
 
 
 # Peak device bytes per sample (frame pixels times components) of one chunk
@@ -85,8 +94,14 @@ def _check_slice(parsed, config: Config) -> None:
             raise _not_ported("multi-tile decoding", "6")
         if cs.transform != h0.coding_style.transform:
             raise _not_ported("batches mixing 5/3 and 9/7 streams", "6")
+        if (cs.cb_style & mk.CBSTYLE_HT) != \
+                (h0.coding_style.cb_style & mk.CBSTYLE_HT):
+            raise _not_ported("batches mixing HT and Part-1 streams", "6")
         if not cs.cb_style & mk.CBSTYLE_HT:
-            raise _not_ported("EBCOT (Part 1) decoding", "6")
+            if cs.transform != 1:
+                raise _not_ported("lossy EBCOT (Part 1) decoding", "7")
+            if cs.cb_style:
+                raise _not_ported(f"code-block style {cs.cb_style:#x}", "6")
         if cs.num_layers != 1:
             raise _not_ported("quality layers", "6")
         if (cs.has_sop or cs.has_eph or hdr.ppm
@@ -148,6 +163,8 @@ class Batch:
     n_comps: int
     nl: int
     on_device: bool           # tile origin (0, 0): the device HT branch
+    header: object = None     # the first stream's main header
+    ht: bool = True           # HT code-blocks (else Part-1 EBCOT)
 
 
 def prepare_batch(streams, config: Optional[Config] = None) -> Batch:
@@ -165,10 +182,12 @@ def prepare_batch(streams, config: Optional[Config] = None) -> Batch:
     header = parsed[0][0]
     tile = geo.build_tile(header, 0)
     lossless = header.coding_style.transform == 1
+    ht = bool(header.coding_style.cb_style & mk.CBSTYLE_HT)
     on_device = tile.comps[0].x0 == 0 and tile.comps[0].y0 == 0
     # a tile origin off (0, 0) gives offset code-block grids, which only
     # the multi-tile plans describe
-    plan = fused_encode.plan_for(header, tile, multi_tile=not on_device,
+    plan = fused_encode.plan_for(header, tile, ht=ht,
+                                 multi_tile=not on_device,
                                  lossy=not lossless)
     if plan is None:
         raise _not_ported("this code-block/precinct geometry or origin", "6")
@@ -182,7 +201,8 @@ def prepare_batch(streams, config: Optional[Config] = None) -> Batch:
         use_mct=bool(header.coding_style.mct) and n_comps >= 3,
         precision=header.components[0].precision,
         signed=header.components[0].signed, n_comps=n_comps,
-        nl=tile.comps[0].coding.num_decompositions, on_device=on_device)
+        nl=tile.comps[0].coding.num_decompositions, on_device=on_device,
+        header=header, ht=ht)
 
 
 def _native_args(batch: Batch, bodies: List[bytes]):
@@ -218,14 +238,90 @@ def upload_parsed(qinfo: np.ndarray, pool: np.ndarray, woff: np.ndarray,
             torch.from_numpy(woff).to(dev))
 
 
+def ebcot_jobs(batch: Batch, body: bytes) -> List:
+    """Tier-2 of one Part-1 frame (the slice's part of the JAX package's
+    _decode_tile): per block of the plan, in canonical job order, its T1
+    decode job (data, w, h, numbps, num_passes, band, cb_style,
+    segment_lengths), or None where the block carries no pass."""
+    header, tile = batch.header, batch.tile
+    pd_map: Dict = {}
+    for c, tc in enumerate(tile.comps):
+        for res in tc.resolutions:
+            for p_idx in range(res.num_px * res.num_py):
+                pd_map[(c, res.r, p_idx)] = [
+                    t2.PrecinctDecoder(band.precincts[p_idx])
+                    for band in res.bands]
+    cb_style = header.coding_style.cb_style
+    pos = 0
+    for pid in t2.packet_sequence(tile, header):
+        if pos >= len(body):
+            break
+        pds = pd_map.get((pid.comp, pid.res, pid.precinct), [])
+        br = BitReader(body[pos:], stuffing=True)
+        decoded = t2.decode_packet_header(br, pds, pid.layer, cb_style)
+        br.align()
+        pos = t2.apply_packet_body(body, pos + br.bytes_consumed(), decoded,
+                                   cb_style)
+    jobs = []
+    for c, tc in enumerate(tile.comps):
+        for res in tc.resolutions:
+            for b_i, band in enumerate(res.bands):
+                mb = tc.quant.guard_bits + band.eps - 1
+                for p_idx in range(res.num_px * res.num_py):
+                    pd = pd_map[(c, res.r, p_idx)][b_i]
+                    for cb, blk in zip(pd.precinct.code_blocks, pd.blocks):
+                        if not blk.included or blk.passes_done == 0:
+                            jobs.append(None)
+                            continue
+                        jobs.append((bytes(blk.data), cb.w, cb.h,
+                                     mb - blk.zero_bitplanes,
+                                     blk.passes_done, band.name, cb_style,
+                                     t2.finalize_segments(blk)))
+    if len(jobs) != batch.plan.nb:
+        raise DecodeError(f"{len(jobs)} code-blocks in the packet walk, "
+                          f"{batch.plan.nb} in the plan")
+    return jobs
+
+
+def ebcot_slots(batch: Batch, bodies: List[bytes]) -> np.ndarray:
+    """The host half of a Part-1 chunk: the Python Tier-2 of each frame,
+    then the native T1 decode of every block of the chunk in one call.
+    Returns the block slots int32 [n*nb, cbh, cbw], each block's samples
+    at its top left, zeros elsewhere."""
+    plan = batch.plan
+    slots = np.zeros((len(bodies) * plan.nb, plan.cbh, plan.cbw), np.int32)
+    where, jobs = [], []
+    for f, body in enumerate(bodies):
+        for k, job in enumerate(ebcot_jobs(batch, body)):
+            if job is not None:
+                where.append(f * plan.nb + k)
+                jobs.append(job)
+    for i, coeffs in zip(where, decode_blocks_batch(jobs)):
+        h, w = coeffs.shape
+        slots[i, :h, :w] = coeffs
+    return slots
+
+
 def decode_chunk(batch: Batch, bodies: List[bytes], dev: torch.device
                  ) -> torch.Tensor:
     """Decode some frames of the batch to their narrow pixels, flat, on
     `dev`.  Device branch: host parse, upload of the quad words and the
     MagSgn pool, then ht_dec.fused_decode (MagSgn and assembly kernels,
     inverse DWT, inverse MCT).  Host branch (a tile origin off (0, 0)): the
-    native HT decode, assembly in numpy, and the inverse on `dev`."""
+    native HT decode, assembly in numpy, and the inverse on `dev`.  EBCOT
+    branch: ebcot_slots on the host, then one upload, the block-to-pyramid
+    assembly and the inverse on `dev`."""
     n = len(bodies)
+    x0, y0 = batch.tile.comps[0].x0, batch.tile.comps[0].y0
+    if not batch.ht:
+        counters.add("dec.ebcot_frames", n)
+        slots = torch.from_numpy(ebcot_slots(batch, bodies)).to(dev)
+        pyr = ht_dec_cuda.blocks_to_pyramid(slots, batch.plan, n,
+                                            batch.n_comps, batch.nl)
+        del slots
+        return transforms.inverse_pyramid(pyr, batch.kind, batch.use_mct,
+                                          batch.precision, batch.signed,
+                                          x0, y0)
     if batch.on_device:
         counters.add("dec.device_ht_chunks")
         qinfo, pool, woff = upload_parsed(*parse_chunk(batch, bodies), dev)
@@ -241,18 +337,18 @@ def decode_chunk(batch: Batch, bodies: List[bytes], dev: torch.device
     return transforms.dispatch_inverse_stacked(
         _blocks_to_pyramid(coeffs, batch.plan, n, batch.n_comps, batch.nl),
         n, batch.n_comps, max(1, batch.nl), batch.kind, batch.use_mct,
-        batch.precision, batch.signed, batch.tile.comps[0].x0,
-        batch.tile.comps[0].y0, dev,
+        batch.precision, batch.signed, x0, y0, dev,
         _pyramid_deltas(batch.plan, batch.nl) if lossy else None)
 
 
 def decode_batch(streams, config: Optional[Config] = None,
                  device="cuda") -> List[np.ndarray]:
     """Decode same-shape single-tile HTJ2K codestreams, lossless or lossy,
-    to frames ([H, W] gray or [H, W, C]), in chunks of frames
-    (decode_chunk), each one native call on the host and one device program
-    on `device`.  "cuda" without a card raises.  Counters:
-    dec.device_ht_chunks, dec.host_ht_frames."""
+    or lossless Part-1 codestreams, to frames ([H, W] gray or [H, W, C]),
+    in chunks of frames (decode_chunk), each host work (native calls, and
+    the Python Tier-2 for Part-1) and one device program on `device`.
+    "cuda" without a card raises.  Counters: dec.device_ht_chunks,
+    dec.host_ht_frames, dec.ebcot_frames."""
     dev = transforms.resolve_device(device)
     if not streams:
         return []

@@ -1,25 +1,32 @@
-"""Batch encoder: same-shape frames -> HTJ2K J2K codestreams.
+"""Batch encoder: same-shape frames -> HTJ2K or Part-1 J2K codestreams.
 
-Port of go_jpeg2000_tpu/models/encoder.py `encode_batch`: its fused branch
-and its chunked host-entropy branch, with the functions they run.  The
-fused branch (models/fused_encode.py) runs the whole device half on the
-card, with hand-written CUDA kernels for the DWT levels, block extraction,
-the HT cleanup fields, bit packing and pool compaction, and leaves the
-host only segment serialization and Tier-2 in C++ (or, with PLT, Python
-Tier-2 on natively serialized segments).  The chunked branch, for what
-fused_encode.plan_for refuses (a band of several precincts, HT refinement
-passes), runs DC shift, RCT or ICT, the DWT and, for 9/7, the deadzone
-quantization on the device and the native HT block coder and the Python
-Tier-2 per frame on the host.  Lossless codestreams are byte-identical to
-the JAX package's `encode_batch`; lossy ones decode within one grey level
-of it (float32 lifting drifts by ulps between program shapes, so a
-quantizer index can flip at a step boundary).
+Port of go_jpeg2000_tpu/models/encoder.py `encode_batch`: its fused HT
+branch, its device EBCOT branch and its chunked host-entropy branch, with
+the functions they run.  The fused branch (models/fused_encode.py) runs
+the whole device half of an HTJ2K encode on the card, with hand-written
+CUDA kernels for the DWT levels, block extraction, the HT cleanup fields,
+bit packing and pool compaction, and leaves the host only segment
+serialization and Tier-2 in C++ (or, with PLT, Python Tier-2 on natively
+serialized segments).  The device EBCOT branch (models/ebcot_fused.py) runs
+the 5/3 transform, block extraction, the EBCOT Tier-1 decisions, their
+compaction and (path A) the MQ coder and the segment pool on the card, or
+(path B, backend "hybrid") MQ-codes the fetched decision streams on the
+host in C++; the Python Tier-2 assembles the packets.  The chunked branch,
+for what the device branches refuse (a band of several precincts, HT
+refinement passes) and for Part-1 with backend "native" (path C), runs DC
+shift, RCT or ICT, the DWT and, for 9/7, the deadzone quantization on the
+device and the native block coder (HT or EBCOT) and the Python Tier-2 per
+frame on the host.  Lossless codestreams are byte-identical to the JAX
+package's `encode_batch`; lossy ones decode within one grey level of it
+(float32 lifting drifts by ulps between program shapes, so a quantizer
+index can flip at a step boundary).
 
-The slices: HTJ2K, lossless 5/3 or lossy 9/7, one tile, one quality layer
-without a byte budget or HT refinement passes for 9/7, J2K, frames of one
-shape, gray or 3-component RGB (RCT for 5/3, ICT for 9/7), 8 to 16-bit
-unsigned samples.  Everything else raises NotImplementedError naming the
-ROADMAP item that brings it.
+The slices: HTJ2K, lossless 5/3 or lossy 9/7, and Part-1 EBCOT lossless
+5/3 with code-block style 0; one tile, one quality layer without a byte
+budget or HT refinement passes for 9/7, J2K, frames of one shape, gray or
+3-component RGB (RCT for 5/3, ICT for 9/7), 8 to 16-bit unsigned samples.
+Everything else raises NotImplementedError naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from ..tcd import t2
 from ..utils import markers as mk
 from ..utils.bio import BitWriter
 from ..utils.metrics import counters
-from . import fused_encode
+from . import ebcot_fused, fused_encode
 from . import rate as rate_mod
 from . import transforms
 from .entropy_backend import encode_blocks_batch
@@ -90,8 +97,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def check_slice(images: Sequence[np.ndarray], opts: Options) -> None:
     """Raise NotImplementedError for anything outside the port's slice."""
-    if not opts.high_throughput:
-        raise _not_ported("EBCOT (Part 1) coding", "6")
+    if not opts.high_throughput and not opts.lossless:
+        raise _not_ported("lossy EBCOT (Part 1) coding", "7")
+    if not opts.high_throughput and opts.code_block_style:
+        raise _not_ported(f"code-block style {opts.code_block_style:#x}", "6")
     if not opts.lossless and effective_ht_refinement(opts):
         raise _not_ported("lossy 9/7 coding with HT refinement passes", "7")
     if opts.format != Format.J2K:
@@ -106,7 +115,9 @@ def check_slice(images: Sequence[np.ndarray], opts: Options) -> None:
         raise _not_ported("SOP/EPH/PPM/PPT/TLM markers", "6")
     if opts.progression_changes:
         raise _not_ported("progression order changes (POC)", "6")
-    if opts.backend not in ("auto", "native"):
+    backends = ("auto", "native") if opts.high_throughput else \
+        ("auto", "native", "device", "hybrid")
+    if opts.backend not in backends:
         raise _not_ported(f"entropy backend {opts.backend!r}", "6")
     im0 = images[0]
     if not all(im.shape == im0.shape and im.dtype == im0.dtype
@@ -121,8 +132,8 @@ def check_slice(images: Sequence[np.ndarray], opts: Options) -> None:
 
 
 def build_header(image: np.ndarray, opts: Options) -> Header:
-    """Main header of an HT single-tile codestream (the slices' part of the
-    JAX package's build_header)."""
+    """Main header of a single-tile codestream, HT or Part-1 (the slices'
+    part of the JAX package's build_header)."""
     comps = _image_components(image)
     h_img, w_img = comps[0].shape
     precision, signed = _natural_precision(image, opts)
@@ -150,32 +161,37 @@ def build_header(image: np.ndarray, opts: Options) -> Header:
                                          or opts.ht_block_width))
     else:
         cs.cb_width_exp, cs.cb_height_exp = opts.code_block_size
-    cs.cb_style = opts.code_block_style | mk.CBSTYLE_HT
+    cs.cb_style = opts.code_block_style
+    if opts.high_throughput:
+        cs.cb_style |= mk.CBSTYLE_HT
     cs.transform = 1 if opts.lossless else 0
     if opts.precinct_size:
         cs.scod |= mk.SCOD_PRECINCTS_DEFINED
         cs.precincts = [tuple(p) for p in opts.precinct_size]
     h.coding_style = cs
-    # HT needs one extra guard bit: decoders bound U_q <= (Mb - 1) + 1.
     h.quantization = component_quant(h, opts, 0, precision)
-    h.capabilities = Capabilities(pcap=mk.pcap_bit(15))
+    if opts.high_throughput:
+        h.capabilities = Capabilities(pcap=mk.pcap_bit(15))
     return h
 
 
 def component_quant(h: Header, opts: Options, comp: int,
                     precision: int) -> Quantization:
-    """Per-component quantization (three guard bits, HT) accounting for MCT
-    range expansion: RCT chroma gains one bit; ICT chroma stays in range
-    and shares the luma steps."""
+    """Per-component quantization accounting for MCT range expansion: RCT
+    chroma gains one bit; ICT chroma stays in range and shares the luma
+    steps.  Two guard bits, three for HT: its decoders bound
+    U_q <= (Mb - 1) + 1."""
     nl = h.coding_style.num_decompositions
+    guard = 3 if opts.high_throughput else 2
     if opts.lossless:
         eff_prec = precision + 1 if h.coding_style.mct and comp in (1, 2) \
             else precision
-        return quant_ops.make_reversible_quant(eff_prec, nl, guard_bits=3)
+        return quant_ops.make_reversible_quant(eff_prec, nl,
+                                               guard_bits=guard)
     base_delta = rate_mod.base_delta_for_quality(_effective_quality(opts),
                                                  precision)
     return quant_ops.make_irreversible_quant(precision, nl, base_delta,
-                                             guard_bits=3)
+                                             guard_bits=guard)
 
 
 def _apply_comp_quants(header: Header, opts: Options, n_comps: int,
@@ -358,11 +374,13 @@ def _assemble_packets(header: Header, tile: geo.Tile, enc_state, job_slots,
 
 def _entropy_and_packets(header: Header, tile: geo.Tile, pyramids,
                          t_idx: int, opts: Options) -> bytes:
-    """Single-tile host entropy + PCRD + packets for one frame."""
+    """Single-tile host entropy + PCRD + packets for one frame.  One layer
+    without a budget never reads pass rates, so the EBCOT coder takes its
+    monotone upper bounds instead of the exact D.4.1 lengths."""
     enc_state, job_slots, block_jobs = _entropy_jobs(tile, pyramids)
     results = encode_blocks_batch(
         block_jobs, ht_refinement=effective_ht_refinement(opts),
-        ht_require_exact=opts.lossless)
+        ht_require_exact=opts.lossless, exact_rates=False)
     return _assemble_packets(header, tile, enc_state, job_slots, results,
                              t_idx, opts)
 
@@ -375,7 +393,7 @@ def _entropy_and_packets(header: Header, tile: geo.Tile, pyramids,
 # RGB, lossy); the MagSgn word rows and the pool grow with max_mn, by up to
 # 4 B a sample at max_mn 31.
 FUSED_BYTES_PER_SAMPLE = 28
-# device memory one chunk of the fused encode may take
+# device memory one chunk of the fused HT or device EBCOT encode may take
 FUSED_CHUNK_BYTES = 1 << 31
 
 
@@ -431,17 +449,68 @@ def _encode_batch_fused(batch: np.ndarray, header: Header, tile: geo.Tile,
     return out
 
 
+# Peak device bytes per sample of one chunk of the device EBCOT encode, in
+# two parts: per bitplane of the plan, the decision slots (23 per stripe
+# column and plane: 5.75 bytes a sample for 64x64 blocks, 6.3 with the
+# padding of the small bands of a 512^2 frame); and, whatever the planes,
+# the int32 blocks, mags and signs, the valid mask and the transform's
+# tensors, which the decision pool and the MQ segment rows (3 bytes per
+# decision, about 6 decisions a sample) replace once the slots are freed.
+# chip_smoke.py measured 87.8 (8 x 512^2 gray, 11 planes) on an H100.
+EBCOT_BYTES_PER_SAMPLE_PLANE = 8
+EBCOT_BYTES_PER_SAMPLE = 40
+
+
+def _encode_batch_ebcot(batch: np.ndarray, header: Header, tile: geo.Tile,
+                        plan, opts: Options, precision: int, signed: bool,
+                        nl0: int, use_mct: bool, main: bytes, dev,
+                        hybrid: bool) -> List[bytes]:
+    """The device EBCOT encode (models/ebcot_fused.py), one device program
+    per chunk of frames: path A (hybrid=False) codes the MQ segments on the
+    device, path B (hybrid=True) fetches the decision streams and codes
+    them with the native MQ coder.  Then the Python Tier-2 per frame."""
+    n_frames = batch.shape[0]
+    per_sample = (EBCOT_BYTES_PER_SAMPLE
+                  + EBCOT_BYTES_PER_SAMPLE_PLANE * ebcot_fused.max_planes(plan))
+    chunk = _chunk_frames(n_frames, int(np.prod(batch.shape[1:])),
+                          FUSED_CHUNK_BYTES // per_sample)
+    program = (ebcot_fused.ebcot_decisions_chunk if hybrid
+               else ebcot_fused.ebcot_encode_chunk)
+    fetch = (ebcot_fused.fetch_results_hybrid if hybrid
+             else ebcot_fused.fetch_results)
+    nb = plan.nb
+    out: List[bytes] = []
+    for s in range(0, n_frames, chunk):
+        sub = batch[s:s + chunk]
+        results = fetch(program(sub, plan, nl0, use_mct, precision, signed,
+                                dev))
+        counters.add("enc.ebcot_hybrid_chunks" if hybrid
+                     else "enc.ebcot_device_chunks")
+        for i in range(sub.shape[0]):
+            enc_state, job_slots = _walk_geometry(tile)
+            out.append(main + _assemble_packets(
+                header, tile, enc_state, job_slots,
+                results[i * nb:(i + 1) * nb], 0, opts) + cw.write_eoc())
+    return out
+
+
 def encode_batch(images: Sequence[np.ndarray],
                  opts: Optional[Options] = None,
                  device="cuda") -> List[bytes]:
-    """Encode same-shape frames to J2K codestreams.  Where
+    """Encode same-shape frames to J2K codestreams.  HTJ2K: where
     fused_encode.plan_for admits the configuration (one precinct per band,
     no HT refinement), each chunk of frames runs the fused device HT encode
     (DC shift, RCT/ICT, DWT, block extraction and quantization, HT cleanup
     fields, bit packing, pool compaction) and the host serializes and
-    assembles packets in C++; otherwise the device transforms and the host
-    codes blocks and packets per frame.  `device` is where the device work
-    runs; "cuda" without a card raises.  Counters: enc.fused_chunks,
+    assembles packets in C++.  Part-1 (high_throughput=False, lossless):
+    where ebcot_fused.plan_for admits it, backend "device" or "auto" (path
+    A) runs the device EBCOT encode up to the MQ segment pool, backend
+    "hybrid" (path B) up to the decision streams, which the native MQ coder
+    codes; the Python Tier-2 assembles packets.  Otherwise, and for backend
+    "native" (path C), the device transforms and the host codes blocks and
+    packets per frame.  `device` is where the device work runs; "cuda"
+    without a card raises.  Counters: enc.fused_chunks,
+    enc.ebcot_device_chunks, enc.ebcot_hybrid_chunks,
     enc.host_entropy_frames."""
     opts = opts or default_options()
     dev = transforms.resolve_device(device)
@@ -466,12 +535,21 @@ def encode_batch(images: Sequence[np.ndarray],
     # frames ship in their narrow dtype; the cast to int32 runs on device
     batch = np.stack([np.stack(_image_components(im)) for im in images])
     n_frames, c, h, w = batch.shape
-    plan = None
-    if not effective_ht_refinement(opts):
+    plan = eplan = None
+    if opts.high_throughput and not effective_ht_refinement(opts):
         plan = fused_encode.plan_for(header, tile, lossy=not opts.lossless)
+    if not opts.high_throughput and opts.backend != "native":
+        eplan = ebcot_fused.plan_for(header, tile)
+        if eplan is None and opts.backend != "auto":
+            raise _not_ported(f"backend {opts.backend!r} on this code-block "
+                              "and precinct geometry", "6")
     if plan is not None:
         out = _encode_batch_fused(batch, header, tile, plan, opts, precision,
                                   signed, nl0, use_mct, main, kind, dev)
+    elif eplan is not None:
+        out = _encode_batch_ebcot(batch, header, tile, eplan, opts,
+                                  precision, signed, nl0, use_mct, main, dev,
+                                  hybrid=opts.backend == "hybrid")
     else:
         counters.add("enc.host_entropy_frames", n_frames)
         chunk = _chunk_frames(n_frames, c * h * w)

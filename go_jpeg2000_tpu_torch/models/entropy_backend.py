@@ -1,9 +1,9 @@
-"""Entropy backend dispatch: the native (C++) HT batch coder.
+"""Entropy backend dispatch: the native (C++) HT and EBCOT batch coders.
 
 Port of go_jpeg2000_tpu/models/entropy_backend.py.  The port requires the
-native library: where the JAX package falls back to its Python HT oracle
-(ops/ht.py), this module raises.  The oracle and EBCOT block coding are not
-ported yet (ROADMAP Queue 1 items 1 and 6).
+native library: where the JAX package falls back to its Python oracles
+(ops/ht.py, ops/t1.py), this module raises.  The Python oracles are not
+ported as coders (ROADMAP Queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -28,15 +28,18 @@ def _energy(coeffs) -> float:
 
 
 def encode_blocks_batch(jobs: Sequence[Tuple], ht_refinement: bool = False,
-                        ht_require_exact: bool = True
+                        ht_require_exact: bool = True,
+                        exact_rates: bool = True
                         ) -> List[t1.T1EncodeResult]:
-    """jobs: (coeffs int32 [h,w], band_name, cb_style, mb) per block, all
-    HT code-blocks."""
+    """jobs: (coeffs int32 [h,w], band_name, cb_style, mb) per block, all HT
+    or all EBCOT code-blocks.  exact_rates=False lets the EBCOT coder report
+    monotone upper bounds of the pass rates instead of the exact D.4.1
+    truncation lengths (nothing reads them with one layer and no budget)."""
     require_native()
     if jobs and not (jobs[0][2] & mk.CBSTYLE_HT):
-        raise NotImplementedError(
-            "EBCOT (Part 1) block coding is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+        sty_extra = 0 if exact_rates else loader.STY_FAST_RATES
+        return loader.encode_blocks([(j[0], j[1], j[2] | sty_extra)
+                                     for j in jobs])
     out = []
     if not ht_refinement:
         res = loader.ht_encode_blocks([j[0] for j in jobs])
@@ -65,3 +68,11 @@ def encode_blocks_batch(jobs: Sequence[Tuple], ht_refinement: bool = False,
         ]
         out.append(t1.T1EncodeResult(data, numbps, passes, [lc, lref]))
     return out
+
+
+def decode_blocks_batch(jobs: Sequence[Tuple]) -> List[np.ndarray]:
+    """jobs: (data, w, h, numbps, num_passes, band, cb_style,
+    segment_lengths) per block, all EBCOT code-blocks: the native T1
+    decoder, threaded across blocks."""
+    require_native()
+    return loader.decode_blocks(jobs)

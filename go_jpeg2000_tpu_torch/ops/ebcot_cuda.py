@@ -1,0 +1,268 @@
+"""Hand-written CUDA kernels of the device EBCOT encode (csrc/ebcot_enc.cu).
+
+The port's counterpart of the JAX package's device EBCOT program:
+
+  decision_slots -> ebcot_decision_slots, replaces ebcot_device.decision_slots
+  compact_rows   -> ebcot_compact_rows, replaces mq_device.compact_rows then
+                    pool_rows on the decision rows
+  mq_encode      -> ebcot_mq_encode, replaces mq_device.mq_encode_scan and
+                    the compact_rows(drop_first) of its staging rows
+  pool_rows      -> ebcot_pool_rows, replaces mq_device.pool_rows on the MQ
+                    segment rows
+
+A CPU tensor goes to the plain torch version (ops/ebcot_device.py,
+ops/mq_device.py).  A CUDA tensor goes to the kernel, or the call raises:
+there is no fallback, and a failed build or launch is an error.  The
+library is built by ops/cuda_build.py on first use, with the port's other
+CUDA sources.
+
+Layouts shared by the kernels and the plain versions: the decisions of all
+blocks in one pool, block b's at off[b] (the exclusive scan of ndec); the
+MQ segment rows in one buffer, block b's row at 3 * off[b] + 3 * b with
+room for 3 * ndec[b] + 3 bytes (a decision commits at most 3 bytes, the
+flush at most 3, the sentinel commit is not stored); the segments in one
+pool at the exclusive scan of their lengths.
+
+Counts: LAUNCHES[name] goes up by one each time a wrapper launches its
+kernel, and only there.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import cuda_build, ebcot_device, mq_device
+
+LAUNCHES: Dict[str, int] = {"ebcot_decision_slots": 0,
+                            "ebcot_compact_rows": 0, "ebcot_mq_encode": 0,
+                            "ebcot_pool_rows": 0}
+# the decision kernel's plane limit (magnitudes shifted by up to p + 2 bits
+# in int32): plans have at most max_mn - 2 = 29 planes
+MAX_PLANES = 29
+MAX_SMEM_BYTES = 232448
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and bind csrc/ebcot_enc.cu."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = cuda_build.load("ebcot_enc")
+        if (lib.ebcot_slots_per_column() != ebcot_device.SLOTS_PER_COLUMN
+                or lib.ebcot_max_planes() != MAX_PLANES):
+            raise RuntimeError("csrc/ebcot_enc.cu and ops/ebcot_cuda.py "
+                               "disagree on the slot layout or plane limit")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        sigs = {"ebcot_decision_slots": [p, p, p, p, i, i, i, i, p, p],
+                "ebcot_compact_count": [p, i, ll, p, p, p, p],
+                "ebcot_compact_write": [p, i, ll, p, p, p],
+                "ebcot_mq_encode": [p, p, p, i, p, p, p],
+                "ebcot_pool_rows": [p, p, p, i, p, p, p, p]}
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = args
+        _lib = lib
+        return _lib
+
+
+def _call(symbol: str, device: torch.device, *args) -> None:
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, symbol)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
+
+
+def _check(t: torch.Tensor, what: str, dtype: torch.dtype, dim: int,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{what}: expected a tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous {dim}-d {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def decision_slots(mags: torch.Tensor, signs: torch.Tensor,
+                   band_class: torch.Tensor, valid: torch.Tensor,
+                   max_planes: int) -> torch.Tensor:
+    """Dense decision slots uint8 [B, max_planes * slots_per_plane(H, W)]
+    of int32 mags and signs [B, H, W], band classes int32 [B] and a bool
+    valid mask [B, H, W]; ebcot_device.decision_slots."""
+    if not 0 <= max_planes <= MAX_PLANES:
+        raise ValueError(f"decision_slots: {max_planes} bitplanes, the "
+                         f"kernel takes at most {MAX_PLANES}")
+    if mags.device.type == "cpu":
+        return ebcot_device.decision_slots(mags, signs, band_class, valid,
+                                           max_planes)
+    name = "ebcot_decision_slots"
+    dev = mags.device
+    _check(mags, name, torch.int32, 3, dev)
+    _check(signs, name, torch.int32, 3, dev)
+    _check(valid, name, torch.bool, 3, dev)
+    _check(band_class, name, torch.int32, 1, dev)
+    nb, h, w = mags.shape
+    smem = 3 * (h + 2) * (w + 2) + (h // 4) * w
+    if (h % 4 or signs.shape != mags.shape or valid.shape != mags.shape
+            or band_class.shape != (nb,) or smem > MAX_SMEM_BYTES):
+        raise ValueError(f"{name}: blocks {tuple(mags.shape)} not supported "
+                         "(height a multiple of 4, state in shared memory)")
+    t = max_planes * ebcot_device.slots_per_plane(h, w)
+    slots = torch.empty((nb, t), dtype=torch.uint8, device=dev)
+    if nb and t:
+        _call(name, dev, mags.data_ptr(), signs.data_ptr(), valid.data_ptr(),
+              band_class.data_ptr(), nb, h, w, max_planes, slots.data_ptr())
+        LAUNCHES[name] += 1
+    return slots
+
+
+def compact_rows_plain(slots: torch.Tensor):
+    """The plain version of compact_rows: mq_device.compact_rows, then
+    mq_device.pool_rows, on the slots' device."""
+    sv = slots != ebcot_device.EMPTY
+    ndec = sv.sum(dim=1, dtype=torch.int64)
+    largest = int(ndec.max()) if ndec.numel() else 0
+    aligned = mq_device.compact_rows(slots, sv, largest)
+    pool = mq_device.pool_rows(aligned, ndec, int(ndec.sum()))
+    return pool, ndec.to(torch.int32), torch.cumsum(ndec, 0) - ndec, largest
+
+
+def compact_rows(slots: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Each row's non-0xFF slots, in order, concatenated: (decision pool
+    uint8 [sum ndec], ndec int32 [B], offsets int64 [B] (the exclusive scan
+    of ndec), the largest ndec).  The pool is sized exactly from the count
+    and scan on the card (one small device-to-host copy)."""
+    if slots.device.type == "cpu":
+        return compact_rows_plain(slots)
+    name = "ebcot_compact_rows"
+    dev = slots.device
+    _check(slots, name, torch.uint8, 2, dev)
+    nb, t = slots.shape
+    ndec = torch.zeros(nb, dtype=torch.int32, device=dev)
+    off = torch.zeros(nb, dtype=torch.int64, device=dev)
+    if not nb or not t:
+        return (torch.empty(0, dtype=torch.uint8, device=dev), ndec, off, 0)
+    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    _call("ebcot_compact_count", dev, slots.data_ptr(), nb, t,
+          ndec.data_ptr(), off.data_ptr(), stats.data_ptr())
+    total, largest = (int(v) for v in stats.cpu())
+    pool = torch.empty(total, dtype=torch.uint8, device=dev)
+    _call("ebcot_compact_write", dev, slots.data_ptr(), nb, t, off.data_ptr(),
+          pool.data_ptr())
+    LAUNCHES[name] += 1
+    return pool, ndec, off, largest
+
+
+def row_bytes(ndec: torch.Tensor) -> int:
+    """Length of the MQ segment row buffer for these decision counts."""
+    return 3 * int(ndec.to(torch.int64).sum()) + 3 * ndec.numel()
+
+
+def _row_starts(off: torch.Tensor) -> torch.Tensor:
+    return 3 * off + 3 * torch.arange(off.numel(), device=off.device)
+
+
+def mq_encode_plain(pool, ndec, off, largest):
+    """The plain version of mq_encode: decision rows aligned to UNROLL, the
+    lockstep scan, the staging rows compacted (sentinel dropped) and laid
+    out as the kernel's row buffer, on the pool's device."""
+    nb = ndec.numel()
+    dev = pool.device
+    ndec64 = ndec.to(torch.int64)
+    U = mq_device.UNROLL
+    t_cap = max(U, -(-largest // U) * U)
+    local = torch.arange(t_cap, device=dev).expand(nb, t_cap)
+    inside = local < ndec64.view(nb, 1)
+    aligned = torch.full((nb, t_cap), ebcot_device.EMPTY, dtype=torch.uint8,
+                         device=dev)
+    aligned[inside] = pool[(off.view(nb, 1) + local)[inside]]
+    xs_tm = aligned.t().reshape(t_cap // U, U, nb)
+    sb, sv, lens = mq_device.mq_encode_scan(xs_tm, ndec64)
+    width = 3 * t_cap + 3
+    seg = mq_device.compact_rows(sb, sv, width, drop_first=True)
+    rows = torch.zeros(row_bytes(ndec), dtype=torch.uint8, device=dev)
+    cols = torch.arange(width, device=dev).expand(nb, width)
+    used = cols < lens.to(torch.int64).view(nb, 1)
+    rows[(_row_starts(off).view(nb, 1) + cols)[used]] = seg[used]
+    return rows, lens
+
+
+def mq_encode(pool: torch.Tensor, ndec: torch.Tensor, off: torch.Tensor,
+              largest: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MQ-code every block's decision stream (compact_rows' outputs):
+    (segment row buffer uint8 [row_bytes(ndec)], segment lengths int32
+    [B]).  A segment keeps its trailing 0xFF; a block without decisions
+    has length 0."""
+    if pool.device.type == "cpu":
+        return mq_encode_plain(pool, ndec, off, largest)
+    name = "ebcot_mq_encode"
+    dev = pool.device
+    _check(pool, name, torch.uint8, 1, dev)
+    _check(ndec, name, torch.int32, 1, dev)
+    _check(off, name, torch.int64, 1, dev)
+    nb = ndec.numel()
+    if off.numel() != nb:
+        raise ValueError(f"{name}: {off.numel()} offsets for {nb} blocks")
+    rows = torch.empty(row_bytes(ndec), dtype=torch.uint8, device=dev)
+    lens = torch.empty(nb, dtype=torch.int32, device=dev)
+    if nb:
+        _call(name, dev, pool.data_ptr(), off.data_ptr(), ndec.data_ptr(),
+              nb, rows.data_ptr(), lens.data_ptr())
+        LAUNCHES[name] += 1
+    return rows, lens
+
+
+def pool_rows_plain(rows: torch.Tensor, off: torch.Tensor,
+                    lens: torch.Tensor):
+    """The plain version of pool_rows, on the rows' device."""
+    nb = lens.numel()
+    lens64 = lens.to(torch.int64)
+    width = int(lens64.max()) if nb else 0
+    cols = torch.arange(width, device=rows.device).expand(nb, width)
+    used = cols < lens64.view(nb, 1)
+    seg = rows[(_row_starts(off).view(nb, 1) + cols)[used]]
+    pool = torch.zeros(rows.numel(), dtype=torch.uint8, device=rows.device)
+    pool[:seg.numel()] = seg
+    return pool, lens64.sum().view(1)
+
+
+def pool_rows(rows: torch.Tensor, off: torch.Tensor, lens: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The segments of the row buffer in one pool, block b's at the
+    exclusive scan of lens: (pool uint8, allocated at the row buffer's
+    length, of which the first `total` bytes are written; total int64 [1]
+    on the device)."""
+    if rows.device.type == "cpu":
+        return pool_rows_plain(rows, off, lens)
+    name = "ebcot_pool_rows"
+    dev = rows.device
+    _check(rows, name, torch.uint8, 1, dev)
+    _check(off, name, torch.int64, 1, dev)
+    _check(lens, name, torch.int32, 1, dev)
+    nb = lens.numel()
+    if off.numel() != nb:
+        raise ValueError(f"{name}: {off.numel()} offsets for {nb} rows")
+    pool = torch.empty(rows.numel(), dtype=torch.uint8, device=dev)
+    pool_off = torch.empty(nb, dtype=torch.int64, device=dev)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    if nb:
+        _call(name, dev, rows.data_ptr(), off.data_ptr(), lens.data_ptr(),
+              nb, pool_off.data_ptr(), total.data_ptr(), pool.data_ptr())
+        LAUNCHES[name] += 1
+    return pool, total

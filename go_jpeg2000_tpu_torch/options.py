@@ -189,10 +189,14 @@ class Options:
     # Progression order changes (POC): list of
     # (res_start, comp_start, layer_end, res_end, comp_end, order) tuples.
     progression_changes: Optional[Sequence[Tuple[int, int, int, int, int, int]]] = None
-    # Entropy backend, same field as the JAX package's Options.  This port
-    # codes HT blocks with the native C++ coder only: "auto" and "native"
-    # are accepted, the other values ("python", "device", "hybrid") raise
-    # NotImplementedError (ROADMAP Queue 1 items 6 and 8).
+    # Entropy backend, same field as the JAX package's Options.  HTJ2K:
+    # "auto" and "native" (the fused device HT encode where it applies,
+    # else the native C++ HT coder).  Part-1 EBCOT: "device" and "auto"
+    # (path A: decisions, MQ coder and segment pool on the device),
+    # "hybrid" (path B: decisions on the device, the native MQ coder on the
+    # host) and "native" (path C: the native C++ EBCOT coder on the host).
+    # Other values ("python", and "device"/"hybrid" for HTJ2K) raise
+    # NotImplementedError (ROADMAP Queue 1 item 6).
     backend: str = "auto"
 
 

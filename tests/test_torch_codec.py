@@ -303,7 +303,8 @@ def test_options_and_config_from_reference():
 @pytest.mark.parametrize("override", [
     dict(lossless=False, num_layers=2),
     dict(lossless=False, compression_ratio=10.0),
-    dict(lossless=False, ht_refinement=True), dict(high_throughput=False),
+    dict(lossless=False, ht_refinement=True),
+    dict(high_throughput=False, lossless=False),
     dict(format=tp.Format.JP2), dict(tile_size=(32, 32)),
     dict(num_layers=2), dict(compression_ratio=10.0),
     dict(enable_sop=True), dict(enable_ppm=True), dict(backend="python")])

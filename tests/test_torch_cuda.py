@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (go_jpeg2000_tpu_torch/csrc/dwt53.cu,
-dwt97.cu, ht_enc.cu, ht_dec.cu) against their plain torch versions, on the
-card.
+dwt97.cu, ht_enc.cu, ht_dec.cu, ebcot_enc.cu) against their plain torch
+versions, on the card.
 Needs a CUDA device and nvcc; skips without a card.  Imports neither jax
 nor the JAX package, so it runs where only torch is installed:
 
@@ -10,16 +10,22 @@ Tolerance: exact equality, for 9/7 too (the kernel rounds the plain
 version's float32 ops in the same order, without FMA contraction), and for
 every integer output of the HT encode kernels; their distortion, a sum of
 float32 squares taken in another order, within a relative 1e-5.  The HT
-decode kernels' outputs are equal bit for bit, float32 leaves too."""
+decode kernels' outputs are equal bit for bit, float32 leaves too.  The
+EBCOT kernels' slots, decision pools, MQ segments and lengths are equal
+exactly (MQ segments also to the native coder's)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import go_jpeg2000_tpu_torch as tp
-from go_jpeg2000_tpu_torch.models import (decoder, encoder, fused_encode,
-                                          transforms)
-from go_jpeg2000_tpu_torch.ops import (dwt, dwt_cuda, ht_dec, ht_dec_cuda,
-                                       ht_enc, ht_enc_cuda)
+from go_jpeg2000_tpu_torch.models import (decoder, ebcot_fused, encoder,
+                                          fused_encode, transforms)
+from go_jpeg2000_tpu_torch.native import loader
+from go_jpeg2000_tpu_torch.ops import (dwt, dwt_cuda, ebcot_cuda,
+                                       ebcot_device, ht_dec, ht_dec_cuda,
+                                       ht_enc, ht_enc_cuda, mq_device)
 from go_jpeg2000_tpu_torch.tcd import geometry as geo
 
 BANDS = ("LL", "HL", "LH", "HH")
@@ -258,3 +264,88 @@ def test_decode_on_card_matches_cpu(cuda, lossless):
     assert all(np.array_equal(d, c) for d, c in zip(on_card, on_cpu))
     if lossless:
         assert all(np.array_equal(d, f) for d, f in zip(on_card, frames))
+
+
+EBCOT_OPTS = tp.Options(format=tp.Format.J2K, lossless=True,
+                        high_throughput=False, num_resolutions=6)
+
+
+def _ebcot_inputs(frames, dev):
+    """The decision kernel's inputs of the frames' Part-1 block batch."""
+    header = encoder.build_header(frames[0], EBCOT_OPTS)
+    nc = header.num_components
+    prec = header.components[0].precision
+    encoder._apply_comp_quants(header, EBCOT_OPTS, nc, prec)
+    tile = geo.build_tile(header, 0)
+    plan = ebcot_fused.plan_for(header, tile)
+    batch = np.stack([np.stack(encoder._image_components(f))
+                      for f in frames])
+    pyr = transforms.forward_pyramid(transforms.upload(batch, dev), 5,
+                                     dwt.REV53, nc >= 3, prec, False, 0, 0)
+    blocks = fused_encode.extract_blocks(pyr, plan, len(frames), 5)
+    return plan, ebcot_fused.block_inputs(blocks, plan, len(frames))
+
+
+def _split(pool, lens):
+    ends = np.cumsum(lens.cpu().numpy().astype(np.int64))
+    data = pool.cpu().numpy()
+    return [data[e - n:e].tobytes() for e, n in zip(ends, lens.cpu().numpy())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HT_CASES)
+def test_ebcot_kernels_match_plain(cuda, case):
+    plan, (mags, signs, classes, valid) = _ebcot_inputs(_case_frames(case),
+                                                        cuda)
+    planes = ebcot_fused.max_planes(plan)
+    before = dict(ebcot_cuda.LAUNCHES)
+    slots = ebcot_cuda.decision_slots(mags, signs, classes, valid, planes)
+    assert torch.equal(slots, ebcot_device.decision_slots(
+        mags, signs, classes, valid, planes))
+    pool, ndec, off, largest = ebcot_cuda.compact_rows(slots)
+    ref = ebcot_cuda.compact_rows_plain(slots)
+    for g, r in zip((pool, ndec, off), ref[:3]):
+        assert torch.equal(g, r)
+    assert largest == ref[3]
+    rows, lens = ebcot_cuda.mq_encode(pool, ndec, off, largest)
+    segs, total = ebcot_cuda.pool_rows(rows, off, lens)
+    psegs, ptotal = ebcot_cuda.pool_rows_plain(rows, off, lens)
+    assert torch.equal(total, ptotal.to(cuda))
+    assert torch.equal(segs[:int(total)], psegs[:int(ptotal)])
+    mine = _split(segs[:int(total)], lens)
+    streams = _split(pool, ndec)
+    stripped = [s[:-1] if s.endswith(b"\xff") else s for s in mine]
+    assert stripped == loader.mq_encode_streams(streams)
+    # the plain lockstep chain on the three largest blocks of at most 3000
+    # decisions (it launches tens of ops per decision step)
+    counts = ndec.cpu().numpy()
+    pick = [int(i) for i in np.argsort(np.where(counts <= 3000, counts, -1)
+                                       )[-3:]]
+    assert [stripped[i] for i in pick] == mq_device.encode_streams(
+        [streams[i] for i in pick])
+    torch.cuda.synchronize()
+    for k in ebcot_cuda.LAUNCHES:
+        assert ebcot_cuda.LAUNCHES[k] == before[k] + 1, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,counter", [
+    ("device", "enc.ebcot_device_chunks"),
+    ("hybrid", "enc.ebcot_hybrid_chunks"),
+    ("native", "enc.host_entropy_frames")])
+def test_ebcot_codec_on_card_matches_cpu(cuda, backend, counter):
+    rng = np.random.RandomState(4)
+    frames = [rng.randint(0, 256, (64, 96, 3)).astype(np.uint8)
+              for _ in range(2)]
+    opts = dataclasses.replace(EBCOT_OPTS, backend=backend)
+    ebcot_cuda.reset_counts()
+    tp.counters.reset()
+    on_card = tp.encode_batch(frames, opts, device=cuda)
+    decoded = tp.decode_batch(on_card, device=cuda)
+    snap = tp.counters.snapshot()
+    assert snap.get(counter, 0) > 0 and snap["dec.ebcot_frames"] == 2
+    if backend != "native":
+        assert ebcot_cuda.LAUNCHES["ebcot_decision_slots"] > 0
+    assert on_card == tp.encode_batch(
+        frames, dataclasses.replace(opts, backend="native"), device="cpu")
+    assert all(np.array_equal(d, f) for d, f in zip(decoded, frames))
