@@ -7,9 +7,9 @@ Needs one CUDA device, nvcc and g++; builds every kernel it runs from the
 sources in this checkout.  Phases, each of which raises on failure:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
-2. build: the CUDA sources dwt53.cu, dwt97.cu, ht_enc.cu, ht_dec.cu and
-   ebcot_enc.cu (one nvcc per source, run in parallel) and the native coder
-   (g++, from the port's own copy of j2k_native.cpp);
+2. build: the CUDA sources dwt53.cu, dwt97.cu, ht_enc.cu, ht_dec.cu,
+   ebcot_enc.cu and band_stats.cu (one nvcc per source, run in parallel)
+   and the native coder (g++, from the port's own copy of j2k_native.cpp);
 3. each DWT kernel against its plain torch version on the card: the 5/3
    pair at every level shape of a [32, 512, 512] batch down to 16x16, the
    9/7 pair at every level shape of [16, 512, 512] down to 16x16, both at
@@ -70,9 +70,26 @@ sources in this checkout.  Phases, each of which raises on failure:
    and the assembly kernel; then path B ("hybrid") and path C ("native")
    must give the same bytes.  Encode Mpix/s of A, B and C and decode
    Mpix/s, the stages of a path A encode and of a decode, and the idle
-   shares.
+   shares;
+10. the tile-sharded pipeline (go_jpeg2000_tpu_torch.parallel) at BASELINE
+   config 4's full width on a grid of one: first the four DWT level
+   kernels in their halo form on sp = 2 and 4 row shards of the level-1
+   batch [768, 512, 512] and on batches whose shards have 2 rows, with the
+   halos the exchange would build, equal bit for bit to the unsharded
+   kernels (NCCL with two or more ranks cannot run on one card); then
+   encode_sharded and decode_sharded of an 8192x8192 16-bit RGB image
+   (bench.py's smooth noise) in 512x512 tiles, 5 resolutions, HTJ2K
+   lossless (round trip exact), and of the same image >> 8 lossy at
+   quality 85 (PSNR), each through the device HT entropy and decode for
+   all 256 tiles, the DWT kernels with no plain level and band_stats;
+   band_stats against its plain version on the lossless pyramid (counts
+   equal, sums within a relative 1e-5); wall Mpix/s, the encode's and the
+   decode's stages (medians of 3) with peak device bytes per sample, and
+   the idle shares; then at 2048x2048 (16 tiles, all four tile-origin
+   classes) the card's codestreams equal the CPU run's for HT lossless, HT
+   lossy (decodes equal too) and Part-1 with two layers and a 6:1 budget.
 
-Each of the six main paths runs with the launch counts set to 0 just
+Each of the eight main paths runs with the launch counts set to 0 just
 before it and read just after.  The line before the last is a JSON summary of the
 kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the card's peak rate for their type; the last line
@@ -96,7 +113,8 @@ SRC = {"dwt53": "go_jpeg2000_tpu_torch/csrc/dwt53.cu",
        "dwt97": "go_jpeg2000_tpu_torch/csrc/dwt97.cu",
        "ht_enc": "go_jpeg2000_tpu_torch/csrc/ht_enc.cu",
        "ht_dec": "go_jpeg2000_tpu_torch/csrc/ht_dec.cu",
-       "ebcot_enc": "go_jpeg2000_tpu_torch/csrc/ebcot_enc.cu"}
+       "ebcot_enc": "go_jpeg2000_tpu_torch/csrc/ebcot_enc.cu",
+       "band_stats": "go_jpeg2000_tpu_torch/csrc/band_stats.cu"}
 # kernel -> (the TPU kernel it replaces, its source's key in SRC)
 REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
                                 "dwt53"),
@@ -124,7 +142,9 @@ REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
             "ebcot_mq_encode": ("go_jpeg2000_tpu/ops/mq_device.py:165",
                                 "ebcot_enc"),
             "ebcot_pool_rows": ("go_jpeg2000_tpu/ops/mq_device.py:220",
-                                "ebcot_enc")}
+                                "ebcot_enc"),
+            "band_stats": ("go_jpeg2000_tpu/parallel/sharded.py:300",
+                           "band_stats")}
 HT_KERNELS = ("ht_extract_blocks", "ht_cleanup_fields", "ht_pack_bits",
               "ht_compact_pool")
 HT_DEC_KERNELS = ("ht_magsgn_decode", "ht_blocks_to_pyramid")
@@ -132,6 +152,12 @@ EBCOT_KERNELS = ("ebcot_decision_slots", "ebcot_compact_rows",
                  "ebcot_mq_encode", "ebcot_pool_rows")
 N_EBCOT_GRAY = 8
 N_EBCOT_RGB = 4
+# BASELINE config 4: an 8192x8192 16-bit RGB image in 512x512 tiles, 5
+# resolutions; byte identity with the CPU run at 2048x2048
+C4_SIZE = 8192
+C4_TILE = 512
+C4_RES = 5
+C4_CHECK = 2048
 # int64 fields per band in the block tables of ht_extract_blocks and
 # ht_blocks_to_pyramid
 BAND_TABLE_FIELDS = 11
@@ -140,6 +166,8 @@ BAND_TABLE_FIELDS = 11
 # counted as two); int32 64 lanes an SM, 132 SMs at 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
+FP64_OPS_PER_S = 34e12
 INT32_OPS_PER_S = 16.7e12
 # operations per element, counted from the kernel sources: per sample for
 # the DWT levels (float32 for 9/7, int32 for 5/3) and for block extraction
@@ -265,7 +293,8 @@ KERNEL_SYMBOLS = {"ht_extract_blocks": ("extract_kernel",),
                                          "compact_write_kernel"),
                   "ebcot_mq_encode": ("mq_kernel",),
                   "ebcot_pool_rows": ("lens_scan_kernel",
-                                      "pool_copy_kernel")}
+                                      "pool_copy_kernel"),
+                  "band_stats": ("stats_kernel",)}
 
 
 def device_ms(fn, name, reps=20):
@@ -1165,14 +1194,429 @@ def ebcot_wall(tp, frames, streams, dev, card, label):
           f"3): {', '.join(parts)} [{card}]", flush=True)
 
 
+def config4_image(size, seed=1):
+    """bench.py's sharded_config4 image at `size`: smooth 16-bit RGB
+    noise."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, 1 << 16, size=(size, size, 3)).astype(np.float32)
+    for ax in (0, 1):
+        a = (a + np.roll(a, 1, axis=ax) + np.roll(a, -1, axis=ax)) / 3
+    return a.astype(np.uint16)
+
+
+def config4_opts(tp, lossless, **kw):
+    """BASELINE config 4's options: J2K, HTJ2K, 5 resolutions, 512x512
+    tiles; quality 85 when lossy."""
+    kw.setdefault("high_throughput", True)
+    return tp.Options(format=tp.Format.J2K, lossless=lossless, quality=85,
+                      num_resolutions=C4_RES, tile_size=(C4_TILE, C4_TILE),
+                      **kw)
+
+
+def check_halo_kernels(dwt, dwt_cuda, psh, dev, card):
+    """Phase 10a: the four level kernels in their halo form on sp = 2 and 4
+    row shards of the config-4 level-1 batch [768, 512, 512], and on
+    batches whose shards have 2 rows, with the halos the exchange would
+    build, against the unsharded kernels bit for bit; the halo form's time
+    at sp = 4 beside the unsharded kernel's."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    err, times = {}, {}
+    n = 3 * (C4_SIZE // C4_TILE) ** 2
+    for kind in (dwt.REV53, dwt.IRR97):
+        lib = "dwt53" if kind == dwt.REV53 else "dwt97"
+        fwd = getattr(dwt_cuda, f"forward_2d_{kind}")
+        inv = getattr(dwt_cuda, f"inverse_2d_{kind}")
+        for shape, sps in (((n, C4_TILE, C4_TILE), (2, 4)),
+                           ((n, 8, C4_TILE), (4,)), ((n, 4, C4_TILE), (2,))):
+            x = torch.randint(-(1 << 17), 1 << 17, shape, generator=gen,
+                              device=dev, dtype=torch.int32)
+            if kind == dwt.IRR97:
+                x = x.to(torch.float32) / 256
+            ref = fwd(x)
+            ref_inv = inv(ref)
+            for sp in sps:
+                shards = [t.contiguous() for t in torch.chunk(x, sp, dim=-2)]
+                got = psh.forward_level_split(shards, kind)
+                e_f = max((torch.cat([g[k] for g in got], dim=-2) - ref[k])
+                          .abs().max().item() for k in ref)
+                split = [{k: v.contiguous() for k, v in zip(ref, parts)}
+                         for parts in zip(*(torch.chunk(b, sp, dim=-2)
+                                            for b in ref.values()))]
+                back = torch.cat(psh.inverse_level_split(split, kind), dim=-2)
+                e_i = (back - ref_inv).abs().max().item()
+                torch.cuda.synchronize()
+                print(f"halo check {lib} {shape} sp={sp} (shards of "
+                      f"{shape[1] // sp} rows): fwd max|diff| {e_f}, inv "
+                      f"max|diff| {e_i} against the unsharded kernels",
+                      flush=True)
+                if e_f or e_i:
+                    raise AssertionError(f"{lib} halo kernels disagree with "
+                                         f"the unsharded ones at {shape}, "
+                                         f"sp={sp}")
+                for k, e in ((f"{lib}_fwd_level", e_f),
+                             (f"{lib}_inv_level", e_i)):
+                    err[k] = max(err.get(k, 0), e)
+                if shape[1] == C4_TILE and sp == 4:
+                    times[lib] = (
+                        cuda_ms(lambda: psh.forward_level_split(shards, kind),
+                                reps=5),
+                        cuda_ms(lambda: fwd(x), reps=5),
+                        cuda_ms(lambda: psh.forward_level_split(
+                            shards, kind, dwt.forward_2d_halo), reps=2,
+                            warmup=1),
+                        cuda_ms(lambda: psh.inverse_level_split(split, kind),
+                                reps=5),
+                        cuda_ms(lambda: inv(ref), reps=5),
+                        cuda_ms(lambda: psh.inverse_level_split(
+                            split, kind, dwt.inverse_2d_halo), reps=2,
+                            warmup=1),
+                        # a level reads and writes each 4-byte sample once
+                        bound(8 * x.numel(), 0, 1)[0])
+            del x, ref, ref_inv
+    for lib, (hf, uf, pf, hi, ui, pi, lim) in times.items():
+        print(f"time {lib} halo form, 4 row shards of [{n},{C4_TILE},"
+              f"{C4_TILE}] (4 launches and the halo rows): forward {hf:.4f} "
+              f"ms (unsharded kernel {uf:.4f} ms, plain halo lifting "
+              f"{pf:.4f} ms), inverse {hi:.4f} ms (unsharded {ui:.4f} ms, "
+              f"plain {pi:.4f} ms), bound {lim:.4f} ms (bytes) [{card}]",
+              flush=True)
+    torch.cuda.empty_cache()
+    return err
+
+
+def check_band_stats(band_stats, leaves, card):
+    """Phase 10b: band_stats against its plain version on the config-4
+    lossless pyramid (counts exact, sums within a relative 1e-5) and its
+    time beside its bound."""
+    sums, counts = band_stats.band_stats(leaves)
+    ref_sums, ref_counts = band_stats.band_stats_plain(leaves)
+    torch.cuda.synchronize()
+    if not torch.equal(counts, ref_counts):
+        raise AssertionError("band_stats counts disagree with the plain "
+                             "version")
+    diff = (sums - ref_sums).abs()
+    rel = (diff / ref_sums.abs().clamp(min=1)).max().item()
+    if not rel <= 1e-5:
+        raise AssertionError(f"band_stats sums off by a relative {rel}")
+    samples = sum(leaf.numel() for leaf in leaves)
+    # reads each coefficient once, writes a sum and a count per leaf; a
+    # float64 multiply-add and a compare per coefficient
+    lim = bound(4 * samples + 16 * len(leaves), 3 * samples, FP64_OPS_PER_S)
+    ms = cuda_ms(lambda: band_stats.band_stats(leaves))
+    plain_ms = cuda_ms(lambda: band_stats.band_stats_plain(leaves), reps=3,
+                       warmup=1)
+    time_line("band_stats", ms, plain_ms, lim[0], lim[1],
+              device_ms(lambda: band_stats.band_stats(leaves), "band_stats"),
+              f"{len(leaves)} leaves, {samples} coefficients", card)
+    print(f"kernel check band_stats ({len(leaves)} leaves): counts equal, "
+          f"sums within a relative {rel:.3g} (max |diff| "
+          f"{diff.max().item():.6g})", flush=True)
+    return ({"band_stats": diff.max().item()},
+            {"band_stats": (ms, plain_ms) + lim})
+
+
+def sharded_counted_run(tp, kernels, run, label, dwt_lib, n_tiles):
+    """Run one config-4 path with every count set to 0 just before it; the
+    encode must take the device HT entropy and the decode the device HT
+    decode for every tile, every level the DWT kernels of dwt_lib, and the
+    band statistics their kernel.  Returns (result, launches)."""
+    dwt_cuda, ht_enc_cuda, ht_dec_cuda, band_stats = kernels
+    for k in kernels:
+        k.reset_counts()
+    tp.counters.reset()
+    result = run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
+                if k.startswith(dwt_lib)}
+    for k in (ht_enc_cuda, ht_dec_cuda, band_stats):
+        launches.update(k.LAUNCHES)
+    snap = tp.counters.snapshot()
+    paths = {k: snap.get(k, 0) for k in (
+        "enc.sharded_device_ht_tiles", "enc.sharded_host_entropy_tiles",
+        "dec.sharded_device_ht_tiles")}
+    plain = dwt_cuda.PLAIN_LEVELS
+    print(f"{label} launches {launches}, plain levels {plain}, {paths}",
+          flush=True)
+    if (min(launches.values()) <= 0 or plain != 0
+            or paths["enc.sharded_device_ht_tiles"] != n_tiles
+            or paths["enc.sharded_host_entropy_tiles"]
+            or paths["dec.sharded_device_ht_tiles"] != n_tiles):
+        raise AssertionError(f"the {label} did not run every tile, level "
+                             "and HT stage through the kernels")
+    return result, launches
+
+
+def sharded_path(tp, dev, label, img, opts):
+    """encode_sharded then decode_sharded of img on dev (a grid of one);
+    lossless must round-trip exactly.  Returns (codestream, decoded)."""
+    from go_jpeg2000_tpu_torch.parallel import decode_sharded, encode_sharded
+    data = encode_sharded(img, opts, device=dev)
+    out = decode_sharded(data, device=dev)
+    if out.shape != img.shape or out.dtype != img.dtype:
+        raise AssertionError(f"{label}: decoded {out.shape} {out.dtype}")
+    if opts.lossless and not np.array_equal(out, img):
+        raise AssertionError(f"{label}: round trip is not exact")
+    quality = ("round-trip exact" if opts.lossless else
+               f"PSNR {psnr(out, img):.3f} dB")
+    print(f"main path {label}: {img.shape} {img.dtype}, {len(data)} bytes "
+          f"({img.nbytes / len(data):.2f}:1), {quality}", flush=True)
+    return data, out
+
+
+def sharded_encode_stages(img, opts, dev):
+    """One config-4 encode in its stages, synchronised: (tile batch on the
+    host, upload, transform step, HT kernels, fetch and native Tier-2 s,
+    codestream bytes of the tiles, peak device bytes per sample)."""
+    from go_jpeg2000_tpu_torch.models import encoder, fused_encode, transforms
+    from go_jpeg2000_tpu_torch.ops import dwt
+    from go_jpeg2000_tpu_torch.parallel import sharded as psh
+    header = encoder.build_header(img, opts)
+    prec = header.components[0].precision
+    comps = encoder._image_components(img)
+    encoder._apply_comp_quants(header, opts, len(comps), prec)
+    levels = header.coding_style.num_decompositions
+    T, th, tw = psh._check_grid(header, levels, 1, "chip_smoke")
+    tiles = list(range(T))
+    kind = dwt.REV53 if opts.lossless else dwt.IRR97
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batch = psh.tile_batch(header, comps, tiles, th, 0)
+    t1 = time.perf_counter()
+    x = transforms.upload(batch, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    use_mct = bool(header.coding_style.mct) and len(comps) >= 3
+    pyr, _stats = psh.tile_transform_step(x, levels, use_mct, prec, False,
+                                          kind)
+    del x
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    dev_s = host_s = 0.0
+    nbytes = 0
+    per = psh.fused_chunk_tiles(len(comps), th, tw)
+    for plan, rep, pos in psh.ht_plans(header, tiles):
+        for s in range(0, len(pos), per):
+            sub = pos[s:s + per]
+            a = time.perf_counter()
+            out, totals = fused_encode.encode_pyramid(
+                psh.gather_tiles(pyr, sub), plan, len(sub), levels)
+            torch.cuda.synchronize()
+            b = time.perf_counter()
+            bodies = fused_encode.fetch_bodies(out, totals, len(sub), plan,
+                                               header, rep)
+            del out
+            dev_s += b - a
+            host_s += time.perf_counter() - b
+            nbytes += sum(map(len, bodies))
+    peak = torch.cuda.max_memory_allocated() - base
+    # least bytes of the device stages: the step reads the uploaded samples
+    # and writes the leaves; the HT kernels read the leaves and write the
+    # codestream's bytes
+    leaf_bytes = sum(4 * v.numel() for e in pyr for v in e.values())
+    bounds = (bound(batch.nbytes + leaf_bytes, 0, 1)[0],
+              bound(leaf_bytes + nbytes, 0, 1)[0])
+    return (t1 - t0, t2 - t1, t3 - t2, dev_s, host_s, nbytes,
+            peak / batch.size, bounds)
+
+
+def sharded_decode_stages(data, dev):
+    """One config-4 decode in its stages, synchronised: (native parse,
+    upload, MagSgn and assembly kernels with the scatter, inverse step,
+    download s, peak device bytes per sample)."""
+    from go_jpeg2000_tpu_torch.codestream.parser import Parser
+    from go_jpeg2000_tpu_torch.models import decoder, fused_encode
+    from go_jpeg2000_tpu_torch.ops import dwt
+    from go_jpeg2000_tpu_torch.parallel import sharded as psh
+    parser = Parser(data)
+    header = parser.read_header()
+    parts = {}
+    for tp_ in parser.read_all_tile_parts(header):
+        parts.setdefault(tp_.tile_index, []).append(tp_)
+    cs = header.coding_style
+    levels, n_comps = cs.num_decompositions, header.num_components
+    lossy = cs.transform == 0
+    prec = header.components[0].precision
+    T, th, tw = psh._check_grid(header, levels, 1, "chip_smoke")
+    tiles = list(range(T))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = psh.empty_leaves(T, n_comps, th, tw, levels, lossy, dev)
+    parse_s = up_s = dev_s = 0.0
+    parsed_bytes = 0
+    per = psh.decode_chunk_tiles(n_comps, th, tw)
+    for plan, rep, pos in psh.ht_plans(header, tiles):
+        geom = fused_encode.t2_geom(header, rep, plan)
+        for s in range(0, len(pos), per):
+            sub = pos[s:s + per]
+            a = time.perf_counter()
+            parsed = psh.parse_tiles(header, parts, data, plan, geom,
+                                     [tiles[i] for i in sub])
+            b = time.perf_counter()
+            parsed_bytes += sum(a_.nbytes for a_ in parsed)
+            up = decoder.upload_parsed(*parsed, dev)
+            torch.cuda.synchronize()
+            c = time.perf_counter()
+            psh.place_tiles(leaves, up, plan, sub, n_comps, levels, lossy)
+            del up
+            torch.cuda.synchronize()
+            parse_s += b - a
+            up_s += c - b
+            dev_s += time.perf_counter() - c
+    leaf_bytes = sum(4 * v.numel() for e in leaves for v in e.values())
+    a = time.perf_counter()
+    pix = psh.tile_inverse_step(leaves, bool(cs.mct) and n_comps >= 3, prec,
+                                False, dwt.IRR97 if lossy else dwt.REV53)
+    del leaves
+    torch.cuda.synchronize()
+    b = time.perf_counter()
+    pix.cpu()
+    c = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - base
+    # least bytes: the kernels read the parse and write the leaves; the
+    # inverse step reads the leaves and writes the pixels
+    bounds = (bound(parsed_bytes + leaf_bytes, 0, 1)[0],
+              bound(leaf_bytes + pix.numel() * pix.element_size(), 0, 1)[0])
+    return (parse_s, up_s, dev_s, b - a, c - b, peak / pix.numel(), bounds)
+
+
+def sharded_timing(tp, label, img, opts, data, dev, card, reps=3):
+    """Wall Mpix/s of encode_sharded and decode_sharded, the stages of
+    each (medians of reps) and the device idle share of one of each."""
+    from go_jpeg2000_tpu_torch.parallel import decode_sharded, encode_sharded
+    mpix = img.shape[0] * img.shape[1] / 1e6
+    enc_s, dec_s = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        encode_sharded(img, opts, device=dev)
+        t1 = time.perf_counter()
+        decode_sharded(data, device=dev)
+        enc_s.append(t1 - t0)
+        dec_s.append(time.perf_counter() - t1)
+    enc, dec = float(np.median(enc_s)), float(np.median(dec_s))
+    print(f"wall {label} {img.shape} (median of {reps}): encode "
+          f"{mpix / enc:.2f} Mpix/s ({enc * 1e3:.1f} ms), decode "
+          f"{mpix / dec:.2f} Mpix/s ({dec * 1e3:.1f} ms) [{card}]",
+          flush=True)
+    st = [sharded_encode_stages(img, opts, dev) for _ in range(reps)]
+    e = [float(np.median([x[i] for x in st])) * 1e3 for i in range(5)]
+    print(f"encode stages {label} (median of {reps}): tile batch on the host "
+          f"{e[0]:.2f} ms, upload {e[1]:.2f} ms, transform step (DWT "
+          f"kernels, band_stats) {e[2]:.2f} ms, HT kernels {e[3]:.2f} ms, "
+          f"fetch and native Tier-2 {e[4]:.2f} ms, {st[0][5]} tile bytes; "
+          f"peak device memory {st[0][6]:.1f} bytes/sample; bounds: "
+          f"transform step {st[0][7][0]:.4f} ms, HT kernels "
+          f"{st[0][7][1]:.4f} ms (bytes) [{card}]", flush=True)
+    st = [sharded_decode_stages(data, dev) for _ in range(reps)]
+    d = [float(np.median([x[i] for x in st])) * 1e3 for i in range(5)]
+    print(f"decode stages {label} (median of {reps}): native parse "
+          f"{d[0]:.2f} ms, upload {d[1]:.2f} ms, MagSgn and assembly "
+          f"kernels {d[2]:.2f} ms, inverse step {d[3]:.2f} ms, download "
+          f"{d[4]:.2f} ms; peak device memory {st[0][5]:.1f} bytes/sample; "
+          f"bounds: MagSgn and assembly {st[0][6][0]:.4f} ms, inverse step "
+          f"{st[0][6][1]:.4f} ms (bytes) [{card}]", flush=True)
+    for what, fn in (
+            ("encode", lambda: encode_sharded(img, opts, device=dev)),
+            ("decode", lambda: decode_sharded(data, device=dev))):
+        share = idle_share(fn)
+        if share is None:
+            print(f"device idle share {label} {what}: not measured (the "
+                  f"profiler recorded no device event)", flush=True)
+            continue
+        print(f"device idle share {label} {what}: {share[0]:.3f} (device "
+              f"busy {share[1]:.2f} ms of {share[2]:.2f} ms wall under "
+              f"torch.profiler) [{card}]", flush=True)
+
+
+def sharded_cpu_checks(tp, dev):
+    """Phase 10e: at C4_CHECK^2 (16 tiles, all four tile-origin classes)
+    the card's codestreams equal the port's CPU run for HT lossless, HT
+    lossy (and the decodes) and Part-1 with two layers and a 6:1 budget
+    (the distributed PCRD's path)."""
+    from go_jpeg2000_tpu_torch.parallel import decode_sharded, encode_sharded
+    img = config4_image(C4_CHECK, seed=2)
+    cases = [("HT lossless", img, config4_opts(tp, True)),
+             ("HT lossy", (img >> 8).astype(np.uint8),
+              config4_opts(tp, False)),
+             ("Part-1 2 layers 6:1", img,
+              config4_opts(tp, True, high_throughput=False, num_layers=2,
+                           compression_ratio=6.0))]
+    for label, im, opts in cases:
+        t0 = time.perf_counter()
+        on_card = encode_sharded(im, opts, device=dev)
+        t1 = time.perf_counter()
+        on_cpu = encode_sharded(im, opts, device="cpu")
+        t2 = time.perf_counter()
+        if on_card != on_cpu:
+            raise AssertionError(f"sharded {label}: CUDA and CPU codestreams "
+                                 "differ")
+        what = "codestreams byte-identical"
+        if opts.high_throughput:
+            if not np.array_equal(decode_sharded(on_card, device=dev),
+                                  decode_sharded(on_card, device="cpu")):
+                raise AssertionError(f"sharded {label}: CUDA and CPU decodes "
+                                     "differ")
+            what += ", decodes equal"
+        print(f"sharded {label} {im.shape}: CUDA and CPU {what} "
+              f"({len(on_card)} bytes; card encode {t1 - t0:.1f} s, "
+              f"CPU encode {t2 - t1:.1f} s)", flush=True)
+
+
+def sharded_phase(tp, dev, card, launches):
+    """Phase 10: config 4 at full width on a grid of one.  Returns (kernel
+    errors, kernel times)."""
+    from go_jpeg2000_tpu_torch.models import transforms
+    from go_jpeg2000_tpu_torch.ops import (band_stats, dwt, dwt_cuda,
+                                           ht_dec_cuda, ht_enc_cuda)
+    from go_jpeg2000_tpu_torch.parallel import sharded as psh
+    err = check_halo_kernels(dwt, dwt_cuda, psh, dev, card)
+    t0 = time.perf_counter()
+    img = config4_image(C4_SIZE)
+    img8 = (img >> 8).astype(np.uint8)
+    print(f"config-4 images made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    kernels = (dwt_cuda, ht_enc_cuda, ht_dec_cuda, band_stats)
+    n_tiles = (C4_SIZE // C4_TILE) ** 2
+    runs = {}
+    for label, im, opts, lib in (
+            ("config-4 lossless", img, config4_opts(tp, True), "dwt53"),
+            ("config-4 lossy", img8, config4_opts(tp, False), "dwt97")):
+        (data, _out), counts = sharded_counted_run(
+            tp, kernels, lambda: sharded_path(tp, dev, label, im, opts),
+            f"{label} main path", lib, n_tiles)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        runs[label] = (im, opts, data)
+    # band_stats on the lossless pyramid of the main path's tile batch
+    from go_jpeg2000_tpu_torch.models import encoder
+    header = encoder.build_header(img, runs["config-4 lossless"][1])
+    comps = encoder._image_components(img)
+    x = transforms.upload(psh.tile_batch(header, comps, range(n_tiles),
+                                         C4_TILE, 0), dev)
+    pyr, _stats = psh.tile_transform_step(x, C4_RES - 1, True, 16, False,
+                                          dwt.REV53)
+    del x
+    e, times = check_band_stats(band_stats, band_stats.leaves_of(pyr), card)
+    err.update(e)
+    del pyr
+    torch.cuda.empty_cache()
+    for label, (im, opts, data) in runs.items():
+        sharded_timing(tp, label, im, opts, data, dev, card)
+    del img, img8, runs
+    sharded_cpu_checks(tp, dev)
+    return err, times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     import go_jpeg2000_tpu_torch as tp
     from go_jpeg2000_tpu_torch.native import loader
-    from go_jpeg2000_tpu_torch.ops import (cuda_build, dwt, dwt_cuda,
-                                           ebcot_cuda, ht_dec_cuda,
+    from go_jpeg2000_tpu_torch.ops import (band_stats, cuda_build, dwt,
+                                           dwt_cuda, ebcot_cuda, ht_dec_cuda,
                                            ht_enc_cuda)
 
     dev = torch.device("cuda")
@@ -1187,13 +1631,14 @@ def main():
     ht_enc_cuda.load()
     ht_dec_cuda.load()
     ebcot_cuda.load()
+    band_stats.load()
     t1 = time.perf_counter()
     if not loader.available():
         raise RuntimeError("native library j2k_native.cpp did not build")
     t2 = time.perf_counter()
-    print(f"build: dwt53.cu, dwt97.cu, ht_enc.cu, ht_dec.cu and ebcot_enc.cu "
-          f"(nvcc, in parallel) {t1 - t0:.1f} s, j2k_native.cpp (g++) "
-          f"{t2 - t1:.1f} s", flush=True)
+    print(f"build: dwt53.cu, dwt97.cu, ht_enc.cu, ht_dec.cu, ebcot_enc.cu and "
+          f"band_stats.cu (nvcc, in parallel) {t1 - t0:.1f} s, "
+          f"j2k_native.cpp (g++) {t2 - t1:.1f} s", flush=True)
 
     err, times = check_kernels(dwt, dwt_cuda, dev, card, dwt.REV53)
     err97, times97 = check_kernels(dwt, dwt_cuda, dev, card, dwt.IRR97)
@@ -1254,6 +1699,12 @@ def main():
     for label, (frames, streams) in ebcot_runs.items():
         ebcot_wall(tp, frames, streams, dev, card, label)
     ebcot_stages(tp, *ebcot_runs["EBCOT gray"], dev, card)
+    torch.cuda.empty_cache()
+
+    e, t = sharded_phase(tp, dev, card, launches)
+    for k, v in e.items():
+        err[k] = max(err.get(k, 0), v)
+    times.update(t)
 
     out = []
     for name, (replaces, src) in REPLACES.items():

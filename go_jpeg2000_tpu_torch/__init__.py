@@ -24,6 +24,9 @@ On an NVIDIA Hopper card the DWT levels, the HT stages and the EBCOT
 stages run in hand-written CUDA kernels (csrc/*.cu), the elementwise
 colour and level steps as torch ops; the host work runs in the native C++
 coder (native/j2k_native.cpp, the port's copy of the JAX package's).
+The tile-sharded pipeline (BASELINE config 4: multi-tile images over a
+(dp, sp) grid of torch.distributed ranks, or one process) is in
+go_jpeg2000_tpu_torch.parallel: encode_sharded, decode_sharded, make_grid.
 Tensors carry an explicit device: "cuda" without a card raises; tests pass
 device="cpu".  Options outside the slices raise NotImplementedError naming
 the ROADMAP item that brings them.

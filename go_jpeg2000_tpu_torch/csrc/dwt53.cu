@@ -30,6 +30,19 @@
 // i >= n -> 2n - 2 - i), applied until the index is inside, so a 2-sample
 // axis reflects both neighbours onto its own samples as ops/dwt.py does.
 //
+// Row shards (the halo form; replaces the row-shard lifting of
+// go_jpeg2000_tpu/parallel/sharded.py, _odd_update_sharded,
+// _even_update_sharded, _vlift53_sharded, _vlift53_inverse_sharded): x may be
+// one row shard of taller frames.  `above` [n, HA, w] and `below` [n, HB, w]
+// are then the rows of the globally extended signal just outside it (the
+// forward kernel's input rows; for the inverse, interleaved rows with the
+// low-pass half of the row first, [LL|HL] or [LH|HH]), and a block reads
+// them where its strip reaches past the shard.  The JAX package exchanged
+// one row per lifting step; these are built once per level from every
+// shard's edge rows (parallel/sharded.py), so a shard of 2 rows, shorter
+// than the lifting's reach, still lifts exactly as the whole signal.  A null
+// pointer is a global edge, where the shard reflects on itself as before.
+//
 // Geometry: even origin, even H and W (>= 2) at this level; other levels
 // take the plain version.  Kernels launch on the caller's stream, allocate
 // nothing, and each entry point returns cudaGetLastError().
@@ -39,6 +52,8 @@
 
 #define STRIP 16          // output rows per block (even)
 #define HALO 3            // forward: 2 rows above, 1 below; inverse: 1, 2
+#define FWD_ABOVE 2
+#define INV_ABOVE 1
 #define THREADS 256
 
 __device__ __forceinline__ int reflect(int i, int n) {
@@ -47,6 +62,17 @@ __device__ __forceinline__ int reflect(int i, int n) {
     if (i >= n) i = 2 * n - 2 - i;
   }
   return i;
+}
+
+// Row g (-ha <= g < h + hb) of a shard of h rows in a frame: from the halo
+// above or below where one is given, else the shard's own row (reflected).
+__device__ __forceinline__ const int* shard_row(const int* x, const int* above,
+                                                const int* below, int frame,
+                                                int g, int h, int w, int ha,
+                                                int hb) {
+  if (g < 0 && above) return above + ((int64_t)frame * ha + ha + g) * w;
+  if (g >= h && below) return below + ((int64_t)frame * hb + g - h) * w;
+  return x + ((int64_t)frame * h + reflect(g, h)) * w;
 }
 
 // Shared memory rows: row j of the strip is s[j * w ...].
@@ -94,7 +120,8 @@ __device__ __forceinline__ void hlift_inv(int* s, int nrows, int w) {
 // x [n, h, w] -> ll, hl, lh, hh [n, h/2, w/2].  Block b: frame b / strips,
 // output rows [r0, r0 + rr).  Shared row j holds input row r0 - 2 + j.
 __global__ void __launch_bounds__(THREADS)
-dwt53_fwd_kernel(const int* __restrict__ x, int* __restrict__ ll,
+dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
+                 const int* __restrict__ below, int* __restrict__ ll,
                  int* __restrict__ hl, int* __restrict__ lh,
                  int* __restrict__ hh, int h, int w, int strips) {
   extern __shared__ int s[];
@@ -103,12 +130,11 @@ dwt53_fwd_kernel(const int* __restrict__ x, int* __restrict__ ll,
   const int rr = min(STRIP, h - r0);           // even: h and r0 are even
   const int nload = rr + HALO;
   const int w2 = w >> 1;
-  const int64_t fbase = (int64_t)frame * h * w;
 
   for (int e = threadIdx.x; e < nload * w; e += blockDim.x) {
     const int j = e / w, c = e % w;
-    const int g = reflect(r0 - 2 + j, h);
-    s[j * w + c] = x[fbase + (int64_t)g * w + c];
+    s[j * w + c] = shard_row(x, above, below, frame, r0 - FWD_ABOVE + j, h, w,
+                             FWD_ABOVE, HALO - FWD_ABOVE)[c];
   }
   __syncthreads();
   // vertical predict on odd rows r0-1 .. r0+rr-1 (shared rows 1, 3, ..)
@@ -146,6 +172,7 @@ dwt53_fwd_kernel(const int* __restrict__ x, int* __restrict__ ll,
 __global__ void __launch_bounds__(THREADS)
 dwt53_inv_kernel(const int* __restrict__ ll, const int* __restrict__ hl,
                  const int* __restrict__ lh, const int* __restrict__ hh,
+                 const int* __restrict__ above, const int* __restrict__ below,
                  int* __restrict__ out, int h, int w, int strips) {
   extern __shared__ int s[];
   const int frame = blockIdx.x / strips;
@@ -157,10 +184,25 @@ dwt53_inv_kernel(const int* __restrict__ ll, const int* __restrict__ hl,
 
   for (int e = threadIdx.x; e < nload * w2; e += blockDim.x) {
     const int j = e / w2, m = e % w2;
-    const int g = reflect(r0 - 1 + j, h);
-    const int64_t i = bbase + (int64_t)(g >> 1) * w2 + m;
+    const int g = r0 - INV_ABOVE + j;
     int* row = s + j * w;
-    if (g & 1) {
+    if (g < 0 && above) {
+      const int* src =
+          above + ((int64_t)frame * INV_ABOVE + INV_ABOVE + g) * w;
+      row[2 * m] = src[m];
+      row[2 * m + 1] = src[w2 + m];
+      continue;
+    }
+    if (g >= h && below) {
+      const int* src =
+          below + ((int64_t)frame * (HALO - INV_ABOVE) + g - h) * w;
+      row[2 * m] = src[m];
+      row[2 * m + 1] = src[w2 + m];
+      continue;
+    }
+    const int r = reflect(g, h);
+    const int64_t i = bbase + (int64_t)(r >> 1) * w2 + m;
+    if (r & 1) {
       row[2 * m] = lh[i];
       row[2 * m + 1] = hh[i];
     } else {
@@ -197,22 +239,26 @@ extern "C" {
 
 int dwt53_strip_rows(void) { return STRIP; }
 int dwt53_halo_rows(void) { return HALO; }
+int dwt53_fwd_above(void) { return FWD_ABOVE; }
+int dwt53_inv_above(void) { return INV_ABOVE; }
 
-int dwt53_fwd_level(const void* x, void* ll, void* hl, void* lh, void* hh,
-                    int n, int h, int w, void* stream) {
+int dwt53_fwd_level(const void* x, const void* above, const void* below,
+                    void* ll, void* hl, void* lh, void* hh, int n, int h,
+                    int w, void* stream) {
   const int strips = (h + STRIP - 1) / STRIP;
   const size_t smem = smem_bytes(w);
   cudaFuncSetAttribute(dwt53_fwd_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   dwt53_fwd_kernel<<<n * strips, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int*)x, (int*)ll, (int*)hl, (int*)lh, (int*)hh, h, w, strips);
+      (const int*)x, (const int*)above, (const int*)below, (int*)ll,
+      (int*)hl, (int*)lh, (int*)hh, h, w, strips);
   return (int)cudaGetLastError();
 }
 
 int dwt53_inv_level(const void* ll, const void* hl, const void* lh,
-                    const void* hh, void* out, int n, int h, int w,
-                    void* stream) {
+                    const void* hh, const void* above, const void* below,
+                    void* out, int n, int h, int w, void* stream) {
   const int strips = (h + STRIP - 1) / STRIP;
   const size_t smem = smem_bytes(w);
   cudaFuncSetAttribute(dwt53_inv_kernel,
@@ -220,7 +266,7 @@ int dwt53_inv_level(const void* ll, const void* hl, const void* lh,
                        (int)smem);
   dwt53_inv_kernel<<<n * strips, THREADS, smem, (cudaStream_t)stream>>>(
       (const int*)ll, (const int*)hl, (const int*)lh, (const int*)hh,
-      (int*)out, h, w, strips);
+      (const int*)above, (const int*)below, (int*)out, h, w, strips);
   return (int)cudaGetLastError();
 }
 

@@ -40,6 +40,17 @@
 // lifting stencils are symmetric, so lifting the extension gives the
 // extension of the lifted signal, exactly).
 //
+// Row shards (the halo form; replaces the row-shard lifting of
+// go_jpeg2000_tpu/parallel/sharded.py, _odd_update_sharded,
+// _even_update_sharded, _vlift97_sharded, _vlift97_inverse_sharded): as in
+// csrc/dwt53.cu, x may be one row shard, and `above` [n, 4 (inverse 3), w]
+// and `below` [n, 3 (inverse 4), w] are the rows of the globally extended
+// signal just outside it (for the inverse, interleaved rows with the
+// low-pass half first), built once per level from every shard's edge rows.
+// A null pointer is a global edge, where the shard reflects on itself.  The
+// lifting reaches 4 rows, so a 2-row shard takes rows of shards beyond its
+// neighbours; the halo brings them, already reflected at the global edges.
+//
 // Geometry: even origin, even H and W (>= 2) at this level; other levels
 // take the plain version.  Kernels launch on the caller's stream, allocate
 // nothing, and each entry point returns cudaGetLastError().
@@ -49,6 +60,8 @@
 
 #define STRIP 16          // output rows per block (even)
 #define HALO 7            // forward: 4 rows above, 3 below; inverse: 3, 4
+#define FWD_ABOVE 4
+#define INV_ABOVE 3
 #define THREADS 256
 
 #define ALPHA_D -1.586134342059924
@@ -70,6 +83,18 @@ __device__ __forceinline__ int reflect(int i, int n) {
     if (i >= n) i = 2 * n - 2 - i;
   }
   return i;
+}
+
+// Row g (-ha <= g < h + hb) of a shard of h rows in a frame: from the halo
+// above or below where one is given, else the shard's own row (reflected).
+__device__ __forceinline__ const float* shard_row(const float* x,
+                                                  const float* above,
+                                                  const float* below,
+                                                  int frame, int g, int h,
+                                                  int w, int ha, int hb) {
+  if (g < 0 && above) return above + ((int64_t)frame * ha + ha + g) * w;
+  if (g >= h && below) return below + ((int64_t)frame * hb + g - h) * w;
+  return x + ((int64_t)frame * h + reflect(g, h)) * w;
 }
 
 // c + k * (l + r), each op rounded once
@@ -129,7 +154,8 @@ __device__ __forceinline__ void vscale(float* s, int j0, int nrows, int w,
 // output rows [r0, r0 + rr).  Shared row j holds input row r0 - 4 + j, so a
 // shared row's parity is its input row's parity.
 __global__ void __launch_bounds__(THREADS)
-dwt97_fwd_kernel(const float* __restrict__ x, float* __restrict__ ll,
+dwt97_fwd_kernel(const float* __restrict__ x, const float* __restrict__ above,
+                 const float* __restrict__ below, float* __restrict__ ll,
                  float* __restrict__ hl, float* __restrict__ lh,
                  float* __restrict__ hh, int h, int w, int strips) {
   extern __shared__ float s[];
@@ -138,12 +164,11 @@ dwt97_fwd_kernel(const float* __restrict__ x, float* __restrict__ ll,
   const int rr = min(STRIP, h - r0);           // even: h and r0 are even
   const int nload = rr + HALO;
   const int w2 = w >> 1;
-  const int64_t fbase = (int64_t)frame * h * w;
 
   for (int e = threadIdx.x; e < nload * w; e += blockDim.x) {
     const int j = e / w, c = e % w;
-    const int g = reflect(r0 - 4 + j, h);
-    s[j * w + c] = x[fbase + (int64_t)g * w + c];
+    s[j * w + c] = shard_row(x, above, below, frame, r0 - FWD_ABOVE + j, h, w,
+                             FWD_ABOVE, HALO - FWD_ABOVE)[c];
   }
   __syncthreads();
   vstep(s, 1, rr / 2 + 3, w, kAlpha, true);    // odd rows r0-3 .. r0+rr+1
@@ -181,7 +206,9 @@ dwt97_fwd_kernel(const float* __restrict__ x, float* __restrict__ ll,
 __global__ void __launch_bounds__(THREADS)
 dwt97_inv_kernel(const float* __restrict__ ll, const float* __restrict__ hl,
                  const float* __restrict__ lh, const float* __restrict__ hh,
-                 float* __restrict__ out, int h, int w, int strips) {
+                 const float* __restrict__ above,
+                 const float* __restrict__ below, float* __restrict__ out,
+                 int h, int w, int strips) {
   extern __shared__ float s[];
   const int frame = blockIdx.x / strips;
   const int r0 = (blockIdx.x % strips) * STRIP;
@@ -194,11 +221,25 @@ dwt97_inv_kernel(const float* __restrict__ ll, const float* __restrict__ hl,
   // column x 1/K) happens in the load.
   for (int e = threadIdx.x; e < nload * w2; e += blockDim.x) {
     const int j = e / w2, m = e % w2;
-    const int g = reflect(r0 - 3 + j, h);
-    const int64_t i = bbase + (int64_t)(g >> 1) * w2 + m;
+    const int g = r0 - INV_ABOVE + j;
     float* row = s + j * w;
-    const float lo = (g & 1) ? lh[i] : ll[i];
-    const float hi = (g & 1) ? hh[i] : hl[i];
+    float lo, hi;
+    if (g < 0 && above) {
+      const float* src =
+          above + ((int64_t)frame * INV_ABOVE + INV_ABOVE + g) * w;
+      lo = src[m];
+      hi = src[w2 + m];
+    } else if (g >= h && below) {
+      const float* src =
+          below + ((int64_t)frame * (HALO - INV_ABOVE) + g - h) * w;
+      lo = src[m];
+      hi = src[w2 + m];
+    } else {
+      const int r = reflect(g, h);
+      const int64_t i = bbase + (int64_t)(r >> 1) * w2 + m;
+      lo = (r & 1) ? lh[i] : ll[i];
+      hi = (r & 1) ? hh[i] : hl[i];
+    }
     row[2 * m] = __fmul_rn(lo, kK);
     row[2 * m + 1] = __fmul_rn(hi, kInvK);
   }
@@ -228,23 +269,26 @@ extern "C" {
 
 int dwt97_strip_rows(void) { return STRIP; }
 int dwt97_halo_rows(void) { return HALO; }
+int dwt97_fwd_above(void) { return FWD_ABOVE; }
+int dwt97_inv_above(void) { return INV_ABOVE; }
 
-int dwt97_fwd_level(const void* x, void* ll, void* hl, void* lh, void* hh,
-                    int n, int h, int w, void* stream) {
+int dwt97_fwd_level(const void* x, const void* above, const void* below,
+                    void* ll, void* hl, void* lh, void* hh, int n, int h,
+                    int w, void* stream) {
   const int strips = (h + STRIP - 1) / STRIP;
   const size_t smem = smem_bytes(w);
   cudaFuncSetAttribute(dwt97_fwd_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   dwt97_fwd_kernel<<<n * strips, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)ll, (float*)hl, (float*)lh, (float*)hh, h, w,
-      strips);
+      (const float*)x, (const float*)above, (const float*)below, (float*)ll,
+      (float*)hl, (float*)lh, (float*)hh, h, w, strips);
   return (int)cudaGetLastError();
 }
 
 int dwt97_inv_level(const void* ll, const void* hl, const void* lh,
-                    const void* hh, void* out, int n, int h, int w,
-                    void* stream) {
+                    const void* hh, const void* above, const void* below,
+                    void* out, int n, int h, int w, void* stream) {
   const int strips = (h + STRIP - 1) / STRIP;
   const size_t smem = smem_bytes(w);
   cudaFuncSetAttribute(dwt97_inv_kernel,
@@ -252,7 +296,7 @@ int dwt97_inv_level(const void* ll, const void* hl, const void* lh,
                        (int)smem);
   dwt97_inv_kernel<<<n * strips, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)ll, (const float*)hl, (const float*)lh, (const float*)hh,
-      (float*)out, h, w, strips);
+      (const float*)above, (const float*)below, (float*)out, h, w, strips);
   return (int)cudaGetLastError();
 }
 

@@ -26,7 +26,9 @@ The slices: HTJ2K, lossless 5/3 or lossy 9/7, and Part-1 EBCOT lossless
 budget or HT refinement passes for 9/7, J2K, frames of one shape, gray or
 3-component RGB (RCT for 5/3, ICT for 9/7), 8 to 16-bit unsigned samples.
 Everything else raises NotImplementedError naming the ROADMAP item that
-brings it.
+brings it.  The tile-sharded pipeline (parallel/sharded.py) takes more
+(multi-tile images, layers, byte budgets; its gate is `check_sharded`) and
+assembles through `_assemble_with_budget` and `_finalize_codestream`.
 """
 from __future__ import annotations
 
@@ -129,6 +131,32 @@ def check_slice(images: Sequence[np.ndarray], opts: Options) -> None:
         raise _not_ported(f"frames of shape {im0.shape}", "6")
     if opts.precision and not 8 <= opts.precision <= 16:
         raise _not_ported(f"{opts.precision}-bit samples", "6")
+
+
+def check_sharded(image: np.ndarray, opts: Options) -> None:
+    """Raise NotImplementedError for what the tile-sharded path
+    (parallel/sharded.py) does not run: multi-tile images, layers, byte
+    budgets and Part-1 are in; the geometry gates are the sharded path's
+    own (ValueError there)."""
+    if opts.format != Format.J2K:
+        raise _not_ported(f"the {opts.format} format", "6b")
+    if not opts.high_throughput and not opts.lossless:
+        raise _not_ported("lossy EBCOT (Part 1) coding", "7")
+    if not opts.high_throughput and opts.code_block_style:
+        raise _not_ported(f"code-block style {opts.code_block_style:#x}",
+                          "6b")
+    if (opts.enable_sop or opts.enable_eph or opts.enable_ppm
+            or opts.enable_ppt or opts.enable_tlm or opts.enable_plt):
+        raise _not_ported("SOP/EPH/PPM/PPT/TLM/PLT markers", "6b")
+    if opts.progression_changes:
+        raise _not_ported("progression order changes (POC)", "6b")
+    if opts.backend == "python":
+        raise _not_ported("entropy backend 'python'", "6b")
+    if image.dtype not in (np.uint8, np.uint16) or image.ndim not in (2, 3):
+        raise _not_ported(f"{image.dtype} images of shape {image.shape}",
+                          "6b")
+    if opts.precision and not 8 <= opts.precision <= 16:
+        raise _not_ported(f"{opts.precision}-bit samples", "6b")
 
 
 def build_header(image: np.ndarray, opts: Options) -> Header:
@@ -370,6 +398,96 @@ def _assemble_packets(header: Header, tile: geo.Tile, enc_state, job_slots,
         mct_comp_weights(header, opts.lossless, len(tile.comps)))
     rate_mod.assign_layers(all_blocks, weights, num_layers, None)
     return _packets_to_tile_part(header, tile, enc_state, t_idx, opts)
+
+
+def _assemble_with_budget(header: Header, opts: Options, states, all_blocks,
+                          num_layers: int, rate_budget: Optional[int],
+                          main: bytes, assign_fn, size_reduce=None,
+                          tile_ids=None) -> List[bytes]:
+    """PCRD (assign_fn) and Tier-2 of the tiles in `states` ((tile,
+    enc_state) each, indices `tile_ids`, default 0..), correcting the
+    bisection's estimate of the header overhead against the size actually
+    assembled until the codestream meets rate_budget.  With several ranks
+    each passes its own tiles and `size_reduce`, the sum of a local byte
+    count over the ranks, so that every rank sees the whole codestream's
+    size.  Returns the tile-parts.  (The JAX package's function also
+    assembles PPM headers and TLM, which the port refuses before here.)"""
+    ids = tile_ids if tile_ids is not None else list(range(len(states)))
+
+    def build_parts() -> List[bytes]:
+        return [_packets_to_tile_part(header, tile, enc_state, t_idx, opts)
+                for t_idx, (tile, enc_state) in zip(ids, states)]
+
+    def core_size(tile_parts) -> int:
+        local = sum(len(tp) for tp in tile_parts)
+        if size_reduce is not None:
+            local = int(size_reduce(local))
+        return len(main) + 2 + local
+
+    def reset_blocks():
+        for blk in all_blocks:
+            blk.layer_passes = [0] * num_layers
+            blk.included_layer = -1
+            blk.lblock = 3
+            blk.passes_done = 0
+
+    est = assign_fn(rate_budget)
+    parts = build_parts()
+    if rate_budget is None:
+        return parts
+    best = None
+    best_total = -1
+    target = rate_budget
+    prev_targets = set()
+    # the estimate counts pass bytes and about 4 bytes a block; the real
+    # overhead (tag trees, lengths, packet headers) is nearly constant near
+    # a threshold, so re-targeting by (actual - estimate) converges in 2-3
+    # rebuilds
+    for _ in range(10):
+        total = core_size(parts)
+        if total <= rate_budget:
+            if total > best_total:
+                best, best_total = parts, total
+            if total >= rate_budget - max(16, rate_budget // 1024):
+                break
+        delta = (total - est) if est is not None else 0
+        new_target = rate_budget - delta
+        if total > rate_budget and new_target >= target:
+            new_target = target - (total - rate_budget)   # force progress
+        new_target = max(64, new_target)
+        if new_target in prev_targets:
+            break   # staircase fixed point: no finer threshold exists
+        prev_targets.add(new_target)
+        target = new_target
+        reset_blocks()
+        est = assign_fn(target)
+        parts = build_parts()
+        if target == 64 and core_size(parts) > rate_budget:
+            break   # minimum content still overshoots: unreachable
+    if core_size(parts) <= rate_budget and core_size(parts) > best_total:
+        best = parts
+    if best is None:
+        # unreachable even at minimum content: the smallest assembly, and
+        # the overshoot is counted
+        counters.add("enc.budget_overshoot")
+        counters.add("enc.budget_overshoot_bytes",
+                     core_size(parts) - rate_budget)
+        best = parts
+    return best
+
+
+def _finalize_codestream(header: Header, opts: Options, main: bytes,
+                         tile_parts: List[bytes], total_pixels: int) -> bytes:
+    """Main header, tile-parts and EOC: the J2K part of the JAX package's
+    function."""
+    if opts.format != Format.J2K:
+        raise _not_ported(f"the {opts.format} format", "6b")
+    if opts.enable_ppm or opts.enable_tlm:
+        raise _not_ported("PPM and TLM markers", "6b")
+    codestream = main + b"".join(tile_parts) + cw.write_eoc()
+    counters.add("enc.pixels_in", total_pixels)
+    counters.add("enc.bytes_out", len(codestream))
+    return codestream
 
 
 def _entropy_and_packets(header: Header, tile: geo.Tile, pyramids,

@@ -54,6 +54,8 @@ class BlockPlan:
     mb: np.ndarray = None         # per-block max bitplanes [nb]
     deltas: Tuple = None          # per-band quantizer steps (lossy plans;
                                   # None => reversible, no quantization)
+    key: Tuple = None             # plan_for's memo key (None when built
+                                  # by plan_blocks directly)
 
 
 _PLAN_MEMO = {}
@@ -75,7 +77,7 @@ def plan_for(header: Header, tile: geo.Tile,
     key = [header.num_components,
            header.components[0].precision, header.components[0].signed,
            cs.num_decompositions, cs.cb_width_exp, cs.cb_height_exp,
-           cs.mct, tuple(cs.precincts or ()), ht, lossy,
+           cs.mct, cs.cb_style, tuple(cs.precincts or ()), ht, lossy,
            tuple((tc.quant.guard_bits, tc.quant.style,
                   tuple((s.exponent, s.mantissa)
                         for s in tc.quant.step_sizes))
@@ -89,8 +91,11 @@ def plan_for(header: Header, tile: geo.Tile,
         key += [header.width, header.height]
     key = tuple(key)
     if key not in _PLAN_MEMO:
-        _PLAN_MEMO[key] = plan_blocks(header, tile, ht=ht,
-                                      multi_tile=multi_tile, lossy=lossy)
+        plan = plan_blocks(header, tile, ht=ht, multi_tile=multi_tile,
+                           lossy=lossy)
+        if plan is not None:
+            plan.key = key
+        _PLAN_MEMO[key] = plan
     return _PLAN_MEMO[key]
 
 
@@ -253,12 +258,23 @@ def fused_encode_chunk(batch: np.ndarray, plan: BlockPlan, levels: int,
     (valid up to 6*Nb + sum(totals)) and the pools' word totals int64 [3],
     both on `device`."""
     dev = torch.device(device)
-    n = batch.shape[0]
-    pyr = transforms.forward_pyramid(transforms.upload(batch, dev), levels,
-                                     kind, use_mct, precision, signed, 0, 0)
+    # no reference to the pyramid stays here: encode_pyramid frees it once
+    # the blocks are extracted
+    return encode_pyramid(
+        transforms.forward_pyramid(transforms.upload(batch, dev), levels,
+                                   kind, use_mct, precision, signed, 0, 0),
+        plan, batch.shape[0], levels)
+
+
+def encode_pyramid(pyr, plan: BlockPlan, n: int, levels: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The entropy half of fused_encode_chunk on the pyramid of n frames or
+    tiles of one plan (leaves [n, C, h, w] on one device; a lossy plan
+    quantizes them): block extraction, the HT cleanup fields, bit packing
+    and pool compaction.  Returns the pool array and its word totals."""
     blocks = ht_enc_cuda.extract_blocks(pyr, plan, n, levels)
     del pyr
-    hs, ws = _block_dims(plan, n, dev)
+    hs, ws = _block_dims(plan, n, blocks.device)
     f = ht_enc_cuda.cleanup_values(blocks, hs, ws)
     del blocks
     packed = {}
@@ -355,9 +371,15 @@ _GEOM_MEMO = {}
 def t2_geom(header: Header, tile: geo.Tile, plan: BlockPlan):
     """Flatten the packet walk (progression order, single layer) into the
     arrays ht_t2_{en,de}code_frames consume.  Block ids are the canonical
-    job order (models/encoder.py::_walk_geometry)."""
-    key = id(plan)
-    if key in _GEOM_MEMO:
+    job order (models/encoder.py::_walk_geometry).  Memoized on what sets
+    the walk: the plan's key (the block geometry, one tile-origin class of
+    a multi-tile grid) and the header's progression order and POC
+    segments; a plan without a key is walked afresh."""
+    cs = header.coding_style
+    key = None if plan.key is None else (
+        plan.key, int(cs.progression_order), cs.num_layers,
+        tuple(tuple(vars(p).values()) for p in header.poc))
+    if key is not None and key in _GEOM_MEMO:
         return _GEOM_MEMO[key]
     from ..tcd import t2 as t2_mod
 
@@ -406,5 +428,6 @@ def t2_geom(header: Header, tile: geo.Tile, plan: BlockPlan):
         "bp_block_xy": np.asarray(bp_block_xy, np.int32),
         "mb": np.asarray(mb_list, np.int32),
     }
-    _GEOM_MEMO[key] = geom
+    if key is not None:
+        _GEOM_MEMO[key] = geom
     return geom

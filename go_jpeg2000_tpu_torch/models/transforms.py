@@ -40,26 +40,33 @@ _INVERSE_KERNEL = {dwt.REV53: dwt_cuda.inverse_2d_53,
                    dwt.IRR97: dwt_cuda.inverse_2d_97}
 
 
-def _forward_level(x: torch.Tensor, kind: str, u0: int, v0: int
-                   ) -> Dict[str, torch.Tensor]:
+def forward_level(x: torch.Tensor, kind: str, u0: int, v0: int, above=None,
+                  below=None) -> Dict[str, torch.Tensor]:
+    """One level of x [N, H, W] at origin (u0, v0); a row shard (origin
+    even) passes its halo rows (dwt.forward_2d_halo)."""
     h, w = x.shape[-2:]
     if x.is_cuda and dwt_cuda.usable(h, w, u0, v0, kind):
-        return _FORWARD_KERNEL[kind](x)
+        return _FORWARD_KERNEL[kind](x, above, below)
     if x.is_cuda:
         dwt_cuda.count_plain_level()
-    return dwt.forward_2d(x, kind, u0=u0, v0=v0)
+    if above is None and below is None:
+        return dwt.forward_2d(x, kind, u0=u0, v0=v0)
+    return dwt.forward_2d_halo(x, kind, above, below)
 
 
-def _inverse_level(bands: Dict[str, torch.Tensor], kind: str, u0: int,
-                   v0: int) -> torch.Tensor:
+def inverse_level(bands: Dict[str, torch.Tensor], kind: str, u0: int,
+                  v0: int, above=None, below=None) -> torch.Tensor:
+    """Inverse of forward_level (dwt.inverse_2d_halo for a row shard)."""
     ll = bands["LL"]
     h = ll.shape[-2] + bands["LH"].shape[-2]
     w = ll.shape[-1] + bands["HL"].shape[-1]
     if ll.is_cuda and dwt_cuda.usable(h, w, u0, v0, kind):
-        return _INVERSE_KERNEL[kind](bands)
+        return _INVERSE_KERNEL[kind](bands, above, below)
     if ll.is_cuda:
         dwt_cuda.count_plain_level()
-    return dwt.inverse_2d(bands, kind, u0=u0, v0=v0)
+    if above is None and below is None:
+        return dwt.inverse_2d(bands, kind, u0=u0, v0=v0)
+    return dwt.inverse_2d_halo(bands, kind, above, below)
 
 
 def _decompose(x: torch.Tensor, levels: int, kind: str, u0: int, v0: int
@@ -74,7 +81,7 @@ def _decompose(x: torch.Tensor, levels: int, kind: str, u0: int, v0: int
     out = []
     origins = dwt.level_origins(u0, v0, levels)
     for lev in range(1, levels + 1):
-        bands = _forward_level(cur, kind, *origins[lev - 1])
+        bands = forward_level(cur, kind, *origins[lev - 1])
         entry = {k: bands[k].reshape(lead + tuple(bands[k].shape[-2:]))
                  for k in ("HL", "LH", "HH")}
         cur = bands["LL"].contiguous()
@@ -103,7 +110,7 @@ def _reconstruct(pyramid: List[Dict[str, torch.Tensor]], kind: str,
         entry = pyramid[lev - 1]
         bands = {k: flat(entry[k]) for k in ("HL", "LH", "HH")}
         bands["LL"] = cur
-        cur = _inverse_level(bands, kind, *origins[lev - 1])
+        cur = inverse_level(bands, kind, *origins[lev - 1])
     return cur.reshape(lead + tuple(cur.shape[-2:]))
 
 
@@ -118,12 +125,10 @@ def upload(batch: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(batch).to(device).to(torch.int32)
 
 
-def forward_pyramid(x: torch.Tensor, levels: int, kind: str, use_mct: bool,
-                    precision: int, signed: bool, u0: int, v0: int
-                    ) -> List[Dict[str, torch.Tensor]]:
-    """int32 [N, C, H, W] samples -> DC shift, RCT (5/3) or ICT (9/7, then
-    float32) and the multi-level DWT: the pyramid, leaves [N, C, h, w]
-    (int32 for 5/3, float32 for 9/7)."""
+def coefficients(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
+                 signed: bool) -> torch.Tensor:
+    """int32 [N, C, H, W] samples -> DC shift, then RCT (5/3) or ICT (9/7,
+    then float32): the DWT's input."""
     x = mct.dc_shift_forward(x.to(torch.int32), precision, signed)
     c = x.shape[1]
     if use_mct and c >= 3:
@@ -132,7 +137,17 @@ def forward_pyramid(x: torch.Tensor, levels: int, kind: str, use_mct: bool,
         x = torch.stack([y, u, v] + [x[:, i] for i in range(3, c)], dim=1)
     if kind == dwt.IRR97:
         x = x.to(torch.float32)
-    return _decompose(x, levels, kind, u0, v0)
+    return x
+
+
+def forward_pyramid(x: torch.Tensor, levels: int, kind: str, use_mct: bool,
+                    precision: int, signed: bool, u0: int, v0: int
+                    ) -> List[Dict[str, torch.Tensor]]:
+    """int32 [N, C, H, W] samples -> DC shift, RCT (5/3) or ICT (9/7, then
+    float32) and the multi-level DWT: the pyramid, leaves [N, C, h, w]
+    (int32 for 5/3, float32 for 9/7)."""
+    return _decompose(coefficients(x, kind, use_mct, precision, signed),
+                      levels, kind, u0, v0)
 
 
 def forward_transform_batch(x: torch.Tensor, levels: int, kind: str,
@@ -206,8 +221,16 @@ def inverse_pyramid(pyramid: List[Dict[str, torch.Tensor]], kind: str,
     half to even (9/7), DC shift, clamp and narrowing; returned flat.
     16-bit output comes back as its int16 bit pattern (torch has no uint16
     arithmetic); the caller views it as uint16 on the host."""
+    return samples(_reconstruct(pyramid, kind, u0, v0), kind, use_mct,
+                   precision, signed).reshape(-1)
+
+
+def samples(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
+            signed: bool) -> torch.Tensor:
+    """The inverse DWT's output [N, C, H, W] -> inverse RCT/ICT, rounding
+    half to even (9/7), DC shift, clamp and narrowing (16-bit as the int16
+    pattern)."""
     lossy = kind == dwt.IRR97
-    x = _reconstruct(pyramid, kind, u0, v0)
     c = x.shape[1]
     if use_mct and c >= 3:
         inv = mct.inverse_ict if lossy else mct.inverse_rct
@@ -221,7 +244,7 @@ def inverse_pyramid(pyramid: List[Dict[str, torch.Tensor]], kind: str,
         x = x.to(torch.int8 if signed else torch.uint8)
     elif precision <= 16:
         x = x.to(torch.int16)
-    return x.reshape(-1)
+    return x
 
 
 def inverse_transform_batch(flat: torch.Tensor, n: int, c: int, levels: int,

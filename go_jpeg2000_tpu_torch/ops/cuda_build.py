@@ -2,7 +2,7 @@
 
 Each source compiles into a shared library with a plain C interface, bound
 with ctypes by its wrapper module (ops/dwt_cuda.py, ops/ht_enc_cuda.py,
-ops/ht_dec_cuda.py, ops/ebcot_cuda.py).
+ops/ht_dec_cuda.py, ops/ebcot_cuda.py, ops/band_stats.py).
 The libraries go into go_jpeg2000_tpu_torch/_build/, named by a hash of the
 source and the flags, so a library built from the same source is reused.
 The first `load` builds every source that _build/ lacks, one nvcc process
@@ -24,7 +24,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 # library name -> source file under csrc/
 SOURCES = {"dwt53": "dwt53.cu", "dwt97": "dwt97.cu", "ht_enc": "ht_enc.cu",
-           "ht_dec": "ht_dec.cu", "ebcot_enc": "ebcot_enc.cu"}
+           "ht_dec": "ht_dec.cu", "ebcot_enc": "ebcot_enc.cu",
+           "band_stats": "band_stats.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

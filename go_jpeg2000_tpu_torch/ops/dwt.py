@@ -188,6 +188,99 @@ def inverse_2d(bands: Dict[str, torch.Tensor], kind: str = REV53,
     return a
 
 
+# ------------------------------------------------- 2-D level on a row shard
+#
+# Port of the halo lifting of go_jpeg2000_tpu/parallel/sharded.py
+# (_odd_update_sharded, _even_update_sharded, _vlift53_sharded,
+# _vlift97_sharded and their inverses, dwt_level_sharded,
+# idwt_level_sharded).  The JAX package exchanges one boundary row per
+# lifting step; here a level takes, once, the rows of the globally extended
+# signal that its vertical lifting reads beyond the shard (`above` and
+# `below`, built by parallel/sharded.py from every shard's edge rows), so a
+# shard of any even height lifts exactly as the whole signal does.  These
+# are the plain versions of the level kernels' halo inputs (csrc/dwt53.cu,
+# csrc/dwt97.cu).
+
+# rows of the signal that one level's vertical lifting reads (above, below)
+# a shard whose first row has an even global index, forward and inverse
+HALO_DEPTH = {(REV53, False): (2, 1), (IRR97, False): (4, 3),
+              (REV53, True): (1, 2), (IRR97, True): (3, 4)}
+
+
+def reflect(i: int, n: int) -> int:
+    """Whole-sample symmetric extension of index i into [0, n), applied
+    until the index is inside (as the level kernels do)."""
+    while i < 0 or i >= n:
+        i = -i if i < 0 else 2 * n - 2 - i
+    return i
+
+
+def _extend_rows(x: torch.Tensor, above, below, depth: Tuple[int, int]
+                 ) -> torch.Tensor:
+    """[..., a + h + b, W]: x [..., h, W] between its halo rows; a missing
+    halo (a global edge) reflects on x itself."""
+    a, b = depth
+    h = x.shape[-2]
+
+    def own(rows):
+        idx = torch.tensor([reflect(g, h) for g in rows], device=x.device)
+        return x.index_select(x.ndim - 2, idx)
+
+    above = own(range(-a, 0)) if above is None else above
+    below = own(range(h, h + b)) if below is None else below
+    return torch.cat([above, x, below], dim=-2)
+
+
+def pair_rows(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """An inverse level's input rows as its kernel loads them: interleaved
+    row 2m is [LL[m] | HL[m]], row 2m+1 is [LH[m] | HH[m]] (the bands' rows
+    from the first, which must be even)."""
+    lo = torch.cat([bands["LL"], bands["HL"]], dim=-1)
+    hi = torch.cat([bands["LH"], bands["HH"]], dim=-1)
+    rows = torch.stack([lo, hi], dim=-2)
+    return rows.reshape(rows.shape[:-3] + (-1, rows.shape[-1]))
+
+
+def forward_2d_halo(a: torch.Tensor, kind: str = REV53, above=None,
+                    below=None) -> Dict[str, torch.Tensor]:
+    """One 2-D level of a row shard a [..., h, W] (first row at an even
+    global index, h even, even column origin) whose vertical neighbours are
+    `above` [..., 2 or 4, W] and `below` [..., 1 or 3, W], rows of the
+    globally extended input (HALO_DEPTH); None at a global edge, where the
+    shard reflects on itself.  Without halos this is forward_2d."""
+    if above is None and below is None:
+        return forward_2d(a, kind)
+    depth = HALO_DEPTH[(kind, False)]
+    fwd = _FORWARD_1D[kind]
+    ext = _extend_rows(a, above, below, depth)
+    ext = fwd(ext, ext.ndim - 2, depth[0] & 1)          # vertical
+    a = ext.narrow(ext.ndim - 2, depth[0], a.shape[-2])
+    a = fwd(a, a.ndim - 1, 0)                           # horizontal
+    lo_y, hi_y = _deinterleave(a, a.ndim - 2, 0)
+    ll, hl = _deinterleave(lo_y, lo_y.ndim - 1, 0)
+    lh, hh = _deinterleave(hi_y, hi_y.ndim - 1, 0)
+    return {"LL": ll, "HL": hl, "LH": lh, "HH": hh}
+
+
+def inverse_2d_halo(bands: Dict[str, torch.Tensor], kind: str = REV53,
+                    above=None, below=None) -> torch.Tensor:
+    """Inverse of forward_2d_halo: the bands of a row shard -> its rows
+    [..., h, W].  `above` [..., 1 or 3, W] and `below` [..., 2 or 4, W] are
+    interleaved rows of the globally extended input in pair_rows' layout;
+    None at a global edge.  Without halos this is inverse_2d."""
+    if above is None and below is None:
+        return inverse_2d(bands, kind)
+    depth = HALO_DEPTH[(kind, True)]
+    inv = _INVERSE_1D[kind]
+    rows = pair_rows(bands)
+    ext = _extend_rows(rows, above, below, depth)
+    wl = bands["LL"].shape[-1]
+    ext = _interleave(ext[..., :wl], ext[..., wl:], ext.ndim - 1, 0)
+    ext = inv(ext, ext.ndim - 1, 0)                     # horizontal first
+    ext = inv(ext, ext.ndim - 2, depth[0] & 1)          # then vertical
+    return ext.narrow(ext.ndim - 2, depth[0], rows.shape[-2])
+
+
 # ------------------------------------------------------------- multi-level
 
 def level_origins(u0: int, v0: int, levels: int) -> List[Tuple[int, int]]:

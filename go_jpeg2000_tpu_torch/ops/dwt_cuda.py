@@ -7,6 +7,12 @@ The port's counterpart of go_jpeg2000_tpu/ops/dwt_pallas.py:
   forward_2d_97 -> dwt97_fwd_level, replaces _dwt97_level_kernel
   inverse_2d_97 -> dwt97_inv_level, replaces _idwt97_level_kernel
 
+Each also takes the halo rows of a row shard (`above`, `below`: the rows
+of the globally extended signal just outside it, built by
+parallel/sharded.py), the form that stands for the JAX package's row-shard
+lifting (go_jpeg2000_tpu/parallel/sharded.py, _vlift53_sharded,
+_vlift97_sharded and their inverses); without halos a call is what it was.
+
 A CPU tensor goes to the plain torch lifting in ops/dwt.py.  A CUDA tensor
 goes to the kernel, or the call raises: there is no fallback, and a failed
 build or launch is an error.
@@ -93,14 +99,18 @@ def load() -> Dict[str, ctypes.CDLL]:
             kind = _LIBS[name][1]
             if (getattr(lib, f"{name}_strip_rows")() != STRIP_ROWS
                     or getattr(lib, f"{name}_halo_rows")()
-                    != HALO_ROWS[kind]):
+                    != HALO_ROWS[kind]
+                    or getattr(lib, f"{name}_fwd_above")()
+                    != dwt.HALO_DEPTH[(kind, False)][0]
+                    or getattr(lib, f"{name}_inv_above")()
+                    != dwt.HALO_DEPTH[(kind, True)][0]):
                 raise RuntimeError(f"csrc/{_LIBS[name][0]} and "
                                    f"ops/dwt_cuda.py disagree on STRIP/HALO")
             p = ctypes.c_void_p
             i = ctypes.c_int
             for fn in (f"{name}_fwd_level", f"{name}_inv_level"):
                 getattr(lib, fn).restype = ctypes.c_int
-                getattr(lib, fn).argtypes = [p, p, p, p, p, i, i, i, p]
+                getattr(lib, fn).argtypes = [p] * 7 + [i, i, i, p]
             libs[name] = lib
         _libs.update(libs)
         return _libs
@@ -124,34 +134,52 @@ def _launch(lib_name: str, name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _forward(x: torch.Tensor, kind: str) -> Dict[str, torch.Tensor]:
+def _halo_ptr(t, name: str, dtype: torch.dtype, shape, device) -> int:
+    """The device pointer of a halo input (None: a global edge, NULL)."""
+    if t is None:
+        return None
+    _check_cuda(t, name, dtype)
+    if tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name}: halo {tuple(t.shape)} on {t.device}, "
+                         f"expected {shape} on {device}")
+    return t.data_ptr()
+
+
+def _forward(x: torch.Tensor, kind: str, above=None, below=None
+             ) -> Dict[str, torch.Tensor]:
     if x.device.type == "cpu":
-        return dwt.forward_2d(x, kind)
+        return dwt.forward_2d_halo(x, kind, above, below)
     lib = _LIB_OF_KIND[kind]
     name = f"{lib}_fwd_level"
-    _check_cuda(x, name, _LIBS[lib][2])
+    dtype = _LIBS[lib][2]
+    _check_cuda(x, name, dtype)
     n, h, w = x.shape
     if not usable(h, w, 0, 0, kind):
         raise ValueError(f"{name}: shape {tuple(x.shape)} not supported "
                          f"(see usable)")
+    a, b = dwt.HALO_DEPTH[(kind, False)]
+    halos = (_halo_ptr(above, name, dtype, (n, a, w), x.device),
+             _halo_ptr(below, name, dtype, (n, b, w), x.device))
     bands = {k: torch.empty((n, h // 2, w // 2), dtype=x.dtype,
                             device=x.device)
              for k in ("LL", "HL", "LH", "HH")}
     if n:
-        _launch(lib, name, x.device, x.data_ptr(),
+        _launch(lib, name, x.device, x.data_ptr(), *halos,
                 bands["LL"].data_ptr(), bands["HL"].data_ptr(),
                 bands["LH"].data_ptr(), bands["HH"].data_ptr(), n, h, w)
     return bands
 
 
-def _inverse(bands: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:
+def _inverse(bands: Dict[str, torch.Tensor], kind: str, above=None,
+             below=None) -> torch.Tensor:
     ll = bands["LL"]
     if ll.device.type == "cpu":
-        return dwt.inverse_2d(bands, kind)
+        return dwt.inverse_2d_halo(bands, kind, above, below)
     lib = _LIB_OF_KIND[kind]
     name = f"{lib}_inv_level"
+    dtype = _LIBS[lib][2]
     for k in ("LL", "HL", "LH", "HH"):
-        _check_cuda(bands[k], name, _LIBS[lib][2])
+        _check_cuda(bands[k], name, dtype)
         if bands[k].shape != ll.shape or bands[k].device != ll.device:
             raise ValueError(f"{name}: the four bands must share one shape "
                              "and device")
@@ -160,33 +188,45 @@ def _inverse(bands: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:
     if not usable(h, w, 0, 0, kind):
         raise ValueError(f"{name}: shape {(n, h, w)} not supported "
                          f"(see usable)")
+    a, b = dwt.HALO_DEPTH[(kind, True)]
+    halos = (_halo_ptr(above, name, dtype, (n, a, w), ll.device),
+             _halo_ptr(below, name, dtype, (n, b, w), ll.device))
     out = torch.empty((n, h, w), dtype=ll.dtype, device=ll.device)
     if n:
         _launch(lib, name, ll.device, ll.data_ptr(),
                 bands["HL"].data_ptr(), bands["LH"].data_ptr(),
-                bands["HH"].data_ptr(), out.data_ptr(), n, h, w)
+                bands["HH"].data_ptr(), *halos, out.data_ptr(), n, h, w)
     return out
 
 
-def forward_2d_53(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def forward_2d_53(x: torch.Tensor, above=None, below=None
+                  ) -> Dict[str, torch.Tensor]:
     """One 2-D forward 5/3 level of x [N, H, W] int32 at an even origin.
-    Returns {LL, HL, LH, HH}, each [N, H/2, W/2]."""
-    return _forward(x, dwt.REV53)
+    Returns {LL, HL, LH, HH}, each [N, H/2, W/2].  For a row shard, `above`
+    [N, 2, W] and `below` [N, 1, W] are its halo rows (dwt.forward_2d_halo);
+    None at a global edge."""
+    return _forward(x, dwt.REV53, above, below)
 
 
-def inverse_2d_53(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
+def inverse_2d_53(bands: Dict[str, torch.Tensor], above=None, below=None
+                  ) -> torch.Tensor:
     """One 2-D inverse 5/3 level at an even origin: {LL, HL, LH, HH}, each
-    [N, H/2, W/2] int32 -> [N, H, W]."""
-    return _inverse(bands, dwt.REV53)
+    [N, H/2, W/2] int32 -> [N, H, W].  For a row shard, `above` [N, 1, W]
+    and `below` [N, 2, W] are its halo rows in dwt.pair_rows' layout."""
+    return _inverse(bands, dwt.REV53, above, below)
 
 
-def forward_2d_97(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def forward_2d_97(x: torch.Tensor, above=None, below=None
+                  ) -> Dict[str, torch.Tensor]:
     """One 2-D forward 9/7 level of x [N, H, W] float32 at an even origin.
-    Returns {LL, HL, LH, HH}, each [N, H/2, W/2]."""
-    return _forward(x, dwt.IRR97)
+    Returns {LL, HL, LH, HH}, each [N, H/2, W/2].  For a row shard, `above`
+    [N, 4, W] and `below` [N, 3, W] are its halo rows."""
+    return _forward(x, dwt.IRR97, above, below)
 
 
-def inverse_2d_97(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
+def inverse_2d_97(bands: Dict[str, torch.Tensor], above=None, below=None
+                  ) -> torch.Tensor:
     """One 2-D inverse 9/7 level at an even origin: {LL, HL, LH, HH}, each
-    [N, H/2, W/2] float32 -> [N, H, W]."""
-    return _inverse(bands, dwt.IRR97)
+    [N, H/2, W/2] float32 -> [N, H, W].  For a row shard, `above` [N, 3, W]
+    and `below` [N, 4, W] are its halo rows in dwt.pair_rows' layout."""
+    return _inverse(bands, dwt.IRR97, above, below)

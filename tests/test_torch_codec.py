@@ -367,7 +367,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, go_jpeg2000_tpu_torch, "
             "go_jpeg2000_tpu_torch.ops.ht_enc_cuda, "
             "go_jpeg2000_tpu_torch.ops.ht_dec_cuda, "
-            "go_jpeg2000_tpu_torch.models.fused_encode; "
+            "go_jpeg2000_tpu_torch.models.fused_encode, "
+            "go_jpeg2000_tpu_torch.ops.band_stats, "
+            "go_jpeg2000_tpu_torch.parallel; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'go_jpeg2000_tpu')))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (go_jpeg2000_tpu_torch/csrc/dwt53.cu,
-dwt97.cu, ht_enc.cu, ht_dec.cu, ebcot_enc.cu) against their plain torch
-versions, on the card.
+dwt97.cu, ht_enc.cu, ht_dec.cu, ebcot_enc.cu, band_stats.cu) against their
+plain torch versions, on the card; the DWT level kernels also in their halo
+form on row shards down to 2 rows, against the unsharded level.
 Needs a CUDA device and nvcc; skips without a card.  Imports neither jax
 nor the JAX package, so it runs where only torch is installed:
 
@@ -12,7 +13,10 @@ every integer output of the HT encode kernels; their distortion, a sum of
 float32 squares taken in another order, within a relative 1e-5.  The HT
 decode kernels' outputs are equal bit for bit, float32 leaves too.  The
 EBCOT kernels' slots, decision pools, MQ segments and lengths are equal
-exactly (MQ segments also to the native coder's)."""
+exactly (MQ segments also to the native coder's).  The band statistics'
+counts are equal, their float64 sums within a relative 1e-12 (the order of
+the atomics varies).  The tile-sharded encode and decode give the CPU's
+bytes and pixels."""
 import dataclasses
 
 import numpy as np
@@ -349,3 +353,135 @@ def test_ebcot_codec_on_card_matches_cpu(cuda, backend, counter):
     assert on_card == tp.encode_batch(
         frames, dataclasses.replace(opts, backend="native"), device="cpu")
     assert all(np.array_equal(d, f) for d, f in zip(decoded, frames))
+
+
+def _halo_split(x, sp, kind):
+    """One forward level of x's sp row shards with their halos, and the
+    inverse of the unsharded bands the same way, through the kernels."""
+    from go_jpeg2000_tpu_torch.parallel import sharded
+    shards = [s.contiguous() for s in torch.chunk(x, sp, dim=-2)]
+    fwd = sharded.forward_level_split(shards, kind)
+    bands = dwt.forward_2d(x, kind)
+    split = [{k: v.contiguous() for k, v in zip(bands, parts)}
+             for parts in zip(*(torch.chunk(b, sp, dim=-2)
+                                for b in bands.values()))]
+    return fwd, sharded.inverse_level_split(split, kind), bands
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [dwt.REV53, dwt.IRR97])
+@pytest.mark.parametrize("sp,rows", [(2, 512), (4, 512), (4, 8), (2, 4)])
+def test_halo_kernels_match_plain_and_unsharded(cuda, kind, sp, rows):
+    """Row shards of 2 rows (rows / sp = 2) included: the 9/7 lifting
+    reaches 4 rows, past the neighbouring shard."""
+    g = torch.Generator(device=cuda).manual_seed(rows + sp)
+    x = torch.randint(-40000, 40000, (6, rows, 64), generator=g, device=cuda,
+                      dtype=torch.int32)
+    if kind == dwt.IRR97:
+        x = x.to(torch.float32) / 128
+    before = dict(dwt_cuda.LAUNCHES)
+    fwd, inv, bands = _halo_split(x, sp, kind)
+    plain_fwd, plain_inv, _ = _halo_split(x.cpu(), sp, kind)
+    for k in BANDS:
+        got = torch.cat([f[k] for f in fwd], dim=-2)
+        assert torch.equal(got, bands[k]), k
+        assert torch.equal(got.cpu(),
+                           torch.cat([f[k] for f in plain_fwd], dim=-2)), k
+    rec = torch.cat(inv, dim=-2)
+    assert torch.equal(rec, dwt.inverse_2d(bands, kind))
+    assert torch.equal(rec.cpu(), torch.cat(plain_inv, dim=-2))
+    torch.cuda.synchronize()
+    lib = "dwt53" if kind == dwt.REV53 else "dwt97"
+    assert dwt_cuda.LAUNCHES[f"{lib}_fwd_level"] == \
+        before[f"{lib}_fwd_level"] + sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_band_stats_matches_plain(cuda, dtype):
+    from go_jpeg2000_tpu_torch.ops import band_stats
+    g = torch.Generator(device=cuda).manual_seed(3)
+    leaves = [torch.randint(-3, 4, shape, generator=g, device=cuda,
+                            dtype=torch.int32).to(dtype)
+              for shape in [(7, 3, 256, 256), (7, 3, 1, 5), (0, 3, 4, 4),
+                            (7, 3, 64, 64), (2, 2)]]
+    before = band_stats.LAUNCHES["band_stats"]
+    sums, counts = band_stats.band_stats(leaves)
+    ref_sums, ref_counts = band_stats.band_stats_plain(leaves)
+    torch.cuda.synchronize()
+    assert band_stats.LAUNCHES["band_stats"] == before + 1
+    assert torch.equal(counts, ref_counts)
+    assert torch.allclose(sums, ref_sums, rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lossless", [True, False])
+def test_sharded_codec_on_card_matches_cpu(cuda, lossless):
+    from go_jpeg2000_tpu_torch.ops import band_stats
+    from go_jpeg2000_tpu_torch.parallel import decode_sharded, encode_sharded
+    rng = np.random.RandomState(6)
+    img = rng.randint(0, 1 << 16, (2048, 2048, 3)).astype(np.uint16)
+    if not lossless:
+        img = (img >> 8).astype(np.uint8)
+    opts = tp.Options(format=tp.Format.J2K, lossless=lossless, quality=85,
+                      num_resolutions=5, tile_size=(512, 512),
+                      high_throughput=True)
+    dwt_cuda.reset_counts()
+    band_stats.reset_counts()
+    tp.counters.reset()
+    data = encode_sharded(img, opts, device=cuda)
+    out = decode_sharded(data, device=cuda)
+    snap = tp.counters.snapshot()
+    assert snap["enc.sharded_device_ht_tiles"] == 16
+    assert snap["dec.sharded_device_ht_tiles"] == 16
+    assert dwt_cuda.PLAIN_LEVELS == 0 and band_stats.LAUNCHES["band_stats"]
+    assert data == encode_sharded(img, opts, device="cpu")
+    assert np.array_equal(out, decode_sharded(data, device="cpu"))
+    if lossless:
+        assert np.array_equal(out, img)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,sp", [(4, 1), (2, 2), (1, 4)])
+def test_sharded_nccl_grids_match_one_process(cuda, dp, sp, tmp_path):
+    """The tile-sharded pipeline on NCCL groups of four ranks, one card
+    each: every rank's codestream equals the one-process encode's and its
+    decode the one-process decode, for HT lossless (with row shards of 2
+    rows at sp = 4), HT lossy and Part-1 with 2 layers at 6:1 (the PCRD's
+    all_reduce).  Needs four cards."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from go_jpeg2000_tpu_torch.parallel import decode_sharded, encode_sharded
+    from tests import torch_dist_worker
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    loader.available()                 # build before the ranks start
+    dwt_cuda.load()
+    rng = np.random.RandomState(8)
+    img = rng.randint(0, 1 << 16, (256, 384, 3)).astype(np.uint16)
+    small = dict(format=tp.Format.J2K, num_resolutions=4, tile_size=(64, 32))
+    cases = [(img, tp.Options(lossless=True, high_throughput=True, **small),
+              True),
+             ((img >> 8).astype(np.uint8), tp.Options(
+                 lossless=False, quality=85, high_throughput=True, **small),
+              True),
+             (img, tp.Options(lossless=True, num_layers=2,
+                              compression_ratio=6.0, **small), False)]
+    single = []
+    for image, opts, decode in cases:
+        data = encode_sharded(image, opts, device=cuda)
+        single.append((data, decode_sharded(data, device=cuda)
+                       if decode else None))
+    mp.spawn(torch_dist_worker.run,
+             args=(4, str(tmp_path / "rdv"), str(tmp_path), dp, sp, cases,
+                   "nccl"), nprocs=4)
+    for rank in range(4):
+        with open(tmp_path / f"rank{rank}.pkl", "rb") as f:
+            got = pickle.load(f)
+        for (data, pix), (ref, ref_pix), case in zip(got, single, cases):
+            assert data == ref, (rank, case[1])
+            if case[2]:
+                assert np.array_equal(pix, ref_pix), (rank, case[1])
+    assert np.array_equal(single[0][1], img)
