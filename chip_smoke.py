@@ -20,10 +20,14 @@ sources in this checkout.  Phases, each of which raises on failure:
    pool compaction) against its plain torch version on the card, on the
    block batches of the main paths (32 gray 512x512 lossless, 2240 blocks;
    2 RGB 2048x2048 lossy, 6144 blocks) and of 16-bit RGB, pure noise,
-   all-zero and ragged (96x80) frames: every integer output equal, the
+   all-zero and ragged (96x80) frames, and of code-blocks of 32x32, 64x32,
+   32x128 and 128x32 (height x width): every integer output equal, the
    distortion within a relative 1e-5 (a float32 sum taken in another
-   order); kernel and plain times with CUDA events on the 2240 blocks, and
-   each kernel's device time alone (torch.profiler);
+   order); the cleanup kernel also on blocks with magnitudes near the
+   30-bit limit and on a config-4 tile-origin class (64 tiles of 512x512
+   16-bit RGB, 12,864 blocks); kernel and plain times with CUDA events on
+   the 2240 blocks, and each kernel's device time alone (torch.profiler),
+   and the cleanup kernel's on the config-4 class;
 5. each HT decode kernel (MagSgn extraction, block-to-pyramid assembly
    with the midpoint dequantization of lossy plans) against its plain
    torch version on the card, on the native parse of the same frames'
@@ -58,8 +62,14 @@ sources in this checkout.  Phases, each of which raises on failure:
    16-bit RGB, pure noise, all-zero and ragged (96x80) frames: slots,
    decision pools, segment pools and lengths equal; the MQ segments also
    equal to the native mq_encode_streams on every block, and to the plain
-   lockstep chain on a subset of blocks; kernel and plain times with CUDA
-   events on the 560 blocks, and each kernel's device time alone;
+   lockstep chain on a subset of blocks; the MQ kernel also on the stress
+   streams of ops/mq_device.stress_streams (lengths around the kernel's
+   staging chunk, pools whose base is off a 16-byte boundary, long MPS
+   runs, carries and stuffing, one stream far longer than the rest)
+   against the native coder on every stream and the plain chain on every
+   stream of at most four chunks; kernel and plain times with CUDA events
+   on the 560 blocks, each kernel's device time alone, and the MQ kernel's
+   cycles per decision of the longest block beside its serial bound;
 9. the Part-1 (EBCOT) lossless main paths: encode_batch then decode_batch
    on 8 gray 8-bit 512x512 frames with the JAX bench's ebcot53_512 options
    (Part 1, lossless 5/3, 6 resolutions, J2K), then on 4 RGB frames, with
@@ -158,6 +168,8 @@ C4_SIZE = 8192
 C4_TILE = 512
 C4_RES = 5
 C4_CHECK = 2048
+# a config-4 tile-origin class: 64 tiles of 512x512 (8 x 8 of them)
+C4_CLASS_SIDE = 8
 # int64 fields per band in the block tables of ht_extract_blocks and
 # ht_blocks_to_pyramid
 BAND_TABLE_FIELDS = 11
@@ -433,7 +445,79 @@ def ht_cases(tp):
         ("ragged", [np.stack([natural_image(96, 80, seed=410 + 3 * i + c)
                               for c in range(3)], axis=-1)
                     for i in range(4)], lossy),
+    ] + [
+        # code_block_size is log2 (width, height)
+        (f"cb{1 << lh}x{1 << lw}",
+         [natural_image(256, 256, seed=420 + 4 * lw + lh + i)
+          for i in range(4)],
+         tp.Options(format=tp.Format.J2K, lossless=lossless_cb,
+                    quality=85, num_resolutions=5, high_throughput=True,
+                    code_block_size=(lw, lh)))
+        for lw, lh, lossless_cb in ((5, 5, True), (5, 6, True),
+                                    (7, 5, False), (5, 7, True))
     ]
+
+
+def ht_blocks(tp, frames, opts, dev):
+    """(plan, blocks int32 [n * nb, cbh, cbw], hs, ws) of the frames' fused
+    HT encode, made on the card by the main path's own steps."""
+    from go_jpeg2000_tpu_torch.models import fused_encode, transforms
+    from go_jpeg2000_tpu_torch.ops import ht_enc_cuda as K
+    header, _tile, plan, batch = fused_setup(tp, frames, opts)
+    levels, kind, use_mct, prec, signed, _ = fused_args(header, batch, opts,
+                                                        dev)
+    n = len(frames)
+    pyr = transforms.forward_pyramid(transforms.upload(batch, dev), levels,
+                                     kind, use_mct, prec, signed, 0, 0)
+    blocks = K.extract_blocks(pyr, plan, n, levels)
+    hs, ws = fused_encode._block_dims(plan, n, dev)
+    return plan, blocks, hs, ws
+
+
+def config4_class(tp):
+    """One tile-origin class of config 4 as a frame batch: the 64 tiles of
+    a 4096x4096 16-bit RGB image of its smooth noise as 512x512 frames, with
+    config 4's HT options (5 resolutions, lossless) and no tiling: 64 x 3
+    components x 67 code-blocks = 12,864 blocks of 64x64."""
+    side = C4_CLASS_SIDE * C4_TILE
+    img = config4_image(side)
+    frames = [img[y:y + C4_TILE, x:x + C4_TILE]
+              for y in range(0, side, C4_TILE)
+              for x in range(0, side, C4_TILE)]
+    return frames, tp.Options(format=tp.Format.J2K, lossless=True,
+                              num_resolutions=C4_RES, high_throughput=True)
+
+
+def cleanup_check(K, ht_enc, blocks, hs, ws, label):
+    """The cleanup kernel against its plain version on one block batch:
+    integer outputs equal, the distortion within a relative 1e-5.  Returns
+    the plain outputs."""
+    ref = ht_enc.cleanup_values(blocks, hs, ws)
+    got = K.cleanup_values(blocks, hs, ws)
+    diff = max((got[k] - ref[k]).abs().max().item()
+               for k in ref if k != "dist")
+    d_ref = ref["dist"].double()
+    rel = ((got["dist"].double() - d_ref).abs()
+           / d_ref.clamp(min=1)).max().item()
+    print(f"kernel check ht_cleanup_fields {label} ({blocks.shape[0]} blocks "
+          f"of {blocks.shape[1]}x{blocks.shape[2]}): max|diff| {diff}, "
+          f"distortion relative error {rel:.3g}", flush=True)
+    if diff or not rel <= 1e-5:
+        raise AssertionError(f"{label}: ht_cleanup_fields disagrees with its "
+                             "plain version")
+    return ref
+
+
+def extreme_blocks(dev, seed=11):
+    """64 blocks of 64x64 with magnitudes up to 2^30 - 1, the 30-bit limit
+    of the cleanup fields, 40% zeros, both signs, ragged true sizes."""
+    rng = np.random.RandomState(seed)
+    c = rng.randint(-(1 << 30) + 1, 1 << 30, size=(64, 64, 64))
+    c[rng.rand(64, 64, 64) < 0.4] = 0
+    hs = rng.randint(1, 65, size=64).astype(np.int32)
+    ws = rng.randint(1, 65, size=64).astype(np.int32)
+    return (torch.from_numpy(c.astype(np.int32)).to(dev),
+            torch.from_numpy(hs).to(dev), torch.from_numpy(ws).to(dev))
 
 
 def case_label(name, frames, opts):
@@ -484,10 +568,7 @@ def check_ht_kernels(tp, dev, card):
             cuda_ms(lambda: K.cleanup_values(blocks, hs, ws)),
             cuda_ms(lambda: ht_enc.cleanup_values(blocks, hs, ws), reps=3,
                     warmup=1),
-            bound(4 * blocks.numel() + 8 * nb + 4 * 8192
-                  + sum(4 * v.numel() for v in ref.values()),
-                  OPS_PER_ELEMENT["ht_cleanup_fields"] * blocks.numel(),
-                  INT32_OPS_PER_S)),
+            cleanup_bound(blocks, ref)),
         "ht_pack_bits": (
             cuda_ms(lambda: [K.pack_bits(*f) for f in fields]),
             cuda_ms(lambda: [ht_enc.pack_bits(*f) for f in fields], reps=3,
@@ -513,7 +594,40 @@ def check_ht_kernels(tp, dev, card):
         time_line(name, ms, plain_ms, bound_ms, by,
                   device_ms(kernel_fns[name], name),
                   f"{nb} blocks of {plan.cbh}x{plan.cbw}", card)
+    cleanup_check(K, ht_enc, *extreme_blocks(dev), "magnitudes up to 2^30-1")
+    cleanup_class_timing(tp, dev, card)
     return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
+
+
+def cleanup_bound(blocks, ref):
+    """The cleanup kernel's least time: it reads the blocks, their sizes and
+    the VLC table and writes every output once."""
+    return bound(4 * blocks.numel() + 8 * blocks.shape[0] + 4 * 8192
+                 + sum(4 * v.numel() for v in ref.values()),
+                 OPS_PER_ELEMENT["ht_cleanup_fields"] * blocks.numel(),
+                 INT32_OPS_PER_S)
+
+
+def cleanup_class_timing(tp, dev, card):
+    """The cleanup kernel on a config-4 tile-origin class (12,864 16-bit
+    blocks): checked against the plain version, then timed."""
+    from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
+    frames, opts = config4_class(tp)
+    _plan, blocks, hs, ws = ht_blocks(tp, frames, opts, dev)
+    del frames
+    ref = cleanup_check(K, ht_enc, blocks, hs, ws, "config-4 class")
+    t0 = time.perf_counter()
+    ht_enc.cleanup_values(blocks, hs, ws)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, by = cleanup_bound(blocks, ref)
+    del ref
+    fn = lambda: K.cleanup_values(blocks, hs, ws)   # noqa: E731
+    time_line("ht_cleanup_fields", cuda_ms(fn), plain_ms, bound_ms, by,
+              device_ms(fn, "ht_cleanup_fields"),
+              f"config-4 class: {blocks.shape[0]} blocks of 64x64, 16-bit "
+              "RGB", card)
+    torch.cuda.empty_cache()
 
 
 def magsgn_bits(qinfo):
@@ -930,6 +1044,47 @@ def ebcot_case(tp, frames, dev):
     return err, len(pick), inputs
 
 
+def row_segments(rows, off, lens):
+    """Host bytes of each block's segment in the MQ row buffer (block b's
+    row at 3 * off[b] + 3 * b), trailing 0xFF stripped."""
+    data = rows.cpu().numpy()
+    starts = 3 * off.cpu().numpy() + 3 * np.arange(off.numel())
+    return [strip_ff(data[s:s + n].tobytes())
+            for s, n in zip(starts, lens.cpu().numpy())]
+
+
+def check_mq_stress(dev):
+    """The MQ kernel on ops/mq_device.stress_streams for three seeds, the
+    pool's base 0, 5 and 11 bytes past a 16-byte boundary: segments equal
+    to the native coder's on every stream, and to the plain lockstep
+    chain's (on the card) on every stream of at most four staging chunks;
+    raises on any difference."""
+    from go_jpeg2000_tpu_torch.native import loader
+    from go_jpeg2000_tpu_torch.ops import ebcot_cuda as K, mq_device
+    for seed, base in ((0, 0), (1, 5), (2, 11)):
+        streams = mq_device.stress_streams(K.MQ_CHUNK, seed)
+        pool, ndec, off, largest = mq_device.pool_of(streams, dev, base)
+        rows, lens = K.mq_encode(pool, ndec, off, largest)
+        mine = row_segments(rows, off, lens)
+        native = loader.mq_encode_streams(streams)
+        bad_native = sum(a != b for a, b in zip(mine, native))
+        short = [i for i, x in enumerate(streams)
+                 if len(x) <= 4 * K.MQ_CHUNK]
+        sp, sn, so, sl = mq_device.pool_of([streams[i] for i in short], dev)
+        prows, plens = K.mq_encode_plain(sp, sn, so, sl)
+        plain = row_segments(prows, so, plens)
+        bad_plain = sum(mine[i] != x for i, x in zip(short, plain))
+        print(f"kernel check MQ stress streams seed {seed} (pool base "
+              f"+{base} bytes, {len(streams)} streams of "
+              f"{[len(x) for x in streams]} decisions, chunk {K.MQ_CHUNK}): "
+              f"segments differing from native {bad_native} of "
+              f"{len(streams)}, from the plain chain {bad_plain} of "
+              f"{len(short)}", flush=True)
+        if bad_native or bad_plain:
+            raise AssertionError("ebcot_mq_encode disagrees on the stress "
+                                 f"streams of seed {seed}")
+
+
 def check_ebcot_kernels(tp, dev, card):
     """Phase 8: every EBCOT kernel against its plain version on the main
     gray batch and on 16-bit RGB, noise, all-zero and ragged frames; times
@@ -954,6 +1109,7 @@ def check_ebcot_kernels(tp, dev, card):
             err[k] = max(err[k], e[k])
         if timing is None:
             timing = inputs
+    check_mq_stress(dev)
 
     t = timing
     mags, signs, classes, valid = (t["mags"], t["signs"], t["classes"],
@@ -1017,6 +1173,15 @@ def check_ebcot_kernels(tp, dev, card):
           f"dependent cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz), "
           f"{100 * serial_ms / times['ebcot_mq_encode'][0]:.1f}% of it "
           f"reached [{card}]", flush=True)
+    # by CUDA events: a launch of milliseconds hides the wrapper's host
+    # time (the profiler's device time of this kernel has read a third
+    # below its CUDA-event time in one run of this script)
+    mq_ms = times["ebcot_mq_encode"][0]
+    print(f"time ebcot_mq_encode: "
+          f"{mq_ms * 1e-3 * SM_CLOCK_HZ / largest:.1f} cycles a decision of "
+          f"the longest block ({mq_ms:.4f} ms by CUDA events over {largest} "
+          f"decisions at {SM_CLOCK_HZ / 1e9:.2f} GHz), against the serial "
+          f"bound's {MQ_DEPENDENT_CYCLES} [{card}]", flush=True)
     return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
 
 

@@ -38,19 +38,33 @@
 //   block per row runs a block scan over tiles of the row and writes its
 //   decisions at its offset.  The TPU form sorted (scatters serialize
 //   there); here the scan gives each decision its place.
-// * ebcot_mq_encode: the serial dependence of the MQ coder.  One thread per
-//   code-block runs the C.3 encoder over its stream, with its 19 context
-//   states in shared memory and the state table packed one word a state in
-//   shared memory (one load a decision), renormalizes in closed form (as
-//   the TPU form does: at most three CT-bounded chunks), loads the next
-//   decision a step ahead, and writes its bytes in order into its row;
-//   nothing is staged or sorted.  A decision commits at most 3 bytes (at
-//   most 15 renormalization shifts, and a BYTEOUT reloads CT with at least
-//   7) and the flush at most 3, so a row of 3 * ndec + 3 bytes always holds
-//   the segment.  With one thread a
-//   block the card runs only as many lanes as there are code-blocks (560
-//   for the 8-frame gray batch), and the time is the longest block's
-//   decision count times the latency of one decision's dependent chain.
+// * ebcot_mq_encode: the serial dependence of the MQ coder: the time is
+//   the longest block's decision count times the latency of one decision's
+//   dependent chain, so the design is for latency.  Two warps code each
+//   code-block (MQ_PAIRS blocks a CTA: two a CTA ran faster than one on
+//   the H100, PERF.md), and lane 0 of each runs one half of the C.3
+//   encoder, so neither loop diverges and no global load sits on either
+//   chain.  The model warp stages the block's decisions in shared memory in
+//   chunks of MQ_CHUNK bytes with 16-byte cp.async copies from the aligned
+//   address below the stream (double-buffered: chunk t+1 is in flight while
+//   chunk t is coded) and runs A and the context states: each context keeps
+//   its state word (Qe, state index, SWITCH, MPS) and the words of its two
+//   successor states in a shared-memory slot; the next decision's slot is
+//   loaded before this decision's store (a select repairs the case of one
+//   context twice in a row) and the successors' successors come from a
+//   47-entry table in one load each, so the new slot is ready whichever way
+//   the decision goes; the MPS/LPS cases and the conditional exchange are
+//   selects and A renormalizes in closed form (n = clz16(A) shifts).  Per
+//   decision it writes a record (the Qe that C takes, n) to a shared ring.
+//   The byte warp runs C and CT over the records of the chunk before (a
+//   named barrier per chunk joins the two), with BYTEOUT and stuffing when
+//   the shifts reach CT (at most three CT-bounded chunks, as the TPU form),
+//   commits bytes (final once committed: a carry only changes the byte
+//   still held in a register) to a shared-memory buffer, and writes them to
+//   the segment row with coalesced stores after every chunk and after the
+//   flush.  A decision commits at most 3 bytes (at most 15 renormalization
+//   shifts, and a BYTEOUT reloads CT with at least 7) and the flush at most
+//   3, so a row of 3 * ndec + 3 bytes always holds the segment.
 // * ebcot_pool_rows: bytes.  One block scans the segment lengths (pool
 //   offsets and total); a grid of one CUDA block per row copies each
 //   segment to its place.  The pool is allocated at its bound and only its
@@ -66,7 +80,8 @@
 #define ROW_THREADS 256
 #define ROW_TILE 16            // bytes per thread per tile of a slot row
 #define SCAN_THREADS 1024
-#define MQ_THREADS 64
+#define MQ_PAIRS 2             // code-blocks (two warps each) per CTA
+#define MQ_CHUNK 1024          // decision bytes a warp stages at a time
 #define COPY_THREADS 128
 #define NUM_CTX 19
 #define NUM_QE 47
@@ -467,127 +482,309 @@ __constant__ uint8_t SWITCH[NUM_QE] = {
     1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0,
     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
 
-struct MqState {
-  uint32_t a, c, last;
-  int ct;
-  int64_t pos;        // commits so far, the sentinel included
-  uint8_t* out;
+// A context's state in one word: Qe | index << 16 | SWITCH << 22 | MPS << 31.
+__device__ __forceinline__ uint32_t ctx_word(int i) {
+  return QE[i] | ((uint32_t)i << 16) | ((uint32_t)SWITCH[i] << 22);
+}
+
+// A context's slot: its word and the words of its NMPS and NLPS successor
+// states.
+__device__ __forceinline__ uint4 ctx_slot(int i) {
+  return make_uint4(ctx_word(i), ctx_word(NMPS[i]), ctx_word(NLPS[i]), 0u);
+}
+
+// Shared memory by 32-bit shared-window address: the coding loops keep
+// their buffers' addresses in registers (opaque to the compiler, which
+// would otherwise recompute the shared window's base in every iteration).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned lds_u8(unsigned a) {
+  unsigned short v;
+  asm volatile("ld.shared.u8 %0, [%1];" : "=h"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ unsigned lds_u32(unsigned a) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ uint2 lds_v2(unsigned a) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ uint4 lds_v4(unsigned a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts_u8(unsigned a, unsigned v) {
+  asm volatile("st.shared.u8 [%0], %1;" ::"r"(a), "h"((unsigned short)v)
+               : "memory");
+}
+__device__ __forceinline__ void sts_u32(unsigned a, unsigned v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ void sts_v4(unsigned a, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+// the pair's two warps: named barrier 1 + pair, 64 threads
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;" ::"r"(1 + pair) : "memory");
+}
+// end of the shared-memory helpers
+
+// The interval register's half of the coder: A and the context states.
+// Each decision's record for the other half is (Qe if C takes it, else 0)
+// | n << 16, n the renormalization shifts.
+__device__ __forceinline__ void mq_model(unsigned buf, int p0, int p1,
+                                         unsigned ctx, unsigned succ,
+                                         unsigned rec, uint32_t& a) {
+  asm volatile("" : "+r"(buf), "+r"(ctx), "+r"(succ), "+r"(rec), "+r"(p1));
+  int x = lds_u8(buf + p0);
+  uint4 s = lds_v4(ctx + 16 * (x & 0x1F));
+  int xn = lds_u8(buf + p0 + 1);
+#pragma unroll 2
+  for (int p = p0; p < p1; ++p) {
+    const int xnn = lds_u8(buf + p + 2);
+    const int cx = x & 0x1F, cxn = xn & 0x1F;
+    const uint4 sl = lds_v4(ctx + 16 * cxn);
+    const uint2 tn = lds_v2(succ + 8 * ((s.y >> 16) & 0x3F));
+    const uint2 tl = lds_v2(succ + 8 * ((s.z >> 16) & 0x3F));
+    const uint32_t q = s.x & 0xFFFFu;
+    const bool mps = (uint32_t)(x >> 5) == (s.x >> 31);
+    const uint32_t a1 = a - q;
+    const bool low = a1 < q;
+    const bool renorm_mps = mps && !(a1 & 0x8000u);
+    // CODEMPS: A = Qe if it renormalizes with A < Qe, else C += Qe;
+    // CODELPS: C += Qe if A < Qe, else A = Qe.  C takes Qe when A keeps
+    // A - Qe.
+    const bool keep_a = mps ? !(renorm_mps && low) : low;
+    a = keep_a ? a1 : q;
+    const int n = __clz(a) - 16;           // 0 unless it renormalizes
+    a <<= n;
+    sts_u32(rec + 4 * p, (keep_a ? q : 0u) | (uint32_t)n << 16);
+    uint4 snew = s;
+    if (renorm_mps)
+      snew = make_uint4(s.y | (s.x & 0x80000000u), tn.x, tn.y, 0u);
+    if (!mps)                                        // MPS ^= SWITCH
+      snew = make_uint4(s.z | ((s.x ^ (s.x << 9)) & 0x80000000u), tl.x, tl.y,
+                        0u);
+    sts_v4(ctx + 16 * cx, snew);
+    s = cxn == cx ? snew : sl;
+    x = xn;
+    xn = xnn;
+  }
+}
+
+// The code register's half: C, CT, BYTEOUT and stuffing.  `last` holds the
+// buffer's last byte, which a carry may still change; bytes before it are
+// final.  nout counts the bytes committed into the pair's output buffer in
+// this chunk, from -1: the first commit is the sentinel (OpenJPEG's byte
+// before the buffer), which lands in a guard byte and is not written out.
+struct MqRegs {
+  uint32_t c, last;
+  int ct, nout;
+  unsigned ob;
 };
 
-// BYTEOUT (C.3.2) on the register model: `last` holds the buffer's last
-// byte; each byteout commits it and loads the next one.  The first commit
-// is the sentinel (OpenJPEG's byte before the buffer) and is not written.
-__device__ __forceinline__ void byteout(MqState& s) {
-  uint32_t commit;
+// BYTEOUT (C.3.2) on the register model: commit `last`, load the next byte.
+__device__ __forceinline__ void byteout(MqRegs& r) {
+  uint32_t commit = r.last;
   bool stuff;
-  if (s.last == 0xFF) {
-    commit = s.last;
+  if (r.last == 0xFF) {
     stuff = true;
-  } else if (s.c >= 0x8000000u) {
-    s.last += 1;                         // carry into the last byte
-    commit = s.last;
-    stuff = s.last == 0xFF;
-    if (stuff) s.c &= 0x7FFFFFFu;
+  } else if (r.c >= 0x8000000u) {
+    commit = r.last + 1;                 // carry into the last byte
+    stuff = commit == 0xFF;
+    if (stuff) r.c &= 0x7FFFFFFu;
   } else {
-    commit = s.last;
     stuff = false;
   }
   if (stuff) {
-    s.last = (s.c >> 20) & 0xFF;
-    s.c &= 0xFFFFFu;
-    s.ct = 7;
+    r.last = (r.c >> 20) & 0xFF;
+    r.c &= 0xFFFFFu;
+    r.ct = 7;
   } else {
-    s.last = (s.c >> 19) & 0xFF;
-    s.c &= 0x7FFFFu;
-    s.ct = 8;
+    r.last = (r.c >> 19) & 0xFF;
+    r.c &= 0x7FFFFu;
+    r.ct = 8;
   }
-  if (s.pos > 0) s.out[s.pos - 1] = (uint8_t)commit;
-  s.pos += 1;
+  sts_u8(r.ob + r.nout++, commit);
 }
 
-// RENORME in closed form: A (in [1, 0xFFFF]) needs n = clz16(A) shifts;
-// C takes them in at most three chunks bounded by CT, with a BYTEOUT each
-// time CT reaches 0 (it reloads CT with 7 or 8, and n <= 15).
-__device__ __forceinline__ void renorm(MqState& s) {
-  int n = __clz(s.a) - 16;
-  s.a = (s.a << n) & 0xFFFFu;
-  while (n > 0) {
-    const int k = min(n, s.ct);
-    s.c <<= k;
-    s.ct -= k;
-    n -= k;
-    if (s.ct == 0) byteout(s);
+// C's part of RENORME for the decisions of buf[p0, p1): n shifts, taken at
+// once while they stay below CT, else in at most three CT-bounded chunks
+// with a BYTEOUT each time CT reaches 0 (it reloads CT with 7 or 8, and
+// n <= 15).
+__device__ __forceinline__ void mq_bytes(unsigned rec, int p0, int p1,
+                                         MqRegs& r) {
+  asm volatile("" : "+r"(rec), "+r"(p1));
+  uint32_t rn = lds_u32(rec + 4 * p0);
+#pragma unroll 2
+  for (int p = p0; p < p1; ++p) {
+    const uint32_t rnn = lds_u32(rec + 4 * p + 4);
+    r.c += rn & 0xFFFFu;
+    int n = rn >> 16;
+    if (n < r.ct) {
+      r.c <<= n;
+      r.ct -= n;
+    } else {
+      do {
+        const int k = min(n, r.ct);
+        r.c <<= k;
+        r.ct -= k;
+        n -= k;
+        if (r.ct == 0) byteout(r);
+      } while (n > 0);
+    }
+    rn = rnn;
   }
 }
 
-__global__ void __launch_bounds__(MQ_THREADS) mq_kernel(
-    const uint8_t* __restrict__ dec, const long long* __restrict__ off,
-    const int* __restrict__ ndec, int nb, uint8_t* __restrict__ rows,
-    int* __restrict__ lens) {
-  // context states, idx | mps << 7, one column per thread; the state
-  // table packed one word a state: Qe | NMPS << 16 | NLPS << 22 | SW << 28
-  __shared__ uint8_t ctx_state[NUM_CTX * MQ_THREADS];
-  __shared__ uint32_t table[NUM_QE];
+// One pair's staging buffers: the context slots, two chunks of decisions
+// (16 bytes of slack for the look-ahead), two chunks of records, the
+// chunk's committed bytes (a decision commits at most 3, the flush at most
+// 3, plus the guard) and A after the last decision.
+struct __align__(16) MqPair {
+  uint4 ctx[32];
+  uint8_t dec[2][MQ_CHUNK + 16];
+  uint32_t rec[2][MQ_CHUNK + 4];
+  uint8_t out[3 * MQ_CHUNK + 16];
+  uint32_t a_end;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Stage the 16-byte-aligned chunk at `from` (its first `bytes` bytes
+// needed) into dst: whole segments inside the pool [lo, hi) by cp.async,
+// the pool's ragged first and last segments byte by byte.
+__device__ __forceinline__ void stage_chunk(uint8_t* dst, const uint8_t* from,
+                                            int bytes, const uint8_t* lo,
+                                            const uint8_t* hi, int lane) {
+  for (int i = 16 * lane; i < bytes; i += 16 * 32) {
+    const uint8_t* g = from + i;
+    if (g >= lo && g + 16 <= hi) {
+      cp_async16(dst + i, g);
+    } else {
+      for (int j = 0; j < 16; ++j)
+        if (g + j >= lo && g + j < hi) dst[i + j] = g[j];
+    }
+  }
+}
+
+// Two warps code each code-block: the model warp stages the decisions and
+// runs A and the context states (mq_model), the byte warp runs C
+// (mq_bytes), writes the segment and its length.  Step t of the pair's
+// loop models chunk t and codes the bytes of chunk t - 1; a named barrier
+// ends each step.
+__global__ void __launch_bounds__(MQ_PAIRS * 64) mq_kernel(
+    const uint8_t* __restrict__ dec, long long dec_len,
+    const long long* __restrict__ off, const int* __restrict__ ndec, int nb,
+    uint8_t* __restrict__ rows, int* __restrict__ lens) {
+  // each state's successor words: those of its NMPS and NLPS states
+  __shared__ uint2 succ[NUM_QE];
+  __shared__ MqPair pairs[MQ_PAIRS];
   for (int i = threadIdx.x; i < NUM_QE; i += blockDim.x)
-    table[i] = QE[i] | ((uint32_t)NMPS[i] << 16) |
-               ((uint32_t)NLPS[i] << 22) | ((uint32_t)SWITCH[i] << 28);
+    succ[i] = make_uint2(ctx_word(NMPS[i]), ctx_word(NLPS[i]));
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, pair = threadIdx.x >> 6;
+  const bool model = ((threadIdx.x >> 5) & 1) == 0;
+  const int b = blockIdx.x * MQ_PAIRS + pair;
   if (b >= nb) return;
   const int n = ndec[b];
   if (n == 0) {
-    lens[b] = 0;
+    if (!model && lane == 0) lens[b] = 0;
     return;
   }
-  uint8_t* cs = ctx_state + threadIdx.x;
-  for (int k = 0; k < NUM_CTX; ++k) cs[k * MQ_THREADS] = 0;
-  cs[18 * MQ_THREADS] = 46;              // UNI
-  cs[17 * MQ_THREADS] = 3;               // RL
-  cs[0] = 4;                             // ZC context 0
-  const uint8_t* d = dec + off[b];
-  MqState s;
-  s.a = 0x8000u;
-  s.c = 0;
-  s.ct = 12;
-  s.last = 0;
-  s.pos = 0;
-  s.out = rows + 3 * off[b] + 3 * (int64_t)b;
-  int next = d[0];
-  for (int k = 0; k < n; ++k) {
-    const int x = next;
-    if (k + 1 < n) next = d[k + 1];      // load the next decision early
-    const int cx = x & 0x1F, bit = x >> 5;
-    const int state = cs[cx * MQ_THREADS];
-    int idx = state & 0x7F, mps = state >> 7;
-    const uint32_t t = table[idx];
-    const uint32_t q = t & 0xFFFFu;
-    s.a -= q;
-    if (bit == mps) {                    // CODEMPS
-      if (!(s.a & 0x8000u)) {
-        if (s.a < q) s.a = q; else s.c += q;
-        idx = (t >> 16) & 0x3F;
-        renorm(s);
-      } else {
-        s.c += q;
+  MqPair& pp = pairs[pair];
+  const long long start = off[b];
+  const uint8_t* src = dec + start;
+  const int head = (int)((uintptr_t)src & 15);
+  const uint8_t* base = src - head;
+  const int span = head + n;
+  const int nch = (span + MQ_CHUNK - 1) / MQ_CHUNK;
+  if (model) {
+    const uint8_t* hi = dec + dec_len;
+    // initial states (Table D.7): ZC 0 = 4, RL = 3, UNI = 46, the rest 0
+    pp.ctx[lane] = ctx_slot(lane == 0 ? 4 : lane == 17 ? 3 : lane == 18 ? 46
+                                                                       : 0);
+    stage_chunk(pp.dec[0], base, min(span, MQ_CHUNK), dec, hi, lane);
+    cp_async_commit();
+    uint32_t a = 0x8000u;
+    for (int t = 0; t < nch; ++t) {
+      if (t + 1 < nch)
+        stage_chunk(pp.dec[(t + 1) & 1],
+                    base + (long long)(t + 1) * MQ_CHUNK,
+                    min(span - (t + 1) * MQ_CHUNK, MQ_CHUNK), dec, hi, lane);
+      cp_async_commit();
+      cp_async_wait1();                // chunk t has landed
+      __syncwarp();
+      if (lane == 0) {
+        mq_model(smem_addr(pp.dec[t & 1]), t ? 0 : head,
+                 min(MQ_CHUNK, span - t * MQ_CHUNK), smem_addr(pp.ctx),
+                 smem_addr(succ), smem_addr(pp.rec[t & 1]), a);
+        if (t + 1 == nch) pp.a_end = a;
       }
-    } else {                             // CODELPS
-      if (s.a < q) s.c += q; else s.a = q;
-      if (t >> 28) mps = 1 - mps;
-      idx = (t >> 22) & 0x3F;
-      renorm(s);
+      pair_sync(pair);
     }
-    cs[cx * MQ_THREADS] = (uint8_t)(idx | (mps << 7));
+    pair_sync(pair);
+    return;
   }
-  // FLUSH (C.3.4, OpenJPEG's form): SETBITS, two byteouts, the last byte
-  const uint32_t tempc = s.c + s.a - 1;
-  s.c |= 0xFFFFu;
-  if (s.c >= tempc) s.c -= 0x8000u;
-  s.c <<= s.ct;
-  byteout(s);
-  s.c <<= s.ct;
-  byteout(s);
-  s.out[s.pos - 1] = (uint8_t)s.last;
-  lens[b] = (int)s.pos;                  // commits after the sentinel
+  uint8_t* row = rows + 3 * start + 3 * (long long)b;
+  const uint8_t* ob = pp.out + 1;
+  MqRegs r;
+  r.c = 0;
+  r.ct = 12;
+  r.last = 0;
+  r.nout = -1;
+  r.ob = smem_addr(ob);
+  int written = 0;
+  pair_sync(pair);
+  for (int t = 0; t < nch; ++t) {
+    if (lane == 0) {
+      mq_bytes(smem_addr(pp.rec[t & 1]), t ? 0 : head,
+               min(MQ_CHUNK, span - t * MQ_CHUNK), r);
+      if (t + 1 == nch) {
+        // FLUSH (C.3.4, OpenJPEG's form): SETBITS, two byteouts, the last
+        // byte
+        const uint32_t tempc = r.c + pp.a_end - 1;
+        r.c |= 0xFFFFu;
+        if (r.c >= tempc) r.c -= 0x8000u;
+        r.c <<= r.ct;
+        byteout(r);
+        r.c <<= r.ct;
+        byteout(r);
+        sts_u8(r.ob + r.nout++, r.last);
+      }
+    }
+    __syncwarp();
+    const int m = max(__shfl_sync(0xffffffffu, r.nout, 0), 0);
+    for (int i = lane; i < m; i += 32) row[written + i] = ob[i];
+    written += m;
+    r.nout -= m;
+    __syncwarp();
+    pair_sync(pair);
+  }
+  if (lane == 0) lens[b] = written;      // commits after the sentinel
 }
 
 // ---------------------------------------------------------- ebcot_pool_rows
@@ -664,12 +861,15 @@ int ebcot_compact_write(const void* slots, int nb, long long t,
   return (int)cudaGetLastError();
 }
 
-int ebcot_mq_encode(const void* dec, const void* off, const void* ndec,
-                    int nb, void* rows, void* lens, void* stream) {
-  const int grid = (nb + MQ_THREADS - 1) / MQ_THREADS;
-  mq_kernel<<<grid, MQ_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)dec, (const long long*)off, (const int*)ndec, nb,
-      (uint8_t*)rows, (int*)lens);
+int ebcot_mq_chunk(void) { return MQ_CHUNK; }
+
+int ebcot_mq_encode(const void* dec, long long dec_len, const void* off,
+                    const void* ndec, int nb, void* rows, void* lens,
+                    void* stream) {
+  const int grid = (nb + MQ_PAIRS - 1) / MQ_PAIRS;
+  mq_kernel<<<grid, MQ_PAIRS * 64, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)dec, dec_len, (const long long*)off, (const int*)ndec,
+      nb, (uint8_t*)rows, (int*)lens);
   return (int)cudaGetLastError();
 }
 

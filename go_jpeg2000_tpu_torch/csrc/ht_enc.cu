@@ -36,15 +36,24 @@
 //   sign(c) * floor(|c| / delta) with IEEE division (__fdiv_rn; this file
 //   must not be built with --use_fast_math), which is what ops/quant.py
 //   quantize computes on the card and on the CPU.
-// * ht_cleanup_fields: one CUDA block per code-block.  Every field is a pure
-//   function of the block's coefficients, and the line state of a quad
-//   needs only the quad row above, so nothing walks the block in sequence:
-//   phase 1, one thread per quad, puts rho, the quad's largest exponent and
-//   the n1/n3 exponents into shared memory (4 bytes a quad); phase 2, one
-//   thread per quad pair, reads its neighbours there, looks up the
-//   8192-entry direct VLC table through the read-only cache (__ldg: lookups
-//   diverge, which constant memory would serialize) and writes the pair's 8
-//   MagSgn, 6 VLC and 3 MEL fields.  numbps, u_max and the distortion are
+// * ht_cleanup_fields: one CUDA block per code-block.  It reads 4 bytes a
+//   sample and writes 17 int32 values and 17 int32 lengths a quad pair
+//   (about 17 bytes a sample), so the design is for bytes: the block is
+//   read once, with 16-byte loads into shared memory, and every field goes
+//   out in whole lines.  Every field is a pure function of the block's
+//   coefficients, and the line state of a quad needs only the quad row
+//   above, so nothing walks the block in sequence: phase 1, one thread per
+//   quad, puts rho, the quad's largest exponent and the n1/n3 exponents
+//   into shared memory (4 bytes a quad); phase 2, one thread per quad pair
+//   and a warp per 32 consecutive pairs, reads its samples and neighbours
+//   there, looks up the 8192-entry direct VLC table through the read-only
+//   cache (__ldg: lookups diverge, which constant memory would serialize)
+//   and puts the pair's 8 MagSgn, 6 VLC and 3 MEL fields into the warp's
+//   staging area in the output layout; the warp then writes each of the
+//   six arrays' 32-pair run with 16-byte stores, 512 contiguous bytes a
+//   store instruction.  A warp per 32 pairs, at most 8 warps: 256 threads
+//   and 54 KB of shared memory for a 64x64 block (4 CTAs an SM), fewer
+//   threads for smaller blocks.  numbps, u_max and the distortion are
 //   block reductions (warp shuffles; the distortion sums float32 squares in
 //   double, so it can differ from a float32 sum in its last bits).
 // * ht_pack_bits: one CUDA block per row.  Each thread takes a run of
@@ -171,26 +180,59 @@ __global__ void __launch_bounds__(THREADS) extract_kernel(
 
 // ------------------------------------------------------ ht_cleanup_fields
 
-// The four samples of quad (qy, qx), n0..n3 = TL, BL, TR, BR: magnitude and
-// MagSgn value v = 2*(mag-1) + sign (0 for a zero or padded sample).
+// The four samples of quad (qy, qx), n0..n3 = TL, BL, TR, BR, from the
+// block in shared memory: magnitude and MagSgn value v = 2*(mag-1) + sign
+// (0 for a zero or padded sample).
 __device__ __forceinline__ void load_quad(const int* blk, int w, int hb,
                                           int wb, int qy, int qx, int qw,
                                           unsigned* v, unsigned* mag) {
+  int2 rows[2] = {make_int2(0, 0), make_int2(0, 0)};
+  if (qx < qw) {
+    rows[0] = *reinterpret_cast<const int2*>(blk + 2 * qy * w + 2 * qx);
+    rows[1] = *reinterpret_cast<const int2*>(blk + (2 * qy + 1) * w + 2 * qx);
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int y = 2 * qy + (i & 1), x = 2 * qx + (i >> 1);
-    unsigned m = 0u, neg = 0u;
-    if (qx < qw && y < hb && x < wb) {
-      const int c = blk[y * w + x];
-      m = (unsigned)abs(c);
-      neg = c < 0 ? 1u : 0u;
-    }
+    const int c = (i >> 1) ? rows[i & 1].y : rows[i & 1].x;
+    const bool in = qx < qw && y < hb && x < wb;
+    const unsigned m = in ? (unsigned)abs(c) : 0u;
     mag[i] = m;
-    v[i] = m ? ((m - 1u) << 1) | neg : 0u;
+    v[i] = m ? ((m - 1u) << 1) | (c < 0 ? 1u : 0u) : 0u;
   }
 }
 
-// quad info word in shared memory: rho | emax << 8 | e(n1) << 16 | e(n3) << 24
+// count int32 values from shared memory to dst, by the whole warp: 16-byte
+// stores when dst is 16-byte aligned (src always is), so each store
+// instruction writes 512 contiguous bytes; else 4-byte stores, still
+// contiguous across the warp.
+__device__ __forceinline__ void warp_store(int* __restrict__ dst,
+                                           const int* src, int count,
+                                           int lane) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int n4 = count >> 2;
+    for (int i = lane; i < n4; i += 32)
+      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+    done = n4 << 2;
+  }
+  for (int i = done + lane; i < count; i += 32) dst[i] = src[i];
+}
+
+// A warp's staging area for the fields of its 32 quad pairs, one region
+// per output array, each in the array's own layout (pair-major):
+// MagSgn values and lengths (8 a pair), VLC (6), MEL (3).
+#define ST_MSV 0
+#define ST_MSL (ST_MSV + 8 * 32)
+#define ST_VLV (ST_MSL + 8 * 32)
+#define ST_VLL (ST_VLV + 6 * 32)
+#define ST_MEV (ST_VLL + 6 * 32)
+#define ST_MEL (ST_MEV + 3 * 32)
+#define STAGE_INTS (ST_MEL + 3 * 32)
+
+// Dynamic shared memory: the block [h * w] | quad info [qh * qwp] |
+// STAGE_INTS a warp.  The quad info word is
+// rho | emax << 8 | e(n1) << 16 | e(n3) << 24.
 __global__ void __launch_bounds__(THREADS) fields_kernel(
     const int* __restrict__ coeffs, const int* __restrict__ hs,
     const int* __restrict__ ws, int h, int w,
@@ -199,18 +241,28 @@ __global__ void __launch_bounds__(THREADS) fields_kernel(
     int* __restrict__ vlc_lens, int* __restrict__ mel_vals,
     int* __restrict__ mel_lens, int* __restrict__ numbps,
     int* __restrict__ u_max, float* __restrict__ dist) {
-  extern __shared__ int qinfo[];
+  extern __shared__ __align__(16) int smem[];
   __shared__ unsigned s_maxmag;
   __shared__ int s_umax;
   __shared__ double s_dist[THREADS / 32];
   const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qh = h >> 1, qw = w >> 1, qwp = qw + (qw & 1), pairs = qwp >> 1;
   const int hb = min(hs[b], h), wb = min(ws[b], w);
-  const int* blk = coeffs + (int64_t)b * h * w;
+  int* blk = smem;
+  int* qinfo = smem + h * w;
+  int* stage = qinfo + ((qh * qwp + 3) & ~3) + warp * STAGE_INTS;
   if (threadIdx.x == 0) {
     s_maxmag = 0u;
     s_umax = 0;
   }
+
+  // the block, read once with 16-byte loads (h * w is a multiple of 4)
+  const int4* src = reinterpret_cast<const int4*>(coeffs + (int64_t)b * h * w);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < (h * w) >> 2; i += blockDim.x)
+    reinterpret_cast<int4*>(blk)[i] = __ldg(src + i);
+  __syncthreads();
 
   // phase 1: one thread per quad
   unsigned maxmag = 0u;
@@ -232,135 +284,149 @@ __global__ void __launch_bounds__(THREADS) fields_kernel(
   }
   __syncthreads();
 
-  // phase 2: one thread per quad pair
+  // phase 2: one thread per quad pair, a warp per 32 consecutive pairs;
+  // the fields go to the warp's staging area, then out with warp_store
   const int qh_b = (hb + 1) >> 1, qw_b = (wb + 1) >> 1;
-  const int fm = 8 * qh * pairs, fv = 6 * qh * pairs, fe = 3 * qh * pairs;
-  int* msv = ms_vals + (int64_t)b * fm;
-  int* msl = ms_lens + (int64_t)b * fm;
+  const int npairs = qh * pairs;
   int umax = 0;
-  for (int pi = threadIdx.x; pi < qh * pairs; pi += blockDim.x) {
-    const int qy = pi / pairs, p = pi - (pi / pairs) * pairs;
-    const bool init = qy == 0;
-    const int* row = qinfo + qy * qwp;
-    const int* up = row - qwp;  // the quad row above (not read when init)
-    int u[2], kap[2], uoff[2], rhos[2], azc[2], cwd[2], cwdl[2];
+  for (int base = warp * 32; base < npairs; base += blockDim.x) {
+    const int pi = base + lane;
+    if (pi < npairs) {
+      const int qy = pi / pairs, p = pi - (pi / pairs) * pairs;
+      const bool init = qy == 0;
+      const int* row = qinfo + qy * qwp;
+      const int* up = row - qwp;  // the quad row above (not read when init)
+      int u[2], kap[2], uoff[2], rhos[2], azc[2], cwd[2], cwdl[2];
+      int msv[8], msl[8];
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int qx = 2 * p + k;
-      const int info = row[qx];
-      const int rho = info & 15, emax = (info >> 8) & 0xFF;
-      const int rho_w = qx > 0 ? (row[qx - 1] & 15) : 0;
-      int ctx, kappa;
-      if (init) {
-        ctx = ((rho_w & 1) | (rho_w >> 1)) & 7;
-        kappa = 1;
-      } else {
-        // line state entry q <- n1 of quad q and n3 of quad q-1 (row above)
-        int ls_sig[2], ls_e[2];
+      for (int k = 0; k < 2; ++k) {
+        const int qx = 2 * p + k;
+        const int info = row[qx];
+        const int rho = info & 15, emax = (info >> 8) & 0xFF;
+        const int rho_w = qx > 0 ? (row[qx - 1] & 15) : 0;
+        int ctx, kappa;
+        if (init) {
+          ctx = ((rho_w & 1) | (rho_w >> 1)) & 7;
+          kappa = 1;
+        } else {
+          // line state entry q <- n1 of quad q and n3 of quad q-1 (row
+          // above)
+          int ls_sig[2], ls_e[2];
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int q = qx + t;
-          int s = 0, e = 0;
-          if (q < qwp) {
-            s |= (up[q] >> 1) & 1;
-            e = max(e, (up[q] >> 16) & 0xFF);
+          for (int t = 0; t < 2; ++t) {
+            const int q = qx + t;
+            int s = 0, e = 0;
+            if (q < qwp) {
+              s |= (up[q] >> 1) & 1;
+              e = max(e, (up[q] >> 16) & 0xFF);
+            }
+            if (q >= 1) {
+              s |= (up[q - 1] >> 3) & 1;
+              e = max(e, (up[q - 1] >> 24) & 0xFF);
+            }
+            ls_sig[t] = s;
+            ls_e[t] = e;
           }
-          if (q >= 1) {
-            s |= (up[q - 1] >> 3) & 1;
-            e = max(e, (up[q - 1] >> 24) & 0xFF);
-          }
-          ls_sig[t] = s;
-          ls_e[t] = e;
+          ctx = ls_sig[0] | (((rho_w & 0xC) != 0) << 1) | (ls_sig[1] << 2);
+          kappa = __popc(rho) > 1 ? max(1, max(ls_e[0], ls_e[1]) - 1) : 1;
         }
-        ctx = ls_sig[0] | (((rho_w & 0xC) != 0) << 1) | (ls_sig[1] << 2);
-        kappa = __popc(rho) > 1 ? max(1, max(ls_e[0], ls_e[1]) - 1) : 1;
-      }
-      const bool exists = qx < qw_b && qy < qh_b;
-      const bool coded = exists && (ctx != 0 || rho != 0);
-      const int uu = max(kappa, emax);
-      const int uo = (uu - kappa > 0) && coded;
-      if (coded) umax = max(umax, uu);
+        const bool exists = qx < qw_b && qy < qh_b;
+        const bool coded = exists && (ctx != 0 || rho != 0);
+        const int uu = max(kappa, emax);
+        const int uo = (uu - kappa > 0) && coded;
+        if (coded) umax = max(umax, uu);
 
-      unsigned v[4], mag[4];
-      load_quad(blk, w, hb, wb, qy, qx, qw, v, mag);
-      const int ush = max(uu - 1, 0);
-      int msb = 0;
+        unsigned v[4], mag[4];
+        load_quad(blk, w, hb, wb, qy, qx, qw, v, mag);
+        const int ush = max(uu - 1, 0);
+        int msb = 0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) msb |= (int)((v[i] >> ush) & 1u) << i;
-      const int idx =
-          ((((init ? 0 : 1) * 8 + ctx) * 16 + rho) * 2 + uo) * 16 + msb;
-      const int entry = __ldg(tbl + idx);
-      const int cl = coded ? (entry >> 16) & 0xF : 0;
-      const int ek = (entry >> 4) & 0xF;
-      const int base = (pi * 2 + k) * 4;
+        for (int i = 0; i < 4; ++i) msb |= (int)((v[i] >> ush) & 1u) << i;
+        const int idx =
+            ((((init ? 0 : 1) * 8 + ctx) * 16 + rho) * 2 + uo) * 16 + msb;
+        const int entry = __ldg(tbl + idx);
+        const int cl = coded ? (entry >> 16) & 0xF : 0;
+        const int ek = (entry >> 4) & 0xF;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = min(max(uu - ((ek >> i) & 1), 0), 31);
-        const int len = (((rho >> i) & 1) && coded) ? m : 0;
-        msv[base + i] = len ? (int)(v[i] & ((1u << len) - 1u)) : 0;
-        msl[base + i] = len;
+        for (int i = 0; i < 4; ++i) {
+          const int m = min(max(uu - ((ek >> i) & 1), 0), 31);
+          const int len = (((rho >> i) & 1) && coded) ? m : 0;
+          msv[4 * k + i] = len ? (int)(v[i] & ((1u << len) - 1u)) : 0;
+          msl[4 * k + i] = len;
+        }
+        u[k] = uu;
+        kap[k] = kappa;
+        uoff[k] = uo;
+        rhos[k] = rho;
+        azc[k] = exists && ctx == 0;
+        cwd[k] = cl ? (entry >> 8) & 0xFF : 0;
+        cwdl[k] = cl;
       }
-      u[k] = uu;
-      kap[k] = kappa;
-      uoff[k] = uo;
-      rhos[k] = rho;
-      azc[k] = exists && ctx == 0;
-      cwd[k] = cl ? (entry >> 8) & 0xFF : 0;
-      cwdl[k] = cl;
-    }
 
-    // per-pair u coding (initial stripe: the "big" pair form) and MEL
-    const int mode = uoff[0] + 2 * uoff[1];
-    const int u0i = u[0] - 1, u1i = u[1] - 1;
-    const bool big = u0i > 2 && u1i > 2;
-    const bool m3 = mode == 3, m1 = mode == 1, m2 = mode == 2;
-    int sv[4], sl[4];
-    if (init) {
-      const Uvlc I0 = uvlc(max(u0i, 1)), I1 = uvlc(max(u1i, 1));
-      const Uvlc B0 = uvlc(max(u0i - 2, 1)), B1 = uvlc(max(u1i - 2, 1));
-      const bool u0b = u0i > 2;
-      sv[0] = m3 ? (big ? B0.p : I0.p) : (m1 ? I0.p : (m2 ? I1.p : 0));
-      sl[0] = m3 ? (big ? B0.pl : I0.pl) : (m1 ? I0.pl : (m2 ? I1.pl : 0));
-      sv[1] = m3 ? (big ? B1.p : (u0b ? u1i - 1 : I1.p))
-                 : (m1 ? I0.s : (m2 ? I1.s : 0));
-      sl[1] = m3 ? (big ? B1.pl : (u0b ? 1 : I1.pl))
-                 : (m1 ? I0.sl : (m2 ? I1.sl : 0));
-      sv[2] = m3 ? (big ? B0.s : I0.s) : 0;
-      sl[2] = m3 ? (big ? B0.sl : I0.sl) : 0;
-      sv[3] = m3 ? (big ? B1.s : (u0b ? 0 : I1.s)) : 0;
-      sl[3] = m3 ? (big ? B1.sl : (u0b ? 0 : I1.sl)) : 0;
-    } else {
-      const Uvlc N0 = uvlc(max(u[0] - kap[0], 1));
-      const Uvlc N1 = uvlc(max(u[1] - kap[1], 1));
-      sv[0] = (m3 || m1) ? N0.p : (m2 ? N1.p : 0);
-      sl[0] = (m3 || m1) ? N0.pl : (m2 ? N1.pl : 0);
-      sv[1] = m3 ? N1.p : (m1 ? N0.s : (m2 ? N1.s : 0));
-      sl[1] = m3 ? N1.pl : (m1 ? N0.sl : (m2 ? N1.sl : 0));
-      sv[2] = m3 ? N0.s : 0;
-      sl[2] = m3 ? N0.sl : 0;
-      sv[3] = m3 ? N1.s : 0;
-      sl[3] = m3 ? N1.sl : 0;
-    }
-    int* vv = vlc_vals + (int64_t)b * fv + pi * 6;
-    int* vl = vlc_lens + (int64_t)b * fv + pi * 6;
-    vv[0] = cwd[0];
-    vl[0] = cwdl[0];
-    vv[1] = cwd[1];
-    vl[1] = cwdl[1];
+      // per-pair u coding (initial stripe: the "big" pair form) and MEL
+      const int mode = uoff[0] + 2 * uoff[1];
+      const int u0i = u[0] - 1, u1i = u[1] - 1;
+      const bool big = u0i > 2 && u1i > 2;
+      const bool m3 = mode == 3, m1 = mode == 1, m2 = mode == 2;
+      int sv[4], sl[4];
+      if (init) {
+        const Uvlc I0 = uvlc(max(u0i, 1)), I1 = uvlc(max(u1i, 1));
+        const Uvlc B0 = uvlc(max(u0i - 2, 1)), B1 = uvlc(max(u1i - 2, 1));
+        const bool u0b = u0i > 2;
+        sv[0] = m3 ? (big ? B0.p : I0.p) : (m1 ? I0.p : (m2 ? I1.p : 0));
+        sl[0] = m3 ? (big ? B0.pl : I0.pl) : (m1 ? I0.pl : (m2 ? I1.pl : 0));
+        sv[1] = m3 ? (big ? B1.p : (u0b ? u1i - 1 : I1.p))
+                   : (m1 ? I0.s : (m2 ? I1.s : 0));
+        sl[1] = m3 ? (big ? B1.pl : (u0b ? 1 : I1.pl))
+                   : (m1 ? I0.sl : (m2 ? I1.sl : 0));
+        sv[2] = m3 ? (big ? B0.s : I0.s) : 0;
+        sl[2] = m3 ? (big ? B0.sl : I0.sl) : 0;
+        sv[3] = m3 ? (big ? B1.s : (u0b ? 0 : I1.s)) : 0;
+        sl[3] = m3 ? (big ? B1.sl : (u0b ? 0 : I1.sl)) : 0;
+      } else {
+        const Uvlc N0 = uvlc(max(u[0] - kap[0], 1));
+        const Uvlc N1 = uvlc(max(u[1] - kap[1], 1));
+        sv[0] = (m3 || m1) ? N0.p : (m2 ? N1.p : 0);
+        sl[0] = (m3 || m1) ? N0.pl : (m2 ? N1.pl : 0);
+        sv[1] = m3 ? N1.p : (m1 ? N0.s : (m2 ? N1.s : 0));
+        sl[1] = m3 ? N1.pl : (m1 ? N0.sl : (m2 ? N1.sl : 0));
+        sv[2] = m3 ? N0.s : 0;
+        sl[2] = m3 ? N0.sl : 0;
+        sv[3] = m3 ? N1.s : 0;
+        sl[3] = m3 ? N1.sl : 0;
+      }
+      int4* m4v = reinterpret_cast<int4*>(stage + ST_MSV + 8 * lane);
+      int4* m4l = reinterpret_cast<int4*>(stage + ST_MSL + 8 * lane);
+      m4v[0] = make_int4(msv[0], msv[1], msv[2], msv[3]);
+      m4v[1] = make_int4(msv[4], msv[5], msv[6], msv[7]);
+      m4l[0] = make_int4(msl[0], msl[1], msl[2], msl[3]);
+      m4l[1] = make_int4(msl[4], msl[5], msl[6], msl[7]);
+      int2* v2v = reinterpret_cast<int2*>(stage + ST_VLV + 6 * lane);
+      int2* v2l = reinterpret_cast<int2*>(stage + ST_VLL + 6 * lane);
+      v2v[0] = make_int2(cwd[0], cwd[1]);
+      v2l[0] = make_int2(cwdl[0], cwdl[1]);
+      v2v[1] = make_int2(sl[0] ? sv[0] : 0, sl[1] ? sv[1] : 0);
+      v2l[1] = make_int2(sl[0], sl[1]);
+      v2v[2] = make_int2(sl[2] ? sv[2] : 0, sl[3] ? sv[3] : 0);
+      v2l[2] = make_int2(sl[2], sl[3]);
+      const int mv[3] = {rhos[0] != 0, rhos[1] != 0, big};
+      const int ml[3] = {azc[0], azc[1], init && m3};
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      vv[2 + t] = sl[t] ? sv[t] : 0;
-      vl[2 + t] = sl[t];
+      for (int t = 0; t < 3; ++t) {
+        stage[ST_MEV + 3 * lane + t] = ml[t] ? mv[t] : 0;
+        stage[ST_MEL + 3 * lane + t] = ml[t];
+      }
     }
-    int* ev = mel_vals + (int64_t)b * fe + pi * 3;
-    int* el = mel_lens + (int64_t)b * fe + pi * 3;
-    const int mv[3] = {rhos[0] != 0, rhos[1] != 0, big};
-    const int ml[3] = {azc[0], azc[1], init && m3};
-#pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      ev[t] = ml[t] ? mv[t] : 0;
-      el[t] = ml[t];
-    }
+    __syncwarp();
+    const int np = min(32, npairs - base);
+    const int64_t row0 = (int64_t)b * npairs + base;
+    warp_store(ms_vals + 8 * row0, stage + ST_MSV, 8 * np, lane);
+    warp_store(ms_lens + 8 * row0, stage + ST_MSL, 8 * np, lane);
+    warp_store(vlc_vals + 6 * row0, stage + ST_VLV, 6 * np, lane);
+    warp_store(vlc_lens + 6 * row0, stage + ST_VLL, 6 * np, lane);
+    warp_store(mel_vals + 3 * row0, stage + ST_MEV, 3 * np, lane);
+    warp_store(mel_lens + 3 * row0, stage + ST_MEL, 3 * np, lane);
+    __syncwarp();
   }
 
   // block reductions: numbps, u_max, distortion
@@ -369,10 +435,10 @@ __global__ void __launch_bounds__(THREADS) fields_kernel(
     umax = max(umax, __shfl_down_sync(0xffffffffu, umax, o));
     dsum += __shfl_down_sync(0xffffffffu, dsum, o);
   }
-  if ((threadIdx.x & 31) == 0) {
+  if (lane == 0) {
     atomicMax(&s_maxmag, maxmag);
     atomicMax(&s_umax, umax);
-    s_dist[threadIdx.x >> 5] = dsum;
+    s_dist[warp] = dsum;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -490,16 +556,30 @@ int ht_extract_blocks(const void* table, int n_bands, int n_comps,
   return (int)cudaGetLastError();
 }
 
+// threads of the cleanup kernel for h x w blocks: a warp per 32 quad
+// pairs, at least 2 and at most THREADS / 32 warps
+static int fields_threads(int h, int w) {
+  const int qw = w >> 1, npairs = (h >> 1) * ((qw + (qw & 1)) >> 1);
+  const int t = (npairs + 31) / 32 * 32;
+  return t < 64 ? 64 : (t > THREADS ? THREADS : t);
+}
+
+static size_t fields_smem(int h, int w) {
+  const int qw = w >> 1, quads = (h >> 1) * (qw + (qw & 1));
+  return sizeof(int) * ((size_t)h * w + ((quads + 3) & ~3) +
+                        (size_t)(fields_threads(h, w) / 32) * STAGE_INTS);
+}
+
 int ht_cleanup_fields(const void* coeffs, const void* hs, const void* ws,
                       int nblocks, int h, int w, const void* tbl,
                       void* ms_vals, void* ms_lens, void* vlc_vals,
                       void* vlc_lens, void* mel_vals, void* mel_lens,
                       void* numbps, void* u_max, void* dist, void* stream) {
-  const int qw = w >> 1;
-  const size_t smem = (size_t)(h >> 1) * (size_t)(qw + (qw & 1)) * sizeof(int);
+  const size_t smem = fields_smem(h, w);
   const int rc = set_smem((const void*)fields_kernel, smem);
   if (rc) return rc;
-  fields_kernel<<<nblocks, THREADS, smem, (cudaStream_t)stream>>>(
+  fields_kernel<<<nblocks, fields_threads(h, w), smem,
+                  (cudaStream_t)stream>>>(
       (const int*)coeffs, (const int*)hs, (const int*)ws, h, w,
       (const int*)tbl, (int*)ms_vals, (int*)ms_lens, (int*)vlc_vals,
       (int*)vlc_lens, (int*)mel_vals, (int*)mel_lens, (int*)numbps,

@@ -43,6 +43,9 @@ LAUNCHES: Dict[str, int] = {"ebcot_decision_slots": 0,
 # the decision kernel's plane limit (magnitudes shifted by up to p + 2 bits
 # in int32): plans have at most max_mn - 2 = 29 planes
 MAX_PLANES = 29
+# decision bytes the MQ kernel stages at a time (mq_device.stress_streams
+# puts stream lengths around it)
+MQ_CHUNK = 1024
 MAX_SMEM_BYTES = 232448
 
 _lock = threading.Lock()
@@ -62,14 +65,16 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = cuda_build.load("ebcot_enc")
         if (lib.ebcot_slots_per_column() != ebcot_device.SLOTS_PER_COLUMN
-                or lib.ebcot_max_planes() != MAX_PLANES):
+                or lib.ebcot_max_planes() != MAX_PLANES
+                or lib.ebcot_mq_chunk() != MQ_CHUNK):
             raise RuntimeError("csrc/ebcot_enc.cu and ops/ebcot_cuda.py "
-                               "disagree on the slot layout or plane limit")
+                               "disagree on the slot layout, plane limit or "
+                               "MQ chunk")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         sigs = {"ebcot_decision_slots": [p, p, p, p, i, i, i, i, p, p],
                 "ebcot_compact_count": [p, i, ll, p, p, p, p],
                 "ebcot_compact_write": [p, i, ll, p, p, p],
-                "ebcot_mq_encode": [p, p, p, i, p, p, p],
+                "ebcot_mq_encode": [p, ll, p, p, i, p, p, p],
                 "ebcot_pool_rows": [p, p, p, i, p, p, p, p]}
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -170,8 +175,15 @@ def compact_rows(slots: torch.Tensor
 
 
 def row_bytes(ndec: torch.Tensor) -> int:
-    """Length of the MQ segment row buffer for these decision counts."""
+    """Length of the MQ segment row buffer for these decision counts (for
+    a caller without the decision pool: it syncs to sum the counts)."""
     return 3 * int(ndec.to(torch.int64).sum()) + 3 * ndec.numel()
+
+
+def _pool_row_bytes(pool: torch.Tensor, nb: int) -> int:
+    """row_bytes from the decision pool, which compact_rows sizes to the sum
+    of the counts exactly: no device-to-host copy."""
+    return 3 * pool.numel() + 3 * nb
 
 
 def _row_starts(off: torch.Tensor) -> torch.Tensor:
@@ -196,7 +208,8 @@ def mq_encode_plain(pool, ndec, off, largest):
     sb, sv, lens = mq_device.mq_encode_scan(xs_tm, ndec64)
     width = 3 * t_cap + 3
     seg = mq_device.compact_rows(sb, sv, width, drop_first=True)
-    rows = torch.zeros(row_bytes(ndec), dtype=torch.uint8, device=dev)
+    rows = torch.zeros(_pool_row_bytes(pool, nb), dtype=torch.uint8,
+                       device=dev)
     cols = torch.arange(width, device=dev).expand(nb, width)
     used = cols < lens.to(torch.int64).view(nb, 1)
     rows[(_row_starts(off).view(nb, 1) + cols)[used]] = seg[used]
@@ -208,7 +221,9 @@ def mq_encode(pool: torch.Tensor, ndec: torch.Tensor, off: torch.Tensor,
     """MQ-code every block's decision stream (compact_rows' outputs):
     (segment row buffer uint8 [row_bytes(ndec)], segment lengths int32
     [B]).  A segment keeps its trailing 0xFF; a block without decisions
-    has length 0."""
+    has length 0.  The pool holds exactly sum(ndec) decisions; any base
+    address and offsets will do (the kernel stages from the 16-byte
+    boundary below each stream)."""
     if pool.device.type == "cpu":
         return mq_encode_plain(pool, ndec, off, largest)
     name = "ebcot_mq_encode"
@@ -219,11 +234,12 @@ def mq_encode(pool: torch.Tensor, ndec: torch.Tensor, off: torch.Tensor,
     nb = ndec.numel()
     if off.numel() != nb:
         raise ValueError(f"{name}: {off.numel()} offsets for {nb} blocks")
-    rows = torch.empty(row_bytes(ndec), dtype=torch.uint8, device=dev)
+    rows = torch.empty(_pool_row_bytes(pool, nb), dtype=torch.uint8,
+                       device=dev)
     lens = torch.empty(nb, dtype=torch.int32, device=dev)
     if nb:
-        _call(name, dev, pool.data_ptr(), off.data_ptr(), ndec.data_ptr(),
-              nb, rows.data_ptr(), lens.data_ptr())
+        _call(name, dev, pool.data_ptr(), pool.numel(), off.data_ptr(),
+              ndec.data_ptr(), nb, rows.data_ptr(), lens.data_ptr())
         LAUNCHES[name] += 1
     return rows, lens
 

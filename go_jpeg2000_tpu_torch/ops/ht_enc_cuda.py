@@ -135,6 +135,14 @@ def extract_blocks(pyr, plan, n: int, levels: int) -> torch.Tensor:
     return out
 
 
+def cleanup_shape_supported(h: int, w: int) -> bool:
+    """Whether ht_cleanup_fields takes h x w blocks: every padded code-block
+    shape, even h and w of at most 1024 each with h * w <= 4096 (the block,
+    its quad words and the field staging fit in shared memory)."""
+    return (h > 0 and w > 0 and h % 2 == 0 and w % 2 == 0 and h <= 1024
+            and w <= 1024 and h * w <= 4096)
+
+
 def cleanup_values(blocks: torch.Tensor, hs, ws) -> Dict[str, torch.Tensor]:
     """Every HT cleanup field of int32 blocks [Nb, H, W] (H, W even) with
     true sizes hs, ws [Nb]; the outputs of ht_enc.cleanup_values."""
@@ -144,10 +152,10 @@ def cleanup_values(blocks: torch.Tensor, hs, ws) -> Dict[str, torch.Tensor]:
     dev = blocks.device
     _check(blocks, name, torch.int32, 3, dev)
     nb, h, w = blocks.shape
-    qw = w // 2
-    if h % 2 or w % 2 or (h // 2) * (qw + (qw & 1)) * 4 > MAX_SMEM_BYTES:
+    if not cleanup_shape_supported(h, w) or blocks.data_ptr() % 16:
         raise ValueError(f"{name}: blocks {tuple(blocks.shape)} not "
-                         "supported (even sizes, quads in shared memory)")
+                         "supported (even sizes of at most 1024, at most "
+                         "4096 samples, 16-byte aligned)")
     hs = torch.as_tensor(hs, dtype=torch.int32, device=dev).contiguous()
     ws = torch.as_tensor(ws, dtype=torch.int32, device=dev).contiguous()
     if hs.shape != (nb,) or ws.shape != (nb,):

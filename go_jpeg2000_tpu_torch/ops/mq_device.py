@@ -16,6 +16,8 @@ the staging rows into each lane's segment and one byte pool.
 Feeding a stream through ops/mq.MQEncoder gives the same segment
 (tests/test_torch_ebcot.py).  ops/ebcot_cuda.py runs the CUDA kernels of
 the same chain (csrc/ebcot_enc.cu) for tensors on the card.
+`stress_streams` builds the decision streams that the tests and
+chip_smoke.py hold every version of the coder to.
 """
 from __future__ import annotations
 
@@ -236,3 +238,55 @@ def encode_streams(streams: List[bytes]) -> List[bytes]:
         seg = bytes(pool[ends[i] - lens_np[i]:ends[i]])
         out.append(seg[:-1] if seg and seg[-1] == 0xFF else seg)
     return out
+
+
+def stress_streams(chunk: int, seed: int = 0) -> List[bytes]:
+    """Decision streams (ctx | bit << 5) that stress an MQ coder which
+    stages its input in chunks of `chunk` bytes: lengths 0, 1, chunk - 1,
+    chunk, chunk + 1 and 2 * chunk + 1 after streams of odd lengths (so
+    pool offsets fall off 16-byte boundaries); long MPS runs in one context
+    (it reaches the most skewed state and codes thousands of decisions
+    without a byte); fair bits in the uniform context (a byte every 8
+    decisions or so: 0xFF bytes, stuffing, carries into a 0xFF byte);
+    EBCOT-like mixes of all 19 contexts with a bias each; and a last
+    stream twenty times the next longest.  The same seed gives the same
+    streams."""
+    rng = np.random.RandomState(seed)
+
+    def mixed(n):
+        cx = rng.randint(0, NUM_CONTEXTS, n)
+        p1 = rng.uniform(0.02, 0.5, NUM_CONTEXTS)
+        return (cx | (rng.random_sample(n) < p1[cx]) << 5).astype(
+            np.uint8).tobytes()
+
+    def fair(n):
+        return (CTX_UNI | rng.randint(0, 2, n) << 5).astype(
+            np.uint8).tobytes()
+
+    def mps_run(n, cx=CTX_ZC_BASE):
+        return bytes([cx]) * n
+
+    streams = [b"", mixed(1), mixed(3), b"", fair(7), mixed(chunk - 1),
+               fair(chunk), mixed(chunk + 1), mixed(2 * chunk + 1),
+               mps_run(3 * chunk + 5), mixed(5) + mps_run(2 * chunk, CTX_RL)
+               + mixed(501), fair(2 * chunk + 3), mixed(9) + fair(chunk + 7),
+               mps_run(chunk - 1, 9) + fair(chunk // 2 + 1)]
+    longest = max(map(len, streams))
+    parts = []
+    while sum(map(len, parts)) < 20 * longest:
+        parts.append(fair(rng.randint(1, 4 * chunk)) if rng.rand() < 0.5
+                     else mixed(rng.randint(1, 4 * chunk)))
+    return streams + [b"".join(parts)]
+
+
+def pool_of(streams: List[bytes], device="cpu", base_offset: int = 0):
+    """compact_rows' outputs for host decision streams: (pool uint8 [sum],
+    ndec int32, off int64, largest).  base_offset > 0 makes the pool a view
+    that starts that many bytes into its allocation."""
+    ndec = np.asarray([len(x) for x in streams], np.int64)
+    buf = np.zeros(base_offset + int(ndec.sum()), np.uint8)
+    buf[base_offset:] = np.frombuffer(b"".join(streams), np.uint8)
+    pool = torch.from_numpy(buf).to(device)[base_offset:]
+    return (pool, torch.from_numpy(ndec.astype(np.int32)).to(device),
+            torch.from_numpy(np.cumsum(ndec) - ndec).to(device),
+            int(ndec.max(initial=0)))

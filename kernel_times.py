@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Times the MQ coder (ebcot_mq_encode) and the HT cleanup-field kernel
+(ht_cleanup_fields) of one checkout of the PyTorch/CUDA port on one CUDA
+device, at the shapes of chip_smoke.py, and prints one JSON line.
+
+    python3 kernel_times.py [--tree DIR] [--ptxas]
+
+DIR is the root of a checkout of the repository (default: the directory of
+this script).  Its go_jpeg2000_tpu_torch is imported and its CUDA sources
+are built, so a parent and a change, each unpacked into its own directory,
+can be timed in turns (parent, change, change, parent) on one card.  The
+inputs are made by the checkout's own kernels from chip_smoke.py's frame
+generators (this script's copy):
+- MQ: the decision pool of the Part-1 gray batch (8 gray 512x512 frames,
+  560 blocks of 64x64, 11 planes);
+- cleanup: the blocks of the HT lossless gray batch (32 gray 512x512
+  frames, 2240 blocks of 64x64) and of a config-4 tile-origin class (64
+  tiles of 512x512 16-bit RGB, 12,864 blocks).
+Each kernel: mean of 20 calls by CUDA events after 3 warm-ups, and the
+kernel's device time alone under torch.profiler; the MQ coder's cycles per
+decision of the longest block from the CUDA-event time at 1.98 GHz.
+--ptxas also compiles the checkout's ht_enc.cu and ebcot_enc.cu with
+-Xptxas -v and reports the two kernels' registers, spills and static
+shared memory.  Without a CUDA device it exits 1 and prints nothing.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def ptxas(tree, cuda_build):
+    """{kernel symbol: ptxas' resource line} for fields_kernel and
+    mq_kernel of the tree's sources, built with the tree's nvcc flags."""
+    out = {}
+    for src in ("ht_enc.cu", "ebcot_enc.cu"):
+        path = os.path.join(tree, "go_jpeg2000_tpu_torch", "csrc", src)
+        build = os.path.join(tree, "go_jpeg2000_tpu_torch", "_build")
+        os.makedirs(build, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            flags = [f for f in cuda_build.NVCC_FLAGS
+                     if f not in ("-shared", "-Xcompiler", "-fPIC")]
+            res = subprocess.run(
+                [cuda_build.nvcc()] + flags
+                + ["-Xptxas", "-v", "-c", "-o", os.path.join(tmp, "k.o"), path],
+                capture_output=True, text=True, check=True, timeout=600)
+        out.update(ptxas_lines(res.stderr))
+    return out
+
+
+def ptxas_lines(text):
+    """{kernel: "stack, spills; registers, barriers, smem"} from nvcc's
+    -Xptxas -v output, for fields_kernel and mq_kernel."""
+    out = {}
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '_Z\d+(fields_kernel|"
+                      r"mq_kernel)", line)
+        if m:
+            props = [x.split("ptxas info    :")[-1].strip()
+                     for x in lines[i + 1:i + 4]
+                     if "stack frame" in x or "Used" in x]
+            out[m.group(1)] = "; ".join(props)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--ptxas", action="store_true")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    # this script's chip_smoke, whatever the tree holds
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import go_jpeg2000_tpu_torch as tp
+    from go_jpeg2000_tpu_torch.ops import (cuda_build, ebcot_cuda,
+                                           ht_enc_cuda)
+    if not os.path.abspath(tp.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {tp.__file__}, not the tree {tree}")
+    dev = torch.device("cuda")
+    result = {"tree": tree, "card": cs.card_line(),
+              "kind": torch.cuda.get_device_name(0)}
+    cuda_build.build()
+    if args.ptxas:
+        result["ptxas"] = ptxas(tree, cuda_build)
+
+    _plan, planes, inputs = cs.ebcot_inputs(tp, cs.ebcot_gray(), dev)
+    slots = ebcot_cuda.decision_slots(*inputs, planes)
+    pool, ndec, off, largest = ebcot_cuda.compact_rows(slots)
+    del slots
+    fn = lambda: ebcot_cuda.mq_encode(pool, ndec, off, largest)  # noqa: E731
+    ms = cs.cuda_ms(fn)
+    result["ebcot_mq_encode"] = {
+        "shape": f"{ndec.numel()} blocks, {pool.numel()} decisions, the "
+                 f"longest {largest}",
+        "ms": ms, "alone_ms": cs.device_ms(fn, "ebcot_mq_encode"),
+        "cycles_per_decision": ms * 1e-3 * cs.SM_CLOCK_HZ / largest}
+
+    lossless = tp.Options(format=tp.Format.J2K, lossless=True,
+                          num_resolutions=6, high_throughput=True)
+    for label, (frames, opts) in (("gray", (cs.main_gray(), lossless)),
+                                  ("config-4 class", cs.config4_class(tp))):
+        _plan, blocks, hs, ws = cs.ht_blocks(tp, frames, opts, dev)
+        del frames
+        fn = lambda: ht_enc_cuda.cleanup_values(blocks, hs, ws)  # noqa
+        result[f"ht_cleanup_fields {label}"] = {
+            "shape": f"{blocks.shape[0]} blocks of "
+                     f"{blocks.shape[1]}x{blocks.shape[2]}",
+            "ms": cs.cuda_ms(fn),
+            "alone_ms": cs.device_ms(fn, "ht_cleanup_fields")}
+        del blocks, hs, ws
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

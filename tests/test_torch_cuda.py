@@ -13,7 +13,8 @@ every integer output of the HT encode kernels; their distortion, a sum of
 float32 squares taken in another order, within a relative 1e-5.  The HT
 decode kernels' outputs are equal bit for bit, float32 leaves too.  The
 EBCOT kernels' slots, decision pools, MQ segments and lengths are equal
-exactly (MQ segments also to the native coder's).  The band statistics'
+exactly (MQ segments also to the native coder's), on the MQ stress
+streams of ops/mq_device.py too.  The band statistics'
 counts are equal, their float64 sums within a relative 1e-12 (the order of
 the atomics varies).  The tile-sharded encode and decode give the CPU's
 bytes and pixels."""
@@ -22,6 +23,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 
 import go_jpeg2000_tpu_torch as tp
 from go_jpeg2000_tpu_torch.models import (decoder, ebcot_fused, encoder,
@@ -330,6 +332,72 @@ def test_ebcot_kernels_match_plain(cuda, case):
     torch.cuda.synchronize()
     for k in ebcot_cuda.LAUNCHES:
         assert ebcot_cuda.LAUNCHES[k] == before[k] + 1, k
+
+
+def _row_segments(rows, off, lens):
+    """Each block's segment in the MQ row buffer (row b at 3 off[b] + 3b),
+    trailing 0xFF kept."""
+    data = rows.cpu().numpy()
+    starts = 3 * off.cpu().numpy() + 3 * np.arange(off.numel())
+    return [data[s:s + n].tobytes()
+            for s, n in zip(starts, lens.cpu().numpy())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,base", [(0, 0), (1, 5), (2, 11)])
+def test_mq_kernel_stress_streams(cuda, seed, base):
+    """The MQ kernel on mq_device.stress_streams, the pool's base `base`
+    bytes past a 16-byte boundary: every segment equal to the native
+    coder's, and to the plain chain's on the streams of at most four
+    staging chunks."""
+    streams = mq_device.stress_streams(ebcot_cuda.MQ_CHUNK, seed)
+    pool, ndec, off, largest = mq_device.pool_of(streams, cuda, base)
+    assert pool.data_ptr() % 16 == base
+    before = ebcot_cuda.LAUNCHES["ebcot_mq_encode"]
+    rows, lens = ebcot_cuda.mq_encode(pool, ndec, off, largest)
+    torch.cuda.synchronize()
+    assert ebcot_cuda.LAUNCHES["ebcot_mq_encode"] == before + 1
+    segs = _row_segments(rows, off, lens)
+    assert [s[:-1] if s.endswith(b"\xff") else s for s in segs] == \
+        loader.mq_encode_streams(streams)
+    short = [i for i, s in enumerate(streams)
+             if len(s) <= 4 * ebcot_cuda.MQ_CHUNK]
+    sp, sn, so, sl = mq_device.pool_of([streams[i] for i in short], cuda)
+    prows, plens = ebcot_cuda.mq_encode_plain(sp, sn, so, sl)
+    assert [segs[i] for i in short] == _row_segments(prows, so, plens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mag", [3000, (1 << 30) - 1])
+@pytest.mark.parametrize("shape", [(32, 32), (64, 32), (32, 128), (128, 32),
+                                   (64, 64), (4, 1024), (1024, 4), (2, 2)])
+def test_cleanup_kernel_block_shapes(cuda, shape, mag):
+    """The cleanup kernel against its plain version on random blocks of
+    legal code-block shapes, magnitudes up to `mag` (2^30 - 1 is the
+    fields' limit), ragged true sizes."""
+    h, w = shape
+    rng = np.random.RandomState(h * 2048 + w)
+    c = rng.randint(-mag, mag + 1, size=(40, h, w)).astype(np.int32)
+    c[rng.rand(40, h, w) < 0.4] = 0
+    blocks = torch.from_numpy(c).to(cuda)
+    hs = torch.from_numpy(rng.randint(1, h + 1, 40).astype(np.int32)).to(cuda)
+    ws = torch.from_numpy(rng.randint(1, w + 1, 40).astype(np.int32)).to(cuda)
+    got = ht_enc_cuda.cleanup_values(blocks, hs, ws)
+    ref = ht_enc.cleanup_values(blocks, hs, ws)
+    for k in ref:
+        if k == "dist":
+            torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+def test_cleanup_kernel_refuses_illegal_shapes(cuda):
+    for shape in ((2, 2048, 2), (2, 128, 64), (2, 3, 4)):
+        with pytest.raises(ValueError):
+            ht_enc_cuda.cleanup_values(
+                torch.zeros(shape, dtype=torch.int32, device=cuda),
+                [1, 1], [1, 1])
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 
 from go_jpeg2000_tpu.ops import dwt as jdwt
 from go_jpeg2000_tpu.ops import dwt_pallas

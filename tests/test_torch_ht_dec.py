@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 
 import go_jpeg2000_tpu_torch as tp
 from go_jpeg2000_tpu.codestream.parser import Parser as JParser

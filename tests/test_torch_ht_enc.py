@@ -8,6 +8,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 
 import go_jpeg2000_tpu_torch as tp
 from go_jpeg2000_tpu.models import encoder as jenc

@@ -13,6 +13,8 @@ import subprocess
 import sys
 
 import numpy as np
+import torch
+torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 
 import go_jpeg2000_tpu_torch as tp
 from go_jpeg2000_tpu_torch.models import encoder, fused_encode

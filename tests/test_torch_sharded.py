@@ -18,6 +18,7 @@ package's dryrun_multichip: 2 decomposition levels, tiles 32 wide."""
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 
 import jax
 from jax.sharding import PartitionSpec as P

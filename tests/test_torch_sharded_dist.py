@@ -15,6 +15,8 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 import torch.multiprocessing as mp
 
 import go_jpeg2000_tpu_torch as tp
