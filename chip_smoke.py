@@ -15,7 +15,11 @@ sources in this checkout.  Phases, each of which raises on failure:
    9/7 pair at every level shape of [16, 512, 512] down to 16x16, both at
    [1, 2048, 2048], [3, 2, 2] and [2, 6, 10]: exact equality required, and
    for 9/7 inverse(forward(x)) within 1e-3 of x; kernel and plain times
-   with CUDA events at [32, 512, 512] (5/3) and [16, 512, 512] (9/7);
+   with CUDA events and each kernel's device time alone (torch.profiler)
+   at [32, 512, 512] (5/3) and [16, 512, 512] (9/7); the forward 5/3
+   kernel also on the first level of a 4096x4096 and an 8192x8192 frame
+   (wider than the inverse's shared-memory strip): exact, one launch, no
+   plain level, timed;
 4. each HT encode kernel (block extraction, cleanup fields, bit packing,
    pool compaction) against its plain torch version on the card, on the
    block batches of the main paths (32 gray 512x512 lossless, 2240 blocks;
@@ -25,9 +29,11 @@ sources in this checkout.  Phases, each of which raises on failure:
    distortion within a relative 1e-5 (a float32 sum taken in another
    order); the cleanup kernel also on blocks with magnitudes near the
    30-bit limit and on a config-4 tile-origin class (64 tiles of 512x512
-   16-bit RGB, 12,864 blocks); kernel and plain times with CUDA events on
-   the 2240 blocks, and each kernel's device time alone (torch.profiler),
-   and the cleanup kernel's on the config-4 class;
+   16-bit RGB, 12,864 blocks), and so is the bit packer, one launch for
+   the three streams (pack_streams, as the main path calls it) and one a
+   stream (pack_bits); kernel and plain times with CUDA events on the 2240
+   blocks, and each kernel's device time alone (torch.profiler), and the
+   cleanup kernel's and the packer's on the config-4 class;
 5. each HT decode kernel (MagSgn extraction, block-to-pyramid assembly
    with the midpoint dequantization of lossy plans) against its plain
    torch version on the card, on the native parse of the same frames'
@@ -86,7 +92,8 @@ sources in this checkout.  Phases, each of which raises on failure:
    kernels in their halo form on sp = 2 and 4 row shards of the level-1
    batch [768, 512, 512] and on batches whose shards have 2 rows, with the
    halos the exchange would build, equal bit for bit to the unsharded
-   kernels (NCCL with two or more ranks cannot run on one card); then
+   kernels (NCCL with two or more ranks cannot run on one card), and the
+   unsharded level kernels timed there with their device time alone; then
    encode_sharded and decode_sharded of an 8192x8192 16-bit RGB image
    (bench.py's smooth noise) in 512x512 tiles, 5 resolutions, HTJ2K
    lossless (round trip exact), and of the same image >> 8 lossy at
@@ -170,6 +177,9 @@ C4_RES = 5
 C4_CHECK = 2048
 # a config-4 tile-origin class: 64 tiles of 512x512 (8 x 8 of them)
 C4_CLASS_SIDE = 8
+# frame sides whose first forward 5/3 level is checked beyond the
+# inverse's shared-memory limit
+WIDE_SIDES = (4096, 8192)
 # int64 fields per band in the block tables of ht_extract_blocks and
 # ht_blocks_to_pyramid
 BAND_TABLE_FIELDS = 11
@@ -284,16 +294,59 @@ def check_kernels(dwt, dwt_cuda, dev, card, kind):
                              cuda_ms(lambda: dwt.inverse_2d(bands, kind)))
         + lim,
     }
-    for name, (ms, plain_ms, bound_ms, _by) in times.items():
+    fns = {f"{lib}_fwd_level": lambda: fwd_kernel(x),
+           f"{lib}_inv_level": lambda: inv_kernel(bands)}
+    for name, (ms, plain_ms, bound_ms, by) in times.items():
         gbs = 8 * x.numel() / (ms * 1e-3) / 1e9
-        print(f"time {name} [{n},{H},{W}]: kernel {ms:.4f} ms "
-              f"({gbs:.1f} GB/s at 8 B/sample, bound {bound_ms:.4f} ms), "
-              f"plain torch {plain_ms:.4f} ms [{card}]", flush=True)
+        time_line(name, ms, plain_ms, bound_ms, by, device_ms(fns[name], name),
+                  f"[{n},{H},{W}], {gbs:.1f} GB/s at 8 B/sample", card)
     return err, times
 
 
+def check_wide_forward(dwt, dwt_cuda, transforms, dev, card):
+    """Phase 3b: the forward 5/3 kernel takes any even width: the first
+    level of a 4096x4096 and an 8192x8192 frame through
+    transforms.forward_level launches it once, counts no plain level and
+    equals the plain lifting exactly; timed beside its bound."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err = 0
+    for side in WIDE_SIDES:
+        x = torch.randint(-(1 << 17), 1 << 17, (1, side, side),
+                          generator=gen, device=dev, dtype=torch.int32)
+        dwt_cuda.reset_counts()
+        got = transforms.forward_level(x, dwt.REV53, 0, 0)
+        torch.cuda.synchronize()
+        plain = dwt_cuda.PLAIN_LEVELS
+        launched = dwt_cuda.LAUNCHES["dwt53_fwd_level"]
+        ref = dwt.forward_2d(x, dwt.REV53)
+        diff = max((got[k] - ref[k]).abs().max().item() for k in ref)
+        print(f"kernel check dwt53_fwd_level (1, {side}, {side}): max|diff| "
+              f"{diff}, launches {launched}, plain levels {plain}",
+              flush=True)
+        if diff or plain or launched != 1:
+            raise AssertionError(f"forward 5/3 at {side}x{side}: not the "
+                                 "kernel, or not exact")
+        err = max(err, diff)
+        del got, ref
+        fn = lambda: dwt_cuda.forward_2d_53(x)   # noqa: E731
+        lim = bound(8 * x.numel(), OPS_PER_ELEMENT["dwt53"] * x.numel(),
+                    INT32_OPS_PER_S)
+        time_line("dwt53_fwd_level", cuda_ms(fn), cuda_ms(
+            lambda: dwt.forward_2d(x, dwt.REV53), reps=3, warmup=1),
+            *lim, device_ms(fn, "dwt53_fwd_level"),
+            f"[1,{side},{side}]", card)
+        del x
+    dwt_cuda.reset_counts()
+    torch.cuda.empty_cache()
+    return err
+
+
 # the kernels' symbols, for their device time under torch.profiler
-KERNEL_SYMBOLS = {"ht_extract_blocks": ("extract_kernel",),
+KERNEL_SYMBOLS = {"dwt53_fwd_level": ("dwt53_fwd_kernel",),
+                  "dwt53_inv_level": ("dwt53_inv_kernel",),
+                  "dwt97_fwd_level": ("dwt97_fwd_kernel",),
+                  "dwt97_inv_level": ("dwt97_inv_kernel",),
+                  "ht_extract_blocks": ("extract_kernel",),
                   "ht_cleanup_fields": ("fields_kernel",),
                   "ht_pack_bits": ("pack_kernel",),
                   "ht_compact_pool": ("compact_scan_kernel",
@@ -400,13 +453,9 @@ def ht_case(tp, frames, opts, dev):
     widths = ht_enc.stream_words(plan.cbh, plan.cbw, plan.max_mn)
     fields = [(ref[f"{s}_vals"], ref[f"{s}_lens"], nw)
               for s, nw in zip(("ms", "vlc", "mel"), widths)]
-    packed, diff = [], 0
+    packed, diff = [], pack_check(K, ht_enc, fields)
     for vals, lens, nw in fields:
-        words, bits = ht_enc.pack_bits(vals, lens, nw)
-        kw, kb = K.pack_bits(vals, lens, nw)
-        diff = max(diff, (kw.long() - words.long()).abs().max().item(),
-                   (kb - bits).abs().max().item())
-        packed += [words, bits]
+        packed += list(ht_enc.pack_bits(vals, lens, nw))
     err["ht_pack_bits"] = diff
     pool_args = packed + [ref["numbps"], ref["u_max"], ref["dist"]]
     pool, totals = ht_enc.assemble_pool(*pool_args)
@@ -419,6 +468,31 @@ def ht_case(tp, frames, opts, dev):
                   hs=hs, ws=ws, ref=ref, fields=fields, pool_args=pool_args,
                   pool=pool)
     return err, dist_rel, inputs
+
+
+def pack_check(K, ht_enc, fields):
+    """The bit packer against its plain version on one chunk's three
+    streams: one launch for all three (pack_streams, the main path's call)
+    and one a stream (pack_bits).  Returns the largest |diff| of words and
+    bits."""
+    diff = 0
+    for (vals, lens, nw), (kw, kb) in zip(fields, K.pack_streams(fields)):
+        words, bits = ht_enc.pack_bits(vals, lens, nw)
+        kw1, kb1 = K.pack_bits(vals, lens, nw)
+        diff = max(diff, (kw.long() - words.long()).abs().max().item(),
+                   (kb - bits).abs().max().item(),
+                   (kw1.long() - words.long()).abs().max().item(),
+                   (kb1 - bits).abs().max().item())
+    return diff
+
+
+def pack_bound(fields, nb):
+    """The bit packer's least time on one chunk's streams: it reads every
+    field's value and length and writes every word row and bit count."""
+    count = sum(v.numel() for v, _l, _nw in fields)
+    return bound(8 * count + 4 * nb * sum(nw for _v, _l, nw in fields)
+                 + 4 * nb * len(fields),
+                 OPS_PER_ELEMENT["ht_pack_bits"] * count, INT32_OPS_PER_S)
 
 
 def ht_cases(tp):
@@ -552,8 +626,6 @@ def check_ht_kernels(tp, dev, card):
     blocks, hs, ws, ref = t["blocks"], t["hs"], t["ws"], t["ref"]
     fields, pool_args, pool = t["fields"], t["pool_args"], t["pool"]
     leaf_bytes = sum(4 * v.numel() for e in pyr for v in e.values())
-    field_count = sum(v.numel() for v, _l, _nw in fields)
-    word_bytes = sum(4 * a.numel() for a in pool_args[0:6:2])
     nb = blocks.shape[0]
     used = pool.numel() - 6 * nb
     times = {
@@ -570,12 +642,10 @@ def check_ht_kernels(tp, dev, card):
                     warmup=1),
             cleanup_bound(blocks, ref)),
         "ht_pack_bits": (
-            cuda_ms(lambda: [K.pack_bits(*f) for f in fields]),
+            cuda_ms(lambda: K.pack_streams(fields)),
             cuda_ms(lambda: [ht_enc.pack_bits(*f) for f in fields], reps=3,
                     warmup=1),
-            bound(8 * field_count + word_bytes + 12 * nb,
-                  OPS_PER_ELEMENT["ht_pack_bits"] * field_count,
-                  INT32_OPS_PER_S)),
+            pack_bound(fields, nb)),
         "ht_compact_pool": (
             cuda_ms(lambda: K.assemble_pool(*pool_args)),
             cuda_ms(lambda: ht_enc.assemble_pool(*pool_args), reps=5),
@@ -588,14 +658,15 @@ def check_ht_kernels(tp, dev, card):
     kernel_fns = {
         "ht_extract_blocks": lambda: K.extract_blocks(pyr, plan, n, levels),
         "ht_cleanup_fields": lambda: K.cleanup_values(blocks, hs, ws),
-        "ht_pack_bits": lambda: [K.pack_bits(*f) for f in fields],
+        "ht_pack_bits": lambda: K.pack_streams(fields),
         "ht_compact_pool": lambda: K.assemble_pool(*pool_args)}
     for name, (ms, plain_ms, (bound_ms, by)) in times.items():
         time_line(name, ms, plain_ms, bound_ms, by,
                   device_ms(kernel_fns[name], name),
                   f"{nb} blocks of {plan.cbh}x{plan.cbw}", card)
     cleanup_check(K, ht_enc, *extreme_blocks(dev), "magnitudes up to 2^30-1")
-    cleanup_class_timing(tp, dev, card)
+    err["ht_pack_bits"] = max(err["ht_pack_bits"],
+                              class_timing(tp, dev, card))
     return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
 
 
@@ -608,12 +679,13 @@ def cleanup_bound(blocks, ref):
                  INT32_OPS_PER_S)
 
 
-def cleanup_class_timing(tp, dev, card):
-    """The cleanup kernel on a config-4 tile-origin class (12,864 16-bit
-    blocks): checked against the plain version, then timed."""
+def class_timing(tp, dev, card):
+    """The cleanup kernel and the bit packer on a config-4 tile-origin
+    class (12,864 16-bit blocks): each checked against its plain version
+    on the class, then timed.  Returns the packer's largest |diff|."""
     from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
     frames, opts = config4_class(tp)
-    _plan, blocks, hs, ws = ht_blocks(tp, frames, opts, dev)
+    plan, blocks, hs, ws = ht_blocks(tp, frames, opts, dev)
     del frames
     ref = cleanup_check(K, ht_enc, blocks, hs, ws, "config-4 class")
     t0 = time.perf_counter()
@@ -621,13 +693,33 @@ def cleanup_class_timing(tp, dev, card):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     bound_ms, by = cleanup_bound(blocks, ref)
-    del ref
     fn = lambda: K.cleanup_values(blocks, hs, ws)   # noqa: E731
+    what = f"config-4 class: {blocks.shape[0]} blocks of 64x64, 16-bit RGB"
     time_line("ht_cleanup_fields", cuda_ms(fn), plain_ms, bound_ms, by,
-              device_ms(fn, "ht_cleanup_fields"),
-              f"config-4 class: {blocks.shape[0]} blocks of 64x64, 16-bit "
-              "RGB", card)
+              device_ms(fn, "ht_cleanup_fields"), what, card)
+    nb = blocks.shape[0]
+    del blocks
+    fields = [(ref[f"{s}_vals"], ref[f"{s}_lens"], nw) for s, nw in zip(
+        ("ms", "vlc", "mel"), ht_enc.stream_words(plan.cbh, plan.cbw,
+                                                  plan.max_mn))]
+    diff = pack_check(K, ht_enc, fields)
+    print(f"kernel check ht_pack_bits config-4 class ({nb} blocks, max_mn "
+          f"{plan.max_mn}): max|diff| {diff}", flush=True)
+    if diff:
+        raise AssertionError("config-4 class: ht_pack_bits disagrees with "
+                             "its plain version")
+    t0 = time.perf_counter()
+    for f in fields:
+        ht_enc.pack_bits(*f)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fn = lambda: K.pack_streams(fields)   # noqa: E731
+    time_line("ht_pack_bits", cuda_ms(fn), plain_ms, *pack_bound(fields, nb),
+              device_ms(fn, "ht_pack_bits"),
+              f"{what}, three streams in one launch", card)
+    del ref, fields
     torch.cuda.empty_cache()
+    return diff
 
 
 def magsgn_bits(qinfo):
@@ -1385,7 +1477,7 @@ def check_halo_kernels(dwt, dwt_cuda, psh, dev, card):
     build, against the unsharded kernels bit for bit; the halo form's time
     at sp = 4 beside the unsharded kernel's."""
     gen = torch.Generator(device=dev).manual_seed(11)
-    err, times = {}, {}
+    err, times, alone = {}, {}, {}
     n = 3 * (C4_SIZE // C4_TILE) ** 2
     for kind in (dwt.REV53, dwt.IRR97):
         lib = "dwt53" if kind == dwt.REV53 else "dwt97"
@@ -1437,6 +1529,10 @@ def check_halo_kernels(dwt, dwt_cuda, psh, dev, card):
                             warmup=1),
                         # a level reads and writes each 4-byte sample once
                         bound(8 * x.numel(), 0, 1)[0])
+                    alone[lib] = (
+                        device_ms(lambda: fwd(x), f"{lib}_fwd_level", reps=5),
+                        device_ms(lambda: inv(ref), f"{lib}_inv_level",
+                                  reps=5))
             del x, ref, ref_inv
     for lib, (hf, uf, pf, hi, ui, pi, lim) in times.items():
         print(f"time {lib} halo form, 4 row shards of [{n},{C4_TILE},"
@@ -1445,6 +1541,13 @@ def check_halo_kernels(dwt, dwt_cuda, psh, dev, card):
               f"{pf:.4f} ms), inverse {hi:.4f} ms (unsharded {ui:.4f} ms, "
               f"plain {pi:.4f} ms), bound {lim:.4f} ms (bytes) [{card}]",
               flush=True)
+        for name, ms, plain_ms, dev_ms in (
+                (f"{lib}_fwd_level", uf, pf, alone[lib][0]),
+                (f"{lib}_inv_level", ui, pi, alone[lib][1])):
+            time_line(name, ms, plain_ms, lim, "bytes", dev_ms,
+                      f"config-4 level 1, [{n},{C4_TILE},{C4_TILE}] "
+                      "unsharded (plain: the halo lifting of 4 shards)",
+                      card)
     torch.cuda.empty_cache()
     return err
 
@@ -1779,6 +1882,7 @@ def main():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     import go_jpeg2000_tpu_torch as tp
+    from go_jpeg2000_tpu_torch.models import transforms
     from go_jpeg2000_tpu_torch.native import loader
     from go_jpeg2000_tpu_torch.ops import (band_stats, cuda_build, dwt,
                                            dwt_cuda, ebcot_cuda, ht_dec_cuda,
@@ -1806,6 +1910,8 @@ def main():
           f"j2k_native.cpp (g++) {t2 - t1:.1f} s", flush=True)
 
     err, times = check_kernels(dwt, dwt_cuda, dev, card, dwt.REV53)
+    err["dwt53_fwd_level"] = max(err["dwt53_fwd_level"], check_wide_forward(
+        dwt, dwt_cuda, transforms, dev, card))
     err97, times97 = check_kernels(dwt, dwt_cuda, dev, card, dwt.IRR97)
     err.update(err97)
     times.update(times97)

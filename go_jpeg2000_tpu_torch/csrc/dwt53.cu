@@ -16,13 +16,32 @@
 // the bytes over the card's bandwidth (about 67 MB for level 1 of 32 frames
 // of 512x512, some 20 us at the H100's data-sheet 3.35 TB/s).  The TPU
 // kernel held a whole frame in VMEM; a Hopper block has at most 227 KB of
-// shared memory, so here each block owns one frame and a strip of STRIP
-// output rows at full width.  It loads the strip plus the rows the vertical
-// lifting needs from its neighbours (a halo, read twice in all), lifts in
-// shared memory, and stores once.  The forward kernel writes straight into
-// the four band tensors, the inverse reads straight from them: the
-// deinterleave and interleave XLA did outside the TPU kernel cost no extra
-// pass over device memory.
+// shared memory.
+//
+// Forward: a warp per (frame, strip of FWD_STRIP output rows, tile of 30
+// output column pairs), no shared memory and no barrier.  Lane l holds
+// column pair 30t + l - 1 (columns 2p, 2p+1, one 8-byte load a row; pairs
+// off the frame's edge read their columns through the symmetric
+// extension): lane 0 is the tile's left halo (2 columns), lane 31 its
+// right halo (1 column needed).  Each lane loads its FWD_STRIP + 3 rows
+// (2 above, 1 below the strip) into registers before it computes any, so
+// every load of the strip is in flight at once; lifts its two columns
+// vertically there (predict on odd rows, update on even); then lifts each
+// row horizontally with two warp shuffles (the next pair's even sample,
+// the previous pair's detail) and stores the row's low and high halves
+// straight into the four band tensors, 30 consecutive words a band per
+// warp.  Index arithmetic is per thread and row, never per sample, and no
+// loop divides.  Reads beyond the ideal: 3 rows per FWD_STRIP (9%) and 2
+// pairs per 30 (7%), most of them hits in L2.  Any even width takes the
+// kernel.
+//
+// Inverse: each block owns one frame and a strip of STRIP output rows at
+// full width.  It loads the strip plus the rows the vertical lifting needs
+// from its neighbours (a halo, read twice in all), lifts in shared memory,
+// and stores once; the width is bounded by shared memory (ops/dwt_cuda.py
+// usable).  The forward kernel writes straight into the four band tensors,
+// the inverse reads straight from them: the deinterleave and interleave
+// XLA did outside the TPU kernel cost no extra pass over device memory.
 //
 // Integer exactness: (l + r) >> 1 and (l + r + 2) >> 2 are arithmetic
 // shifts of signed int32 (floor division), never '/', which truncates toward
@@ -50,11 +69,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define STRIP 16          // output rows per block (even)
+#define STRIP 16          // inverse: output rows per block (even)
 #define HALO 3            // forward: 2 rows above, 1 below; inverse: 1, 2
 #define FWD_ABOVE 2
 #define INV_ABOVE 1
 #define THREADS 256
+#define FWD_STRIP 32      // forward: output rows per warp (even)
+#define FWD_PAIRS 30      // forward: output column pairs per warp
+#define FWD_THREADS 128
 
 __device__ __forceinline__ int reflect(int i, int n) {
   while (i < 0 || i >= n) {
@@ -76,27 +98,6 @@ __device__ __forceinline__ const int* shard_row(const int* x, const int* above,
 }
 
 // Shared memory rows: row j of the strip is s[j * w ...].
-__device__ __forceinline__ void hlift_fwd(int* s, int rows0, int nrows,
-                                          int w) {
-  const int w2 = w >> 1;
-  // predict odd columns: x[2m+1] -= (x[2m] + x[2m+2]) >> 1
-  for (int e = threadIdx.x; e < nrows * w2; e += blockDim.x) {
-    int* row = s + (rows0 + e / w2) * w;
-    const int c = 2 * (e % w2) + 1;
-    const int r = (c + 1 < w) ? c + 1 : w - 2;
-    row[c] -= (row[c - 1] + row[r]) >> 1;
-  }
-  __syncthreads();
-  // update even columns: x[2m] += (x[2m-1] + x[2m+1] + 2) >> 2
-  for (int e = threadIdx.x; e < nrows * w2; e += blockDim.x) {
-    int* row = s + (rows0 + e / w2) * w;
-    const int c = 2 * (e % w2);
-    const int l = (c > 0) ? c - 1 : 1;
-    row[c] += (row[l] + row[c + 1] + 2) >> 2;
-  }
-  __syncthreads();
-}
-
 __device__ __forceinline__ void hlift_inv(int* s, int nrows, int w) {
   const int w2 = w >> 1;
   // undo the update on even columns
@@ -117,52 +118,78 @@ __device__ __forceinline__ void hlift_inv(int* s, int nrows, int w) {
   __syncthreads();
 }
 
-// x [n, h, w] -> ll, hl, lh, hh [n, h/2, w/2].  Block b: frame b / strips,
-// output rows [r0, r0 + rr).  Shared row j holds input row r0 - 2 + j.
-__global__ void __launch_bounds__(THREADS)
+// x [n, h, w] -> ll, hl, lh, hh [n, h/2, w/2].  Warp task t: tile
+// t % tiles, strip (t / tiles) % strips, frame t / (tiles * strips).
+// Register row j holds input row r0 - 2 + j of the lane's two columns.
+__global__ void __launch_bounds__(FWD_THREADS)
 dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
                  const int* __restrict__ below, int* __restrict__ ll,
                  int* __restrict__ hl, int* __restrict__ lh,
-                 int* __restrict__ hh, int h, int w, int strips) {
-  extern __shared__ int s[];
-  const int frame = blockIdx.x / strips;
-  const int r0 = (blockIdx.x % strips) * STRIP;
-  const int rr = min(STRIP, h - r0);           // even: h and r0 are even
-  const int nload = rr + HALO;
+                 int* __restrict__ hh, int n, int h, int w, int strips,
+                 int tiles, int vec) {
+  const int64_t task =
+      (int64_t)blockIdx.x * (FWD_THREADS / 32) + (threadIdx.x >> 5);
+  if (task >= (int64_t)n * strips * tiles) return;   // whole warps
+  const int lane = threadIdx.x & 31;
+  const int tile = (int)(task % tiles);
+  const int64_t fs = task / tiles;
+  const int r0 = (int)(fs % strips) * FWD_STRIP;
+  const int frame = (int)(fs / strips);
+  const int rr = min(FWD_STRIP, h - r0);       // even: h and r0 are even
   const int w2 = w >> 1;
+  const int p = tile * FWD_PAIRS + lane - 1;   // this lane's column pair
+  const int c0 = reflect(2 * p, w), c1 = reflect(2 * p + 1, w);
+  const bool pair = vec && c1 == c0 + 1;       // c0 even: one 8-byte load
 
-  for (int e = threadIdx.x; e < nload * w; e += blockDim.x) {
-    const int j = e / w, c = e % w;
-    s[j * w + c] = shard_row(x, above, below, frame, r0 - FWD_ABOVE + j, h, w,
-                             FWD_ABOVE, HALO - FWD_ABOVE)[c];
-  }
-  __syncthreads();
-  // vertical predict on odd rows r0-1 .. r0+rr-1 (shared rows 1, 3, ..)
-  for (int e = threadIdx.x; e < (rr / 2 + 1) * w; e += blockDim.x) {
-    const int j = 1 + 2 * (e / w), c = e % w;
-    s[j * w + c] -= (s[(j - 1) * w + c] + s[(j + 1) * w + c]) >> 1;
-  }
-  __syncthreads();
-  // vertical update on even rows r0 .. r0+rr-2 (shared rows 2, 4, ..)
-  for (int e = threadIdx.x; e < (rr / 2) * w; e += blockDim.x) {
-    const int j = 2 + 2 * (e / w), c = e % w;
-    s[j * w + c] += (s[(j - 1) * w + c] + s[(j + 1) * w + c] + 2) >> 2;
-  }
-  __syncthreads();
-  hlift_fwd(s, 2, rr, w);
-
-  // even row -> LL|HL, odd row -> LH|HH; even column -> low, odd -> high
-  const int64_t obase = (int64_t)frame * (h >> 1) * w2;
-  for (int e = threadIdx.x; e < rr * w2; e += blockDim.x) {
-    const int k = e / w2, m = e % w2;
-    const int* row = s + (2 + k) * w;
-    const int64_t o = obase + (int64_t)((r0 + k) >> 1) * w2 + m;
-    if (k & 1) {
-      lh[o] = row[2 * m];
-      hh[o] = row[2 * m + 1];
+  int2 v[FWD_STRIP + 3];
+#pragma unroll
+  for (int j = 0; j < FWD_STRIP + 3; ++j) {
+    if (j > rr + 2) break;                     // rows r0 - 2 .. r0 + rr
+    const int* row = shard_row(x, above, below, frame, r0 - FWD_ABOVE + j,
+                               h, w, FWD_ABOVE, HALO - FWD_ABOVE);
+    if (pair) {
+      v[j] = *reinterpret_cast<const int2*>(row + c0);
     } else {
-      ll[o] = row[2 * m];
-      hl[o] = row[2 * m + 1];
+      v[j].x = row[c0];
+      v[j].y = row[c1];
+    }
+  }
+  // vertical predict on odd rows r0-1 .. r0+rr-1 (register rows 1, 3, ..)
+#pragma unroll
+  for (int j = 1; j < FWD_STRIP + 2; j += 2) {
+    if (j > rr + 1) break;
+    v[j].x -= (v[j - 1].x + v[j + 1].x) >> 1;
+    v[j].y -= (v[j - 1].y + v[j + 1].y) >> 1;
+  }
+  // vertical update on even rows r0 .. r0+rr-2 (register rows 2, 4, ..)
+#pragma unroll
+  for (int j = 2; j < FWD_STRIP + 2; j += 2) {
+    if (j > rr) break;
+    v[j].x += (v[j - 1].x + v[j + 1].x + 2) >> 2;
+    v[j].y += (v[j - 1].y + v[j + 1].y + 2) >> 2;
+  }
+  // horizontal lifting of each output row, then the stores: even rows to
+  // LL | HL, odd rows to LH | HH; even columns low, odd columns high
+  const bool out = lane >= 1 && lane <= FWD_PAIRS && p < w2;
+  const int64_t obase =
+      ((int64_t)frame * (h >> 1) + (r0 >> 1)) * w2 + p;
+#pragma unroll
+  for (int k = 0; k < FWD_STRIP; ++k) {
+    if (k >= rr) break;
+    const int a = v[k + 2].x, b = v[k + 2].y;
+    const int next = __shfl_down_sync(0xffffffffu, a, 1);
+    const int d = b - ((a + next) >> 1);       // x[2p+1] -= (x[2p]+x[2p+2])/2
+    const int prev = __shfl_up_sync(0xffffffffu, d, 1);
+    const int s0 = a + ((prev + d + 2) >> 2);  // x[2p] += (d[p-1]+d[p]+2)/4
+    if (out) {
+      const int64_t o = obase + (int64_t)(k >> 1) * w2;
+      if (k & 1) {
+        lh[o] = s0;
+        hh[o] = d;
+      } else {
+        ll[o] = s0;
+        hl[o] = d;
+      }
     }
   }
 }
@@ -237,7 +264,8 @@ static size_t smem_bytes(int w) {
 
 extern "C" {
 
-int dwt53_strip_rows(void) { return STRIP; }
+int dwt53_fwd_strip_rows(void) { return FWD_STRIP; }
+int dwt53_inv_strip_rows(void) { return STRIP; }
 int dwt53_halo_rows(void) { return HALO; }
 int dwt53_fwd_above(void) { return FWD_ABOVE; }
 int dwt53_inv_above(void) { return INV_ABOVE; }
@@ -245,14 +273,17 @@ int dwt53_inv_above(void) { return INV_ABOVE; }
 int dwt53_fwd_level(const void* x, const void* above, const void* below,
                     void* ll, void* hl, void* lh, void* hh, int n, int h,
                     int w, void* stream) {
-  const int strips = (h + STRIP - 1) / STRIP;
-  const size_t smem = smem_bytes(w);
-  cudaFuncSetAttribute(dwt53_fwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dwt53_fwd_kernel<<<n * strips, THREADS, smem, (cudaStream_t)stream>>>(
+  const int strips = (h + FWD_STRIP - 1) / FWD_STRIP;
+  const int tiles = (w / 2 + FWD_PAIRS - 1) / FWD_PAIRS;
+  const int64_t tasks = (int64_t)n * strips * tiles;
+  const int per_block = FWD_THREADS / 32;
+  const int vec = ((reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(above) |
+                    reinterpret_cast<uintptr_t>(below)) & 7) == 0;
+  dwt53_fwd_kernel<<<(unsigned)((tasks + per_block - 1) / per_block),
+                     FWD_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)x, (const int*)above, (const int*)below, (int*)ll,
-      (int*)hl, (int*)lh, (int*)hh, h, w, strips);
+      (int*)hl, (int*)lh, (int*)hh, n, h, w, strips, tiles, vec);
   return (int)cudaGetLastError();
 }
 

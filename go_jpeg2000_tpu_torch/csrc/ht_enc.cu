@@ -56,12 +56,24 @@
 //   threads for smaller blocks.  numbps, u_max and the distortion are
 //   block reductions (warp shuffles; the distortion sums float32 squares in
 //   double, so it can differ from a float32 sum in its last bits).
-// * ht_pack_bits: one CUDA block per row.  Each thread takes a run of
-//   fields; a block-wide exclusive scan of the runs' lengths gives every
-//   field its bit offset; each field ORs its low word and, if it spills,
-//   its high word into a shared-memory row (atomicOr; at most 3968 words,
-//   15.5 KB, for a 64x64 MagSgn row); one coalesced store writes the row.
-//   Shifts by 32 are undefined in C++, so the spill is guarded explicitly.
+// * ht_pack_bits: one launch packs the three streams of a chunk, a CUDA
+//   block per (row, stream).  It reads 8 bytes a field (value and length)
+//   and writes a 4-byte word per 32 bits, so it is built for reads: each
+//   thread takes whole quads of 4 consecutive fields with one 16-byte load
+//   of the values and one of the lengths (scalar loads where a row is not
+//   16-byte aligned, F % 4 != 0), a warp's 32 loads cover 512 contiguous
+//   bytes, and every lane issues all its loads of a round (up to 4 quads)
+//   before it waits on any.  The lengths stay in registers: a warp sum,
+//   one barrier and a read of the eight warp totals give each warp its
+//   base, then warp shuffle scans give each quad its bit offset.  A quad
+//   (at most 128 bits) is assembled in registers as a 128-bit value
+//   shifted to its offset, five words at most; the words it owns whole are
+//   plain stores into a shared-memory row, only its first and last word
+//   are ORed there (atomicOr), and the row goes out with 16-byte stores,
+//   zeros past the stream included.  The row is at most 3968 words (15.5
+//   KB, a 64x64 MagSgn row) on the encode's paths, and at most 227 KB.
+//   Shifts by 32 or 64 are undefined in C++, so every such shift is
+//   guarded explicitly.
 // * ht_compact_pool: one 1024-thread block scans the per-row word counts of
 //   the three streams (block scans of 1024 rows with a carry), writes the
 //   row offsets, the three totals and the six meta rows; then a grid of
@@ -452,36 +464,156 @@ __global__ void __launch_bounds__(THREADS) fields_kernel(
 
 // ----------------------------------------------------------- ht_pack_bits
 
-__global__ void __launch_bounds__(THREADS) pack_kernel(
-    const int* __restrict__ vals, const int* __restrict__ lens, int f,
-    int n_words, int* __restrict__ words, int* __restrict__ bits) {
-  extern __shared__ unsigned sw[];
-  __shared__ int sh[32];
-  const int row = blockIdx.x;
-  const int* rv = vals + (int64_t)row * f;
-  const int* rl = lens + (int64_t)row * f;
-  const int per = (f + blockDim.x - 1) / blockDim.x;
-  const int i0 = min(f, (int)threadIdx.x * per), i1 = min(f, i0 + per);
-  int run = 0;
-  for (int i = i0; i < i1; ++i) run += rl[i];
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x) sw[i] = 0u;
-  int total;
-  int off = block_exclusive_scan(run, sh, &total);  // syncs the zeroing too
-  for (int i = i0; i < i1; ++i) {
-    const int len = rl[i];
-    if (len <= 0) continue;
-    const unsigned v = (unsigned)rv[i] & (len >= 32 ? 0xffffffffu
-                                                     : (1u << len) - 1u);
-    const int wi = off >> 5, bit = off & 31;
-    if (wi < n_words) atomicOr(&sw[wi], v << bit);
-    if (bit != 0 && len > 32 - bit && wi + 1 < n_words)
-      atomicOr(&sw[wi + 1], v >> (32 - bit));
-    off += len;
+#define PACK_THREADS 256
+#define PACK_WARPS (PACK_THREADS / 32)
+#define PACK_QUADS 4        // quads a lane holds in registers in one round
+#define PACK_STREAMS 3
+
+// One stream of a pack launch: fields [rows, f] in, words [rows, n_words]
+// and bits [rows] out.
+struct PackStream {
+  const int* vals;
+  const int* lens;
+  int* words;
+  int* bits;
+  int f, n_words;
+};
+struct PackStreams {
+  PackStream s[PACK_STREAMS];
+};
+
+// fields 4q .. 4q+3 of a row; those past f are empty
+__device__ __forceinline__ void load_quad(const int* __restrict__ rv,
+                                          const int* __restrict__ rl, int q,
+                                          int f, bool vec, int4& v, int4& l) {
+  const int i = 4 * q;
+  if (vec && i + 3 < f) {
+    v = *reinterpret_cast<const int4*>(rv + i);
+    l = *reinterpret_cast<const int4*>(rl + i);
+    return;
+  }
+  v.x = i < f ? rv[i] : 0;
+  v.y = i + 1 < f ? rv[i + 1] : 0;
+  v.z = i + 2 < f ? rv[i + 2] : 0;
+  v.w = i + 3 < f ? rv[i + 3] : 0;
+  l.x = i < f ? rl[i] : 0;
+  l.y = i + 1 < f ? rl[i + 1] : 0;
+  l.z = i + 2 < f ? rl[i + 2] : 0;
+  l.w = i + 3 < f ? rl[i + 3] : 0;
+}
+
+__device__ __forceinline__ uint64_t field_bits(int v, int len) {
+  return (unsigned)v & (len >= 32 ? 0xffffffffu : (1u << len) - 1u);
+}
+
+// The quad's fields (lengths 0..32, total bits n) at bit offset off of the
+// shared row: interior words stored, the first and the last ORed.  Words
+// at or past n_words are dropped.
+__device__ __forceinline__ void place_quad(unsigned* row, int n_words,
+                                           int off, int4 v, int4 l, int n) {
+  if (n <= 0) return;
+  const uint64_t a = field_bits(v.x, l.x) | (field_bits(v.y, l.y) << l.x);
+  const uint64_t c = field_bits(v.z, l.z) | (field_bits(v.w, l.w) << l.z);
+  const int la = l.x + l.y;                     // 0 .. 64
+  const uint64_t lo = la >= 64 ? a : a | (c << la);
+  const uint64_t hi = la == 0 ? 0 : (la >= 64 ? c : c >> (64 - la));
+  const int b = off & 31, wi = off >> 5;
+  const uint64_t y0 = lo << b;
+  const uint64_t y1 = (hi << b) | (b ? lo >> (64 - b) : 0);
+  const unsigned w[5] = {(unsigned)y0, (unsigned)(y0 >> 32), (unsigned)y1,
+                         (unsigned)(y1 >> 32),
+                         b ? (unsigned)(hi >> (64 - b)) : 0u};
+  const int last = (b + n - 1) >> 5;            // 0 .. 4
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    if (k > last || wi + k >= n_words) break;
+    if (k == 0 || k == last)
+      atomicOr(&row[wi + k], w[k]);
+    else
+      row[wi + k] = w[k];
+  }
+}
+
+__global__ void __launch_bounds__(PACK_THREADS) pack_kernel(PackStreams ps) {
+  extern __shared__ int4 pack_row[];
+  __shared__ int warp_bits[2][PACK_WARPS];
+  const PackStream S = blockIdx.y == 0 ? ps.s[0]
+                       : (blockIdx.y == 1 ? ps.s[1] : ps.s[2]);
+  const int row = blockIdx.x, f = S.f, n_words = S.n_words;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* rv = S.vals + (int64_t)row * f;
+  const int* rl = S.lens + (int64_t)row * f;
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(rv) | reinterpret_cast<uintptr_t>(rl)) &
+       15) == 0;
+  unsigned* srow = reinterpret_cast<unsigned*>(pack_row);
+  const int n4 = (n_words + 3) >> 2;
+  for (int i = threadIdx.x; i < n4; i += PACK_THREADS)
+    pack_row[i] = make_int4(0, 0, 0, 0);
+
+  // a round: warp w takes quads [rb + w*32*jq, rb + (w+1)*32*jq), lane l
+  // the quads l, l + 32, .. of that run
+  const int nq = (f + 3) >> 2;
+  const int jq = min(PACK_QUADS, (nq + PACK_THREADS - 1) / PACK_THREADS);
+  int carry = 0, parity = 0;
+  for (int rb = 0; rb < nq; rb += PACK_THREADS * jq) {
+    const int wb = rb + warp * 32 * jq;
+    int4 v[PACK_QUADS], l[PACK_QUADS];
+    int n[PACK_QUADS];
+    int wsum = 0;
+#pragma unroll
+    for (int j = 0; j < PACK_QUADS; ++j) {
+      const int q = wb + 32 * j + lane;
+      if (j < jq && q < nq) {
+        load_quad(rv, rl, q, f, vec, v[j], l[j]);
+      } else {
+        v[j] = make_int4(0, 0, 0, 0);
+        l[j] = make_int4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < PACK_QUADS; ++j) {
+      n[j] = l[j].x + l[j].y + l[j].z + l[j].w;
+      wsum += n[j];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
+    if (lane == 0) warp_bits[parity][warp] = wsum;
+    __syncthreads();                    // also orders the row's zeroing
+    int base = carry;
+#pragma unroll
+    for (int k = 0; k < PACK_WARPS; ++k) {
+      const int t = warp_bits[parity][k];
+      base += k < warp ? t : 0;
+      carry += t;
+    }
+    parity ^= 1;
+#pragma unroll
+    for (int j = 0; j < PACK_QUADS; ++j) {
+      if (j >= jq) break;
+      int incl = n[j];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      place_quad(srow, n_words, base + incl - n[j], v[j], l[j], n[j]);
+      base += __shfl_sync(0xffffffffu, incl, 31);
+    }
   }
   __syncthreads();
-  int* dst = words + (int64_t)row * n_words;
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x) dst[i] = (int)sw[i];
-  if (threadIdx.x == 0) bits[row] = total;
+  int* dst = S.words + (int64_t)row * n_words;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int m4 = n_words >> 2;
+    for (int i = threadIdx.x; i < m4; i += PACK_THREADS)
+      reinterpret_cast<int4*>(dst)[i] = pack_row[i];
+    done = m4 << 2;
+  }
+  for (int i = done + threadIdx.x; i < n_words; i += PACK_THREADS)
+    dst[i] = (int)srow[i];
+  if (threadIdx.x == 0) S.bits[row] = carry;
 }
 
 // -------------------------------------------------------- ht_compact_pool
@@ -587,14 +719,25 @@ int ht_cleanup_fields(const void* coeffs, const void* hs, const void* ws,
   return (int)cudaGetLastError();
 }
 
-int ht_pack_bits(const void* vals, const void* lens, int nrows, int f,
-                 int n_words, void* words, void* bits, void* stream) {
-  const size_t smem = (size_t)n_words * sizeof(unsigned);
+// desc: nstreams (1 to 3) rows of 6 int64 (vals, lens, words, bits, f,
+// n_words), all streams of nrows rows; one launch
+int ht_pack_bits(const long long* desc, int nstreams, int nrows,
+                 void* stream) {
+  if (nstreams < 1 || nstreams > PACK_STREAMS)
+    return (int)cudaErrorInvalidValue;
+  PackStreams ps = {};
+  size_t smem = 16;
+  for (int k = 0; k < nstreams; ++k) {
+    const long long* d = desc + 6 * k;
+    ps.s[k] = {(const int*)d[0], (const int*)d[1], (int*)d[2], (int*)d[3],
+               (int)d[4], (int)d[5]};
+    const size_t bytes = (size_t)((d[5] + 3) >> 2) * 16;
+    if (bytes > smem) smem = bytes;
+  }
   const int rc = set_smem((const void*)pack_kernel, smem);
   if (rc) return rc;
-  pack_kernel<<<nrows, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int*)vals, (const int*)lens, f, n_words, (int*)words,
-      (int*)bits);
+  pack_kernel<<<dim3(nrows, nstreams), PACK_THREADS, smem,
+                (cudaStream_t)stream>>>(ps);
   return (int)cudaGetLastError();
 }
 

@@ -277,14 +277,12 @@ def encode_pyramid(pyr, plan: BlockPlan, n: int, levels: int
     hs, ws = _block_dims(plan, n, blocks.device)
     f = ht_enc_cuda.cleanup_values(blocks, hs, ws)
     del blocks
-    packed = {}
-    for name, n_words in zip(("ms", "vlc", "mel"), ht_enc.stream_words(
-            plan.cbh, plan.cbw, plan.max_mn)):
-        packed[name] = ht_enc_cuda.pack_bits(
-            f.pop(f"{name}_vals"), f.pop(f"{name}_lens"), n_words)
-    return ht_enc_cuda.assemble_pool(
-        *packed["ms"], *packed["vlc"], *packed["mel"], f["numbps"],
-        f["u_max"], f["dist"])
+    ms, vlc, mel = ht_enc_cuda.pack_streams(
+        (f.pop(f"{name}_vals"), f.pop(f"{name}_lens"), n_words)
+        for name, n_words in zip(("ms", "vlc", "mel"), ht_enc.stream_words(
+            plan.cbh, plan.cbw, plan.max_mn)))
+    return ht_enc_cuda.assemble_pool(*ms, *vlc, *mel, f["numbps"],
+                                     f["u_max"], f["dist"])
 
 
 def fetch_pool(out: torch.Tensor, totals: torch.Tensor, n: int,

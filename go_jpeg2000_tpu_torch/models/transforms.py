@@ -60,7 +60,7 @@ def inverse_level(bands: Dict[str, torch.Tensor], kind: str, u0: int,
     ll = bands["LL"]
     h = ll.shape[-2] + bands["LH"].shape[-2]
     w = ll.shape[-1] + bands["HL"].shape[-1]
-    if ll.is_cuda and dwt_cuda.usable(h, w, u0, v0, kind):
+    if ll.is_cuda and dwt_cuda.usable(h, w, u0, v0, kind, inverse=True):
         return _INVERSE_KERNEL[kind](bands, above, below)
     if ll.is_cuda:
         dwt_cuda.count_plain_level()

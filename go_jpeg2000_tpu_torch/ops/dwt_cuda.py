@@ -37,9 +37,11 @@ import torch
 
 from . import cuda_build, dwt
 
-# must equal STRIP and HALO in csrc/dwt53.cu and csrc/dwt97.cu (checked
-# when the library loads)
-STRIP_ROWS = 16
+# output rows per strip of each kernel, by (kind, inverse), and halo rows
+# per kind: must equal FWD_STRIP, STRIP and HALO in csrc/dwt53.cu and
+# STRIP and HALO in csrc/dwt97.cu (checked when the library loads)
+STRIP_ROWS = {(dwt.REV53, False): 32, (dwt.REV53, True): 16,
+              (dwt.IRR97, False): 16, (dwt.IRR97, True): 16}
 HALO_ROWS = {dwt.REV53: 3, dwt.IRR97: 7}
 # dynamic shared memory a Hopper block may opt into (227 KB)
 MAX_SMEM_BYTES = 232448
@@ -71,13 +73,18 @@ def count_plain_level() -> None:
     PLAIN_LEVELS += 1
 
 
-def usable(h: int, w: int, u0: int, v0: int, kind: str = dwt.REV53) -> bool:
-    """Kernel eligibility for one level: even origin, even sizes of at
-    least 2, and a strip of STRIP_ROWS + HALO_ROWS[kind] full-width 4-byte
+def usable(h: int, w: int, u0: int, v0: int, kind: str = dwt.REV53,
+           inverse: bool = False) -> bool:
+    """Kernel eligibility for one level: even origin and even sizes of at
+    least 2; for every kernel but the forward 5/3 (which keeps a strip in
+    registers), a strip of STRIP_ROWS + HALO_ROWS[kind] full-width 4-byte
     rows that fits the shared memory of one block."""
     if (u0 & 1) or (v0 & 1) or (h & 1) or (w & 1) or h < 2 or w < 2:
         return False
-    return (STRIP_ROWS + HALO_ROWS[kind]) * w * 4 <= MAX_SMEM_BYTES
+    if kind == dwt.REV53 and not inverse:
+        return True
+    return ((STRIP_ROWS[(kind, inverse)] + HALO_ROWS[kind]) * w * 4
+            <= MAX_SMEM_BYTES)
 
 
 def build() -> Dict[str, str]:
@@ -97,7 +104,11 @@ def load() -> Dict[str, ctypes.CDLL]:
         for name in _LIBS:
             lib = cuda_build.load(name)
             kind = _LIBS[name][1]
-            if (getattr(lib, f"{name}_strip_rows")() != STRIP_ROWS
+            strips = ((lib.dwt53_fwd_strip_rows(),
+                       lib.dwt53_inv_strip_rows()) if name == "dwt53" else
+                      (lib.dwt97_strip_rows(),) * 2)
+            if (strips != (STRIP_ROWS[(kind, False)],
+                           STRIP_ROWS[(kind, True)])
                     or getattr(lib, f"{name}_halo_rows")()
                     != HALO_ROWS[kind]
                     or getattr(lib, f"{name}_fwd_above")()
@@ -154,7 +165,7 @@ def _forward(x: torch.Tensor, kind: str, above=None, below=None
     dtype = _LIBS[lib][2]
     _check_cuda(x, name, dtype)
     n, h, w = x.shape
-    if not usable(h, w, 0, 0, kind):
+    if not usable(h, w, 0, 0, kind, inverse=False):
         raise ValueError(f"{name}: shape {tuple(x.shape)} not supported "
                          f"(see usable)")
     a, b = dwt.HALO_DEPTH[(kind, False)]
@@ -185,7 +196,7 @@ def _inverse(bands: Dict[str, torch.Tensor], kind: str, above=None,
                              "and device")
     n, h2, w2 = ll.shape
     h, w = 2 * h2, 2 * w2
-    if not usable(h, w, 0, 0, kind):
+    if not usable(h, w, 0, 0, kind, inverse=True):
         raise ValueError(f"{name}: shape {(n, h, w)} not supported "
                          f"(see usable)")
     a, b = dwt.HALO_DEPTH[(kind, True)]

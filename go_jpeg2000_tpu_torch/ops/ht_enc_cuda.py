@@ -4,7 +4,8 @@ The port's counterpart of the JAX package's device HT encode program:
 
   extract_blocks -> ht_extract_blocks, replaces fused_encode._extract_blocks
   cleanup_values -> ht_cleanup_fields, replaces ht_tpu.cleanup_fields
-  pack_bits      -> ht_pack_bits, replaces ht_tpu._pack_bits
+  pack_streams   -> ht_pack_bits, replaces ht_tpu._pack_bits (one launch
+                    for a chunk's three streams; pack_bits is one stream)
   assemble_pool  -> ht_compact_pool, replaces ht_tpu.compact_pool and
                     cleanup_fields_compact
 
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +34,8 @@ LAUNCHES: Dict[str, int] = {"ht_extract_blocks": 0, "ht_cleanup_fields": 0,
 # int64 fields per band in ht_extract_blocks' table (checked at load)
 BAND_FIELDS = 11
 MAX_SMEM_BYTES = 232448
+# streams one ht_pack_bits launch takes (PACK_STREAMS in csrc/ht_enc.cu)
+PACK_STREAMS = 3
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -57,7 +60,7 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         sigs = {"ht_extract_blocks": [p, i, i, i, i, i, i, i, p, p],
                 "ht_cleanup_fields": [p, p, p, i, i, i, p] + [p] * 10,
-                "ht_pack_bits": [p, p, i, i, i, p, p, p],
+                "ht_pack_bits": [p, i, i, p],
                 "ht_compact_pool": [p, i, p, p, i, p, p, i, p,
                                     p, p, p, i, p, p, p, p]}
         for name, args in sigs.items():
@@ -178,26 +181,47 @@ def cleanup_values(blocks: torch.Tensor, hs, ws) -> Dict[str, torch.Tensor]:
     return out
 
 
+def pack_streams(streams) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Pack up to three streams of one chunk's rows in one launch:
+    [(vals, lens, n_words)], fields int32 [Nb, F] of each stream (Nb shared,
+    F per stream) -> [(words int32 [Nb, n_words] holding uint32 bit
+    patterns, zero past the stream, total bits int32 [Nb])], each what
+    ht_enc.pack_bits gives.  A row's bits past n_words words are dropped
+    (ht_enc.pack_bits raises)."""
+    streams = list(streams)
+    if streams and streams[0][0].device.type == "cpu":
+        return [ht_enc.pack_bits(v, ln, nw) for v, ln, nw in streams]
+    name = "ht_pack_bits"
+    if not 1 <= len(streams) <= PACK_STREAMS:
+        raise ValueError(f"{name}: 1 to {PACK_STREAMS} streams, got "
+                         f"{len(streams)}")
+    dev = streams[0][0].device
+    nb = streams[0][0].shape[0]
+    desc = np.zeros((len(streams), 6), np.int64)
+    out = []
+    for k, (vals, lens, n_words) in enumerate(streams):
+        _check(vals, name, torch.int32, 2, dev)
+        _check(lens, name, torch.int32, 2, dev)
+        if (lens.shape != vals.shape or vals.shape[0] != nb
+                or not 0 <= n_words <= MAX_SMEM_BYTES // 4):
+            raise ValueError(f"{name}: fields {tuple(vals.shape)}, "
+                             f"{tuple(lens.shape)} with {n_words} words")
+        words = torch.empty((nb, n_words), dtype=torch.int32, device=dev)
+        bits = torch.empty(nb, dtype=torch.int32, device=dev)
+        desc[k] = (vals.data_ptr(), lens.data_ptr(), words.data_ptr(),
+                   bits.data_ptr(), vals.shape[1], n_words)
+        out.append((words, bits))
+    if nb:
+        _launch(name, dev, desc.ctypes.data, len(streams), nb)
+    return out
+
+
 def pack_bits(vals: torch.Tensor, lens: torch.Tensor, n_words: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each row's LSB-first fields [Nb, F] -> (words int32 [Nb, n_words]
-    holding uint32 bit patterns, total bits int32 [Nb]); ht_enc.pack_bits."""
-    if vals.device.type == "cpu":
-        return ht_enc.pack_bits(vals, lens, n_words)
-    name = "ht_pack_bits"
-    dev = vals.device
-    _check(vals, name, torch.int32, 2, dev)
-    _check(lens, name, torch.int32, 2, dev)
-    if lens.shape != vals.shape or n_words * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: fields {tuple(vals.shape)}, "
-                         f"{tuple(lens.shape)} with {n_words} words")
-    nb, f = vals.shape
-    words = torch.empty((nb, n_words), dtype=torch.int32, device=dev)
-    bits = torch.empty(nb, dtype=torch.int32, device=dev)
-    if nb:
-        _launch(name, dev, vals.data_ptr(), lens.data_ptr(), nb, f, n_words,
-                words.data_ptr(), bits.data_ptr())
-    return words, bits
+    holding uint32 bit patterns, total bits int32 [Nb]); ht_enc.pack_bits.
+    One stream of pack_streams."""
+    return pack_streams([(vals, lens, n_words)])[0]
 
 
 def assemble_pool(ms_words, ms_bits, vlc_words, vlc_bits, mel_words,

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times the MQ coder (ebcot_mq_encode) and the HT cleanup-field kernel
-(ht_cleanup_fields) of one checkout of the PyTorch/CUDA port on one CUDA
-device, at the shapes of chip_smoke.py, and prints one JSON line.
+"""Times the MQ coder (ebcot_mq_encode), the HT cleanup-field kernel
+(ht_cleanup_fields), the HT bit packer (ht_pack_bits) and the forward 5/3
+level (dwt53_fwd_level) of one checkout of the PyTorch/CUDA port on one
+CUDA device, at the shapes of chip_smoke.py, and prints one JSON line.
 
-    python3 kernel_times.py [--tree DIR] [--ptxas]
+    python3 kernel_times.py [--tree DIR] [--ptxas] [--config4]
 
 DIR is the root of a checkout of the repository (default: the directory of
 this script).  Its go_jpeg2000_tpu_torch is imported and its CUDA sources
@@ -15,13 +16,26 @@ generators (this script's copy):
   560 blocks of 64x64, 11 planes);
 - cleanup: the blocks of the HT lossless gray batch (32 gray 512x512
   frames, 2240 blocks of 64x64) and of a config-4 tile-origin class (64
-  tiles of 512x512 16-bit RGB, 12,864 blocks).
+  tiles of 512x512 16-bit RGB, 12,864 blocks);
+- packing: the three streams' fields of the same two batches (made by the
+  checkout's cleanup kernel), packed by pack_bits, one call a stream, which
+  every checkout has, and, where the checkout has it, by pack_streams, one
+  launch for the three;
+- forward 5/3: forward_2d_53 on int32 [32, 512, 512] (the HT lossless
+  batch's level 1) and [768, 512, 512] (config 4's level 1).
 Each kernel: mean of 20 calls by CUDA events after 3 warm-ups, and the
 kernel's device time alone under torch.profiler; the MQ coder's cycles per
 decision of the longest block from the CUDA-event time at 1.98 GHz.
---ptxas also compiles the checkout's ht_enc.cu and ebcot_enc.cu with
--Xptxas -v and reports the two kernels' registers, spills and static
-shared memory.  Without a CUDA device it exits 1 and prints nothing.
+--config4 also times config 4's lossless encode (8192x8192 16-bit RGB,
+512x512 tiles, 5 resolutions) in chip_smoke.py's stages, medians of 3
+after a warm-up: the transform step (the level kernels and band_stats)
+and the HT kernels (per tile-origin class: the gather, extraction,
+cleanup, packing and compaction), each synchronised, where the two
+kernels' savings should show end to end.
+--ptxas also compiles the checkout's ht_enc.cu, ebcot_enc.cu and dwt53.cu
+with -Xptxas -v and reports the registers, spills and static shared
+memory of fields_kernel, mq_kernel, pack_kernel and dwt53_fwd_kernel.
+Without a CUDA device it exits 1 and prints nothing.
 """
 import argparse
 import importlib.util
@@ -33,13 +47,15 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the kernels whose ptxas figures --ptxas reports
+KERNELS = ("fields_kernel", "mq_kernel", "pack_kernel", "dwt53_fwd_kernel")
 
 
 def ptxas(tree, cuda_build):
-    """{kernel symbol: ptxas' resource line} for fields_kernel and
-    mq_kernel of the tree's sources, built with the tree's nvcc flags."""
+    """{kernel symbol: ptxas' resource line} for the kernels KERNELS names,
+    from the tree's sources, built with the tree's nvcc flags."""
     out = {}
-    for src in ("ht_enc.cu", "ebcot_enc.cu"):
+    for src in ("ht_enc.cu", "ebcot_enc.cu", "dwt53.cu"):
         path = os.path.join(tree, "go_jpeg2000_tpu_torch", "csrc", src)
         build = os.path.join(tree, "go_jpeg2000_tpu_torch", "_build")
         os.makedirs(build, exist_ok=True)
@@ -56,12 +72,12 @@ def ptxas(tree, cuda_build):
 
 def ptxas_lines(text):
     """{kernel: "stack, spills; registers, barriers, smem"} from nvcc's
-    -Xptxas -v output, for fields_kernel and mq_kernel."""
+    -Xptxas -v output, for the kernels KERNELS names."""
     out = {}
     lines = text.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '_Z\d+(fields_kernel|"
-                      r"mq_kernel)", line)
+        m = re.search(r"Compiling entry function '_Z\d+(" + "|".join(KERNELS)
+                      + ")", line)
         if m:
             props = [x.split("ptxas info    :")[-1].strip()
                      for x in lines[i + 1:i + 4]
@@ -74,6 +90,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--config4", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -87,8 +104,8 @@ def main():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     import go_jpeg2000_tpu_torch as tp
-    from go_jpeg2000_tpu_torch.ops import (cuda_build, ebcot_cuda,
-                                           ht_enc_cuda)
+    from go_jpeg2000_tpu_torch.ops import (cuda_build, dwt_cuda, ebcot_cuda,
+                                           ht_enc, ht_enc_cuda)
     if not os.path.abspath(tp.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {tp.__file__}, not the tree {tree}")
     dev = torch.device("cuda")
@@ -114,16 +131,55 @@ def main():
                           num_resolutions=6, high_throughput=True)
     for label, (frames, opts) in (("gray", (cs.main_gray(), lossless)),
                                   ("config-4 class", cs.config4_class(tp))):
-        _plan, blocks, hs, ws = cs.ht_blocks(tp, frames, opts, dev)
+        plan, blocks, hs, ws = cs.ht_blocks(tp, frames, opts, dev)
         del frames
+        shape = (f"{blocks.shape[0]} blocks of "
+                 f"{blocks.shape[1]}x{blocks.shape[2]}")
         fn = lambda: ht_enc_cuda.cleanup_values(blocks, hs, ws)  # noqa
         result[f"ht_cleanup_fields {label}"] = {
-            "shape": f"{blocks.shape[0]} blocks of "
-                     f"{blocks.shape[1]}x{blocks.shape[2]}",
-            "ms": cs.cuda_ms(fn),
+            "shape": shape, "ms": cs.cuda_ms(fn),
             "alone_ms": cs.device_ms(fn, "ht_cleanup_fields")}
+        f = fn()
         del blocks, hs, ws
+        fields = [(f[f"{s}_vals"], f[f"{s}_lens"], nw) for s, nw in zip(
+            ("ms", "vlc", "mel"), ht_enc.stream_words(plan.cbh, plan.cbw,
+                                                      plan.max_mn))]
+        del f
+        nb = fields[0][0].shape[0]
+        fns = {"pack_bits, 3 calls":
+               lambda: [ht_enc_cuda.pack_bits(*x) for x in fields]}
+        if hasattr(ht_enc_cuda, "pack_streams"):
+            fns["pack_streams, 1 call"] = \
+                lambda: ht_enc_cuda.pack_streams(fields)
+        for how, fn in fns.items():
+            result[f"ht_pack_bits {label}, {how}"] = {
+                "shape": f"{shape}, max_mn {plan.max_mn}",
+                "ms": cs.cuda_ms(fn),
+                "alone_ms": cs.device_ms(fn, "ht_pack_bits"),
+                "bound_ms": cs.pack_bound(fields, nb)[0]}
+        del fields
         torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n in (cs.N_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):
+        x = torch.randint(-(1 << 15), 1 << 15, (n, cs.H, cs.W),
+                          generator=gen, device=dev, dtype=torch.int32)
+        fn = lambda: dwt_cuda.forward_2d_53(x)  # noqa: E731
+        result[f"dwt53_fwd_level [{n},{cs.H},{cs.W}]"] = {
+            "ms": cs.cuda_ms(fn),
+            "alone_ms": cs.device_ms(fn, "dwt53_fwd_level"),
+            "bound_ms": cs.bound(8 * x.numel(), 0, 1)[0]}
+        del x
+        torch.cuda.empty_cache()
+
+    if args.config4:
+        img = cs.config4_image(cs.C4_SIZE)
+        opts = cs.config4_opts(tp, True)
+        runs = [cs.sharded_encode_stages(img, opts, dev) for _ in range(4)]
+        for i, name in ((2, "transform step"), (3, "HT kernels")):
+            ms = sorted(1e3 * r[i] for r in runs[1:])
+            result[f"config-4 lossless encode stage {name}"] = {
+                "median_ms": ms[1], "ms": ms}
     print(json.dumps(result), flush=True)
     return 0
 

@@ -10,12 +10,15 @@ nor the JAX package, so it runs where only torch is installed:
 Tolerance: exact equality, for 9/7 too (the kernel rounds the plain
 version's float32 ops in the same order, without FMA contraction), and for
 every integer output of the HT encode kernels; their distortion, a sum of
-float32 squares taken in another order, within a relative 1e-5.  The HT
-decode kernels' outputs are equal bit for bit, float32 leaves too.  The
-EBCOT kernels' slots, decision pools, MQ segments and lengths are equal
-exactly (MQ segments also to the native coder's), on the MQ stress
-streams of ops/mq_device.py too.  The band statistics'
-counts are equal, their float64 sums within a relative 1e-12 (the order of
+float32 squares taken in another order, within a relative 1e-5.  The bit
+packer's words and bits are equal exactly on edge rows (zero lengths,
+spills at every offset, exact fills, rows off 16 bytes) and on the
+streams of every legal code-block shape; the forward 5/3 kernel is exact
+at any even width.  The HT decode kernels' outputs are equal bit for bit,
+float32 leaves too.  The EBCOT kernels' slots, decision pools, MQ
+segments and lengths are equal exactly (MQ segments also to the native
+coder's), on the MQ stress streams of ops/mq_device.py too.  The band
+statistics' counts are equal, their float64 sums within a relative 1e-12 (the order of
 the atomics varies).  The tile-sharded encode and decode give the CPU's
 bytes and pixels."""
 import dataclasses
@@ -398,6 +401,150 @@ def test_cleanup_kernel_refuses_illegal_shapes(cuda):
             ht_enc_cuda.cleanup_values(
                 torch.zeros(shape, dtype=torch.int32, device=cuda),
                 [1, 1], [1, 1])
+
+
+def _fields(rng, nb, f, maxlen, dev, offset=0):
+    """Random fields [nb, f] on dev (lengths 0 .. maxlen); with offset > 0
+    the tensors start `offset` int32 past an allocation, so their base is
+    not 16-byte aligned."""
+    lens = rng.randint(0, maxlen + 1, (nb, f)).astype(np.int32)
+    vals = rng.randint(-2 ** 31, 2 ** 31, (nb, f), dtype=np.int64)
+    out = []
+    for a in (vals.astype(np.int32), lens):
+        buf = torch.zeros(nb * f + offset, dtype=torch.int32, device=dev)
+        t = buf[offset:].view(nb, f)
+        t.copy_(torch.from_numpy(a))
+        out.append(t)
+    return out
+
+
+def _pack_matches_plain(streams):
+    """pack_streams (one launch) and pack_bits of each stream against
+    ht_enc.pack_bits, exactly."""
+    before = ht_enc_cuda.LAUNCHES["ht_pack_bits"]
+    got = ht_enc_cuda.pack_streams(streams)
+    torch.cuda.synchronize()
+    assert ht_enc_cuda.LAUNCHES["ht_pack_bits"] == before + 1
+    for (vals, lens, n_words), (w, b) in zip(streams, got):
+        rw, rb = ht_enc.pack_bits(vals, lens, n_words)
+        assert torch.equal(w, rw) and torch.equal(b, rb)
+        w1, b1 = ht_enc_cuda.pack_bits(vals, lens, n_words)
+        assert torch.equal(w1, rw) and torch.equal(b1, rb)
+
+
+def _words(lens):
+    return int((lens.long().sum(1).max().item() + 31) // 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zeros", "spill", "fill", "fill32",
+                                  "f6", "f6_offset", "f1537",
+                                  "f1537_offset", "rounds"])
+def test_pack_kernel_edge_rows(cuda, case):
+    """Rows of all-zero lengths; 31-bit fields that spill at every bit
+    offset 0..31 (row r starts with an r-bit field); rows that fill
+    n_words exactly; F not a multiple of 4 with row bases off 16 bytes,
+    also from a tensor base off 16 bytes; rows longer than one round of
+    the kernel."""
+    rng = np.random.RandomState(len(case))
+    if case == "zeros":
+        vals, lens = _fields(rng, 5, 40, 0, cuda)
+        streams = [(vals, lens, 3)]
+    elif case == "spill":
+        vals, lens = _fields(rng, 32, 40, 31, cuda)
+        lens.fill_(31)
+        lens[:, 0] = torch.arange(32, dtype=torch.int32, device=cuda)
+        streams = [(vals, lens, _words(lens)), (vals, lens, _words(lens) + 5)]
+    elif case in ("fill", "fill32"):
+        bits = 16 if case == "fill" else 32
+        vals, lens = _fields(rng, 6, 64, 0, cuda)
+        lens.fill_(bits)
+        streams = [(vals, lens, 2 * bits)]
+    elif case.startswith("f"):
+        f = int(case[1:].split("_")[0])
+        vals, lens = _fields(rng, 7, f, 31, cuda,
+                             offset=1 if case.endswith("offset") else 0)
+        streams = [(vals, lens, _words(lens)), (vals, lens, _words(lens) + 3)]
+    else:
+        vals, lens = _fields(rng, 3, 9000, 12, cuda)
+        streams = [(vals, lens, _words(lens))]
+    _pack_matches_plain(streams)
+
+
+@pytest.mark.cuda
+def test_pack_kernel_block_shapes(cuda):
+    """The three streams of every legal code-block shape (powers of two
+    from 4 to 1024 a side, at most 4096 samples: 4x4 .. 64x64, 32x128,
+    4x1024, ..) in one launch, with field_counts and stream_words."""
+    rng = np.random.RandomState(8)
+    for a in range(2, 11):
+        for b in range(2, 13 - a):
+            h, w = 1 << a, 1 << b
+            fc = ht_enc.field_counts(h, w)
+            widths = ht_enc.stream_words(h, w, 20)
+            streams = []
+            for f, n_words, maxlen in zip(fc, widths, (20, 5, 1)):
+                vals, lens = _fields(rng, 9, f, maxlen, cuda)
+                streams.append((vals, lens, n_words))
+            _pack_matches_plain(streams)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 2, 2), (2, 6, 6), (2, 2, 10),
+                                   (1, 6, 4100), (1, 2, 8192),
+                                   (1, 6, 8192), (2, 70, 10),
+                                   (1, 66, 4100)])
+def test_fwd53_kernel_widths(cuda, shape):
+    """The forward 5/3 kernel at widths that are not a multiple of its
+    column tile or of 4, and at heights of 2 and 6, exactly."""
+    g = torch.Generator(device=cuda).manual_seed(shape[2])
+    x = torch.randint(-(1 << 17), 1 << 17, shape, generator=g, device=cuda,
+                      dtype=torch.int32)
+    got = dwt_cuda.forward_2d_53(x)
+    ref = dwt.forward_2d(x, dwt.REV53)
+    for k in BANDS:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [4096, 8192])
+def test_fwd53_kernel_wide_frames(cuda, side):
+    """A 4096^2 and an 8192^2 frame's first forward level take the kernel
+    (no plain level) and equal the plain lifting; the inverse still takes
+    the plain version at these widths."""
+    g = torch.Generator(device=cuda).manual_seed(side)
+    x = torch.randint(-(1 << 17), 1 << 17, (1, side, side), generator=g,
+                      device=cuda, dtype=torch.int32)
+    dwt_cuda.reset_counts()
+    got = transforms.forward_level(x, dwt.REV53, 0, 0)
+    assert dwt_cuda.PLAIN_LEVELS == 0
+    assert dwt_cuda.LAUNCHES["dwt53_fwd_level"] == 1
+    ref = dwt.forward_2d(x, dwt.REV53)
+    for k in BANDS:
+        assert torch.equal(got[k], ref[k]), k
+    assert not dwt_cuda.usable(side, side, 0, 0, dwt.REV53, inverse=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 10, 4100])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_fwd53_kernel_halo_shards_of_two_rows(cuda, w, sp):
+    """Row shards of 2 rows at widths off the column tile: the halo form
+    equals the unsharded kernel and the plain halo lifting."""
+    from go_jpeg2000_tpu_torch.parallel import sharded
+    g = torch.Generator(device=cuda).manual_seed(w + sp)
+    x = torch.randint(-40000, 40000, (3, 2 * sp, w), generator=g,
+                      device=cuda, dtype=torch.int32)
+    shards = [s.contiguous() for s in torch.chunk(x, sp, dim=-2)]
+    fwd = sharded.forward_level_split(shards, dwt.REV53)
+    plain = sharded.forward_level_split([s.cpu() for s in shards],
+                                        dwt.REV53)
+    ref = dwt_cuda.forward_2d_53(x)
+    for k in BANDS:
+        got = torch.cat([f[k] for f in fwd], dim=-2)
+        assert torch.equal(got, ref[k]), k
+        assert torch.equal(got.cpu(), torch.cat([f[k] for f in plain],
+                                                dim=-2)), k
 
 
 @pytest.mark.cuda

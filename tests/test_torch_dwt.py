@@ -30,7 +30,8 @@ def _eq(got: torch.Tensor, ref) -> None:
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 2), (2, 64, 64), (1, 32, 96),
-                                   (3, 8, 8), (2, 6, 10)])
+                                   (3, 8, 8), (2, 6, 10), (1, 4, 4100),
+                                   (1, 2, 6), (2, 6, 2), (1, 70, 62)])
 def test_forward_level_matches_pallas(shape):
     x = _ints(shape, shape[1])
     ref = dwt_pallas.forward_2d_53(x, interpret=True)
@@ -90,8 +91,14 @@ def test_usable_gating():
     assert not dwt_cuda.usable(511, 512, 0, 0)    # odd size
     assert not dwt_cuda.usable(512, 512, 1, 0)    # odd origin
     assert not dwt_cuda.usable(512, 512, 0, 3)
-    # a strip of STRIP_ROWS + HALO_ROWS int32 rows must fit 227 KB
-    assert not dwt_cuda.usable(16, 4096, 0, 0)
+    # the forward 5/3 kernel holds its strip in registers: any even width;
+    # the inverse's strip of STRIP_ROWS + HALO_ROWS int32 rows must fit
+    # 227 KB
+    assert dwt_cuda.usable(16, 4096, 0, 0)
+    assert dwt_cuda.usable(8192, 8192, 0, 0, dwt.REV53, inverse=False)
+    assert not dwt_cuda.usable(16, 4096, 0, 0, inverse=True)
+    assert dwt_cuda.usable(16, 3058, 0, 0, inverse=True)
+    assert not dwt_cuda.usable(16, 3060, 0, 0, inverse=True)
 
 
 def test_wrappers_refuse_other_devices():
@@ -177,8 +184,9 @@ def _strips_97(x, inverse, above, below):
     h = x.shape[1]
     lift = dwt._inverse_1d_97 if inverse else dwt._forward_1d_97
     out = []
-    for r0 in range(0, h, dwt_cuda.STRIP_ROWS):
-        rr = min(dwt_cuda.STRIP_ROWS, h - r0)
+    strip = dwt_cuda.STRIP_ROWS[(dwt.IRR97, inverse)]
+    for r0 in range(0, h, strip):
+        rr = min(strip, h - r0)
         sub = x[:, [_reflect(g, h) for g in range(r0 - above,
                                                   r0 + rr + below)]]
         if inverse:                                   # rows, then columns
@@ -200,7 +208,7 @@ def test_97_strip_halo_depth(h):
     assert torch.equal(_strips_97(x, False, 4, 3), fwd)
     assert torch.equal(_strips_97(x, True, 3, 4), inv)
     assert dwt_cuda.HALO_ROWS[dwt.IRR97] == 4 + 3
-    if h > dwt_cuda.STRIP_ROWS:
+    if h > dwt_cuda.STRIP_ROWS[(dwt.IRR97, False)]:
         for above, below in ((3, 3), (4, 2)):
             assert not torch.equal(_strips_97(x, False, above, below), fwd)
         for above, below in ((2, 4), (3, 3)):
@@ -215,7 +223,9 @@ def test_97_usable_and_refusals():
     assert not dwt_cuda.usable(512, 512, 0, 1, dwt.IRR97)
     # (16 + 7) float32 rows of 2560 do not fit 227 KB; 5/3's 19 int32 do
     assert not dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97)
+    assert not dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97, inverse=True)
     assert dwt_cuda.usable(16, 2560, 0, 0, dwt.REV53)
+    assert dwt_cuda.usable(16, 2560, 0, 0, dwt.REV53, inverse=True)
     x = torch.empty((1, 4, 4), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError):
         dwt_cuda.forward_2d_97(x)

@@ -86,13 +86,31 @@ def test_cleanup_fields_matches_jax(case):
     np.testing.assert_allclose(got["dist"], ref["dist"], rtol=1e-6)
 
 
-@pytest.mark.parametrize("nb,f,n_words", [(5, 40, 40), (16, 300, 300),
-                                          (3, 1, 2)])
-def test_pack_bits_matches_jax(nb, f, n_words):
+def _pack_fields(nb, f, rows):
+    """Fields [nb, f] (values masked to their lengths): random lengths
+    0..31; "spill", row r an r-bit field then 31-bit fields, so fields
+    spill at every bit offset 0..31; "zeros", all lengths 0."""
     rng = np.random.RandomState(f)
     lens = rng.randint(0, 32, (nb, f)).astype(np.int32)
+    if rows == "spill":
+        lens[:] = 31
+        lens[:, 0] = np.arange(nb) % 32
+    elif rows == "zeros":
+        lens[:] = 0
     vals = (rng.randint(0, 2 ** 31, (nb, f))
             & ((np.int64(1) << lens) - 1)).astype(np.int32)
+    return vals, lens
+
+
+@pytest.mark.parametrize(
+    "nb,f,n_words,rows",
+    [(5, 40, 40, "random"), (16, 300, 300, "random"), (3, 1, 2, "random"),
+     (32, 40, 40, "spill"), (7, 6, 6, "random"), (3, 1537, 1537, "random"),
+     (4, 37, 3, "zeros")],
+    ids=["5-40-40", "16-300-300", "3-1-2", "spill-every-offset", "f6",
+         "f1537", "zero-rows"])
+def test_pack_bits_matches_jax(nb, f, n_words, rows):
+    vals, lens = _pack_fields(nb, f, rows)
     ref_words, ref_bits = jax.jit(ht_tpu._pack_bits, static_argnums=2)(
         vals.view(np.uint32), lens, n_words)
     words, bits = ht_enc.pack_bits(torch.from_numpy(vals),
@@ -100,6 +118,19 @@ def test_pack_bits_matches_jax(nb, f, n_words):
     np.testing.assert_array_equal(words.numpy().view(np.uint32),
                                   np.asarray(ref_words))
     np.testing.assert_array_equal(bits.numpy(), np.asarray(ref_bits))
+
+
+def test_pack_streams_on_cpu_is_pack_bits_per_stream():
+    # the one-launch wrapper's CPU path: each stream through the plain
+    # pack_bits, in order
+    from go_jpeg2000_tpu_torch.ops import ht_enc_cuda
+    streams = [tuple(torch.from_numpy(a) for a in _pack_fields(4, f, "random"))
+               + (f,) for f in (16, 12, 6)]
+    got = ht_enc_cuda.pack_streams(streams)
+    assert len(got) == 3
+    for (vals, lens, n_words), (w, b) in zip(streams, got):
+        rw, rb = ht_enc.pack_bits(vals, lens, n_words)
+        assert torch.equal(w, rw) and torch.equal(b, rb)
 
 
 def test_pack_bits_refuses_too_few_words():
