@@ -39,11 +39,13 @@ from . import cuda_build, dwt
 
 # output rows per strip of each kernel, by (kind, inverse), and halo rows
 # per kind: must equal FWD_STRIP, STRIP and HALO in csrc/dwt53.cu and
-# STRIP and HALO in csrc/dwt97.cu (checked when the library loads)
+# FWD_STRIP, INV_STRIP and HALO in csrc/dwt97.cu (checked when the library
+# loads)
 STRIP_ROWS = {(dwt.REV53, False): 32, (dwt.REV53, True): 16,
-              (dwt.IRR97, False): 16, (dwt.IRR97, True): 16}
+              (dwt.IRR97, False): 32, (dwt.IRR97, True): 32}
 HALO_ROWS = {dwt.REV53: 3, dwt.IRR97: 7}
-# dynamic shared memory a Hopper block may opt into (227 KB)
+# dynamic shared memory a Hopper block may opt into (227 KB): bounds the
+# inverse 5/3's strip
 MAX_SMEM_BYTES = 232448
 
 LAUNCHES: Dict[str, int] = {"dwt53_fwd_level": 0, "dwt53_inv_level": 0,
@@ -76,12 +78,12 @@ def count_plain_level() -> None:
 def usable(h: int, w: int, u0: int, v0: int, kind: str = dwt.REV53,
            inverse: bool = False) -> bool:
     """Kernel eligibility for one level: even origin and even sizes of at
-    least 2; for every kernel but the forward 5/3 (which keeps a strip in
-    registers), a strip of STRIP_ROWS + HALO_ROWS[kind] full-width 4-byte
-    rows that fits the shared memory of one block."""
+    least 2; for the inverse 5/3 (the one kernel that lifts a full-width
+    strip in shared memory; the others keep theirs in registers), a strip of
+    STRIP_ROWS + HALO_ROWS full-width 4-byte rows that fits one block."""
     if (u0 & 1) or (v0 & 1) or (h & 1) or (w & 1) or h < 2 or w < 2:
         return False
-    if kind == dwt.REV53 and not inverse:
+    if kind == dwt.IRR97 or not inverse:
         return True
     return ((STRIP_ROWS[(kind, inverse)] + HALO_ROWS[kind]) * w * 4
             <= MAX_SMEM_BYTES)
@@ -104,9 +106,8 @@ def load() -> Dict[str, ctypes.CDLL]:
         for name in _LIBS:
             lib = cuda_build.load(name)
             kind = _LIBS[name][1]
-            strips = ((lib.dwt53_fwd_strip_rows(),
-                       lib.dwt53_inv_strip_rows()) if name == "dwt53" else
-                      (lib.dwt97_strip_rows(),) * 2)
+            strips = (getattr(lib, f"{name}_fwd_strip_rows")(),
+                      getattr(lib, f"{name}_inv_strip_rows")())
             if (strips != (STRIP_ROWS[(kind, False)],
                            STRIP_ROWS[(kind, True)])
                     or getattr(lib, f"{name}_halo_rows")()

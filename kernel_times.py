@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Times the MQ coder (ebcot_mq_encode), the HT cleanup-field kernel
-(ht_cleanup_fields), the HT bit packer (ht_pack_bits) and the forward 5/3
-level (dwt53_fwd_level) of one checkout of the PyTorch/CUDA port on one
-CUDA device, at the shapes of chip_smoke.py, and prints one JSON line.
+(ht_cleanup_fields), the HT bit packer (ht_pack_bits), the HT MagSgn
+decoder (ht_magsgn_decode), the forward 5/3 level (dwt53_fwd_level) and
+the 9/7 levels (dwt97_fwd_level, dwt97_inv_level) of one checkout of the
+PyTorch/CUDA port on one CUDA device, at the shapes of chip_smoke.py, and
+prints one JSON line.
 
     python3 kernel_times.py [--tree DIR] [--ptxas] [--config4]
 
@@ -21,20 +23,36 @@ generators (this script's copy):
   checkout's cleanup kernel), packed by pack_bits, one call a stream, which
   every checkout has, and, where the checkout has it, by pack_streams, one
   launch for the three;
+- MagSgn decode: the native parse of the config-4 class's lossless
+  streams (12,864 blocks), made by the checkout's encode_batch;
 - forward 5/3: forward_2d_53 on int32 [32, 512, 512] (the HT lossless
-  batch's level 1) and [768, 512, 512] (config 4's level 1).
+  batch's level 1) and [768, 512, 512] (config 4's level 1);
+- 9/7: forward_2d_97 on float32 [16, 512, 512] (the HT lossy batch's level
+  1) and [768, 512, 512] (config 4's lossy level 1), and inverse_2d_97 on
+  the bands it returns.
 Each kernel: mean of 20 calls by CUDA events after 3 warm-ups, and the
-kernel's device time alone under torch.profiler; the MQ coder's cycles per
+kernel's device time alone (chip_smoke.py device_ms: the calls queued
+behind a spin kernel); the MQ coder's cycles per
 decision of the longest block from the CUDA-event time at 1.98 GHz.
 --config4 also times config 4's lossless encode (8192x8192 16-bit RGB,
 512x512 tiles, 5 resolutions) in chip_smoke.py's stages, medians of 3
 after a warm-up: the transform step (the level kernels and band_stats)
 and the HT kernels (per tile-origin class: the gather, extraction,
-cleanup, packing and compaction), each synchronised, where the two
-kernels' savings should show end to end.
---ptxas also compiles the checkout's ht_enc.cu, ebcot_enc.cu and dwt53.cu
-with -Xptxas -v and reports the registers, spills and static shared
-memory of fields_kernel, mq_kernel, pack_kernel and dwt53_fwd_kernel.
+cleanup, packing and compaction), each synchronised; and the lossy leg
+(the image >> 8 at quality 85): the encode's transform step and the
+decode's inverse step, where the level kernels' savings should show end to
+end.
+--ptxas also compiles the checkout's ht_enc.cu, ebcot_enc.cu, dwt53.cu and
+dwt97.cu with -Xptxas -v and reports the registers, spills and static
+shared memory of fields_kernel, mq_kernel, pack_kernel, dwt53_fwd_kernel,
+dwt97_fwd_kernel and dwt97_inv_kernel, and from cuobjdump -sass their
+instructions, barriers, shared-memory accesses, reciprocals (integer
+divisions), shuffles and FMAs.
+--profiler-probe N, after everything else, traces five forward 9/7 levels
+at [768, 512, 512] under torch.profiler N times, 30 s apart, and reports
+how many of their kernel events the trace kept and their mean duration,
+with no tail and a 50 ms tail after the synchronise, beside the time
+alone by chip_smoke.py's device_ms (which the profiler no longer gives).
 Without a CUDA device it exits 1 and prints nothing.
 """
 import argparse
@@ -45,17 +63,30 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
+
+import numpy as np
+
+T0 = time.perf_counter()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the kernels whose ptxas figures --ptxas reports
-KERNELS = ("fields_kernel", "mq_kernel", "pack_kernel", "dwt53_fwd_kernel")
+KERNELS = ("fields_kernel", "mq_kernel", "pack_kernel", "dwt53_fwd_kernel",
+           "dwt97_fwd_kernel", "dwt97_inv_kernel")
+
+
+# SASS opcodes counted per kernel: barriers, shared-memory loads and
+# stores, reciprocals (integer divisions), shuffles, fused multiply-adds
+SASS_OPS = ("BAR", "LDS", "STS", "MUFU.RCP", "SHFL", "FFMA")
 
 
 def ptxas(tree, cuda_build):
-    """{kernel symbol: ptxas' resource line} for the kernels KERNELS names,
-    from the tree's sources, built with the tree's nvcc flags."""
-    out = {}
-    for src in ("ht_enc.cu", "ebcot_enc.cu", "dwt53.cu"):
+    """({kernel symbol: ptxas' resource line}, {kernel symbol: SASS opcode
+    counts}) for the kernels KERNELS names, from the tree's sources, built
+    with the tree's nvcc flags."""
+    out, sass = {}, {}
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    for src in ("ht_enc.cu", "ebcot_enc.cu", "dwt53.cu", "dwt97.cu"):
         path = os.path.join(tree, "go_jpeg2000_tpu_torch", "csrc", src)
         build = os.path.join(tree, "go_jpeg2000_tpu_torch", "_build")
         os.makedirs(build, exist_ok=True)
@@ -66,7 +97,27 @@ def ptxas(tree, cuda_build):
                 [cuda_build.nvcc()] + flags
                 + ["-Xptxas", "-v", "-c", "-o", os.path.join(tmp, "k.o"), path],
                 capture_output=True, text=True, check=True, timeout=600)
+            dump = subprocess.run(
+                [cuobjdump, "-sass", os.path.join(tmp, "k.o")],
+                capture_output=True, text=True, check=True, timeout=600)
         out.update(ptxas_lines(res.stderr))
+        sass.update(sass_counts(dump.stdout))
+    return out, sass
+
+
+def sass_counts(text):
+    """{kernel: {"instructions": n, opcode: n for SASS_OPS}} from
+    cuobjdump -sass, for the kernels KERNELS names."""
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        m = re.match(r"_Z\d+(" + "|".join(KERNELS) + ")", part)
+        if not m:
+            continue
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", part)
+        out[m.group(1)] = dict(
+            instructions=len(ops),
+            **{k: sum(o.startswith(k) for o in ops) for k in SASS_OPS})
     return out
 
 
@@ -91,6 +142,7 @@ def main():
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--config4", action="store_true")
+    ap.add_argument("--profiler-probe", type=int, default=0, metavar="N")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -104,8 +156,9 @@ def main():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     import go_jpeg2000_tpu_torch as tp
+    from go_jpeg2000_tpu_torch.models import decoder
     from go_jpeg2000_tpu_torch.ops import (cuda_build, dwt_cuda, ebcot_cuda,
-                                           ht_enc, ht_enc_cuda)
+                                           ht_dec_cuda, ht_enc, ht_enc_cuda)
     if not os.path.abspath(tp.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {tp.__file__}, not the tree {tree}")
     dev = torch.device("cuda")
@@ -113,7 +166,7 @@ def main():
               "kind": torch.cuda.get_device_name(0)}
     cuda_build.build()
     if args.ptxas:
-        result["ptxas"] = ptxas(tree, cuda_build)
+        result["ptxas"], result["sass"] = ptxas(tree, cuda_build)
 
     _plan, planes, inputs = cs.ebcot_inputs(tp, cs.ebcot_gray(), dev)
     slots = ebcot_cuda.decision_slots(*inputs, planes)
@@ -124,7 +177,7 @@ def main():
     result["ebcot_mq_encode"] = {
         "shape": f"{ndec.numel()} blocks, {pool.numel()} decisions, the "
                  f"longest {largest}",
-        "ms": ms, "alone_ms": cs.device_ms(fn, "ebcot_mq_encode"),
+        "ms": ms, "alone_ms": cs.device_ms(fn),
         "cycles_per_decision": ms * 1e-3 * cs.SM_CLOCK_HZ / largest}
 
     lossless = tp.Options(format=tp.Format.J2K, lossless=True,
@@ -138,7 +191,7 @@ def main():
         fn = lambda: ht_enc_cuda.cleanup_values(blocks, hs, ws)  # noqa
         result[f"ht_cleanup_fields {label}"] = {
             "shape": shape, "ms": cs.cuda_ms(fn),
-            "alone_ms": cs.device_ms(fn, "ht_cleanup_fields")}
+            "alone_ms": cs.device_ms(fn)}
         f = fn()
         del blocks, hs, ws
         fields = [(f[f"{s}_vals"], f[f"{s}_lens"], nw) for s, nw in zip(
@@ -155,10 +208,27 @@ def main():
             result[f"ht_pack_bits {label}, {how}"] = {
                 "shape": f"{shape}, max_mn {plan.max_mn}",
                 "ms": cs.cuda_ms(fn),
-                "alone_ms": cs.device_ms(fn, "ht_pack_bits"),
+                "alone_ms": cs.device_ms(fn),
                 "bound_ms": cs.pack_bound(fields, nb)[0]}
         del fields
         torch.cuda.empty_cache()
+
+    frames, opts = cs.config4_class(tp)
+    batch = decoder.prepare_batch(tp.encode_batch(frames, opts, device=dev))
+    del frames
+    qinfo, pool, woff = decoder.upload_parsed(
+        *decoder.parse_chunk(batch, batch.bodies), dev)
+    plan = batch.plan
+    fn = lambda: ht_dec_cuda.magsgn_decode_blocks(  # noqa: E731
+        qinfo, pool, woff, plan.cbh, plan.cbw)
+    blocks = fn()
+    result["ht_magsgn_decode config-4 class"] = {
+        "shape": f"{blocks.shape[0]} blocks of {plan.cbh}x{plan.cbw}, "
+                 f"{cs.magsgn_bits(qinfo)} MagSgn bits",
+        "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+        "bound_ms": cs.magsgn_bound(qinfo, blocks)[0]}
+    del batch, qinfo, pool, woff, blocks
+    torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     for n in (cs.N_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):
@@ -167,9 +237,22 @@ def main():
         fn = lambda: dwt_cuda.forward_2d_53(x)  # noqa: E731
         result[f"dwt53_fwd_level [{n},{cs.H},{cs.W}]"] = {
             "ms": cs.cuda_ms(fn),
-            "alone_ms": cs.device_ms(fn, "dwt53_fwd_level"),
+            "alone_ms": cs.device_ms(fn),
             "bound_ms": cs.bound(8 * x.numel(), 0, 1)[0]}
         del x
+        torch.cuda.empty_cache()
+    for n in (cs.N_LOSSY_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):
+        x = torch.rand((n, cs.H, cs.W), generator=gen, device=dev) * 255 - 128
+        bands = dwt_cuda.forward_2d_97(x)
+        lim = cs.bound(8 * x.numel(), cs.OPS_PER_ELEMENT["dwt97"] * x.numel(),
+                       cs.FP32_OPS_PER_S)[0]
+        for name, fn in (
+                ("dwt97_fwd_level", lambda: dwt_cuda.forward_2d_97(x)),
+                ("dwt97_inv_level", lambda: dwt_cuda.inverse_2d_97(bands))):
+            result[f"{name} [{n},{cs.H},{cs.W}]"] = {
+                "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+                "bound_ms": lim}
+        del x, bands
         torch.cuda.empty_cache()
 
     if args.config4:
@@ -180,8 +263,55 @@ def main():
             ms = sorted(1e3 * r[i] for r in runs[1:])
             result[f"config-4 lossless encode stage {name}"] = {
                 "median_ms": ms[1], "ms": ms}
+        img8 = (img >> 8).astype(np.uint8)
+        del img
+        opts = cs.config4_opts(tp, False)
+        runs = [cs.sharded_encode_stages(img8, opts, dev) for _ in range(4)]
+        ms = sorted(1e3 * r[2] for r in runs[1:])
+        result["config-4 lossy encode stage transform step"] = {
+            "median_ms": ms[1], "ms": ms}
+        from go_jpeg2000_tpu_torch.parallel import encode_sharded
+        data = encode_sharded(img8, opts, device=dev)
+        runs = [cs.sharded_decode_stages(data, dev) for _ in range(4)]
+        ms = sorted(1e3 * r[3] for r in runs[1:])
+        result["config-4 lossy decode stage inverse step"] = {
+            "median_ms": ms[1], "ms": ms}
+    if args.profiler_probe:
+        result["profiler probe"] = profiler_probe(cs, dwt_cuda, dev,
+                                                  args.profiler_probe)
     print(json.dumps(result), flush=True)
     return 0
+
+
+def profiler_probe(cs, dwt_cuda, dev, rounds):
+    """How many kernel events torch.profiler keeps as the process ages (why
+    chip_smoke.device_ms does not use it): every 30 s, five forward 9/7
+    levels at [768, 512, 512] traced with no tail after the synchronise and
+    with a 50 ms one, and the mean duration of the events kept beside the
+    time alone by chip_smoke.device_ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.rand((768, 512, 512), device=dev) * 255 - 128
+    out = []
+    for _ in range(rounds):
+        alone = cs.device_ms(lambda: dwt_cuda.forward_2d_97(x), reps=5)
+        for tail in (0.0, 0.05):
+            dwt_cuda.forward_2d_97(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    dwt_cuda.forward_2d_97(x)
+                torch.cuda.synchronize()
+                time.sleep(tail)
+            kept = [e.time_range.elapsed_us() * 1e-3 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "dwt97_fwd_kernel" in e.name]
+            out.append({"process_s": round(time.perf_counter() - T0),
+                        "tail_s": tail, "launched": 5, "kept": len(kept),
+                        "kept_mean_ms": sum(kept) / len(kept) if kept else
+                        None, "alone_ms": alone})
+        time.sleep(30)
+    return out
 
 
 if __name__ == "__main__":

@@ -13,8 +13,8 @@ every integer output of the HT encode kernels; their distortion, a sum of
 float32 squares taken in another order, within a relative 1e-5.  The bit
 packer's words and bits are equal exactly on edge rows (zero lengths,
 spills at every offset, exact fills, rows off 16 bytes) and on the
-streams of every legal code-block shape; the forward 5/3 kernel is exact
-at any even width.  The HT decode kernels' outputs are equal bit for bit,
+streams of every legal code-block shape; the forward 5/3 kernel and both
+9/7 kernels are exact at any even width.  The HT decode kernels' outputs are equal bit for bit,
 float32 leaves too.  The EBCOT kernels' slots, decision pools, MQ
 segments and lengths are equal exactly (MQ segments also to the native
 coder's), on the MQ stress streams of ops/mq_device.py too.  The band
@@ -545,6 +545,64 @@ def test_fwd53_kernel_halo_shards_of_two_rows(cuda, w, sp):
         assert torch.equal(got, ref[k]), k
         assert torch.equal(got.cpu(), torch.cat([f[k] for f in plain],
                                                 dim=-2)), k
+
+
+# widths whose column pairs leave 0, 1 or 27 pairs in the last tile of 28
+# (2 -> 1 pair, 54 -> 27, 56 -> 28, 58 -> 29, 8174 -> 4087, 8176 -> 4088,
+# 8178 -> 4089), and 8192
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 54, 56, 58, 8174, 8176, 8178, 8192])
+@pytest.mark.parametrize("h", [2, 6, 34])
+def test_97_kernel_widths(cuda, h, w):
+    """Both 9/7 kernels at widths off their column tile and at heights of
+    2, 6 and 34 (one strip and a bit), bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(h * w)
+    x = torch.randn((2, h, w), generator=g, device=cuda) * 200
+    got = dwt_cuda.forward_2d_97(x)
+    ref = dwt.forward_2d(x, dwt.IRR97)
+    for k in BANDS:
+        assert torch.equal(got[k], ref[k]), k
+    bands = {k: (torch.randn(v.shape, generator=g, device=cuda) * 200)
+             for k, v in ref.items()}
+    assert torch.equal(dwt_cuda.inverse_2d_97(bands),
+                       dwt.inverse_2d(bands, dwt.IRR97))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [4096, 8192])
+def test_97_kernels_wide_frames(cuda, side):
+    """A 4096^2 and an 8192^2 frame's first 9/7 level, forward and inverse,
+    take the kernels (one launch each, no plain level) and equal the plain
+    lifting."""
+    g = torch.Generator(device=cuda).manual_seed(side + 97)
+    x = torch.rand((1, side, side), generator=g, device=cuda) * 255 - 128
+    dwt_cuda.reset_counts()
+    got = transforms.forward_level(x, dwt.IRR97, 0, 0)
+    rec = transforms.inverse_level(got, dwt.IRR97, 0, 0)
+    assert dwt_cuda.PLAIN_LEVELS == 0
+    assert dwt_cuda.LAUNCHES["dwt97_fwd_level"] == 1
+    assert dwt_cuda.LAUNCHES["dwt97_inv_level"] == 1
+    ref = dwt.forward_2d(x, dwt.IRR97)
+    for k in BANDS:
+        assert torch.equal(got[k], ref[k]), k
+    del x
+    assert torch.equal(rec, dwt.inverse_2d(ref, dwt.IRR97))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 10, 4100])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_97_kernels_halo_shards_of_two_rows(cuda, w, sp):
+    """Row shards of 2 rows at widths off the column tile: the 9/7 halo
+    forms (the lifting reaches 4 rows, past the neighbouring shard) equal
+    the unsharded kernels."""
+    g = torch.Generator(device=cuda).manual_seed(w + sp + 97)
+    x = torch.randn((3, 2 * sp, w), generator=g, device=cuda) * 200
+    fwd, inv, _bands = _halo_split(x, sp, dwt.IRR97)
+    ref = dwt_cuda.forward_2d_97(x)
+    for k in BANDS:
+        assert torch.equal(torch.cat([f[k] for f in fwd], dim=-2), ref[k]), k
+    assert torch.equal(torch.cat(inv, dim=-2), dwt_cuda.inverse_2d_97(ref))
 
 
 @pytest.mark.cuda

@@ -177,25 +177,37 @@ def _reflect(i, n):
     return i
 
 
-def _strips_97(x, inverse, above, below):
-    """The CUDA kernels' strip scheme on the interleaved signal, in plain
-    torch: each strip of STRIP_ROWS rows lifts only its rows plus `above`
-    and `below` halo rows, read through repeated symmetric reflection."""
-    h = x.shape[1]
+# output column pairs of one warp's tile in csrc/dwt97.cu (lanes 2 .. 29)
+TILE_PAIRS_97 = 28
+
+
+def _tiles_97(x, inverse, rows=None, halo_pairs=2):
+    """The 9/7 kernels' decomposition in plain torch, on the interleaved
+    signal x [n, h, w]: each (strip of STRIP_ROWS rows, tile of TILE_PAIRS_97
+    column pairs) lifts only its window, extended by `rows` = (above, below)
+    rows (by default the kernels' halo: forward 4 above and 3 below,
+    inverse 3 and 4) and by `halo_pairs` column pairs a side, read through
+    repeated symmetric reflection; the windows' centres are concatenated."""
+    n, h, w = x.shape
+    above, below = rows or dwt.HALO_DEPTH[(dwt.IRR97, inverse)]
     lift = dwt._inverse_1d_97 if inverse else dwt._forward_1d_97
-    out = []
     strip = dwt_cuda.STRIP_ROWS[(dwt.IRR97, inverse)]
+    out = torch.empty_like(x)
     for r0 in range(0, h, strip):
         rr = min(strip, h - r0)
-        sub = x[:, [_reflect(g, h) for g in range(r0 - above,
-                                                  r0 + rr + below)]]
-        if inverse:                                   # rows, then columns
-            sub = lift(lift(sub, 2, 0), 1, above & 1)[:, above:above + rr]
-        else:                                         # columns, then rows
-            sub = lift(sub, 1, above & 1)[:, above:above + rr]
-            sub = lift(sub, 2, 0)
-        out.append(sub)
-    return torch.cat(out, dim=1)
+        ys = [_reflect(g, h) for g in range(r0 - above, r0 + rr + below)]
+        for p0 in range(0, w // 2, TILE_PAIRS_97):
+            pp = min(TILE_PAIRS_97, w // 2 - p0)
+            cols = [_reflect(c, w) for c in range(
+                2 * (p0 - halo_pairs), 2 * (p0 + TILE_PAIRS_97 + halo_pairs))]
+            sub = x[:, ys][:, :, cols]
+            if inverse:                               # rows, then columns
+                sub = lift(lift(sub, 2, 0), 1, above & 1)[:, above:above + rr]
+            else:                                     # columns, then rows
+                sub = lift(lift(sub, 1, above & 1)[:, above:above + rr], 2, 0)
+            c = 2 * halo_pairs
+            out[:, r0:r0 + rr, 2 * p0:2 * (p0 + pp)] = sub[:, :, c:c + 2 * pp]
+    return out
 
 
 @pytest.mark.parametrize("h", [2, 4, 6, 10, 34])
@@ -205,14 +217,39 @@ def test_97_strip_halo_depth(h):
     x = torch.from_numpy(_floats((2, h, 8), h))
     fwd = dwt._forward_1d_97(dwt._forward_1d_97(x, 1, 0), 2, 0)
     inv = dwt._inverse_1d_97(dwt._inverse_1d_97(x, 2, 0), 1, 0)
-    assert torch.equal(_strips_97(x, False, 4, 3), fwd)
-    assert torch.equal(_strips_97(x, True, 3, 4), inv)
+    assert torch.equal(_tiles_97(x, False, rows=(4, 3)), fwd)
+    assert torch.equal(_tiles_97(x, True, rows=(3, 4)), inv)
     assert dwt_cuda.HALO_ROWS[dwt.IRR97] == 4 + 3
     if h > dwt_cuda.STRIP_ROWS[(dwt.IRR97, False)]:
-        for above, below in ((3, 3), (4, 2)):
-            assert not torch.equal(_strips_97(x, False, above, below), fwd)
-        for above, below in ((2, 4), (3, 3)):
-            assert not torch.equal(_strips_97(x, True, above, below), inv)
+        for rows in ((3, 3), (4, 2)):
+            assert not torch.equal(_tiles_97(x, False, rows=rows), fwd)
+        for rows in ((2, 4), (3, 3)):
+            assert not torch.equal(_tiles_97(x, True, rows=rows), inv)
+
+
+def _bands_of(y):
+    return {"LL": y[:, 0::2, 0::2], "HL": y[:, 0::2, 1::2],
+            "LH": y[:, 1::2, 0::2], "HH": y[:, 1::2, 1::2]}
+
+
+@pytest.mark.parametrize("w", [2, 4, 6, 10, 54, 56, 58, 114, 130])
+@pytest.mark.parametrize("h", [2, 6, 34, 70])
+def test_97_tile_decomposition(h, w):
+    # csrc/dwt97.cu's warps (STRIP_ROWS rows by 28 column pairs, with 2 halo
+    # pairs a side and the vertical halo) give the plain 2-D level bit for
+    # bit, forward and inverse; with one halo pair a side they do not
+    x = torch.from_numpy(_floats((2, h, w), h * w))
+    fwd = dwt.forward_2d(x, dwt.IRR97)
+    got = _bands_of(_tiles_97(x, False))
+    for k in BANDS:
+        assert torch.equal(got[k], fwd[k]), k
+    inv = dwt.inverse_2d({k: v.contiguous() for k, v in _bands_of(x).items()},
+                         dwt.IRR97)
+    assert torch.equal(_tiles_97(x, True), inv)
+    if w // 2 > TILE_PAIRS_97:                    # tiles meet inside the frame
+        one = _bands_of(_tiles_97(x, False, halo_pairs=1))
+        assert not all(torch.equal(one[k], fwd[k]) for k in BANDS)
+        assert not torch.equal(_tiles_97(x, True, halo_pairs=1), inv)
 
 
 def test_97_usable_and_refusals():
@@ -221,9 +258,12 @@ def test_97_usable_and_refusals():
     assert dwt_cuda.usable(2, 2, 0, 0, dwt.IRR97)
     assert not dwt_cuda.usable(512, 511, 0, 0, dwt.IRR97)
     assert not dwt_cuda.usable(512, 512, 0, 1, dwt.IRR97)
-    # (16 + 7) float32 rows of 2560 do not fit 227 KB; 5/3's 19 int32 do
-    assert not dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97)
-    assert not dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97, inverse=True)
+    # both 9/7 kernels keep their strip in registers: any even width; the
+    # inverse 5/3's shared-memory strip still limits it
+    for inverse in (False, True):
+        assert dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97, inverse=inverse)
+        assert dwt_cuda.usable(8192, 8192, 0, 0, dwt.IRR97, inverse=inverse)
+    assert not dwt_cuda.usable(16, 3060, 0, 0, dwt.REV53, inverse=True)
     assert dwt_cuda.usable(16, 2560, 0, 0, dwt.REV53)
     assert dwt_cuda.usable(16, 2560, 0, 0, dwt.REV53, inverse=True)
     x = torch.empty((1, 4, 4), dtype=torch.float32, device="meta")
