@@ -38,9 +38,13 @@ sources in this checkout.  Phases, each of which raises on failure:
 5. each HT decode kernel (MagSgn extraction, block-to-pyramid assembly
    with the midpoint dequantization of lossy plans) against its plain
    torch version on the card, on the native parse of the same frames'
-   streams: integer outputs equal, float32 leaves equal bit for bit;
-   kernel and plain times with CUDA events on the 2240 blocks, and each
-   kernel's device time alone;
+   streams: integer outputs equal, float32 leaves equal bit for bit; the
+   MagSgn kernel also on ops/ht_dec.stress_cases (32-bit fields, uncoded
+   blocks, fields past the pool's end, odd widths, offsets with gaps or
+   out of order, a block past its staging window, a pool off 16 bytes)
+   and on a config-4 tile-origin class, lossless and lossy (12,864
+   blocks each, also timed); kernel and plain times with CUDA events on
+   the 2240 blocks, and each kernel's device time alone;
 6. the lossless main paths, through the public entry points: encode_batch
    then decode_batch on 32 gray 8-bit 512x512 frames with the bench
    headline options (HTJ2K, lossless 5/3, 6 resolutions, J2K), then on 4
@@ -67,7 +71,10 @@ sources in this checkout.  Phases, each of which raises on failure:
    segment pool) against its plain torch version on the card, on the block
    batches of the EBCOT main path (8 gray 512x512, 560 blocks) and of
    16-bit RGB, pure noise, all-zero and ragged (96x80) frames: slots,
-   decision pools, segment pools and lengths equal; the MQ segments also
+   decision pools, segment pools and lengths equal; the decision kernel
+   also on ops/ebcot_device.stress_blocks (an SPP chain snaking through
+   64x64 blocks, stripe-long chains under a ragged mask, one live plane
+   under eleven empty ones, 29 planes); the MQ segments also
    equal to the native mq_encode_streams on every block, and to the plain
    lockstep chain on a subset of blocks; the MQ kernel also on the stress
    streams of ops/mq_device.stress_streams (lengths around the kernel's
@@ -546,34 +553,56 @@ def ht_cases(tp):
     ]
 
 
+def ht_pyramid(tp, frames, opts, dev):
+    """(levels, the frames' pyramid on the card) as the fused HT encode
+    makes it."""
+    from go_jpeg2000_tpu_torch.models import transforms
+    header, _tile, _plan, batch = fused_setup(tp, frames, opts)
+    levels, kind, use_mct, prec, signed, _ = fused_args(header, batch, opts,
+                                                        dev)
+    return levels, transforms.forward_pyramid(
+        transforms.upload(batch, dev), levels, kind, use_mct, prec, signed,
+        0, 0)
+
+
 def ht_blocks(tp, frames, opts, dev):
     """(plan, blocks int32 [n * nb, cbh, cbw], hs, ws) of the frames' fused
     HT encode, made on the card by the main path's own steps."""
-    from go_jpeg2000_tpu_torch.models import fused_encode, transforms
+    from go_jpeg2000_tpu_torch.models import fused_encode
     from go_jpeg2000_tpu_torch.ops import ht_enc_cuda as K
-    header, _tile, plan, batch = fused_setup(tp, frames, opts)
-    levels, kind, use_mct, prec, signed, _ = fused_args(header, batch, opts,
-                                                        dev)
+    plan = fused_setup(tp, frames, opts)[2]
+    levels, pyr = ht_pyramid(tp, frames, opts, dev)
     n = len(frames)
-    pyr = transforms.forward_pyramid(transforms.upload(batch, dev), levels,
-                                     kind, use_mct, prec, signed, 0, 0)
     blocks = K.extract_blocks(pyr, plan, n, levels)
     hs, ws = fused_encode._block_dims(plan, n, dev)
     return plan, blocks, hs, ws
 
 
-def config4_class(tp):
+def extract_bound(pyr, blocks):
+    """ht_extract_blocks' bound: it reads every leaf sample once and
+    writes the block slots."""
+    leaf_bytes = sum(4 * v.numel() for e in pyr for v in e.values())
+    return bound(leaf_bytes + 4 * blocks.numel(),
+                 OPS_PER_ELEMENT["ht_extract_blocks"] * blocks.numel(),
+                 INT32_OPS_PER_S)
+
+
+def config4_class(tp, lossless=True):
     """One tile-origin class of config 4 as a frame batch: the 64 tiles of
     a 4096x4096 16-bit RGB image of its smooth noise as 512x512 frames, with
-    config 4's HT options (5 resolutions, lossless) and no tiling: 64 x 3
-    components x 67 code-blocks = 12,864 blocks of 64x64."""
+    config 4's HT options (5 resolutions) and no tiling: 64 x 3 components
+    x 67 code-blocks = 12,864 blocks of 64x64.  lossless=False: the lossy
+    leg's class, the image >> 8 at quality 85."""
     side = C4_CLASS_SIDE * C4_TILE
     img = config4_image(side)
+    if not lossless:
+        img = (img >> 8).astype(np.uint8)
     frames = [img[y:y + C4_TILE, x:x + C4_TILE]
               for y in range(0, side, C4_TILE)
               for x in range(0, side, C4_TILE)]
-    return frames, tp.Options(format=tp.Format.J2K, lossless=True,
-                              num_resolutions=C4_RES, high_throughput=True)
+    return frames, tp.Options(format=tp.Format.J2K, lossless=lossless,
+                              num_resolutions=C4_RES, high_throughput=True,
+                              **({} if lossless else {"quality": 85}))
 
 
 def cleanup_check(K, ht_enc, blocks, hs, ws, label):
@@ -639,7 +668,6 @@ def check_ht_kernels(tp, dev, card):
     pyr, plan, n, levels = t["pyr"], t["plan"], t["n"], t["levels"]
     blocks, hs, ws, ref = t["blocks"], t["hs"], t["ws"], t["ref"]
     fields, pool_args, pool = t["fields"], t["pool_args"], t["pool"]
-    leaf_bytes = sum(4 * v.numel() for e in pyr for v in e.values())
     nb = blocks.shape[0]
     used = pool.numel() - 6 * nb
     times = {
@@ -647,9 +675,7 @@ def check_ht_kernels(tp, dev, card):
             cuda_ms(lambda: K.extract_blocks(pyr, plan, n, levels)),
             cuda_ms(lambda: fused_encode.extract_blocks(pyr, plan, n,
                                                         levels), reps=5),
-            bound(leaf_bytes + 4 * blocks.numel(),
-                  OPS_PER_ELEMENT["ht_extract_blocks"] * blocks.numel(),
-                  INT32_OPS_PER_S)),
+            extract_bound(pyr, blocks)),
         "ht_cleanup_fields": (
             cuda_ms(lambda: K.cleanup_values(blocks, hs, ws)),
             cuda_ms(lambda: ht_enc.cleanup_values(blocks, hs, ws), reps=3,
@@ -757,8 +783,9 @@ def magsgn_bound(qinfo, blocks):
 
 def check_ht_dec_kernels(tp, dev, card):
     """Phase 5: both HT decode kernels against their plain versions on the
-    native parse of the HT kernel cases' streams: equal, float32 leaves bit
-    for bit; times and bounds on the lossless gray batch."""
+    native parse of the HT kernel cases' streams, and MagSgn on
+    ht_dec.stress_cases: equal, float32 leaves bit for bit; times and
+    bounds on the lossless gray batch."""
     from go_jpeg2000_tpu_torch.models import decoder
     from go_jpeg2000_tpu_torch.ops import dwt, ht_dec, ht_dec_cuda as K
     err = {k: 0 for k in HT_DEC_KERNELS}
@@ -801,6 +828,9 @@ def check_ht_dec_kernels(tp, dev, card):
         if timing is None:
             timing = (batch, n, qinfo, pool, woff, blocks, ref)
 
+    err["ht_magsgn_decode"] = max(err["ht_magsgn_decode"],
+                                  check_magsgn_stress(dev),
+                                  check_magsgn_classes(tp, dev, card))
     batch, n, qinfo, pool, woff, blocks, ref = timing
     plan = batch.plan
     leaf_samples = sum(v.numel() for e in ref for v in e.values())
@@ -833,6 +863,67 @@ def check_ht_dec_kernels(tp, dev, card):
                   f"{nb} blocks of {plan.cbh}x{plan.cbw}, {bits} MagSgn "
                   f"bits, {leaf_samples} leaf samples", card)
     return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
+
+
+def check_magsgn_classes(tp, dev, card):
+    """The MagSgn kernel on the native parse of a config-4 tile-origin
+    class's streams (12,864 blocks), lossless and lossy: equal to its
+    plain version on the card, and timed beside its bound.  Returns the
+    largest |diff| (0)."""
+    from go_jpeg2000_tpu_torch.models import decoder
+    from go_jpeg2000_tpu_torch.ops import ht_dec, ht_dec_cuda as K
+    for lossless in (True, False):
+        frames, opts = config4_class(tp, lossless)
+        batch = decoder.prepare_batch(tp.encode_batch(frames, opts,
+                                                      device=dev))
+        del frames
+        qinfo, pool, woff = decoder.upload_parsed(
+            *decoder.parse_chunk(batch, batch.bodies), dev)
+        cbh, cbw = batch.plan.cbh, batch.plan.cbw
+        fn = lambda: K.magsgn_decode_blocks(  # noqa: E731
+            qinfo, pool, woff, cbh, cbw)
+        got = fn()
+        plain = lambda: ht_dec.magsgn_decode_blocks(  # noqa: E731
+            qinfo, pool, woff, cbh, cbw)
+        diff = (got.long() - plain().long()).abs().max().item()
+        what = (f"config-4 {'lossless' if lossless else 'lossy'} class: "
+                f"{got.shape[0]} blocks of {cbh}x{cbw}, "
+                f"{magsgn_bits(qinfo)} MagSgn bits")
+        print(f"kernel check ht_magsgn_decode {what}: max|diff| {diff}",
+              flush=True)
+        if diff:
+            raise AssertionError("ht_magsgn_decode disagrees with its plain "
+                                 "version on a config-4 class")
+        time_line("ht_magsgn_decode", cuda_ms(fn),
+                  cuda_ms(plain, reps=3, warmup=1),
+                  *magsgn_bound(qinfo, got), device_ms(fn), what, card)
+        del batch, qinfo, pool, woff, got
+        torch.cuda.empty_cache()
+    return 0
+
+
+def check_magsgn_stress(dev):
+    """The MagSgn kernel on ht_dec.stress_cases (32-bit fields, uncoded
+    blocks, fields past the pool's end, odd widths, offsets with gaps and
+    out of order, a block past the staging window, a pool 4 bytes off 16)
+    against the plain version on the card: equal; raises otherwise.
+    Returns the largest |diff| (0)."""
+    from go_jpeg2000_tpu_torch.ops import ht_dec, ht_dec_cuda as K
+    for name, q, buf, woff, cbh, cbw, off in ht_dec.stress_cases(
+            K.STAGE_WORDS):
+        qinfo = torch.from_numpy(q).to(dev)
+        pool = torch.from_numpy(buf).to(dev)[off:]
+        woff = torch.from_numpy(woff).to(dev)
+        got = K.magsgn_decode_blocks(qinfo, pool, woff, cbh, cbw)
+        ref = ht_dec.magsgn_decode_blocks(qinfo, pool, woff, cbh, cbw)
+        diff = (got.long() - ref.long()).abs().max().item()
+        print(f"kernel check ht_magsgn_decode stress {name} "
+              f"({q.shape[0]} blocks of {cbh}x{cbw}, pool {pool.numel()} "
+              f"words +{off}): max|diff| {diff}", flush=True)
+        if diff:
+            raise AssertionError("ht_magsgn_decode disagrees with its plain "
+                                 f"version on the stress case {name}")
+    return 0
 
 
 def main_gray():
@@ -1173,6 +1264,32 @@ def row_segments(rows, off, lens):
             for s, n in zip(starts, lens.cpu().numpy())]
 
 
+def check_decision_stress(dev):
+    """The decision kernel on ebcot_device.stress_blocks (an SPP chain
+    snaking through 64x64 blocks, stripe-long chains with a ragged mask,
+    one live plane under eleven empty ones, 29 planes of magnitudes up to
+    2^29 - 1) against the plain version on the card: the slots equal;
+    raises otherwise.  Returns the differing slots (0)."""
+    from go_jpeg2000_tpu_torch.ops import ebcot_cuda as K, ebcot_device
+    for name, arrays in ebcot_device.stress_blocks().items():
+        mags, signs, classes, valid, planes = (
+            torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+            for a in arrays)
+        got = K.decision_slots(mags, signs, classes, valid, planes)
+        ref = ebcot_device.decision_slots(mags, signs, classes, valid,
+                                          planes)
+        bad = int((got != ref).sum().item())
+        print(f"kernel check ebcot_decision_slots stress {name} "
+              f"({mags.shape[0]} blocks of {mags.shape[1]}x{mags.shape[2]}, "
+              f"{planes} planes): differing slots {bad} of {ref.numel()}",
+              flush=True)
+        if bad:
+            raise AssertionError(f"ebcot_decision_slots disagrees with its "
+                                 f"plain version on the stress blocks "
+                                 f"{name}")
+    return 0
+
+
 def check_mq_stress(dev):
     """The MQ kernel on ops/mq_device.stress_streams for three seeds, the
     pool's base 0, 5 and 11 bytes past a 16-byte boundary: segments equal
@@ -1207,12 +1324,13 @@ def check_mq_stress(dev):
 
 def check_ebcot_kernels(tp, dev, card):
     """Phase 8: every EBCOT kernel against its plain version on the main
-    gray batch and on 16-bit RGB, noise, all-zero and ragged frames; times
-    and bounds on the main gray batch (the plain lockstep MQ chain once,
-    on every block)."""
-    from go_jpeg2000_tpu_torch.models import ebcot_fused
+    gray batch and on 16-bit RGB, noise, all-zero and ragged frames, the
+    decision kernel also on ebcot_device.stress_blocks; times and bounds
+    on the main gray batch (the plain lockstep MQ chain once, on every
+    block)."""
     from go_jpeg2000_tpu_torch.ops import ebcot_cuda as K, ebcot_device
     err = {k: 0 for k in EBCOT_KERNELS}
+    err["ebcot_decision_slots"] = check_decision_stress(dev)
     timing = None
     for name, frames in ebcot_cases(tp):
         label = f"{name} {len(frames)}x{'x'.join(map(str, frames[0].shape))}"
@@ -1238,9 +1356,6 @@ def check_ebcot_kernels(tp, dev, card):
     ndec, off, largest, rows, lens = (t["ndec"], t["off"], t["largest"],
                                       t["rows"], t["lens"])
     nb, used = t["nb"], t["used"]
-    samples = mags.numel()
-    live = int(ebcot_fused.numbps(mags, valid, planes).sum().item()) \
-        * samples // nb
     decisions = pool.numel()
     kernel_fns = {
         "ebcot_decision_slots": lambda: K.decision_slots(
@@ -1253,17 +1368,11 @@ def check_ebcot_kernels(tp, dev, card):
             cuda_ms(kernel_fns["ebcot_decision_slots"]),
             cuda_ms(lambda: ebcot_device.decision_slots(
                 mags, signs, classes, valid, planes), reps=3, warmup=1),
-            # reads mags, signs and the mask, writes every slot
-            bound(9 * samples + 4 * nb + slots.numel(),
-                  OPS_PER_ELEMENT["ebcot_decision_slots"] * live,
-                  INT32_OPS_PER_S)),
+            decision_bound(mags, valid, planes, slots)),
         "ebcot_compact_rows": (
             cuda_ms(kernel_fns["ebcot_compact_rows"]),
             cuda_ms(lambda: K.compact_rows_plain(slots), reps=3, warmup=1),
-            # reads the slots, writes the decisions, counts and offsets
-            bound(slots.numel() + decisions + 12 * nb,
-                  OPS_PER_ELEMENT["ebcot_compact_rows"] * slots.numel(),
-                  INT32_OPS_PER_S)),
+            compact_bound(slots, decisions)),
         "ebcot_mq_encode": (
             cuda_ms(kernel_fns["ebcot_mq_encode"]),
             cuda_ms(lambda: K.mq_encode_plain(pool, ndec, off, largest),
@@ -1302,6 +1411,27 @@ def check_ebcot_kernels(tp, dev, card):
           f"decisions at {SM_CLOCK_HZ / 1e9:.2f} GHz), against the serial "
           f"bound's {MQ_DEPENDENT_CYCLES} [{card}]", flush=True)
     return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
+
+
+def decision_bound(mags, valid, planes, slots):
+    """ebcot_decision_slots' bound: it reads mags, signs and the mask and
+    writes every slot; OPS_PER_ELEMENT operations per sample of each plane
+    at or below its block's bit count (the planes this run's data codes)."""
+    from go_jpeg2000_tpu_torch.models import ebcot_fused
+    nb = mags.shape[0]
+    live = int(ebcot_fused.numbps(mags, valid, planes).sum().item()) \
+        * (mags.numel() // nb)
+    return bound(9 * mags.numel() + 4 * nb + slots.numel(),
+                 OPS_PER_ELEMENT["ebcot_decision_slots"] * live,
+                 INT32_OPS_PER_S)
+
+
+def compact_bound(slots, decisions):
+    """ebcot_compact_rows' bound: it reads the slots and writes the
+    decisions, counts and offsets."""
+    return bound(slots.numel() + decisions + 12 * slots.shape[0],
+                 OPS_PER_ELEMENT["ebcot_compact_rows"] * slots.numel(),
+                 INT32_OPS_PER_S)
 
 
 def ebcot_counted_run(tp, kernels, run, label):

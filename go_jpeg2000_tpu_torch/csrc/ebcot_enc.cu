@@ -18,20 +18,32 @@
 // version's exactly.
 //
 // What bounds them on the H100:
-// * ebcot_decision_slots: bytes.  It writes one byte per potential
+// * ebcot_decision_slots: operations.  It writes one byte per potential
 //   decision, 5.75 bytes per sample and bitplane for 64x64 blocks (145 MB
-//   for 560 blocks and 11 planes), and does a few dozen integer operations
-//   per sample and plane.  One CUDA block per code-block keeps the block's
-//   state in shared memory (a padded (H+2) x (W+2) byte map of per-sample
-//   flags and two byte maps of SPP membership, under 20 KB for any block of
-//   at most 4096 samples) and loops over the planes inside the kernel.  The
-//   SPP membership fixpoint is iterated Jacobi-style over the whole block
-//   with __syncthreads_or until no sample changes (as many sweeps as the
-//   longest propagation chain); MRP and the cleanup pass are closed-form,
-//   with one thread per stripe column for the run-length test.  Threads
-//   walk the samples in slot order (stripe, column, row), so consecutive
-//   threads write consecutive slots; planes above the block's bit count
-//   are filled with 0xFF.
+//   for 560 blocks and 11 planes), and does some 200 integer operations
+//   per sample and coded plane.  No state crosses a plane (each plane's
+//   flags come from the magnitudes alone), so the grid is one CUDA block
+//   per (code-block, plane), 128 threads: 6,160 CTAs for 560 blocks of 11
+//   planes instead of 560 CTAs that each walk their planes in series.  A
+//   small pre-pass (block_stats_kernel) finds each block's largest valid
+//   magnitude and last valid row; a CTA whose plane is at or above the
+//   block's bit count fills its plane's slots with 0xFF by 16-byte stores
+//   and exits.  A live CTA keeps its plane's state as one 32-bit word per
+//   stripe column, a nibble per flag with row r in bit r (under 5 KB for
+//   64x64), so a sample's 8 neighbours come from the 3 x 3 words around
+//   its column by shifts, with no byte loads.  SPP membership is a monotone
+//   fixpoint: each thread takes runs of RUN_COLS consecutive columns of a
+//   stripe and resolves them in visiting order (rows inside a column,
+//   columns inside the run) from the previous sweep's values of the column
+//   left of the run and of the stripe above (double-buffered), until a
+//   sweep changes nothing (__syncthreads_or); a chain moves RUN_COLS
+//   columns and one stripe a sweep, where the whole-block Jacobi sweep of
+//   the plain version moves one sample.  Every iterate lies below the
+//   unique fixpoint (the dependence follows the visiting order), so the
+//   result is exact on any input.  MRP and the cleanup pass, run-length
+//   test included, are closed-form, one thread per column; the plane's
+//   slots are staged in shared memory (the cleanup's stride-11 bytes
+//   stay there) and leave with 16-byte stores.
 // * ebcot_compact_rows: bytes (it reads the slots twice and writes the
 //   decision pool).  One CUDA block per row counts its decisions; one
 //   block scans the counts (offsets, total, largest count); then one CUDA
@@ -76,7 +88,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define DEC_THREADS 512
+#define DEC_THREADS 128        // threads of a (code-block, plane) CTA
+#define STATS_THREADS 256
+#define RUN_COLS 8             // columns a thread resolves in order per sweep
+#define STAGE_COLS 1024        // columns whose slots a CTA stages at a time
 #define ROW_THREADS 256
 #define ROW_TILE 16            // bytes per thread per tile of a slot row
 #define SCAN_THREADS 1024
@@ -89,13 +104,11 @@
 #define SLOTS_PER_COLUMN 23
 #define MAX_PLANES 29
 
-// flag bits of the per-sample state map
-#define F_SIN 1      // significant before this plane
-#define F_BIT 2      // this plane's magnitude bit
-#define F_NEW 4      // became significant in this plane's SPP
-#define F_BC 8       // becomes significant in this plane's cleanup
-#define F_VALID 16   // inside the block's true extent
-#define F_SIGN 32    // negative
+// bytes of the decision kernel's slot stage for `cols` columns (and up
+// to 15 bytes of shift, so the stage and the slots agree modulo 16)
+__host__ __device__ __forceinline__ int stage_bytes(int cols) {
+  return (cols * SLOTS_PER_COLUMN + 31) & ~15;
+}
 
 // ---------------------------------------------------------------- helpers
 
@@ -129,36 +142,45 @@ __device__ int block_exclusive_scan(int v, int* sh, int* total) {
 
 // ------------------------------------------------------ ebcot_decision_slots
 
-// neighbour k of the 8 offsets (dy, dx), in the order of the plain version:
-// (-1,-1) (-1,0) (-1,1) (0,-1) (0,1) (1,-1) (1,0) (1,1)
-__constant__ int NB_DY[8] = {-1, -1, -1, 0, 0, 1, 1, 1};
-__constant__ int NB_DX[8] = {-1, 0, 1, -1, 1, -1, 0, 1};
+// A stripe column's state in one plane, one 32-bit word: a nibble per flag,
+// row r of the column in bit r of each nibble (N_* is the nibble's shift).
+#define N_BASE 0    // inside the block and not significant before the plane
+#define N_SIGN 4    // negative
+#define N_SIN 8     // significant before the plane
+#define N_BIT 12    // the plane's magnitude bit
+#define N_ETA 16    // significant before the plane above (MRP context 16)
+#define N_MEM 20    // in the plane's SPP (written by the fixpoint)
 
-// Is neighbour k visited before the sample (column=false: the SPP and
-// cleanup sample order, _before_sample) or before the sample's run-length
-// column is tested (column=true, _before_column)?  r = row in the stripe.
-__device__ __forceinline__ bool before(int k, int r, bool column) {
-  switch (k) {
-    case 0: case 3: return true;
-    case 1: return column ? r == 0 : true;
-    case 2: return r == 0;
-    case 5: return r < 3;
-    default: return false;
-  }
+__device__ __forceinline__ unsigned nib(unsigned word, int at) {
+  return (word >> at) & 0xFu;
 }
 
-// 8-bit mask of the neighbours significant at visit time: a neighbour
-// counts if it has a `stat` flag, or a `neu` flag and is visited before.
-__device__ __forceinline__ unsigned nb_state(const uint8_t* st, int idx,
-                                             int pw, int r, int stat,
-                                             int neu, bool column) {
-  unsigned m = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int f = st[idx + NB_DY[k] * pw + NB_DX[k]];
-    if ((f & stat) || ((f & neu) && before(k, r, column))) m |= 1u << k;
-  }
-  return m;
+// A flag's 6-bit column: bit 0 the row above the stripe (row 3 of the
+// stripe above), bits 1-4 the stripe's rows 0-3, bit 5 the row below (row 0
+// of the stripe below).  For the stripe's row r, bits r, r + 1 and r + 2
+// are the rows above, level with and below it.
+__device__ __forceinline__ unsigned ext(unsigned above, unsigned mid,
+                                        unsigned below) {
+  return ((above >> 3) & 1u) | (mid << 1) | ((below & 1u) << 5);
+}
+
+// The four rows' "any of the 8 neighbours" from the 6-bit columns on the
+// left, in the centre and on the right.
+__device__ __forceinline__ unsigned any8(unsigned l, unsigned c, unsigned r) {
+  return (l | (l >> 1) | (l >> 2) | c | (c >> 2) | r | (r >> 1) | (r >> 2)) &
+         0xFu;
+}
+
+// Row r's neighbour mask, bit k for the offsets (dy, dx) of the plain
+// version in order: (-1,-1) (-1,0) (-1,1) (0,-1) (0,1) (1,-1) (1,0) (1,1).
+// l and rt are the left and right 6-bit columns, cn the centre as its row
+// r - 1 is seen (N), cs as its row r + 1 is seen (S).
+__device__ __forceinline__ unsigned mask8(unsigned l, unsigned cn,
+                                          unsigned cs, unsigned rt, int r) {
+  return ((l >> r) & 1u) | (((cn >> r) & 1u) << 1) | (((rt >> r) & 1u) << 2) |
+         (((l >> (r + 1)) & 1u) << 3) | (((rt >> (r + 1)) & 1u) << 4) |
+         (((l >> (r + 2)) & 1u) << 5) | (((cs >> (r + 2)) & 1u) << 6) |
+         (((rt >> (r + 2)) & 1u) << 7);
 }
 
 __device__ __forceinline__ int zc_primary(int h, int v, int d) {
@@ -181,216 +203,312 @@ __device__ __forceinline__ int zc_hh(int h, int v, int d) {
 // zero-coding context (Table D.1) from a neighbour mask; band class 0 =
 // LL/LH, 1 = HL, 2 = HH
 __device__ __forceinline__ int zc_ctx(unsigned m, int bc) {
-  const int h = ((m >> 3) & 1) + ((m >> 4) & 1);
-  const int v = ((m >> 1) & 1) + ((m >> 6) & 1);
-  const int d = (m & 1) + ((m >> 2) & 1) + ((m >> 5) & 1) + ((m >> 7) & 1);
+  const int h = __popc(m & 0x18u), v = __popc(m & 0x42u);
+  const int d = __popc(m & 0xA5u);
   return bc == 0 ? zc_primary(h, v, d)
                  : (bc == 1 ? zc_primary(v, h, d) : zc_hh(h, v, d));
 }
 
-// sign-coding slot (Table D.3): context | (sign ^ xor) << 5
-__device__ __forceinline__ int sc_slot(const uint8_t* st, int idx, int pw,
-                                       unsigned m, int sign) {
-  int c[8];
-#pragma unroll
-  for (int k = 1; k < 7; ++k) {
-    const int f = st[idx + NB_DY[k] * pw + NB_DX[k]];
-    c[k] = ((m >> k) & 1) ? ((f & F_SIGN) ? -1 : 1) : 0;
-  }
-  const int hc = max(-1, min(1, c[3] + c[4]));
-  const int vc = max(-1, min(1, c[1] + c[6]));
+// sign-coding slot (Table D.3) of row r: context | (sign ^ xor) << 5, from
+// the neighbour mask m and the signs' 6-bit columns
+__device__ __forceinline__ int sc_slot(unsigned m, unsigned sl, unsigned sc,
+                                       unsigned sr, int r, int sign) {
+  const int n = ((m >> 1) & 1) ? (((sc >> r) & 1) ? -1 : 1) : 0;
+  const int wv = ((m >> 3) & 1) ? (((sl >> (r + 1)) & 1) ? -1 : 1) : 0;
+  const int e = ((m >> 4) & 1) ? (((sr >> (r + 1)) & 1) ? -1 : 1) : 0;
+  const int s = ((m >> 6) & 1) ? (((sc >> (r + 2)) & 1) ? -1 : 1) : 0;
+  const int hc = max(-1, min(1, wv + e));
+  const int vc = max(-1, min(1, n + s));
   const int ctx = hc == 0 ? 9 + (vc != 0) : 12 + hc * vc;
   const int xr = (hc < 0) || (hc == 0 && vc < 0);
   return ctx | ((sign ^ xr) << 5);
 }
 
+// The CTA writes n bytes of shared memory to device memory: 16-byte
+// stores where the two addresses agree modulo 16, bytes at the ends.
+__device__ void store_run(uint8_t* dst, const uint8_t* src, int64_t n) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  int64_t head = n;
+  if (!(((uintptr_t)dst ^ (uintptr_t)src) & 15)) {
+    head = min(n, (int64_t)((16 - ((uintptr_t)dst & 15)) & 15));
+    const int64_t body = (n - head) >> 4;
+    uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+    const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+    for (int64_t i = t; i < body; i += nt) d4[i] = s4[i];
+    for (int64_t i = head + 16 * body + t; i < n; i += nt) dst[i] = src[i];
+  }
+  for (int64_t i = t; i < head; i += nt) dst[i] = src[i];
+}
+
+// The CTA fills n bytes of device memory with 0xFF.
+__device__ void fill_empty(uint8_t* dst, int64_t n) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int64_t head = min(n, (int64_t)((16 - ((uintptr_t)dst & 15)) & 15));
+  const int64_t body = (n - head) >> 4;
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  const uint4 ff = make_uint4(~0u, ~0u, ~0u, ~0u);
+  for (int64_t i = t; i < body; i += nt) d4[i] = ff;
+  for (int64_t i = t; i < head; i += nt) dst[i] = EMPTY;
+  for (int64_t i = head + 16 * body + t; i < n; i += nt) dst[i] = EMPTY;
+}
+
+// Per code-block: its largest valid magnitude (a plane at or above its bit
+// count codes nothing) and the number of rows down to its last valid
+// sample (a stripe below them takes no run-length mode), in stats[2b] and
+// stats[2b + 1].
+__global__ void __launch_bounds__(STATS_THREADS) block_stats_kernel(
+    const int* __restrict__ mags, const uint8_t* __restrict__ valid, int hw,
+    int w, int* __restrict__ stats) {
+  __shared__ int s_max, s_last;
+  if (threadIdx.x == 0) {
+    s_max = 0;
+    s_last = -1;
+  }
+  __syncthreads();
+  const int64_t at = (int64_t)blockIdx.x * hw;
+  int mx = 0, last = -1;
+  for (int i = threadIdx.x; i < hw; i += blockDim.x) {
+    if (valid[at + i]) {
+      mx = max(mx, mags[at + i]);
+      last = i;
+    }
+  }
+  for (int o = 16; o; o >>= 1) {
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+  }
+  if (!(threadIdx.x & 31)) {
+    atomicMax(&s_max, mx);
+    atomicMax(&s_last, last);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    stats[2 * blockIdx.x] = s_max;
+    stats[2 * blockIdx.x + 1] = s_last < 0 ? 0 : s_last / w + 1;
+  }
+}
+
 __global__ void __launch_bounds__(DEC_THREADS) decision_kernel(
     const int* __restrict__ mags, const int* __restrict__ signs,
     const uint8_t* __restrict__ valid, const int* __restrict__ bclass,
-    int h, int w, int max_planes, uint8_t* __restrict__ slots) {
-  extern __shared__ uint8_t smem[];
-  const int pw = w + 2;
-  const int npad = (h + 2) * pw;
-  const int g_stripes = h >> 2;
-  const int ncol = g_stripes * w;
-  const int nsamp = ncol * 4;
-  uint8_t* st = smem;                    // flags, padded
-  uint8_t* mem[2] = {smem + npad, smem + 2 * npad};   // SPP membership
-  uint8_t* colst = smem + 3 * npad;      // per column: rl | fs << 1
-  __shared__ int s_max, s_hval;
+    const int* __restrict__ stats, int h, int w, int max_planes,
+    uint8_t* __restrict__ slots) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int gn = h >> 2, ncol = gn * w, pw = w + 2;
+  const int nwords = (gn + 2) * pw;
+  const int b = blockIdx.x / max_planes;
+  const int pi = blockIdx.x - b * max_planes;
+  const int p = max_planes - 1 - pi;
+  const int64_t plane_slots = (int64_t)ncol * SLOTS_PER_COLUMN;
+  uint8_t* out = slots + ((int64_t)b * max_planes + pi) * plane_slots;
+  const int maxmag = stats[2 * b];
+  if (maxmag <= 0 || p >= 32 - __clz(maxmag)) {   // nothing coded here
+    fill_empty(out, plane_slots);
+    return;
+  }
+  const int hval = stats[2 * b + 1];
+  const int bc = bclass[b];
+  // shared memory: the slot stage, the words (padded by a column on each
+  // side and a stripe above and below), each column's "a neighbour was
+  // significant before the plane" nibble, and the fixpoint's two buffers
+  // of SPP membership | new significance << 4 per column
+  uint8_t* stage = smem;
+  unsigned* wd = reinterpret_cast<unsigned*>(
+      smem + stage_bytes(min(ncol, STAGE_COLS)));
+  uint8_t* ns = reinterpret_cast<uint8_t*>(wd + nwords);
+  const int nwp = (nwords + 3) & ~3;
+  uint8_t* nw[2] = {ns + nwp, ns + 2 * nwp};
 
-  const int b = blockIdx.x;
+  // the plane's flags, one thread per column, coalesced along x
   const int64_t hw = (int64_t)h * w;
   const int* bm = mags + b * hw;
-  const int bc = bclass[b];
-  const int64_t plane_slots = (int64_t)ncol * SLOTS_PER_COLUMN;
-  uint8_t* out = slots + (int64_t)b * max_planes * plane_slots;
-
-  if (threadIdx.x == 0) {
-    s_max = 0;
-    s_hval = 0;
+  const int* bsg = signs + b * hw;
+  const uint8_t* bv = valid + b * hw;
+  for (int i = threadIdx.x; i < nwords; i += blockDim.x) {
+    nw[0][i] = 0;
+    nw[1][i] = 0;
   }
-  for (int i = threadIdx.x; i < 3 * npad; i += blockDim.x) smem[i] = 0;
-  __syncthreads();
-  int my_max = 0, my_h = 0;
-  for (int i = threadIdx.x; i < nsamp; i += blockDim.x) {
-    const int col = i >> 2, r = i & 3;
-    const int g = col / w, x = col - g * w, y = 4 * g + r;
-    const int64_t s = (int64_t)y * w + x;
-    const bool v = valid[b * hw + s] != 0;
-    st[(y + 1) * pw + x + 1] =
-        (v ? F_VALID : 0) | (signs[b * hw + s] ? F_SIGN : 0);
-    if (v) {
-      my_max = max(my_max, bm[s]);
-      my_h = max(my_h, y + 1);
+  for (int i = threadIdx.x; i < 2 * pw; i += blockDim.x)
+    wd[i < pw ? i : (gn + 1) * pw + i - pw] = 0;
+  for (int i = threadIdx.x; i < 2 * gn; i += blockDim.x)
+    wd[((i >> 1) + 1) * pw + (i & 1) * (pw - 1)] = 0;
+  for (int col = threadIdx.x; col < ncol; col += blockDim.x) {
+    const int g = col / w, x = col - g * w;
+    unsigned word = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int64_t s = (int64_t)(4 * g + r) * w + x;
+      if (bv[s]) {
+        const int m = bm[s];
+        const unsigned sin = (m >> (p + 1)) > 0;
+        word |= ((sin ^ 1u) << (N_BASE + r)) | (sin << (N_SIN + r)) |
+                (((unsigned)(m >> p) & 1u) << (N_BIT + r)) |
+                ((unsigned)((m >> (p + 2)) > 0) << (N_ETA + r));
+      }
+      if (bsg[s]) word |= 1u << (N_SIGN + r);
     }
+    wd[(g + 1) * pw + x + 1] = word;
   }
-  atomicMax(&s_max, my_max);
-  atomicMax(&s_hval, my_h);
   __syncthreads();
-  const int live_planes = s_max > 0 ? 32 - __clz(s_max) : 0;
-  const int hval = s_hval;
+  for (int col = threadIdx.x; col < ncol; col += blockDim.x) {
+    const int g = col / w, x = col - g * w;
+    const unsigned* a = wd + g * pw + x;   // stripe above, column x - 1
+    unsigned e[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      e[k] = ext(nib(a[k], N_SIN), nib(a[pw + k], N_SIN),
+                 nib(a[2 * pw + k], N_SIN));
+    ns[(g + 1) * pw + x + 1] = (uint8_t)any8(e[0], e[1], e[2]);
+  }
+  __syncthreads();
 
-  for (int p = max_planes - 1; p >= 0; --p) {
-    uint8_t* po = out + (int64_t)(max_planes - 1 - p) * plane_slots;
-    if (p >= live_planes) {              // nothing is coded in this plane
-      for (int64_t i = threadIdx.x; i < plane_slots; i += blockDim.x)
-        po[i] = EMPTY;
-      continue;
-    }
-    // phase 1: significance before the plane and the plane's bit
-    for (int i = threadIdx.x; i < nsamp; i += blockDim.x) {
-      const int col = i >> 2, r = i & 3;
-      const int g = col / w, x = col - g * w, y = 4 * g + r;
-      const int idx = (y + 1) * pw + x + 1;
-      const int f = st[idx] & (F_VALID | F_SIGN);
-      const int m = bm[(int64_t)y * w + x];
-      const bool v = f & F_VALID;
-      st[idx] = f | ((v && (m >> (p + 1)) > 0) ? F_SIN : 0) |
-                ((v && ((m >> p) & 1)) ? F_BIT : 0);
-    }
-    __syncthreads();
-    // phase 2: SPP membership, the least fixpoint above base & nb_sin
-    for (int i = threadIdx.x; i < nsamp; i += blockDim.x) {
-      const int col = i >> 2, r = i & 3;
-      const int g = col / w, x = col - g * w, y = 4 * g + r;
-      const int idx = (y + 1) * pw + x + 1;
-      const int f = st[idx];
-      const bool base = (f & F_VALID) && !(f & F_SIN);
-      mem[0][idx] = base && nb_state(st, idx, pw, r, F_SIN, 0, false);
-    }
-    int cur = 0;
-    for (;;) {
-      __syncthreads();
-      int changed = 0;
-      for (int i = threadIdx.x; i < nsamp; i += blockDim.x) {
-        const int col = i >> 2, r = i & 3;
-        const int g = col / w, x = col - g * w, y = 4 * g + r;
-        const int idx = (y + 1) * pw + x + 1;
-        const int f = st[idx];
-        const bool base = (f & F_VALID) && !(f & F_SIN);
-        bool m2 = false;
-        if (base) {
-          m2 = nb_state(st, idx, pw, r, F_SIN, 0, false) != 0;
-          // a neighbour visited before that became significant in the SPP
-          for (int k = 0; k < 6 && !m2; ++k) {
-            if (k == 4 || !before(k, r, false)) continue;
-            const int n = idx + NB_DY[k] * pw + NB_DX[k];
-            m2 = mem[cur][n] && (st[n] & F_BIT);
-          }
+  // SPP membership: sweeps over runs of RUN_COLS columns until none
+  // changes; each sweep also writes the column's membership into its word
+  // (no other thread reads a word during the sweeps)
+  const int runs = (w + RUN_COLS - 1) / RUN_COLS;
+  int cur = 0;
+  for (;;) {
+    const uint8_t* src = nw[cur];
+    uint8_t* dst = nw[cur ^ 1];
+    int changed = 0;
+    for (int j = threadIdx.x; j < gn * runs; j += blockDim.x) {
+      const int g = j / runs;
+      const int x0 = (j - g * runs) * RUN_COLS;
+      const int x1 = min(x0 + RUN_COLS, w);
+      const int row = (g + 1) * pw;       // column -1 of stripe g
+      const uint8_t* up = src + g * pw;   // column -1 of stripe g - 1
+      unsigned left = src[row + x0] >> 4;
+      unsigned ul = up[x0] >> 7, uc = up[x0 + 1] >> 7;
+      for (int x = x0; x < x1; ++x) {
+        const int idx = row + x + 1;
+        const unsigned ur = up[x + 2] >> 7;
+        const unsigned wv = wd[idx];
+        const unsigned base = nib(wv, N_BASE), bit = nib(wv, N_BIT);
+        // triggers from outside the column: a neighbour significant before
+        // the plane, the left column's W, NW and SW, the stripe above
+        const unsigned t = ns[idx] | left | (left >> 1) |
+                           ((left << 1) & 0xFu) | ul | uc | ur;
+        unsigned mem = 0, nwb = 0;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const unsigned tr = (t >> r) | (r ? nwb >> (r - 1) : 0u);
+          const unsigned m = (base >> r) & tr & 1u;
+          mem |= m << r;
+          nwb |= (m & (bit >> r)) << r;
         }
-        mem[cur ^ 1][idx] = m2;
-        changed |= m2 != (mem[cur][idx] != 0);
+        const unsigned v = mem | (nwb << 4);
+        changed |= v != src[idx];
+        dst[idx] = (uint8_t)v;
+        wd[idx] = (wv & ~(0xFu << N_MEM)) | (mem << N_MEM);
+        left = nwb;
+        ul = uc;
+        uc = ur;
       }
-      cur ^= 1;
-      if (!__syncthreads_or(changed)) break;
     }
-    const uint8_t* member = mem[cur];
-    // phase 3: new SPP significance and cleanup significance
-    for (int i = threadIdx.x; i < nsamp; i += blockDim.x) {
-      const int col = i >> 2, r = i & 3;
-      const int g = col / w, x = col - g * w, y = 4 * g + r;
-      const int idx = (y + 1) * pw + x + 1;
-      const int f = st[idx];
-      const bool bit = f & F_BIT;
-      const bool mb = member[idx];
-      const bool cand = (f & F_VALID) && !(f & F_SIN) && !mb;
-      st[idx] = f | ((mb && bit) ? F_NEW : 0) | ((cand && bit) ? F_BC : 0);
-    }
-    __syncthreads();
-    // phase 4: the run-length test, one thread per stripe column
-    for (int col = threadIdx.x; col < ncol; col += blockDim.x) {
+    cur ^= 1;
+    if (!__syncthreads_or(changed)) break;
+  }
+
+  // every slot of the plane, one thread per column, staged in shared
+  // memory (in chunks of STAGE_COLS columns for blocks of more)
+  for (int c0 = 0; c0 < ncol; c0 += STAGE_COLS) {
+    const int n = min(STAGE_COLS, ncol - c0);
+    uint8_t* dspp = out + 8 * (int64_t)c0;
+    uint8_t* sspp = stage + ((uintptr_t)dspp & 15);
+    uint8_t* smrp = sspp + 8 * n;
+    uint8_t* scup = sspp + 12 * n;
+    for (int col = c0 + threadIdx.x; col < c0 + n; col += blockDim.x) {
       const int g = col / w, x = col - g * w;
-      const bool full = 4 * g + 4 <= hval;
-      bool rl = full;
-      int fs = 4;
-      for (int r = 3; r >= 0; --r) {
-        const int idx = (4 * g + r + 1) * pw + x + 1;
-        const int f = st[idx];
-        const bool cand = (f & F_VALID) && !(f & F_SIN) && !member[idx];
-        if (f & F_BIT) fs = r;
-        if (!cand || nb_state(st, idx, pw, r, F_SIN | F_NEW, F_BC, true))
-          rl = false;
+      const unsigned* a = wd + g * pw + x;
+      // 6-bit columns: significant before the plane, new in the SPP,
+      // significant after it, significant in the cleanup, sign
+      unsigned si[3], nv[3], sa[3], bcl[3], sg[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        unsigned f[3][5];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const unsigned v = a[j * pw + k];
+          const unsigned sn = nib(v, N_SIN), mb = nib(v, N_MEM);
+          const unsigned bt = nib(v, N_BIT);
+          f[j][0] = sn;
+          f[j][1] = mb & bt;
+          f[j][2] = sn | (mb & bt);
+          f[j][3] = nib(v, N_BASE) & ~mb & bt;
+          f[j][4] = nib(v, N_SIGN);
+        }
+        si[k] = ext(f[0][0], f[1][0], f[2][0]);
+        nv[k] = ext(f[0][1], f[1][1], f[2][1]);
+        sa[k] = ext(f[0][2], f[1][2], f[2][2]);
+        bcl[k] = ext(f[0][3], f[1][3], f[2][3]);
+        sg[k] = ext(f[0][4], f[1][4], f[2][4]);
       }
-      colst[col] = (rl ? 1 : 0) | (fs << 1);
+      const unsigned own = a[pw + 1];
+      const unsigned sin = nib(own, N_SIN), bit = nib(own, N_BIT);
+      const unsigned mem = nib(own, N_MEM), eta = nib(own, N_ETA);
+      const unsigned sign = nib(own, N_SIGN);
+      const unsigned cand = nib(own, N_BASE) & ~mem;
+      // visit-time states: a neighbour counts if significant before (SPP:
+      // before the plane; cleanup: after the SPP), or new in the pass and
+      // visited before (left column except the row below the stripe, N,
+      // and NE from the stripe above)
+      const unsigned spl = si[0] | (nv[0] & 0x1Fu), spr = si[2] | (nv[2] & 1u);
+      const unsigned spn = si[1] | nv[1];
+      const unsigned cul = sa[0] | (bcl[0] & 0x1Fu);
+      const unsigned cur_r = sa[2] | (bcl[2] & 1u);
+      const unsigned cun = sa[1] | bcl[1];
+      const unsigned any_sa = any8(sa[0], sa[1], sa[2]);
+      // the run-length test: neighbours as coded before the column
+      const unsigned nbc = any_sa | ((bcl[0] | (bcl[0] >> 1)) & 0xFu) |
+                           ((bcl[0] >> 2) & 0x7u) | ((bcl[1] | bcl[2]) & 1u);
+      const bool rl = 4 * g + 4 <= hval && (cand & ~nbc & 0xFu) == 0xFu;
+      const int fs = bit ? __ffs(bit) - 1 : 4;
+      const int i = col - c0;
+      uint8_t* cc = scup + 11 * i;
+      cc[0] = rl ? (uint8_t)(17 | (fs < 4 ? 32 : 0)) : EMPTY;
+      cc[1] = (rl && fs < 4) ? (uint8_t)(18 | (((fs >> 1) & 1) << 5)) : EMPTY;
+      cc[2] = (rl && fs < 4) ? (uint8_t)(18 | ((fs & 1) << 5)) : EMPTY;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int bt = (bit >> r) & 1, sn = (sign >> r) & 1;
+        // SPP
+        int sa0 = EMPTY, sb0 = EMPTY;
+        if ((mem >> r) & 1) {
+          const unsigned m = mask8(spl, spn, si[1], spr, r);
+          sa0 = zc_ctx(m, bc) | (bt << 5);
+          if (bt) sb0 = sc_slot(m, sg[0], sg[1], sg[2], r, sn);
+        }
+        sspp[8 * i + 2 * r] = (uint8_t)sa0;
+        sspp[8 * i + 2 * r + 1] = (uint8_t)sb0;
+        // MRP
+        smrp[4 * i + r] =
+            (sin >> r) & 1
+                ? (uint8_t)(((eta >> r) & 1 ? 16 : ((any_sa >> r) & 1 ? 15
+                                                                       : 14)) |
+                            (bt << 5))
+                : (uint8_t)EMPTY;
+        // cleanup
+        const bool zc_emit = ((cand >> r) & 1) && (!rl || r > fs);
+        const bool sc_emit = (zc_emit && bt) || (rl && r == fs);
+        int ca = EMPTY, cb = EMPTY;
+        if (zc_emit || sc_emit) {
+          const unsigned m = mask8(cul, cun, sa[1], cur_r, r);
+          if (zc_emit) ca = zc_ctx(m, bc) | (bt << 5);
+          if (sc_emit) cb = sc_slot(m, sg[0], sg[1], sg[2], r, sn);
+        }
+        cc[3 + 2 * r] = (uint8_t)ca;
+        cc[4 + 2 * r] = (uint8_t)cb;
+      }
     }
     __syncthreads();
-    // phase 5: every slot of the plane, in slot order
-    uint8_t* spp = po;
-    uint8_t* mrp = po + (int64_t)ncol * 8;
-    uint8_t* cup = po + (int64_t)ncol * 12;
-    for (int i = threadIdx.x; i < nsamp; i += blockDim.x) {
-      const int col = i >> 2, r = i & 3;
-      const int g = col / w, x = col - g * w, y = 4 * g + r;
-      const int idx = (y + 1) * pw + x + 1;
-      const int f = st[idx];
-      const int bit = (f & F_BIT) ? 1 : 0;
-      const int sign = (f & F_SIGN) ? 1 : 0;
-      // SPP
-      int a = EMPTY, bsl = EMPTY;
-      if (member[idx]) {
-        const unsigned m = nb_state(st, idx, pw, r, F_SIN, F_NEW, false);
-        a = zc_ctx(m, bc) | (bit << 5);
-        if (f & F_NEW) bsl = sc_slot(st, idx, pw, m, sign);
-      }
-      spp[2 * (int64_t)i] = (uint8_t)a;
-      spp[2 * (int64_t)i + 1] = (uint8_t)bsl;
-      // MRP
-      int mr = EMPTY;
-      if (f & F_SIN) {
-        const int mg = bm[(int64_t)y * w + x];
-        const bool eta = (mg >> (p + 2)) > 0;
-        const bool any =
-            nb_state(st, idx, pw, r, F_SIN | F_NEW, 0, false) != 0;
-        mr = (eta ? 16 : (any ? 15 : 14)) | (bit << 5);
-      }
-      mrp[i] = (uint8_t)mr;
-      // cleanup
-      const int cs = colst[col];
-      const bool in_rl = cs & 1;
-      const int fs = cs >> 1;
-      uint8_t* cc = cup + (int64_t)col * 11;
-      if (r == 0) {
-        const bool any_bit = fs < 4;
-        cc[0] = in_rl ? (uint8_t)(17 | (any_bit ? 32 : 0)) : EMPTY;
-        cc[1] = (in_rl && any_bit) ? (uint8_t)(18 | (((fs >> 1) & 1) << 5))
-                                   : EMPTY;
-        cc[2] = (in_rl && any_bit) ? (uint8_t)(18 | ((fs & 1) << 5)) : EMPTY;
-      }
-      const bool cand = (f & F_VALID) && !(f & F_SIN) && !member[idx];
-      const bool zc_emit = cand && (!in_rl || r > fs);
-      const bool sc_emit = (zc_emit && bit) || (in_rl && r == fs && fs < 4);
-      int ca = EMPTY, cb = EMPTY;
-      if (zc_emit || sc_emit) {
-        const unsigned m =
-            nb_state(st, idx, pw, r, F_SIN | F_NEW, F_BC, false);
-        if (zc_emit) ca = zc_ctx(m, bc) | (bit << 5);
-        if (sc_emit) cb = sc_slot(st, idx, pw, m, sign);
-      }
-      cc[3 + 2 * r] = (uint8_t)ca;
-      cc[4 + 2 * r] = (uint8_t)cb;
+    if (n == ncol) {
+      store_run(out, sspp, plane_slots);
+    } else {
+      store_run(dspp, sspp, 8 * n);
+      store_run(out + 8 * (int64_t)ncol + 4 * c0, smrp, 4 * n);
+      store_run(out + 12 * (int64_t)ncol + 11 * (int64_t)c0, scup, 11 * n);
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
@@ -820,25 +938,42 @@ extern "C" {
 int ebcot_slots_per_column(void) { return SLOTS_PER_COLUMN; }
 int ebcot_max_planes(void) { return MAX_PLANES; }
 
-// shared memory of the decision kernel for an h x w block
+// shared memory of the decision kernel for an h x w block: the slot stage,
+// the padded words, and three bytes a padded column
 static size_t decision_smem(int h, int w) {
-  return 3 * (size_t)(h + 2) * (w + 2) + (size_t)(h / 4) * w;
+  const int ncol = (h / 4) * w;
+  const size_t nwords = (size_t)(h / 4 + 2) * (w + 2);
+  return (size_t)stage_bytes(ncol < STAGE_COLS ? ncol : STAGE_COLS) +
+         4 * nwords + 3 * ((nwords + 3) & ~(size_t)3);
 }
 
+long long ebcot_decision_smem(int h, int w) { return (long long)decision_smem(h, w); }
+int ebcot_decision_threads(void) { return DEC_THREADS; }
+int ebcot_decision_run_cols(void) { return RUN_COLS; }
+int ebcot_decision_stage_cols(void) { return STAGE_COLS; }
+
+// stats: int32 [nb, 2] scratch (largest valid magnitude, rows to the last
+// valid sample), written by the pre-pass
 int ebcot_decision_slots(const void* mags, const void* signs,
                          const void* valid, const void* bclass, int nb,
-                         int h, int w, int max_planes, void* slots,
-                         void* stream) {
+                         int h, int w, int max_planes, void* stats,
+                         void* slots, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  block_stats_kernel<<<nb, STATS_THREADS, 0, st>>>(
+      (const int*)mags, (const uint8_t*)valid, h * w, w, (int*)stats);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
   const size_t smem = decision_smem(h, w);
   if (smem > 48 * 1024) {
-    const int rc = (int)cudaFuncSetAttribute(
+    rc = (int)cudaFuncSetAttribute(
         decision_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (rc) return rc;
   }
-  decision_kernel<<<nb, DEC_THREADS, smem, (cudaStream_t)stream>>>(
+  decision_kernel<<<nb * max_planes, DEC_THREADS, smem, st>>>(
       (const int*)mags, (const int*)signs, (const uint8_t*)valid,
-      (const int*)bclass, h, w, max_planes, (uint8_t*)slots);
+      (const int*)bclass, (const int*)stats, h, w, max_planes,
+      (uint8_t*)slots);
   return (int)cudaGetLastError();
 }
 

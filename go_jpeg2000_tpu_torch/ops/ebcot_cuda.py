@@ -47,6 +47,12 @@ MAX_PLANES = 29
 # puts stream lengths around it)
 MQ_CHUNK = 1024
 MAX_SMEM_BYTES = 232448
+# the decision kernel's CTA (one per code-block and plane): threads, the
+# columns a thread resolves in order per fixpoint sweep, and the columns
+# whose slots it stages in shared memory at a time
+DEC_THREADS = 128
+RUN_COLS = 8
+STAGE_COLS = 1024
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -64,14 +70,21 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = cuda_build.load("ebcot_enc")
+        lib.ebcot_decision_smem.restype = ctypes.c_longlong
+        lib.ebcot_decision_smem.argtypes = [ctypes.c_int, ctypes.c_int]
         if (lib.ebcot_slots_per_column() != ebcot_device.SLOTS_PER_COLUMN
                 or lib.ebcot_max_planes() != MAX_PLANES
-                or lib.ebcot_mq_chunk() != MQ_CHUNK):
+                or lib.ebcot_mq_chunk() != MQ_CHUNK
+                or lib.ebcot_decision_threads() != DEC_THREADS
+                or lib.ebcot_decision_run_cols() != RUN_COLS
+                or lib.ebcot_decision_stage_cols() != STAGE_COLS
+                or any(lib.ebcot_decision_smem(h, w) != decision_smem(h, w)
+                       for h, w in ((64, 64), (4, 1024), (8, 3)))):
             raise RuntimeError("csrc/ebcot_enc.cu and ops/ebcot_cuda.py "
-                               "disagree on the slot layout, plane limit or "
-                               "MQ chunk")
+                               "disagree on the slot layout, plane limit, "
+                               "MQ chunk or decision CTA")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        sigs = {"ebcot_decision_slots": [p, p, p, p, i, i, i, i, p, p],
+        sigs = {"ebcot_decision_slots": [p, p, p, p, i, i, i, i, p, p, p],
                 "ebcot_compact_count": [p, i, ll, p, p, p, p],
                 "ebcot_compact_write": [p, i, ll, p, p, p],
                 "ebcot_mq_encode": [p, ll, p, p, i, p, p, p],
@@ -103,6 +116,18 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, dim: int,
                          f"tensor, got {t.dtype} {tuple(t.shape)}")
 
 
+def decision_smem(h: int, w: int) -> int:
+    """Shared memory of the decision kernel's CTA for h x w blocks: the
+    slot stage (at most STAGE_COLS columns, 16 bytes of alignment slack),
+    a 32-bit word per padded stripe column and three bytes per padded
+    column."""
+    ncol = (h // 4) * w
+    nwords = (h // 4 + 2) * (w + 2)
+    stage = (min(ncol, STAGE_COLS) * ebcot_device.SLOTS_PER_COLUMN + 31) \
+        & ~15
+    return stage + 4 * nwords + 3 * ((nwords + 3) & ~3)
+
+
 def decision_slots(mags: torch.Tensor, signs: torch.Tensor,
                    band_class: torch.Tensor, valid: torch.Tensor,
                    max_planes: int) -> torch.Tensor:
@@ -122,16 +147,18 @@ def decision_slots(mags: torch.Tensor, signs: torch.Tensor,
     _check(valid, name, torch.bool, 3, dev)
     _check(band_class, name, torch.int32, 1, dev)
     nb, h, w = mags.shape
-    smem = 3 * (h + 2) * (w + 2) + (h // 4) * w
     if (h % 4 or signs.shape != mags.shape or valid.shape != mags.shape
-            or band_class.shape != (nb,) or smem > MAX_SMEM_BYTES):
+            or band_class.shape != (nb,) or nb * max_planes >= 1 << 31
+            or decision_smem(h, w) > MAX_SMEM_BYTES):
         raise ValueError(f"{name}: blocks {tuple(mags.shape)} not supported "
                          "(height a multiple of 4, state in shared memory)")
     t = max_planes * ebcot_device.slots_per_plane(h, w)
     slots = torch.empty((nb, t), dtype=torch.uint8, device=dev)
     if nb and t:
+        stats = torch.empty((nb, 2), dtype=torch.int32, device=dev)
         _call(name, dev, mags.data_ptr(), signs.data_ptr(), valid.data_ptr(),
-              band_class.data_ptr(), nb, h, w, max_planes, slots.data_ptr())
+              band_class.data_ptr(), nb, h, w, max_planes, stats.data_ptr(),
+              slots.data_ptr())
         LAUNCHES[name] += 1
     return slots
 

@@ -266,6 +266,79 @@ def decision_slots(mags: torch.Tensor, signs: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
+def snake_block(h: int = 64, w: int = 64, p: int = 3) -> np.ndarray:
+    """Magnitudes of an [h, w] block whose plane-p SPP propagation chain
+    runs as far as the visiting order lets it: a sample significant before
+    the plane at (0, 0), then plane-p samples along row 0 to the right edge
+    (each the W neighbour of the next), down the last column to row 3, and
+    from each stripe's row 3 to the next stripe's row 0 one column to the
+    left (NE, the only way a chain moves left) and down that column.  A
+    whole-block Jacobi sweep moves the chain one sample, so the plain
+    fixpoint takes about w + h sweeps; every other sample is 0."""
+    m = np.zeros((h, w), np.int32)
+    m[0, 0] = 1 << (p + 1)
+    m[0, 1:] = 1 << p
+    x = w - 1
+    for g in range(h // 4):
+        x = w - 1 - g
+        if x < 0:
+            break
+        m[4 * g + (g == 0):4 * g + 4, x] = 1 << p
+    return m
+
+
+def stress_blocks(h: int = 64, w: int = 64, seed: int = 0) -> Dict:
+    """Decision-slot inputs that stress a kernel of one CTA per (block,
+    plane): name -> (mags, signs, band classes, valid, max_planes) as numpy
+    int32 [B, h, w], int32 [B, h, w], int32 [B], bool [B, h, w], int.
+    - "snake": snake_block in each band class, plus low-plane noise;
+    - "comb": a chain along row 0 of every stripe, each seeded at its own
+      left end, and a ragged valid mask;
+    - "single_live": 0/1 magnitudes under 12 planes (11 planes of 0xFF
+      only), an all-zero block and one single 1;
+    - "all_planes": magnitudes up to 2^29 - 1 under MAX_PLANES = 29 planes,
+      dense and sparse.
+    The same seed gives the same blocks."""
+    rng = np.random.RandomState(seed)
+    out = {}
+
+    def signs_of(shape):
+        return rng.randint(0, 2, shape).astype(np.int32)
+
+    snake = snake_block(h, w, 3)
+    mags = np.stack([snake | (rng.rand(h, w) < 0.2).astype(np.int32)
+                     * (snake == 0) for _ in range(3)])
+    out["snake"] = (mags, signs_of(mags.shape),
+                    np.arange(3, dtype=np.int32), np.ones(mags.shape, bool),
+                    6)
+    comb = np.zeros((2, h, w), np.int32)
+    comb[:, 0::4, 0] = 1 << 6
+    comb[:, 0::4, 1:] = 1 << 5
+    valid = np.ones(comb.shape, bool)
+    valid[1, h - 3:, :] = False
+    valid[1, :, w - 5:] = False
+    out["comb"] = (comb, signs_of(comb.shape), np.asarray([0, 2], np.int32),
+                   valid, 8)
+    live = np.stack([(rng.rand(h, w) < 0.3).astype(np.int32),
+                     np.zeros((h, w), np.int32),
+                     np.zeros((h, w), np.int32)])
+    live[2, h // 2, w // 3] = 1
+    out["single_live"] = (live, signs_of(live.shape),
+                          np.asarray([1, 0, 2], np.int32),
+                          np.ones(live.shape, bool), 12)
+    top = (1 << 29) - 1
+    dense = rng.randint(0, top + 1, (h, w)).astype(np.int32)
+    sparse = np.where(rng.rand(h, w) < 0.05,
+                      rng.randint(0, top + 1, (h, w)), 0).astype(np.int32)
+    sparse[h - 1, w - 1] = top
+    steps = (1 << rng.randint(0, 30, (h, w))).astype(np.int32) - 1
+    mags = np.stack([dense, sparse, steps])
+    out["all_planes"] = (mags, signs_of(mags.shape),
+                         np.asarray([2, 1, 0], np.int32),
+                         np.ones(mags.shape, bool), 29)
+    return out
+
+
 def compact_host(slots) -> list:
     """Host reference compaction: per block, the ordered (ctx, bit)
     decision list (drops the 0xFF slots)."""

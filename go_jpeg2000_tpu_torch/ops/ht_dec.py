@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from . import quant
@@ -74,6 +75,102 @@ def magsgn_decode_blocks(qinfo: torch.Tensor, pool: torch.Tensor,
     bot = torch.stack([c[..., 1], c[..., 3]], dim=-1).reshape(nb, qh, 2 * qw)
     out = torch.stack([top, bot], dim=2).reshape(nb, 2 * qh, 2 * qw)
     return out[:, :cbh, :cbw].contiguous()
+
+
+def _quad_words(u, rho, ek, e1) -> np.ndarray:
+    """Quad words U | rho << 8 | ek << 12 | e1 << 16 as int32 bit
+    patterns."""
+    q = (np.asarray(u, np.int64) | np.asarray(rho, np.int64) << 8
+         | np.asarray(ek, np.int64) << 12 | np.asarray(e1, np.int64) << 16)
+    return q.astype(np.uint32).view(np.int32)
+
+
+def _bits_of(qinfo: np.ndarray) -> np.ndarray:
+    """Per block, the MagSgn bits its quad words ask for."""
+    q = qinfo.astype(np.int64).reshape(qinfo.shape[0], -1, 1) & _WORD
+    i4 = np.arange(4)
+    sig = ((q >> 8) >> i4) & 1
+    return (sig * ((q & 0xFF) - (((q >> 12) >> i4) & 1))).sum(axis=(1, 2))
+
+
+def stress_cases(stage_words: int, seed: int = 0) -> List:
+    """MagSgn inputs that stress a kernel which stages each block's words
+    in a window of `stage_words` words: [(name, qinfo int32 [NB, QH, QW],
+    pool int32 [P], woff int64 [NB], cbh, cbw, pool offset)], the pool
+    offset the words to skip at the start of the buffer (a pool that
+    starts off 16 bytes).  Blocks sit at word boundaries, one after
+    another, as the parser lays them out, except where a case says.
+    - "m32": U = 32 (fields of 31 and 32 bits) in the second and third
+      blocks; the second one 31-bit field, then 32-bit fields across word
+      boundaries, 4096 words from 2 words past a 16-byte boundary (its
+      last 2 words past the window);
+    - "uncoded": fully uncoded blocks between coded ones, and quads left
+      uncoded at random;
+    - "pool_end": the last block's fields run past the pool's last word
+      (reads clamp to it);
+    - "odd": 63 x 61 blocks (a quad row of 31), and 5 x 7 blocks;
+    - "gaps": offsets with gaps, out of order, and a block far past the
+      next one's window;
+    - "wide": 64 x 64 and 62 x 64 blocks of random fields up to 24 bits,
+      the pool starting 4 bytes past a 16-byte boundary.
+    The same seed gives the same cases."""
+    rng = np.random.RandomState(seed)
+
+    def rand_quads(nb, qh, qw, umax, p_coded=0.8):
+        u = rng.randint(1, umax + 1, (nb, qh, qw))
+        rho = rng.randint(1, 16, (nb, qh, qw))
+        coded = rng.rand(nb, qh, qw) < p_coded
+        return (np.where(coded, u, 0), np.where(coded, rho, 0),
+                rng.randint(0, 16, (nb, qh, qw)) * coded,
+                rng.randint(0, 16, (nb, qh, qw)) * coded)
+
+    def packed(parts, gaps=None):
+        q = _quad_words(*parts)
+        words = -(-_bits_of(q) // 32)
+        woff = np.concatenate([[0], np.cumsum(words)[:-1]]).astype(np.int64)
+        if gaps is not None:
+            woff = woff + np.asarray(gaps, np.int64)
+        total = int(max(woff + words).max()) + 1 if len(woff) else 1
+        pool = rng.randint(0, 1 << 32, total, dtype=np.int64).astype(
+            np.uint32).view(np.int32)
+        return q, pool, woff
+
+    cases = []
+    u = np.full((3, 32, 32), 32)
+    u[0] = rng.randint(1, 7, (32, 32))
+    rho = rng.randint(1, 16, (3, 32, 32))
+    rho[1] = 15
+    ek = rng.randint(0, 16, (3, 32, 32))
+    ek[1] = 0
+    ek[1, 0, 0] = 1          # a 31-bit field first: the rest straddle words
+    e1 = rng.randint(0, 16, (3, 32, 32))
+    q = _quad_words(u, rho, ek, e1)
+    first = -(-int(_bits_of(q)[0]) // 32)
+    # the 4096-word block 2 words past a 16-byte boundary: its window, from
+    # that boundary, ends 2 words short of it
+    lift = (2 - first) % 4
+    cases.append(("m32",) + packed((u, rho, ek, e1), gaps=[0, lift, lift])
+                 + (64, 64, 0))
+    parts = rand_quads(5, 32, 32, 18, p_coded=0.6)
+    for i in (0, 2, 4):
+        for a in parts:
+            a[i] = 0
+    cases.append(("uncoded",) + packed(parts) + (64, 64, 0))
+    q, pool, woff = packed(rand_quads(3, 32, 32, 20))
+    cases.append(("pool_end", q, pool[:int(woff[-1]) + 3], woff, 64, 64, 0))
+    cases.append(("odd",) + packed(rand_quads(4, 32, 31, 16)) + (63, 61, 0))
+    cases.append(("odd_small",) + packed(rand_quads(6, 3, 4, 12))
+                 + (5, 7, 0))
+    parts = rand_quads(4, 32, 32, 16)
+    q, pool, woff = packed(parts, gaps=[37, 5, 2 * stage_words, 11])
+    woff[[1, 3]] = woff[[3, 1]]
+    cases.append(("gaps", q, pool, woff, 64, 64, 0))
+    q, pool, woff = packed(rand_quads(4, 32, 32, 24, p_coded=0.9))
+    cases.append(("wide", q, np.concatenate([pool[:1], pool]), woff, 64,
+                  64, 1))
+    q, pool, woff = packed(rand_quads(3, 31, 32, 24))
+    cases.append(("wide_62", q, pool, woff, 62, 64, 0))
+    return cases
 
 
 def leaf_level(lev: int, name: str, nl: int) -> int:

@@ -30,6 +30,11 @@ from .ht_enc_cuda import _check
 LAUNCHES: Dict[str, int] = {"ht_magsgn_decode": 0, "ht_blocks_to_pyramid": 0}
 # int64 fields per band in ht_blocks_to_pyramid's table (checked at load)
 BAND_FIELDS = 11
+# ht_magsgn_decode's CTA: at most MS_THREADS threads of QUADS_PER_THREAD
+# consecutive quads, and the MagSgn words it stages in shared memory
+MS_THREADS = 256
+QUADS_PER_THREAD = 4
+STAGE_WORDS = 4096
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -47,9 +52,13 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = cuda_build.load("ht_dec")
-        if lib.ht_dec_band_fields() != BAND_FIELDS:
+        if (lib.ht_dec_band_fields() != BAND_FIELDS
+                or lib.ht_dec_magsgn_threads() != MS_THREADS
+                or lib.ht_dec_quads_per_thread() != QUADS_PER_THREAD
+                or lib.ht_dec_stage_words() != STAGE_WORDS):
             raise RuntimeError("csrc/ht_dec.cu and ops/ht_dec_cuda.py "
-                               "disagree on the band table")
+                               "disagree on the band table or the MagSgn "
+                               "CTA")
         p, i = ctypes.c_void_p, ctypes.c_int
         sigs = {"ht_magsgn_decode": [p, p, ctypes.c_longlong, p, i, i, i, i,
                                      i, p],
@@ -87,7 +96,7 @@ def magsgn_decode_blocks(qinfo: torch.Tensor, pool: torch.Tensor,
     _check(woff, name, torch.int64, 1, dev)
     nb, qh, qw = qinfo.shape
     if (woff.shape != (nb,) or pool.numel() == 0 or 2 * qh < cbh
-            or 2 * qw < cbw):
+            or 2 * qw < cbw or 4 * 255 * qh * qw >= 1 << 31):
         raise ValueError(f"{name}: quads {tuple(qinfo.shape)}, pool "
                          f"{tuple(pool.shape)}, offsets {tuple(woff.shape)} "
                          f"do not cover {cbh}x{cbw} blocks")

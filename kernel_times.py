@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Times the MQ coder (ebcot_mq_encode), the HT cleanup-field kernel
-(ht_cleanup_fields), the HT bit packer (ht_pack_bits), the HT MagSgn
-decoder (ht_magsgn_decode), the forward 5/3 level (dwt53_fwd_level) and
-the 9/7 levels (dwt97_fwd_level, dwt97_inv_level) of one checkout of the
+"""Times the Part-1 decision kernel (ebcot_decision_slots), the decision
+compaction (ebcot_compact_rows), the MQ coder (ebcot_mq_encode), the HT
+block extraction (ht_extract_blocks), cleanup-field kernel
+(ht_cleanup_fields) and bit packer (ht_pack_bits), the HT MagSgn decoder
+(ht_magsgn_decode), the forward 5/3 level (dwt53_fwd_level) and the 9/7
+levels (dwt97_fwd_level, dwt97_inv_level) of one checkout of the
 PyTorch/CUDA port on one CUDA device, at the shapes of chip_smoke.py, and
 prints one JSON line.
 
@@ -14,8 +16,14 @@ are built, so a parent and a change, each unpacked into its own directory,
 can be timed in turns (parent, change, change, parent) on one card.  The
 inputs are made by the checkout's own kernels from chip_smoke.py's frame
 generators (this script's copy):
-- MQ: the decision pool of the Part-1 gray batch (8 gray 512x512 frames,
-  560 blocks of 64x64, 11 planes);
+- decisions: the Part-1 gray batch (8 gray 512x512 frames, 560 blocks of
+  64x64, 11 planes); compaction: its slots, the two kernels launched
+  through the library's C entry points with the pool sized beforehand
+  (the wrapper reads the total back, which a time alone cannot hold);
+- MQ: the decision pool of the same batch;
+- extraction: the pyramid of the HT lossless gray batch (32 gray 512x512
+  frames, 2240 blocks), launched through the C entry point with the band
+  table already on the card (the wrapper uploads it);
 - cleanup: the blocks of the HT lossless gray batch (32 gray 512x512
   frames, 2240 blocks of 64x64) and of a config-4 tile-origin class (64
   tiles of 512x512 16-bit RGB, 12,864 blocks);
@@ -23,8 +31,10 @@ generators (this script's copy):
   checkout's cleanup kernel), packed by pack_bits, one call a stream, which
   every checkout has, and, where the checkout has it, by pack_streams, one
   launch for the three;
-- MagSgn decode: the native parse of the config-4 class's lossless
-  streams (12,864 blocks), made by the checkout's encode_batch;
+- MagSgn decode: the native parse of the HT lossless gray batch's
+  streams (2240 blocks) and of a config-4 class's lossless and lossy
+  (the image >> 8 at quality 85) streams (12,864 blocks each), made by the
+  checkout's encode_batch;
 - forward 5/3: forward_2d_53 on int32 [32, 512, 512] (the HT lossless
   batch's level 1) and [768, 512, 512] (config 4's level 1);
 - 9/7: forward_2d_97 on float32 [16, 512, 512] (the HT lossy batch's level
@@ -42,12 +52,13 @@ cleanup, packing and compaction), each synchronised; and the lossy leg
 (the image >> 8 at quality 85): the encode's transform step and the
 decode's inverse step, where the level kernels' savings should show end to
 end.
---ptxas also compiles the checkout's ht_enc.cu, ebcot_enc.cu, dwt53.cu and
-dwt97.cu with -Xptxas -v and reports the registers, spills and static
-shared memory of fields_kernel, mq_kernel, pack_kernel, dwt53_fwd_kernel,
-dwt97_fwd_kernel and dwt97_inv_kernel, and from cuobjdump -sass their
-instructions, barriers, shared-memory accesses, reciprocals (integer
-divisions), shuffles and FMAs.
+--ptxas also compiles the checkout's ht_enc.cu, ht_dec.cu, ebcot_enc.cu,
+dwt53.cu and dwt97.cu with -Xptxas -v and reports the registers, spills
+and static shared memory of the kernels KERNELS names, from cuobjdump
+-sass their instructions, barriers, shared-memory accesses, reciprocals
+(integer divisions), shuffles and FMAs, and for the decision and MagSgn
+kernels the CTAs an SM holds for 64x64 blocks (by registers, threads and
+shared memory, the checkout's own CTA size and dynamic shared memory).
 --profiler-probe N, after everything else, traces five forward 9/7 levels
 at [768, 512, 512] under torch.profiler N times, 30 s apart, and reports
 how many of their kernel events the trace kept and their mean duration,
@@ -72,7 +83,11 @@ T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the kernels whose ptxas figures --ptxas reports
 KERNELS = ("fields_kernel", "mq_kernel", "pack_kernel", "dwt53_fwd_kernel",
-           "dwt97_fwd_kernel", "dwt97_inv_kernel")
+           "dwt97_fwd_kernel", "dwt97_inv_kernel", "decision_kernel",
+           "block_stats_kernel", "magsgn_kernel")
+# H100 SM limits for the occupancy lines: registers, threads, CTAs, shared
+# memory (each CTA also reserves 1 KB)
+SM_REGS, SM_THREADS, SM_CTAS, SM_SMEM = 65536, 2048, 32, 233472
 
 
 # SASS opcodes counted per kernel: barriers, shared-memory loads and
@@ -86,7 +101,8 @@ def ptxas(tree, cuda_build):
     with the tree's nvcc flags."""
     out, sass = {}, {}
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
-    for src in ("ht_enc.cu", "ebcot_enc.cu", "dwt53.cu", "dwt97.cu"):
+    for src in ("ht_enc.cu", "ht_dec.cu", "ebcot_enc.cu", "dwt53.cu",
+                "dwt97.cu"):
         path = os.path.join(tree, "go_jpeg2000_tpu_torch", "csrc", src)
         build = os.path.join(tree, "go_jpeg2000_tpu_torch", "_build")
         os.makedirs(build, exist_ok=True)
@@ -137,6 +153,115 @@ def ptxas_lines(text):
     return out
 
 
+def ctas_per_sm(line, threads, dyn_smem):
+    """CTAs of `threads` threads an H100 SM holds for a kernel with ptxas'
+    resource line and `dyn_smem` bytes of dynamic shared memory: the least
+    of the register, thread, CTA and shared-memory limits (registers are
+    allocated per warp in units of 256)."""
+    regs = int(re.search(r"Used (\d+) registers", line).group(1))
+    m = re.search(r"(\d+) bytes smem", line)
+    smem = (int(m.group(1)) if m else 0) + dyn_smem
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    return {"threads": threads, "registers": regs, "smem_bytes": smem,
+            "ctas_per_sm": min(SM_REGS // (per_warp * warps),
+                               SM_THREADS // threads, SM_CTAS,
+                               SM_SMEM // (smem + 1024))}
+
+
+def occupancy(lines, ebcot_cuda, ht_dec_cuda):
+    """ctas_per_sm of the decision and MagSgn kernels for 64x64 blocks,
+    with the checkout's CTA sizes (the parent's: 512 decision threads and
+    3 (h+2)(w+2) + h w / 4 bytes, a MagSgn thread per quad)."""
+    if hasattr(ebcot_cuda, "decision_smem"):
+        dec = (ebcot_cuda.DEC_THREADS, ebcot_cuda.decision_smem(64, 64))
+    else:
+        dec = (512, 3 * 66 * 66 + 16 * 64)
+    ms = getattr(ht_dec_cuda, "MS_THREADS", 1024)
+    out = {}
+    for name, (threads, dyn) in (("decision_kernel", dec),
+                                 ("magsgn_kernel", (ms, 0))):
+        if name in lines:
+            out[name] = ctas_per_sm(lines[name], threads, dyn)
+    return out
+
+
+def extract_call(ht_enc_cuda, pyr, plan, n, levels):
+    """ht_extract_blocks through the library's C entry point with its band
+    table built and uploaded once, as ht_enc_cuda.extract_blocks builds it:
+    (launch function, output)."""
+    import torch
+    leaves = [ht_enc_cuda.band_leaf(pyr, lev, name, levels).contiguous()
+              for (_c, lev, name, *_rest) in plan.band_specs]
+    lossy = plan.deltas is not None
+    table = np.zeros((len(leaves), ht_enc_cuda.BAND_FIELDS), np.int64)
+    slot = 0
+    for bi, (leaf, spec) in enumerate(zip(leaves, plan.band_specs)):
+        c, _lev, _name, gy, gx, eh, ew, bh, bw, oy, ox = spec
+        delta = np.float32(plan.deltas[bi] if lossy else 1.0)
+        table[bi] = (leaf.data_ptr(), c, bh, bw, gx, eh, ew, oy, ox, slot,
+                     int(delta.view(np.int32)))
+        slot += gy * gx
+    dev = leaves[0].device
+    table_dev = torch.from_numpy(table).to(dev)
+    out = torch.empty((n * plan.nb, plan.cbh, plan.cbw), dtype=torch.int32,
+                      device=dev)
+    lib = ht_enc_cuda.load()
+
+    def fn():
+        rc = lib.ht_extract_blocks(
+            table_dev.data_ptr(), len(leaves), leaves[0].shape[1], n,
+            plan.nb, plan.cbh, plan.cbw, int(lossy), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"ht_extract_blocks: CUDA error {rc}")
+        return leaves
+    return fn, out
+
+
+def compact_call(ebcot_cuda, slots, total):
+    """ebcot_compact_rows' two kernels through the library's C entry points
+    with the decision pool allocated at its known total (no read-back)."""
+    import torch
+    nb, t = slots.shape
+    dev = slots.device
+    ndec = torch.zeros(nb, dtype=torch.int32, device=dev)
+    off = torch.zeros(nb, dtype=torch.int64, device=dev)
+    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    pool = torch.empty(total, dtype=torch.uint8, device=dev)
+    lib = ebcot_cuda.load()
+
+    def fn():
+        stream = torch.cuda.current_stream().cuda_stream
+        for sym, args in (("ebcot_compact_count",
+                           (slots.data_ptr(), nb, t, ndec.data_ptr(),
+                            off.data_ptr(), stats.data_ptr())),
+                          ("ebcot_compact_write",
+                           (slots.data_ptr(), nb, t, off.data_ptr(),
+                            pool.data_ptr()))):
+            rc = getattr(lib, sym)(*args, stream)
+            if rc:
+                raise RuntimeError(f"{sym}: CUDA error {rc}")
+        return pool
+    return fn, pool
+
+
+def magsgn_timing(cs, tp, decoder, ht_dec_cuda, frames, opts, dev):
+    """ht_magsgn_decode on the native parse of the frames' HT streams:
+    shape, CUDA-event and alone times, bound."""
+    batch = decoder.prepare_batch(tp.encode_batch(frames, opts, device=dev))
+    qinfo, pool, woff = decoder.upload_parsed(
+        *decoder.parse_chunk(batch, batch.bodies), dev)
+    plan = batch.plan
+    fn = lambda: ht_dec_cuda.magsgn_decode_blocks(  # noqa: E731
+        qinfo, pool, woff, plan.cbh, plan.cbw)
+    blocks = fn()
+    return {"shape": f"{blocks.shape[0]} blocks of {plan.cbh}x{plan.cbw}, "
+                     f"{cs.magsgn_bits(qinfo)} MagSgn bits",
+            "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+            "bound_ms": cs.magsgn_bound(qinfo, blocks)[0]}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
@@ -167,11 +292,28 @@ def main():
     cuda_build.build()
     if args.ptxas:
         result["ptxas"], result["sass"] = ptxas(tree, cuda_build)
+        result["occupancy"] = occupancy(result["ptxas"], ebcot_cuda,
+                                        ht_dec_cuda)
 
     _plan, planes, inputs = cs.ebcot_inputs(tp, cs.ebcot_gray(), dev)
-    slots = ebcot_cuda.decision_slots(*inputs, planes)
+    fn = lambda: ebcot_cuda.decision_slots(*inputs, planes)  # noqa: E731
+    slots = fn()
+    result["ebcot_decision_slots"] = {
+        "shape": f"{slots.shape[0]} blocks of 64x64, {planes} planes",
+        "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+        "bound_ms": cs.decision_bound(inputs[0], inputs[3], planes,
+                                      slots)[0]}
     pool, ndec, off, largest = ebcot_cuda.compact_rows(slots)
-    del slots
+    fn, kpool = compact_call(ebcot_cuda, slots, pool.numel())
+    fn()
+    if not torch.equal(kpool, pool):
+        raise AssertionError("ebcot_compact_rows through its entry points "
+                             "differs from the wrapper")
+    result["ebcot_compact_rows"] = {
+        "shape": f"{slots.numel()} slots, {pool.numel()} decisions",
+        "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+        "bound_ms": cs.compact_bound(slots, pool.numel())[0]}
+    del slots, kpool
     fn = lambda: ebcot_cuda.mq_encode(pool, ndec, off, largest)  # noqa: E731
     ms = cs.cuda_ms(fn)
     result["ebcot_mq_encode"] = {
@@ -185,9 +327,22 @@ def main():
     for label, (frames, opts) in (("gray", (cs.main_gray(), lossless)),
                                   ("config-4 class", cs.config4_class(tp))):
         plan, blocks, hs, ws = cs.ht_blocks(tp, frames, opts, dev)
-        del frames
         shape = (f"{blocks.shape[0]} blocks of "
                  f"{blocks.shape[1]}x{blocks.shape[2]}")
+        if label == "gray":
+            levels, pyr = cs.ht_pyramid(tp, frames, opts, dev)
+            fn, out = extract_call(ht_enc_cuda, pyr, plan, len(frames),
+                                   levels)
+            fn()
+            if not torch.equal(out, blocks):
+                raise AssertionError("ht_extract_blocks through its entry "
+                                     "point differs from the wrapper")
+            result["ht_extract_blocks gray"] = {
+                "shape": shape, "ms": cs.cuda_ms(fn),
+                "alone_ms": cs.device_ms(fn),
+                "bound_ms": cs.extract_bound(pyr, blocks)[0]}
+            del pyr, out
+        del frames
         fn = lambda: ht_enc_cuda.cleanup_values(blocks, hs, ws)  # noqa
         result[f"ht_cleanup_fields {label}"] = {
             "shape": shape, "ms": cs.cuda_ms(fn),
@@ -213,22 +368,14 @@ def main():
         del fields
         torch.cuda.empty_cache()
 
-    frames, opts = cs.config4_class(tp)
-    batch = decoder.prepare_batch(tp.encode_batch(frames, opts, device=dev))
-    del frames
-    qinfo, pool, woff = decoder.upload_parsed(
-        *decoder.parse_chunk(batch, batch.bodies), dev)
-    plan = batch.plan
-    fn = lambda: ht_dec_cuda.magsgn_decode_blocks(  # noqa: E731
-        qinfo, pool, woff, plan.cbh, plan.cbw)
-    blocks = fn()
-    result["ht_magsgn_decode config-4 class"] = {
-        "shape": f"{blocks.shape[0]} blocks of {plan.cbh}x{plan.cbw}, "
-                 f"{cs.magsgn_bits(qinfo)} MagSgn bits",
-        "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
-        "bound_ms": cs.magsgn_bound(qinfo, blocks)[0]}
-    del batch, qinfo, pool, woff, blocks
-    torch.cuda.empty_cache()
+    for label, (frames, opts) in (
+            ("gray", (cs.main_gray(), lossless)),
+            ("config-4 class", cs.config4_class(tp)),
+            ("config-4 lossy class", cs.config4_class(tp, lossless=False))):
+        result[f"ht_magsgn_decode {label}"] = magsgn_timing(
+            cs, tp, decoder, ht_dec_cuda, frames, opts, dev)
+        del frames
+        torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     for n in (cs.N_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):

@@ -17,7 +17,9 @@ streams of every legal code-block shape; the forward 5/3 kernel and both
 9/7 kernels are exact at any even width.  The HT decode kernels' outputs are equal bit for bit,
 float32 leaves too.  The EBCOT kernels' slots, decision pools, MQ
 segments and lengths are equal exactly (MQ segments also to the native
-coder's), on the MQ stress streams of ops/mq_device.py too.  The band
+coder's), on the MQ stress streams of ops/mq_device.py too; the decision
+slots also on ebcot_device.stress_blocks and the MagSgn blocks on
+ht_dec.stress_cases.  The band
 statistics' counts are equal, their float64 sums within a relative 1e-12 (the order of
 the atomics varies).  The tile-sharded encode and decode give the CPU's
 bytes and pixels."""
@@ -335,6 +337,34 @@ def test_ebcot_kernels_match_plain(cuda, case):
     torch.cuda.synchronize()
     for k in ebcot_cuda.LAUNCHES:
         assert ebcot_cuda.LAUNCHES[k] == before[k] + 1, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["snake", "comb", "single_live",
+                                  "all_planes"])
+def test_decision_kernel_stress_blocks(cuda, name):
+    arrays = ebcot_device.stress_blocks()[name]
+    mags, signs, classes, valid = (torch.from_numpy(a).to(cuda)
+                                   for a in arrays[:4])
+    planes = arrays[4]
+    got = ebcot_cuda.decision_slots(mags, signs, classes, valid, planes)
+    assert torch.equal(got, ebcot_device.decision_slots(
+        mags, signs, classes, valid, planes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m32", "uncoded", "pool_end", "odd",
+                                  "odd_small", "gaps", "wide", "wide_62"])
+def test_magsgn_kernel_stress_cases(cuda, name):
+    case = {c[0]: c[1:] for c in ht_dec.stress_cases(
+        ht_dec_cuda.STAGE_WORDS)}[name]
+    q, buf, woff, cbh, cbw, off = case
+    qinfo = torch.from_numpy(q).to(cuda)
+    pool = torch.from_numpy(buf).to(cuda)[off:]
+    woff = torch.from_numpy(woff).to(cuda)
+    got = ht_dec_cuda.magsgn_decode_blocks(qinfo, pool, woff, cbh, cbw)
+    assert torch.equal(got, ht_dec.magsgn_decode_blocks(qinfo, pool, woff,
+                                                        cbh, cbw))
 
 
 def _row_segments(rows, off, lens):

@@ -16,6 +16,14 @@ input and the JAX package's decodes.
 * encode_batch with backend "device" (path A), "hybrid" (path B) and
   "native" (path C) against the JAX package's encode_batch, and
   decode_batch, on gray, RGB (RCT) and 16-bit frames;
+* a CPU model of the ebcot_decision_slots kernel's decomposition (one
+  (block, plane) at a time: a 32-bit word of flag nibbles per stripe
+  column, the SPP fixpoint by sweeps over runs of RUN_COLS columns
+  resolved in visiting order, closed-form slots) against the plain
+  version and the JAX package, on random blocks and on
+  ebcot_device.stress_blocks (an SPP chain snaking through a 64x64 block,
+  stripe-long chains, one live plane, all 29 planes); the kernel's shared
+  memory footprint against every code-block shape;
 * what stays outside the slice raises.
 """
 import dataclasses
@@ -68,7 +76,10 @@ def _batch(blocks, bands, h, w):
     return mags, signs, classes, valid
 
 
-def _check_slots(blocks, bands, h, w, max_planes):
+def _check_slots(blocks, bands, h, w, max_planes, model=None):
+    """The plain version against the JAX package and the traced serial
+    coder; `model`: the planes (indices from the top, or "all") that also
+    go through the decision kernel's model (_plane_model)."""
     mags, signs, classes, valid = _batch(blocks, bands, h, w)
     want = np.asarray(jax_ebcot.decision_slots(mags, signs, classes, valid,
                                                max_planes))
@@ -77,6 +88,9 @@ def _check_slots(blocks, bands, h, w, max_planes):
         torch.from_numpy(classes), torch.from_numpy(valid),
         max_planes).numpy()
     np.testing.assert_array_equal(got, want)
+    if model is not None:
+        _model_planes(mags, signs, classes, valid, max_planes, want,
+                      None if model == "all" else model)
     assert got.shape[1] == max_planes * ebcot_device.slots_per_plane(h, w)
     for stream, c, band in zip(ebcot_device.compact_host(got), blocks,
                                bands):
@@ -88,10 +102,14 @@ def _check_slots(blocks, bands, h, w, max_planes):
 
 @pytest.mark.parametrize("shape,mag,density", [
     ((8, 8), 200, 0.6), ((16, 16), 2000, 0.4), ((4, 4), 3, 0.9),
-    ((12, 16), 50, 0.2), ((32, 32), 500, 0.5)])
+    ((12, 16), 50, 0.2), ((32, 32), 500, 0.5), ((8, 3), 9, 0.3),
+    ((4, 70), 40, 0.5)])
 def test_decision_slots_match_jax(shape, mag, density):
     """The three band classes in one batch, at each shape of the JAX
-    package's decision-kernel cases, with one plane above the data's."""
+    package's decision-kernel cases and two more (a block narrower than 4
+    columns in a padded batch, runs of the kernel's model cut by the
+    width), with one plane above the data's; every (block, plane) also
+    through the decision kernel's model."""
     rng = np.random.RandomState(shape[0] * 1000 + mag)
     blocks = []
     for _ in range(3):
@@ -100,7 +118,7 @@ def test_decision_slots_match_jax(shape, mag, density):
         blocks.append(c)
     h = -(-shape[0] // 4) * 4
     _check_slots(blocks, ["LL", "HL", "HH"], h, max(shape[1], 4),
-                 int(mag).bit_length() + 1)
+                 int(mag).bit_length() + 1, model="all")
 
 
 def test_decision_slots_ragged_batch():
@@ -117,7 +135,7 @@ def test_decision_slots_ragged_batch():
         c[rng.rand(h, w) < 0.55] = 0
         blocks.append(c)
         bands.append(band)
-    slots = _check_slots(blocks, bands, 64, 64, 18)
+    slots = _check_slots(blocks, bands, 64, 64, 18, model=[0, 3, 9, 14, 17])
     assert (slots[-1] == ebcot_device.EMPTY).all()
 
 
@@ -128,11 +146,282 @@ def test_decision_slots_propagation_chain_and_run_length():
     for i in range(16):
         chain[i, i] = 3
     chain[0, 0] = 7
-    _check_slots([chain], ["LL"], 16, 16, 8)
+    _check_slots([chain], ["LL"], 16, 16, 8, model="all")
     sparse = np.zeros((16, 16), np.int32)
     sparse[9, 3] = -1
     sparse[2, 12] = 1
-    _check_slots([sparse], ["HH"], 16, 16, 4)
+    _check_slots([sparse], ["HH"], 16, 16, 4, model="all")
+
+
+# ------------------------------------- the decision kernel's decomposition
+
+N_BASE, N_SIGN, N_SIN, N_BIT, N_ETA = 0, 4, 8, 12, 16
+
+
+def _zc_rule(h, v, d, bc):
+    """Table D.1 for scalar counts (the plain version's rule)."""
+    if bc == 1:
+        h, v = v, h
+    if bc in (0, 1):
+        if h == 2:
+            return 8
+        if h == 1:
+            return 7 if v >= 1 else (6 if d >= 1 else 5)
+        if v:
+            return 4 if v == 2 else 3
+        return 2 if d >= 2 else d
+    hv = h + v
+    if d >= 3:
+        return 8
+    if d == 2:
+        return 7 if hv >= 1 else 6
+    if d == 1:
+        return 5 if hv >= 2 else (4 if hv == 1 else 3)
+    return 2 if hv >= 2 else hv
+
+
+# ZC context of an 8-bit neighbour mask (bit k: NW N NE W E SW S SE)
+_ZC = np.asarray([[_zc_rule(bin(m & 0x18).count("1"),
+                            bin(m & 0x42).count("1"),
+                            bin(m & 0xA5).count("1"), bc)
+                   for m in range(256)] for bc in range(3)], np.int64)
+
+
+def _nib(a, at):
+    return (a >> at) & 0xF
+
+
+def _ext(words, at, g, x):
+    """A flag's 6-bit columns (row above the stripe, rows 0-3, row below)
+    at padded stripe g + 1 and padded columns x (arrays)."""
+    return (((_nib(words[g, x], at) >> 3) & 1)
+            | (_nib(words[g + 1, x], at) << 1)
+            | ((_nib(words[g + 2, x], at) & 1) << 5))
+
+
+def _mask8(l, cn, cs, rt, r):
+    return (((l >> r) & 1) | (((cn >> r) & 1) << 1) | (((rt >> r) & 1) << 2)
+            | (((l >> (r + 1)) & 1) << 3) | (((rt >> (r + 1)) & 1) << 4)
+            | (((l >> (r + 2)) & 1) << 5) | (((cs >> (r + 2)) & 1) << 6)
+            | (((rt >> (r + 2)) & 1) << 7))
+
+
+def _any8(l, c, r):
+    return (l | (l >> 1) | (l >> 2) | c | (c >> 2) | r | (r >> 1)
+            | (r >> 2)) & 0xF
+
+
+def _sc(m, sl, sc, sr, r, sign):
+    def contrib(bit, sg):
+        return np.where((m >> bit) & 1, 1 - 2 * sg, 0)
+    hc = np.clip(contrib(3, (sl >> (r + 1)) & 1)
+                 + contrib(4, (sr >> (r + 1)) & 1), -1, 1)
+    vc = np.clip(contrib(1, (sc >> r) & 1) + contrib(6, (sc >> (r + 2)) & 1),
+                 -1, 1)
+    ctx = np.where(hc == 0, 9 + (vc != 0), 12 + hc * vc)
+    xr = ((hc < 0) | ((hc == 0) & (vc < 0))).astype(np.int64)
+    return ctx | ((sign ^ xr) << 5)
+
+
+def _plane_model(mags, signs, valid, bc, p, run_cols=ebcot_cuda.RUN_COLS):
+    """One (block, plane) as the kernel computes it: (the plane's slots
+    uint8 [G * W * 23], fixpoint sweeps).  Columns are vectors here; the
+    sweeps loop over the offset inside a run, every run at once, as the
+    kernel's threads run side by side."""
+    h, w = mags.shape
+    gn = h // 4
+    maxmag = int(np.where(valid, mags, 0).max()) if mags.size else 0
+    empty = np.full(gn * w * 23, 0xFF, np.uint8)
+    if maxmag <= 0 or p >= maxmag.bit_length():
+        return empty, 0
+    rows = np.nonzero(valid.any(axis=1))[0]
+    hval = int(rows[-1]) + 1 if rows.size else 0
+    m = mags.astype(np.int64).reshape(gn, 4, w)
+    v = valid.reshape(gn, 4, w)
+    sin = ((m >> (p + 1)) > 0) & v
+    word = np.zeros((gn + 2, w + 2), np.int64)
+    for r in range(4):
+        word[1:-1, 1:-1] |= (
+            ((v[:, r] & ~sin[:, r]) << (N_BASE + r))
+            | ((signs.reshape(gn, 4, w)[:, r] != 0) << (N_SIGN + r))
+            | (sin[:, r] << (N_SIN + r))
+            | ((((m[:, r] >> p) & 1) * v[:, r]) << (N_BIT + r))
+            | ((((m[:, r] >> (p + 2)) > 0) & v[:, r]) << (N_ETA + r)))
+    gi = np.arange(gn)[:, None]
+    e = [_ext(word, N_SIN, gi, np.arange(w)[None] + k) for k in range(3)]
+    ns = _any8(*e)                                     # [gn, w]
+    base, bit = _nib(word[1:-1, 1:-1], N_BASE), _nib(word[1:-1, 1:-1],
+                                                      N_BIT)
+    # fixpoint: nw holds mem | new << 4 per padded column
+    runs = -(-w // run_cols)
+    src = np.zeros((gn + 2, w + 2), np.int64)
+    sweeps = 0
+    while True:
+        sweeps += 1
+        dst = np.zeros_like(src)
+        left = src[1:-1, [min(j * run_cols, w) for j in range(runs)]] >> 4
+        for k in range(run_cols):
+            xs = np.arange(runs) * run_cols + k
+            ok = xs < w
+            xc = np.minimum(xs, w - 1)
+            up = (src[:-2, :] >> 7) & 1                # stripe above, row 3
+            t = (ns[:, xc] | left | (left >> 1) | ((left << 1) & 0xF)
+                 | up[:, xc] | up[:, xc + 1] | up[:, xc + 2])
+            mem = np.zeros_like(t)
+            nwb = np.zeros_like(t)
+            for r in range(4):
+                tr = (t >> r) | ((nwb >> (r - 1)) if r else 0)
+                mr = (base[:, xc] >> r) & tr & 1
+                mem |= mr << r
+                nwb |= (mr & (bit[:, xc] >> r)) << r
+            dst[1:-1, xc[ok] + 1] = (mem | nwb << 4)[:, ok]
+            left = nwb
+        if np.array_equal(dst, src):
+            break
+        src = dst
+    mem = src[1:-1, 1:-1] & 0xF
+    nw_ = mem & bit
+    # the slots, one column at a time (all columns at once)
+    pad = lambda a: np.pad(a, 1)                       # noqa: E731
+    sinp, memp, bitp = (_nib(word, N_SIN), pad(mem), _nib(word, N_BIT))
+    basep, signp = _nib(word, N_BASE), _nib(word, N_SIGN)
+    flags = {"si": sinp, "nv": memp & bitp, "sa": sinp | (memp & bitp),
+             "bc": basep & ~memp & bitp, "sg": signp}
+
+    def ext(f, k):
+        a = flags[f]
+        x = np.arange(w)[None] + k
+        return (((a[gi, x] >> 3) & 1) | (a[gi + 1, x] << 1)
+                | ((a[gi + 2, x] & 1) << 5))
+    si, nv, sa, bcl, sg = ([ext(f, k) for k in range(3)]
+                           for f in ("si", "nv", "sa", "bc", "sg"))
+    own = word[1:-1, 1:-1]
+    sin_o, bit_o, eta = _nib(own, N_SIN), bit, _nib(own, N_ETA)
+    sign = _nib(own, N_SIGN)
+    cand = base & ~mem & 0xF
+    any_sa = _any8(*sa)
+    nbc = (any_sa | ((bcl[0] | (bcl[0] >> 1)) & 0xF) | ((bcl[0] >> 2) & 0x7)
+           | ((bcl[1] | bcl[2]) & 1))
+    full = (4 * np.arange(gn)[:, None] + 4) <= hval
+    rl = full & ((cand & ~nbc & 0xF) == 0xF)
+    fs = np.where(bit_o, 4, 4)
+    for r in range(3, -1, -1):
+        fs = np.where((bit_o >> r) & 1, r, fs)
+    spp = np.full((gn, w, 8), 0xFF, np.int64)
+    mrp = np.full((gn, w, 4), 0xFF, np.int64)
+    cup = np.full((gn, w, 11), 0xFF, np.int64)
+    cup[..., 0] = np.where(rl, 17 | np.where(fs < 4, 32, 0), 0xFF)
+    cup[..., 1] = np.where(rl & (fs < 4), 18 | (((fs >> 1) & 1) << 5), 0xFF)
+    cup[..., 2] = np.where(rl & (fs < 4), 18 | ((fs & 1) << 5), 0xFF)
+    spl, spr, spn = si[0] | (nv[0] & 0x1F), si[2] | (nv[2] & 1), si[1] | nv[1]
+    cul, cur, cun = sa[0] | (bcl[0] & 0x1F), sa[2] | (bcl[2] & 1), sa[1] | bcl[1]
+    for r in range(4):
+        bt, sn = (bit_o >> r) & 1, (sign >> r) & 1
+        ms = _mask8(spl, spn, si[1], spr, r)
+        mr = (mem >> r) & 1
+        spp[..., 2 * r] = np.where(mr, _ZC[bc][ms] | (bt << 5), 0xFF)
+        spp[..., 2 * r + 1] = np.where(
+            mr & bt, _sc(ms, sg[0], sg[1], sg[2], r, sn), 0xFF)
+        mrp[..., r] = np.where(
+            (sin_o >> r) & 1,
+            np.where((eta >> r) & 1, 16, np.where((any_sa >> r) & 1, 15, 14))
+            | (bt << 5), 0xFF)
+        mc = _mask8(cul, cun, sa[1], cur, r)
+        zc_emit = ((cand >> r) & 1).astype(bool) & (~rl | (r > fs))
+        sc_emit = (zc_emit & (bt == 1)) | (rl & (fs == r))
+        cup[..., 3 + 2 * r] = np.where(zc_emit, _ZC[bc][mc] | (bt << 5), 0xFF)
+        cup[..., 4 + 2 * r] = np.where(
+            sc_emit, _sc(mc, sg[0], sg[1], sg[2], r, sn), 0xFF)
+    out = np.concatenate([spp.reshape(-1), mrp.reshape(-1), cup.reshape(-1)])
+    return out.astype(np.uint8), sweeps
+
+
+def _plain_sweeps(mags, valid, p):
+    """Sweeps the plain version's whole-block Jacobi fixpoint takes at plane
+    p (the last one finds no change)."""
+    h, w = mags.shape
+    r = torch.from_numpy(np.arange(h)[:, None] % 4 * np.ones((1, w), int))
+    m, v = torch.from_numpy(mags[None]), torch.from_numpy(valid[None])
+    s_in = ((m >> (p + 1)) > 0) & v
+    bit = (((m >> p) & 1) > 0) & v
+    nb_sin = torch.zeros_like(s_in)
+    for (dy, dx) in ebcot_device._OFFS:
+        nb_sin |= ebcot_device._shift_to(s_in, dy, dx)
+    base = v & ~s_in
+    member, sweeps = base & nb_sin, 0
+    while True:
+        sweeps += 1
+        new = member & bit
+        trig = torch.zeros_like(member)
+        for (dy, dx) in ((-1, -1), (-1, 0), (-1, 1), (0, -1), (1, -1)):
+            trig |= (ebcot_device._shift_to(new, dy, dx)
+                     & ebcot_device._before_sample(dy, dx, r))
+        member2 = base & (nb_sin | trig)
+        if torch.equal(member2, member):
+            return sweeps
+        member = member2
+
+
+def _model_planes(mags, signs, classes, valid, max_planes, want, picks=None):
+    """Every (block, plane) of `picks` (default: all) through _plane_model,
+    each against its slice of `want`; returns the largest sweep count."""
+    nb, h, w = mags.shape
+    per = ebcot_device.slots_per_plane(h, w)
+    most = 0
+    for b in range(nb):
+        for pi in (range(max_planes) if picks is None else picks):
+            got, sweeps = _plane_model(mags[b], signs[b], valid[b],
+                                       int(classes[b]), max_planes - 1 - pi)
+            np.testing.assert_array_equal(
+                got, want[b, pi * per:(pi + 1) * per], err_msg=f"{b}, {pi}")
+            most = max(most, sweeps)
+    return most
+
+
+@pytest.mark.parametrize("name", ["snake", "comb", "single_live",
+                                  "all_planes"])
+def test_decision_stress_blocks(name):
+    """ebcot_device.stress_blocks (what tests/test_torch_cuda.py and
+    chip_smoke.py put to the kernel on the card): the plain version equals
+    the JAX package's, and the kernel's decomposition equals both on every
+    plane a block codes, one empty plane and, for the snake, the plane of
+    the chain, which the plain fixpoint takes over 100 sweeps to settle
+    and the runs of RUN_COLS columns under 30."""
+    mags, signs, classes, valid, planes = ebcot_device.stress_blocks()[name]
+    if name == "all_planes":            # JAX's eager planes: one block
+        mags, signs, classes, valid = (a[:1] for a in (mags, signs, classes,
+                                                       valid))
+    got = ebcot_cuda.decision_slots(*(torch.from_numpy(a) for a in (
+        mags, signs, classes, valid)), planes).numpy()
+    want = np.asarray(jax_ebcot.decision_slots(mags, signs, classes, valid,
+                                               planes))
+    np.testing.assert_array_equal(got, want)
+    picks = {"all_planes": [0, 1, 14, 28]}.get(name)
+    most = _model_planes(mags, signs, classes, valid, planes, want, picks)
+    if name == "snake":
+        p = 3
+        assert _plain_sweeps(mags[0], valid[0], p) > 100
+        assert most < 30
+        one = np.where(mags[0] == 8)
+        assert len(one[0]) > 100
+    if name == "single_live":
+        assert (got[:, :-ebcot_device.slots_per_plane(64, 64)] == 0xFF).all()
+
+
+def test_decision_kernel_shared_memory_fits_every_code_block():
+    """The kernel's CTA takes every block the wrapper took before it (a
+    height that is a multiple of 4; the old footprint, a byte map and two
+    membership maps of (h + 2)(w + 2) bytes and a byte per column, within
+    the limit), every code-block shape (at most 4096 samples) among them."""
+    limit = ebcot_cuda.MAX_SMEM_BYTES
+    for h in range(4, 4097, 4):
+        for w in range(1, 4096 // h + 1):
+            assert ebcot_cuda.decision_smem(h, w) <= limit, (h, w)
+    for h in range(4, 300, 4):
+        for w in range(1, 300):
+            if 3 * (h + 2) * (w + 2) + (h // 4) * w <= limit:
+                assert ebcot_cuda.decision_smem(h, w) <= limit, (h, w)
+    assert ebcot_cuda.decision_smem(64, 64) < 40 * 1024
 
 
 # ------------------------------------------------------------- the MQ chain

@@ -7,7 +7,18 @@ all-host native ht_t2_decode_frames; blocks_to_pyramid exact, float32
 leaves too (the same float32 operations in the same order: (|q| + 0.5) *
 delta, then the sign); fused_decode exact for lossless, within one grey
 level for lossy (the JAX package's jitted float32 lifting may round a
-sample the other way)."""
+sample the other way).
+
+A CPU model of the ht_magsgn_decode kernel's decomposition (threads of
+QUADS_PER_THREAD consecutive quads, a serial prefix inside a thread and a
+scan of the thread totals, the block's words staged in a window of
+STAGE_WORDS words from the 16-byte boundary below its first word, fields
+as funnel shifts of a word pair that slides along, two 32-byte runs per
+thread or per-quad stores) equals magsgn_decode_blocks and the JAX
+package, exactly, on ht_dec.stress_cases (32-bit fields, uncoded blocks,
+a block at the pool's end, odd widths, offsets with gaps, a block past the
+window) and on real parses; tests/test_torch_cuda.py and chip_smoke.py put
+the kernel to the same cases on the card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +34,7 @@ from go_jpeg2000_tpu.ops import ht_tpu_decode
 from go_jpeg2000_tpu.tcd import geometry as jgeo
 from go_jpeg2000_tpu_torch.models import decoder
 from go_jpeg2000_tpu_torch.native import loader
-from go_jpeg2000_tpu_torch.ops import dwt, ht_dec
+from go_jpeg2000_tpu_torch.ops import dwt, ht_dec, ht_dec_cuda
 
 
 def _nat(h, w, seed, depth=8):
@@ -90,9 +101,16 @@ def _blocks(batch, parsed):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_magsgn_decode_matches_jax_and_native(name):
+    """Also the MagSgn kernel's model: on a parse (blocks one after
+    another) every word it reads lies in its block's window."""
     _frames, _streams, batch, jplan, parsed = _case(name)
     qinfo, pool, woff, *_ = parsed
     got = _blocks(batch, parsed).numpy()
+    model, inside, outside = _magsgn_model(
+        qinfo.view(np.int32), pool.view(np.int32), woff, batch.plan.cbh,
+        batch.plan.cbw)
+    np.testing.assert_array_equal(model, got)
+    assert inside > 0 and outside == 0
     ref = np.asarray(jax.jit(ht_tpu_decode.magsgn_decode_blocks,
                              static_argnums=(3, 4))(
         qinfo, pool, woff.astype(np.int32), jplan.cbh, jplan.cbw))
@@ -185,3 +203,122 @@ def test_blocks_to_pyramid_offset_grid_matches_jax(lossless):
                     np.asarray(r[k]).view(np.int32))
                 if not dequant:
                     np.testing.assert_array_equal(g[k].numpy(), h[k])
+
+
+# ------------------------------------------ the MagSgn kernel's decomposition
+
+def _magsgn_model(qinfo, pool, woff, cbh, cbw):
+    """ht_magsgn_decode as the kernel computes it, every block's threads at
+    once: (int32 [NB, cbh, cbw], words read inside the window, words read
+    from the pool outside it)."""
+    nb, qh, qw = qinfo.shape
+    nq = qh * qw
+    per = ht_dec_cuda.QUADS_PER_THREAD
+    stage = ht_dec_cuda.STAGE_WORDS
+    words = pool.astype(np.uint32).astype(np.int64)
+    pw = words.size
+    last = pw - 1
+    busy = -(-nq // per)                     # threads with quads
+    threads = min(max(-(-busy // 32) * 32, 32), ht_dec_cuda.MS_THREADS)
+    out = np.full((nb, cbh, cbw), -7, np.int64)
+    inside = outside = 0
+    for b in range(nb):
+        a0 = max(int(woff[b]) & ~3, 0)
+        a1 = int(woff[b + 1]) + 1 if b + 1 < nb else pw
+        a1 = min(a1, pw, a0 + stage)
+        staged = max(a1 - a0, 0)
+        win = np.zeros(stage, np.int64)      # cp.async zero-fills the tail
+        win[:staged] = words[a0:a0 + staged]
+        q = qinfo[b].reshape(-1).astype(np.uint32).astype(np.int64)
+        base = int(woff[b]) * 32
+        for q0 in range(0, nq, per * threads):
+            qs = q0 + per * np.arange(threads)
+            info = np.zeros((threads, per), np.int64)
+            for k in range(per):
+                ok = qs + k < nq
+                info[ok, k] = q[(qs + k)[ok]]
+            u, rho = info & 0xFF, (info >> 8) & 0xF
+            ek, e1 = (info >> 12) & 0xF, (info >> 16) & 0xF
+            m = np.stack([np.where((rho >> i) & 1, u - ((ek >> i) & 1), 0)
+                          for i in range(4)], axis=-1)        # [T, per, 4]
+            tot = m.reshape(threads, -1).sum(axis=1)
+            pos = base + np.cumsum(tot) - tot                 # block scan
+            base += int(tot.sum())
+            c = np.zeros((threads, per, 4), np.int64)
+            for t in np.nonzero(qs < nq)[0]:
+                p, cw, lo, hi = int(pos[t]), None, 0, 0
+
+                def word(i):
+                    nonlocal inside, outside
+                    i = max(min(i, last), 0)
+                    if 0 <= i - a0 < staged:
+                        inside += 1
+                        return int(win[i - a0])
+                    outside += 1
+                    return int(words[i])
+                for k in range(per):
+                    for i in range(4):
+                        if not (rho[t, k] >> i) & 1:
+                            continue
+                        mi = int(m[t, k, i])
+                        wi = p >> 5
+                        if wi != cw:
+                            lo = hi if cw is not None and wi == cw + 1 \
+                                else word(wi)
+                            hi = word(wi + 1)
+                            cw = wi
+                        v = ((hi << 32 | lo) >> (p & 31)) & 0xFFFFFFFF
+                        v &= 0xFFFFFFFF if mi >= 32 else (1 << mi) - 1
+                        if mi < 32:
+                            v |= ((int(e1[t, k]) >> i) & 1) << mi
+                        c[t, k, i] = -((v >> 1) + 1) if v & 1 else (v >> 1) + 1
+                        p += mi
+            # stores: two 32-byte runs for 4 quads of one quad row, else per
+            # quad
+            for t in np.nonzero(qs < nq)[0]:
+                for k in range(per):
+                    qq = int(qs[t]) + k
+                    if qq >= nq:
+                        break
+                    y, x = 2 * (qq // qw), 2 * (qq % qw)
+                    for r in range(2):
+                        for j in range(2):
+                            if y + r < cbh and x + j < cbw:
+                                out[b, y + r, x + j] = c[t, k, r + 2 * j]
+    return out.astype(np.int32), inside, outside
+
+
+def _stress(name):
+    for case in ht_dec.stress_cases(ht_dec_cuda.STAGE_WORDS):
+        if case[0] == name:
+            return case[1:]
+    raise KeyError(name)
+
+
+STRESS = ["m32", "uncoded", "pool_end", "odd", "odd_small", "gaps", "wide",
+          "wide_62"]
+
+
+@pytest.mark.parametrize("name", STRESS)
+def test_magsgn_stress_cases_match_jax(name):
+    """ht_dec.stress_cases (what tests/test_torch_cuda.py and chip_smoke.py
+    put to the kernel on the card): the kernel's model, the plain version
+    and the JAX package agree exactly, and the blocks the cases put past
+    their windows do read past them."""
+    q, buf, woff, cbh, cbw, off = _stress(name)
+    pool = buf[off:]
+    got, inside, outside = _magsgn_model(q, pool, woff, cbh, cbw)
+    plain = ht_dec.magsgn_decode_blocks(
+        torch.from_numpy(q), torch.from_numpy(pool), torch.from_numpy(woff),
+        cbh, cbw).numpy()
+    np.testing.assert_array_equal(got, plain)
+    ref = np.asarray(jax.jit(ht_tpu_decode.magsgn_decode_blocks,
+                             static_argnums=(3, 4))(
+        q.view(np.uint32), pool.view(np.uint32), woff.astype(np.int32), cbh,
+        cbw))
+    np.testing.assert_array_equal(plain, ref)
+    assert inside > 0
+    if name in ("m32", "gaps"):
+        assert outside > 0
+    elif name != "pool_end":
+        assert outside == 0, outside
