@@ -17,10 +17,10 @@ sources in this checkout.  Phases, each of which raises on failure:
    for 9/7 inverse(forward(x)) within 1e-3 of x; kernel and plain times
    with CUDA events and each kernel's device time alone (its calls queued
    behind a spin kernel, device_ms) at [32, 512, 512] (5/3) and [16, 512,
-   512] (9/7); the forward 5/3 kernel and both 9/7 kernels also on the
-   first level of a 4096x4096 and an 8192x8192 frame (wider than the
-   inverse 5/3's shared-memory strip): exact, one launch each, no plain
-   level, timed;
+   512] (9/7); all four level kernels also on the first level of a
+   4096x4096 and an 8192x8192 frame (every one keeps its strip in
+   registers, so any even width takes it): exact, one launch each, no
+   plain level, timed;
 4. each HT encode kernel (block extraction, cleanup fields, bit packing,
    pool compaction) against its plain torch version on the card, on the
    block batches of the main paths (32 gray 512x512 lossless, 2240 blocks;
@@ -71,7 +71,12 @@ sources in this checkout.  Phases, each of which raises on failure:
    segment pool) against its plain torch version on the card, on the block
    batches of the EBCOT main path (8 gray 512x512, 560 blocks) and of
    16-bit RGB, pure noise, all-zero and ragged (96x80) frames: slots,
-   decision pools, segment pools and lengths equal; the decision kernel
+   decision pools, segment pools and lengths equal; the compaction also
+   on ebcot_cuda.compact_stress_slots (0xFF rows, decisions at both ends
+   of every chunk, runs across 16-byte boundaries, rows off 16 bytes and
+   off the chunk, 13-byte rows, 0xFF fill planes) with the slots 0 and 5
+   bytes past a 16-byte boundary, and timed beside one library call that
+   computes the same pool (torch.masked_select); the decision kernel
    also on ops/ebcot_device.stress_blocks (an SPP chain snaking through
    64x64 blocks, stripe-long chains under a ragged mask, one live plane
    under eleven empty ones, 29 planes); the MQ segments also
@@ -117,7 +122,9 @@ sources in this checkout.  Phases, each of which raises on failure:
 Each of the eight main paths runs with the launch counts set to 0 just
 before it and read just after.  The line before the last is a JSON summary of the
 kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
-and its operations over the card's peak rate for their type; the last line
+and its operations over the card's peak rate for their type, and the time
+of one PyTorch call that computes the same function where there is one
+(the decision compaction's torch.masked_select); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -185,9 +192,8 @@ C4_RES = 5
 C4_CHECK = 2048
 # a config-4 tile-origin class: 64 tiles of 512x512 (8 x 8 of them)
 C4_CLASS_SIDE = 8
-# frame sides whose first level is checked on the kernels that keep their
-# strip in registers (the forward 5/3 and both 9/7), beyond the inverse
-# 5/3's shared-memory limit
+# frame sides whose first level is checked on every level kernel (each
+# keeps its strip in registers, so any even width takes it)
 WIDE_SIDES = (4096, 8192)
 # int64 fields per band in the block tables of ht_extract_blocks and
 # ht_blocks_to_pyramid
@@ -313,14 +319,14 @@ def check_kernels(dwt, dwt_cuda, dev, card, kind):
 
 
 def check_wide_levels(dwt, dwt_cuda, transforms, dev, card):
-    """Phase 3b: the kernels that keep their strip in registers take any
-    even width: the first level of a 4096x4096 and an 8192x8192 frame
-    through transforms.forward_level (5/3 and 9/7) and
-    transforms.inverse_level (9/7) launches each kernel once, counts no
-    plain level and equals the plain lifting exactly; each timed beside its
-    bound."""
+    """Phase 3b: every level kernel takes any even width: the first level
+    of a 4096x4096 and an 8192x8192 frame through transforms.forward_level
+    and transforms.inverse_level (5/3 and 9/7) launches each kernel once,
+    counts no plain level and equals the plain lifting exactly; each timed
+    beside its bound."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    err = {"dwt53_fwd_level": 0, "dwt97_fwd_level": 0, "dwt97_inv_level": 0}
+    err = {"dwt53_fwd_level": 0, "dwt53_inv_level": 0, "dwt97_fwd_level": 0,
+           "dwt97_inv_level": 0}
     for side in WIDE_SIDES:
         for kind in (dwt.REV53, dwt.IRR97):
             lib = "dwt53" if kind == dwt.REV53 else "dwt97"
@@ -336,11 +342,10 @@ def check_wide_levels(dwt, dwt_cuda, transforms, dev, card):
                    dwt.forward_2d(x, kind).items()}
             diff = {f"{lib}_fwd_level":
                     max((got[k] - ref[k]).abs().max().item() for k in ref)}
-            if kind == dwt.IRR97:
-                rec = transforms.inverse_level(ref, kind, 0, 0)
-                diff[f"{lib}_inv_level"] = (
-                    rec - dwt.inverse_2d(ref, kind)).abs().max().item()
-                del rec
+            rec = transforms.inverse_level(ref, kind, 0, 0)
+            diff[f"{lib}_inv_level"] = (
+                rec - dwt.inverse_2d(ref, kind)).abs().max().item()
+            del rec
             torch.cuda.synchronize()
             plain = dwt_cuda.PLAIN_LEVELS
             for name, d in diff.items():
@@ -356,12 +361,11 @@ def check_wide_levels(dwt, dwt_cuda, transforms, dev, card):
             rate = INT32_OPS_PER_S if kind == dwt.REV53 else FP32_OPS_PER_S
             lim = bound(8 * x.numel(), OPS_PER_ELEMENT[lib] * x.numel(), rate)
             fwd_kernel = getattr(dwt_cuda, f"forward_2d_{kind}")
+            inv_kernel = getattr(dwt_cuda, f"inverse_2d_{kind}")
             fns = {f"{lib}_fwd_level": (lambda: fwd_kernel(x),
-                                        lambda: dwt.forward_2d(x, kind))}
-            if kind == dwt.IRR97:
-                fns[f"{lib}_inv_level"] = (
-                    lambda: dwt_cuda.inverse_2d_97(ref),
-                    lambda: dwt.inverse_2d(ref, kind))
+                                        lambda: dwt.forward_2d(x, kind)),
+                   f"{lib}_inv_level": (lambda: inv_kernel(ref),
+                                        lambda: dwt.inverse_2d(ref, kind))}
             for name, (fn, plain_fn) in fns.items():
                 time_line(name, cuda_ms(fn),
                           cuda_ms(plain_fn, reps=3, warmup=1), *lim,
@@ -1322,6 +1326,32 @@ def check_mq_stress(dev):
                                  f"streams of seed {seed}")
 
 
+def check_compact_stress(dev):
+    """The compaction kernels on ebcot_cuda.compact_stress_slots with the
+    slots 0 and 5 bytes past a 16-byte boundary: pool, counts, offsets and
+    largest count equal compact_rows_plain's; raises otherwise.  Returns
+    the largest number of differing entries (0)."""
+    from go_jpeg2000_tpu_torch.ops import ebcot_cuda as K
+    for name, host in K.compact_stress_slots().items():
+        for base in (0, 5):
+            buf = torch.empty(host.size + 16, dtype=torch.uint8, device=dev)
+            slots = buf[base:base + host.size].view(host.shape)
+            slots.copy_(torch.from_numpy(host))
+            got = K.compact_rows(slots)
+            ref = K.compact_rows_plain(slots)
+            bad = max([abs(got[3] - ref[3])] + [
+                int((a != b).sum().item()) if a.shape == b.shape else
+                max(a.numel(), b.numel()) for a, b in zip(got[:3], ref[:3])])
+            print(f"kernel check ebcot_compact_rows stress {name} "
+                  f"({host.shape[0]} rows of {host.shape[1]} slots, base "
+                  f"+{base}, chunk {K.COMPACT_CHUNK}, {ref[0].numel()} "
+                  f"decisions): differing entries {bad}", flush=True)
+            if bad:
+                raise AssertionError("ebcot_compact_rows disagrees with its "
+                                     f"plain version on {name}")
+    return 0
+
+
 def check_ebcot_kernels(tp, dev, card):
     """Phase 8: every EBCOT kernel against its plain version on the main
     gray batch and on 16-bit RGB, noise, all-zero and ragged frames, the
@@ -1331,6 +1361,7 @@ def check_ebcot_kernels(tp, dev, card):
     from go_jpeg2000_tpu_torch.ops import ebcot_cuda as K, ebcot_device
     err = {k: 0 for k in EBCOT_KERNELS}
     err["ebcot_decision_slots"] = check_decision_stress(dev)
+    err["ebcot_compact_rows"] = check_compact_stress(dev)
     timing = None
     for name, frames in ebcot_cases(tp):
         label = f"{name} {len(frames)}x{'x'.join(map(str, frames[0].shape))}"
@@ -1397,6 +1428,16 @@ def check_ebcot_kernels(tp, dev, card):
                   device_ms(kernel_fns[name]),
                   f"{nb} blocks of 64x64, {planes} planes, {decisions} "
                   f"decisions, {used} segment bytes", card)
+    # one library call that computes the decision pool: masked_select with
+    # the mask made beforehand (it also reads the pool's size back)
+    mask = slots != ebcot_device.EMPTY
+    library = {"ebcot_compact_rows": cuda_ms(
+        lambda: torch.masked_select(slots, mask))}
+    print(f"time ebcot_compact_rows: library call torch.masked_select "
+          f"(mask made beforehand) {library['ebcot_compact_rows']:.4f} ms, "
+          f"kernel {times['ebcot_compact_rows'][0]:.4f} ms (both by CUDA "
+          f"events, both read a size back) [{card}]", flush=True)
+    del mask
     print(f"time ebcot_mq_encode: serial bound {serial_ms:.4f} ms (the "
           f"longest block's {largest} decisions x {MQ_DEPENDENT_CYCLES} "
           f"dependent cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz), "
@@ -1410,7 +1451,8 @@ def check_ebcot_kernels(tp, dev, card):
           f"the longest block ({mq_ms:.4f} ms by CUDA events over {largest} "
           f"decisions at {SM_CLOCK_HZ / 1e9:.2f} GHz), against the serial "
           f"bound's {MQ_DEPENDENT_CYCLES} [{card}]", flush=True)
-    return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
+    return (err, {k: (a, b) + c for k, (a, b, c) in times.items()},
+            library)
 
 
 def decision_bound(mags, valid, planes, slots):
@@ -2110,7 +2152,7 @@ def main():
         frames, opts, streams, _dec = runs[label]
         stage_lines(tp, label, frames, opts, streams, dev, card, reps)
 
-    e, t = check_ebcot_kernels(tp, dev, card)
+    e, t, library = check_ebcot_kernels(tp, dev, card)
     err.update(e)
     times.update(t)
     torch.cuda.empty_cache()
@@ -2143,7 +2185,8 @@ def main():
             "name": name, "route": "cuda", "source": SRC[src],
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library.get(name)})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,13 +35,25 @@
 // pairs per 30 (7%), most of them hits in L2.  Any even width takes the
 // kernel.
 //
-// Inverse: each block owns one frame and a strip of STRIP output rows at
-// full width.  It loads the strip plus the rows the vertical lifting needs
-// from its neighbours (a halo, read twice in all), lifts in shared memory,
-// and stores once; the width is bounded by shared memory (ops/dwt_cuda.py
-// usable).  The forward kernel writes straight into the four band tensors,
-// the inverse reads straight from them: the deinterleave and interleave
-// XLA did outside the TPU kernel cost no extra pass over device memory.
+// Inverse: the same design the other way round (2D_SR: rows first, then
+// columns): a warp per (frame, strip of INV_STRIP output rows, tile of
+// PAIRS output column pairs), lane l holding column pair 30t + l - 1.  A
+// lane reads its pair's low-pass sample from LL or LH and its high-pass
+// sample from HL or HH (two 4-byte loads a row, coalesced across the warp;
+// the symmetric extension keeps a column's parity, so a reflected pair's
+// two samples come from their own band columns), for its INV_STRIP + 3 rows
+// (1 above, 2 below the strip), every load before any arithmetic.  Each
+// row is lifted horizontally with two shuffles (undo the update on the
+// even column with the previous pair's raw detail, then the predict on the
+// odd column with the next pair's updated even sample), then each column
+// vertically in registers; lanes 1..30 store their two columns as one
+// 8-byte store a row, 240 contiguous bytes a warp.  Lane 0 is the left
+// halo (its raw detail), lane 31 the right (its updated even sample, from
+// lane 30's detail and its own).  Neither kernel uses shared memory or a
+// barrier, so any even width takes both.  The forward kernel writes
+// straight into the four band tensors and the inverse reads straight from
+// them: the deinterleave and interleave XLA did outside the TPU kernel cost
+// no extra pass over device memory.
 //
 // Integer exactness: (l + r) >> 1 and (l + r + 2) >> 2 are arithmetic
 // shifts of signed int32 (floor division), never '/', which truncates toward
@@ -55,7 +67,7 @@
 // one row shard of taller frames.  `above` [n, HA, w] and `below` [n, HB, w]
 // are then the rows of the globally extended signal just outside it (the
 // forward kernel's input rows; for the inverse, interleaved rows with the
-// low-pass half of the row first, [LL|HL] or [LH|HH]), and a block reads
+// low-pass half of the row first, [LL|HL] or [LH|HH]), and a warp reads
 // them where its strip reaches past the shard.  The JAX package exchanged
 // one row per lifting step; these are built once per level from every
 // shard's edge rows (parallel/sharded.py), so a shard of 2 rows, shorter
@@ -69,14 +81,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define STRIP 16          // inverse: output rows per block (even)
+#define FWD_STRIP 32      // forward: output rows per warp (even)
+#define INV_STRIP 32      // inverse: output rows per warp (even)
+#define PAIRS 30          // output column pairs per warp (lanes 1 .. 30)
 #define HALO 3            // forward: 2 rows above, 1 below; inverse: 1, 2
 #define FWD_ABOVE 2
 #define INV_ABOVE 1
-#define THREADS 256
-#define FWD_STRIP 32      // forward: output rows per warp (even)
-#define FWD_PAIRS 30      // forward: output column pairs per warp
-#define FWD_THREADS 128
+#define THREADS 128
 
 __device__ __forceinline__ int reflect(int i, int n) {
   while (i < 0 || i >= n) {
@@ -97,38 +108,17 @@ __device__ __forceinline__ const int* shard_row(const int* x, const int* above,
   return x + ((int64_t)frame * h + reflect(g, h)) * w;
 }
 
-// Shared memory rows: row j of the strip is s[j * w ...].
-__device__ __forceinline__ void hlift_inv(int* s, int nrows, int w) {
-  const int w2 = w >> 1;
-  // undo the update on even columns
-  for (int e = threadIdx.x; e < nrows * w2; e += blockDim.x) {
-    int* row = s + (e / w2) * w;
-    const int c = 2 * (e % w2);
-    const int l = (c > 0) ? c - 1 : 1;
-    row[c] -= (row[l] + row[c + 1] + 2) >> 2;
-  }
-  __syncthreads();
-  // undo the predict on odd columns
-  for (int e = threadIdx.x; e < nrows * w2; e += blockDim.x) {
-    int* row = s + (e / w2) * w;
-    const int c = 2 * (e % w2) + 1;
-    const int r = (c + 1 < w) ? c + 1 : w - 2;
-    row[c] += (row[c - 1] + row[r]) >> 1;
-  }
-  __syncthreads();
-}
-
 // x [n, h, w] -> ll, hl, lh, hh [n, h/2, w/2].  Warp task t: tile
 // t % tiles, strip (t / tiles) % strips, frame t / (tiles * strips).
 // Register row j holds input row r0 - 2 + j of the lane's two columns.
-__global__ void __launch_bounds__(FWD_THREADS)
+__global__ void __launch_bounds__(THREADS)
 dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
                  const int* __restrict__ below, int* __restrict__ ll,
                  int* __restrict__ hl, int* __restrict__ lh,
                  int* __restrict__ hh, int n, int h, int w, int strips,
                  int tiles, int vec) {
   const int64_t task =
-      (int64_t)blockIdx.x * (FWD_THREADS / 32) + (threadIdx.x >> 5);
+      (int64_t)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   if (task >= (int64_t)n * strips * tiles) return;   // whole warps
   const int lane = threadIdx.x & 31;
   const int tile = (int)(task % tiles);
@@ -137,7 +127,7 @@ dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
   const int frame = (int)(fs / strips);
   const int rr = min(FWD_STRIP, h - r0);       // even: h and r0 are even
   const int w2 = w >> 1;
-  const int p = tile * FWD_PAIRS + lane - 1;   // this lane's column pair
+  const int p = tile * PAIRS + lane - 1;   // this lane's column pair
   const int c0 = reflect(2 * p, w), c1 = reflect(2 * p + 1, w);
   const bool pair = vec && c1 == c0 + 1;       // c0 even: one 8-byte load
 
@@ -170,7 +160,7 @@ dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
   }
   // horizontal lifting of each output row, then the stores: even rows to
   // LL | HL, odd rows to LH | HH; even columns low, odd columns high
-  const bool out = lane >= 1 && lane <= FWD_PAIRS && p < w2;
+  const bool out = lane >= 1 && lane <= PAIRS && p < w2;
   const int64_t obase =
       ((int64_t)frame * (h >> 1) + (r0 >> 1)) * w2 + p;
 #pragma unroll
@@ -194,78 +184,98 @@ dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
   }
 }
 
-// ll, hl, lh, hh [n, h/2, w/2] -> out [n, h, w].  Shared row j holds
-// interleaved row r0 - 1 + j.
+// ll, hl, lh, hh [n, h/2, w/2] -> out [n, h, w].  Warp task t as in the
+// forward kernel.  Register row j holds interleaved row r0 - 1 + j of the
+// lane's two columns: an odd (high-pass) row when j is even.
 __global__ void __launch_bounds__(THREADS)
 dwt53_inv_kernel(const int* __restrict__ ll, const int* __restrict__ hl,
                  const int* __restrict__ lh, const int* __restrict__ hh,
                  const int* __restrict__ above, const int* __restrict__ below,
-                 int* __restrict__ out, int h, int w, int strips) {
-  extern __shared__ int s[];
-  const int frame = blockIdx.x / strips;
-  const int r0 = (blockIdx.x % strips) * STRIP;
-  const int rr = min(STRIP, h - r0);
-  const int nload = rr + HALO;
+                 int* __restrict__ out, int n, int h, int w, int strips,
+                 int tiles) {
+  const int64_t task =
+      (int64_t)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  if (task >= (int64_t)n * strips * tiles) return;   // whole warps
+  const int lane = threadIdx.x & 31;
+  const int tile = (int)(task % tiles);
+  const int64_t fs = task / tiles;
+  const int r0 = (int)(fs % strips) * INV_STRIP;
+  const int frame = (int)(fs / strips);
+  const int rr = min(INV_STRIP, h - r0);       // even: h and r0 are even
   const int w2 = w >> 1;
+  const int p = tile * PAIRS + lane - 1;       // this lane's column pair
+  // column 2p reflects to an even column, the low half's sample m0; column
+  // 2p + 1 to an odd one, the high half's sample m1
+  const int m0 = reflect(2 * p, w) >> 1, m1 = reflect(2 * p + 1, w) >> 1;
   const int64_t bbase = (int64_t)frame * (h >> 1) * w2;
 
-  for (int e = threadIdx.x; e < nload * w2; e += blockDim.x) {
-    const int j = e / w2, m = e % w2;
+  int2 v[INV_STRIP + HALO];
+#pragma unroll
+  for (int j = 0; j < INV_STRIP + HALO; ++j) {
+    if (j > rr + 2) break;                     // rows r0 - 1 .. r0 + rr + 1
     const int g = r0 - INV_ABOVE + j;
-    int* row = s + j * w;
+    const int *lo, *hi;
     if (g < 0 && above) {
-      const int* src =
-          above + ((int64_t)frame * INV_ABOVE + INV_ABOVE + g) * w;
-      row[2 * m] = src[m];
-      row[2 * m + 1] = src[w2 + m];
-      continue;
-    }
-    if (g >= h && below) {
-      const int* src =
-          below + ((int64_t)frame * (HALO - INV_ABOVE) + g - h) * w;
-      row[2 * m] = src[m];
-      row[2 * m + 1] = src[w2 + m];
-      continue;
-    }
-    const int r = reflect(g, h);
-    const int64_t i = bbase + (int64_t)(r >> 1) * w2 + m;
-    if (r & 1) {
-      row[2 * m] = lh[i];
-      row[2 * m + 1] = hh[i];
+      lo = above + ((int64_t)frame * INV_ABOVE + INV_ABOVE + g) * w;
+      hi = lo + w2;
+    } else if (g >= h && below) {
+      lo = below + ((int64_t)frame * (HALO - INV_ABOVE) + g - h) * w;
+      hi = lo + w2;
     } else {
-      row[2 * m] = ll[i];
-      row[2 * m + 1] = hl[i];
+      const int r = reflect(g, h);
+      const int64_t i = bbase + (int64_t)(r >> 1) * w2;
+      lo = ((r & 1) ? lh : ll) + i;
+      hi = ((r & 1) ? hh : hl) + i;
     }
+    v[j].x = lo[m0];
+    v[j].y = hi[m1];
   }
-  __syncthreads();
-  hlift_inv(s, nload, w);                       // 2D_SR: rows first
-  // undo the vertical update on even rows r0 .. r0+rr (shared 1, 3, ..)
-  for (int e = threadIdx.x; e < (rr / 2 + 1) * w; e += blockDim.x) {
-    const int j = 1 + 2 * (e / w), c = e % w;
-    s[j * w + c] -= (s[(j - 1) * w + c] + s[(j + 1) * w + c] + 2) >> 2;
+  // rows first: undo the update on the even column with the previous
+  // pair's raw detail, then the predict on the odd column with the next
+  // pair's updated even sample
+#pragma unroll
+  for (int j = 0; j < INV_STRIP + HALO; ++j) {
+    if (j > rr + 2) break;
+    const int prev = __shfl_up_sync(0xffffffffu, v[j].y, 1);
+    const int s0 = v[j].x - ((prev + v[j].y + 2) >> 2);
+    const int next = __shfl_down_sync(0xffffffffu, s0, 1);
+    v[j].x = s0;
+    v[j].y += (s0 + next) >> 1;
   }
-  __syncthreads();
-  // undo the vertical predict on odd rows r0+1 .. r0+rr-1 (shared 2, 4, ..)
-  for (int e = threadIdx.x; e < (rr / 2) * w; e += blockDim.x) {
-    const int j = 2 + 2 * (e / w), c = e % w;
-    s[j * w + c] += (s[(j - 1) * w + c] + s[(j + 1) * w + c]) >> 1;
+  // then columns: undo the update on even rows r0 .. r0+rr (register rows
+  // 1, 3, ..), then the predict on odd rows r0+1 .. r0+rr-1 (rows 2, 4, ..)
+#pragma unroll
+  for (int j = 1; j < INV_STRIP + 2; j += 2) {
+    if (j > rr + 1) break;
+    v[j].x -= (v[j - 1].x + v[j + 1].x + 2) >> 2;
+    v[j].y -= (v[j - 1].y + v[j + 1].y + 2) >> 2;
   }
-  __syncthreads();
-
-  const int64_t obase = (int64_t)frame * h * w + (int64_t)r0 * w;
-  for (int e = threadIdx.x; e < rr * w; e += blockDim.x) {
-    out[obase + e] = s[w + e];                  // shared rows 1 .. rr
+#pragma unroll
+  for (int j = 2; j < INV_STRIP + 1; j += 2) {
+    if (j > rr) break;
+    v[j].x += (v[j - 1].x + v[j + 1].x) >> 1;
+    v[j].y += (v[j - 1].y + v[j + 1].y) >> 1;
+  }
+  // rows r0 .. r0+rr-1 (register rows 1 .. rr), columns 2p and 2p+1 as one
+  // 8-byte store
+  if (lane < 1 || lane > PAIRS || p >= w2) return;
+  int2* o = reinterpret_cast<int2*>(out + ((int64_t)frame * h + r0) * w) + p;
+#pragma unroll
+  for (int k = 0; k < INV_STRIP; ++k) {
+    if (k >= rr) break;
+    o[(int64_t)k * w2] = v[k + 1];
   }
 }
 
-static size_t smem_bytes(int w) {
-  return (size_t)(STRIP + HALO) * (size_t)w * sizeof(int);
+static unsigned blocks_for(int64_t tasks) {
+  const int per_block = THREADS / 32;
+  return (unsigned)((tasks + per_block - 1) / per_block);
 }
 
 extern "C" {
 
 int dwt53_fwd_strip_rows(void) { return FWD_STRIP; }
-int dwt53_inv_strip_rows(void) { return STRIP; }
+int dwt53_inv_strip_rows(void) { return INV_STRIP; }
 int dwt53_halo_rows(void) { return HALO; }
 int dwt53_fwd_above(void) { return FWD_ABOVE; }
 int dwt53_inv_above(void) { return INV_ABOVE; }
@@ -274,14 +284,12 @@ int dwt53_fwd_level(const void* x, const void* above, const void* below,
                     void* ll, void* hl, void* lh, void* hh, int n, int h,
                     int w, void* stream) {
   const int strips = (h + FWD_STRIP - 1) / FWD_STRIP;
-  const int tiles = (w / 2 + FWD_PAIRS - 1) / FWD_PAIRS;
-  const int64_t tasks = (int64_t)n * strips * tiles;
-  const int per_block = FWD_THREADS / 32;
+  const int tiles = (w / 2 + PAIRS - 1) / PAIRS;
   const int vec = ((reinterpret_cast<uintptr_t>(x) |
                     reinterpret_cast<uintptr_t>(above) |
                     reinterpret_cast<uintptr_t>(below)) & 7) == 0;
-  dwt53_fwd_kernel<<<(unsigned)((tasks + per_block - 1) / per_block),
-                     FWD_THREADS, 0, (cudaStream_t)stream>>>(
+  dwt53_fwd_kernel<<<blocks_for((int64_t)n * strips * tiles), THREADS, 0,
+                     (cudaStream_t)stream>>>(
       (const int*)x, (const int*)above, (const int*)below, (int*)ll,
       (int*)hl, (int*)lh, (int*)hh, n, h, w, strips, tiles, vec);
   return (int)cudaGetLastError();
@@ -290,14 +298,13 @@ int dwt53_fwd_level(const void* x, const void* above, const void* below,
 int dwt53_inv_level(const void* ll, const void* hl, const void* lh,
                     const void* hh, const void* above, const void* below,
                     void* out, int n, int h, int w, void* stream) {
-  const int strips = (h + STRIP - 1) / STRIP;
-  const size_t smem = smem_bytes(w);
-  cudaFuncSetAttribute(dwt53_inv_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dwt53_inv_kernel<<<n * strips, THREADS, smem, (cudaStream_t)stream>>>(
+  const int strips = (h + INV_STRIP - 1) / INV_STRIP;
+  const int tiles = (w / 2 + PAIRS - 1) / PAIRS;
+  dwt53_inv_kernel<<<blocks_for((int64_t)n * strips * tiles), THREADS, 0,
+                     (cudaStream_t)stream>>>(
       (const int*)ll, (const int*)hl, (const int*)lh, (const int*)hh,
-      (const int*)above, (const int*)below, (int*)out, h, w, strips);
+      (const int*)above, (const int*)below, (int*)out, n, h, w, strips,
+      tiles);
   return (int)cudaGetLastError();
 }
 

@@ -44,12 +44,23 @@
 //   test included, are closed-form, one thread per column; the plane's
 //   slots are staged in shared memory (the cleanup's stride-11 bytes
 //   stay there) and leave with 16-byte stores.
-// * ebcot_compact_rows: bytes (it reads the slots twice and writes the
-//   decision pool).  One CUDA block per row counts its decisions; one
-//   block scans the counts (offsets, total, largest count); then one CUDA
-//   block per row runs a block scan over tiles of the row and writes its
-//   decisions at its offset.  The TPU form sorted (scatters serialize
-//   there); here the scan gives each decision its place.
+// * ebcot_compact_rows: bytes (it reads the slots and writes the decision
+//   pool).  Each row is cut into chunks of a fixed length (the wrapper's
+//   COMPACT_CHUNK bytes; any row length), and a CUDA block per (row, chunk)
+//   counts the chunk's decisions from 16-byte loads, four slots at a time
+//   (__vsetne4 and __popc); a head or tail off 16 bytes is read by bytes
+//   and its bytes outside the chunk count as 0xFF.  One block sums each
+//   row's chunk counts (a thread a row) and scans the rows (offsets, total,
+//   largest count).  Then a CUDA block per (row, chunk) whose count is not
+//   0 (a chunk of 0xFF fill, such as the decision kernel's planes above a
+//   block's bit count, is not read again) finds its place in the pool (the
+//   row's offset and the counts of the row's chunks before it), loads the
+//   chunk by 16 bytes, gives each live byte its place by a block scan of
+//   per-thread counts (warp shuffles), stages the chunk's decisions in
+//   shared memory at the pool's alignment, and writes them by 16-byte
+//   stores, by bytes only in the two windows it shares with its
+//   neighbours.  The TPU form sorted (scatters serialize there); here the
+//   scan gives each decision its place.
 // * ebcot_mq_encode: the serial dependence of the MQ coder: the time is
 //   the longest block's decision count times the latency of one decision's
 //   dependent chain, so the design is for latency.  Two warps code each
@@ -92,8 +103,11 @@
 #define STATS_THREADS 256
 #define RUN_COLS 8             // columns a thread resolves in order per sweep
 #define STAGE_COLS 1024        // columns whose slots a CTA stages at a time
-#define ROW_THREADS 256
-#define ROW_TILE 16            // bytes per thread per tile of a slot row
+#define CMP_THREADS 256        // threads of a compaction CTA
+#define CMP_TILES 3            // 16-byte windows a compaction thread holds
+// the longest chunk a compaction CTA takes: its 16-byte windows, one more
+// for a start off 16 bytes, fit CMP_TILES * CMP_THREADS
+#define CMP_MAX_CHUNK ((CMP_TILES * CMP_THREADS - 1) * 16)
 #define SCAN_THREADS 1024
 #define MQ_PAIRS 2             // code-blocks (two warps each) per CTA
 #define MQ_CHUNK 1024          // decision bytes a warp stages at a time
@@ -514,21 +528,94 @@ __global__ void __launch_bounds__(DEC_THREADS) decision_kernel(
 
 // -------------------------------------------------------- ebcot_compact_rows
 
-__global__ void __launch_bounds__(ROW_THREADS) count_kernel(
-    const uint8_t* __restrict__ slots, int64_t t, int* __restrict__ ndec) {
-  __shared__ int sh[32];
-  const uint8_t* row = slots + blockIdx.x * t;
-  int n = 0;
-  for (int64_t i = threadIdx.x; i < t; i += blockDim.x) n += row[i] != EMPTY;
-  int tot;
-  block_exclusive_scan(n, sh, &tot);
-  if (threadIdx.x == 0) ndec[blockIdx.x] = tot;
+// One chunk of a slot row: bytes [lo, hi), covered by the 16-byte windows
+// from the boundary a0 at or below lo; chunk `col` of row `row`.
+struct Chunk {
+  uintptr_t lo, hi, a0;
+  int nwin, col;
+  int64_t row;
+};
+
+__device__ __forceinline__ Chunk chunk_at(const uint8_t* slots, int64_t t,
+                                          int chunk, int cpr) {
+  Chunk c;
+  c.row = (int64_t)blockIdx.x / cpr;
+  c.col = (int)((int64_t)blockIdx.x - c.row * cpr);
+  const int64_t s = c.row * t + (int64_t)c.col * chunk;
+  const int64_t e = min(s + chunk, (c.row + 1) * t);
+  c.lo = reinterpret_cast<uintptr_t>(slots + s);
+  c.hi = reinterpret_cast<uintptr_t>(slots + e);
+  c.a0 = c.lo & ~(uintptr_t)15;
+  c.nwin = (int)((c.hi + 15 - c.a0) >> 4);
+  return c;
 }
 
-// exclusive scan of ndec into off; stats = {total, largest count}
+// Window k of the chunk: one 16-byte load inside it; in the head and tail
+// windows the chunk's bytes one by one and 0xFF (no decision) elsewhere;
+// all 0xFF past the last window.
+__device__ __forceinline__ uint4 chunk_window(const Chunk& c, int k) {
+  const uintptr_t a = c.a0 + 16 * (uintptr_t)k;
+  if (k < c.nwin && a >= c.lo && a + 16 <= c.hi)
+    return *reinterpret_cast<const uint4*>(a);
+  unsigned w[4] = {~0u, ~0u, ~0u, ~0u};
+  if (k < c.nwin) {
+    for (int j = 0; j < 16; ++j) {
+      if (a + j < c.lo || a + j >= c.hi) continue;
+      const unsigned b = *reinterpret_cast<const uint8_t*>(a + j);
+      const int at = 8 * (j & 3);
+      w[j >> 2] = (w[j >> 2] & ~(0xFFu << at)) | (b << at);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Bit j set for each byte j of the window that is not 0xFF.
+__device__ __forceinline__ unsigned live_mask(uint4 v) {
+  const unsigned m[4] = {__vsetne4(v.x, ~0u), __vsetne4(v.y, ~0u),
+                         __vsetne4(v.z, ~0u), __vsetne4(v.w, ~0u)};
+  unsigned out = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out |= ((m[i] | (m[i] >> 7) | (m[i] >> 14) | (m[i] >> 21)) & 0xFu)
+           << (4 * i);
+  return out;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// counts[row * cpr + col]: the decisions of each chunk
+__global__ void __launch_bounds__(CMP_THREADS) chunk_count_kernel(
+    const uint8_t* __restrict__ slots, int64_t t, int chunk, int cpr,
+    int* __restrict__ counts) {
+  __shared__ int sh[CMP_THREADS / 32];
+  const Chunk c = chunk_at(slots, t, chunk, cpr);
+  uint4 v[CMP_TILES];
+#pragma unroll
+  for (int k = 0; k < CMP_TILES; ++k)
+    v[k] = chunk_window(c, k * CMP_THREADS + threadIdx.x);
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < CMP_TILES; ++k)
+    n += __popc(__vsetne4(v[k].x, ~0u)) + __popc(__vsetne4(v[k].y, ~0u)) +
+         __popc(__vsetne4(v[k].z, ~0u)) + __popc(__vsetne4(v[k].w, ~0u));
+  n = warp_sum(n);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = n;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    n = warp_sum(threadIdx.x < CMP_THREADS / 32 ? sh[threadIdx.x] : 0);
+    if (threadIdx.x == 0) counts[blockIdx.x] = n;
+  }
+}
+
+// ndec[b]: the sum of row b's chunk counts (a thread a row); off: the
+// exclusive scan of ndec; stats = {total, largest count}
 __global__ void __launch_bounds__(SCAN_THREADS) rows_scan_kernel(
-    const int* __restrict__ ndec, int nb, long long* __restrict__ off,
-    long long* __restrict__ stats) {
+    const int* __restrict__ counts, int nb, int cpr, int* __restrict__ ndec,
+    long long* __restrict__ off, long long* __restrict__ stats) {
   __shared__ int sh[32];
   __shared__ int s_max;
   if (threadIdx.x == 0) s_max = 0;
@@ -537,7 +624,13 @@ __global__ void __launch_bounds__(SCAN_THREADS) rows_scan_kernel(
   int my_max = 0;
   for (int base = 0; base < nb; base += blockDim.x) {
     const int i = base + threadIdx.x;
-    const int v = i < nb ? ndec[i] : 0;
+    int v = 0;
+    if (i < nb) {
+      const int* c = counts + (int64_t)i * cpr;
+#pragma unroll 8
+      for (int k = 0; k < cpr; ++k) v += c[k];
+      ndec[i] = v;
+    }
     my_max = max(my_max, v);
     int tot;
     const int excl = block_exclusive_scan(v, sh, &tot);
@@ -552,29 +645,63 @@ __global__ void __launch_bounds__(SCAN_THREADS) rows_scan_kernel(
   }
 }
 
-__global__ void __launch_bounds__(ROW_THREADS) compact_write_kernel(
-    const uint8_t* __restrict__ slots, int64_t t,
-    const long long* __restrict__ off, uint8_t* __restrict__ pool) {
+// Each chunk's decisions at the pool offset off[row] + the counts of the
+// row's chunks before it.
+__global__ void __launch_bounds__(CMP_THREADS) chunk_write_kernel(
+    const uint8_t* __restrict__ slots, int64_t t, int chunk, int cpr,
+    const int* __restrict__ counts, const long long* __restrict__ off,
+    uint8_t* __restrict__ pool) {
+  __shared__ __align__(16) uint8_t stage[CMP_MAX_CHUNK + 32];
   __shared__ int sh[32];
-  const uint8_t* row = slots + blockIdx.x * t;
-  uint8_t* dst = pool + off[blockIdx.x];
-  long long carry = 0;
-  const int64_t tile = (int64_t)blockDim.x * ROW_TILE;
-  for (int64_t base = 0; base < t; base += tile) {
-    const int64_t start = base + (int64_t)threadIdx.x * ROW_TILE;
-    uint8_t v[ROW_TILE];
+  __shared__ long long s_base;
+  const int cnt = counts[blockIdx.x];
+  if (cnt == 0) return;                  // no decision: not read again
+  const Chunk c = chunk_at(slots, t, chunk, cpr);
+  uint4 v[CMP_TILES];
+#pragma unroll
+  for (int k = 0; k < CMP_TILES; ++k)
+    v[k] = chunk_window(c, k * CMP_THREADS + threadIdx.x);
+  if (threadIdx.x < 32) {
     int n = 0;
+    for (int i = threadIdx.x; i < c.col; i += 32)
+      n += counts[c.row * cpr + i];
+    n = warp_sum(n);
+    if (threadIdx.x == 0) s_base = off[c.row] + n;
+  }
+  __syncthreads();
+  uint8_t* d0 = pool + s_base;
+  // stage[shift + i] is pool byte d0 + i: the stage and the pool agree
+  // modulo 16
+  const int shift = (int)(reinterpret_cast<uintptr_t>(d0) & 15);
+  int carry = shift;
 #pragma unroll
-    for (int j = 0; j < ROW_TILE; ++j) {
-      v[j] = start + j < t ? row[start + j] : EMPTY;
-      n += v[j] != EMPTY;
-    }
+  for (int k = 0; k < CMP_TILES; ++k) {
+    if (k * CMP_THREADS >= c.nwin) break;           // the same for the CTA
+    unsigned m = live_mask(v[k]);
     int tot;
-    int pos = block_exclusive_scan(n, sh, &tot);
-#pragma unroll
-    for (int j = 0; j < ROW_TILE; ++j)
-      if (v[j] != EMPTY) dst[carry + pos++] = v[j];
+    int pos = carry + block_exclusive_scan(__popc(m), sh, &tot);
+    const unsigned w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+    while (m) {
+      const int j = __ffs(m) - 1;
+      m &= m - 1;
+      stage[pos++] = (uint8_t)(w[j >> 2] >> (8 * (j & 3)));
+    }
     carry += tot;
+  }
+  __syncthreads();
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(d0), hi = lo + cnt;
+  const uintptr_t g0 = lo & ~(uintptr_t)15;
+  const int nout = (int)((hi + 15 - g0) >> 4);
+  for (int k = threadIdx.x; k < nout; k += CMP_THREADS) {
+    const uintptr_t a = g0 + 16 * (uintptr_t)k;
+    if (a >= lo && a + 16 <= hi) {
+      *reinterpret_cast<uint4*>(a) =
+          *reinterpret_cast<const uint4*>(stage + 16 * k);
+    } else {                             // shared with a neighbouring chunk
+      for (int j = 0; j < 16; ++j)
+        if (a + j >= lo && a + j < hi)
+          *reinterpret_cast<uint8_t*>(a + j) = stage[16 * k + j];
+    }
   }
 }
 
@@ -977,24 +1104,37 @@ int ebcot_decision_slots(const void* mags, const void* signs,
   return (int)cudaGetLastError();
 }
 
-// the counts, offsets and {total, largest count} of the slot rows
-int ebcot_compact_count(const void* slots, int nb, long long t, void* ndec,
-                        void* off, void* stats, void* stream) {
-  count_kernel<<<nb, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)slots, t, (int*)ndec);
+// counts: int32 [nb * cpr] scratch, cpr = ceil(t / chunk) chunks a row;
+// ndec, off and {total, largest count} of the slot rows
+int ebcot_chunk_count(const void* slots, int nb, long long t, int chunk,
+                      void* counts, void* ndec, void* off, void* stats,
+                      void* stream) {
+  if (chunk < 1 || chunk > CMP_MAX_CHUNK) return (int)cudaErrorInvalidValue;
+  const int cpr = (int)((t + chunk - 1) / chunk);
+  chunk_count_kernel<<<(unsigned)((int64_t)nb * cpr), CMP_THREADS, 0,
+                       (cudaStream_t)stream>>>((const uint8_t*)slots, t,
+                                               chunk, cpr, (int*)counts);
   const int rc = (int)cudaGetLastError();
   if (rc) return rc;
   rows_scan_kernel<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)ndec, nb, (long long*)off, (long long*)stats);
+      (const int*)counts, nb, cpr, (int*)ndec, (long long*)off,
+      (long long*)stats);
   return (int)cudaGetLastError();
 }
 
-int ebcot_compact_write(const void* slots, int nb, long long t,
-                        const void* off, void* pool, void* stream) {
-  compact_write_kernel<<<nb, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)slots, t, (const long long*)off, (uint8_t*)pool);
+int ebcot_chunk_write(const void* slots, int nb, long long t, int chunk,
+                      const void* counts, const void* off, void* pool,
+                      void* stream) {
+  if (chunk < 1 || chunk > CMP_MAX_CHUNK) return (int)cudaErrorInvalidValue;
+  const int cpr = (int)((t + chunk - 1) / chunk);
+  chunk_write_kernel<<<(unsigned)((int64_t)nb * cpr), CMP_THREADS, 0,
+                       (cudaStream_t)stream>>>(
+      (const uint8_t*)slots, t, chunk, cpr, (const int*)counts,
+      (const long long*)off, (uint8_t*)pool);
   return (int)cudaGetLastError();
 }
+
+int ebcot_compact_max_chunk(void) { return CMP_MAX_CHUNK; }
 
 int ebcot_mq_chunk(void) { return MQ_CHUNK; }
 

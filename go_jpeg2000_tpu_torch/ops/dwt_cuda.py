@@ -38,15 +38,11 @@ import torch
 from . import cuda_build, dwt
 
 # output rows per strip of each kernel, by (kind, inverse), and halo rows
-# per kind: must equal FWD_STRIP, STRIP and HALO in csrc/dwt53.cu and
-# FWD_STRIP, INV_STRIP and HALO in csrc/dwt97.cu (checked when the library
-# loads)
-STRIP_ROWS = {(dwt.REV53, False): 32, (dwt.REV53, True): 16,
+# per kind: must equal FWD_STRIP, INV_STRIP and HALO in csrc/dwt53.cu and
+# csrc/dwt97.cu (checked when the library loads)
+STRIP_ROWS = {(dwt.REV53, False): 32, (dwt.REV53, True): 32,
               (dwt.IRR97, False): 32, (dwt.IRR97, True): 32}
 HALO_ROWS = {dwt.REV53: 3, dwt.IRR97: 7}
-# dynamic shared memory a Hopper block may opt into (227 KB): bounds the
-# inverse 5/3's strip
-MAX_SMEM_BYTES = 232448
 
 LAUNCHES: Dict[str, int] = {"dwt53_fwd_level": 0, "dwt53_inv_level": 0,
                             "dwt97_fwd_level": 0, "dwt97_inv_level": 0}
@@ -78,15 +74,11 @@ def count_plain_level() -> None:
 def usable(h: int, w: int, u0: int, v0: int, kind: str = dwt.REV53,
            inverse: bool = False) -> bool:
     """Kernel eligibility for one level: even origin and even sizes of at
-    least 2; for the inverse 5/3 (the one kernel that lifts a full-width
-    strip in shared memory; the others keep theirs in registers), a strip of
-    STRIP_ROWS + HALO_ROWS full-width 4-byte rows that fits one block."""
-    if (u0 & 1) or (v0 & 1) or (h & 1) or (w & 1) or h < 2 or w < 2:
-        return False
-    if kind == dwt.IRR97 or not inverse:
-        return True
-    return ((STRIP_ROWS[(kind, inverse)] + HALO_ROWS[kind]) * w * 4
-            <= MAX_SMEM_BYTES)
+    least 2.  Every level kernel keeps its strip in registers, so any even
+    width takes it, in either direction (`kind` and `inverse` name the
+    kernel and are kept for the callers)."""
+    return not ((u0 & 1) or (v0 & 1) or (h & 1) or (w & 1) or h < 2
+                or w < 2)
 
 
 def build() -> Dict[str, str]:

@@ -46,6 +46,10 @@ MAX_PLANES = 29
 # decision bytes the MQ kernel stages at a time (mq_device.stress_streams
 # puts stream lengths around it)
 MQ_CHUNK = 1024
+# slot bytes a compaction CTA counts and compacts (a chunk of a row; the
+# last chunk of a row may be shorter): at most the library's
+# ebcot_compact_max_chunk
+COMPACT_CHUNK = 8192
 MAX_SMEM_BYTES = 232448
 # the decision kernel's CTA (one per code-block and plane): threads, the
 # columns a thread resolves in order per fixpoint sweep, and the columns
@@ -78,15 +82,16 @@ def load() -> ctypes.CDLL:
                 or lib.ebcot_decision_threads() != DEC_THREADS
                 or lib.ebcot_decision_run_cols() != RUN_COLS
                 or lib.ebcot_decision_stage_cols() != STAGE_COLS
+                or lib.ebcot_compact_max_chunk() < COMPACT_CHUNK
                 or any(lib.ebcot_decision_smem(h, w) != decision_smem(h, w)
                        for h, w in ((64, 64), (4, 1024), (8, 3)))):
             raise RuntimeError("csrc/ebcot_enc.cu and ops/ebcot_cuda.py "
                                "disagree on the slot layout, plane limit, "
-                               "MQ chunk or decision CTA")
+                               "MQ chunk, decision CTA or compaction chunk")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         sigs = {"ebcot_decision_slots": [p, p, p, p, i, i, i, i, p, p, p],
-                "ebcot_compact_count": [p, i, ll, p, p, p, p],
-                "ebcot_compact_write": [p, i, ll, p, p, p],
+                "ebcot_chunk_count": [p, i, ll, i, p, p, p, p, p],
+                "ebcot_chunk_write": [p, i, ll, i, p, p, p, p],
                 "ebcot_mq_encode": [p, ll, p, p, i, p, p, p],
                 "ebcot_pool_rows": [p, p, p, i, p, p, p, p]}
         for name, args in sigs.items():
@@ -178,27 +183,73 @@ def compact_rows(slots: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Each row's non-0xFF slots, in order, concatenated: (decision pool
     uint8 [sum ndec], ndec int32 [B], offsets int64 [B] (the exclusive scan
-    of ndec), the largest ndec).  The pool is sized exactly from the count
-    and scan on the card (one small device-to-host copy)."""
+    of ndec), the largest ndec).  The kernels count each COMPACT_CHUNK-byte
+    chunk of a row, scan the rows, and write the chunks that hold a
+    decision; the pool is sized exactly from the scan (one small
+    device-to-host copy, the wrapper's only wait for the card)."""
     if slots.device.type == "cpu":
         return compact_rows_plain(slots)
     name = "ebcot_compact_rows"
     dev = slots.device
     _check(slots, name, torch.uint8, 2, dev)
     nb, t = slots.shape
-    ndec = torch.zeros(nb, dtype=torch.int32, device=dev)
-    off = torch.zeros(nb, dtype=torch.int64, device=dev)
     if not nb or not t:
-        return (torch.empty(0, dtype=torch.uint8, device=dev), ndec, off, 0)
+        return (torch.empty(0, dtype=torch.uint8, device=dev),
+                torch.zeros(nb, dtype=torch.int32, device=dev),
+                torch.zeros(nb, dtype=torch.int64, device=dev), 0)
+    chunks = nb * -(-t // COMPACT_CHUNK)
+    if chunks >= 1 << 31:
+        raise ValueError(f"{name}: {chunks} chunks of {COMPACT_CHUNK} bytes "
+                         "are more than one launch takes")
+    counts = torch.empty(chunks, dtype=torch.int32, device=dev)
+    ndec = torch.empty(nb, dtype=torch.int32, device=dev)
+    off = torch.empty(nb, dtype=torch.int64, device=dev)
     stats = torch.empty(2, dtype=torch.int64, device=dev)
-    _call("ebcot_compact_count", dev, slots.data_ptr(), nb, t,
-          ndec.data_ptr(), off.data_ptr(), stats.data_ptr())
+    _call("ebcot_chunk_count", dev, slots.data_ptr(), nb, t, COMPACT_CHUNK,
+          counts.data_ptr(), ndec.data_ptr(), off.data_ptr(),
+          stats.data_ptr())
     total, largest = (int(v) for v in stats.cpu())
     pool = torch.empty(total, dtype=torch.uint8, device=dev)
-    _call("ebcot_compact_write", dev, slots.data_ptr(), nb, t, off.data_ptr(),
-          pool.data_ptr())
+    _call("ebcot_chunk_write", dev, slots.data_ptr(), nb, t, COMPACT_CHUNK,
+          counts.data_ptr(), off.data_ptr(), pool.data_ptr())
     LAUNCHES[name] += 1
     return pool, ndec, off, largest
+
+
+def compact_stress_slots() -> Dict[str, np.ndarray]:
+    """Slot rows uint8 [B, T] at the compaction kernels' edges: rows of
+    only 0xFF; a decision at the first and the last byte of every chunk of
+    COMPACT_CHUNK bytes, and runs of decisions across 16-byte boundaries at
+    both ends of a chunk; T a multiple of neither 16 nor the chunk; rows
+    shorter than 16 bytes; planes of 64x64 slots whose top planes are 0xFF
+    fill (the decision kernel's planes above a block's bit count); a dense
+    and a sparse set."""
+    rng = np.random.RandomState(0)
+    chunk = COMPACT_CHUNK
+
+    def live(shape, p):
+        out = np.full(shape, ebcot_device.EMPTY, np.uint8)
+        mask = rng.rand(*shape) < p
+        out[mask] = rng.randint(0, ebcot_device.EMPTY, int(mask.sum()))
+        return out
+
+    edges = np.full((4, 3 * chunk), ebcot_device.EMPTY, np.uint8)
+    edges[:, ::chunk] = 1
+    edges[:, chunk - 1::chunk] = 2
+    edges[1, chunk - 21:chunk + 13] = 3          # across a chunk boundary
+    edges[2, 2 * chunk + 5:3 * chunk - 7] = 4    # off 16 at both ends
+    plane = ebcot_device.slots_per_plane(64, 64)
+    fill = live((5, 11 * plane), 0.4)
+    for b, top in enumerate((0, 3, 7, 10, 11)):
+        fill[b, :top * plane] = ebcot_device.EMPTY
+    return {"all_ff": np.full((3, 2 * chunk + 100), ebcot_device.EMPTY,
+                              np.uint8),
+            "chunk_edges": edges,
+            "ragged_t": live((5, 2 * chunk + 4099), 0.3),
+            "short_rows": live((7, 13), 0.6),
+            "fill_planes": fill,
+            "dense": live((2, 20000), 1.0),
+            "sparse": live((6, 3 * chunk + 16), 0.001)}
 
 
 def row_bytes(ndec: torch.Tensor) -> int:

@@ -3,8 +3,8 @@
 compaction (ebcot_compact_rows), the MQ coder (ebcot_mq_encode), the HT
 block extraction (ht_extract_blocks), cleanup-field kernel
 (ht_cleanup_fields) and bit packer (ht_pack_bits), the HT MagSgn decoder
-(ht_magsgn_decode), the forward 5/3 level (dwt53_fwd_level) and the 9/7
-levels (dwt97_fwd_level, dwt97_inv_level) of one checkout of the
+(ht_magsgn_decode), the 5/3 levels (dwt53_fwd_level, dwt53_inv_level) and
+the 9/7 levels (dwt97_fwd_level, dwt97_inv_level) of one checkout of the
 PyTorch/CUDA port on one CUDA device, at the shapes of chip_smoke.py, and
 prints one JSON line.
 
@@ -19,7 +19,10 @@ generators (this script's copy):
 - decisions: the Part-1 gray batch (8 gray 512x512 frames, 560 blocks of
   64x64, 11 planes); compaction: its slots, the two kernels launched
   through the library's C entry points with the pool sized beforehand
-  (the wrapper reads the total back, which a time alone cannot hold);
+  (the wrapper reads the total back, which a time alone cannot hold):
+  ebcot_chunk_count and ebcot_chunk_write (a CTA per row and chunk of
+  ebcot_cuda.COMPACT_CHUNK bytes) where the checkout has them, else
+  ebcot_compact_count and ebcot_compact_write (a CTA per row);
 - MQ: the decision pool of the same batch;
 - extraction: the pyramid of the HT lossless gray batch (32 gray 512x512
   frames, 2240 blocks), launched through the C entry point with the band
@@ -35,8 +38,9 @@ generators (this script's copy):
   streams (2240 blocks) and of a config-4 class's lossless and lossy
   (the image >> 8 at quality 85) streams (12,864 blocks each), made by the
   checkout's encode_batch;
-- forward 5/3: forward_2d_53 on int32 [32, 512, 512] (the HT lossless
-  batch's level 1) and [768, 512, 512] (config 4's level 1);
+- 5/3: forward_2d_53 on int32 [32, 512, 512] (the HT lossless batch's
+  level 1) and [768, 512, 512] (config 4's level 1), and inverse_2d_53 on
+  the bands it returns;
 - 9/7: forward_2d_97 on float32 [16, 512, 512] (the HT lossy batch's level
   1) and [768, 512, 512] (config 4's lossy level 1), and inverse_2d_97 on
   the bands it returns.
@@ -83,8 +87,10 @@ T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the kernels whose ptxas figures --ptxas reports
 KERNELS = ("fields_kernel", "mq_kernel", "pack_kernel", "dwt53_fwd_kernel",
-           "dwt97_fwd_kernel", "dwt97_inv_kernel", "decision_kernel",
-           "block_stats_kernel", "magsgn_kernel")
+           "dwt53_inv_kernel", "dwt97_fwd_kernel", "dwt97_inv_kernel",
+           "decision_kernel", "block_stats_kernel", "magsgn_kernel",
+           "count_kernel", "compact_write_kernel", "chunk_count_kernel",
+           "chunk_write_kernel", "rows_scan_kernel")
 # H100 SM limits for the occupancy lines: registers, threads, CTAs, shared
 # memory (each CTA also reserves 1 KB)
 SM_REGS, SM_THREADS, SM_CTAS, SM_SMEM = 65536, 2048, 32, 233472
@@ -220,8 +226,10 @@ def extract_call(ht_enc_cuda, pyr, plan, n, levels):
 
 
 def compact_call(ebcot_cuda, slots, total):
-    """ebcot_compact_rows' two kernels through the library's C entry points
-    with the decision pool allocated at its known total (no read-back)."""
+    """ebcot_compact_rows' kernels through the library's C entry points
+    with the decision pool allocated at its known total (no read-back):
+    the chunked entries where the checkout has them, else the per-row
+    ones.  Returns (launch function, pool, the entries' names)."""
     import torch
     nb, t = slots.shape
     dev = slots.device
@@ -230,20 +238,32 @@ def compact_call(ebcot_cuda, slots, total):
     stats = torch.empty(2, dtype=torch.int64, device=dev)
     pool = torch.empty(total, dtype=torch.uint8, device=dev)
     lib = ebcot_cuda.load()
+    if hasattr(ebcot_cuda, "COMPACT_CHUNK"):
+        chunk = ebcot_cuda.COMPACT_CHUNK
+        counts = torch.empty(nb * -(-t // chunk), dtype=torch.int32,
+                             device=dev)
+        calls = (("ebcot_chunk_count",
+                  (slots.data_ptr(), nb, t, chunk, counts.data_ptr(),
+                   ndec.data_ptr(), off.data_ptr(), stats.data_ptr())),
+                 ("ebcot_chunk_write",
+                  (slots.data_ptr(), nb, t, chunk, counts.data_ptr(),
+                   off.data_ptr(), pool.data_ptr())))
+    else:
+        calls = (("ebcot_compact_count",
+                  (slots.data_ptr(), nb, t, ndec.data_ptr(), off.data_ptr(),
+                   stats.data_ptr())),
+                 ("ebcot_compact_write",
+                  (slots.data_ptr(), nb, t, off.data_ptr(),
+                   pool.data_ptr())))
 
     def fn():
         stream = torch.cuda.current_stream().cuda_stream
-        for sym, args in (("ebcot_compact_count",
-                           (slots.data_ptr(), nb, t, ndec.data_ptr(),
-                            off.data_ptr(), stats.data_ptr())),
-                          ("ebcot_compact_write",
-                           (slots.data_ptr(), nb, t, off.data_ptr(),
-                            pool.data_ptr()))):
+        for sym, args in calls:
             rc = getattr(lib, sym)(*args, stream)
             if rc:
                 raise RuntimeError(f"{sym}: CUDA error {rc}")
         return pool
-    return fn, pool
+    return fn, pool, [sym for sym, _a in calls]
 
 
 def magsgn_timing(cs, tp, decoder, ht_dec_cuda, frames, opts, dev):
@@ -304,13 +324,14 @@ def main():
         "bound_ms": cs.decision_bound(inputs[0], inputs[3], planes,
                                       slots)[0]}
     pool, ndec, off, largest = ebcot_cuda.compact_rows(slots)
-    fn, kpool = compact_call(ebcot_cuda, slots, pool.numel())
+    fn, kpool, entries = compact_call(ebcot_cuda, slots, pool.numel())
     fn()
     if not torch.equal(kpool, pool):
         raise AssertionError("ebcot_compact_rows through its entry points "
                              "differs from the wrapper")
     result["ebcot_compact_rows"] = {
         "shape": f"{slots.numel()} slots, {pool.numel()} decisions",
+        "entries": entries,
         "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
         "bound_ms": cs.compact_bound(slots, pool.numel())[0]}
     del slots, kpool
@@ -381,12 +402,15 @@ def main():
     for n in (cs.N_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):
         x = torch.randint(-(1 << 15), 1 << 15, (n, cs.H, cs.W),
                           generator=gen, device=dev, dtype=torch.int32)
-        fn = lambda: dwt_cuda.forward_2d_53(x)  # noqa: E731
-        result[f"dwt53_fwd_level [{n},{cs.H},{cs.W}]"] = {
-            "ms": cs.cuda_ms(fn),
-            "alone_ms": cs.device_ms(fn),
-            "bound_ms": cs.bound(8 * x.numel(), 0, 1)[0]}
-        del x
+        bands = dwt_cuda.forward_2d_53(x)
+        for name, fn in (
+                ("dwt53_fwd_level", lambda: dwt_cuda.forward_2d_53(x)),
+                ("dwt53_inv_level", lambda: dwt_cuda.inverse_2d_53(bands))):
+            result[f"{name} [{n},{cs.H},{cs.W}]"] = {
+                "ms": cs.cuda_ms(fn),
+                "alone_ms": cs.device_ms(fn),
+                "bound_ms": cs.bound(8 * x.numel(), 0, 1)[0]}
+        del x, bands
         torch.cuda.empty_cache()
     for n in (cs.N_LOSSY_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):
         x = torch.rand((n, cs.H, cs.W), generator=gen, device=dev) * 255 - 128

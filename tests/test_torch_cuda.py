@@ -13,11 +13,13 @@ every integer output of the HT encode kernels; their distortion, a sum of
 float32 squares taken in another order, within a relative 1e-5.  The bit
 packer's words and bits are equal exactly on edge rows (zero lengths,
 spills at every offset, exact fills, rows off 16 bytes) and on the
-streams of every legal code-block shape; the forward 5/3 kernel and both
-9/7 kernels are exact at any even width.  The HT decode kernels' outputs are equal bit for bit,
-float32 leaves too.  The EBCOT kernels' slots, decision pools, MQ
-segments and lengths are equal exactly (MQ segments also to the native
-coder's), on the MQ stress streams of ops/mq_device.py too; the decision
+streams of every legal code-block shape; all four DWT level kernels are
+exact at any even width, the inverse 5/3 in its halo form too.  The HT
+decode kernels' outputs are equal bit for bit, float32 leaves too.  The
+EBCOT kernels' slots, decision pools, MQ segments and lengths are equal
+exactly (MQ segments also to the native coder's), on the MQ stress
+streams of ops/mq_device.py too; the decision pools also on
+ebcot_cuda.compact_stress_slots at two slot alignments; the decision
 slots also on ebcot_device.stress_blocks and the MagSgn blocks on
 ht_dec.stress_cases.  The band
 statistics' counts are equal, their float64 sums within a relative 1e-12 (the order of
@@ -340,6 +342,40 @@ def test_ebcot_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ebcot_cuda.compact_stress_slots())
+                         + ["empty"])
+@pytest.mark.parametrize("base", [0, 5])
+def test_compact_kernels_stress_slots(cuda, name, base):
+    """The compaction kernels on ebcot_cuda.compact_stress_slots (rows of
+    only 0xFF, decisions at the first and last byte of every chunk, runs
+    across 16-byte boundaries at both ends of a chunk, T off 16 and off the
+    chunk, rows of 13 bytes, 0xFF fill planes), with the slots starting 0
+    and 5 bytes past a 16-byte boundary, and on B = 0 and T = 0: pool,
+    counts, offsets and largest count equal compact_rows_plain's."""
+    if name == "empty":
+        for shape in ((0, 300), (3, 0)):
+            slots = torch.empty(shape, dtype=torch.uint8, device=cuda)
+            got = ebcot_cuda.compact_rows(slots)
+            ref = ebcot_cuda.compact_rows_plain(slots)
+            for a, b in zip(got[:3], ref[:3]):
+                assert torch.equal(a, b.to(a.device))
+            assert got[3] == ref[3] == 0
+        return
+    host = ebcot_cuda.compact_stress_slots()[name]
+    buf = torch.empty(host.size + 16, dtype=torch.uint8, device=cuda)
+    slots = buf[base:base + host.size].view(host.shape)
+    slots.copy_(torch.from_numpy(host))
+    assert slots.data_ptr() % 16 == base and slots.is_contiguous()
+    before = ebcot_cuda.LAUNCHES["ebcot_compact_rows"]
+    pool, ndec, off, largest = ebcot_cuda.compact_rows(slots)
+    assert ebcot_cuda.LAUNCHES["ebcot_compact_rows"] == before + 1
+    ref = ebcot_cuda.compact_rows_plain(slots)
+    for g, r in zip((pool, ndec, off), ref[:3]):
+        assert torch.equal(g, r)
+    assert largest == ref[3]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["snake", "comb", "single_live",
                                   "all_planes"])
 def test_decision_kernel_stress_blocks(cuda, name):
@@ -539,20 +575,44 @@ def test_fwd53_kernel_widths(cuda, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("side", [4096, 8192])
 def test_fwd53_kernel_wide_frames(cuda, side):
-    """A 4096^2 and an 8192^2 frame's first forward level take the kernel
-    (no plain level) and equal the plain lifting; the inverse still takes
-    the plain version at these widths."""
+    """A 4096^2 and an 8192^2 frame's first 5/3 level, forward and inverse,
+    take the kernels (one launch each, no plain level) and equal the plain
+    lifting."""
     g = torch.Generator(device=cuda).manual_seed(side)
     x = torch.randint(-(1 << 17), 1 << 17, (1, side, side), generator=g,
                       device=cuda, dtype=torch.int32)
     dwt_cuda.reset_counts()
     got = transforms.forward_level(x, dwt.REV53, 0, 0)
+    rec = transforms.inverse_level(got, dwt.REV53, 0, 0)
     assert dwt_cuda.PLAIN_LEVELS == 0
     assert dwt_cuda.LAUNCHES["dwt53_fwd_level"] == 1
+    assert dwt_cuda.LAUNCHES["dwt53_inv_level"] == 1
     ref = dwt.forward_2d(x, dwt.REV53)
     for k in BANDS:
         assert torch.equal(got[k], ref[k]), k
-    assert not dwt_cuda.usable(side, side, 0, 0, dwt.REV53, inverse=True)
+    assert torch.equal(rec, x)
+    assert torch.equal(rec, dwt.inverse_2d(ref, dwt.REV53))
+
+
+# widths whose column pairs leave 1, 5 and 10 pairs in the last tile of 30
+# (2 -> 1 pair, 10 -> 5, 4100 -> 2050), heights of one strip and a bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 10, 4100])
+@pytest.mark.parametrize("h", [2, 6, 34, 66])
+def test_inv53_kernel_widths(cuda, h, w):
+    """The inverse 5/3 kernel at widths off its column tile, bit for bit,
+    on bands of 17-bit samples (the extremes of a 16-bit level)."""
+    g = torch.Generator(device=cuda).manual_seed(h * w + 53)
+    bands = {k: torch.randint(-(1 << 17), 1 << 17, (2, h // 2, w // 2),
+                              generator=g, device=cuda, dtype=torch.int32)
+             for k in BANDS}
+    before = dwt_cuda.LAUNCHES["dwt53_inv_level"]
+    got = dwt_cuda.inverse_2d_53(bands)
+    assert dwt_cuda.LAUNCHES["dwt53_inv_level"] == before + 1
+    assert torch.equal(got, dwt.inverse_2d(bands, dwt.REV53))
+    x = torch.randint(-40000, 40000, (2, h, w), generator=g, device=cuda,
+                      dtype=torch.int32)
+    assert torch.equal(dwt_cuda.inverse_2d_53(dwt_cuda.forward_2d_53(x)), x)
 
 
 @pytest.mark.cuda
@@ -575,6 +635,31 @@ def test_fwd53_kernel_halo_shards_of_two_rows(cuda, w, sp):
         assert torch.equal(got, ref[k]), k
         assert torch.equal(got.cpu(), torch.cat([f[k] for f in plain],
                                                 dim=-2)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 10, 4100])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_inv53_kernel_halo_shards_of_two_rows(cuda, w, sp):
+    """The inverse 5/3 kernel's halo form on row shards of 2 rows (and of
+    34) at widths off the column tile equals the unsharded kernel, the
+    plain halo lifting and the input."""
+    from go_jpeg2000_tpu_torch.parallel import sharded
+    for rows in (2 * sp, 34 * sp):
+        g = torch.Generator(device=cuda).manual_seed(w + sp + rows)
+        x = torch.randint(-40000, 40000, (3, rows, w), generator=g,
+                          device=cuda, dtype=torch.int32)
+        _fwd, inv, bands = _halo_split(x, sp, dwt.REV53)
+        bands = {k: v.contiguous() for k, v in bands.items()}
+        split = [{k: v.cpu().contiguous() for k, v in zip(bands, parts)}
+                 for parts in zip(*(torch.chunk(b, sp, dim=-2)
+                                    for b in bands.values()))]
+        plain = sharded.inverse_level_split(split, dwt.REV53,
+                                            level=dwt.inverse_2d_halo)
+        rec = torch.cat(inv, dim=-2)
+        assert torch.equal(rec, dwt_cuda.inverse_2d_53(bands))
+        assert torch.equal(rec.cpu(), torch.cat(plain, dim=-2))
+        assert torch.equal(rec, x)
 
 
 # widths whose column pairs leave 0, 1 or 27 pairs in the last tile of 28

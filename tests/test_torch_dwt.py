@@ -4,7 +4,9 @@ level kernels in interpret mode, and the parity-general jnp lifting at odd
 sizes and origins.  Tolerances: 5/3, exact equality (integer lifting); 9/7,
 exact equality with the JAX package's eager lifting (the same float32 ops
 in the same order), and test_dwt_pallas.py's tolerance against the Pallas
-9/7 kernels, whose XLA program may round differently."""
+9/7 kernels, whose XLA program may round differently.  Plain-torch models
+of the level kernels' decompositions (_tiles_97, _tiles_53: strips, column
+tiles and their halos) equal the plain level bit for bit."""
 import functools
 
 import jax
@@ -91,14 +93,16 @@ def test_usable_gating():
     assert not dwt_cuda.usable(511, 512, 0, 0)    # odd size
     assert not dwt_cuda.usable(512, 512, 1, 0)    # odd origin
     assert not dwt_cuda.usable(512, 512, 0, 3)
-    # the forward 5/3 kernel holds its strip in registers: any even width;
-    # the inverse's strip of STRIP_ROWS + HALO_ROWS int32 rows must fit
-    # 227 KB
+    # both 5/3 kernels hold their strips in registers: any even width, the
+    # inverse too
     assert dwt_cuda.usable(16, 4096, 0, 0)
     assert dwt_cuda.usable(8192, 8192, 0, 0, dwt.REV53, inverse=False)
-    assert not dwt_cuda.usable(16, 4096, 0, 0, inverse=True)
-    assert dwt_cuda.usable(16, 3058, 0, 0, inverse=True)
-    assert not dwt_cuda.usable(16, 3060, 0, 0, inverse=True)
+    for w in (2, 3058, 3060, 4096, 8192, 65536):
+        assert dwt_cuda.usable(16, w, 0, 0, inverse=True)
+        assert dwt_cuda.usable(w, w, 0, 0, dwt.REV53, inverse=True)
+    assert not dwt_cuda.usable(16, 4095, 0, 0, inverse=True)
+    assert not dwt_cuda.usable(16, 4096, 0, 1, inverse=True)
+    assert not hasattr(dwt_cuda, "MAX_SMEM_BYTES")
 
 
 def test_wrappers_refuse_other_devices():
@@ -258,12 +262,12 @@ def test_97_usable_and_refusals():
     assert dwt_cuda.usable(2, 2, 0, 0, dwt.IRR97)
     assert not dwt_cuda.usable(512, 511, 0, 0, dwt.IRR97)
     assert not dwt_cuda.usable(512, 512, 0, 1, dwt.IRR97)
-    # both 9/7 kernels keep their strip in registers: any even width; the
-    # inverse 5/3's shared-memory strip still limits it
+    # every level kernel keeps its strip in registers: any even width, the
+    # inverse 5/3 as well
     for inverse in (False, True):
         assert dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97, inverse=inverse)
         assert dwt_cuda.usable(8192, 8192, 0, 0, dwt.IRR97, inverse=inverse)
-    assert not dwt_cuda.usable(16, 3060, 0, 0, dwt.REV53, inverse=True)
+    assert dwt_cuda.usable(16, 3060, 0, 0, dwt.REV53, inverse=True)
     assert dwt_cuda.usable(16, 2560, 0, 0, dwt.REV53)
     assert dwt_cuda.usable(16, 2560, 0, 0, dwt.REV53, inverse=True)
     x = torch.empty((1, 4, 4), dtype=torch.float32, device="meta")
@@ -273,3 +277,100 @@ def test_97_usable_and_refusals():
              for k in BANDS}
     with pytest.raises(ValueError):
         dwt_cuda.inverse_2d_97(bands)
+
+
+# output column pairs of one warp's tile in csrc/dwt53.cu (lanes 1 .. 30)
+TILE_PAIRS_53 = 30
+
+
+def _unpair(rows):
+    """Halo rows in dwt.pair_rows' layout ([LL|HL] or [LH|HH]) as
+    interleaved columns."""
+    w2 = rows.shape[-1] // 2
+    out = torch.empty_like(rows)
+    out[..., 0::2] = rows[..., :w2]
+    out[..., 1::2] = rows[..., w2:]
+    return out
+
+
+def _tiles_53(x, rows=None, halo_pairs=(1, 1), above=None, below=None):
+    """The inverse 5/3 kernel's decomposition in plain torch, on the
+    interleaved signal x [n, h, w] (a row shard when `above` [n, 1, w] or
+    `below` [n, 2, w], pair_rows' layout, are given): each (strip of
+    STRIP_ROWS rows, tile of TILE_PAIRS_53 column pairs) lifts only its
+    window, rows first, extended by `rows` = (above, below) rows (by default
+    the kernel's halo, 1 and 2) and by `halo_pairs` = (left, right) column
+    pairs (the kernel's lanes 0 and 31), read through repeated symmetric
+    reflection or from the halo rows; the windows' centres are
+    concatenated."""
+    n, h, w = x.shape
+    up, down = rows or dwt.HALO_DEPTH[(dwt.REV53, True)]
+    left, right = halo_pairs
+    strip = dwt_cuda.STRIP_ROWS[(dwt.REV53, True)]
+    lift = dwt._inverse_1d_53
+    ext_above = None if above is None else _unpair(above)
+    ext_below = None if below is None else _unpair(below)
+
+    def row(g):
+        if g < 0 and ext_above is not None:
+            return ext_above[:, ext_above.shape[1] + g]
+        if g >= h and ext_below is not None:
+            return ext_below[:, g - h]
+        return x[:, _reflect(g, h)]
+
+    out = torch.empty_like(x)
+    for r0 in range(0, h, strip):
+        rr = min(strip, h - r0)
+        band = torch.stack([row(g) for g in range(r0 - up, r0 + rr + down)],
+                           dim=1)
+        for p0 in range(0, w // 2, TILE_PAIRS_53):
+            pp = min(TILE_PAIRS_53, w // 2 - p0)
+            cols = [_reflect(c, w) for c in range(
+                2 * (p0 - left), 2 * (p0 + TILE_PAIRS_53 + right))]
+            sub = lift(lift(band[:, :, cols], 2, 0), 1, up & 1)
+            c = 2 * left
+            out[:, r0:r0 + rr, 2 * p0:2 * (p0 + pp)] = \
+                sub[:, up:up + rr, c:c + 2 * pp]
+    return out
+
+
+@pytest.mark.parametrize("w", [2, 4, 6, 10, 58, 62, 64, 130])
+@pytest.mark.parametrize("h", [2, 6, 34, 70])
+def test_53_inverse_tile_decomposition(h, w):
+    # csrc/dwt53.cu's inverse warps (STRIP_ROWS rows by 30 column pairs,
+    # one halo pair a side, 1 row above and 2 below) give the plain inverse
+    # level bit for bit; without the halo pair on the right they do not
+    x = torch.from_numpy(_ints((2, h, w), h * w + 53, -30000, 30000))
+    inv = dwt.inverse_2d({k: v.contiguous() for k, v in _bands_of(x).items()},
+                         dwt.REV53)
+    assert torch.equal(_tiles_53(x), inv)
+    if w // 2 > TILE_PAIRS_53:                    # tiles meet inside the frame
+        assert not torch.equal(_tiles_53(x, halo_pairs=(1, 0)), inv)
+    if h > dwt_cuda.STRIP_ROWS[(dwt.REV53, True)]:  # strips meet too
+        for rows in ((0, 2), (1, 1)):
+            assert not torch.equal(_tiles_53(x, rows=rows), inv)
+
+
+@pytest.mark.parametrize("sp,rows,w", [(2, 4, 10), (4, 8, 62), (2, 68, 64),
+                                       (4, 16, 2), (2, 132, 130)])
+def test_53_inverse_tiles_halo_form(sp, rows, w):
+    # the same decomposition on sp row shards, reading the halo rows the
+    # exchange gives each shard (parallel/sharded.py), equals the plain halo
+    # lifting shard by shard and the unsharded inverse level
+    from go_jpeg2000_tpu_torch.parallel import sharded
+    x = torch.from_numpy(_ints((3, rows, w), rows + w + sp, -30000, 30000))
+    bands = dwt.forward_2d(x, dwt.REV53)
+    split = [{k: v.contiguous() for k, v in zip(bands, parts)}
+             for parts in zip(*(torch.chunk(b, sp, dim=-2)
+                                for b in bands.values()))]
+
+    def tiles(b, kind, above, below):
+        il = dwt.pair_rows(b)
+        return _tiles_53(_unpair(il), above=above, below=below)
+
+    got = sharded.inverse_level_split(split, dwt.REV53, level=tiles)
+    plain = sharded.inverse_level_split(split, dwt.REV53,
+                                        level=dwt.inverse_2d_halo)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    assert torch.equal(torch.cat(got, dim=-2), x)

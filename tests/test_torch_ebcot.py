@@ -523,6 +523,124 @@ def test_wrappers_on_cpu_chain_to_native_segments():
         assert (seg[:-1] if seg.endswith(b"\xff") else seg) == nat
 
 
+# --------------------------------------------------- the decision compaction
+
+def _compact_model(slots, chunk, slot_base=0, pool_base=0):
+    """csrc/ebcot_enc.cu's chunked compaction in numpy, with the slots
+    starting `slot_base` and the pool `pool_base` bytes past a 16-byte
+    boundary: a count per (row, chunk) from the chunk's 16-byte windows
+    (bytes outside the chunk read as 0xFF), each row's sum and the scan of
+    the rows, then for each chunk with a decision its place (the row's
+    offset and the counts of the row's chunks before it), each window's
+    live bytes at the exclusive scan of the window counts, and the pool's
+    16-byte windows written whole inside the chunk's range and by bytes at
+    its ends.  Returns (pool, ndec, off, largest, the (row, chunk) pairs
+    the write pass read)."""
+    nb, t = slots.shape
+    flat = slots.reshape(-1)
+    cpr = -(-t // chunk) if t else 0
+
+    def windows(r, c):
+        lo = r * t + c * chunk
+        hi = min(lo + chunk, (r + 1) * t)
+        a0 = (slot_base + lo) // 16 * 16 - slot_base
+        idx = a0 + np.arange(-(-(hi - a0) // 16) * 16)
+        inside = (idx >= lo) & (idx < hi)
+        win = np.full(idx.size, 0xFF, np.uint8)
+        win[inside] = flat[idx[inside]]
+        return win.reshape(-1, 16)
+
+    counts = np.array([[int((windows(r, c) != 0xFF).sum())
+                        for c in range(cpr)] for r in range(nb)],
+                      np.int64).reshape(nb, cpr)
+    ndec = counts.sum(axis=1)
+    off = np.cumsum(ndec) - ndec
+    total = int(ndec.sum())
+    pool = np.full(pool_base + total + 16, 0x5A, np.uint8)
+    read = []
+    for r in range(nb):
+        for c in range(cpr):
+            if counts[r, c] == 0:
+                continue
+            read.append((r, c))
+            base = pool_base + int(off[r] + counts[r, :c].sum())
+            win = windows(r, c)
+            live = win != 0xFF
+            pos = np.cumsum(live.sum(axis=1)) - live.sum(axis=1)
+            stage = np.zeros(base % 16 + int(counts[r, c]) + 32, np.uint8)
+            for k in range(win.shape[0]):
+                at = base % 16 + pos[k]
+                stage[at:at + live[k].sum()] = win[k][live[k]]
+            lo, hi = base, base + int(counts[r, c])
+            for a in range(lo // 16 * 16, hi, 16):
+                s0 = a - lo // 16 * 16
+                if a >= lo and a + 16 <= hi:
+                    pool[a:a + 16] = stage[s0:s0 + 16]
+                else:
+                    for j in range(16):
+                        if lo <= a + j < hi:
+                            pool[a + j] = stage[s0 + j]
+    assert (pool[:pool_base] == 0x5A).all()
+    assert (pool[pool_base + total:] == 0x5A).all()
+    largest = int(ndec.max()) if nb else 0
+    return (pool[pool_base:pool_base + total], ndec, off, largest, read)
+
+
+def _decision_batch_64():
+    rng = np.random.RandomState(5)
+    blocks = []
+    for mag in (3000, 200, 9, 0):
+        c = rng.randint(-mag, mag + 1, size=(64, 64)).astype(np.int32)
+        c[rng.rand(64, 64) < 0.4] = 0
+        blocks.append(c)
+    arrays = (torch.from_numpy(a) for a in _batch(
+        blocks, ["HL", "LL", "HH", "LH"], 64, 64))
+    return ebcot_cuda.decision_slots(*arrays, 11).numpy()
+
+
+COMPACT_CASES = sorted(ebcot_cuda.compact_stress_slots()) + [
+    "empty_batch", "decisions_64"]
+
+
+@pytest.mark.parametrize("name", COMPACT_CASES)
+def test_chunked_compaction_model(name):
+    """The compaction kernels' decomposition (chunks of COMPACT_CHUNK bytes,
+    or of 48 and 1000 bytes on the short cases) equals compact_rows_plain
+    at every alignment of slots and pool; the write pass reads no chunk
+    without a decision."""
+    if name == "empty_batch":
+        slots = np.zeros((0, 300), np.uint8)
+    elif name == "decisions_64":
+        slots = _decision_batch_64()
+    else:
+        slots = ebcot_cuda.compact_stress_slots()[name]
+    pool, ndec, off, largest = ebcot_cuda.compact_rows_plain(
+        torch.from_numpy(slots))
+    chunks = [ebcot_cuda.COMPACT_CHUNK]
+    if slots.size <= 50000:
+        chunks += [48, 1000]
+    for chunk in chunks:
+        for sb, pb in ((0, 0), (5, 11), (15, 1)):
+            got = _compact_model(slots, chunk, sb, pb)
+            np.testing.assert_array_equal(got[0], pool.numpy())
+            np.testing.assert_array_equal(got[1], ndec.numpy())
+            np.testing.assert_array_equal(got[2], off.numpy())
+            assert got[3] == largest
+            nb, t = slots.shape
+            for r, c in got[4]:
+                row = slots[r, c * chunk:(c + 1) * chunk]
+                assert (row != 0xFF).any()
+            assert len(got[4]) == sum(
+                (slots[r, c:c + chunk] != 0xFF).any()
+                for r in range(nb) for c in range(0, t, chunk))
+    if name == "fill_planes":       # the generator's 0xFF fill planes
+        plane = ebcot_device.slots_per_plane(64, 64)
+        assert (slots[4] == 0xFF).all() and ndec[4] == 0
+        assert (slots[3, :10 * plane] == 0xFF).all()
+    if name == "decisions_64":
+        assert ndec.tolist()[-1] == 0 and min(ndec.tolist()[:3]) > 0
+
+
 # ------------------------------------------------------- the batch paths
 
 def _frames(kind):
