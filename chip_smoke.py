@@ -30,11 +30,16 @@ sources in this checkout.  Phases, each of which raises on failure:
    distortion within a relative 1e-5 (a float32 sum taken in another
    order); the cleanup kernel also on blocks with magnitudes near the
    30-bit limit and on a config-4 tile-origin class (64 tiles of 512x512
-   16-bit RGB, 12,864 blocks), and so is the bit packer, one launch for
+   16-bit RGB, 12,864 blocks), and so are the bit packer, one launch for
    the three streams (pack_streams, as the main path calls it) and one a
-   stream (pack_bits); kernel and plain times with CUDA events on the 2240
-   blocks, and each kernel's device time alone, and the cleanup kernel's
-   and the packer's on the config-4 class;
+   stream (pack_bits), and the pool compaction; the compaction also on
+   ht_enc_cuda.pool_stress_cases (row widths off 4 words, full and empty
+   rows, 4.8 KB rows, one row, two rounds of its scan) with the word rows
+   0 and 1 words past a 16-byte boundary; kernel and plain times with CUDA
+   events on the 2240 blocks, and each kernel's device time alone, the
+   cleanup kernel's, the packer's and the compaction's on the config-4
+   class, and the compaction beside one PyTorch expression that computes
+   its output (torch.masked_select per stream and torch.cat);
 5. each HT decode kernel (MagSgn extraction, block-to-pyramid assembly
    with the midpoint dequantization of lossy plans) against its plain
    torch version on the card, on the native parse of the same frames'
@@ -76,7 +81,11 @@ sources in this checkout.  Phases, each of which raises on failure:
    of every chunk, runs across 16-byte boundaries, rows off 16 bytes and
    off the chunk, 13-byte rows, 0xFF fill planes) with the slots 0 and 5
    bytes past a 16-byte boundary, and timed beside one library call that
-   computes the same pool (torch.masked_select); the decision kernel
+   computes the same pool (torch.masked_select); the segment pool also
+   on ebcot_cuda.pool_stress_rows (rows at every phase, empty rows, 9 KB
+   rows, one row, runs of two rows a warp) with the row buffer 0 and 5
+   bytes past a 16-byte boundary, and timed beside torch.masked_select of
+   the row buffer; the decision kernel
    also on ops/ebcot_device.stress_blocks (an SPP chain snaking through
    64x64 blocks, stripe-long chains under a ragged mask, one live plane
    under eleven empty ones, 29 planes); the MQ segments also
@@ -124,7 +133,8 @@ before it and read just after.  The line before the last is a JSON summary of th
 kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the card's peak rate for their type, and the time
 of one PyTorch call that computes the same function where there is one
-(the decision compaction's torch.masked_select); the last line
+(torch.masked_select for the decision compaction and the segment pool,
+masked_select per stream and torch.cat for the HT pool); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -693,11 +703,7 @@ def check_ht_kernels(tp, dev, card):
         "ht_compact_pool": (
             cuda_ms(lambda: K.assemble_pool(*pool_args)),
             cuda_ms(lambda: ht_enc.assemble_pool(*pool_args), reps=5),
-            # reads the bit counts, the meta inputs and the used words;
-            # writes the meta rows, the used words and the totals
-            bound(24 * nb + 4 * used + 24 * nb + 4 * used + 24,
-                  OPS_PER_ELEMENT["ht_compact_pool"] * used,
-                  INT32_OPS_PER_S)),
+            pool_bound(nb, used)),
     }
     kernel_fns = {
         "ht_extract_blocks": lambda: K.extract_blocks(pyr, plan, n, levels),
@@ -708,10 +714,74 @@ def check_ht_kernels(tp, dev, card):
         time_line(name, ms, plain_ms, bound_ms, by,
                   device_ms(kernel_fns[name]),
                   f"{nb} blocks of {plan.cbh}x{plan.cbw}", card)
+    library = {"ht_compact_pool": pool_library_ms(pool_args, pool)}
+    print(f"time ht_compact_pool: library call torch.masked_select per "
+          f"stream and torch.cat with the meta rows (masks and meta made "
+          f"beforehand) {library['ht_compact_pool']:.4f} ms, kernel "
+          f"{times['ht_compact_pool'][0]:.4f} ms (both by CUDA events; the "
+          f"library call reads three sizes back) [{card}]", flush=True)
     cleanup_check(K, ht_enc, *extreme_blocks(dev), "magnitudes up to 2^30-1")
-    err["ht_pack_bits"] = max(err["ht_pack_bits"],
-                              class_timing(tp, dev, card))
-    return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
+    pack_err, pool_err = class_timing(tp, dev, card)
+    err["ht_pack_bits"] = max(err["ht_pack_bits"], pack_err)
+    err["ht_compact_pool"] = max(err["ht_compact_pool"], pool_err,
+                                 check_pool_stress(dev))
+    return err, {k: (a, b) + c for k, (a, b, c) in times.items()}, library
+
+
+def pool_library_ms(pool_args, pool):
+    """The time of one PyTorch expression that computes ht_compact_pool's
+    output: torch.masked_select of each stream's used words and torch.cat
+    with the six meta rows, the masks and the meta made beforehand."""
+    ms_w, ms_b, vlc_w, vlc_b, mel_w, mel_b, numbps, u_max, dist = pool_args
+    meta = torch.stack([ms_b, vlc_b, mel_b, numbps, u_max,
+                        dist.view(torch.int32)]).reshape(-1)
+    parts = []
+    for w, b in ((ms_w, ms_b), (vlc_w, vlc_b), (mel_w, mel_b)):
+        cols = torch.arange(w.shape[1], device=w.device)
+        parts.append((w, cols[None, :] < ((b.long() + 31) >> 5)[:, None]))
+    fn = lambda: torch.cat(   # noqa: E731
+        [meta] + [torch.masked_select(w, m) for w, m in parts])
+    if not torch.equal(fn(), pool):
+        raise AssertionError("masked_select's HT pool differs")
+    return cuda_ms(fn)
+
+
+def check_pool_stress(dev):
+    """ht_compact_pool on ht_enc_cuda.pool_stress_cases with the word rows
+    0 and 1 words past a 16-byte boundary: the used prefix and the totals
+    against ht_enc.assemble_pool.  Returns 0 (raises on a difference)."""
+    from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
+    for name, host in K.pool_stress_cases().items():
+        for base in (0, 1):
+            args = []
+            for a in host:
+                if a.ndim == 2:
+                    buf = torch.empty(a.size + 4, dtype=torch.int32,
+                                      device=dev)
+                    t = buf[base:base + a.size].view(a.shape)
+                    t.copy_(torch.from_numpy(a))
+                else:
+                    t = torch.from_numpy(a).to(dev)
+                args.append(t)
+            out, totals = K.assemble_pool(*args)
+            want, wtot = ht_enc.assemble_pool(*args)
+            bad = int((totals != wtot).sum().item()) + int(
+                (out[:want.numel()] != want).sum().item())
+            print(f"kernel check ht_compact_pool stress {name} (word rows "
+                  f"base +{base} words, {host[1].size} rows, totals "
+                  f"{wtot.tolist()}): differing {bad}", flush=True)
+            if bad:
+                raise AssertionError("ht_compact_pool disagrees on the "
+                                     f"stress case {name}")
+    return 0
+
+
+def pool_bound(nb, used):
+    """ht_compact_pool's least time for nb rows and `used` pool words: it
+    reads the bit counts, the meta inputs and the used words, and writes
+    the meta rows, the used words and the totals."""
+    return bound(24 * nb + 4 * used + 24 * nb + 4 * used + 24,
+                 OPS_PER_ELEMENT["ht_compact_pool"] * used, INT32_OPS_PER_S)
 
 
 def cleanup_bound(blocks, ref):
@@ -724,9 +794,10 @@ def cleanup_bound(blocks, ref):
 
 
 def class_timing(tp, dev, card):
-    """The cleanup kernel and the bit packer on a config-4 tile-origin
-    class (12,864 16-bit blocks): each checked against its plain version
-    on the class, then timed.  Returns the packer's largest |diff|."""
+    """The cleanup kernel, the bit packer and the pool compaction on a
+    config-4 tile-origin class (12,864 16-bit blocks: two rounds of the
+    pool scan): each checked against its plain version on the class, then
+    timed.  Returns the packer's and the compaction's largest |diff|."""
     from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
     frames, opts = config4_class(tp)
     plan, blocks, hs, ws = ht_blocks(tp, frames, opts, dev)
@@ -761,9 +832,30 @@ def class_timing(tp, dev, card):
     time_line("ht_pack_bits", cuda_ms(fn), plain_ms, *pack_bound(fields, nb),
               device_ms(fn),
               f"{what}, three streams in one launch", card)
+    pool_args = [x for pair in fn() for x in pair] + [
+        ref["numbps"], ref["u_max"], ref["dist"]]
     del ref, fields
+    pool, totals = ht_enc.assemble_pool(*pool_args)
+    t0 = time.perf_counter()
+    ht_enc.assemble_pool(*pool_args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kout, ktotals = K.assemble_pool(*pool_args)
+    pool_diff = max(int((ktotals != totals).sum().item()), int(
+        (kout[:pool.numel()] != pool).sum().item()))
+    print(f"kernel check ht_compact_pool config-4 class ({nb} blocks, "
+          f"{pool.numel() - 6 * nb} pool words): differing {pool_diff}",
+          flush=True)
+    if pool_diff:
+        raise AssertionError("config-4 class: ht_compact_pool disagrees "
+                             "with its plain version")
+    fn = lambda: K.assemble_pool(*pool_args)   # noqa: E731
+    time_line("ht_compact_pool", cuda_ms(fn), plain_ms,
+              *pool_bound(nb, pool.numel() - 6 * nb), device_ms(fn), what,
+              card)
+    del pool_args, pool, kout
     torch.cuda.empty_cache()
-    return diff
+    return diff, pool_diff
 
 
 def magsgn_bits(qinfo):
@@ -1352,6 +1444,34 @@ def check_compact_stress(dev):
     return 0
 
 
+def check_segment_pool_stress(dev):
+    """The segment-pool kernel on ebcot_cuda.pool_stress_rows with the row
+    buffer 0 and 5 bytes past a 16-byte boundary: pool prefix and total
+    against pool_rows_plain.  Returns the count of differing bytes (raises
+    on any)."""
+    from go_jpeg2000_tpu_torch.ops import ebcot_cuda as K
+    for name, (ndec, lens, rows) in K.pool_stress_rows().items():
+        for base in (0, 5):
+            buf = torch.empty(rows.size + 16, dtype=torch.uint8, device=dev)
+            rows_t = buf[base:base + rows.size]
+            rows_t.copy_(torch.from_numpy(rows))
+            off = torch.from_numpy(np.cumsum(ndec.astype(np.int64))
+                                   - ndec).to(dev)
+            lens_t = torch.from_numpy(lens).to(dev)
+            pool, total = K.pool_rows(rows_t, off, lens_t)
+            want, wtot = K.pool_rows_plain(rows_t, off, lens_t)
+            used = int(wtot.item())
+            bad = abs(int(total.item()) - used) + int(
+                (pool[:used] != want[:used]).sum().item())
+            print(f"kernel check ebcot_pool_rows stress {name} (rows base "
+                  f"+{base} bytes, {lens.size} rows, {used} bytes): "
+                  f"differing {bad}", flush=True)
+            if bad:
+                raise AssertionError(f"ebcot_pool_rows disagrees on the "
+                                     f"stress rows {name}")
+    return 0
+
+
 def check_ebcot_kernels(tp, dev, card):
     """Phase 8: every EBCOT kernel against its plain version on the main
     gray batch and on 16-bit RGB, noise, all-zero and ragged frames, the
@@ -1362,6 +1482,7 @@ def check_ebcot_kernels(tp, dev, card):
     err = {k: 0 for k in EBCOT_KERNELS}
     err["ebcot_decision_slots"] = check_decision_stress(dev)
     err["ebcot_compact_rows"] = check_compact_stress(dev)
+    err["ebcot_pool_rows"] = check_segment_pool_stress(dev)
     timing = None
     for name, frames in ebcot_cases(tp):
         label = f"{name} {len(frames)}x{'x'.join(map(str, frames[0].shape))}"
@@ -1438,6 +1559,23 @@ def check_ebcot_kernels(tp, dev, card):
           f"kernel {times['ebcot_compact_rows'][0]:.4f} ms (both by CUDA "
           f"events, both read a size back) [{card}]", flush=True)
     del mask
+    # the segment pool: masked_select of the row buffer with the mask of
+    # the segments' bytes made beforehand
+    seg_mask = torch.zeros(rows.numel(), dtype=torch.bool, device=rows.device)
+    starts = 3 * off + 3 * torch.arange(nb, device=off.device)
+    cols = torch.arange(int(lens.max().item()), device=off.device)
+    inside = cols[None, :] < lens.long()[:, None]
+    seg_mask[(starts[:, None] + cols[None, :])[inside]] = True
+    lib_pool = torch.masked_select(rows, seg_mask)
+    if not torch.equal(lib_pool, K.pool_rows(rows, off, lens)[0][:used]):
+        raise AssertionError("masked_select's segment pool differs")
+    library["ebcot_pool_rows"] = cuda_ms(
+        lambda: torch.masked_select(rows, seg_mask))
+    print(f"time ebcot_pool_rows: library call torch.masked_select (mask "
+          f"made beforehand) {library['ebcot_pool_rows']:.4f} ms, kernel "
+          f"{times['ebcot_pool_rows'][0]:.4f} ms (both by CUDA events; the "
+          f"library call reads its size back) [{card}]", flush=True)
+    del seg_mask, lib_pool, inside
     print(f"time ebcot_mq_encode: serial bound {serial_ms:.4f} ms (the "
           f"longest block's {largest} decisions x {MQ_DEPENDENT_CYCLES} "
           f"dependent cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz), "
@@ -2116,10 +2254,12 @@ def main():
     for k, e in check_wide_levels(dwt, dwt_cuda, transforms, dev,
                                   card).items():
         err[k] = max(err[k], e)
-    for check in (check_ht_kernels, check_ht_dec_kernels):
-        e, t = check(tp, dev, card)
-        err.update(e)
-        times.update(t)
+    e, t, library = check_ht_kernels(tp, dev, card)
+    err.update(e)
+    times.update(t)
+    e, t = check_ht_dec_kernels(tp, dev, card)
+    err.update(e)
+    times.update(t)
     torch.cuda.empty_cache()
 
     kernels = (dwt_cuda, ht_enc_cuda, ht_dec_cuda)
@@ -2152,9 +2292,10 @@ def main():
         frames, opts, streams, _dec = runs[label]
         stage_lines(tp, label, frames, opts, streams, dev, card, reps)
 
-    e, t, library = check_ebcot_kernels(tp, dev, card)
+    e, t, lib_ms = check_ebcot_kernels(tp, dev, card)
     err.update(e)
     times.update(t)
+    library.update(lib_ms)
     torch.cuda.empty_cache()
     ebcot_kernels = (dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda)
     ebcot_runs = {}

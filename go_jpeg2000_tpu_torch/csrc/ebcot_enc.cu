@@ -88,16 +88,27 @@
 //   flush.  A decision commits at most 3 bytes (at most 15 renormalization
 //   shifts, and a BYTEOUT reloads CT with at least 7) and the flush at most
 //   3, so a row of 3 * ndec + 3 bytes always holds the segment.
-// * ebcot_pool_rows: bytes.  One block scans the segment lengths (pool
-//   offsets and total); a grid of one CUDA block per row copies each
-//   segment to its place.  The pool is allocated at its bound and only its
-//   used prefix is copied to the host.
+// * ebcot_pool_rows: bytes, in one launch.  A CTA of POOL_WARPS warps owns
+//   a tile of consecutive rows, a run of rows a warp.  It finds the tile's
+//   place in the pool by summing the lengths of every row before the tile
+//   itself (16-byte loads, from L2 after the first CTAs): no CTA waits on
+//   another's published prefix, so no scheduling order can deadlock and no
+//   flags need zeroing before the launch.  A warp sum per run and one
+//   barrier give each warp its base; each warp then copies its rows in
+//   turn with 16-byte loads and stores, realigned in registers to the
+//   pool's phase (row_copy.cuh), and the tile holding the last row writes
+//   the total.  A row per warp while the grid stays under POOL_MAX_CTAS
+//   CTAs, so the lengths summed over all CTAs stay under POOL_MAX_CTAS *
+//   nb.  The pool is allocated at its bound and only its used prefix is
+//   copied to the host.
 //
 // Kernels launch on the caller's stream and allocate nothing; each entry
 // point returns cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "row_copy.cuh"
 
 #define DEC_THREADS 128        // threads of a (code-block, plane) CTA
 #define STATS_THREADS 256
@@ -109,9 +120,11 @@
 // for a start off 16 bytes, fit CMP_TILES * CMP_THREADS
 #define CMP_MAX_CHUNK ((CMP_TILES * CMP_THREADS - 1) * 16)
 #define SCAN_THREADS 1024
+#define POOL_WARPS 4           // warps of a segment-pool CTA, a row run each
+#define POOL_MAX_CTAS 1024     // grid size above which the runs grow
+#define POOL_COPY_UNROLL 4     // windows a segment-copy lane takes a step
 #define MQ_PAIRS 2             // code-blocks (two warps each) per CTA
 #define MQ_CHUNK 1024          // decision bytes a warp stages at a time
-#define COPY_THREADS 128
 #define NUM_CTX 19
 #define NUM_QE 47
 #define EMPTY 0xFF
@@ -1034,30 +1047,58 @@ __global__ void __launch_bounds__(MQ_PAIRS * 64) mq_kernel(
 
 // ---------------------------------------------------------- ebcot_pool_rows
 
-__global__ void __launch_bounds__(SCAN_THREADS) lens_scan_kernel(
-    const int* __restrict__ lens, int nb, long long* __restrict__ pool_off,
-    long long* __restrict__ total) {
-  __shared__ int sh[32];
-  long long carry = 0;
-  for (int base = 0; base < nb; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    int tot;
-    const int excl = block_exclusive_scan(i < nb ? lens[i] : 0, sh, &tot);
-    if (i < nb) pool_off[i] = carry + excl;
-    carry += tot;
-  }
-  if (threadIdx.x == 0) total[0] = carry;
+__device__ __forceinline__ long long warp_sum64(long long v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-__global__ void __launch_bounds__(COPY_THREADS) pool_copy_kernel(
+// Rows [blockIdx.x * POOL_WARPS * run, + POOL_WARPS * run): warp w copies
+// `run` of them, each segment to the exclusive scan of lens; total[0]
+// gets the sum of lens.
+__global__ void __launch_bounds__(POOL_WARPS * 32) seg_pool_kernel(
     const uint8_t* __restrict__ rows, const long long* __restrict__ off,
-    const int* __restrict__ lens, const long long* __restrict__ pool_off,
-    uint8_t* __restrict__ pool) {
-  const int b = blockIdx.x;
-  const uint8_t* src = rows + 3 * off[b] + 3 * (int64_t)b;
-  uint8_t* dst = pool + pool_off[b];
-  const int n = lens[b];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+    const int* __restrict__ lens, int nb, int run,
+    long long* __restrict__ total, uint8_t* __restrict__ pool) {
+  __shared__ long long sh[2 * POOL_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * POOL_WARPS * run;
+  // the lengths of every row before the tile
+  long long before = 0;
+  int i = threadIdx.x;
+  if ((reinterpret_cast<uintptr_t>(lens) & 15) == 0) {
+    const int4* l4 = reinterpret_cast<const int4*>(lens);
+    for (int q = threadIdx.x; q < first / 4; q += blockDim.x) {
+      const int4 v = __ldg(l4 + q);
+      before += (long long)v.x + v.y + v.z + v.w;
+    }
+    i = (first & ~3) + threadIdx.x;
+  }
+  for (; i < first; i += blockDim.x) before += lens[i];
+  const int r0 = min(first + warp * run, nb), r1 = min(r0 + run, nb);
+  long long mine = 0;
+  for (int r = r0 + lane; r < r1; r += 32) mine += lens[r];
+  before = warp_sum64(before);
+  mine = warp_sum64(mine);
+  if (lane == 0) {
+    sh[warp] = before;
+    sh[POOL_WARPS + warp] = mine;
+  }
+  __syncthreads();
+  long long base = 0, tile = 0;
+#pragma unroll
+  for (int k = 0; k < POOL_WARPS; ++k) {
+    base += sh[k] + (k < warp ? sh[POOL_WARPS + k] : 0);
+    tile += sh[k] + sh[POOL_WARPS + k];
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) total[0] = tile;
+  for (int r = r0; r < r1; ++r) {
+    const int n = lens[r];
+    warp_copy<POOL_COPY_UNROLL>(pool + base,
+                                rows + 3 * off[r] + 3 * (long long)r, n,
+                                lane);
+    base += n;
+  }
 }
 
 extern "C" {
@@ -1149,15 +1190,14 @@ int ebcot_mq_encode(const void* dec, long long dec_len, const void* off,
 }
 
 int ebcot_pool_rows(const void* rows, const void* off, const void* lens,
-                    int nb, void* pool_off, void* total, void* pool,
-                    void* stream) {
-  lens_scan_kernel<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)lens, nb, (long long*)pool_off, (long long*)total);
-  const int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  pool_copy_kernel<<<nb, COPY_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)rows, (const long long*)off, (const int*)lens,
-      (const long long*)pool_off, (uint8_t*)pool);
+                    int nb, void* total, void* pool, void* stream) {
+  if (nb <= 0) return 0;
+  const int per_cta = POOL_WARPS * POOL_MAX_CTAS;
+  const int run = (nb + per_cta - 1) / per_cta;
+  const int grid = (nb + POOL_WARPS * run - 1) / (POOL_WARPS * run);
+  seg_pool_kernel<<<grid, POOL_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)rows, (const long long*)off, (const int*)lens, nb, run,
+      (long long*)total, (uint8_t*)pool);
   return (int)cudaGetLastError();
 }
 

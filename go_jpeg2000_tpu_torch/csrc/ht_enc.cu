@@ -74,12 +74,24 @@
 //   KB, a 64x64 MagSgn row) on the encode's paths, and at most 227 KB.
 //   Shifts by 32 or 64 are undefined in C++, so every such shift is
 //   guarded explicitly.
-// * ht_compact_pool: one 1024-thread block scans the per-row word counts of
-//   the three streams (block scans of 1024 rows with a carry), writes the
-//   row offsets, the three totals and the six meta rows; then a grid of
-//   (row, stream) blocks copies each row's used words to its place.  The
-//   output is allocated at its bound by the wrapper, and only the used
-//   prefix [6*Nb | MagSgn | VLC | MEL] is copied to the host.
+// * ht_compact_pool: two launches, since the VLC and MEL rows' places need
+//   the whole MagSgn and VLC totals.  The scan is one CTA of 1024 threads
+//   over the three streams together, a thread a tile of 8 rows (a copy
+//   CTA's): two 16-byte loads of each stream's bit counts, one
+//   warp-shuffle scan and one barrier pair give every tile its offsets
+//   (8192 rows a round, two rounds for a config-4 tile-origin class of
+//   12,864 blocks, where the first version took 39 serial block scans and
+//   wrote every row's offset); it writes the three totals.  The copy is a
+//   warp per (row, stream), a tile a CTA: the warp finds its row's offset
+//   from the tile's and the tile's word counts (a shuffle scan), moves the
+//   row's used words with 16-byte loads and stores, realigned in registers
+//   to the pool's phase (row_copy.cuh: interior windows whole, the two end
+//   windows by the row's own bytes), and each CTA writes two of the six
+//   meta rows for its tile.  The copy is a programmatic dependent launch
+//   (Hopper): its CTAs start and write the meta rows while the scan runs,
+//   then wait for the scan (griddepcontrol).  The output is allocated at
+//   its bound by the wrapper, and only the used prefix [6*Nb | MagSgn |
+//   VLC | MEL] is copied to the host.
 //
 // Kernels launch on the caller's stream and allocate nothing; each entry
 // point returns cudaGetLastError() after its launches.
@@ -87,9 +99,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_copy.cuh"
+
 #define THREADS 256
-#define SCAN_THREADS 1024
-#define COPY_THREADS 128
+#define SCAN_THREADS 1024      // threads of the pool scan (one CTA)
+#define COPY_WARPS 8           // rows of a pool-copy CTA (a warp each): a tile
+#define SCAN_ROWS (SCAN_THREADS * COPY_WARPS)   // rows scanned per round
+#define HT_COPY_UNROLL 2       // windows a lane of the pool copy takes a step
 #define TABLE_SIZE 8192
 
 // band table of ht_extract_blocks: BAND_FIELDS int64 per band, bands in
@@ -101,34 +117,6 @@ enum { B_PTR, B_COMP, B_BH, B_BW, B_GX, B_EH, B_EW, B_OY, B_OX, B_SLOT0,
 // ---------------------------------------------------------------- helpers
 
 __device__ __forceinline__ int bitlen(unsigned v) { return 32 - __clz(v); }
-
-// Exclusive scan of v over the block (blockDim.x a multiple of 32, at most
-// 1024).  Returns the thread's exclusive prefix and puts the block total in
-// *total; sh holds 32 ints.
-__device__ int block_exclusive_scan(int v, int* sh, int* total) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) sh[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int s = lane < nwarps ? sh[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < nwarps) sh[lane] = s;
-  }
-  __syncthreads();
-  const int prefix = (wid ? sh[wid - 1] : 0) + x - v;
-  *total = sh[nwarps - 1];
-  __syncthreads();
-  return prefix;
-}
 
 struct Uvlc {
   int p, pl, s, sl;
@@ -618,52 +606,135 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_kernel(PackStreams ps) {
 
 // -------------------------------------------------------- ht_compact_pool
 
-__global__ void __launch_bounds__(SCAN_THREADS) compact_scan_kernel(
-    const int* __restrict__ ms_bits, const int* __restrict__ vlc_bits,
-    const int* __restrict__ mel_bits, const int* __restrict__ numbps,
-    const int* __restrict__ u_max, const float* __restrict__ dist, int nb,
-    long long* __restrict__ offs, long long* __restrict__ totals,
-    int* __restrict__ out) {
-  __shared__ int sh[32];
-  const int* bits_of[3] = {ms_bits, vlc_bits, mel_bits};
-  for (int s = 0; s < 3; ++s) {
-    const int* bits = bits_of[s];
-    long long carry = 0;
-    for (int base = 0; base < nb; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int nw = i < nb ? (bits[i] + 31) >> 5 : 0;
-      int tot;
-      const int excl = block_exclusive_scan(nw, sh, &tot);
-      if (i < nb) offs[(int64_t)s * nb + i] = carry + excl;
-      carry += tot;
-    }
-    if (threadIdx.x == 0) totals[s] = carry;
+// A row's used words, ceil(bits / 32).
+__device__ __forceinline__ int row_words(int bits) {
+  return (int)(((long long)bits + 31) >> 5);
+}
+
+static_assert(COPY_WARPS == 8, "tile_words loads a tile as two int4");
+
+// The word count of the tile of COPY_WARPS rows from r0 (rows past nb
+// count 0): two 16-byte loads when the tile is whole and bits aligned.
+__device__ __forceinline__ int tile_words(const int* __restrict__ bits,
+                                          int r0, int nb) {
+  int w = 0;
+  if (r0 + COPY_WARPS <= nb && (reinterpret_cast<uintptr_t>(bits) & 15) == 0) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(bits + r0));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(bits + r0) + 1);
+    w = row_words(a.x) + row_words(a.y) + row_words(a.z) + row_words(a.w) +
+        row_words(b.x) + row_words(b.y) + row_words(b.z) + row_words(b.w);
+  } else {
+    for (int r = r0; r < min(r0 + COPY_WARPS, nb); ++r)
+      w += row_words(__ldg(bits + r));
   }
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    out[i] = ms_bits[i];
-    out[nb + i] = vlc_bits[i];
-    out[2 * (int64_t)nb + i] = mel_bits[i];
-    out[3 * (int64_t)nb + i] = numbps[i];
-    out[4 * (int64_t)nb + i] = u_max[i];
-    out[5 * (int64_t)nb + i] = __float_as_int(dist[i]);
+  return w;
+}
+
+// tiles[s * ntiles + x]: stream s's word offset, in its pool, of tile x
+// (rows x * COPY_WARPS on, one copy CTA's); totals[s] the stream's total.
+// A thread a tile, SCAN_THREADS tiles a round.
+__global__ void __launch_bounds__(SCAN_THREADS) ht_pool_scan_kernel(
+    const int* __restrict__ ms_bits, const int* __restrict__ vlc_bits,
+    const int* __restrict__ mel_bits, int nb, long long* __restrict__ tiles,
+    long long* __restrict__ totals) {
+  __shared__ long long warp_incl[3][32];
+  // the copy grid may launch now; it waits for this grid's end to read
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int* bits_of[3] = {ms_bits, vlc_bits, mel_bits};
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int ntiles = (nb + COPY_WARPS - 1) / COPY_WARPS;
+  long long carry[3] = {0, 0, 0};
+  for (int base = 0; base < nb; base += SCAN_ROWS) {
+    const int tile = base / COPY_WARPS + t;
+    int own[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+      own[s] = tile_words(bits_of[s], tile * COPY_WARPS, nb);
+    long long incl[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      long long v = own[s];               // at most 8 * 2^26 words
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const long long y = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += y;
+      }
+      incl[s] = v;
+      if (lane == 31) warp_incl[s][warp] = v;
+    }
+    __syncthreads();
+    if (warp < 3) {                         // warp s scans stream s's warps
+      long long v = warp_incl[warp][lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const long long y = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += y;
+      }
+      warp_incl[warp][lane] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      if (tile < ntiles)
+        tiles[(long long)s * ntiles + tile] =
+            carry[s] + (warp ? warp_incl[s][warp - 1] : 0) + incl[s] - own[s];
+      carry[s] += warp_incl[s][31];
+    }
+    __syncthreads();                        // the next round rewrites
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int s = 0; s < 3; ++s) totals[s] = carry[s];
   }
 }
 
-__global__ void __launch_bounds__(COPY_THREADS) compact_copy_kernel(
+// A warp per (row, stream) moves the row's used words to the pool; CTA
+// (x, s) also writes meta rows 2s and 2s + 1 of its COPY_WARPS rows.
+__global__ void __launch_bounds__(COPY_WARPS * 32) ht_pool_copy_kernel(
     const int* __restrict__ ms_words, int mw, const int* __restrict__ vlc_words,
     int vw, const int* __restrict__ mel_words, int ew,
     const int* __restrict__ ms_bits, const int* __restrict__ vlc_bits,
-    const int* __restrict__ mel_bits, const long long* __restrict__ offs,
-    const long long* __restrict__ totals, int nb, int* __restrict__ out) {
-  const int row = blockIdx.x, s = blockIdx.y;
+    const int* __restrict__ mel_bits, const int* __restrict__ numbps,
+    const int* __restrict__ u_max, const int* __restrict__ dist_bits,
+    const long long* __restrict__ tiles, const long long* __restrict__ totals,
+    int nb, int* __restrict__ out) {
+  const int s = blockIdx.y, lane = threadIdx.x & 31;
+  const int first = blockIdx.x * COPY_WARPS;
+  if (threadIdx.x < 2 * COPY_WARPS) {
+    const int m = 2 * s + threadIdx.x / COPY_WARPS;
+    const int r = first + threadIdx.x % COPY_WARPS;
+    const int* meta[6] = {ms_bits, vlc_bits, mel_bits, numbps, u_max,
+                          dist_bits};
+    if (r < nb) out[(long long)m * nb + r] = meta[m][r];
+  }
+  // the scan's offsets and totals: wait for the scan grid to finish
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int warp = threadIdx.x >> 5, row = first + warp;
+  if (row >= nb) return;
   const int* words = s == 0 ? ms_words : (s == 1 ? vlc_words : mel_words);
   const int width = s == 0 ? mw : (s == 1 ? vw : ew);
   const int* bits = s == 0 ? ms_bits : (s == 1 ? vlc_bits : mel_bits);
-  const int nw = min(width, (bits[row] + 31) >> 5);
-  const int64_t base = 6 * (int64_t)nb + (s >= 1 ? totals[0] : 0) +
-                       (s == 2 ? totals[1] : 0) + offs[(int64_t)s * nb + row];
-  const int* src = words + (int64_t)row * width;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) out[base + i] = src[i];
+  // the tile's word counts, one a lane; the warp's row sits at the tile's
+  // offset plus the counts of the rows before it
+  const int cnt = lane < COPY_WARPS && first + lane < nb
+                      ? row_words(__ldg(bits + first + lane))
+                      : 0;
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < COPY_WARPS; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const int before = __shfl_sync(0xffffffffu, incl - cnt, warp);
+  const int nw = min(width, __shfl_sync(0xffffffffu, cnt, warp));
+  const int ntiles = (nb + COPY_WARPS - 1) / COPY_WARPS;
+  const long long at = 6 * (long long)nb + (s >= 1 ? totals[0] : 0) +
+                       (s == 2 ? totals[1] : 0) +
+                       tiles[(long long)s * ntiles + blockIdx.x] + before;
+  warp_copy<HT_COPY_UNROLL>(
+      reinterpret_cast<uint8_t*>(out + at),
+      reinterpret_cast<const uint8_t*>(words + (long long)row * width),
+      4 * (long long)nw, lane);
 }
 
 static int set_smem(const void* kernel, size_t bytes) {
@@ -741,24 +812,38 @@ int ht_pack_bits(const long long* desc, int nstreams, int nrows,
   return (int)cudaGetLastError();
 }
 
+// offs: int64 scratch of at least 3 * ceil(nb / COPY_WARPS) (the tiles'
+// offsets)
 int ht_compact_pool(const void* ms_words, int mw, const void* ms_bits,
                     const void* vlc_words, int vw, const void* vlc_bits,
                     const void* mel_words, int ew, const void* mel_bits,
                     const void* numbps, const void* u_max, const void* dist,
                     int nb, void* offs, void* totals, void* out,
                     void* stream) {
-  compact_scan_kernel<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)ms_bits, (const int*)vlc_bits, (const int*)mel_bits,
-      (const int*)numbps, (const int*)u_max, (const float*)dist, nb,
-      (long long*)offs, (long long*)totals, (int*)out);
+  ht_pool_scan_kernel<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)ms_bits, (const int*)vlc_bits, (const int*)mel_bits, nb,
+      (long long*)offs, (long long*)totals);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  dim3 grid(nb, 3);
-  compact_copy_kernel<<<grid, COPY_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)ms_words, mw, (const int*)vlc_words, vw,
-      (const int*)mel_words, ew, (const int*)ms_bits, (const int*)vlc_bits,
-      (const int*)mel_bits, (const long long*)offs,
-      (const long long*)totals, nb, (int*)out);
+  dim3 grid((nb + COPY_WARPS - 1) / COPY_WARPS, 3);
+  // a programmatic dependent launch: the copy's CTAs start (and write the
+  // meta rows) while the scan runs, and wait for it before reading offsets
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(COPY_WARPS * 32);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = (int)cudaLaunchKernelEx(
+      &cfg, ht_pool_copy_kernel, (const int*)ms_words, mw,
+      (const int*)vlc_words, vw, (const int*)mel_words, ew,
+      (const int*)ms_bits, (const int*)vlc_bits, (const int*)mel_bits,
+      (const int*)numbps, (const int*)u_max, (const int*)dist,
+      (const long long*)offs, (const long long*)totals, nb, (int*)out);
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@ Each source compiles into a shared library with a plain C interface, bound
 with ctypes by its wrapper module (ops/dwt_cuda.py, ops/ht_enc_cuda.py,
 ops/ht_dec_cuda.py, ops/ebcot_cuda.py, ops/band_stats.py).
 The libraries go into go_jpeg2000_tpu_torch/_build/, named by a hash of the
-source and the flags, so a library built from the same source is reused.
+source, the headers of csrc/ and the flags, so a library built from the
+same source is reused.
 The first `load` builds every source that _build/ lacks, one nvcc process
 per source, all started together.  Nothing is built when this module is
 imported, and a failed build raises.
@@ -45,9 +46,15 @@ def nvcc() -> str:
 
 
 def so_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    h = hashlib.sha256()
+    # the source and every header of csrc/ (row_copy.cuh is shared)
+    for path in [os.path.join(CSRC, SOURCES[name])] + sorted(
+            os.path.join(CSRC, f) for f in os.listdir(CSRC)
+            if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
 
 

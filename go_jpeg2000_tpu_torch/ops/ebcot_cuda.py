@@ -93,7 +93,7 @@ def load() -> ctypes.CDLL:
                 "ebcot_chunk_count": [p, i, ll, i, p, p, p, p, p],
                 "ebcot_chunk_write": [p, i, ll, i, p, p, p, p],
                 "ebcot_mq_encode": [p, ll, p, p, i, p, p, p],
-                "ebcot_pool_rows": [p, p, p, i, p, p, p, p]}
+                "ebcot_pool_rows": [p, p, p, i, p, p, p]}
         for name, args in sigs.items():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -252,6 +252,37 @@ def compact_stress_slots() -> Dict[str, np.ndarray]:
             "sparse": live((6, 3 * chunk + 16), 0.001)}
 
 
+def pool_stress_rows() -> Dict[str, Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray]]:
+    """MQ segment rows at the segment-pool kernel's edges, as (ndec int32
+    [B], lens int32 [B], the row buffer uint8 [row_bytes(ndec)]; row b at
+    3 off[b] + 3 b): short rows at every phase of source and pool; rows of
+    length 0 among them, and a batch where every length is 0; rows far
+    longer than one step of a warp's copy (2 KB); a single row; and more
+    rows than POOL_MAX_CTAS CTAs of a row a warp take, so a warp takes a
+    run of two and the last tile is partial."""
+    rng = np.random.RandomState(1)
+
+    def rows(ndec, lens):
+        ndec = np.asarray(ndec, np.int32)
+        lens = np.minimum(np.asarray(lens, np.int64), 3 * ndec + 3)
+        lens[ndec == 0] = 0
+        buf = rng.randint(0, 256, 3 * int(ndec.sum()) + 3 * ndec.size)
+        return ndec, lens.astype(np.int32), buf.astype(np.uint8)
+
+    n = rng.randint(1, 12, 160)
+    long_n = rng.randint(0, 40, 9)
+    long_n[[2, 6]] = (3000, 700)
+    many = rng.randint(0, 4, 4 * 1024 + 5)
+    return {"phases": rows(n, rng.randint(1, 40, n.size)),
+            "zero_rows": rows(np.where(rng.rand(60) < 0.5, 0, 9),
+                              rng.randint(0, 30, 60)),
+            "all_empty": rows(rng.randint(0, 9, 20), np.zeros(20)),
+            "long_rows": rows(long_n, 3 * long_n + 3),
+            "single": rows([5], [17]),
+            "many_rows": rows(many, rng.randint(0, 13, many.size))}
+
+
 def row_bytes(ndec: torch.Tensor) -> int:
     """Length of the MQ segment row buffer for these decision counts (for
     a caller without the decision pool: it syncs to sum the counts)."""
@@ -353,10 +384,11 @@ def pool_rows(rows: torch.Tensor, off: torch.Tensor, lens: torch.Tensor
     if off.numel() != nb:
         raise ValueError(f"{name}: {off.numel()} offsets for {nb} rows")
     pool = torch.empty(rows.numel(), dtype=torch.uint8, device=dev)
-    pool_off = torch.empty(nb, dtype=torch.int64, device=dev)
-    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    # the kernel writes the total; zeros only where no kernel runs
+    total = (torch.empty if nb else torch.zeros)(1, dtype=torch.int64,
+                                                 device=dev)
     if nb:
         _call(name, dev, rows.data_ptr(), off.data_ptr(), lens.data_ptr(),
-              nb, pool_off.data_ptr(), total.data_ptr(), pool.data_ptr())
+              nb, total.data_ptr(), pool.data_ptr())
         LAUNCHES[name] += 1
     return pool, total

@@ -246,7 +246,9 @@ def assemble_pool(ms_words, ms_bits, vlc_words, vlc_bits, mel_words,
     widths = [int(w.shape[1]) for w in (ms_words, vlc_words, mel_words)]
     out = torch.empty(nb * (6 + sum(widths)), dtype=torch.int32, device=dev)
     offs = torch.empty(3 * nb, dtype=torch.int64, device=dev)
-    totals = torch.zeros(3, dtype=torch.int64, device=dev)
+    # the scan writes the totals; zeros only where no kernel runs
+    totals = (torch.empty if nb else torch.zeros)(3, dtype=torch.int64,
+                                                  device=dev)
     if nb:
         _launch(name, dev, ms_words.data_ptr(), widths[0],
                 ms_bits.data_ptr(), vlc_words.data_ptr(), widths[1],
@@ -255,3 +257,34 @@ def assemble_pool(ms_words, ms_bits, vlc_words, vlc_bits, mel_words,
                 dist.data_ptr(), nb, offs.data_ptr(), totals.data_ptr(),
                 out.data_ptr())
     return out, totals
+
+
+def pool_stress_cases() -> Dict[str, Tuple[np.ndarray, ...]]:
+    """assemble_pool's inputs at the pool kernels' edges, as numpy arrays in
+    its argument order (ms_words, ms_bits, vlc_words, vlc_bits, mel_words,
+    mel_bits, numbps, u_max, dist): row widths off 4 words and multiples of
+    4; rows whose bits fill them exactly; rows of 0 bits, and a batch
+    where every row is empty; MagSgn rows far longer than one step of a
+    warp's copy (2 KB); a single row; and more rows than the scan stages at
+    a time (8192), a multiple of neither a round nor a copy CTA's rows."""
+    rng = np.random.RandomState(2)
+
+    def case(nb, widths, fill=None, empty=0.2):
+        out = []
+        for w in widths:
+            words = rng.randint(-2 ** 31, 2 ** 31, (nb, w), dtype=np.int64)
+            bits = (rng.randint(0, 32 * w + 1, nb) if fill is None
+                    else np.full(nb, 32 * w))
+            bits[rng.rand(nb) < empty] = 0
+            out += [words.astype(np.int32), bits.astype(np.int32)]
+        return tuple(out) + (rng.randint(0, 30, nb).astype(np.int32),
+                             rng.randint(0, 99, nb).astype(np.int32),
+                             rng.rand(nb).astype(np.float32))
+
+    return {"odd_widths": case(37, (7, 3, 1)),
+            "aligned_widths": case(45, (8, 4, 4)),
+            "full_rows": case(19, (13, 6, 2), fill=True, empty=0.0),
+            "all_empty": case(11, (9, 3, 2), empty=1.0),
+            "long_rows": case(9, (1200, 40, 5), fill=True, empty=0.1),
+            "single": case(1, (5, 2, 1)),
+            "two_rounds": case(8192 + 8 * 3 + 5, (2, 1, 1))}

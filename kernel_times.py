@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Times the Part-1 decision kernel (ebcot_decision_slots), the decision
-compaction (ebcot_compact_rows), the MQ coder (ebcot_mq_encode), the HT
-block extraction (ht_extract_blocks), cleanup-field kernel
-(ht_cleanup_fields) and bit packer (ht_pack_bits), the HT MagSgn decoder
+compaction (ebcot_compact_rows), the MQ coder (ebcot_mq_encode), the
+segment pool (ebcot_pool_rows), the HT block extraction
+(ht_extract_blocks), cleanup-field kernel (ht_cleanup_fields), bit packer
+(ht_pack_bits) and pool compaction (ht_compact_pool), the HT MagSgn decoder
 (ht_magsgn_decode), the 5/3 levels (dwt53_fwd_level, dwt53_inv_level) and
 the 9/7 levels (dwt97_fwd_level, dwt97_inv_level) of one checkout of the
 PyTorch/CUDA port on one CUDA device, at the shapes of chip_smoke.py, and
@@ -24,16 +25,21 @@ generators (this script's copy):
   ebcot_cuda.COMPACT_CHUNK bytes) where the checkout has them, else
   ebcot_compact_count and ebcot_compact_write (a CTA per row);
 - MQ: the decision pool of the same batch;
-- extraction: the pyramid of the HT lossless gray batch (32 gray 512x512
-  frames, 2240 blocks), launched through the C entry point with the band
-  table already on the card (the wrapper uploads it);
-- cleanup: the blocks of the HT lossless gray batch (32 gray 512x512
-  frames, 2240 blocks of 64x64) and of a config-4 tile-origin class (64
-  tiles of 512x512 16-bit RGB, 12,864 blocks);
-- packing: the three streams' fields of the same two batches (made by the
-  checkout's cleanup kernel), packed by pack_bits, one call a stream, which
-  every checkout has, and, where the checkout has it, by pack_streams, one
-  launch for the three;
+- segment pool: the MQ rows of the same batch, through the C entry point
+  ebcot_pool_rows with the pool sized beforehand (the same arguments in
+  every checkout);
+- extraction: the pyramids of the HT lossless gray batch (32 gray 512x512
+  frames, 2240 blocks) and of a config-4 tile-origin class, lossless (64
+  tiles of 512x512 16-bit RGB, 12,864 blocks) and lossy (the image >> 8
+  at quality 85), launched through the C entry point with the band table
+  already on the card (the wrapper uploads it);
+- cleanup: the blocks of the same three batches;
+- packing: the three streams' fields of the same three batches (made by
+  the checkout's cleanup kernel), packed by pack_bits, one call a stream,
+  which every checkout has, and, where the checkout has it, by
+  pack_streams, one launch for the three;
+- pool compaction: the packed streams of the same three batches, through
+  the C entry point ht_compact_pool with the output sized beforehand;
 - MagSgn decode: the native parse of the HT lossless gray batch's
   streams (2240 blocks) and of a config-4 class's lossless and lossy
   (the image >> 8 at quality 85) streams (12,864 blocks each), made by the
@@ -47,7 +53,10 @@ generators (this script's copy):
 Each kernel: mean of 20 calls by CUDA events after 3 warm-ups, and the
 kernel's device time alone (chip_smoke.py device_ms: the calls queued
 behind a spin kernel); the MQ coder's cycles per
-decision of the longest block from the CUDA-event time at 1.98 GHz.
+decision of the longest block from the CUDA-event time at 1.98 GHz.  The
+two pool compactions also by CUDA events around their Python wrappers,
+and beside the time alone of one torch copy_ of their output's bytes;
+and the launch floor, a one-element add_ alone.
 --config4 also times config 4's lossless encode (8192x8192 16-bit RGB,
 512x512 tiles, 5 resolutions) in chip_smoke.py's stages, medians of 3
 after a warm-up: the transform step (the level kernels and band_stats)
@@ -90,7 +99,9 @@ KERNELS = ("fields_kernel", "mq_kernel", "pack_kernel", "dwt53_fwd_kernel",
            "dwt53_inv_kernel", "dwt97_fwd_kernel", "dwt97_inv_kernel",
            "decision_kernel", "block_stats_kernel", "magsgn_kernel",
            "count_kernel", "compact_write_kernel", "chunk_count_kernel",
-           "chunk_write_kernel", "rows_scan_kernel")
+           "chunk_write_kernel", "rows_scan_kernel", "compact_scan_kernel",
+           "compact_copy_kernel", "lens_scan_kernel", "pool_copy_kernel",
+           "ht_pool_scan_kernel", "ht_pool_copy_kernel", "seg_pool_kernel")
 # H100 SM limits for the occupancy lines: registers, threads, CTAs, shared
 # memory (each CTA also reserves 1 KB)
 SM_REGS, SM_THREADS, SM_CTAS, SM_SMEM = 65536, 2048, 32, 233472
@@ -266,6 +277,70 @@ def compact_call(ebcot_cuda, slots, total):
     return fn, pool, [sym for sym, _a in calls]
 
 
+def pool_call(ht_enc_cuda, pool_args):
+    """ht_compact_pool through the library's C entry point with its output,
+    offsets and totals allocated beforehand, as ht_enc_cuda.assemble_pool
+    allocates them: (launch function, output, totals)."""
+    import torch
+    ms_w, ms_b, vlc_w, vlc_b, mel_w, mel_b, numbps, u_max, dist = pool_args
+    nb = ms_w.shape[0]
+    widths = [int(w.shape[1]) for w in (ms_w, vlc_w, mel_w)]
+    dev = ms_w.device
+    out = torch.empty(nb * (6 + sum(widths)), dtype=torch.int32, device=dev)
+    offs = torch.empty(3 * nb, dtype=torch.int64, device=dev)
+    totals = torch.zeros(3, dtype=torch.int64, device=dev)
+    lib = ht_enc_cuda.load()
+
+    def fn():
+        rc = lib.ht_compact_pool(
+            ms_w.data_ptr(), widths[0], ms_b.data_ptr(), vlc_w.data_ptr(),
+            widths[1], vlc_b.data_ptr(), mel_w.data_ptr(), widths[2],
+            mel_b.data_ptr(), numbps.data_ptr(), u_max.data_ptr(),
+            dist.data_ptr(), nb, offs.data_ptr(), totals.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"ht_compact_pool: CUDA error {rc}")
+        return out
+    return fn, out, totals
+
+
+def seg_pool_call(ebcot_cuda, rows, off, lens, tree):
+    """ebcot_pool_rows through the library's C entry point with the pool and
+    total allocated beforehand (a parent's entry also takes an int64
+    offset array, pool_off, before the total): (launch function, pool,
+    total)."""
+    import torch
+    nb = lens.numel()
+    dev = rows.device
+    pool = torch.empty(rows.numel(), dtype=torch.uint8, device=dev)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    with open(os.path.join(tree, "go_jpeg2000_tpu_torch", "csrc",
+                           "ebcot_enc.cu")) as f:
+        parent = "void* pool_off" in f.read()
+    extra = [torch.empty(nb, dtype=torch.int64, device=dev)] if parent else []
+    lib = ebcot_cuda.load()          # binds the tree's own argument types
+    args = ([rows.data_ptr(), off.data_ptr(), lens.data_ptr(), nb]
+            + [t.data_ptr() for t in extra] + [total.data_ptr(),
+                                                pool.data_ptr()])
+
+    def fn():
+        rc = lib.ebcot_pool_rows(*args,
+                                 torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"ebcot_pool_rows: CUDA error {rc}")
+        return pool
+    return fn, pool, total
+
+
+def copy_alone_ms(cs, nbytes):
+    """The time alone of one contiguous torch copy_ of nbytes on the card:
+    what moving a pool's bytes takes with no rows to place."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return cs.device_ms(lambda: dst.copy_(src))
+
+
 def magsgn_timing(cs, tp, decoder, ht_dec_cuda, frames, opts, dev):
     """ht_magsgn_decode on the native parse of the frames' HT streams:
     shape, CUDA-event and alone times, bound."""
@@ -315,6 +390,10 @@ def main():
         result["occupancy"] = occupancy(result["ptxas"], ebcot_cuda,
                                         ht_dec_cuda)
 
+    tiny = torch.zeros(1, device=dev)
+    result["launch floor"] = {
+        "what": "a one-element add_, alone",
+        "alone_ms": cs.device_ms(lambda: tiny.add_(1))}
     _plan, planes, inputs = cs.ebcot_inputs(tp, cs.ebcot_gray(), dev)
     fn = lambda: ebcot_cuda.decision_slots(*inputs, planes)  # noqa: E731
     slots = fn()
@@ -342,28 +421,47 @@ def main():
                  f"longest {largest}",
         "ms": ms, "alone_ms": cs.device_ms(fn),
         "cycles_per_decision": ms * 1e-3 * cs.SM_CLOCK_HZ / largest}
+    rows, lens = fn()
+    segs, total = ebcot_cuda.pool_rows(rows, off, lens)
+    used = int(total.item())
+    fn, kpool, ktotal = seg_pool_call(ebcot_cuda, rows, off, lens, tree)
+    fn()
+    if not (torch.equal(kpool[:used], segs[:used])
+            and int(ktotal.item()) == used):
+        raise AssertionError("ebcot_pool_rows through its entry point "
+                             "differs from the wrapper")
+    nb = lens.numel()
+    result["ebcot_pool_rows"] = {
+        "shape": f"{nb} segments, {used} bytes",
+        "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+        "bound_ms": cs.bound(2 * used + 12 * nb,
+                             cs.OPS_PER_ELEMENT["ebcot_pool_rows"] * used,
+                             cs.INT32_OPS_PER_S)[0],
+        "wrapper_ms": cs.cuda_ms(
+            lambda: ebcot_cuda.pool_rows(rows, off, lens)),
+        "copy_alone_ms": copy_alone_ms(cs, used)}
+    del rows, lens, segs, kpool
 
     lossless = tp.Options(format=tp.Format.J2K, lossless=True,
                           num_resolutions=6, high_throughput=True)
-    for label, (frames, opts) in (("gray", (cs.main_gray(), lossless)),
-                                  ("config-4 class", cs.config4_class(tp))):
+    for label, (frames, opts) in (
+            ("gray", (cs.main_gray(), lossless)),
+            ("config-4 class", cs.config4_class(tp)),
+            ("config-4 lossy class", cs.config4_class(tp, lossless=False))):
         plan, blocks, hs, ws = cs.ht_blocks(tp, frames, opts, dev)
         shape = (f"{blocks.shape[0]} blocks of "
                  f"{blocks.shape[1]}x{blocks.shape[2]}")
-        if label == "gray":
-            levels, pyr = cs.ht_pyramid(tp, frames, opts, dev)
-            fn, out = extract_call(ht_enc_cuda, pyr, plan, len(frames),
-                                   levels)
-            fn()
-            if not torch.equal(out, blocks):
-                raise AssertionError("ht_extract_blocks through its entry "
-                                     "point differs from the wrapper")
-            result["ht_extract_blocks gray"] = {
-                "shape": shape, "ms": cs.cuda_ms(fn),
-                "alone_ms": cs.device_ms(fn),
-                "bound_ms": cs.extract_bound(pyr, blocks)[0]}
-            del pyr, out
-        del frames
+        levels, pyr = cs.ht_pyramid(tp, frames, opts, dev)
+        fn, out = extract_call(ht_enc_cuda, pyr, plan, len(frames), levels)
+        fn()
+        if not torch.equal(out, blocks):
+            raise AssertionError("ht_extract_blocks through its entry "
+                                 "point differs from the wrapper")
+        result[f"ht_extract_blocks {label}"] = {
+            "shape": shape, "ms": cs.cuda_ms(fn),
+            "alone_ms": cs.device_ms(fn),
+            "bound_ms": cs.extract_bound(pyr, blocks)[0]}
+        del pyr, out, frames
         fn = lambda: ht_enc_cuda.cleanup_values(blocks, hs, ws)  # noqa
         result[f"ht_cleanup_fields {label}"] = {
             "shape": shape, "ms": cs.cuda_ms(fn),
@@ -373,6 +471,7 @@ def main():
         fields = [(f[f"{s}_vals"], f[f"{s}_lens"], nw) for s, nw in zip(
             ("ms", "vlc", "mel"), ht_enc.stream_words(plan.cbh, plan.cbw,
                                                       plan.max_mn))]
+        f_meta = {k: f[k] for k in ("numbps", "u_max", "dist")}
         del f
         nb = fields[0][0].shape[0]
         fns = {"pack_bits, 3 calls":
@@ -386,7 +485,26 @@ def main():
                 "ms": cs.cuda_ms(fn),
                 "alone_ms": cs.device_ms(fn),
                 "bound_ms": cs.pack_bound(fields, nb)[0]}
+        pool_args = [x for vals, lens, nw in fields
+                     for x in ht_enc_cuda.pack_bits(vals, lens, nw)] + [
+            f_meta[k] for k in ("numbps", "u_max", "dist")]
         del fields
+        want, wtot = ht_enc_cuda.assemble_pool(*pool_args)
+        fn, kout, ktot = pool_call(ht_enc_cuda, pool_args)
+        fn()
+        used = int(wtot.sum().item())
+        if not (torch.equal(ktot, wtot) and torch.equal(
+                kout[:6 * nb + used], want[:6 * nb + used])):
+            raise AssertionError("ht_compact_pool through its entry point "
+                                 "differs from the wrapper")
+        result[f"ht_compact_pool {label}"] = {
+            "shape": f"{shape}, {used} pool words",
+            "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+            "bound_ms": cs.pool_bound(nb, used)[0],
+            "wrapper_ms": cs.cuda_ms(
+                lambda: ht_enc_cuda.assemble_pool(*pool_args)),
+            "copy_alone_ms": copy_alone_ms(cs, 4 * (6 * nb + used))}
+        del pool_args, want, kout, f_meta
         torch.cuda.empty_cache()
 
     for label, (frames, opts) in (

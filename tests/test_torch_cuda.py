@@ -19,7 +19,10 @@ decode kernels' outputs are equal bit for bit, float32 leaves too.  The
 EBCOT kernels' slots, decision pools, MQ segments and lengths are equal
 exactly (MQ segments also to the native coder's), on the MQ stress
 streams of ops/mq_device.py too; the decision pools also on
-ebcot_cuda.compact_stress_slots at two slot alignments; the decision
+ebcot_cuda.compact_stress_slots at two slot alignments; the two pool
+compactions (ht_compact_pool, ebcot_pool_rows) also on their stress sets
+(ht_enc_cuda.pool_stress_cases, ebcot_cuda.pool_stress_rows) with the
+rows off a 16-byte boundary; the decision
 slots also on ebcot_device.stress_blocks and the MagSgn blocks on
 ht_dec.stress_cases.  The band
 statistics' counts are equal, their float64 sums within a relative 1e-12 (the order of
@@ -373,6 +376,58 @@ def test_compact_kernels_stress_slots(cuda, name, base):
     for g, r in zip((pool, ndec, off), ref[:3]):
         assert torch.equal(g, r)
     assert largest == ref[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ht_enc_cuda.pool_stress_cases()))
+@pytest.mark.parametrize("base", [0, 1, 3])
+def test_pool_kernels_stress_cases(cuda, name, base):
+    """ht_compact_pool on ht_enc_cuda.pool_stress_cases (row widths off 4
+    words, rows filled exactly, empty rows and an all-empty batch, MagSgn
+    rows of 4.8 KB, one row, two rounds of the scan), the word rows `base`
+    words past a 16-byte boundary: the used prefix and the totals equal
+    ht_enc.assemble_pool's, in one launch of the wrapper."""
+    args = []
+    for a in ht_enc_cuda.pool_stress_cases()[name]:
+        if a.ndim == 2:
+            buf = torch.empty(a.size + 4, dtype=torch.int32, device=cuda)
+            t = buf[base:base + a.size].view(a.shape)
+            t.copy_(torch.from_numpy(a))
+            assert t.data_ptr() % 16 == 4 * base
+        else:
+            t = torch.from_numpy(a).to(cuda)
+        args.append(t)
+    before = ht_enc_cuda.LAUNCHES["ht_compact_pool"]
+    out, totals = ht_enc_cuda.assemble_pool(*args)
+    assert ht_enc_cuda.LAUNCHES["ht_compact_pool"] == before + 1
+    want, wtot = ht_enc.assemble_pool(*args)
+    assert torch.equal(totals, wtot)
+    assert torch.equal(out[:want.numel()], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ebcot_cuda.pool_stress_rows()))
+@pytest.mark.parametrize("base", [0, 5, 11])
+def test_segment_pool_kernel_stress_rows(cuda, name, base):
+    """ebcot_pool_rows on ebcot_cuda.pool_stress_rows (short rows at every
+    phase, empty rows and an all-empty batch, rows of up to 9 KB, one row,
+    runs of two rows a warp with a partial last tile), the row buffer
+    `base` bytes past a 16-byte boundary: the pool's used prefix and the
+    total equal pool_rows_plain's."""
+    ndec, lens, rows = ebcot_cuda.pool_stress_rows()[name]
+    buf = torch.empty(rows.size + 16, dtype=torch.uint8, device=cuda)
+    rows_t = buf[base:base + rows.size]
+    rows_t.copy_(torch.from_numpy(rows))
+    assert rows_t.data_ptr() % 16 == base
+    off = torch.from_numpy(np.cumsum(ndec.astype(np.int64)) - ndec).to(cuda)
+    lens_t = torch.from_numpy(lens).to(cuda)
+    before = ebcot_cuda.LAUNCHES["ebcot_pool_rows"]
+    pool, total = ebcot_cuda.pool_rows(rows_t, off, lens_t)
+    assert ebcot_cuda.LAUNCHES["ebcot_pool_rows"] == before + 1
+    want, wtot = ebcot_cuda.pool_rows_plain(rows_t, off, lens_t)
+    assert torch.equal(total, wtot)
+    used = int(wtot)
+    assert torch.equal(pool[:used], want[:used])
 
 
 @pytest.mark.cuda

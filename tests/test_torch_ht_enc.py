@@ -19,8 +19,9 @@ from go_jpeg2000_tpu.options import Format, Options
 from go_jpeg2000_tpu.tcd import geometry as jgeo
 from go_jpeg2000_tpu_torch.models import encoder, fused_encode, transforms
 from go_jpeg2000_tpu_torch.native import loader
-from go_jpeg2000_tpu_torch.ops import dwt, ht_enc
+from go_jpeg2000_tpu_torch.ops import dwt, ht_enc, ht_enc_cuda
 from go_jpeg2000_tpu_torch.tcd import geometry as geo
+from tests import row_copy_model as rc
 
 SHAPES = [(4, 4), (8, 8), (16, 16), (6, 10), (2, 4), (32, 8), (12, 4),
           (2, 2), (10, 6), (64, 48)]
@@ -163,6 +164,122 @@ def test_compact_pool_matches_jax(seed):
     host_off, host_nw = ht_enc.pool_offsets(bits, 5)
     np.testing.assert_array_equal(host_off, ref_off + 5)
     np.testing.assert_array_equal(host_nw, ref_nw)
+
+
+# ------------------------------------------- the pool kernels' decomposition
+
+SCAN_THREADS = rc.define("ht_enc.cu", "SCAN_THREADS")
+COPY_WARPS = rc.define("ht_enc.cu", "COPY_WARPS")
+HT_COPY_UNROLL = rc.define("ht_enc.cu", "HT_COPY_UNROLL")
+
+
+def _row_words(bits):
+    return (bits.astype(np.int64) + 31) >> 5
+
+
+def _pool_scan_model(bits):
+    """ht_pool_scan_kernel on one stream's bit counts: a thread a tile of
+    COPY_WARPS rows (its word count in an int), SCAN_THREADS tiles a round,
+    an inclusive scan of the tile counts over each warp's 32 threads, then
+    over the warps, with a carry between rounds.  Returns (each tile's
+    offset, the total)."""
+    nb = bits.size
+    ntiles = -(-nb // COPY_WARPS)
+    words = np.zeros(ntiles * COPY_WARPS, np.int64)
+    words[:nb] = _row_words(bits)
+    own = words.reshape(ntiles, COPY_WARPS).sum(axis=1)
+    assert own.max(initial=0) < 2 ** 31
+    tiles = np.zeros(ntiles, np.int64)
+    carry = 0
+    for base in range(0, ntiles, SCAN_THREADS):
+        run = np.zeros(SCAN_THREADS, np.int64)
+        m = min(SCAN_THREADS, ntiles - base)
+        run[:m] = own[base:base + m]
+        incl = np.cumsum(run.reshape(-1, 32), axis=1)
+        warp_incl = np.cumsum(incl[:, -1])
+        warp_before = np.concatenate([[0], warp_incl[:-1]])
+        excl = (carry + warp_before[:, None] + incl).reshape(-1) - run
+        tiles[base:base + m] = excl[:m]
+        carry += int(warp_incl[-1])
+    return tiles, carry
+
+
+def _compact_pool_model(args, word_phase, out_phase):
+    """ht_compact_pool in numpy: the scan of the three streams' tiles, then
+    a CTA per (tile, stream), a warp a row finding its offset from the
+    tile's and a shuffle scan of the tile's word counts, and each CTA
+    writing meta rows 2s and 2s + 1 of its tile; the word rows start
+    word_phase words and the output out_phase words past a 16-byte
+    boundary.  Returns (the used prefix int32, totals, every store
+    (address, size), the output's first address)."""
+    ms_w, ms_b, vlc_w, vlc_b, mel_w, mel_b, numbps, u_max, dist = args
+    nb = ms_b.size
+    words, bits = (ms_w, vlc_w, mel_w), (ms_b, vlc_b, mel_b)
+    scans = [_pool_scan_model(b) for b in bits]
+    totals = [t for _o, t in scans]
+    meta = (ms_b, vlc_b, mel_b, numbps, u_max, dist.view(np.int32))
+    out = np.full(nb * (6 + sum(w.shape[1] for w in words)), 0x5A5A5A5A,
+                  np.int32)
+    mem = rc.Mem(out, 4 * out_phase)
+    stores = []
+    for x in range(-(-nb // COPY_WARPS)):
+        first = x * COPY_WARPS
+        for s in range(3):
+            for t in range(2 * COPY_WARPS):
+                m, r = 2 * s + t // COPY_WARPS, first + t % COPY_WARPS
+                if r < nb:
+                    out[m * nb + r] = meta[m][r]
+                    stores.append((mem.addr(4 * (m * nb + r)), 4))
+            width = words[s].shape[1]
+            src = rc.Mem(words[s], 4 * word_phase)
+            cnt = _row_words(bits[s][first:first + COPY_WARPS])
+            for w, row in enumerate(range(first, min(first + COPY_WARPS,
+                                                     nb))):
+                nw = min(width, int(cnt[w]))
+                at = (6 * nb + sum(totals[:s]) + int(scans[s][0][x])
+                      + int(cnt[:w].sum()))
+                rc.warp_copy(mem, 4 * at, src, 4 * row * width, 4 * nw,
+                             stores, HT_COPY_UNROLL)
+    used = 6 * nb + sum(totals)
+    return out[:used], totals, stores, mem.addr(0)
+
+
+POOL_CASES = ht_enc_cuda.pool_stress_cases()
+
+
+@pytest.mark.parametrize("word_phase", [0, 1, 2, 3])
+@pytest.mark.parametrize("name", sorted(set(POOL_CASES) - {"two_rounds"}))
+def test_compact_pool_kernel_model(name, word_phase):
+    """The pool kernels' decomposition (ht_compact_pool: a scan of tiles of
+    8 rows, a warp per (row, stream), 16-byte windows realigned to the
+    pool, narrower stores at each row's ends) equals ht_enc.assemble_pool
+    on ht_enc_cuda.pool_stress_cases, with the word rows and the output at
+    every phase of 0 to 3 words past a 16-byte boundary; every store is
+    aligned, inside its row's range, and the stores cover the used prefix
+    exactly once."""
+    args = POOL_CASES[name]
+    want, wtot = ht_enc.assemble_pool(*(torch.from_numpy(a) for a in args))
+    for out_phase in range(4):
+        got, totals, stores, lo = _compact_pool_model(args, word_phase,
+                                                      out_phase)
+        assert totals == wtot.tolist()
+        np.testing.assert_array_equal(got, want.numpy())
+        rc.check_stores(stores, lo, lo + 4 * got.size)
+    if name == "all_empty":
+        assert totals == [0, 0, 0]
+
+
+def test_compact_pool_kernel_model_two_rounds():
+    """The same on more rows than the scan stages at a time (two rounds;
+    a multiple of neither a round nor a copy CTA's rows)."""
+    args = POOL_CASES["two_rounds"]
+    nb = args[1].size
+    assert nb > SCAN_THREADS * COPY_WARPS and nb % COPY_WARPS
+    want, wtot = ht_enc.assemble_pool(*(torch.from_numpy(a) for a in args))
+    got, totals, stores, lo = _compact_pool_model(args, 1, 2)
+    assert totals == wtot.tolist()
+    np.testing.assert_array_equal(got, want.numpy())
+    rc.check_stores(stores, lo, lo + 4 * got.size)
 
 
 def test_cleanup_fields_compact_matches_jax():

@@ -11,7 +11,13 @@ the card.  The plain lockstep chain takes tens of torch ops a decision, so
 it runs on the streams of at most four chunks; the long stream goes to the
 native coder and MQEncoder only.
 
-Also the cleanup wrapper's shape rule (ops/ht_enc_cuda.py
+Also a numpy model of the segment-pool kernel (csrc/ebcot_enc.cu
+ebcot_pool_rows: tiles of rows that each sum the lengths before them, a
+warp a run of rows, 16-byte windows realigned to the pool and narrower
+stores at each row's ends) on ebcot_cuda.pool_stress_rows, held to
+pool_rows_plain at every phase of rows and pool.
+
+And the cleanup wrapper's shape rule (ops/ht_enc_cuda.py
 cleanup_shape_supported, the rule it applies to CUDA tensors): every legal
 code-block shape of the padded batch is accepted, and the wrapper takes
 such shapes on the CPU through the plain version, whose fields match the
@@ -28,6 +34,7 @@ from go_jpeg2000_tpu.ops import mq_device as jax_mq_device
 from go_jpeg2000_tpu_torch.native import loader
 from go_jpeg2000_tpu_torch.ops import ebcot_cuda, ht_enc, ht_enc_cuda
 from go_jpeg2000_tpu_torch.ops import mq_device
+from tests import row_copy_model as rc
 
 CHUNK = ebcot_cuda.MQ_CHUNK
 SHORT = 4 * CHUNK
@@ -209,3 +216,90 @@ def test_cleanup_wrapper_takes_legal_shapes_on_cpu(shape):
                                   np.asarray(ref["numbps"]))
     np.testing.assert_array_equal(got["u_max"].numpy(),
                                   np.asarray(ref["u_max"]))
+
+
+# ------------------------------------------- the segment pool's decomposition
+
+POOL_WARPS = rc.define("ebcot_enc.cu", "POOL_WARPS")
+POOL_MAX_CTAS = rc.define("ebcot_enc.cu", "POOL_MAX_CTAS")
+POOL_COPY_UNROLL = rc.define("ebcot_enc.cu", "POOL_COPY_UNROLL")
+POOL_ROWS = ebcot_cuda.pool_stress_rows()
+
+
+def _pool_rows_model(ndec, lens, rows, rows_phase, pool_phase):
+    """ebcot_pool_rows in numpy: runs of ceil(nb / (POOL_WARPS *
+    POOL_MAX_CTAS)) rows a warp, a CTA of POOL_WARPS warps a tile, each
+    tile's base the sum of every length before it, a warp's base that plus
+    the runs of the warps before it, rows copied in turn by the warp copy;
+    the row buffer starts rows_phase bytes and the pool pool_phase bytes
+    past a 16-byte boundary.  Returns (pool prefix, total, stores, the
+    pool's first address)."""
+    nb = lens.size
+    off = np.cumsum(ndec.astype(np.int64)) - ndec
+    run = -(-nb // (POOL_WARPS * POOL_MAX_CTAS))
+    grid = -(-nb // (POOL_WARPS * run))
+    src = rc.Mem(rows, rows_phase)
+    pool = rc.Mem(np.full(rows.size + 16, 0x5A, np.uint8), pool_phase)
+    stores, totals, visited = [], [], []
+    for c in range(grid):
+        first = c * POOL_WARPS * run
+        before = int(lens[:first].sum())
+        spans = [(min(first + w * run, nb),
+                  min(min(first + w * run, nb) + run, nb))
+                 for w in range(POOL_WARPS)]
+        mine = [int(lens[r0:r1].sum()) for r0, r1 in spans]
+        if c == grid - 1:
+            totals.append(before + sum(mine))
+        for w, (r0, r1) in enumerate(spans):
+            base = before + sum(mine[:w])
+            for r in range(r0, r1):
+                visited.append(r)
+                rc.warp_copy(pool, base, src, 3 * int(off[r]) + 3 * r,
+                             int(lens[r]), stores, POOL_COPY_UNROLL)
+                base += int(lens[r])
+    assert visited == list(range(nb)) and len(totals) == 1
+    total = totals[0]
+    assert (pool.data[total:] == 0x5A).all()
+    return pool.data[:total], total, stores, pool.addr(0)
+
+
+def _check_pool_model(name, rows_phase, pool_phases):
+    ndec, lens, rows = POOL_ROWS[name]
+    off = torch.from_numpy(np.cumsum(ndec.astype(np.int64)) - ndec)
+    want, wtot = ebcot_cuda.pool_rows_plain(torch.from_numpy(rows), off,
+                                            torch.from_numpy(lens))
+    for pool_phase in pool_phases:
+        got, total, stores, lo = _pool_rows_model(
+            ndec, lens, rows, rows_phase, pool_phase)
+        assert total == int(wtot)
+        np.testing.assert_array_equal(got, want.numpy()[:total])
+        rc.check_stores(stores, lo, lo + total)
+
+
+@pytest.mark.parametrize("rows_phase", range(16))
+def test_pool_rows_kernel_model_phases(rows_phase):
+    """The segment-pool kernel's decomposition equals pool_rows_plain on
+    short rows of every length phase, with the row buffer and the pool at
+    every phase of 0 to 15 bytes past a 16-byte boundary; every store is
+    aligned, inside its row's range, and the stores cover the pool's used
+    prefix exactly once."""
+    _check_pool_model("phases", rows_phase, range(16))
+
+
+@pytest.mark.parametrize("name", sorted(set(POOL_ROWS) - {"phases"}))
+def test_pool_rows_kernel_model_cases(name):
+    """The same on rows of length 0, a batch of only empty rows, rows far
+    longer than a warp's step, a single row, and more rows than
+    POOL_MAX_CTAS tiles of a row a warp (runs of two, a partial last
+    tile)."""
+    ndec, lens, _rows = POOL_ROWS[name]
+    if name == "many_rows":
+        assert lens.size > POOL_WARPS * POOL_MAX_CTAS
+        assert lens.size % (2 * POOL_WARPS)
+    if name == "long_rows":
+        assert lens.max() > 2 * 32 * POOL_COPY_UNROLL * 16
+    if name == "all_empty":
+        assert not lens.any()
+    for rows_phase, pool_phase in ((0, 0), (5, 11), (15, 1)):
+        _check_pool_model(name, rows_phase, [pool_phase])
+
