@@ -39,7 +39,9 @@ sources in this checkout.  Phases, each of which raises on failure:
    events on the 2240 blocks, and each kernel's device time alone, the
    cleanup kernel's, the packer's and the compaction's on the config-4
    class, and the compaction beside one PyTorch expression that computes
-   its output (torch.masked_select per stream and torch.cat);
+   its output (torch.masked_select per stream and torch.cat), the lossless
+   extraction beside torch.take over the flat pyramid and a zero with the
+   slot index made beforehand;
 5. each HT decode kernel (MagSgn extraction, block-to-pyramid assembly
    with the midpoint dequantization of lossy plans) against its plain
    torch version on the card, on the native parse of the same frames'
@@ -49,7 +51,9 @@ sources in this checkout.  Phases, each of which raises on failure:
    out of order, a block past its staging window, a pool off 16 bytes)
    and on a config-4 tile-origin class, lossless and lossy (12,864
    blocks each, also timed); kernel and plain times with CUDA events on
-   the 2240 blocks, and each kernel's device time alone;
+   the 2240 blocks, and each kernel's device time alone; the lossless
+   assembly beside Tensor.index_copy_ into the flat pyramid with the index
+   made beforehand;
 6. the lossless main paths, through the public entry points: encode_batch
    then decode_batch on 32 gray 8-bit 512x512 frames with the bench
    headline options (HTJ2K, lossless 5/3, 6 resolutions, J2K), then on 4
@@ -126,15 +130,30 @@ sources in this checkout.  Phases, each of which raises on failure:
    decode's stages (medians of 3) with peak device bytes per sample, and
    the idle shares; then at 2048x2048 (16 tiles, all four tile-origin
    classes) the card's codestreams equal the CPU run's for HT lossless, HT
-   lossy (decodes equal too) and Part-1 with two layers and a 6:1 budget.
+   lossy (decodes equal too) and Part-1 with two layers and a 6:1 budget;
+11. the single-image API (encode, decode) on four cases: S1 Options() (JP2,
+   lossy Part-1 9/7, quality 75, one tile) on a 4096x4096 8-bit RGB image
+   (PSNR printed); S2 HTJ2K lossless in 1024x1024 tiles (16) with 3 quality
+   layers, J2K, on the same image (round trip exact); S3 Part-1 lossless
+   on a 4096-row, 3328-column 12-bit gray frame (precision 12; its last
+   tile column 256 wide) in 1024x1024 tiles, 2 layers and a 6:1 budget;
+   S4 a 750x1000 gray image at image offset (7, 3) and tile offset (5, 1)
+   in 256x256 tiles, HTJ2K lossless (its plain levels printed).  The level
+   kernels first on the first level of S1-S3's tile shapes, exact; then
+   each case's codestream and decode equal the CPU run's, S1-S3 launch
+   both level kernels of their kind with no plain level; wall Mpix/s and
+   a second run's stages (device transform, host block coding, PCRD and
+   Tier-2; Python Tier-2, native block decode, device inverse).
 
-Each of the eight main paths runs with the launch counts set to 0 just
-before it and read just after.  The line before the last is a JSON summary of the
+Each of the eight main paths, the sharded runs and the four single-image
+cases runs with the launch counts set to 0 just before it and read just
+after.  The line before the last is a JSON summary of the
 kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the card's peak rate for their type, and the time
 of one PyTorch call that computes the same function where there is one
 (torch.masked_select for the decision compaction and the segment pool,
-masked_select per stream and torch.cat for the HT pool); the last line
+masked_select per stream and torch.cat for the HT pool, torch.take for
+the block extraction, Tensor.index_copy_ for the assembly); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -202,6 +221,13 @@ C4_RES = 5
 C4_CHECK = 2048
 # a config-4 tile-origin class: 64 tiles of 512x512 (8 x 8 of them)
 C4_CLASS_SIDE = 8
+# the single-image phase: S1 and S2 a SINGLE_SIDE^2 RGB image, S3 a
+# mammography-sized 12-bit frame (rows, columns; 3328 = 3 x 1024 + 256),
+# S4 a small gray image (rows, columns) at odd offsets
+SINGLE_SIDE = 4096
+SINGLE_TILE = 1024
+MAMMO = (4096, 3328)
+ODD = (750, 1000)
 # frame sides whose first level is checked on every level kernel (each
 # keeps its strip in registers, so any even width takes it)
 WIDE_SIDES = (4096, 8192)
@@ -449,6 +475,15 @@ def fused_setup(tp, frames, opts):
     return header, tile, plan, batch
 
 
+def decode_batch_of(streams):
+    """decode_batch's Batch of the streams, which its branches must take."""
+    from go_jpeg2000_tpu_torch.models import decoder
+    batch = decoder.prepare_batch(streams)
+    if batch is None:
+        raise AssertionError("decode_batch's branches refused the streams")
+    return batch
+
+
 def fused_args(header, batch, opts, dev):
     """fused_encode_chunk's arguments after the plan: levels, kind, MCT,
     precision, signedness, device."""
@@ -601,6 +636,60 @@ def extract_bound(pyr, blocks):
                  INT32_OPS_PER_S)
 
 
+def flat_leaves(pyr):
+    """A pyramid's leaves end to end, in its own iteration order."""
+    return torch.cat([v.reshape(-1) for e in pyr for v in e.values()])
+
+
+def slot_index(pyr, plan, n, levels):
+    """Each block slot's position in flat_leaves(pyr), or the sentinel one
+    past the last leaf sample where the slot is padding: the plain block
+    extraction of a pyramid that holds each sample's position + 1.  The
+    gather and the scatter of the lossless HT block layout as index
+    tensors, made beforehand for the library calls."""
+    from go_jpeg2000_tpu_torch.models import fused_encode
+    pos, base = [], 1
+    for e in pyr:
+        entry = {}
+        for k, v in e.items():
+            entry[k] = torch.arange(base, base + v.numel(), dtype=torch.int32,
+                                    device=v.device).reshape(v.shape)
+            base += v.numel()
+        pos.append(entry)
+    idx = fused_encode.extract_blocks(pos, plan, n, levels).long() - 1
+    return torch.where(idx < 0, base - 1, idx)
+
+
+def extract_library_ms(K, pyr, plan, n, levels):
+    """The time of one PyTorch call that computes lossless
+    ht_extract_blocks: torch.take over the flat pyramid with one zero
+    appended (the padding's sentinel), the index made beforehand."""
+    flat = flat_leaves(pyr)
+    flat = torch.cat([flat, flat.new_zeros(1)])
+    idx = slot_index(pyr, plan, n, levels)
+    fn = lambda: torch.take(flat, idx)   # noqa: E731
+    if not torch.equal(fn(), K.extract_blocks(pyr, plan, n, levels)):
+        raise AssertionError("torch.take's block slots differ")
+    return cuda_ms(fn), device_ms(fn)
+
+
+def assemble_library_ms(K, blocks, plan, n, n_comps, nl):
+    """The time of one PyTorch call that computes lossless
+    ht_blocks_to_pyramid: Tensor.index_copy_ of every slot sample into the
+    flat pyramid buffer (padding into one sink past its end), the index
+    made beforehand."""
+    pyr = K.blocks_to_pyramid(blocks, plan, n, n_comps, nl)
+    want = flat_leaves(pyr)
+    idx = slot_index(pyr, plan, n, nl).reshape(-1)
+    src = blocks.reshape(-1)
+    buf = torch.empty(want.numel() + 1, dtype=src.dtype, device=src.device)
+    fn = lambda: buf.index_copy_(0, idx, src)   # noqa: E731
+    fn()
+    if not torch.equal(buf[:-1], want):
+        raise AssertionError("index_copy_'s pyramid differs")
+    return cuda_ms(fn), device_ms(fn)
+
+
 def config4_class(tp, lossless=True):
     """One tile-origin class of config 4 as a frame batch: the 64 tiles of
     a 4096x4096 16-bit RGB image of its smooth noise as 512x512 frames, with
@@ -714,12 +803,20 @@ def check_ht_kernels(tp, dev, card):
         time_line(name, ms, plain_ms, bound_ms, by,
                   device_ms(kernel_fns[name]),
                   f"{nb} blocks of {plan.cbh}x{plan.cbw}", card)
-    library = {"ht_compact_pool": pool_library_ms(pool_args, pool)}
+    take_ms, take_alone = extract_library_ms(K, pyr, plan, n, levels)
+    library = {"ht_compact_pool": pool_library_ms(pool_args, pool),
+               "ht_extract_blocks": take_ms}
     print(f"time ht_compact_pool: library call torch.masked_select per "
           f"stream and torch.cat with the meta rows (masks and meta made "
           f"beforehand) {library['ht_compact_pool']:.4f} ms, kernel "
           f"{times['ht_compact_pool'][0]:.4f} ms (both by CUDA events; the "
           f"library call reads three sizes back) [{card}]", flush=True)
+    print(f"time ht_extract_blocks: library call torch.take over the flat "
+          f"pyramid and a zero (index made beforehand) {take_ms:.4f} ms, "
+          f"kernel {times['ht_extract_blocks'][0]:.4f} ms (both by CUDA "
+          f"events; the kernel's wrapper uploads its band table from "
+          f"pageable memory); the library call alone {take_alone:.4f} ms "
+          f"[{card}]", flush=True)
     cleanup_check(K, ht_enc, *extreme_blocks(dev), "magnitudes up to 2^30-1")
     pack_err, pool_err = class_timing(tp, dev, card)
     err["ht_pack_bits"] = max(err["ht_pack_bits"], pack_err)
@@ -889,7 +986,7 @@ def check_ht_dec_kernels(tp, dev, card):
     for name, frames, opts in ht_cases(tp):
         label = case_label(name, frames, opts)
         streams = tp.encode_batch(frames, opts, device=dev)
-        batch = decoder.prepare_batch(streams)
+        batch = decode_batch_of(streams)
         plan, n = batch.plan, len(frames)
         qinfo, pool, woff = decoder.upload_parsed(
             *decoder.parse_chunk(batch, batch.bodies), dev)
@@ -958,7 +1055,15 @@ def check_ht_dec_kernels(tp, dev, card):
                   device_ms(kernel_fns[name]),
                   f"{nb} blocks of {plan.cbh}x{plan.cbw}, {bits} MagSgn "
                   f"bits, {leaf_samples} leaf samples", card)
-    return err, {k: (a, b) + c for k, (a, b, c) in times.items()}
+    copy_ms, copy_alone = assemble_library_ms(K, blocks, plan, n,
+                                              batch.n_comps, batch.nl)
+    library = {"ht_blocks_to_pyramid": copy_ms}
+    print(f"time ht_blocks_to_pyramid: library call Tensor.index_copy_ into "
+          f"the flat pyramid (index made beforehand) {copy_ms:.4f} ms, "
+          f"kernel {times['ht_blocks_to_pyramid'][0]:.4f} ms (both by CUDA "
+          f"events); the library call alone {copy_alone:.4f} ms [{card}]",
+          flush=True)
+    return err, {k: (a, b) + c for k, (a, b, c) in times.items()}, library
 
 
 def check_magsgn_classes(tp, dev, card):
@@ -970,8 +1075,8 @@ def check_magsgn_classes(tp, dev, card):
     from go_jpeg2000_tpu_torch.ops import ht_dec, ht_dec_cuda as K
     for lossless in (True, False):
         frames, opts = config4_class(tp, lossless)
-        batch = decoder.prepare_batch(tp.encode_batch(frames, opts,
-                                                      device=dev))
+        batch = decode_batch_of(tp.encode_batch(frames, opts,
+                                                 device=dev))
         del frames
         qinfo, pool, woff = decoder.upload_parsed(
             *decoder.parse_chunk(batch, batch.bodies), dev)
@@ -1091,7 +1196,7 @@ def decode_stages(tp, streams, dev):
     device bytes per sample).  The smoke batches fit one chunk."""
     from go_jpeg2000_tpu_torch.models import decoder
     from go_jpeg2000_tpu_torch.ops import ht_dec
-    batch = decoder.prepare_batch(streams)
+    batch = decode_batch_of(streams)
     n = len(streams)
     samples = n * batch.n_comps * batch.tile.comps[0].h * batch.tile.comps[0].w
     torch.cuda.synchronize()
@@ -1715,7 +1820,7 @@ def ebcot_stages(tp, frames, streams, dev, card, reps=3):
         peak = (torch.cuda.max_memory_allocated() - base) / samples
         enc.append((t1 - t0, t2 - t1, t3 - t2, peak))
         del out
-        batch_d = decoder.prepare_batch(streams)
+        batch_d = decode_batch_of(streams)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2215,6 +2320,215 @@ def sharded_phase(tp, dev, card, launches):
     return err, times
 
 
+def natural_image_bits(h, w, bits, seed=0):
+    """Smooth noise of `bits`-bit samples, uint16."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, 1 << bits, size=(h, w)).astype(np.float32)
+    for ax in (0, 1):
+        a = (a + np.roll(a, 1, axis=ax) + np.roll(a, -1, axis=ax)) / 3
+    return a.astype(np.uint16)
+
+
+def single_image_cases(tp):
+    """(label, image, options, DWT library whose kernels must take every
+    level, or None) of the single-image phase."""
+    rgb = np.stack([natural_image(SINGLE_SIDE, SINGLE_SIDE, seed=500 + c)
+                    for c in range(3)], axis=-1)
+    tiles = (SINGLE_TILE, SINGLE_TILE)
+    return [
+        ("S1 defaults", rgb, tp.Options(), "dwt97"),
+        ("S2 HT tiles layers", rgb, tp.Options(
+            format=tp.Format.J2K, lossless=True, high_throughput=True,
+            tile_size=tiles, num_layers=3), "dwt53"),
+        ("S3 Part-1 tiles budget", natural_image_bits(*MAMMO, 12, seed=510),
+         tp.Options(format=tp.Format.J2K, lossless=True, tile_size=tiles,
+                    num_layers=2, compression_ratio=6.0, precision=12),
+         "dwt53"),
+        ("S4 odd offsets", natural_image(*ODD, seed=520), tp.Options(
+            format=tp.Format.J2K, lossless=True, high_throughput=True,
+            image_offset=(7, 3), tile_offset=(5, 1), tile_size=(256, 256)),
+         None),
+    ]
+
+
+def check_single_levels(dwt, dwt_cuda, transforms, dev):
+    """The level kernels on the first level of the single-image phase's
+    tiles (S1's one [3, 4096, 4096] tile of 9/7 coefficients, S2's
+    [3, 1024, 1024] and S3's [1, 1024, 1024] and [1, 1024, 256] 5/3 tiles)
+    through transforms.forward_level and inverse_level, against the plain
+    lifting: exact, one launch each, no plain level."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = {}
+    for kind, shape in ((dwt.IRR97, (3, SINGLE_SIDE, SINGLE_SIDE)),
+                        (dwt.REV53, (3, SINGLE_TILE, SINGLE_TILE)),
+                        (dwt.REV53, (1, SINGLE_TILE, SINGLE_TILE)),
+                        (dwt.REV53, (1, SINGLE_TILE, MAMMO[1] % SINGLE_TILE))):
+        lib = "dwt53" if kind == dwt.REV53 else "dwt97"
+        if kind == dwt.REV53:
+            x = torch.randint(-(1 << 13), 1 << 13, shape, generator=gen,
+                              device=dev, dtype=torch.int32)
+        else:
+            x = torch.rand(shape, generator=gen, device=dev) * 255 - 128
+        dwt_cuda.reset_counts()
+        got = transforms.forward_level(x, kind, 0, 0)
+        ref = {k: v.contiguous() for k, v in dwt.forward_2d(x, kind).items()}
+        diff = {f"{lib}_fwd_level":
+                max((got[k] - ref[k]).abs().max().item() for k in ref),
+                f"{lib}_inv_level": (transforms.inverse_level(ref, kind, 0, 0)
+                                     - dwt.inverse_2d(ref, kind)
+                                     ).abs().max().item()}
+        torch.cuda.synchronize()
+        for name, d in diff.items():
+            print(f"kernel check {name} {shape} (single-image tile): "
+                  f"max|diff| {d}, launches {dwt_cuda.LAUNCHES[name]}, plain "
+                  f"levels {dwt_cuda.PLAIN_LEVELS}", flush=True)
+            if d or dwt_cuda.PLAIN_LEVELS or dwt_cuda.LAUNCHES[name] != 1:
+                raise AssertionError(f"{name} at {shape}: not the kernel, "
+                                     "or not exact")
+            err[name] = max(err.get(name, 0), d)
+        del x, got, ref
+    dwt_cuda.reset_counts()
+    torch.cuda.empty_cache()
+    return err
+
+
+class StageClock:
+    """Host-clock seconds spent in named module functions while installed
+    (each wrapped function's calls summed); the wrapped functions return
+    host arrays, so the device work inside them is in their time."""
+
+    def __init__(self, wraps):
+        self.wraps = wraps          # (module, function name, stage label)
+        self.seconds = {}
+        self.saved = []
+
+    def __enter__(self):
+        for mod, name, label in self.wraps:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._timed(fn, label))
+        return self
+
+    def _timed(self, fn, label):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds[label] = (self.seconds.get(label, 0.0)
+                                       + time.perf_counter() - t0)
+        return timed
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
+        return False
+
+
+def single_image_stages(tp, label, image, opts, data, dev, card):
+    """One encode and one decode of the case on the card, timed in their
+    stages: encode device transform (upload, DC shift, colour transform,
+    DWT levels, quantization, fetch: transforms.run_forward), host block
+    coding (the native coder), PCRD and Tier-2 (_assemble_with_budget);
+    decode Python Tier-2 with the dequantization in numpy
+    (decoder.tile_pyramids less the block decode), native block decode,
+    and the device inverse (upload, inverse levels, inverse colour
+    transform, download: transforms.run_inverse)."""
+    from go_jpeg2000_tpu_torch.models import decoder, encoder, transforms
+    mpix = image.shape[0] * image.shape[1] / 1e6
+    with StageClock([(transforms, "run_forward", "device transform"),
+                     (encoder, "_code_blocks", "host block coding"),
+                     (encoder, "_assemble_with_budget", "PCRD and Tier-2")]
+                    ) as enc:
+        t0 = time.perf_counter()
+        again = tp.encode(image, opts, device=dev)
+        enc_s = time.perf_counter() - t0
+    if again != data:
+        raise AssertionError(f"{label}: a second encode differs")
+    with StageClock([(decoder, "tile_pyramids", "tier2"),
+                     (decoder, "decode_blocks_batch", "block decode"),
+                     (transforms, "run_inverse", "device inverse")]) as dec:
+        t0 = time.perf_counter()
+        tp.decode(data, device=dev)
+        dec_s = time.perf_counter() - t0
+    e = enc.seconds
+    d = dict(dec.seconds)
+    d["tier2"] -= d.get("block decode", 0.0)
+    print(f"stages {label} encode {enc_s * 1e3:.1f} ms ({mpix / enc_s:.2f} "
+          f"Mpix/s): device transform {e['device transform'] * 1e3:.1f} ms, "
+          f"host block coding {e['host block coding'] * 1e3:.1f} ms, PCRD "
+          f"and Tier-2 {e['PCRD and Tier-2'] * 1e3:.1f} ms; decode "
+          f"{dec_s * 1e3:.1f} ms ({mpix / dec_s:.2f} Mpix/s): Python Tier-2 "
+          f"{d['tier2'] * 1e3:.1f} ms, native block decode "
+          f"{d['block decode'] * 1e3:.1f} ms, device inverse "
+          f"{d['device inverse'] * 1e3:.1f} ms [{card}]", flush=True)
+
+
+def single_image_phase(tp, dev, card, launches):
+    """Phase 11: the single-image API (encode, decode) on S1-S4 (the cases
+    of single_image_cases), each with the DWT counts and tp.counters reset
+    just before its encode and decode and read just after: S1-S3 must
+    launch both level kernels of their kind and lift no level plain; S4
+    prints its plain levels.  Bytes and decodes equal the port's CPU run;
+    S2 round-trips exactly, S1 prints its PSNR.  Then wall Mpix/s and the
+    stages of a second run, with the card's name and power limit.  Adds
+    the phase's launches to `launches`; returns the level kernels' largest
+    difference from the plain lifting on the phase's tile shapes."""
+    from go_jpeg2000_tpu_torch.models import transforms
+    from go_jpeg2000_tpu_torch.ops import dwt, dwt_cuda
+    err = check_single_levels(dwt, dwt_cuda, transforms, dev)
+    for label, image, opts, lib in single_image_cases(tp):
+        mpix = image.shape[0] * image.shape[1] / 1e6
+        dwt_cuda.reset_counts()
+        tp.counters.reset()
+        t0 = time.perf_counter()
+        data = tp.encode(image, opts, device=dev)
+        t1 = time.perf_counter()
+        decoded = tp.decode(data, device=dev)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        counts = dict(dwt_cuda.LAUNCHES)
+        plain = dwt_cuda.PLAIN_LEVELS
+        snap = tp.counters.snapshot()
+        mine = {k: v for k, v in counts.items() if lib and k.startswith(lib)}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"{label} {image.shape} {image.dtype}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }, plain levels "
+              f"{plain}, tiles decoded {snap.get('dec.tiles_decoded', 0)}",
+              flush=True)
+        if lib and (min(mine.values()) <= 0 or plain):
+            raise AssertionError(f"{label}: a level did not run through the "
+                                 f"{lib} kernels")
+        if decoded.shape != image.shape or decoded.dtype != image.dtype:
+            raise AssertionError(f"{label}: decoded {decoded.shape} "
+                                 f"{decoded.dtype}")
+        exact = opts.lossless and opts.compression_ratio <= 1.0
+        if exact and not np.array_equal(decoded, image):
+            raise AssertionError(f"{label}: round trip is not exact")
+        peak = 255.0 if image.dtype == np.uint8 else float((1 << 12) - 1)
+        mse = np.mean((decoded.astype(np.float64) - image) ** 2)
+        quality = ("round-trip exact" if exact else
+                   f"PSNR {10 * np.log10(peak ** 2 / mse):.3f} dB")
+        print(f"{label}: {len(data)} bytes ({image.nbytes / len(data):.2f}:1 "
+              f"of the {image.dtype} samples), {quality}; wall encode "
+              f"{mpix / (t1 - t0):.2f} Mpix/s ({(t1 - t0) * 1e3:.1f} ms), "
+              f"decode {mpix / (t2 - t1):.2f} Mpix/s "
+              f"({(t2 - t1) * 1e3:.1f} ms) [{card}]", flush=True)
+        t0 = time.perf_counter()
+        if tp.encode(image, opts, device="cpu") != data:
+            raise AssertionError(f"{label}: CUDA and CPU codestreams differ")
+        t1 = time.perf_counter()
+        if not np.array_equal(tp.decode(data, device="cpu"), decoded):
+            raise AssertionError(f"{label}: CUDA and CPU decodes differ")
+        print(f"{label}: CUDA and CPU codestreams byte-identical, decodes "
+              f"equal (CPU encode {t1 - t0:.1f} s, CPU decode "
+              f"{time.perf_counter() - t1:.1f} s)", flush=True)
+        single_image_stages(tp, label, image, opts, data, dev, card)
+        torch.cuda.empty_cache()
+    return err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2257,9 +2571,10 @@ def main():
     e, t, library = check_ht_kernels(tp, dev, card)
     err.update(e)
     times.update(t)
-    e, t = check_ht_dec_kernels(tp, dev, card)
+    e, t, lib_ms = check_ht_dec_kernels(tp, dev, card)
     err.update(e)
     times.update(t)
+    library.update(lib_ms)
     torch.cuda.empty_cache()
 
     kernels = (dwt_cuda, ht_enc_cuda, ht_dec_cuda)
@@ -2318,6 +2633,9 @@ def main():
     for k, v in e.items():
         err[k] = max(err.get(k, 0), v)
     times.update(t)
+
+    for k, v in single_image_phase(tp, dev, card, launches).items():
+        err[k] = max(err[k], v)
 
     out = []
     for name, (replaces, src) in REPLACES.items():

@@ -1,44 +1,63 @@
-"""Batch decoder: HTJ2K or Part-1 J2K codestreams -> frames.
+"""Decoder: J2K codestreams or JP2 files -> images.
 
-Port of go_jpeg2000_tpu/models/decoder.py `_decode_batch_fused` (HTJ2K) and
-of the slice's part of `_decode_tile` (Part-1 EBCOT).  The device HT
-branch (every HT stream whose tile origin is (0, 0)): the native C++
-library runs Tier-2 and the HT cleanup's control phase, MEL, CxtVLC and
-UVLC, for every block of a chunk of frames in one call
-(ht_t2_parse_frames); only its per-quad words and the unstuffed MagSgn pool
-go to the device, where ops/ht_dec.py `fused_decode` extracts the MagSgn
-values and assembles the pyramid (the CUDA kernels of csrc/ht_dec.cu on the
-card), with the midpoint dequantization of 9/7 plans, and runs the inverse
-DWT (the CUDA level kernels), inverse RCT/ICT, DC shift, clamp and
-narrowing.  The host branch, for a tile origin off (0, 0): the native call
-decodes every block on the host (ht_t2_decode_frames), the slots become
-leaves in numpy (`_blocks_to_pyramid`) and ride one flat upload to the
-same inverse chain.  The EBCOT branch: the Python Tier-2 per frame, the
-native T1 decoder for every block of a chunk of frames in one call, one
-upload of the block slots, and on the device the block-to-pyramid
-assembly (the ht_blocks_to_pyramid kernel on the card), the inverse 5/3
-levels and the inverse RCT.  Counters: dec.device_ht_chunks,
-dec.host_ht_frames, dec.ebcot_frames.
+Port of go_jpeg2000_tpu/models/decoder.py.  `decode` decodes one image
+tile by tile (`_decode_tiles`: `tile_pyramids`, then `_inverse_tile`): on
+the host the Python Tier-2 walks each tile's packets (SOP, EPH, PPM and
+PPT headers, any number of quality layers) and the native block decoder
+(HT cleanup and refinement passes, or EBCOT) decodes every code-block,
+with the JAX package's midpoint dequantization of 9/7 bands in numpy; the
+tile's pyramid then goes to the device, where the inverse DWT levels (the
+hand-written CUDA level kernels on the card), the inverse RCT or ICT, DC
+shift and clamp run (transforms.run_inverse).  A tile of a tiled image
+whose data are corrupt stays zero, as in the JAX package; any other
+failure raises.  `decode_metadata` reads the headers only.
 
-The slices: single-tile, single-layer, lossless 5/3 or lossy 9/7 HT J2K
-streams and lossless 5/3 Part-1 streams of code-block style 0, of one
-shape, without SOP/EPH/PPM/PPT, decoded whole.  Everything else raises
-NotImplementedError naming the ROADMAP item that brings it.
+`decode_batch` decodes streams of one shape and one tile together,
+through the JAX package's `_decode_batch_fused` (HTJ2K) and the slice's
+part of `tile_pyramids` (Part-1 EBCOT).  The device HT branch (every HT
+stream whose tile origin is (0, 0)): the native C++ library runs Tier-2
+and the HT cleanup's control phase, MEL, CxtVLC and UVLC, for every block
+of a chunk of frames in one call (ht_t2_parse_frames); only its per-quad
+words and the unstuffed MagSgn pool go to the device, where ops/ht_dec.py
+`fused_decode` extracts the MagSgn values and assembles the pyramid (the
+CUDA kernels of csrc/ht_dec.cu on the card), with the midpoint
+dequantization of 9/7 plans, and runs the inverse DWT (the CUDA level
+kernels), inverse RCT/ICT, DC shift, clamp and narrowing.  The host
+branch, for a tile origin off (0, 0): the native call decodes every block
+on the host (ht_t2_decode_frames), the slots become leaves in numpy
+(`_blocks_to_pyramid`) and ride one flat upload to the same inverse
+chain.  The EBCOT branch: the Python Tier-2 per frame, the native T1
+decoder for every block of a chunk of frames in one call, one upload of
+the block slots, and on the device the block-to-pyramid assembly (the
+ht_blocks_to_pyramid kernel on the card), the inverse 5/3 levels and the
+inverse RCT.  Streams the batch branches do not take (JP2 files, tiled
+images, differing shapes, quality layers, SOP/EPH/PPM/PPT, HT refinement
+passes, lossy Part-1, other code-block styles) go through `decode` one by
+one, as in the JAX package.  Counters: dec.device_ht_chunks,
+dec.host_ht_frames, dec.ebcot_frames, dec.tiles_decoded.
+
+Region, reduced-resolution and layered decodes, subsampled components,
+signed and sub-8-bit or over-16-bit samples, and the colour spaces that
+need a conversion raise NotImplementedError naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..codestream.header import Header, TilePartInfo
 from ..codestream.parser import Parser
 from ..native import loader
-from ..ops import dwt, ht_dec, ht_dec_cuda
-from ..options import Config, Format
+from ..ops import dwt, ht_dec, ht_dec_cuda, t1
+from ..options import (ColorSpace, ComponentMetadata, Config, Format,
+                       Metadata, ProgressionOrder)
 from ..tcd import geometry as geo
 from ..tcd import t2
+from ..utils import boxes
 from ..utils import markers as mk
 from ..utils.bio import BitReader
 from ..utils.metrics import counters
@@ -67,49 +86,340 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
+# the colour spaces whose JP2 decode the JAX package converts to RGB
+# (ops/colorspace.py get_color_conversion); sRGB, gray and unspecified
+# pass through unchanged
+CONVERTED_SPACES = frozenset({
+    ColorSpace.SYCC, ColorSpace.EYCC, ColorSpace.YCBCR2, ColorSpace.YCBCR3,
+    ColorSpace.PHOTO_YCC, ColorSpace.CMY, ColorSpace.CMYK, ColorSpace.YCCK,
+    ColorSpace.CIELAB, ColorSpace.CIEJAB, ColorSpace.ESRGB,
+    ColorSpace.ROMM_RGB, ColorSpace.YPBPR60, ColorSpace.YPBPR50})
+
+
 def sniff_format(data: bytes):
-    """Returns (Format.J2K, codestream_bytes, None) for a raw codestream."""
+    """Returns (Format, codestream_bytes, jp2_info | None)."""
     if data[:4] == b"\xff\x4f\xff\x51":
         return Format.J2K, data, None
     if len(data) >= 12 and data[4:8] == b"jP \x20":
-        raise _not_ported("JP2 decoding", "6")
+        info = boxes.parse_jp2(data)
+        fmt = Format.JPX if info.brand == b"jpx " else Format.JP2
+        return fmt, info.codestream, info
     raise DecodeError("not a JPEG 2000 file (no JP2 signature or SOC)")
 
 
-def _check_slice(parsed, config: Config) -> None:
+def check_decode(header: Header, config: Config) -> None:
+    """Raise NotImplementedError for what `decode` does not run yet (ROADMAP
+    item 6b)."""
     if config.decode_area is not None or config.reduce_resolution:
-        raise _not_ported("region and reduced-resolution decoding", "6")
+        raise _not_ported("region and reduced-resolution decoding", "6b")
+    if config.quality_layers and not \
+            config.quality_layers >= header.coding_style.num_layers:
+        raise _not_ported("decoding fewer quality layers than the stream "
+                          "has", "6b")
+    if any(c.signed or not 8 <= c.precision <= 16
+           for c in header.components):
+        raise _not_ported("signed or out-of-range sample precision", "6b")
+    if any(c.dx != 1 or c.dy != 1 for c in header.components):
+        raise _not_ported("subsampled components", "6b")
+
+
+def _parse(data: bytes):
+    """(header, tile parts, codestream, jp2 info) of one stream."""
+    _fmt, codestream, jp2 = sniff_format(data)
+    parser = Parser(codestream)
+    header = parser.read_header()
+    return header, parser.read_all_tile_parts(header), codestream, jp2
+
+
+def decode(data: bytes, config: Optional[Config] = None,
+           device="cuda") -> np.ndarray:
+    """Decode a J2K codestream or a JP2 file to an array [H, W] (gray) or
+    [H, W, C], uint8 for up to 8-bit samples, else uint16.  The Tier-2 and
+    block decoding run on the host, each tile's inverse transform on
+    `device`; "cuda" without a card raises."""
+    config = config or Config()
+    dev = transforms.resolve_device(device)
+    counters.add("dec.bytes_in", len(data))
+    header, tile_parts, codestream, jp2 = _parse(data)
+    check_decode(header, config)
+    image = _decode_tiles(header, tile_parts, codestream, config, dev)
+    counters.add("dec.pixels_out", int(image.size))
+    return _apply_colorspace(image, jp2)
+
+
+# what the host half of a tile's decode (tile_pyramids) raises on corrupt
+# data: DecodeError and the parse's own ValueError and IndexError; device
+# errors (RuntimeError, torch's) and a missing native library are not among
+# them
+CORRUPT_DATA_ERRORS = (ValueError, IndexError)
+
+
+def _decode_tiles(header: Header, tile_parts: List[TilePartInfo],
+                  codestream: bytes, config: Config,
+                  dev: torch.device) -> np.ndarray:
+    """Every tile present in the stream decoded into its place.  Per-tile
+    containment, for corrupt data only: a tile whose host decode raises one
+    of CORRUPT_DATA_ERRORS stays zero in a tiled image and raises in a
+    single-tile one; every other error (the native library missing, a
+    device inverse that fails) raises."""
+    out_h = header.height - header.y_offset
+    out_w = header.width - header.x_offset
+    if out_h * out_w > config.max_pixels:
+        raise DecodeError(
+            f"image {out_w}x{out_h} exceeds Config.max_pixels "
+            f"({config.max_pixels}); raise the limit to decode")
+    n_comps = header.num_components
+    planes = np.zeros((n_comps, out_h, out_w), np.int32)
+    parts_by_tile: Dict[int, List[TilePartInfo]] = {}
+    for tp in tile_parts:
+        parts_by_tile.setdefault(tp.tile_index, []).append(tp)
+    multi_tile = len(parts_by_tile) > 1
+    require_native()
+    for t_idx, parts in sorted(parts_by_tile.items()):
+        tile = geo.build_tile(header, t_idx,
+                              parts[0] if parts[0].coding_style else None)
+        try:
+            pyramids = tile_pyramids(header, tile, parts, codestream)
+        except CORRUPT_DATA_ERRORS:
+            if not multi_tile:
+                raise
+            continue
+        comps = _inverse_tile(header, tile, pyramids, dev)
+        counters.add("dec.tiles_decoded")
+        tx0, ty0, _tx1, _ty1 = header.tile_bounds(t_idx)
+        for c, arr in enumerate(comps):
+            oy0, ox0 = ty0 - header.y_offset, tx0 - header.x_offset
+            planes[c, oy0:oy0 + arr.shape[0], ox0:ox0 + arr.shape[1]] = arr
+    dt = np.uint8 if header.components[0].precision <= 8 else np.uint16
+    image = planes[0] if n_comps == 1 else np.moveaxis(planes, 0, -1)
+    return image.astype(dt)
+
+
+def _tier2(header: Header, tile: geo.Tile, data: bytes,
+           hdr_stream: Optional[bytes] = None,
+           tp0: Optional[TilePartInfo] = None):
+    """The Python Tier-2 of one tile: every packet of its tile data `data`
+    in the progression's order (SOP and EPH markers skipped; with
+    `hdr_stream`, the packed PPM or PPT headers, the packet headers come
+    from there).  Returns the per-precinct decoder state,
+    (comp, res, precinct) -> one t2.PrecinctDecoder per band, whose blocks
+    hold their passes' bytes."""
+    pd_map: Dict[Tuple[int, int, int], List[t2.PrecinctDecoder]] = {}
+    for c, tc in enumerate(tile.comps):
+        for res in tc.resolutions:
+            for p_idx in range(res.num_px * res.num_py):
+                pd_map[(c, res.r, p_idx)] = [
+                    t2.PrecinctDecoder(band.precincts[p_idx])
+                    for band in res.bands]
+    pos = hpos = 0
+    use_sop = header.coding_style.has_sop
+    use_eph = header.coding_style.has_eph
+    for pid in t2.packet_sequence(tile, header):
+        if hdr_stream is None and pos >= len(data):
+            break
+        if hdr_stream is not None and hpos >= len(hdr_stream):
+            break
+        counters.add("dec.packets_parsed")
+        if use_sop and data[pos:pos + 2] == b"\xff\x91":
+            pos += 6
+        cb_style = header.coding_for(pid.comp, tp0).cb_style \
+            & ~mk.CBSTYLE_HT_MIXED
+        pds = pd_map.get((pid.comp, pid.res, pid.precinct), [])
+        hsrc = hdr_stream[hpos:] if hdr_stream is not None else data[pos:]
+        br = BitReader(hsrc, stuffing=True)
+        decoded = t2.decode_packet_header(br, pds, pid.layer, cb_style)
+        br.align()
+        if hdr_stream is not None:
+            hpos += br.bytes_consumed()
+            if use_eph and hdr_stream[hpos:hpos + 2] == b"\xff\x92":
+                hpos += 2
+        else:
+            pos += br.bytes_consumed()
+            if use_eph and data[pos:pos + 2] == b"\xff\x92":
+                pos += 2
+        pos = t2.apply_packet_body(data, pos, decoded, cb_style)
+    return pd_map
+
+
+def tile_pyramids(header: Header, tile: geo.Tile,
+                  parts: List[TilePartInfo], codestream: bytes):
+    """The host half of one tile's decode: the Python Tier-2 over its
+    packets, then the native block decoder per component.  Returns each
+    component's pyramid in numpy: levels ascending, each a dict of bands
+    (int32 for 5/3, float32 dequantized at the midpoint for 9/7, as the JAX
+    package reconstructs), the top level holding LL ([{"LL": ..}] without
+    a decomposition level)."""
+    data = b"".join(codestream[tp.data_start:tp.data_end] for tp in parts)
+    # packed packet headers (A.7.4 PPM, A.7.5 PPT): the headers come from
+    # the packed stream, only SOP and the bodies stay in the tile data
+    hdr_stream = None
+    if header.ppm:
+        chunks = header.ppm_chunks()
+        hdr_stream = b"".join(chunks[tp.order] for tp in parts
+                              if tp.order < len(chunks))
+    elif any(tp.packed_headers for tp in parts):
+        hdr_stream = b"".join(tp.packed_headers for tp in parts)
+    pd_map = _tier2(header, tile, data, hdr_stream, parts[0])
+    lossless = header.coding_style.transform == 1
+    pyramids = []
+    for c, tc in enumerate(tile.comps):
+        nl = tc.coding.num_decompositions
+        cb_style = tc.coding.cb_style & ~mk.CBSTYLE_HT_MIXED
+        shapes = dwt.subband_shapes(tc.h, tc.w, nl, u0=tc.x0, v0=tc.y0)
+        f_dtype = np.int32 if lossless else np.float32
+        pyramid = [{k: np.zeros(v, f_dtype) for k, v in lev.items()}
+                   for lev in shapes]
+        jobs, slots = [], []
+        for res in tc.resolutions:
+            for b_i, band in enumerate(res.bands):
+                target = pyramid[max(nl, 1) - 1 if band.name == "LL"
+                                 else band.dec_level - 1][band.name]
+                mb = tc.quant.guard_bits + band.eps - 1
+                for p_idx in range(res.num_px * res.num_py):
+                    pd = pd_map[(c, res.r, p_idx)][b_i]
+                    for cb, blk in zip(pd.precinct.code_blocks, pd.blocks):
+                        if not blk.included or blk.passes_done == 0:
+                            continue
+                        # lossy: midpoint-biased reconstruction of
+                        # truncated EBCOT blocks (t1.STY_LOSSY_BIAS)
+                        sty = cb_style if lossless else \
+                            cb_style | t1.STY_LOSSY_BIAS
+                        jobs.append((bytes(blk.data), cb.w, cb.h,
+                                     mb - blk.zero_bitplanes,
+                                     blk.passes_done, band.name, sty,
+                                     t2.finalize_segments(blk)))
+                        slots.append((target, band, cb))
+        counters.add("dec.blocks_decoded", len(jobs))
+        for (target, band, cb), coeffs in zip(slots,
+                                              decode_blocks_batch(jobs)):
+            if lossless:
+                vals = coeffs
+            elif cb_style & mk.CBSTYLE_HT:
+                # HT: midpoint dequantization (E.1.1.2, r = 0.5)
+                qa = np.abs(coeffs).astype(np.float32)
+                vals = np.where(coeffs == 0, np.float32(0),
+                                np.sign(coeffs).astype(np.float32)
+                                * (qa + 0.5) * np.float32(band.delta))
+            else:
+                # EBCOT: the decoder reconstructed each sample at the
+                # midpoint of its last plane in x2 fixed point
+                vals = coeffs.astype(np.float32) \
+                    * np.float32(band.delta * 0.5)
+            target[cb.y0 - band.y0:cb.y1 - band.y0,
+                   cb.x0 - band.x0:cb.x1 - band.x0] = vals
+        pyramids.append(pyramid)
+    return pyramids
+
+
+def _inverse_tile(header: Header, tile: geo.Tile, pyramids,
+                  dev: torch.device) -> List[np.ndarray]:
+    """transforms.run_inverse of one tile's pyramids on `dev`, all
+    components in one call where they share their geometry (one call each
+    otherwise): int32 [h, w] per component."""
+    kind = dwt.REV53 if header.coding_style.transform == 1 else dwt.IRR97
+    precision = header.components[0].precision
+    signed = header.components[0].signed
+    use_mct = bool(header.coding_style.mct) and len(tile.comps) >= 3
+    tc0 = tile.comps[0]
+    groups = [list(range(len(tile.comps)))]
+    if not all(tc.coding.num_decompositions == tc0.coding.num_decompositions
+               and (tc.w, tc.h) == (tc0.w, tc0.h) for tc in tile.comps):
+        groups = [[c] for c in range(len(tile.comps))]
+        use_mct = False
+    out = []
+    for comps in groups:
+        stacked = [{k: np.stack([pyramids[c][lev][k] for c in comps])
+                    for k in pyramids[comps[0]][lev]}
+                   for lev in range(len(pyramids[comps[0]]))]
+        tc = tile.comps[comps[0]]
+        x = transforms.run_inverse(stacked, kind, use_mct, precision, signed,
+                                   tc.x0, tc.y0, dev)
+        out += list(x)
+    return out
+
+
+def _apply_colorspace(image: np.ndarray, jp2) -> np.ndarray:
+    """The JP2 colour space: sRGB, gray and unspecified as they are; the
+    spaces the JAX package converts raise (ROADMAP item 6b)."""
+    if jp2 is not None and image.ndim == 3 \
+            and jp2.color_space in CONVERTED_SPACES:
+        raise _not_ported(f"the {jp2.color_space.name} colour conversion",
+                          "6b")
+    return image
+
+
+def decode_metadata(data: bytes) -> Metadata:
+    """Header-only decode (the JAX package's decode_metadata)."""
+    fmt, codestream, jp2 = sniff_format(data)
+    header = Parser(codestream).read_header()
+    cs = header.coding_style
+    color_space = ColorSpace.UNSPECIFIED
+    icc = None
+    if jp2 is not None:
+        color_space = jp2.color_space
+        icc = jp2.icc_profile
+    return Metadata(
+        format=fmt,
+        width=header.width - header.x_offset,
+        height=header.height - header.y_offset,
+        num_components=header.num_components,
+        components=[ComponentMetadata(ci.precision, ci.signed, ci.dx, ci.dy)
+                    for ci in header.components],
+        color_space=color_space,
+        tile_width=header.tile_width,
+        tile_height=header.tile_height,
+        num_tiles_x=header.num_tiles_x,
+        num_tiles_y=header.num_tiles_y,
+        num_resolutions=cs.num_decompositions + 1,
+        num_layers=cs.num_layers,
+        progression_order=ProgressionOrder(cs.progression_order),
+        lossless=cs.transform == 1,
+        is_htj2k=header.is_htj2k,
+        code_block_width=1 << cs.cb_width_exp,
+        code_block_height=1 << cs.cb_height_exp,
+        profile=header.profile,
+        comments=list(header.comments),
+        icc_profile=icc,
+    )
+
+
+def batch_refusal(parsed, config: Config) -> Optional[str]:
+    """Why decode_batch's branches do not take these parsed streams
+    together (decode does, one by one), or None: the JAX package's
+    conditions (one shape, one tile, no JP2, whole decodes), and the
+    branches' own (one layer, no SOP/EPH/PPM/PPT, HT or lossless Part-1 of
+    code-block style 0, one precision)."""
+    if config.decode_area is not None or config.reduce_resolution:
+        return "a region or reduced-resolution decode"
     h0 = parsed[0][0]
-    for hdr, tile_parts, _ in parsed:
+    cs0 = h0.coding_style
+    for hdr, tile_parts, _cs, jp2 in parsed:
         cs = hdr.coding_style
-        if (hdr.width, hdr.height, hdr.num_components) != \
-                (h0.width, h0.height, h0.num_components) \
-                or cs.num_decompositions != \
-                h0.coding_style.num_decompositions \
-                or cs.mct != h0.coding_style.mct \
-                or [(c.precision, c.signed) for c in hdr.components] != \
-                [(c.precision, c.signed) for c in h0.components]:
-            raise _not_ported("batches of differing stream geometry", "6")
+        if jp2 is not None:
+            return "a JP2 file"
         if hdr.num_tiles != 1:
-            raise _not_ported("multi-tile decoding", "6")
-        if cs.transform != h0.coding_style.transform:
-            raise _not_ported("batches mixing 5/3 and 9/7 streams", "6")
-        if (cs.cb_style & mk.CBSTYLE_HT) != \
-                (h0.coding_style.cb_style & mk.CBSTYLE_HT):
-            raise _not_ported("batches mixing HT and Part-1 streams", "6")
-        if not cs.cb_style & mk.CBSTYLE_HT:
-            if cs.transform != 1:
-                raise _not_ported("lossy EBCOT (Part 1) decoding", "7")
-            if cs.cb_style:
-                raise _not_ported(f"code-block style {cs.cb_style:#x}", "6")
+            return "a tiled image"
+        if ((hdr.width, hdr.height, hdr.num_components)
+                != (h0.width, h0.height, h0.num_components)
+                or (cs.num_decompositions, cs.mct, cs.transform)
+                != (cs0.num_decompositions, cs0.mct, cs0.transform)
+                or [(c.precision, c.signed) for c in hdr.components]
+                != [(c.precision, c.signed) for c in h0.components]
+                or (cs.cb_style & mk.CBSTYLE_HT)
+                != (cs0.cb_style & mk.CBSTYLE_HT)):
+            return "streams of differing geometry"
+        if not cs.cb_style & mk.CBSTYLE_HT and (cs.transform != 1
+                                                or cs.cb_style):
+            return "a lossy or styled Part-1 stream"
         if cs.num_layers != 1:
-            raise _not_ported("quality layers", "6")
+            return "quality layers"
         if (cs.has_sop or cs.has_eph or hdr.ppm
                 or any(tp.packed_headers for tp in tile_parts)):
-            raise _not_ported("SOP/EPH/PPM/PPT streams", "6")
+            return "SOP/EPH/PPM/PPT markers"
         if any(c.signed or not 8 <= c.precision <= 16
                for c in hdr.components):
-            raise _not_ported("signed or out-of-range sample precision", "6")
+            return "signed or out-of-range sample precision"
+    return None
 
 
 def _blocks_to_pyramid(coeffs: np.ndarray, plan, n: int, n_comps: int,
@@ -167,18 +477,15 @@ class Batch:
     ht: bool = True           # HT code-blocks (else Part-1 EBCOT)
 
 
-def prepare_batch(streams, config: Optional[Config] = None) -> Batch:
-    """Parse the streams' headers and tile parts, check that they are in
-    the slice, and find the block plan and packet walk."""
-    config = config or Config()
-    parsed = []
-    for s in streams:
-        _fmt, codestream, _jp2 = sniff_format(s)
-        parser = Parser(codestream)
-        header = parser.read_header()
-        parsed.append((header, parser.read_all_tile_parts(header),
-                       codestream))
-    _check_slice(parsed, config)
+def prepare_batch(streams, config: Optional[Config] = None
+                  ) -> Optional[Batch]:
+    """Parse the streams' headers and tile parts and, where decode_batch's
+    branches take them together, the Batch with its block plan and packet
+    walk; None where batch_refusal refuses them or no block plan describes
+    their geometry (decode takes those one by one)."""
+    parsed = [_parse(s) for s in streams]
+    if batch_refusal(parsed, config or Config()):
+        return None
     header = parsed[0][0]
     tile = geo.build_tile(header, 0)
     lossless = header.coding_style.transform == 1
@@ -190,12 +497,12 @@ def prepare_batch(streams, config: Optional[Config] = None) -> Batch:
                                  multi_tile=not on_device,
                                  lossy=not lossless)
     if plan is None:
-        raise _not_ported("this code-block/precinct geometry or origin", "6")
+        return None
     require_native()
     n_comps = header.num_components
     return Batch(
         bodies=[b"".join(cs[tp.data_start:tp.data_end] for tp in tps)
-                for _hdr, tps, cs in parsed],
+                for _hdr, tps, cs, _jp2 in parsed],
         tile=tile, plan=plan, geom=fused_encode.t2_geom(header, tile, plan),
         kind=dwt.REV53 if lossless else dwt.IRR97,
         use_mct=bool(header.coding_style.mct) and n_comps >= 3,
@@ -215,18 +522,13 @@ def _native_args(batch: Batch, bodies: List[bytes]):
             plan.hs, plan.cbh, plan.cbw)
 
 
-def _refused() -> NotImplementedError:
-    return _not_ported("HT refinement passes (or truncated streams)", "6")
-
-
 def parse_chunk(batch: Batch, bodies: List[bytes]):
     """The host's control phase (native T2 + MEL/VLC parse) of some frames:
     (quad words uint32 [n*nb, qh, qw], MagSgn pool uint32 [P], block word
-    offsets int64 [n*nb])."""
+    offsets int64 [n*nb]), or None where the native parse refuses a frame
+    (HT refinement passes, or truncated data): `decode` takes those."""
     out = loader.ht_t2_parse_frames(*_native_args(batch, bodies))
-    if out is None:
-        raise _refused()
-    return out[:3]
+    return None if out is None else out[:3]
 
 
 def upload_parsed(qinfo: np.ndarray, pool: np.ndarray, woff: np.ndarray,
@@ -239,29 +541,13 @@ def upload_parsed(qinfo: np.ndarray, pool: np.ndarray, woff: np.ndarray,
 
 
 def ebcot_jobs(batch: Batch, body: bytes) -> List:
-    """Tier-2 of one Part-1 frame (the slice's part of the JAX package's
-    _decode_tile): per block of the plan, in canonical job order, its T1
-    decode job (data, w, h, numbps, num_passes, band, cb_style,
-    segment_lengths), or None where the block carries no pass."""
+    """Tier-2 of one Part-1 frame (_tier2): per block of the plan, in
+    canonical job order, its T1 decode job (data, w, h, numbps,
+    num_passes, band, cb_style, segment_lengths), or None where the block
+    carries no pass."""
     header, tile = batch.header, batch.tile
-    pd_map: Dict = {}
-    for c, tc in enumerate(tile.comps):
-        for res in tc.resolutions:
-            for p_idx in range(res.num_px * res.num_py):
-                pd_map[(c, res.r, p_idx)] = [
-                    t2.PrecinctDecoder(band.precincts[p_idx])
-                    for band in res.bands]
+    pd_map = _tier2(header, tile, body)
     cb_style = header.coding_style.cb_style
-    pos = 0
-    for pid in t2.packet_sequence(tile, header):
-        if pos >= len(body):
-            break
-        pds = pd_map.get((pid.comp, pid.res, pid.precinct), [])
-        br = BitReader(body[pos:], stuffing=True)
-        decoded = t2.decode_packet_header(br, pds, pid.layer, cb_style)
-        br.align()
-        pos = t2.apply_packet_body(body, pos + br.bytes_consumed(), decoded,
-                                   cb_style)
     jobs = []
     for c, tc in enumerate(tile.comps):
         for res in tc.resolutions:
@@ -303,14 +589,15 @@ def ebcot_slots(batch: Batch, bodies: List[bytes]) -> np.ndarray:
 
 
 def decode_chunk(batch: Batch, bodies: List[bytes], dev: torch.device
-                 ) -> torch.Tensor:
+                 ) -> Optional[torch.Tensor]:
     """Decode some frames of the batch to their narrow pixels, flat, on
     `dev`.  Device branch: host parse, upload of the quad words and the
     MagSgn pool, then ht_dec.fused_decode (MagSgn and assembly kernels,
     inverse DWT, inverse MCT).  Host branch (a tile origin off (0, 0)): the
     native HT decode, assembly in numpy, and the inverse on `dev`.  EBCOT
     branch: ebcot_slots on the host, then one upload, the block-to-pyramid
-    assembly and the inverse on `dev`."""
+    assembly and the inverse on `dev`.  None where the native HT calls
+    refuse a frame (HT refinement passes): `decode` takes those."""
     n = len(bodies)
     x0, y0 = batch.tile.comps[0].x0, batch.tile.comps[0].y0
     if not batch.ht:
@@ -323,16 +610,19 @@ def decode_chunk(batch: Batch, bodies: List[bytes], dev: torch.device
                                           batch.precision, batch.signed,
                                           x0, y0)
     if batch.on_device:
+        parsed = parse_chunk(batch, bodies)
+        if parsed is None:
+            return None
         counters.add("dec.device_ht_chunks")
-        qinfo, pool, woff = upload_parsed(*parse_chunk(batch, bodies), dev)
+        qinfo, pool, woff = upload_parsed(*parsed, dev)
         return ht_dec.fused_decode(qinfo, pool, woff, batch.plan, n,
                                    batch.n_comps, batch.nl, batch.kind,
                                    batch.use_mct, batch.precision,
                                    batch.signed)
-    counters.add("dec.host_ht_frames", n)
     coeffs = loader.ht_t2_decode_frames(*_native_args(batch, bodies))
     if coeffs is None:
-        raise _refused()
+        return None
+    counters.add("dec.host_ht_frames", n)
     lossy = batch.kind == dwt.IRR97
     return transforms.dispatch_inverse_stacked(
         _blocks_to_pyramid(coeffs, batch.plan, n, batch.n_comps, batch.nl),
@@ -343,26 +633,40 @@ def decode_chunk(batch: Batch, bodies: List[bytes], dev: torch.device
 
 def decode_batch(streams, config: Optional[Config] = None,
                  device="cuda") -> List[np.ndarray]:
-    """Decode same-shape single-tile HTJ2K codestreams, lossless or lossy,
-    or lossless Part-1 codestreams, to frames ([H, W] gray or [H, W, C]),
-    in chunks of frames (decode_chunk), each host work (native calls, and
-    the Python Tier-2 for Part-1) and one device program on `device`.
-    "cuda" without a card raises.  Counters: dec.device_ht_chunks,
-    dec.host_ht_frames, dec.ebcot_frames."""
+    """Decode codestreams or JP2 files to frames ([H, W] gray or
+    [H, W, C]).  Single-tile HTJ2K streams of one shape, lossless or lossy,
+    and lossless Part-1 ones, one layer each, go together in chunks of
+    frames (decode_chunk): host work (native calls, and the Python Tier-2
+    for Part-1) and one device program on `device` per chunk.  Everything
+    else (batch_refusal, and frames with HT refinement passes) goes
+    through `decode` one by one.  "cuda" without a card raises.  Counters:
+    dec.device_ht_chunks, dec.host_ht_frames, dec.ebcot_frames."""
+    config = config or Config()
     dev = transforms.resolve_device(device)
     if not streams:
         return []
     batch = prepare_batch(streams, config)
+    if batch is None:
+        return [decode(s, config, dev) for s in streams]
     n_frames = len(streams)
     th, tw = batch.tile.comps[0].h, batch.tile.comps[0].w
     chunk = _chunk_frames(n_frames, batch.n_comps * th * tw,
                           DECODE_CHUNK_BYTES // DECODE_BYTES_PER_SAMPLE)
+    # every chunk's device program is queued before the first download, so
+    # the host parse of a chunk overlaps the device work of the one before
+    starts = range(0, n_frames, chunk)
     outs = [decode_chunk(batch, batch.bodies[s:s + chunk], dev)
-            for s in range(0, n_frames, chunk)]
+            for s in starts]
     dt = np.uint8 if batch.precision <= 8 else np.uint16
-    arr = np.concatenate([o.cpu().numpy() for o in outs]).view(dt).reshape(
-        n_frames, batch.n_comps, th, tw)
-    counters.add("dec.bytes_in", sum(len(s) for s in streams))
-    counters.add("dec.pixels_out", int(arr.size))
-    return [a[0] if batch.n_comps == 1 else np.moveaxis(a, 0, -1)
-            for a in arr]
+    frames = []
+    for s, out in zip(starts, outs):
+        if out is None:
+            frames += [decode(x, config, dev) for x in streams[s:s + chunk]]
+            continue
+        arr = out.cpu().numpy().view(dt).reshape(-1, batch.n_comps, th, tw)
+        frames += [a[0] if batch.n_comps == 1 else np.moveaxis(a, 0, -1)
+                   for a in arr]
+        counters.add("dec.bytes_in",
+                     sum(len(x) for x in streams[s:s + chunk]))
+        counters.add("dec.pixels_out", int(arr.size))
+    return frames

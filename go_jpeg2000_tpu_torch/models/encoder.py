@@ -1,34 +1,43 @@
-"""Batch encoder: same-shape frames -> HTJ2K or Part-1 J2K codestreams.
+"""Encoder: an image or frames of one shape -> J2K codestreams or JP2 files.
 
-Port of go_jpeg2000_tpu/models/encoder.py `encode_batch`: its fused HT
-branch, its device EBCOT branch and its chunked host-entropy branch, with
-the functions they run.  The fused branch (models/fused_encode.py) runs
-the whole device half of an HTJ2K encode on the card, with hand-written
-CUDA kernels for the DWT levels, block extraction, the HT cleanup fields,
-bit packing and pool compaction, and leaves the host only segment
-serialization and Tier-2 in C++ (or, with PLT, Python Tier-2 on natively
-serialized segments).  The device EBCOT branch (models/ebcot_fused.py) runs
-the 5/3 transform, block extraction, the EBCOT Tier-1 decisions, their
-compaction and (path A) the MQ coder and the segment pool on the card, or
-(path B, backend "hybrid") MQ-codes the fetched decision streams on the
-host in C++; the Python Tier-2 assembles the packets.  The chunked branch,
-for what the device branches refuse (a band of several precincts, HT
-refinement passes) and for Part-1 with backend "native" (path C), runs DC
-shift, RCT or ICT, the DWT and, for 9/7, the deadzone quantization on the
-device and the native block coder (HT or EBCOT) and the Python Tier-2 per
-frame on the host.  Lossless codestreams are byte-identical to the JAX
-package's `encode_batch`; lossy ones decode within one grey level of it
-(float32 lifting drifts by ulps between program shapes, so a quantizer
-index can flip at a step boundary).
+Port of go_jpeg2000_tpu/models/encoder.py.  `encode` codes one image tile
+by tile (`_tile_entropy`): the tile's samples go to the device, where DC
+shift, RCT or ICT, the DWT levels (the hand-written CUDA level kernels on
+the card) and, for 9/7, the deadzone quantization run; the native block
+coder (HT or EBCOT) codes the blocks on the host; then one PCRD over every
+tile's passes sets the quality layers and meets the byte budget
+(`_assemble_with_budget`), the Python Tier-2 writes each tile's packets,
+and `_finalize_codestream` wraps JP2.  `encode_batch` codes frames of one
+shape and one tile together, through the JAX package's three branches:
+the fused branch (models/fused_encode.py) runs the whole device half of
+an HTJ2K encode on the card, with hand-written CUDA kernels for the DWT
+levels, block extraction, the HT cleanup fields, bit packing and pool
+compaction, and leaves the host only segment serialization and Tier-2 in
+C++ (or, with PLT, Python Tier-2 on natively serialized segments).  The
+device EBCOT branch (models/ebcot_fused.py) runs the 5/3 transform, block
+extraction, the EBCOT Tier-1 decisions, their compaction and (path A) the
+MQ coder and the segment pool on the card, or (path B, backend "hybrid")
+MQ-codes the fetched decision streams on the host in C++; the Python
+Tier-2 assembles the packets.  The chunked branch, for what the device
+branches refuse (a band of several precincts, HT refinement passes,
+quality layers, byte budgets, lossy Part-1) and for Part-1 with backend
+"native" (path C), runs the transforms on the device and the native block
+coder, a PCRD per frame and the Python Tier-2 on the host.  Frames of
+differing shapes, tiled and offset images go through `encode` one by one.
+Lossless codestreams are byte-identical to the JAX package's `encode` and
+`encode_batch`; lossy ones decode within one grey level of them (float32
+lifting drifts by ulps between program shapes, so a quantizer index can
+flip at a step boundary).
 
-The slices: HTJ2K, lossless 5/3 or lossy 9/7, and Part-1 EBCOT lossless
-5/3 with code-block style 0; one tile, one quality layer without a byte
-budget or HT refinement passes for 9/7, J2K, frames of one shape, gray or
-3-component RGB (RCT for 5/3, ICT for 9/7), 8 to 16-bit unsigned samples.
-Everything else raises NotImplementedError naming the ROADMAP item that
-brings it.  The tile-sharded pipeline (parallel/sharded.py) takes more
-(multi-tile images, layers, byte budgets; its gate is `check_sharded`) and
-assembles through `_assemble_with_budget` and `_finalize_codestream`.
+The slices: HTJ2K or Part-1 (code-block style 0), lossless 5/3 with any
+number of quality layers and byte budgets (HT refinement passes where
+they are used), lossy 9/7 with one layer and no budget; J2K, JP2 or JPX;
+one tile or a tile grid with tile and image offsets; gray or 3-component
+RGB (RCT for 5/3, ICT for 9/7), 8 to 16-bit unsigned samples; PLT
+markers.  Everything else raises NotImplementedError naming the ROADMAP
+item that brings it (`check_encode`).  The tile-sharded pipeline
+(parallel/sharded.py; its gate is `check_sharded`) assembles through
+`_assemble_with_budget` and `_finalize_codestream` too.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from ..ops import dwt, quant as quant_ops, t1
 from ..options import Format, Options, default_options
 from ..tcd import geometry as geo
 from ..tcd import t2
+from ..utils import boxes
 from ..utils import markers as mk
 from ..utils.bio import BitWriter
 from ..utils.metrics import counters
@@ -97,40 +107,41 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
-def check_slice(images: Sequence[np.ndarray], opts: Options) -> None:
-    """Raise NotImplementedError for anything outside the port's slice."""
-    if not opts.high_throughput and not opts.lossless:
-        raise _not_ported("lossy EBCOT (Part 1) coding", "7")
-    if not opts.high_throughput and opts.code_block_style:
-        raise _not_ported(f"code-block style {opts.code_block_style:#x}", "6")
+def check_encode(image: np.ndarray, opts: Options) -> None:
+    """Raise NotImplementedError for what `encode` does not run yet: the
+    options of ROADMAP items 6b and 7."""
+    if not opts.lossless and (opts.num_layers > 1
+                              or opts.compression_ratio > 1.0):
+        raise _not_ported("PCRD on 9/7 (lossy quality layers and byte "
+                          "budgets)", "7")
     if not opts.lossless and effective_ht_refinement(opts):
         raise _not_ported("lossy 9/7 coding with HT refinement passes", "7")
-    if opts.format != Format.J2K:
-        raise _not_ported(f"the {opts.format} format", "6")
-    if (opts.tile_size != (0, 0) or opts.tile_offset != (0, 0)
-            or opts.image_offset != (0, 0)):
-        raise _not_ported("multi-tile and offset images", "6")
-    if opts.num_layers > 1 or opts.compression_ratio > 1.0:
-        raise _not_ported("quality layers and byte budgets", "6")
+    if not opts.high_throughput and opts.code_block_style:
+        raise _not_ported(f"code-block style {opts.code_block_style:#x}",
+                          "6b")
     if (opts.enable_sop or opts.enable_eph or opts.enable_ppm
             or opts.enable_ppt or opts.enable_tlm):
-        raise _not_ported("SOP/EPH/PPM/PPT/TLM markers", "6")
+        raise _not_ported("SOP/EPH/PPM/PPT/TLM markers", "6b")
     if opts.progression_changes:
-        raise _not_ported("progression order changes (POC)", "6")
-    backends = ("auto", "native") if opts.high_throughput else \
-        ("auto", "native", "device", "hybrid")
-    if opts.backend not in backends:
-        raise _not_ported(f"entropy backend {opts.backend!r}", "6")
-    im0 = images[0]
-    if not all(im.shape == im0.shape and im.dtype == im0.dtype
-               for im in images):
-        raise _not_ported("batches of differing frame shapes", "6")
-    if im0.dtype not in (np.uint8, np.uint16):
-        raise _not_ported(f"{im0.dtype} samples", "6")
-    if not (im0.ndim == 2 or (im0.ndim == 3 and im0.shape[2] in (1, 3))):
-        raise _not_ported(f"frames of shape {im0.shape}", "6")
+        raise _not_ported("progression order changes (POC)", "6b")
+    if opts.backend not in ("auto", "native", "device", "hybrid"):
+        raise _not_ported(f"entropy backend {opts.backend!r}", "6b")
+    if image.dtype not in (np.uint8, np.uint16):
+        raise _not_ported(f"{image.dtype} samples", "6b")
+    if not (image.ndim == 2 or (image.ndim == 3 and image.shape[2] in (1, 3))):
+        raise _not_ported(f"images of shape {image.shape}", "6b")
     if opts.precision and not 8 <= opts.precision <= 16:
-        raise _not_ported(f"{opts.precision}-bit samples", "6")
+        raise _not_ported(f"{opts.precision}-bit samples", "6b")
+
+
+def batch_takes(images: Sequence[np.ndarray], opts: Options) -> bool:
+    """Whether encode_batch codes the frames together: frames of one shape
+    and dtype, one tile at the origin, as the JAX package's encode_batch
+    asks before it falls back to per-image encode."""
+    im0 = images[0]
+    return (all(im.shape == im0.shape and im.dtype == im0.dtype
+                for im in images)
+            and opts.tile_size == (0, 0) and opts.image_offset == (0, 0))
 
 
 def check_sharded(image: np.ndarray, opts: Options) -> None:
@@ -289,10 +300,13 @@ def _leaf_deltas(tile: geo.Tile, nl: int) -> Tuple[float, ...]:
                  for k in ["HH", "HL", "LH"] + (["LL"] if lev == nl else []))
 
 
-def _entropy_jobs(tile: geo.Tile, pyramids):
-    """Code-block split of a pyramid of integers (lossless coefficients or
-    device-quantized 9/7 indices): returns (enc_state, job_slots,
-    block_jobs) with block_jobs = (coeff_array, band_name, cb_style, mb)."""
+def _entropy_jobs(tile: geo.Tile, pyramids, lossless: bool = True,
+                  pre_quantized: bool = True):
+    """Code-block split of a pyramid: returns (enc_state, job_slots,
+    block_jobs) with block_jobs = (coeff_array, band_name, cb_style, mb).
+    The leaves are integers (lossless coefficients, or 9/7 indices the
+    device quantized), or, for 9/7 with pre_quantized=False, float32
+    coefficients, quantized here in float32 with each band's step."""
     enc_state, job_slots = _walk_geometry(tile)
     block_jobs = []
     for c, tc in enumerate(tile.comps):
@@ -305,6 +319,11 @@ def _entropy_jobs(tile: geo.Tile, pyramids):
                 else:
                     arr = pyramids[band.dec_level - 1][band.name][c]
                 arr = np.asarray(arr)
+                if not lossless and not pre_quantized:
+                    a32 = arr.astype(np.float32, copy=False)
+                    arr = (np.sign(a32)
+                           * np.floor(np.abs(a32) / np.float32(band.delta))
+                           ).astype(np.int32)
                 mb = tc.quant.guard_bits + band.eps - 1
                 for prec in band.precincts:
                     for cb in prec.code_blocks:
@@ -390,13 +409,16 @@ def _packets_to_tile_part(header: Header, tile: geo.Tile, enc_state,
 
 
 def _assemble_packets(header: Header, tile: geo.Tile, enc_state, job_slots,
-                      results, t_idx: int, opts: Options) -> bytes:
-    """Single-tile path: build blocks, run PCRD locally, assemble packets."""
+                      results, t_idx: int, opts: Options,
+                      rate_budget: Optional[int] = None) -> bytes:
+    """Single-tile path: build blocks, run PCRD locally (one pass, as the
+    JAX package's batch path: no correction of the overhead estimate),
+    assemble packets."""
     num_layers = header.coding_style.num_layers
     all_blocks, weights = _build_blocks(
         job_slots, results, num_layers, opts.lossless,
         mct_comp_weights(header, opts.lossless, len(tile.comps)))
-    rate_mod.assign_layers(all_blocks, weights, num_layers, None)
+    rate_mod.assign_layers(all_blocks, weights, num_layers, rate_budget)
     return _packets_to_tile_part(header, tile, enc_state, t_idx, opts)
 
 
@@ -476,31 +498,122 @@ def _assemble_with_budget(header: Header, opts: Options, states, all_blocks,
     return best
 
 
+def _wrap(header: Header, opts: Options, codestream: bytes) -> bytes:
+    """The codestream as opts.format asks: raw (J2K) or in a JP2 or JPX
+    container (utils/boxes.py)."""
+    if opts.format == Format.J2K:
+        return codestream
+    return boxes.wrap_jp2(codestream, header, opts)
+
+
 def _finalize_codestream(header: Header, opts: Options, main: bytes,
                          tile_parts: List[bytes], total_pixels: int) -> bytes:
-    """Main header, tile-parts and EOC: the J2K part of the JAX package's
-    function."""
-    if opts.format != Format.J2K:
-        raise _not_ported(f"the {opts.format} format", "6b")
-    if opts.enable_ppm or opts.enable_tlm:
-        raise _not_ported("PPM and TLM markers", "6b")
+    """Main header, tile-parts and EOC, wrapped as opts.format asks (the
+    JAX package's function without PPM and TLM, which check_encode
+    refuses)."""
     codestream = main + b"".join(tile_parts) + cw.write_eoc()
     counters.add("enc.pixels_in", total_pixels)
     counters.add("enc.bytes_out", len(codestream))
-    return codestream
+    return _wrap(header, opts, codestream)
+
+
+def _code_blocks(block_jobs, opts: Options, num_layers: int,
+                 rate_budget: Optional[int]):
+    """The native block coder on one tile's jobs, with HT refinement passes
+    where effective_ht_refinement turns them on; the EBCOT coder computes
+    the exact D.4.1 pass lengths only where asked and where PCRD reads them
+    (layers or a budget), else its monotone upper bounds."""
+    return encode_blocks_batch(
+        block_jobs,
+        ht_refinement=opts.high_throughput and effective_ht_refinement(opts),
+        ht_require_exact=opts.lossless,
+        exact_rates=opts.exact_rates and (num_layers > 1
+                                          or rate_budget is not None))
 
 
 def _entropy_and_packets(header: Header, tile: geo.Tile, pyramids,
-                         t_idx: int, opts: Options) -> bytes:
-    """Single-tile host entropy + PCRD + packets for one frame.  One layer
-    without a budget never reads pass rates, so the EBCOT coder takes its
-    monotone upper bounds instead of the exact D.4.1 lengths."""
+                         t_idx: int, opts: Options,
+                         rate_budget: Optional[int]) -> bytes:
+    """Single-tile host entropy + PCRD + packets for one frame (the JAX
+    package's batch-path body)."""
     enc_state, job_slots, block_jobs = _entropy_jobs(tile, pyramids)
-    results = encode_blocks_batch(
-        block_jobs, ht_refinement=effective_ht_refinement(opts),
-        ht_require_exact=opts.lossless, exact_rates=False)
+    results = _code_blocks(block_jobs, opts,
+                           header.coding_style.num_layers, rate_budget)
     return _assemble_packets(header, tile, enc_state, job_slots, results,
-                             t_idx, opts)
+                             t_idx, opts, rate_budget)
+
+
+def _tile_entropy(header: Header, comps: List[np.ndarray], t_idx: int,
+                  opts: Options, precision: int, signed: bool,
+                  num_layers: int, rate_budget: Optional[int], dev):
+    """Transform and entropy-code one tile; returns (tile, enc_state,
+    job_slots, results) for PCRD and packet assembly.  The tile's samples
+    go to `dev` in their narrow dtype; DC shift, RCT or ICT, the DWT levels
+    (the level kernels on the card) and, for 9/7, the deadzone
+    quantization run there, the block coding on the host."""
+    tile = geo.build_tile(header, t_idx)
+    tx0, ty0, tx1, ty1 = header.tile_bounds(t_idx)
+    tile_data = [comps[c][ty0 - header.y_offset:ty1 - header.y_offset,
+                          tx0 - header.x_offset:tx1 - header.x_offset]
+                 for c in range(len(tile.comps))]
+    kind = dwt.REV53 if opts.lossless else dwt.IRR97
+    nl0 = tile.comps[0].coding.num_decompositions
+    use_mct = bool(header.coding_style.mct) and len(tile_data) >= 3
+    quant_deltas = None
+    if not opts.lossless and not header.comp_quant:
+        quant_deltas = _leaf_deltas(tile, nl0)
+    pyramids = transforms.run_forward(
+        tile_data, nl0, kind, use_mct, precision, signed, tile.comps[0].x0,
+        tile.comps[0].y0, dev, quant_deltas=quant_deltas)
+    enc_state, job_slots, block_jobs = _entropy_jobs(
+        tile, pyramids, opts.lossless,
+        pre_quantized=quant_deltas is not None)
+    results = _code_blocks(block_jobs, opts, num_layers, rate_budget)
+    return tile, enc_state, job_slots, results
+
+
+def encode(image: np.ndarray, opts: Optional[Options] = None,
+           device="cuda") -> bytes:
+    """Encode one image ([H, W] gray or [H, W, 3] RGB, 8 to 16-bit
+    unsigned) to a J2K codestream or a JP2 file, as the JAX package's
+    encode: per tile (opts.tile_size, tile_offset, image_offset), the
+    device transform and the host block coder (_tile_entropy); then one
+    PCRD over every tile's passes (quality layers, and the byte budget of
+    compression_ratio, corrected against the assembled size), and the
+    Tier-2 packets of each tile.  `device` is where the transforms run;
+    "cuda" without a card raises."""
+    opts = opts or default_options()
+    dev = transforms.resolve_device(device)
+    image = np.asarray(image)
+    check_encode(image, opts)
+    comps = _image_components(image)
+    header = build_header(image, opts)
+    precision = header.components[0].precision
+    signed = header.components[0].signed
+    _apply_comp_quants(header, opts, len(comps), precision)
+    main = _write_main_header(header, opts, len(comps))
+
+    num_layers = header.coding_style.num_layers
+    rate_budget = rate_mod.byte_budget(image, opts)
+    states = []
+    all_blocks: List[t2.EncBlock] = []
+    all_weights: List[float] = []
+    cw_mct = mct_comp_weights(header, opts.lossless, len(comps))
+    for t_idx in range(header.num_tiles):
+        tile, enc_state, job_slots, results = _tile_entropy(
+            header, comps, t_idx, opts, precision, signed, num_layers,
+            rate_budget, dev)
+        blocks, wts = _build_blocks(job_slots, results, num_layers,
+                                    opts.lossless, cw_mct)
+        all_blocks += blocks
+        all_weights += wts
+        states.append((tile, enc_state))
+    tile_parts = _assemble_with_budget(
+        header, opts, states, all_blocks, num_layers, rate_budget, main,
+        lambda target: rate_mod.assign_layers(all_blocks, all_weights,
+                                              num_layers, target))
+    return _finalize_codestream(header, opts, main, tile_parts,
+                                int(image.size))
 
 
 # Peak device bytes per sample (frame pixels times components) of one chunk
@@ -615,27 +728,33 @@ def _encode_batch_ebcot(batch: np.ndarray, header: Header, tile: geo.Tile,
 def encode_batch(images: Sequence[np.ndarray],
                  opts: Optional[Options] = None,
                  device="cuda") -> List[bytes]:
-    """Encode same-shape frames to J2K codestreams.  HTJ2K: where
+    """Encode frames of one shape to J2K codestreams or JP2 files; frames
+    of differing shapes or dtypes, and tiled or offset images, go one by
+    one through `encode`, as in the JAX package.  HTJ2K: where
     fused_encode.plan_for admits the configuration (one precinct per band,
-    no HT refinement), each chunk of frames runs the fused device HT encode
-    (DC shift, RCT/ICT, DWT, block extraction and quantization, HT cleanup
-    fields, bit packing, pool compaction) and the host serializes and
-    assembles packets in C++.  Part-1 (high_throughput=False, lossless):
-    where ebcot_fused.plan_for admits it, backend "device" or "auto" (path
-    A) runs the device EBCOT encode up to the MQ segment pool, backend
-    "hybrid" (path B) up to the decision streams, which the native MQ coder
-    codes; the Python Tier-2 assembles packets.  Otherwise, and for backend
-    "native" (path C), the device transforms and the host codes blocks and
-    packets per frame.  `device` is where the device work runs; "cuda"
-    without a card raises.  Counters: enc.fused_chunks,
-    enc.ebcot_device_chunks, enc.ebcot_hybrid_chunks,
-    enc.host_entropy_frames."""
+    no HT refinement, backend "auto" or "native"), each chunk of frames
+    runs the fused device HT encode (DC shift, RCT/ICT, DWT, block
+    extraction and quantization, HT cleanup fields, bit packing, pool
+    compaction) and the host serializes and assembles packets in C++.
+    Part-1 lossless with one layer and no budget: where ebcot_fused.plan_for
+    admits it, backend "device" or "auto" (path A) runs the device EBCOT
+    encode up to the MQ segment pool, backend "hybrid" (path B) up to the
+    decision streams, which the native MQ coder codes; the Python Tier-2
+    assembles packets.  Otherwise (quality layers, byte budgets, HT
+    refinement, lossy Part-1, backend "native" (path C)) the device
+    transforms and the host codes blocks, runs PCRD and assembles packets
+    per frame.  `device` is where the device work runs; "cuda" without a
+    card raises.  Counters: enc.fused_chunks, enc.ebcot_device_chunks,
+    enc.ebcot_hybrid_chunks, enc.host_entropy_frames."""
     opts = opts or default_options()
     dev = transforms.resolve_device(device)
     images = [np.asarray(im) for im in images]
     if not images:
         return []
-    check_slice(images, opts)
+    for im in images:
+        check_encode(im, opts)
+    if not batch_takes(images, opts):
+        return [encode(im, opts, dev) for im in images]
 
     header = build_header(images[0], opts)
     precision = header.components[0].precision
@@ -650,17 +769,22 @@ def encode_batch(images: Sequence[np.ndarray],
     x0, y0 = tile.comps[0].x0, tile.comps[0].y0
     kind = dwt.REV53 if opts.lossless else dwt.IRR97
     deltas = None if opts.lossless else _leaf_deltas(tile, nl0)
+    num_layers = header.coding_style.num_layers
+    rate_budget = rate_mod.byte_budget(images[0], opts)
     # frames ship in their narrow dtype; the cast to int32 runs on device
     batch = np.stack([np.stack(_image_components(im)) for im in images])
     n_frames, c, h, w = batch.shape
     plan = eplan = None
-    if opts.high_throughput and not effective_ht_refinement(opts):
+    if (opts.high_throughput and not effective_ht_refinement(opts)
+            and opts.backend in ("auto", "native")):
         plan = fused_encode.plan_for(header, tile, lossy=not opts.lossless)
-    if not opts.high_throughput and opts.backend != "native":
+    if (not opts.high_throughput and opts.lossless and num_layers == 1
+            and rate_budget is None and not effective_ht_refinement(opts)
+            and opts.backend != "native"):
         eplan = ebcot_fused.plan_for(header, tile)
         if eplan is None and opts.backend != "auto":
             raise _not_ported(f"backend {opts.backend!r} on this code-block "
-                              "and precinct geometry", "6")
+                              "and precinct geometry", "6b")
     if plan is not None:
         out = _encode_batch_fused(batch, header, tile, plan, opts, precision,
                                   signed, nl0, use_mct, main, kind, dev)
@@ -680,8 +804,9 @@ def encode_batch(images: Sequence[np.ndarray],
             pyrs = transforms.fetch_forward_batch(flat, sub.shape[0], c, h,
                                                   w, nl0, x0, y0)
             for pyr in pyrs:
-                body = _entropy_and_packets(header, tile, pyr, 0, opts)
+                body = _entropy_and_packets(header, tile, pyr, 0, opts,
+                                            rate_budget)
                 out.append(main + body + cw.write_eoc())
     counters.add("enc.pixels_in", int(batch.size))
     counters.add("enc.bytes_out", sum(len(b) for b in out))
-    return out
+    return [_wrap(header, opts, b) for b in out]

@@ -72,7 +72,22 @@ def encode_blocks_batch(jobs: Sequence[Tuple], ht_refinement: bool = False,
 
 def decode_blocks_batch(jobs: Sequence[Tuple]) -> List[np.ndarray]:
     """jobs: (data, w, h, numbps, num_passes, band, cb_style,
-    segment_lengths) per block, all EBCOT code-blocks: the native T1
-    decoder, threaded across blocks."""
+    segment_lengths) per block, all HT or all EBCOT code-blocks, threaded
+    across blocks.  HT: the native cleanup decoder, or, where a block
+    carries refinement passes, the native refined decoder for all of them
+    (cleanup and refinement segment lengths from segment_lengths).  EBCOT:
+    the native T1 decoder."""
     require_native()
-    return loader.decode_blocks(jobs)
+    if not (jobs and jobs[0][6] & mk.CBSTYLE_HT):
+        return loader.decode_blocks(jobs)
+    if not any(j[4] > 1 for j in jobs):
+        return loader.ht_decode_blocks(
+            [(bytes(j[0]), j[1], j[2], j[3]) for j in jobs])
+    njobs = []
+    for j in jobs:
+        d = bytes(j[0])
+        segs = list(j[7] or [])
+        lc = min(segs[0] if segs else len(d), len(d))
+        lr = min(segs[1] if len(segs) > 1 else 0, len(d) - lc)
+        njobs.append((d, j[1], j[2], j[3], j[4], lc, lr))
+    return loader.ht_decode_refined_blocks(njobs)

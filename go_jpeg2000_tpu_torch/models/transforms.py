@@ -1,9 +1,9 @@
 """Device transform stages of the codec pipeline, as torch ops.
 
-Port of go_jpeg2000_tpu/models/transforms.py (the batched programs):
-DC shift + RCT/ICT + multi-level 5/3 or 9/7 DWT forward (+ deadzone
-quantization for 9/7), and the inverse chain (midpoint dequantization for
-9/7).  Each level goes through the hand-written CUDA kernel
+Port of go_jpeg2000_tpu/models/transforms.py: DC shift + RCT/ICT +
+multi-level 5/3 or 9/7 DWT forward (+ deadzone quantization for 9/7), and
+the inverse chain (midpoint dequantization for 9/7), for batches of frames
+and, through run_forward and run_inverse, for one tile at its origin.  Each level goes through the hand-written CUDA kernel
 (ops/dwt_cuda.py) when the tensor is on the card and `dwt_cuda.usable`
 admits the level, and through the plain torch lifting (ops/dwt.py)
 otherwise; a CUDA level that takes the plain version is counted in
@@ -226,10 +226,10 @@ def inverse_pyramid(pyramid: List[Dict[str, torch.Tensor]], kind: str,
 
 
 def samples(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
-            signed: bool) -> torch.Tensor:
+            signed: bool, narrow: bool = True) -> torch.Tensor:
     """The inverse DWT's output [N, C, H, W] -> inverse RCT/ICT, rounding
     half to even (9/7), DC shift, clamp and narrowing (16-bit as the int16
-    pattern)."""
+    pattern; int32 kept with narrow=False)."""
     lossy = kind == dwt.IRR97
     c = x.shape[1]
     if use_mct and c >= 3:
@@ -240,6 +240,8 @@ def samples(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
         x = torch.round(x).to(torch.int32)    # half to even, as jnp.rint
     x = mct.dc_shift_inverse(x, precision, signed)
     x = mct.clamp_to_precision(x, precision, signed)
+    if not narrow:
+        return x
     if precision <= 8:
         x = x.to(torch.int8 if signed else torch.uint8)
     elif precision <= 16:
@@ -299,3 +301,51 @@ def dispatch_inverse_stacked(stacked, n: int, c: int, levels: int, kind: str,
     return inverse_transform_batch(flat, n, c, levels, kind, use_mct,
                                    precision, signed, u0, v0,
                                    tuple(flat_shapes), tuple(leaf_deltas))
+
+
+def _tree_leaves(pyr) -> List[torch.Tensor]:
+    """The pyramid's leaves in the JAX package's tree-leaves order (levels
+    ascending; keys sorted: HH, HL, LH [, LL at the top level])."""
+    return [entry[k] for entry in pyr for k in sorted(entry)]
+
+
+def run_forward(tile_data: Sequence[np.ndarray], levels: int, kind: str,
+                use_mct: bool, precision: int, signed: bool, u0: int,
+                v0: int, device,
+                quant_deltas: Optional[Sequence[float]] = None):
+    """One tile's forward transform (the JAX package's run_forward): the
+    components [h, w] at the tile-component origin (u0, v0), uploaded in
+    their narrow dtype, DC shift, RCT or ICT, the DWT levels on `device`
+    (forward_level: the level kernels on the card), and, with
+    `quant_deltas` (one step per leaf in tree-leaves order,
+    encoder._leaf_deltas), the deadzone quantization there too.  Returns
+    the pyramid as numpy leaves [C, bh, bw] per level (int32 coefficients
+    or quantizer indices, float32 coefficients for 9/7 without deltas)."""
+    comps = np.stack(tile_data)[None]
+    c, h, w = comps.shape[1:]
+    x = upload(comps, torch.device(device))
+    pyr = forward_pyramid(x, levels, kind, use_mct, precision, signed, u0, v0)
+    leaves = _tree_leaves(pyr)
+    if quant_deltas is not None:
+        d = torch.tensor(quant_deltas, dtype=torch.float32, device=x.device)
+        leaves = [quant.quantize(leaf, d[i]) for i, leaf in enumerate(leaves)]
+    flat = torch.cat([leaf.reshape(-1) for leaf in leaves])
+    return fetch_forward_batch(flat, 1, c, h, w, levels, u0, v0)[0]
+
+
+def run_inverse(pyramid, kind: str, use_mct: bool, precision: int,
+                signed: bool, u0: int, v0: int, device) -> np.ndarray:
+    """One tile's inverse transform (the JAX package's run_inverse): numpy
+    leaves [C, bh, bw] per level (int32 for 5/3, dequantized float32 for
+    9/7; the top level holds LL, a pyramid of no level is [{"LL": ..}]) at
+    the tile-component origin (u0, v0), uploaded to `device`,
+    the inverse DWT levels (inverse_level: the level kernels on the card),
+    inverse RCT or ICT, rounding (9/7), DC shift and clamp.  Returns int32
+    samples [C, H, W] on the host."""
+    dev = torch.device(device)
+    dt = torch.int32 if kind == dwt.REV53 else torch.float32
+    pyr = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev).to(dt)[None]
+            for k, v in entry.items()} for entry in pyramid]
+    x = samples(_reconstruct(pyr, kind, u0, v0), kind, use_mct, precision,
+                signed, narrow=False)
+    return x[0].cpu().numpy()

@@ -191,12 +191,13 @@ class Options:
     progression_changes: Optional[Sequence[Tuple[int, int, int, int, int, int]]] = None
     # Entropy backend, same field as the JAX package's Options.  HTJ2K:
     # "auto" and "native" (the fused device HT encode where it applies,
-    # else the native C++ HT coder).  Part-1 EBCOT: "device" and "auto"
-    # (path A: decisions, MQ coder and segment pool on the device),
+    # else the native C++ HT coder; "device" and "hybrid" the native
+    # coder, as in the JAX package).  Part-1 EBCOT batches: "device" and
+    # "auto" (path A: decisions, MQ coder and segment pool on the device),
     # "hybrid" (path B: decisions on the device, the native MQ coder on the
-    # host) and "native" (path C: the native C++ EBCOT coder on the host).
-    # Other values ("python", and "device"/"hybrid" for HTJ2K) raise
-    # NotImplementedError (ROADMAP Queue 1 item 6).
+    # host) and "native" (path C: the native C++ EBCOT coder on the host);
+    # `encode` codes every block natively.  "python" raises
+    # NotImplementedError (ROADMAP Queue 1 item 6b).
     backend: str = "auto"
 
 

@@ -36,9 +36,10 @@ tile.  Codestreams are byte-identical to the single-process encode (and,
 lossless, to the JAX package's encoder.encode) whatever the grid.
 
 Streams that the device HT decode does not take (layered, Part-1,
-SOP/EPH/PPM/PPT, absent tiles) raise NotImplementedError: the JAX package
-decodes them per tile on the host (decoder._decode_tile), which is not
-ported yet.
+SOP/EPH/PPM/PPT, HT refinement passes, absent tiles) decode per tile on
+the host (decoder.tile_pyramids: Python Tier-2 and the native block
+decoder), and their leaves go through the same inverse step, as the JAX
+package decodes them.
 """
 from __future__ import annotations
 
@@ -54,7 +55,6 @@ from ..models import decoder as dec
 from ..models import encoder as enc
 from ..models import fused_encode, transforms
 from ..models import rate as rate_mod
-from ..models.entropy_backend import encode_blocks_batch
 from ..native import loader
 from ..ops import band_stats, dwt, ht_dec_cuda, quant
 from ..options import Config, default_options
@@ -427,15 +427,10 @@ def _host_entropy(header, opts, pyr, tiles: List[int], levels: int,
     host = [{k: v.cpu().numpy() for k, v in e.items()} for e in pyr]
     cw_mct = enc.mct_comp_weights(header, opts.lossless, n_comps)
     blocks, weights, states = [], [], []
-    exact = opts.exact_rates and (num_layers > 1 or rate_budget is not None)
     for i, tile in enumerate(geoms):
         pyramids = [{k: v[i] for k, v in e.items()} for e in host]
         enc_state, job_slots, block_jobs = enc._entropy_jobs(tile, pyramids)
-        results = encode_blocks_batch(
-            block_jobs,
-            ht_refinement=(opts.high_throughput
-                           and enc.effective_ht_refinement(opts)),
-            ht_require_exact=opts.lossless, exact_rates=exact)
+        results = enc._code_blocks(block_jobs, opts, num_layers, rate_budget)
         b, w = enc._build_blocks(job_slots, results, num_layers,
                                  opts.lossless, cw_mct)
         blocks += b
@@ -543,34 +538,66 @@ def encode_sharded(image, opts=None, grid: Optional[Grid] = None,
 
 # ----------------------------------------------------------------- decode
 
-def _refuse(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"decode_sharded: {what} need the host tile decode, which is not "
-        "ported yet (ROADMAP Queue 1 item 6a)")
-
-
 def _device_ht_decode(header, parts_by_tile, codestream, tiles: List[int],
                       th: int, tw: int, dev: torch.device):
     """Pyramid leaves [n, C, h, w] of `tiles` (int32, or float32
     dequantized for 9/7) on dev: per tile-origin class, in chunks of
     DECODE_CHUNK_BYTES, the native Tier-2 and MEL/VLC parse, then the MagSgn
-    and assembly kernels, scattered into one leaf per band."""
+    and assembly kernels, scattered into one leaf per band.  None where the
+    stream is not one the device HT decode takes (the JAX package's
+    _device_ht_decode conditions: HTJ2K, one layer, no SOP/EPH/PPM/PPT,
+    every tile present), a class has no block plan or the native parse
+    refuses a tile (HT refinement passes): the host tile decode takes
+    those streams."""
     cs = header.coding_style
+    if not (cs.cb_style & mk.CBSTYLE_HT and cs.num_layers == 1
+            and not (cs.has_sop or cs.has_eph or header.ppm)
+            and not any(tp.packed_headers for parts in parts_by_tile.values()
+                        for tp in parts)
+            and all(t in parts_by_tile
+                    for t in range(header.num_tiles))):
+        return None
     levels = cs.num_decompositions
     n_comps = header.num_components
     lossy = cs.transform == 0
-    leaves = empty_leaves(len(tiles), n_comps, th, tw, levels, lossy, dev)
     work = ht_plans(header, tiles)
     if work is None:
-        raise _refuse("code-block geometries without a block plan")
+        return None
+    leaves = empty_leaves(len(tiles), n_comps, th, tw, levels, lossy, dev)
     for plan, rep, pos in work:
         geom = fused_encode.t2_geom(header, rep, plan)
         for sub in _chunks(pos, decode_chunk_tiles(n_comps, th, tw)):
             parsed = parse_tiles(header, parts_by_tile, codestream, plan,
                                  geom, [tiles[i] for i in sub])
+            if parsed is None:
+                return None
             place_tiles(leaves, dec.upload_parsed(*parsed, dev), plan, sub,
                         n_comps, levels, lossy)
     counters.add("dec.sharded_device_ht_tiles", len(tiles))
+    return leaves
+
+
+def _host_decode(header, parts_by_tile, codestream, tiles: List[int],
+                 th: int, tw: int, dev: torch.device):
+    """Pyramid leaves [n, C, h, w] of `tiles` on dev through the host tile
+    decode (decoder.tile_pyramids: the Python Tier-2 and the native block
+    decoder, 9/7 bands dequantized), as the JAX package's decode_sharded
+    decodes what its device branch refuses; a tile absent from the stream
+    keeps zero leaves."""
+    cs = header.coding_style
+    levels = cs.num_decompositions
+    leaves = empty_leaves(len(tiles), header.num_components, th, tw, levels,
+                          cs.transform == 0, dev)
+    for i, t in enumerate(tiles):
+        if t not in parts_by_tile:
+            continue
+        pyrs = dec.tile_pyramids(header, geo.build_tile(header, t),
+                                 parts_by_tile[t], codestream)
+        for lev, entry in enumerate(leaves):
+            for k, leaf in entry.items():
+                leaf[i] = torch.from_numpy(np.stack(
+                    [p[lev][k] for p in pyrs])).to(dev)
+    counters.add("dec.sharded_host_tiles", len(tiles))
     return leaves
 
 
@@ -593,7 +620,8 @@ def decode_chunk_tiles(n_comps: int, th: int, tw: int) -> int:
 def parse_tiles(header, parts_by_tile, codestream, plan, geom,
                 tiles: Sequence[int]):
     """The host's control phase (native Tier-2 and MEL/VLC parse) of some
-    tiles of one class: (quad words, MagSgn pool, block word offsets)."""
+    tiles of one class: (quad words, MagSgn pool, block word offsets), or
+    None where it refuses a tile (HT refinement passes, truncated data)."""
     datas = [b"".join(codestream[tp.data_start:tp.data_end]
                       for tp in parts_by_tile[t]) for t in tiles]
     frame_off = np.zeros(len(datas) + 1, np.int64)
@@ -602,9 +630,7 @@ def parse_tiles(header, parts_by_tile, codestream, plan, geom,
         np.frombuffer(b"".join(datas), dtype=np.uint8), frame_off,
         len(tiles), plan.nb, geom, geom["mb"], plan.ws, plan.hs, plan.cbh,
         plan.cbw)
-    if parsed is None:
-        raise _refuse("HT refinement passes or truncated streams")
-    return parsed[:3]
+    return None if parsed is None else parsed[:3]
 
 
 def place_tiles(leaves, uploaded, plan, sub: Sequence[int], n_comps: int,
@@ -625,16 +651,19 @@ def place_tiles(leaves, uploaded, plan, sub: Sequence[int], n_comps: int,
 
 def decode_sharded(data: bytes, config: Optional[Config] = None,
                    grid: Optional[Grid] = None, device="cuda") -> np.ndarray:
-    """Decode a multi-tile HTJ2K codestream on a (dp, sp) grid of ranks
-    (default: this process alone), with the device work on `device`.  Each
-    dp shard decodes its own tiles (device HT decode, then the sharded
-    inverse over its sp ranks), and every rank returns the whole image.
+    """Decode a multi-tile codestream on a (dp, sp) grid of ranks (default:
+    this process alone), with the device work on `device`.  Each dp shard
+    decodes its own tiles, then runs the sharded inverse over its sp ranks,
+    and every rank returns the whole image.  Single-layer HTJ2K streams
+    with every tile present take the device HT decode
+    (dec.sharded_device_ht_tiles); the rest (Part-1, quality layers,
+    SOP/EPH/PPM/PPT, HT refinement passes, absent tiles, which stay zero)
+    the host tile decode (dec.sharded_host_tiles), as in the JAX package.
 
     Gates: ValueError as the JAX package's (full-resolution whole decodes
     only, >= 1 decomposition level, the encode's tile grid rules);
-    NotImplementedError for streams the device HT decode does not take
-    (layered, Part-1, SOP/EPH/PPM/PPT, absent tiles), which the JAX package
-    decodes per tile on the host."""
+    NotImplementedError for what `decode` does not run yet
+    (decoder.check_decode)."""
     config = config or Config()
     dev = transforms.resolve_device(device)
     grid = grid or make_grid()
@@ -653,20 +682,7 @@ def decode_sharded(data: bytes, config: Optional[Config] = None,
         parts_by_tile.setdefault(tp.tile_index, []).append(tp)
     if not parts_by_tile:
         raise dec.DecodeError("decode_sharded: codestream has no tile-parts")
-    if not cs.cb_style & mk.CBSTYLE_HT:
-        raise _refuse("Part-1 (EBCOT) streams")
-    if cs.num_layers != 1 or config.quality_layers not in (None, 0):
-        raise _refuse("layered streams")
-    if (cs.has_sop or cs.has_eph or header.ppm
-            or any(tp.packed_headers for tp in tile_parts)):
-        raise _refuse("SOP/EPH/PPM/PPT streams")
-    if any(t not in parts_by_tile for t in range(T)):
-        raise _refuse("streams with absent tiles")
-    if any(c.signed or not 8 <= c.precision <= 16
-           for c in header.components):
-        raise NotImplementedError(
-            "decode_sharded: signed or out-of-range sample precision is not "
-            "ported yet (ROADMAP Queue 1 item 6b)")
+    dec.check_decode(header, config)
     n_comps = header.num_components
     precision = header.components[0].precision
     use_mct = bool(cs.mct) and n_comps >= 3
@@ -675,6 +691,9 @@ def decode_sharded(data: bytes, config: Optional[Config] = None,
     tiles = _my_tiles(T, grid)
     leaves = _device_ht_decode(header, parts_by_tile, codestream, tiles, th,
                                tw, dev)
+    if leaves is None:
+        leaves = _host_decode(header, parts_by_tile, codestream, tiles, th,
+                              tw, dev)
     if grid.sp > 1:
         s, sp = grid.sp_rank, grid.sp
         leaves = [{k: v[:, :, s * v.shape[2] // sp:(s + 1) * v.shape[2] // sp]
@@ -702,6 +721,8 @@ def decode_sharded(data: bytes, config: Optional[Config] = None,
         d, s = divmod(r, grid.sp)
         piece = piece.view(dt)
         for i, t in enumerate(range(d * per, min(T, (d + 1) * per))):
+            if t not in parts_by_tile:
+                continue    # an absent tile stays zero, as in decode
             tx0, ty0, _tx1, _ty1 = header.tile_bounds(t)
             y0 = ty0 - header.y_offset + s * rows
             x0 = tx0 - header.x_offset

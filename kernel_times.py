@@ -345,6 +345,8 @@ def magsgn_timing(cs, tp, decoder, ht_dec_cuda, frames, opts, dev):
     """ht_magsgn_decode on the native parse of the frames' HT streams:
     shape, CUDA-event and alone times, bound."""
     batch = decoder.prepare_batch(tp.encode_batch(frames, opts, device=dev))
+    if batch is None:
+        raise AssertionError("decode_batch's branches refused the streams")
     qinfo, pool, woff = decoder.upload_parsed(
         *decoder.parse_chunk(batch, batch.bodies), dev)
     plan = batch.plan

@@ -8,8 +8,9 @@ either decoder must agree within one grey level, and the port's PSNR must
 be at least the JAX package's minus 0.05 dB.  Encodes inside the fused
 device HT encode's reach must take it (enc.fused_chunks > 0 and no
 enc.host_entropy_frames); what fused_encode.plan_for refuses takes the
-counted host branch.  Everything outside the slices must raise
-NotImplementedError."""
+counted host branch.  What the batch paths do not take goes through the
+single-image encode and decode, as in the JAX package; everything outside
+the slices must raise NotImplementedError naming its ROADMAP item."""
 import dataclasses
 import os
 import subprocess
@@ -301,6 +302,20 @@ def test_options_and_config_from_reference():
     assert isinstance(pc, tp.Config) and pc.quality_layers == 1
 
 
+def _item_still_out(override):
+    """The ROADMAP item an override of OPTS still raises with, or None for
+    what the port runs since `encode` came (JP2, tiles, layers, budgets,
+    lossy Part-1)."""
+    lossy = override.get("lossless") is False
+    if lossy and ({"num_layers", "compression_ratio", "ht_refinement"}
+                  & set(override)):
+        return "7"
+    if (override.get("enable_sop") or override.get("enable_ppm")
+            or override.get("backend") == "python"):
+        return "6b"
+    return None
+
+
 @pytest.mark.parametrize("override", [
     dict(lossless=False, num_layers=2),
     dict(lossless=False, compression_ratio=10.0),
@@ -310,46 +325,77 @@ def test_options_and_config_from_reference():
     dict(num_layers=2), dict(compression_ratio=10.0),
     dict(enable_sop=True), dict(enable_ppm=True), dict(backend="python")])
 def test_encode_outside_slice_raises(override):
+    # what is still out raises naming its item; the rest matches the JAX
+    # package's encode_batch: bytes for lossless, decodes within one grey
+    # level (and its PSNR - 0.05 dB) for lossy Part-1
     opts = dataclasses.replace(tp.options_from_reference(OPTS), **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.encode_batch(_frames(1, (32, 32), 0), opts, device="cpu")
+    frames = _frames(2, (32, 32), 0)
+    item = _item_still_out(override)
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=rf"ROADMAP Queue 1 item {item}\)"):
+            tp.encode_batch(frames, opts, device="cpu")
+        return
+    ours = tp.encode_batch(frames, opts, device="cpu")
+    ref = jax_encode_batch(frames, dataclasses.replace(OPTS, **override))
+    if opts.lossless:
+        assert ours == ref
+    for o, r, f in zip(tp.decode_batch(ours, device="cpu"),
+                       jax_decode_batch(ref), frames):
+        assert o.shape == f.shape and o.dtype == f.dtype
+        assert np.abs(o.astype(int) - r).max() <= (0 if opts.lossless else 1)
+        if not opts.lossless:
+            assert _psnr(o, f) >= _psnr(r, f) - 0.05
 
 
 def test_encode_rejects_mixed_shapes_and_signed():
+    # frames of differing shapes go through encode one by one, as in the
+    # JAX package; signed samples are still out (item 6b)
     opts = tp.options_from_reference(OPTS)
-    with pytest.raises(NotImplementedError):
-        tp.encode_batch([np.zeros((16, 16), np.uint8),
-                         np.zeros((16, 8), np.uint8)], opts, device="cpu")
-    with pytest.raises(NotImplementedError):
+    frames = [_frames(1, (32, 32), 1)[0], _frames(1, (32, 24), 2)[0]]
+    got = tp.encode_batch(frames, opts, device="cpu")
+    assert got == jax_encode_batch(frames, OPTS)
+    assert got == [tp.encode(f, opts, device="cpu") for f in frames]
+    with pytest.raises(NotImplementedError, match="item 6b"):
         tp.encode_batch([np.zeros((16, 16), np.int16)], opts, device="cpu")
 
 
 def test_decode_outside_slice_raises():
     stream = tp.encode_batch(_frames(1, (32, 32), 1),
                              tp.options_from_reference(OPTS), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         tp.decode_batch(stream, tp.Config(reduce_resolution=1), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         tp.decode_batch(stream, tp.Config(decode_area=(0, 0, 8, 8)),
                         device="cpu")
-    jp2 = b"\x00\x00\x00\x0cjP  \r\n\x87\n" + b"\x00" * 16
-    with pytest.raises(NotImplementedError):
-        tp.decode_batch([jp2], device="cpu")
+    # JP2 files decode (through decode, one by one) as the JAX package does
+    frames = _frames(2, (32, 40, 3), 2)
+    jp2 = jax_encode_batch(frames, dataclasses.replace(OPTS,
+                                                       format=Format.JP2))
+    for got, ref, f in zip(tp.decode_batch(jp2, device="cpu"),
+                           jax_decode_batch(jp2), frames):
+        assert np.array_equal(got, ref) and np.array_equal(got, f)
     with pytest.raises(tp.DecodeError):
         tp.decode_batch([b"not a codestream"], device="cpu")
 
 
 def test_refined_streams_encode_and_decode_raises():
-    # the 3-pass HT sets encode (native refined coder); decoding their
-    # refinement passes is the general path's, not the slice's
-    frames = _frames(1, (64, 64), 3)
+    # the 3-pass HT sets encode (native refined coder) and decode: the
+    # native parse refuses their refinement passes, so decode_batch hands
+    # the frames to decode (Python Tier-2, native refined block decoder)
+    frames = _frames(2, (64, 64), 3)
     opts = dataclasses.replace(tp.options_from_reference(OPTS),
                                ht_refinement=True)
     streams = tp.encode_batch(frames, opts, device="cpu")
     assert streams != tp.encode_batch(frames, tp.options_from_reference(OPTS),
                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="refinement"):
-        tp.decode_batch(streams, device="cpu")
+    assert streams == jax_encode_batch(
+        frames, dataclasses.replace(OPTS, ht_refinement=True))
+    tp.counters.reset()
+    got = tp.decode_batch(streams, device="cpu")
+    assert tp.counters.snapshot().get("dec.device_ht_chunks", 0) == 0
+    for g, r, f in zip(got, jax_decode_batch(streams), frames):
+        assert np.array_equal(g, f) and np.array_equal(g, r)
 
 
 def test_cuda_without_card_raises():
@@ -370,6 +416,11 @@ def test_import_leaves_jax_out():
             "go_jpeg2000_tpu_torch.ops.ht_dec_cuda, "
             "go_jpeg2000_tpu_torch.models.fused_encode, "
             "go_jpeg2000_tpu_torch.ops.band_stats, "
+            "go_jpeg2000_tpu_torch.utils.boxes, "
+            "go_jpeg2000_tpu_torch.models.entropy_backend, "
+            "go_jpeg2000_tpu_torch.models.transforms, "
+            "go_jpeg2000_tpu_torch.models.encoder, "
+            "go_jpeg2000_tpu_torch.models.decoder, "
             "go_jpeg2000_tpu_torch.parallel; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'go_jpeg2000_tpu')))")

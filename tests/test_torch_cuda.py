@@ -133,6 +133,45 @@ def test_lossy_codec_on_card_matches_cpu(cuda):
     assert all(np.array_equal(d, c) for d, c in zip(decoded, on_cpu))
 
 
+API_CASES = {
+    # (image shape, dtype, options, level kernels that take every level, or
+    # None where every tile origin is odd and every level lifts plain)
+    "ht_tiles_layers": ((96, 128, 3), np.uint8, tp.Options(
+        format=tp.Format.J2K, lossless=True, high_throughput=True,
+        num_layers=3, tile_size=(64, 64)), "dwt53"),
+    "part1_budget": ((128, 96), np.uint16, tp.Options(
+        format=tp.Format.J2K, lossless=True, num_layers=2,
+        compression_ratio=6.0, precision=12, tile_size=(64, 64)),
+        "dwt53"),
+    "defaults": ((96, 128, 3), np.uint8, tp.Options(), "dwt97"),
+    "odd_offsets": ((100, 75), np.uint8, tp.Options(
+        format=tp.Format.J2K, lossless=True, image_offset=(7, 3),
+        tile_offset=(5, 1), tile_size=(32, 32)), None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(API_CASES))
+def test_single_image_api_on_card_matches_cpu(cuda, case):
+    shape, dtype, opts, kernel = API_CASES[case]
+    rng = np.random.RandomState(3)
+    hi = 1 << 12 if dtype == np.uint16 else 256
+    image = rng.randint(0, hi, shape).astype(dtype)
+    dwt_cuda.reset_counts()
+    on_card = tp.encode(image, opts, device=cuda)
+    decoded = tp.decode(on_card, device=cuda)
+    if kernel is None:
+        assert dwt_cuda.PLAIN_LEVELS > 0
+    else:
+        assert dwt_cuda.LAUNCHES[f"{kernel}_fwd_level"] > 0
+        assert dwt_cuda.LAUNCHES[f"{kernel}_inv_level"] > 0
+        assert dwt_cuda.PLAIN_LEVELS == 0
+    assert on_card == tp.encode(image, opts, device="cpu")
+    assert np.array_equal(decoded, tp.decode(on_card, device="cpu"))
+    if opts.lossless and opts.compression_ratio <= 1.0:
+        assert np.array_equal(decoded, image)
+
+
 def _block_batch(frames, lossless, dev):
     """The plan and the pyramid of frames on `dev`, as the fused encode
     builds them."""
@@ -230,6 +269,7 @@ def test_ht_dec_kernels_match_plain(cuda, case, lossless):
                       high_throughput=True, num_resolutions=6)
     streams = tp.encode_batch(_case_frames(case), opts, device="cpu")
     batch = decoder.prepare_batch(streams)
+    assert batch is not None
     plan = batch.plan
     qinfo, pool, woff = decoder.upload_parsed(
         *decoder.parse_chunk(batch, batch.bodies), cuda)

@@ -718,18 +718,42 @@ def test_header_and_guard_bits_match_jax():
     dict(lossless=False), dict(code_block_style=1), dict(num_layers=2),
     dict(backend="python")])
 def test_outside_slice_raises(override):
+    # code-block styles and the Python backend are still out (item 6b);
+    # lossy Part-1 and quality layers take the batch path's host branch
+    # and give the JAX package's encode_batch (bytes for lossless, decodes
+    # within one grey level for 9/7)
     opts = dataclasses.replace(tp.options_from_reference(OPTS), **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.encode_batch([natural_image(32, 32, 0)], opts, device="cpu")
+    frames = [natural_image(32, 32, 0)]
+    if "code_block_style" in override or "backend" in override:
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            tp.encode_batch(frames, opts, device="cpu")
+        return
+    ours = tp.encode_batch(frames, opts, device="cpu")
+    ref = jax_encode_batch(frames, dataclasses.replace(OPTS, **override))
+    if opts.lossless:
+        assert ours == ref
+    got, want = (tp.decode_batch(ours, device="cpu")[0],
+                 jax_decode_batch(ref)[0])
+    assert np.abs(got.astype(int) - want).max() <= (0 if opts.lossless
+                                                    else 1)
 
 
 @pytest.mark.parametrize("override", [dict(lossless=False, quality=80),
                                       dict(code_block_style=1)])
 def test_decode_outside_slice_raises(override):
-    stream = jax_encode_batch([natural_image(32, 32, 0)],
-                              dataclasses.replace(OPTS, **override))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.decode_batch(stream, device="cpu")
+    # lossy and styled Part-1 streams decode through decode, one by one
+    # (Python Tier-2, the native T1 decoder): the JAX package's pixels,
+    # within one grey level for 9/7
+    frames = [natural_image(32, 32, 0)]
+    stream = jax_encode_batch(frames, dataclasses.replace(OPTS, **override))
+    tp.counters.reset()
+    got = tp.decode_batch(stream, device="cpu")[0]
+    assert tp.counters.snapshot().get("dec.ebcot_frames", 0) == 0
+    want = jax_decode_batch(stream)[0]
+    lossless = override.get("lossless", True)
+    assert np.abs(got.astype(int) - want).max() <= (0 if lossless else 1)
+    if lossless:
+        assert np.array_equal(got, frames[0])
 
 
 def test_cuda_without_card_raises_and_modules_import_clean():

@@ -75,6 +75,7 @@ def _case(name):
                                 high_throughput=True), **extra})
     streams = tp.encode_batch(frames, opts, device="cpu")
     batch = decoder.prepare_batch(streams)
+    assert batch is not None
     args = decoder._native_args(batch, batch.bodies)
     ours = loader.ht_t2_parse_frames(*args)
     hdr = JParser(streams[0]).read_header()
@@ -180,6 +181,7 @@ def test_blocks_to_pyramid_offset_grid_matches_jax(lossless):
         format=Format.J2K, lossless=lossless, quality=85, num_resolutions=4,
         high_throughput=True, image_offset=(48, 16)))
     batch = decoder.prepare_batch(streams)
+    assert batch is not None
     assert not batch.on_device
     assert any(spec[9] or spec[10] for spec in batch.plan.band_specs)
     hdr = JParser(streams[0]).read_header()

@@ -245,9 +245,14 @@ def test_gates():
         decode_sharded(jenc.encode(img, Options(
             format=Format.J2K, lossless=True, num_resolutions=1,
             high_throughput=True)), device="cpu")
-    for refused in (_opts(lossless=True),
-                    _opts(lossless=True, high_throughput=True, num_layers=2),
-                    _opts(lossless=True, high_throughput=True,
-                          enable_sop=True)):
-        with pytest.raises(NotImplementedError):
-            decode_sharded(jenc.encode(img, refused), device="cpu")
+    # what the device HT decode refuses (Part-1, layers, SOP) takes the
+    # host tile decode, as in the JAX package
+    for host in (_opts(lossless=True),
+                 _opts(lossless=True, high_throughput=True, num_layers=2),
+                 _opts(lossless=True, high_throughput=True,
+                       enable_sop=True)):
+        tp.counters.reset()
+        data = jenc.encode(img, host)
+        assert np.array_equal(decode_sharded(data, device="cpu"),
+                              jdec.decode(data))
+        assert tp.counters.snapshot()["dec.sharded_host_tiles"] > 0
