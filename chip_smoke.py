@@ -53,7 +53,14 @@ sources in this checkout.  Phases, each of which raises on failure:
    blocks each, also timed); kernel and plain times with CUDA events on
    the 2240 blocks, and each kernel's device time alone; the lossless
    assembly beside Tensor.index_copy_ into the flat pyramid with the index
-   made beforehand;
+   made beforehand; then the two layout kernels (block extraction and
+   assembly) on ops/block_layout.layout_stress_cases (offset grids off
+   multiples of 4, odd band widths, 32x32 and 64x16 blocks, one and three
+   frames; the extraction's leaves off 16 bytes and strided) and on a
+   config-4 class, lossless and lossy (the lossy assembly dequantizing),
+   equal to their plain versions, float32 leaves bit for bit, each timed
+   on the class by CUDA events through its wrapper and alone, and,
+   lossless, beside torch.take and Tensor.index_copy_;
 6. the lossless main paths, through the public entry points: encode_batch
    then decode_batch on 32 gray 8-bit 512x512 frames with the bench
    headline options (HTJ2K, lossless 5/3, 6 resolutions, J2K), then on 4
@@ -231,9 +238,6 @@ ODD = (750, 1000)
 # frame sides whose first level is checked on every level kernel (each
 # keeps its strip in registers, so any even width takes it)
 WIDE_SIDES = (4096, 8192)
-# int64 fields per band in the block tables of ht_extract_blocks and
-# ht_blocks_to_pyramid
-BAND_TABLE_FIELDS = 11
 # NVIDIA H100 SXM data-sheet peaks (700 W): device memory 3.35 TB/s,
 # float32 outside the tensor cores 67 TFLOP/s (128 lanes an SM, an FMA
 # counted as two); int32 64 lanes an SM, 132 SMs at 1.98 GHz
@@ -814,8 +818,7 @@ def check_ht_kernels(tp, dev, card):
     print(f"time ht_extract_blocks: library call torch.take over the flat "
           f"pyramid and a zero (index made beforehand) {take_ms:.4f} ms, "
           f"kernel {times['ht_extract_blocks'][0]:.4f} ms (both by CUDA "
-          f"events; the kernel's wrapper uploads its band table from "
-          f"pageable memory); the library call alone {take_alone:.4f} ms "
+          f"events); the library call alone {take_alone:.4f} ms "
           f"[{card}]", flush=True)
     cleanup_check(K, ht_enc, *extreme_blocks(dev), "magnitudes up to 2^30-1")
     pack_err, pool_err = class_timing(tp, dev, card)
@@ -1044,11 +1047,7 @@ def check_ht_dec_kernels(tp, dev, card):
             cuda_ms(kernel_fns["ht_blocks_to_pyramid"]),
             cuda_ms(lambda: ht_dec.blocks_to_pyramid(
                 blocks, plan, n, batch.n_comps, batch.nl), reps=5),
-            # reads each leaf sample's slot value once, writes the leaf
-            bound(8 * leaf_samples + 8 * BAND_TABLE_FIELDS
-                  * len(plan.band_specs),
-                  OPS_PER_ELEMENT["ht_blocks_to_pyramid"] * leaf_samples,
-                  INT32_OPS_PER_S)),
+            assemble_bound(ref)),
     }
     for name, (ms, plain_ms, (bound_ms, by)) in times.items():
         time_line(name, ms, plain_ms, bound_ms, by,
@@ -1064,6 +1063,137 @@ def check_ht_dec_kernels(tp, dev, card):
           f"events); the library call alone {copy_alone:.4f} ms [{card}]",
           flush=True)
     return err, {k: (a, b) + c for k, (a, b, c) in times.items()}, library
+
+
+def leaves_diff(got, ref):
+    """The largest |diff| of two pyramids' bit patterns (float32 leaves bit
+    for bit); raises if their bands differ."""
+    diff = 0
+    for g_lev, r_lev in zip(got, ref):
+        if sorted(g_lev) != sorted(r_lev):
+            raise AssertionError("pyramid bands differ")
+        for k in r_lev:
+            a = g_lev[k].contiguous().view(torch.int32).long()
+            b = r_lev[k].contiguous().view(torch.int32).long()
+            diff = max(diff, (a - b).abs().max().item())
+    return diff
+
+
+def assemble_bound(leaves):
+    """ht_blocks_to_pyramid's bound: it reads each leaf sample's slot value
+    once and writes the leaf sample."""
+    count = sum(v.numel() for e in leaves for v in e.values())
+    return bound(8 * count,
+                 OPS_PER_ELEMENT["ht_blocks_to_pyramid"] * count,
+                 INT32_OPS_PER_S)
+
+
+def check_layout_classes(tp, dev, card):
+    """Both layout kernels on a config-4 tile-origin class (12,864 blocks of
+    64 tiles), lossless and lossy: the extraction of the class's pyramid
+    and the assembly (midpoint dequantization on the lossy class) of its
+    blocks, each equal to its plain version, float32 leaves bit for bit,
+    and timed beside its bound: by CUDA events through the wrapper, alone,
+    and, lossless, beside its library call (torch.take, index_copy_).
+    Returns the largest |diff| of each."""
+    from go_jpeg2000_tpu_torch.models import fused_encode
+    from go_jpeg2000_tpu_torch.ops import ht_dec, ht_dec_cuda, \
+        ht_enc_cuda as K
+    err = {"ht_extract_blocks": 0, "ht_blocks_to_pyramid": 0}
+    for lossless in (True, False):
+        frames, opts = config4_class(tp, lossless)
+        plan = fused_setup(tp, frames, opts)[2]
+        levels, pyr = ht_pyramid(tp, frames, opts, dev)
+        n = len(frames)
+        nc = pyr[0]["HL"].shape[1]
+        del frames
+        what = (f"config-4 {'lossless' if lossless else 'lossy'} class: "
+                f"{n * plan.nb} blocks of {plan.cbh}x{plan.cbw}")
+        fn = lambda: K.extract_blocks(pyr, plan, n, levels)  # noqa: E731
+        blocks = fn()
+        plain = lambda: fused_encode.extract_blocks(  # noqa: E731
+            pyr, plan, n, levels)
+        diff = (blocks - plain()).abs().max().item()
+        print(f"kernel check ht_extract_blocks {what}: max|diff| {diff}",
+              flush=True)
+        err["ht_extract_blocks"] = max(err["ht_extract_blocks"], diff)
+        ms = cuda_ms(fn)
+        time_line("ht_extract_blocks", ms, cuda_ms(plain, reps=3, warmup=1),
+                  *extract_bound(pyr, blocks), device_ms(fn), what, card)
+        if lossless:
+            take_ms, take_alone = extract_library_ms(K, pyr, plan, n, levels)
+            print(f"time ht_extract_blocks ({what}): library call "
+                  f"torch.take {take_ms:.4f} ms, alone {take_alone:.4f} ms; "
+                  f"kernel {ms:.4f} ms (both by CUDA events) [{card}]",
+                  flush=True)
+        del pyr
+        torch.cuda.empty_cache()
+        dequant = not lossless
+        fn = lambda: ht_dec_cuda.blocks_to_pyramid(  # noqa: E731
+            blocks, plan, n, nc, levels, dequant)
+        plain = lambda: ht_dec.blocks_to_pyramid(  # noqa: E731
+            blocks, plan, n, nc, levels, dequant)
+        got = fn()
+        diff = leaves_diff(got, plain())
+        print(f"kernel check ht_blocks_to_pyramid {what}: max|diff| {diff}",
+              flush=True)
+        err["ht_blocks_to_pyramid"] = max(err["ht_blocks_to_pyramid"], diff)
+        ms = cuda_ms(fn)
+        time_line("ht_blocks_to_pyramid", ms,
+                  cuda_ms(plain, reps=3, warmup=1), *assemble_bound(got),
+                  device_ms(fn), what, card)
+        if lossless:
+            copy_ms, copy_alone = assemble_library_ms(
+                ht_dec_cuda, blocks, plan, n, nc, levels)
+            print(f"time ht_blocks_to_pyramid ({what}): library call "
+                  f"Tensor.index_copy_ {copy_ms:.4f} ms, alone "
+                  f"{copy_alone:.4f} ms; kernel {ms:.4f} ms (both by CUDA "
+                  f"events) [{card}]", flush=True)
+        del blocks, got
+        torch.cuda.empty_cache()
+    if any(err.values()):
+        raise AssertionError(f"a layout kernel disagrees with its plain "
+                             f"version on a config-4 class: {err}")
+    return err
+
+
+def check_layout_stress(dev):
+    """Both layout kernels on block_layout.layout_stress_cases (offset grids
+    off multiples of 4, odd band widths, 32x32 and 64x16 blocks, one and
+    three frames), the extraction's leaves 0, 1 and 3 words past a 16-byte
+    boundary and strided: equal to their plain versions, float32 leaves
+    bit for bit; raises otherwise.  Returns the largest |diff| of each."""
+    from go_jpeg2000_tpu_torch.models import fused_encode
+    from go_jpeg2000_tpu_torch.ops import block_layout, ht_dec, \
+        ht_dec_cuda, ht_enc_cuda
+    err = {"ht_extract_blocks": 0, "ht_blocks_to_pyramid": 0}
+    for name, plan, n, nc, levels in block_layout.layout_stress_cases():
+        pyr, slots = block_layout.stress_inputs(plan, n, nc, levels, seed=7)
+        slots = torch.from_numpy(slots).to(dev)
+        for phase in (0, 1, 3, "strided"):
+            tpyr = block_layout.stress_leaves(pyr, dev, phase)
+            got = ht_enc_cuda.extract_blocks(tpyr, plan, n, levels)
+            want = fused_encode.extract_blocks(tpyr, plan, n, levels)
+            err["ht_extract_blocks"] = max(err["ht_extract_blocks"], (
+                got - want).abs().max().item())
+        diffs = []
+        for dequant in ((False, True) if plan.deltas is not None
+                        else (False,)):
+            diffs.append(leaves_diff(
+                ht_dec_cuda.blocks_to_pyramid(slots, plan, n, nc, levels,
+                                              dequant),
+                ht_dec.blocks_to_pyramid(slots, plan, n, nc, levels,
+                                         dequant)))
+        err["ht_blocks_to_pyramid"] = max([err["ht_blocks_to_pyramid"]]
+                                          + diffs)
+        print(f"kernel check layout stress {name} ({n} frames of {plan.nb} "
+              f"{plan.cbh}x{plan.cbw} slots, {nc} components, "
+              f"{'lossy' if plan.deltas is not None else 'lossless'}): "
+              f"max|diff| {err}", flush=True)
+        if any(err.values()):
+            raise AssertionError(f"a layout kernel disagrees with its plain "
+                                 f"version on the stress plan {name}")
+    return err
 
 
 def check_magsgn_classes(tp, dev, card):
@@ -2575,6 +2705,9 @@ def main():
     err.update(e)
     times.update(t)
     library.update(lib_ms)
+    for e in (check_layout_stress(dev), check_layout_classes(tp, dev, card)):
+        for k, v in e.items():
+            err[k] = max(err[k], v)
     torch.cuda.empty_cache()
 
     kernels = (dwt_cuda, ht_enc_cuda, ht_dec_cuda)

@@ -49,21 +49,25 @@
 //   stored as two 32-byte runs; an odd width, a quad row off 4 or a
 //   partial row takes per-quad stores.  Quads that carry no code (word 0)
 //   give 0.
-// * ht_blocks_to_pyramid: the mirror of ht_extract_blocks (ht_enc.cu), with
-//   the same 11-field band table (leaf, component, band h/w, grid width gx,
-//   cell eh/ew, grid offset oy/ox, first slot, quantizer step), read in the
-//   opposite direction; the leaf field is the leaf's element offset in one
-//   output buffer, so the table depends on the plan alone and the wrapper
-//   keeps it on the card.  One CUDA block per slot; thread 0 finds the
-//   slot's band, and the threads walk the slot's valid samples row by row,
-//   one thread per leaf sample, so slot reads and leaf writes are coalesced
-//   runs of a leaf row.  Each sample is written straight into its place in
-//   the leaves (contiguous views of that buffer).  Lossy plans write
-//   float32
-//   sign(q) * (|q| + 0.5) * delta with __fadd_rn and __fmul_rn (no FMA
-//   contraction, and this file must not be built with --use_fast_math), as
-//   ops/quant.py dequantize rounds on the card and on the CPU, so a CUDA
-//   decode equals the CPU decode bit for bit.
+// * ht_blocks_to_pyramid: the mirror of ht_extract_blocks (ht_enc.cu), built
+//   for bytes.  The leaves are views of one buffer, each leaf's start on a
+//   16-byte boundary.  A warp takes one leaf row of a frame (AS_WARPS rows
+//   a CTA) and walks the aligned 16-byte windows of the buffer that the row
+//   falls in, AS_WINDOWS a lane a step, their gathers issued before any
+//   store.  It reads the row's descriptor (block_layout.cuh: leaf, row
+//   offset, first slot, slot row, grid offset, log2 cell width, quantizer
+//   step), per frame and kept on the card, through the read-only cache;
+//   each sample's slot and column are shifts and masks of its column.  A
+//   window whose four samples sit in one slot row reads them with one
+//   16-byte load where aligned, else with the two aligned windows of the
+//   slot row they fall in, realigned in registers; a window across two grid
+//   cells reads its samples one by one.  Only the slots' valid samples are
+//   used.  Windows inside the row are stored whole, the row's end windows
+//   (odd widths share them with the next row) by their own samples.  Lossy
+//   plans write float32 sign(q) * (|q| + 0.5) * delta with __fadd_rn and
+//   __fmul_rn (no FMA contraction, and this file must not be built with
+//   --use_fast_math), as ops/quant.py dequantize rounds on the card and on
+//   the CPU, so a CUDA decode equals the CPU decode bit for bit.
 //
 // Kernels launch on the caller's stream and allocate nothing; each entry
 // point returns cudaGetLastError() after its launch.
@@ -71,16 +75,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define THREADS 256
+#include "block_layout.cuh"
+
 #define MS_THREADS 256         // threads of a MagSgn CTA, at most
 #define MS_QUADS 4             // consecutive quads a thread decodes
 #define STAGE_WORDS 4096       // MagSgn words a CTA stages (16 KB)
 
-// band table of ht_blocks_to_pyramid: BAND_FIELDS int64 per band, bands in
-// slot order (must match ops/ht_dec_cuda.py and ht_enc.cu)
-#define BAND_FIELDS 11
-enum { B_LEAF, B_COMP, B_BH, B_BW, B_GX, B_EH, B_EW, B_OY, B_OX, B_SLOT0,
-       B_DELTA };
+#define AS_WARPS 8             // leaf rows of an assembly CTA, a warp each
+#define AS_WINDOWS 2           // 16-byte leaf windows a lane takes a step
 
 // Exclusive scan of v over the block (blockDim.x a multiple of 32, at most
 // 1024).  Returns the thread's exclusive prefix and puts the block total in
@@ -283,51 +285,88 @@ __global__ void __launch_bounds__(MS_THREADS) magsgn_kernel(
 
 // --------------------------------------------------- ht_blocks_to_pyramid
 
-__global__ void __launch_bounds__(THREADS) to_pyramid_kernel(
-    const long long* __restrict__ table, int n_bands, int n_comps, int nb,
-    int cbh, int cbw, int is_float, const int* __restrict__ coeffs,
-    void* __restrict__ leaves) {
-  __shared__ long long d[BAND_FIELDS];
-  const int j = blockIdx.x, n = blockIdx.y;
-  if (threadIdx.x == 0) {
-    int b = 0;
-    while (b + 1 < n_bands && table[(b + 1) * BAND_FIELDS + B_SLOT0] <= j) ++b;
-    for (int f = 0; f < BAND_FIELDS; ++f) d[f] = table[b * BAND_FIELDS + f];
-  }
-  __syncthreads();
-  const int bh = (int)d[B_BH], bw = (int)d[B_BW], gx = (int)d[B_GX];
-  const int eh = (int)d[B_EH], ew = (int)d[B_EW];
-  const int oy = (int)d[B_OY], ox = (int)d[B_OX];
-  const int k = j - (int)d[B_SLOT0];
-  const int yy = k / gx, xx = k - (k / gx) * gx;
-  // first-row and first-column cells of an offset grid hold their samples
-  // from the slot's top-left corner (the JAX version's roll)
-  const int y0 = yy == 0 ? 0 : yy * eh - oy;
-  const int x0 = xx == 0 ? 0 : xx * ew - ox;
-  const int rows = min(yy == 0 ? eh - oy : eh, bh - y0);
-  const int cols = min(xx == 0 ? ew - ox : ew, bw - x0);
-  if (rows <= 0 || cols <= 0) return;
-  const int64_t plane =
-      d[B_LEAF] + ((int64_t)n * n_comps + d[B_COMP]) * bh * bw;
-  const float delta = __int_as_float((int)d[B_DELTA]);
-  const int* src = coeffs + ((int64_t)n * nb + j) * cbh * cbw;
-  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-    const int r = i / cols, c = i - (i / cols) * cols;
-    const int q = src[r * cbw + c];
-    const int64_t at = plane + (int64_t)(y0 + r) * bw + x0 + c;
-    if (is_float) {
-      const float a = __fmul_rn(__fadd_rn(__int2float_rn(abs(q)), 0.5f),
-                                delta);
-      ((float*)leaves)[at] = q < 0 ? -a : (q > 0 ? a : 0.f);
-    } else {
-      ((int*)leaves)[at] = q;
+// float32 bits of sign(q) * (|q| + 0.5) * delta, 0 for q = 0
+__device__ __forceinline__ int dequant(int q, float delta) {
+  const float a = __fmul_rn(__fadd_rn(__int2float_rn(abs(q)), 0.5f), delta);
+  return __float_as_int(q < 0 ? -a : (q > 0 ? a : 0.f));
+}
+
+// Leaf row i of every frame: rows holds n_rows descriptors of a frame,
+// leaf_off each leaf's element offset in the buffer (a multiple of 4).
+template <bool FLOAT>
+__global__ void __launch_bounds__(AS_WARPS * 32) to_pyramid_kernel(
+    const int4* __restrict__ rows, const long long* __restrict__ leaf_off,
+    int n_rows, int n_frames, int nb, int slot_shift,
+    const int* __restrict__ coeffs, int* __restrict__ buf) {
+  const int i = blockIdx.x * AS_WARPS + (threadIdx.x >> 5);
+  if (i >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const int4 d0 = __ldg(rows + 2 * i);       // leaf, bw, off, fstride
+  const int4 d1 = __ldg(rows + 2 * i + 1);   // slot, srow, ox | lw, delta
+  const int bw = d0.y, ox = d1.z & 0xFFFF, lw = d1.z >> 16;
+  const int cmask = (1 << lw) - 1;
+  const float delta = __int_as_float(d1.w);
+  const int64_t row0 = __ldg(leaf_off + d0.x) + d0.z;
+  for (int f = blockIdx.y; f < n_frames; f += gridDim.y) {
+    const int64_t e0 = row0 + (int64_t)f * d0.w;   // the row's first sample
+    const int64_t k0 = e0 >> 2, k1 = (e0 + bw - 1) >> 2;
+    // word of the row's sample x in the slots: its cell's slot, slot row
+    // and column (first-column cells hold theirs from column 0)
+    const int* srow =
+        coeffs + (((int64_t)f * nb + d1.x) << slot_shift) + d1.y;
+    auto at = [&](int x) -> const int* {
+      const int xs = x + ox, xx = xs >> lw;
+      return srow + ((int64_t)xx << slot_shift) + (xs & cmask) -
+             (xx ? 0 : ox);
+    };
+    for (int64_t k = k0 + lane; k <= k1; k += 32 * AS_WINDOWS) {
+      int4 val[AS_WINDOWS];
+#pragma unroll
+      for (int u = 0; u < AS_WINDOWS; ++u) {
+        const int64_t kk = k + 32 * u;
+        if (kk > k1) break;
+        const int x0 = (int)(4 * kk - e0);
+        int w[4] = {0, 0, 0, 0};
+        const int* p = x0 >= 0 && x0 + 4 <= bw ? at(x0) : nullptr;
+        if (p && at(x0 + 3) == p + 3) {
+          // one slot row: its aligned window(s), realigned
+          const int m = (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+          const int4 a = __ldg(reinterpret_cast<const int4*>(p - m));
+          const int4 b = m ? __ldg(reinterpret_cast<const int4*>(p - m + 4))
+                           : a;
+          val[u] = realign_words(a, b, m);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            if (x0 + t >= 0 && x0 + t < bw) w[t] = __ldg(at(x0 + t));
+          val[u] = make_int4(w[0], w[1], w[2], w[3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < AS_WINDOWS; ++u) {
+        const int64_t kk = k + 32 * u;
+        if (kk > k1) break;
+        int4 v = val[u];
+        if (FLOAT)
+          v = make_int4(dequant(v.x, delta), dequant(v.y, delta),
+                        dequant(v.z, delta), dequant(v.w, delta));
+        const int x0 = (int)(4 * kk - e0);
+        if (x0 >= 0 && x0 + 4 <= bw) {
+          reinterpret_cast<int4*>(buf)[kk] = v;
+        } else {
+          const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            if (x0 + t >= 0 && x0 + t < bw) buf[4 * kk + t] = w[t];
+        }
+      }
     }
   }
 }
 
 extern "C" {
 
-int ht_dec_band_fields(void) { return BAND_FIELDS; }
+int ht_dec_layout_fields(void) { return LAYOUT_FIELDS; }
 int ht_dec_stage_words(void) { return STAGE_WORDS; }
 int ht_dec_quads_per_thread(void) { return MS_QUADS; }
 int ht_dec_magsgn_threads(void) { return MS_THREADS; }
@@ -346,13 +385,28 @@ int ht_magsgn_decode(const void* qinfo, const void* pool,
   return (int)cudaGetLastError();
 }
 
-int ht_blocks_to_pyramid(const void* table, int n_bands, int n_comps,
+// rows: n_rows leaf-row descriptors of a frame (LAYOUT_FIELDS int32 each,
+// block_layout.cuh) and leaf_off: int64 element offsets of the leaves in
+// the buffer, both on the card
+int ht_blocks_to_pyramid(const void* rows, const void* leaf_off, int n_rows,
                          int n_frames, int nb, int cbh, int cbw, int is_float,
                          const void* coeffs, void* leaves, void* stream) {
-  dim3 grid(nb, n_frames);
-  to_pyramid_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const long long*)table, n_bands, n_comps, nb, cbh, cbw, is_float,
-      (const int*)coeffs, leaves);
+  int slot_shift = 0;
+  while ((1LL << slot_shift) < (long long)cbh * cbw) ++slot_shift;
+  if (n_rows < 1 || n_frames < 1 || nb < 1 || cbw < 4 ||
+      (1LL << slot_shift) != (long long)cbh * cbw || (cbw & (cbw - 1)))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((n_rows + AS_WARPS - 1) / AS_WARPS,
+            n_frames < 65535 ? n_frames : 65535);
+  if (is_float)
+    to_pyramid_kernel<true><<<grid, AS_WARPS * 32, 0, (cudaStream_t)stream>>>(
+        (const int4*)rows, (const long long*)leaf_off, n_rows, n_frames, nb,
+        slot_shift, (const int*)coeffs, (int*)leaves);
+  else
+    to_pyramid_kernel<false><<<grid, AS_WARPS * 32, 0,
+                               (cudaStream_t)stream>>>(
+        (const int4*)rows, (const long long*)leaf_off, n_rows, n_frames, nb,
+        slot_shift, (const int*)coeffs, (int*)leaves);
   return (int)cudaGetLastError();
 }
 

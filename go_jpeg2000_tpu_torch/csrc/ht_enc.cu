@@ -27,15 +27,25 @@
 // the TPU forms did about the TPU does not carry over: they sorted and
 // OR-scanned because scatters serialize there.  Here:
 //
-// * ht_extract_blocks: one CUDA block per code-block slot.  Thread 0 finds
-//   the slot's band in a small device table (leaf pointer, band h/w, grid
-//   width gx, cell eh/ew, grid offset oy/ox, first slot, quantizer step);
-//   the threads walk the slot row by row, so leaf reads and slot writes are
-//   coalesced, and pad with zeros.  Each band's leaf is its own tensor,
-//   hence the pointers.  9/7 leaves are quantized on the way:
+// * ht_extract_blocks: built for bytes.  The slots are written whole, as
+//   16-byte vectors in order: a thread stores EX_VECS vectors 256 apart, so
+//   a warp writes 512 contiguous bytes a store (two 64-wide slot rows, or
+//   eight 16-wide ones) and a CTA of 256 threads a 16 KB run of slots (one
+//   64x64 slot, four 32x32 ones); every index is a shift or a mask, since
+//   the slot sizes are powers of two.  Each lane reads its slot's
+//   descriptor (block_layout.cuh: leaf, valid rows and columns, offsets,
+//   quantizer step) through the read-only cache; the descriptors are per
+//   frame and stay on the card, so nothing walks a table and no barrier
+//   waits.  The leaves' pointers come by value (LeafPtrs), one per
+//   distinct leaf.  A vector of the valid samples reads its four leaf
+//   words with one 16-byte load where they are aligned, else from the one
+//   or two aligned windows they fall in, realigned in registers (offset
+//   grids, odd band widths); no load reaches outside the slot row's run of
+//   the leaf.  Padding vectors (rows or columns past the band) are stored
+//   as zeros with no load.  9/7 leaves are quantized on the way:
 //   sign(c) * floor(|c| / delta) with IEEE division (__fdiv_rn; this file
 //   must not be built with --use_fast_math), which is what ops/quant.py
-//   quantize computes on the card and on the CPU.
+//   quantize computes on the card and on the CPU; -0.0 gives 0.
 // * ht_cleanup_fields: one CUDA block per code-block.  It reads 4 bytes a
 //   sample and writes 17 int32 values and 17 int32 lengths a quad pair
 //   (about 17 bytes a sample), so the design is for bytes: the block is
@@ -99,6 +109,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_layout.cuh"
 #include "row_copy.cuh"
 
 #define THREADS 256
@@ -108,11 +119,8 @@
 #define HT_COPY_UNROLL 2       // windows a lane of the pool copy takes a step
 #define TABLE_SIZE 8192
 
-// band table of ht_extract_blocks: BAND_FIELDS int64 per band, bands in
-// slot order (must match ops/ht_enc_cuda.py)
-#define BAND_FIELDS 11
-enum { B_PTR, B_COMP, B_BH, B_BW, B_GX, B_EH, B_EW, B_OY, B_OX, B_SLOT0,
-       B_DELTA };
+#define EX_THREADS 256         // threads of an extraction CTA
+#define EX_VECS 4              // 16-byte slot vectors a thread stores
 
 // ---------------------------------------------------------------- helpers
 
@@ -135,46 +143,57 @@ __device__ __forceinline__ Uvlc uvlc(int t) {
 
 // ------------------------------------------------------ ht_extract_blocks
 
-__global__ void __launch_bounds__(THREADS) extract_kernel(
-    const long long* __restrict__ table, int n_bands, int n_comps, int nb,
-    int cbh, int cbw, int is_float, int* __restrict__ out) {
-  __shared__ long long d[BAND_FIELDS];
-  const int j = blockIdx.x, n = blockIdx.y;
-  if (threadIdx.x == 0) {
-    int b = 0;
-    while (b + 1 < n_bands && table[(b + 1) * BAND_FIELDS + B_SLOT0] <= j) ++b;
-    for (int f = 0; f < BAND_FIELDS; ++f) d[f] = table[b * BAND_FIELDS + f];
+// sign(c) * floor(|c| / delta) of four float32 bit patterns
+__device__ __forceinline__ int4 quantize4(int4 x, float delta) {
+  int w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float f = __int_as_float(w[k]);
+    const int q = (int)floorf(__fdiv_rn(fabsf(f), delta));
+    w[k] = f < 0.f ? -q : (f > 0.f ? q : 0);
   }
-  __syncthreads();
-  const int bh = (int)d[B_BH], bw = (int)d[B_BW], gx = (int)d[B_GX];
-  const int eh = (int)d[B_EH], ew = (int)d[B_EW];
-  const int oy = (int)d[B_OY], ox = (int)d[B_OX];
-  const int k = j - (int)d[B_SLOT0];
-  const int yy = k / gx, xx = k - (k / gx) * gx;
-  // first-row and first-column cells of an offset grid hold their samples
-  // from the slot's top-left corner (the JAX version's roll)
-  const int rows = yy == 0 ? eh - oy : eh;
-  const int cols = xx == 0 ? ew - ox : ew;
-  const int y0 = yy == 0 ? 0 : yy * eh - oy;
-  const int x0 = xx == 0 ? 0 : xx * ew - ox;
-  const int64_t plane = ((int64_t)n * n_comps + d[B_COMP]) * bh * bw;
-  const float delta = __int_as_float((int)d[B_DELTA]);
-  int* dst = out + ((int64_t)n * nb + j) * cbh * cbw;
-  for (int i = threadIdx.x; i < cbh * cbw; i += blockDim.x) {
-    const int r = i / cbw, c = i - (i / cbw) * cbw;
-    const int y = y0 + r, x = x0 + c;
-    int val = 0;
-    if (r < rows && c < cols && y < bh && x < bw) {
-      const int64_t at = plane + (int64_t)y * bw + x;
-      if (is_float) {
-        const float f = ((const float*)d[B_PTR])[at];
-        const int q = (int)floorf(__fdiv_rn(fabsf(f), delta));
-        val = f < 0.f ? -q : (f > 0.f ? q : 0);
-      } else {
-        val = ((const int*)d[B_PTR])[at];
-      }
+  return make_int4(w[0], w[1], w[2], w[3]);
+}
+
+// Slot vector v of a frame (frame_vecs of them): slot j = v >> slot_shift,
+// row r and first column c of the vector from v's low bits.  A thread
+// issues the loads of all its vectors before it quantizes or stores any.
+template <bool FLOAT>
+__global__ void __launch_bounds__(EX_THREADS) extract_kernel(
+    const __grid_constant__ LeafPtrs leaves, const int4* __restrict__ desc,
+    int n_frames, int slot_shift, int row_shift, int frame_vecs,
+    int4* __restrict__ out) {
+  const int v0 = blockIdx.x * (EX_THREADS * EX_VECS) + threadIdx.x;
+  const int slot_mask = (1 << slot_shift) - 1;
+  const int row_mask = (1 << row_shift) - 1;
+  for (int f = blockIdx.y; f < n_frames; f += gridDim.y) {
+    int4 val[EX_VECS];
+    float delta[EX_VECS];
+#pragma unroll
+    for (int u = 0; u < EX_VECS; ++u) {
+      const int v = v0 + u * EX_THREADS;
+      val[u] = make_int4(0, 0, 0, 0);
+      delta[u] = 1.f;
+      if (v >= frame_vecs) continue;
+      const int j = v >> slot_shift, w = v & slot_mask;
+      const int r = w >> row_shift, c = (w & row_mask) << 2;
+      const int4 d0 = __ldg(desc + 2 * j);          // leaf, rows, cols, bw
+      if (r >= d0.y || c >= d0.z) continue;         // padding: no load
+      const int4 d1 = __ldg(desc + 2 * j + 1);      // off, fstride, delta
+      const int* lo = static_cast<const int*>(leaves.p[d0.x]) +
+                      (int64_t)f * d1.y + d1.x + r * d0.w;
+      val[u] = run_words(lo + c, lo, lo + d0.z);
+      delta[u] = __int_as_float(d1.z);
     }
-    dst[i] = val;
+    if (FLOAT) {
+#pragma unroll
+      for (int u = 0; u < EX_VECS; ++u) val[u] = quantize4(val[u], delta[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < EX_VECS; ++u) {
+      const int v = v0 + u * EX_THREADS;
+      if (v < frame_vecs) out[(int64_t)f * frame_vecs + v] = val[u];
+    }
   }
 }
 
@@ -746,16 +765,41 @@ static int set_smem(const void* kernel, size_t bytes) {
 
 extern "C" {
 
-int ht_enc_band_fields(void) { return BAND_FIELDS; }
+int ht_enc_layout_fields(void) { return LAYOUT_FIELDS; }
+int ht_enc_max_leaves(void) { return MAX_LEAVES; }
 int ht_enc_table_size(void) { return TABLE_SIZE; }
 
-int ht_extract_blocks(const void* table, int n_bands, int n_comps,
-                      int n_frames, int nb, int cbh, int cbw, int is_float,
-                      void* out, void* stream) {
-  dim3 grid(nb, n_frames);
-  extract_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const long long*)table, n_bands, n_comps, nb, cbh, cbw, is_float,
-      (int*)out);
+static int log2_exact(long long v) {
+  int s = 0;
+  while ((1LL << s) < v) ++s;
+  return (1LL << s) == v ? s : -1;
+}
+
+// desc: nb slot descriptors (LAYOUT_FIELDS int32 each, block_layout.cuh) on
+// the card; leaf_ptrs: n_leaves host pointers, passed by value
+int ht_extract_blocks(const void* desc, const void* const* leaf_ptrs,
+                      int n_leaves, int n_frames, int nb, int cbh, int cbw,
+                      int is_float, void* out, void* stream) {
+  const int slot_shift = log2_exact((long long)cbh * cbw / 4);
+  const int row_shift = log2_exact(cbw / 4);
+  const long long frame_vecs = (long long)nb * cbh * cbw / 4;
+  if (n_leaves < 1 || n_leaves > MAX_LEAVES || n_frames < 1 || nb < 1 ||
+      cbw < 4 || slot_shift < 0 || row_shift < 0 ||
+      frame_vecs > (1LL << 31) - EX_THREADS * EX_VECS)
+    return (int)cudaErrorInvalidValue;
+  LeafPtrs leaves = {};
+  for (int i = 0; i < n_leaves; ++i) leaves.p[i] = leaf_ptrs[i];
+  const int per_cta = EX_THREADS * EX_VECS;
+  dim3 grid((unsigned)((frame_vecs + per_cta - 1) / per_cta),
+            n_frames < 65535 ? n_frames : 65535);
+  if (is_float)
+    extract_kernel<true><<<grid, EX_THREADS, 0, (cudaStream_t)stream>>>(
+        leaves, (const int4*)desc, n_frames, slot_shift, row_shift,
+        (int)frame_vecs, (int4*)out);
+  else
+    extract_kernel<false><<<grid, EX_THREADS, 0, (cudaStream_t)stream>>>(
+        leaves, (const int4*)desc, n_frames, slot_shift, row_shift,
+        (int)frame_vecs, (int4*)out);
   return (int)cudaGetLastError();
 }
 

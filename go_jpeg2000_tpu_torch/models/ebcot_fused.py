@@ -31,7 +31,7 @@ import torch
 
 from ..codestream.header import Header
 from ..native import loader
-from ..ops import dwt, ebcot_cuda, ht_enc_cuda, t1
+from ..ops import block_layout, dwt, ebcot_cuda, ht_enc_cuda, t1
 from ..tcd import geometry as geo
 from . import fused_encode, transforms
 from .fused_encode import BlockPlan
@@ -60,16 +60,14 @@ def block_inputs(blocks: torch.Tensor, plan: BlockPlan, n: int):
     (mags int32, signs int32 (1 = negative), band classes int32 [n*nb],
     valid bool [n*nb, cbh, cbw])."""
     dev = blocks.device
-    key = (id(plan), n, str(dev))
-    if key not in _CLASSES:
-        _CLASSES[key] = torch.from_numpy(
-            np.tile(plan.bclass, n).astype(np.int32)).to(dev)
+    bclass = block_layout.plan_cache(
+        _CLASSES, plan, (n, dev), lambda: torch.from_numpy(
+            np.tile(plan.bclass, n).astype(np.int32)).to(dev))
     hs, ws = fused_encode._block_dims(plan, n, dev)
     yy = torch.arange(plan.cbh, dtype=torch.int32, device=dev).view(1, -1, 1)
     xx = torch.arange(plan.cbw, dtype=torch.int32, device=dev).view(1, 1, -1)
     valid = (yy < hs.view(-1, 1, 1)) & (xx < ws.view(-1, 1, 1))
-    return (blocks.abs(), (blocks < 0).to(torch.int32), _CLASSES[key],
-            valid)
+    return blocks.abs(), (blocks < 0).to(torch.int32), bclass, valid
 
 
 def numbps(mags: torch.Tensor, valid: torch.Tensor,

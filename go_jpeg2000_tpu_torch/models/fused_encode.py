@@ -27,7 +27,7 @@ import torch
 
 from ..codestream.header import Header
 from ..native import loader
-from ..ops import ht_enc, ht_enc_cuda, quant
+from ..ops import block_layout, ht_enc, ht_enc_cuda, quant
 from ..tcd import geometry as geo
 from ..utils import markers as mk
 from . import transforms
@@ -238,13 +238,13 @@ _DIMS = {}
 
 
 def _block_dims(plan: BlockPlan, n: int, device: torch.device):
-    """True block sizes (hs, ws) of n frames, int32 on `device`, cached."""
-    key = (id(plan), n, str(device))
-    if key not in _DIMS:
-        _DIMS[key] = tuple(
-            torch.from_numpy(np.tile(a, n).astype(np.int32)).to(device)
-            for a in (plan.hs, plan.ws))
-    return _DIMS[key]
+    """True block sizes (hs, ws) of n frames, int32 on `device`, cached per
+    plan (block_layout.plan_cache)."""
+    def build():
+        return tuple(torch.from_numpy(np.tile(a, n).astype(np.int32)).to(
+            device) for a in (plan.hs, plan.ws))
+    return block_layout.plan_cache(_DIMS, plan, (n, torch.device(device)),
+                                   build)
 
 
 def fused_encode_chunk(batch: np.ndarray, plan: BlockPlan, levels: int,

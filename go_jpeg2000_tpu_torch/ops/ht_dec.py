@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import quant
+from .block_layout import leaf_level
 
 _WORD = 0xFFFFFFFF
 
@@ -171,13 +172,6 @@ def stress_cases(stage_words: int, seed: int = 0) -> List:
     q, pool, woff = packed(rand_quads(3, 31, 32, 24))
     cases.append(("wide_62", q, pool, woff, 62, 64, 0))
     return cases
-
-
-def leaf_level(lev: int, name: str, nl: int) -> int:
-    """Pyramid list index of a plan band (LL sits with the top level)."""
-    if name == "LL":
-        return nl - 1 if nl > 0 else 0
-    return lev - 1
 
 
 def blocks_to_pyramid(coeffs: torch.Tensor, plan, n: int, n_comps: int,

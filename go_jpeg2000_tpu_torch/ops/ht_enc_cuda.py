@@ -3,6 +3,8 @@
 The port's counterpart of the JAX package's device HT encode program:
 
   extract_blocks -> ht_extract_blocks, replaces fused_encode._extract_blocks
+                    (its slot descriptors, ops/block_layout.py, are kept on
+                    the card per plan; the leaves' pointers go by value)
   cleanup_values -> ht_cleanup_fields, replaces ht_tpu.cleanup_fields
   pack_streams   -> ht_pack_bits, replaces ht_tpu._pack_bits (one launch
                     for a chunk's three streams; pack_bits is one stream)
@@ -16,7 +18,9 @@ error.  The library is built by ops/cuda_build.py on first use, with the
 port's other CUDA sources.
 
 Counts: LAUNCHES[name] goes up by one each time a wrapper launches its
-kernel, and only there.
+kernel, and only there.  Every launch goes to the device's current stream
+(`run`); the extraction uploads its slot descriptors once per plan, so its
+wrapper does not wait for the card after a plan's first call.
 """
 from __future__ import annotations
 
@@ -27,12 +31,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import cuda_build, ht_enc
+from . import block_layout, cuda_build, ht_enc
 
 LAUNCHES: Dict[str, int] = {"ht_extract_blocks": 0, "ht_cleanup_fields": 0,
                             "ht_pack_bits": 0, "ht_compact_pool": 0}
-# int64 fields per band in ht_extract_blocks' table (checked at load)
-BAND_FIELDS = 11
 MAX_SMEM_BYTES = 232448
 # streams one ht_pack_bits launch takes (PACK_STREAMS in csrc/ht_enc.cu)
 PACK_STREAMS = 3
@@ -53,12 +55,13 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = cuda_build.load("ht_enc")
-        if (lib.ht_enc_band_fields() != BAND_FIELDS
+        if (lib.ht_enc_layout_fields() != block_layout.LAYOUT_FIELDS
+                or lib.ht_enc_max_leaves() != block_layout.MAX_LEAVES
                 or lib.ht_enc_table_size() != ht_enc.direct_enc_table().size):
             raise RuntimeError("csrc/ht_enc.cu and ops/ht_enc_cuda.py "
-                               "disagree on the band table or VLC table")
+                               "disagree on the slot layout or VLC table")
         p, i = ctypes.c_void_p, ctypes.c_int
-        sigs = {"ht_extract_blocks": [p, i, i, i, i, i, i, i, p, p],
+        sigs = {"ht_extract_blocks": [p, p, i, i, i, i, i, i, p, p],
                 "ht_cleanup_fields": [p, p, p, i, i, i, p] + [p] * 10,
                 "ht_pack_bits": [p, i, i, p],
                 "ht_compact_pool": [p, i, p, p, i, p, p, i, p,
@@ -71,13 +74,26 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, name)(*args, stream)
+def run(lib: ctypes.CDLL, name: str, device: torch.device, *args) -> None:
+    """lib.name(*args, stream) on the current stream of `device`, a CUDA
+    device; raises on a CUDA error.  It enters a device context only when
+    `device` is not the current device, and takes the raw stream handle
+    (torch._C._cuda_getCurrentRawStream, what torch's own compiled kernels
+    launch on) rather than a Stream object."""
+    index = torch.cuda.current_device()
+    if device.index is None or device.index == index:
+        rc = getattr(lib, name)(*args,
+                                torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device.index):
+            rc = getattr(lib, name)(
+                *args, torch._C._cuda_getCurrentRawStream(device.index))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    run(load(), name, device, *args)
     LAUNCHES[name] += 1
 
 
@@ -94,47 +110,64 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, dim: int,
 def band_leaf(pyr, lev: int, name: str, levels: int) -> torch.Tensor:
     """The pyramid leaf [N, C, bh, bw] of one band spec (LL of the top
     level for `name` "LL")."""
-    if name == "LL":
-        return pyr[levels - 1]["LL"] if levels > 0 else pyr[0]["LL"]
-    return pyr[lev - 1][name]
+    return pyr[block_layout.leaf_level(lev, name, levels)][name]
+
+
+_LAYOUTS: Dict = {}
+
+
+def extract_layout(plan, n: int, n_comps: int, levels: int,
+                   dev: torch.device):
+    """ht_extract_blocks' static half for a plan, cached per (plan, frames,
+    components, levels, device): ([(level, band)] of the leaves in launch
+    order, [(n, C, bh, bw)] of each leaf, the slot descriptors int32 [nb,
+    LAYOUT_FIELDS] on `dev`).  Raises ValueError for a plan the kernel
+    cannot take (block_layout.leaves)."""
+    def build():
+        keys, shapes, desc = block_layout.slot_descriptors(
+            plan, n_comps, levels, plan.deltas is not None)
+        return (keys, [(n, n_comps, bh, bw) for bh, bw in shapes],
+                torch.from_numpy(desc).to(dev))
+    return block_layout.plan_cache(_LAYOUTS, plan,
+                                   (n, n_comps, levels, dev), build)
 
 
 def extract_blocks(pyr, plan, n: int, levels: int) -> torch.Tensor:
     """Pyramid leaves -> the block batch int32 [n*nb, cbh, cbw] in canonical
     job order, zero-padded; lossy plans (plan.deltas) quantize on the way.
-    Leaves are int32 (5/3) or float32 (9/7) [n, C, bh, bw]."""
-    leaves = [band_leaf(pyr, lev, name, levels)
-              for (_c, lev, name, *_rest) in plan.band_specs]
-    dev = leaves[0].device
+    Leaves are int32 (5/3) or float32 (9/7) [n, C, bh, bw].  On the card
+    nothing is copied to or from the host after a plan's first call: the
+    slot descriptors stay there, and the leaves' pointers go to the kernel
+    by value."""
+    spec = plan.band_specs[0]
+    first = band_leaf(pyr, spec[1], spec[2], levels)
+    dev = first.device
     if dev.type == "cpu":
         from ..models import fused_encode
         return fused_encode.extract_blocks(pyr, plan, n, levels)
     name = "ht_extract_blocks"
-    leaves = [leaf.contiguous() for leaf in leaves]
-    lossy = plan.deltas is not None
-    dtype = torch.float32 if lossy else torch.int32
-    n_comps = leaves[0].shape[1]
-    table = np.zeros((len(leaves), BAND_FIELDS), np.int64)
-    slot = 0
-    for bi, (leaf, spec) in enumerate(zip(leaves, plan.band_specs)):
-        c, _lev, _name, gy, gx, eh, ew, bh, bw, oy, ox = spec
-        _check(leaf, name, dtype, 4, dev)
-        if tuple(leaf.shape) != (n, n_comps, bh, bw):
-            raise ValueError(f"{name}: leaf {tuple(leaf.shape)} does not "
-                             f"match band {spec}")
-        delta = np.float32(plan.deltas[bi] if lossy else 1.0)
-        table[bi] = (leaf.data_ptr(), c, bh, bw, gx, eh, ew, oy, ox, slot,
-                     int(delta.view(np.int32)))
-        slot += gy * gx
-    if slot != plan.nb or n > 65535:
-        raise ValueError(f"{name}: {slot} slots for a plan of {plan.nb}, "
-                         f"{n} frames")
+    keys, shapes, desc = extract_layout(plan, n, first.shape[1], levels, dev)
+    dtype = torch.float32 if plan.deltas is not None else torch.int32
+    # the leaves (a strided one copied) stay referenced until the launch
+    leaves, ptrs = [], []
+    for (lv, band), shape in zip(keys, shapes):
+        leaf = pyr[lv][band]
+        if not leaf.is_contiguous():
+            leaf = leaf.contiguous()
+        if (leaf.shape != shape or leaf.dtype != dtype
+                or leaf.get_device() != dev.index):
+            raise ValueError(f"{name}: leaf {band} of level {lv + 1} is "
+                             f"{leaf.dtype} {tuple(leaf.shape)} on "
+                             f"{leaf.device}, the plan wants {dtype} "
+                             f"{shape} on {dev}")
+        leaves.append(leaf)
+        ptrs.append(leaf.data_ptr())
     out = torch.empty((n * plan.nb, plan.cbh, plan.cbw), dtype=torch.int32,
                       device=dev)
     if n:
-        table_dev = torch.from_numpy(table).to(dev)
-        _launch(name, dev, table_dev.data_ptr(), len(leaves), n_comps, n,
-                plan.nb, plan.cbh, plan.cbw, int(lossy), out.data_ptr())
+        _launch(name, dev, desc.data_ptr(), (ctypes.c_void_p * len(ptrs))(
+            *ptrs), len(ptrs), n, plan.nb, plan.cbh, plan.cbw,
+            int(dtype == torch.float32), out.data_ptr())
     return out
 
 

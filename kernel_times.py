@@ -2,7 +2,8 @@
 """Times the Part-1 decision kernel (ebcot_decision_slots), the decision
 compaction (ebcot_compact_rows), the MQ coder (ebcot_mq_encode), the
 segment pool (ebcot_pool_rows), the HT block extraction
-(ht_extract_blocks), cleanup-field kernel (ht_cleanup_fields), bit packer
+(ht_extract_blocks) and block-to-pyramid assembly (ht_blocks_to_pyramid),
+cleanup-field kernel (ht_cleanup_fields), bit packer
 (ht_pack_bits) and pool compaction (ht_compact_pool), the HT MagSgn decoder
 (ht_magsgn_decode), the 5/3 levels (dwt53_fwd_level, dwt53_inv_level) and
 the 9/7 levels (dwt97_fwd_level, dwt97_inv_level) of one checkout of the
@@ -31,8 +32,18 @@ generators (this script's copy):
 - extraction: the pyramids of the HT lossless gray batch (32 gray 512x512
   frames, 2240 blocks) and of a config-4 tile-origin class, lossless (64
   tiles of 512x512 16-bit RGB, 12,864 blocks) and lossy (the image >> 8
-  at quality 85), launched through the C entry point with the band table
-  already on the card (the wrapper uploads it);
+  at quality 85), launched through the C entry point with its static half
+  already on the card (the slot descriptors where the checkout has them,
+  else a parent's band table, which its wrapper uploads on every call),
+  and through the Python wrapper (by CUDA events, alone where it does not
+  wait for the card, and its host time a call while the card is busy);
+- assembly: the blocks of the same three batches (the lossy class's
+  dequantized to float32 leaves), through the Python wrapper, by CUDA
+  events, alone and its host time (on the gray batch also the host time
+  of making its leaf views: one as_strided a leaf, or one split and a view
+  a leaf); on the two lossless batches both
+  layout kernels' library calls in the same run (torch.take over the
+  flat pyramid, Tensor.index_copy_ into it, indices made beforehand);
 - cleanup: the blocks of the same three batches;
 - packing: the three streams' fields of the same three batches (made by
   the checkout's cleanup kernel), packed by pack_bits, one call a stream,
@@ -95,8 +106,9 @@ T0 = time.perf_counter()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the kernels whose ptxas figures --ptxas reports
-KERNELS = ("fields_kernel", "mq_kernel", "pack_kernel", "dwt53_fwd_kernel",
-           "dwt53_inv_kernel", "dwt97_fwd_kernel", "dwt97_inv_kernel",
+KERNELS = ("extract_kernel", "to_pyramid_kernel", "fields_kernel",
+           "mq_kernel", "pack_kernel", "dwt53_fwd_kernel", "dwt53_inv_kernel",
+           "dwt97_fwd_kernel", "dwt97_inv_kernel",
            "decision_kernel", "block_stats_kernel", "magsgn_kernel",
            "count_kernel", "compact_write_kernel", "chunk_count_kernel",
            "chunk_write_kernel", "rows_scan_kernel", "compact_scan_kernel",
@@ -204,36 +216,65 @@ def occupancy(lines, ebcot_cuda, ht_dec_cuda):
 
 
 def extract_call(ht_enc_cuda, pyr, plan, n, levels):
-    """ht_extract_blocks through the library's C entry point with its band
-    table built and uploaded once, as ht_enc_cuda.extract_blocks builds it:
-    (launch function, output)."""
+    """ht_extract_blocks through the library's C entry point with its
+    static half already on the card: the slot descriptors and leaf pointers
+    (ht_enc_cuda.extract_layout) where the checkout has them, else a
+    parent's band table, built and uploaded once as its wrapper builds it
+    (that wrapper uploads it on every call).  Returns (launch function,
+    output)."""
+    import ctypes
     import torch
-    leaves = [ht_enc_cuda.band_leaf(pyr, lev, name, levels).contiguous()
-              for (_c, lev, name, *_rest) in plan.band_specs]
+    lib = ht_enc_cuda.load()
     lossy = plan.deltas is not None
-    table = np.zeros((len(leaves), ht_enc_cuda.BAND_FIELDS), np.int64)
-    slot = 0
-    for bi, (leaf, spec) in enumerate(zip(leaves, plan.band_specs)):
-        c, _lev, _name, gy, gx, eh, ew, bh, bw, oy, ox = spec
-        delta = np.float32(plan.deltas[bi] if lossy else 1.0)
-        table[bi] = (leaf.data_ptr(), c, bh, bw, gx, eh, ew, oy, ox, slot,
-                     int(delta.view(np.int32)))
-        slot += gy * gx
-    dev = leaves[0].device
-    table_dev = torch.from_numpy(table).to(dev)
+    spec = plan.band_specs[0]
+    dev = ht_enc_cuda.band_leaf(pyr, spec[1], spec[2], levels).device
     out = torch.empty((n * plan.nb, plan.cbh, plan.cbw), dtype=torch.int32,
                       device=dev)
-    lib = ht_enc_cuda.load()
+    if hasattr(ht_enc_cuda, "extract_layout"):
+        keys, _shapes, table_dev = ht_enc_cuda.extract_layout(
+            plan, n, pyr[0]["HL"].shape[1], levels, dev)
+        leaves = [pyr[lv][band].contiguous() for lv, band in keys]
+        ptrs = (ctypes.c_void_p * len(leaves))(
+            *[leaf.data_ptr() for leaf in leaves])
+        args = (table_dev.data_ptr(), ptrs, len(leaves), n, plan.nb,
+                plan.cbh, plan.cbw, int(lossy), out.data_ptr())
+    else:
+        leaves = [ht_enc_cuda.band_leaf(pyr, lev, name, levels).contiguous()
+                  for (_c, lev, name, *_rest) in plan.band_specs]
+        table = np.zeros((len(leaves), ht_enc_cuda.BAND_FIELDS), np.int64)
+        slot = 0
+        for bi, (leaf, spec) in enumerate(zip(leaves, plan.band_specs)):
+            c, _lev, _name, gy, gx, eh, ew, bh, bw, oy, ox = spec
+            delta = np.float32(plan.deltas[bi] if lossy else 1.0)
+            table[bi] = (leaf.data_ptr(), c, bh, bw, gx, eh, ew, oy, ox,
+                         slot, int(delta.view(np.int32)))
+            slot += gy * gx
+        table_dev = torch.from_numpy(table).to(dev)
+        args = (table_dev.data_ptr(), len(leaves), leaves[0].shape[1], n,
+                plan.nb, plan.cbh, plan.cbw, int(lossy), out.data_ptr())
 
     def fn():
-        rc = lib.ht_extract_blocks(
-            table_dev.data_ptr(), len(leaves), leaves[0].shape[1], n,
-            plan.nb, plan.cbh, plan.cbw, int(lossy), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        rc = lib.ht_extract_blocks(*args,
+                                   torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"ht_extract_blocks: CUDA error {rc}")
-        return leaves
+        # the table and the leaves live as long as fn
+        return table_dev, leaves
     return fn, out
+
+
+def layout_library(cs, ht_enc_cuda, ht_dec_cuda, pyr, blocks, plan, n,
+                   levels):
+    """The lossless layout kernels' library calls in this run: torch.take
+    for the extraction and Tensor.index_copy_ for the assembly, each by
+    CUDA events and alone (chip_smoke.py extract_library_ms,
+    assemble_library_ms)."""
+    take = cs.extract_library_ms(ht_enc_cuda, pyr, plan, n, levels)
+    copy = cs.assemble_library_ms(ht_dec_cuda, blocks, plan, n,
+                                  pyr[0]["HL"].shape[1], levels)
+    return ({"what": "torch.take", "ms": take[0], "alone_ms": take[1]},
+            {"what": "Tensor.index_copy_", "ms": copy[0],
+             "alone_ms": copy[1]})
 
 
 def compact_call(ebcot_cuda, slots, total):
@@ -330,6 +371,64 @@ def seg_pool_call(ebcot_cuda, rows, off, lens, tree):
             raise RuntimeError(f"ebcot_pool_rows: CUDA error {rc}")
         return pool
     return fn, pool, total
+
+
+def host_ms(fn, reps=20):
+    """Host time of one call of fn while the card is busy: reps calls
+    enqueued behind a spin kernel, by the host clock; None when a call
+    waits for the card (the spin ended before the calls were enqueued)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    mark = torch.cuda.Event()
+    torch.cuda._sleep(1 << 25)
+    mark.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    busy = not mark.query()
+    torch.cuda.synchronize()
+    return ms if busy else None
+
+
+def views_host_ms(ht_dec_cuda, plan, n, nc, levels, dev, reps=2000):
+    """Host time of making ht_blocks_to_pyramid's leaves as views of one
+    buffer, two ways: one as_strided a leaf (what the wrapper does), and
+    one split of the buffer (the leaves and the padding between them) then
+    one view a leaf.  None for a checkout without pyramid_layout."""
+    import torch
+    if not hasattr(ht_dec_cuda, "pyramid_layout"):
+        return None
+    _rows, _off, total, views = ht_dec_cuda.pyramid_layout(
+        plan, n, nc, levels, False, dev)
+    buf = torch.empty(total, dtype=torch.int32, device=dev)
+    sizes, prev = [], 0
+    for _lv, _band, shape, _strides, at in views:
+        count = int(np.prod(shape))
+        sizes += [at - prev, count]
+        prev = at + count
+    sizes.append(total - prev)
+    shapes = [shape for _lv, _band, shape, _s, _a in views]
+
+    def strided():
+        return [buf.as_strided(shape, strides, at)
+                for _lv, _band, shape, strides, at in views]
+
+    def split():
+        parts = buf.split(sizes)
+        return [parts[2 * i + 1].view(shape)
+                for i, shape in enumerate(shapes)]
+
+    out = {"leaves": len(views)}
+    for name, fn in (("as_strided", strided), ("split_view", split)):
+        for _ in range(200):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[f"{name}_host_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    return out
 
 
 def copy_alone_ms(cs, nbytes):
@@ -454,15 +553,39 @@ def main():
         shape = (f"{blocks.shape[0]} blocks of "
                  f"{blocks.shape[1]}x{blocks.shape[2]}")
         levels, pyr = cs.ht_pyramid(tp, frames, opts, dev)
-        fn, out = extract_call(ht_enc_cuda, pyr, plan, len(frames), levels)
+        n = len(frames)
+        fn, out = extract_call(ht_enc_cuda, pyr, plan, n, levels)
         fn()
         if not torch.equal(out, blocks):
             raise AssertionError("ht_extract_blocks through its entry "
                                  "point differs from the wrapper")
+        wrapper = lambda: ht_enc_cuda.extract_blocks(  # noqa: E731
+            pyr, plan, n, levels)
         result[f"ht_extract_blocks {label}"] = {
             "shape": shape, "ms": cs.cuda_ms(fn),
             "alone_ms": cs.device_ms(fn),
-            "bound_ms": cs.extract_bound(pyr, blocks)[0]}
+            "bound_ms": cs.extract_bound(pyr, blocks)[0],
+            "wrapper_ms": cs.cuda_ms(wrapper),
+            "wrapper_alone_ms": cs.device_ms(wrapper),
+            "wrapper_host_ms": host_ms(wrapper)}
+        lossy = plan.deltas is not None
+        nc = pyr[0]["HL"].shape[1]
+        wrapper = lambda: ht_dec_cuda.blocks_to_pyramid(  # noqa: E731
+            blocks, plan, n, nc, levels, lossy)
+        result[f"ht_blocks_to_pyramid {label}"] = {
+            "shape": f"{shape}, {'float32' if lossy else 'int32'} leaves",
+            "wrapper_ms": cs.cuda_ms(wrapper),
+            "alone_ms": cs.device_ms(wrapper),
+            "wrapper_host_ms": host_ms(wrapper),
+            "bound_ms": cs.assemble_bound(wrapper())[0]}
+        if label == "gray":
+            result["ht_blocks_to_pyramid gray views"] = views_host_ms(
+                ht_dec_cuda, plan, n, nc, levels, dev)
+        if not lossy:
+            take, copy = layout_library(cs, ht_enc_cuda, ht_dec_cuda, pyr,
+                                        blocks, plan, n, levels)
+            result[f"ht_extract_blocks {label}"]["library"] = take
+            result[f"ht_blocks_to_pyramid {label}"]["library"] = copy
         del pyr, out, frames
         fn = lambda: ht_enc_cuda.cleanup_values(blocks, hs, ws)  # noqa
         result[f"ht_cleanup_fields {label}"] = {

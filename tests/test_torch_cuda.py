@@ -24,7 +24,9 @@ compactions (ht_compact_pool, ebcot_pool_rows) also on their stress sets
 (ht_enc_cuda.pool_stress_cases, ebcot_cuda.pool_stress_rows) with the
 rows off a 16-byte boundary; the decision
 slots also on ebcot_device.stress_blocks and the MagSgn blocks on
-ht_dec.stress_cases.  The band
+ht_dec.stress_cases; the block extraction and the assembly also on
+block_layout.layout_stress_cases (leaves off 16 bytes), and neither
+wrapper makes a synchronizing call after a plan's first.  The band
 statistics' counts are equal, their float64 sums within a relative 1e-12 (the order of
 the atomics varies).  The tile-sharded encode and decode give the CPU's
 bytes and pixels."""
@@ -39,9 +41,10 @@ import go_jpeg2000_tpu_torch as tp
 from go_jpeg2000_tpu_torch.models import (decoder, ebcot_fused, encoder,
                                           fused_encode, transforms)
 from go_jpeg2000_tpu_torch.native import loader
-from go_jpeg2000_tpu_torch.ops import (dwt, dwt_cuda, ebcot_cuda,
-                                       ebcot_device, ht_dec, ht_dec_cuda,
-                                       ht_enc, ht_enc_cuda, mq_device)
+from go_jpeg2000_tpu_torch.ops import (block_layout, dwt, dwt_cuda,
+                                       ebcot_cuda, ebcot_device, ht_dec,
+                                       ht_dec_cuda, ht_enc, ht_enc_cuda,
+                                       mq_device)
 from go_jpeg2000_tpu_torch.tcd import geometry as geo
 
 BANDS = ("LL", "HL", "LH", "HH")
@@ -496,6 +499,93 @@ def test_magsgn_kernel_stress_cases(cuda, name):
     got = ht_dec_cuda.magsgn_decode_blocks(qinfo, pool, woff, cbh, cbw)
     assert torch.equal(got, ht_dec.magsgn_decode_blocks(qinfo, pool, woff,
                                                         cbh, cbw))
+
+
+LAYOUT_CASES = [c[0] for c in block_layout.layout_stress_cases()]
+
+
+def _layout_case(name, dev, phase=0):
+    """A layout stress plan and its inputs on `dev`: (plan, n, components,
+    levels, pyramid placed by block_layout.stress_leaves, slots)."""
+    _n, plan, n, nc, levels = {c[0]: c for c in
+                               block_layout.layout_stress_cases()}[name]
+    pyr, slots = block_layout.stress_inputs(plan, n, nc, levels, seed=5)
+    return (plan, n, nc, levels, block_layout.stress_leaves(pyr, dev, phase),
+            torch.from_numpy(slots).to(dev))
+
+
+def _leaves_equal(got, ref):
+    """Pyramids equal bit for bit, band for band."""
+    assert [sorted(e) for e in got] == [sorted(e) for e in ref]
+    for g, r in zip(got, ref):
+        for k in r:
+            assert g[k].dtype == r[k].dtype and g[k].shape == r[k].shape
+            assert torch.equal(g[k].contiguous().view(torch.int32),
+                               r[k].contiguous().view(torch.int32)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", [0, 1, 3, "strided"])
+@pytest.mark.parametrize("name", LAYOUT_CASES)
+def test_layout_kernels_stress_plans(cuda, name, phase):
+    # block_layout.layout_stress_cases: offset grids off multiples of 4,
+    # odd band widths, 32x32 and 64x16 blocks, one and three frames; the
+    # extraction's leaves `phase` words past a 16-byte boundary, or strided
+    plan, n, nc, levels, pyr, slots = _layout_case(name, cuda, phase)
+    before = dict(ht_enc_cuda.LAUNCHES)
+    got = ht_enc_cuda.extract_blocks(pyr, plan, n, levels)
+    assert torch.equal(got, fused_encode.extract_blocks(pyr, plan, n,
+                                                        levels))
+    dequants = (False, True) if plan.deltas is not None else (False,)
+    b2p = dict(ht_dec_cuda.LAUNCHES)
+    for dequant in dequants:
+        _leaves_equal(
+            ht_dec_cuda.blocks_to_pyramid(slots, plan, n, nc, levels,
+                                          dequant),
+            ht_dec.blocks_to_pyramid(slots, plan, n, nc, levels, dequant))
+    assert ht_enc_cuda.LAUNCHES["ht_extract_blocks"] == \
+        before["ht_extract_blocks"] + 1
+    assert ht_dec_cuda.LAUNCHES["ht_blocks_to_pyramid"] == \
+        b2p["ht_blocks_to_pyramid"] + len(dequants)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gray", "tiles_lossy_rgb"])
+def test_layout_wrappers_never_wait_for_the_card(cuda, name):
+    # after a plan's first call, neither wrapper makes a synchronizing CUDA
+    # call (a pageable upload, a read-back)
+    plan, n, nc, levels, pyr, slots = _layout_case(name, cuda)
+    dequant = plan.deltas is not None
+    ht_enc_cuda.extract_blocks(pyr, plan, n, levels)
+    ht_dec_cuda.blocks_to_pyramid(slots, plan, n, nc, levels, dequant)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blocks = ht_enc_cuda.extract_blocks(pyr, plan, n, levels)
+        leaves = ht_dec_cuda.blocks_to_pyramid(slots, plan, n, nc, levels,
+                                               dequant)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(blocks, fused_encode.extract_blocks(pyr, plan, n,
+                                                           levels))
+    _leaves_equal(leaves, ht_dec.blocks_to_pyramid(slots, plan, n, nc,
+                                                   levels, dequant))
+
+
+@pytest.mark.cuda
+def test_layout_wrappers_refuse_what_they_cannot_take(cuda):
+    plan, n, nc, levels, pyr, slots = _layout_case("gray", cuda)
+    bad = [dict(e) for e in pyr]
+    bad[0]["HL"] = bad[0]["HL"].float()
+    with pytest.raises(ValueError):
+        ht_enc_cuda.extract_blocks(bad, plan, n, levels)
+    with pytest.raises(ValueError):
+        ht_dec_cuda.blocks_to_pyramid(slots[1:], plan, n, nc, levels)
+    buf = torch.empty(slots.numel() + 4, dtype=torch.int32, device=cuda)
+    off16 = buf[1:1 + slots.numel()].view(slots.shape)
+    off16.copy_(slots)
+    with pytest.raises(ValueError):
+        ht_dec_cuda.blocks_to_pyramid(off16, plan, n, nc, levels)
 
 
 def _row_segments(rows, off, lens):
