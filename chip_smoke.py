@@ -150,11 +150,37 @@ sources in this checkout.  Phases, each of which raises on failure:
    each case's codestream and decode equal the CPU run's, S1-S3 launch
    both level kernels of their kind with no plain level; wall Mpix/s and
    a second run's stages (device transform, host block coding, PCRD and
-   Tier-2; Python Tier-2, native block decode, device inverse).
+   Tier-2; Python Tier-2, native block decode, device inverse);
+12. BASELINE config 2 at its specified scale: bench.py's 2048x2048 RGB
+   image (noise smoothed twice by three taps, seed 0) through encode and
+   decode with Options(JP2, lossy 9/7 + ICT, quality 98, 6 resolutions, 3
+   layers, compression_ratio 20, backend "native"): the codestream inside
+   its budget, bytes and decode equal to the CPU run's, PSNR beside
+   OpenJPEG's at the same rate (Pillow, mct=1, where Pillow has OpenJPEG),
+   wall ms and the stages as in phase 11;
+13. quality layers and a byte budget through the fused HT batch encode:
+   16 gray 512x512 frames, HTJ2K lossy quality 95, ht_refinement False, 2
+   layers at 10:1, through encode_batch (enc.fused_chunks > 0, every HT
+   encode kernel) and decode_batch; bytes and decodes equal the CPU run's;
+14. BASELINE config 5, the multi-host decomposition (encode_multihost,
+   decode_multihost), every host a process with its transforms on the
+   card: a 4096x4096 RGB image in 512x512 tiles (64), HTJ2K lossless, 2
+   layers at 6:1, at 1, 2 and 4 hosts after a warm-up, each codestream
+   equal to the card's single-process encode; compute wall, Mpix/s,
+   reduction rounds, efficiency against one host and the host's cores;
+   decode_multihost at 1, 2 and 4 hosts equal to the card's decode, and, of
+   the stream without a budget, to the input; then lossy 9/7 HT on a
+   2048x2048 RGB image, 2 layers at 12:1, over 2 hosts, equal to the
+   single-process encode, and its decode over 2 hosts;
+15. entry's fused HT encode program on the card, dryrun_multichip(1) (the
+   four checks of the tile-sharded pipeline against the single-process
+   encoder and decoder) and, with two or more cards, dryrun_multichip over
+   every card (NCCL).
 
-Each of the eight main paths, the sharded runs and the four single-image
-cases runs with the launch counts set to 0 just before it and read just
-after.  The line before the last is a JSON summary of the
+Each of the eight main paths, the sharded runs, the four single-image
+cases and each run of phases 12-15 runs with the launch counts set to 0
+just before it and read just after (a host process reports its own
+launches to the parent, multihost.kernel_launches).  The line before the last is a JSON summary of the
 kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the card's peak rate for their type, and the time
 of one PyTorch call that computes the same function where there is one
@@ -235,6 +261,15 @@ SINGLE_SIDE = 4096
 SINGLE_TILE = 1024
 MAMMO = (4096, 3328)
 ODD = (750, 1000)
+# BASELINE config 2: a C2_SIDE^2 RGB image, lossy 9/7 + ICT, 3 layers and
+# PCRD at C2_RATIO:1, JP2
+C2_SIDE = 2048
+C2_RATIO = 20.0
+# BASELINE config 5: a C5_SIDE^2 RGB image in C5_TILE^2 tiles (64) over
+# C5_HOSTS host processes
+C5_SIDE = 4096
+C5_TILE = 512
+C5_HOSTS = (1, 2, 4)
 # frame sides whose first level is checked on every level kernel (each
 # keeps its strip in registers, so any even width takes it)
 WIDE_SIDES = (4096, 8192)
@@ -2659,6 +2694,244 @@ def single_image_phase(tp, dev, card, launches):
     return err
 
 
+def all_launches():
+    """Every kernel's launch count in this process."""
+    from go_jpeg2000_tpu_torch.parallel import multihost
+    return multihost.kernel_launches()
+
+
+def reset_all_counts(tp):
+    from go_jpeg2000_tpu_torch.ops import (band_stats, dwt_cuda, ebcot_cuda,
+                                           ht_dec_cuda, ht_enc_cuda)
+    for mod in (dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda, band_stats):
+        mod.reset_counts()
+    tp.counters.reset()
+
+
+def add_launches(launches, counts, label, need):
+    """Add `counts` to `launches`; every kernel of `need` must have been
+    launched."""
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"{label} launches { {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    missing = [k for k in need if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched")
+
+
+def config2_image():
+    """bench.py's lossy_psnr image: C2_SIDE^2 RGB noise smoothed twice by
+    three taps, seed 0."""
+    rng = np.random.RandomState(0)
+    a = rng.randint(0, 256, size=(C2_SIDE, C2_SIDE, 3)).astype(np.float32)
+    for ax in (0, 1):
+        for _ in range(2):
+            a = (a + np.roll(a, 1, axis=ax) + np.roll(a, -1, axis=ax)) / 3
+    return a.astype(np.uint8)
+
+
+def openjpeg_psnr(img, ratio, nres):
+    """PSNR of OpenJPEG's irreversible encode with the MCT at `ratio`
+    through Pillow, or None where Pillow has no OpenJPEG."""
+    import io
+    from PIL import Image, features
+    if not features.check("jpg_2000"):
+        return None
+    b = io.BytesIO()
+    Image.fromarray(img).save(b, format="JPEG2000", irreversible=True,
+                              quality_mode="rates", quality_layers=[ratio],
+                              num_resolutions=nres, mct=1)
+    return psnr(np.asarray(Image.open(io.BytesIO(b.getvalue()))), img)
+
+
+def config2_phase(tp, dev, card, launches):
+    """Phase 12: BASELINE config 2 at its specified scale through encode
+    and decode on the card: bytes and decode equal the CPU run's, the
+    codestream inside its budget, PSNR beside OpenJPEG's at the same rate,
+    wall ms and the stages."""
+    from go_jpeg2000_tpu_torch.models.decoder import sniff_format
+    img = config2_image()
+    opts = tp.Options(format=tp.Format.JP2, lossless=False, quality=98,
+                      num_resolutions=6, num_layers=3,
+                      compression_ratio=C2_RATIO, backend="native")
+    reset_all_counts(tp)
+    t0 = time.perf_counter()
+    data = tp.encode(img, opts, device=dev)
+    t1 = time.perf_counter()
+    decoded = tp.decode(data, device=dev)
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    add_launches(launches, all_launches(), "config 2",
+                 ("dwt97_fwd_level", "dwt97_inv_level"))
+    budget = img.size // int(C2_RATIO)
+    stream = len(sniff_format(data)[1])
+    if stream > budget:
+        raise AssertionError(f"config 2: codestream {stream} bytes over the "
+                             f"budget {budget}")
+    p_opj = openjpeg_psnr(img, C2_RATIO, 6)
+    print(f"config 2 {img.shape}: JP2 {len(data)} bytes, codestream {stream} "
+          f"of the {budget}-byte budget, PSNR {psnr(decoded, img):.3f} dB, "
+          "OpenJPEG at the same rate (Pillow, mct=1) "
+          + (f"{p_opj:.3f} dB" if p_opj is not None else "not available")
+          + f"; wall encode {(t1 - t0) * 1e3:.1f} ms, decode "
+          f"{(t2 - t1) * 1e3:.1f} ms [{card}]", flush=True)
+    if tp.encode(img, opts, device="cpu") != data:
+        raise AssertionError("config 2: CUDA and CPU codestreams differ")
+    if not np.array_equal(tp.decode(data, device="cpu"), decoded):
+        raise AssertionError("config 2: CUDA and CPU decodes differ")
+    print("config 2: CUDA and CPU codestreams byte-identical, decodes equal",
+          flush=True)
+    single_image_stages(tp, "config 2", img, opts, data, dev, card)
+    torch.cuda.empty_cache()
+
+
+def fused_layers_phase(tp, dev, card, launches):
+    """Phase 13: quality layers and a byte budget through the fused HT
+    batch encode (ht_refinement=False): every frame through the device
+    program (enc.fused_chunks) and its HT kernels, then per-frame PCRD;
+    bytes and decodes equal the CPU run's."""
+    frames = [natural_image(H, W, seed=700 + i) for i in range(N_LOSSY_GRAY)]
+    opts = tp.Options(format=tp.Format.J2K, lossless=False, quality=95,
+                      num_resolutions=6, high_throughput=True,
+                      ht_refinement=False, num_layers=2,
+                      compression_ratio=10.0)
+    reset_all_counts(tp)
+    streams = tp.encode_batch(frames, opts, device=dev)
+    decoded = tp.decode_batch(streams, device=dev)
+    torch.cuda.synchronize()
+    snap = tp.counters.snapshot()
+    add_launches(launches, all_launches(), "fused layers",
+                 HT_KERNELS + ("dwt97_fwd_level", "dwt97_inv_level"))
+    if snap.get("enc.fused_chunks", 0) <= 0 or \
+            snap.get("enc.host_entropy_frames", 0):
+        raise AssertionError(f"fused layers: not the fused encode {snap}")
+    budget = H * W // 10
+    print(f"fused layers: {len(frames)} frames, {sum(map(len, streams))} "
+          f"bytes, largest {max(map(len, streams))} of a {budget}-byte "
+          f"budget, PSNR {min(psnr(d, f) for d, f in zip(decoded, frames)):.3f}"
+          f" dB (lowest frame), {snap.get('enc.fused_chunks')} fused chunks",
+          flush=True)
+    if tp.encode_batch(frames, opts, device="cpu") != streams:
+        raise AssertionError("fused layers: CUDA and CPU codestreams differ")
+    if not all(np.array_equal(d, c) for d, c in
+               zip(decoded, tp.decode_batch(streams, device="cpu"))):
+        raise AssertionError("fused layers: CUDA and CPU decodes differ")
+    print("fused layers: CUDA and CPU codestreams byte-identical, decodes "
+          "equal", flush=True)
+
+
+def multihost_run(tp, fn, label, launches, need, **kw):
+    """One encode_multihost or decode_multihost call on "cuda" with every
+    count reset just before it; the hosts' launches (or this process's,
+    for one host) are added to `launches`.  Returns (result, stats)."""
+    reset_all_counts(tp)
+    stats = {}
+    out = fn(_stats=stats, device="cuda", **kw)
+    torch.cuda.synchronize()
+    counts = stats.get("host_launches") or all_launches()
+    add_launches(launches, counts, label, need)
+    return out, stats
+
+
+def config5_phase(tp, dev, card, launches):
+    """Phase 14: BASELINE config 5, the multi-host decomposition, each host
+    a process with its tiles' transforms on the card: a C5_SIDE^2 RGB image
+    in C5_TILE^2 tiles, HTJ2K lossless, 2 layers at 6:1, at 1, 2 and 4
+    hosts after a warm-up, bytes equal to the card's single-process encode;
+    compute wall, Mpix/s, reduction rounds, efficiency against one host
+    and the host's cores.  decode_multihost at 1, 2 and 4 hosts equals the
+    card's decode, and, of the stream without a budget, the input.  Then
+    lossy 9/7 HT at C2_SIDE^2, 2 layers at 12:1, over 2 hosts."""
+    import os
+    from go_jpeg2000_tpu_torch.parallel import (decode_multihost,
+                                                encode_multihost)
+    img = np.stack([natural_image(C5_SIDE, C5_SIDE, seed=800 + c)
+                    for c in range(3)], axis=-1)
+    mpix = C5_SIDE * C5_SIDE / 1e6
+    base = dict(format=tp.Format.J2K, lossless=True, high_throughput=True,
+                tile_size=(C5_TILE, C5_TILE), num_layers=2)
+    opts = tp.Options(compression_ratio=6.0, **base)
+    single = tp.encode(img, opts, device=dev)
+    fwd = ("dwt53_fwd_level",)
+    inv = ("dwt53_inv_level",)
+    walls = {}
+    for n in C5_HOSTS:
+        data, st = multihost_run(
+            tp, lambda **kw: encode_multihost(img, opts, n_hosts=n,
+                                              warmups=1, **kw),
+            f"config 5 encode, {n} hosts", launches, fwd)
+        if data != single:
+            raise AssertionError(f"config 5: {n} hosts' codestream differs "
+                                 "from the single-process encode")
+        walls[n] = st["compute_wall_s"]
+        print(f"config 5 encode {n} hosts: compute wall "
+              f"{walls[n] * 1e3:.1f} ms ({mpix / walls[n]:.2f} Mpix/s), "
+              f"{st['reduce_rounds']} reduction rounds, efficiency "
+              f"{walls[C5_HOSTS[0]] / (n * walls[n]):.3f} against 1 host, "
+              f"{len(data)} bytes, byte-identical; host cores "
+              f"{os.cpu_count()} [{card}]", flush=True)
+    exact = tp.encode(img, tp.Options(**base), device=dev)
+    for stream, want, what in ((single, tp.decode(single, device=dev),
+                                "the card's decode"),
+                               (exact, img, "the input")):
+        for n in C5_HOSTS:
+            out, st = multihost_run(
+                tp, lambda **kw: decode_multihost(stream, n_hosts=n,
+                                                  warmups=1, **kw),
+                f"config 5 decode, {n} hosts", launches, inv)
+            if not np.array_equal(out, want):
+                raise AssertionError(f"config 5: the decode of {n} hosts "
+                                     f"differs from {what}")
+            walls[("dec", what, n)] = st["compute_wall_s"]
+            print(f"config 5 decode {n} hosts: compute wall "
+                  f"{st['compute_wall_s'] * 1e3:.1f} ms "
+                  f"({mpix / st['compute_wall_s']:.2f} Mpix/s), efficiency "
+                  f"{walls[('dec', what, 1)] / (n * walls[('dec', what, n)]):.3f}"
+                  f" against 1 host, equal to {what} [{card}]", flush=True)
+    lossy_img = np.stack([natural_image(C2_SIDE, C2_SIDE, seed=810 + c)
+                          for c in range(3)], axis=-1)
+    lossy = tp.Options(format=tp.Format.J2K, lossless=False,
+                       high_throughput=True, tile_size=(C5_TILE, C5_TILE),
+                       num_layers=2, compression_ratio=12.0)
+    data, st = multihost_run(
+        tp, lambda **kw: encode_multihost(lossy_img, lossy, n_hosts=2, **kw),
+        "config 5 lossy encode, 2 hosts", launches, ("dwt97_fwd_level",))
+    if data != tp.encode(lossy_img, lossy, device=dev):
+        raise AssertionError("config 5 lossy: 2 hosts' codestream differs "
+                             "from the single-process encode")
+    out, _st = multihost_run(
+        tp, lambda **kw: decode_multihost(data, n_hosts=2, **kw),
+        "config 5 lossy decode, 2 hosts", launches, ("dwt97_inv_level",))
+    if not np.array_equal(out, tp.decode(data, device=dev)):
+        raise AssertionError("config 5 lossy: the decode of 2 hosts differs")
+    print(f"config 5 lossy {lossy_img.shape}: 2 hosts byte-identical "
+          f"({len(data)} bytes), decode equal, PSNR "
+          f"{psnr(out, lossy_img):.3f} dB [{card}]", flush=True)
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase(tp, card, launches):
+    """Phase 15: entry's fused HT encode program and dryrun_multichip's
+    four checks on the card: a grid of one in this process, and, with two
+    or more cards, a rank a card."""
+    from go_jpeg2000_tpu_torch.entry import dryrun_multichip, entry
+    reset_all_counts(tp)
+    fn, args = entry(device="cuda")
+    _pool, totals = fn(*args)
+    dryrun_multichip(1, device="cuda")
+    torch.cuda.synchronize()
+    add_launches(launches, all_launches(), "entry and dryrun_multichip(1)",
+                 HT_KERNELS + ("dwt53_fwd_level", "band_stats"))
+    print(f"entry: fused HT encode of 2 x 256^2, pool words "
+          f"{totals.tolist()}; dryrun_multichip(1): four checks passed "
+          f"[{card}]", flush=True)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        dryrun_multichip(n, device="cuda")
+        print(f"dryrun_multichip({n}): four checks passed, NCCL", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2769,6 +3042,11 @@ def main():
 
     for k, v in single_image_phase(tp, dev, card, launches).items():
         err[k] = max(err[k], v)
+
+    config2_phase(tp, dev, card, launches)
+    fused_layers_phase(tp, dev, card, launches)
+    config5_phase(tp, dev, card, launches)
+    dryrun_phase(tp, card, launches)
 
     out = []
     for name, (replaces, src) in REPLACES.items():

@@ -14,8 +14,8 @@ Public API (the JAX package's, with an explicit device):
 
 `encode` and `decode` take one image: gray or RGB, 8 to 16-bit unsigned,
 J2K or JP2, one tile or a tile grid with tile and image offsets, HTJ2K or
-Part-1 (EBCOT), lossless 5/3 with any number of quality layers and a
-compression_ratio budget, or lossy 9/7 at one layer.  Per tile the device
+Part-1 (EBCOT), lossless 5/3 or lossy 9/7, with any number of quality
+layers and a compression_ratio budget.  Per tile the device
 runs DC shift, RCT or ICT, the DWT levels and the 9/7 quantization (and
 their inverses on decode); the host runs the native block coder, PCRD and
 the Python Tier-2.  The batch API codes frames of one shape together:
@@ -37,7 +37,10 @@ the host work runs in the native C++ coder (native/j2k_native.cpp, the
 port's copy of the JAX package's).  The tile-sharded pipeline (BASELINE
 config 4: multi-tile images over a (dp, sp) grid of torch.distributed
 ranks, or one process) is in go_jpeg2000_tpu_torch.parallel:
-encode_sharded, decode_sharded, make_grid.  Tensors carry an explicit
+encode_sharded, decode_sharded, make_grid; so is the multi-host
+decomposition (BASELINE config 5: one process a host, each owning its
+tiles): encode_multihost, decode_multihost.  go_jpeg2000_tpu_torch.entry
+holds entry and dryrun_multichip.  Tensors carry an explicit
 device: "cuda" without a card raises; tests pass device="cpu".  Options
 outside the slices raise NotImplementedError naming the ROADMAP item that
 brings them.

@@ -13,14 +13,15 @@ the fused branch (models/fused_encode.py) runs the whole device half of
 an HTJ2K encode on the card, with hand-written CUDA kernels for the DWT
 levels, block extraction, the HT cleanup fields, bit packing and pool
 compaction, and leaves the host only segment serialization and Tier-2 in
-C++ (or, with PLT, Python Tier-2 on natively serialized segments).  The
+C++ (or, with quality layers, a byte budget or PLT, a PCRD per frame and
+the Python Tier-2 on natively serialized segments).  The
 device EBCOT branch (models/ebcot_fused.py) runs the 5/3 transform, block
 extraction, the EBCOT Tier-1 decisions, their compaction and (path A) the
 MQ coder and the segment pool on the card, or (path B, backend "hybrid")
 MQ-codes the fetched decision streams on the host in C++; the Python
 Tier-2 assembles the packets.  The chunked branch, for what the device
 branches refuse (a band of several precincts, HT refinement passes,
-quality layers, byte budgets, lossy Part-1) and for Part-1 with backend
+Part-1 quality layers, byte budgets and lossy Part-1) and for Part-1 with backend
 "native" (path C), runs the transforms on the device and the native block
 coder, a PCRD per frame and the Python Tier-2 on the host.  Frames of
 differing shapes, tiled and offset images go through `encode` one by one.
@@ -29,9 +30,9 @@ Lossless codestreams are byte-identical to the JAX package's `encode` and
 lifting drifts by ulps between program shapes, so a quantizer index can
 flip at a step boundary).
 
-The slices: HTJ2K or Part-1 (code-block style 0), lossless 5/3 with any
-number of quality layers and byte budgets (HT refinement passes where
-they are used), lossy 9/7 with one layer and no budget; J2K, JP2 or JPX;
+The slices: HTJ2K or Part-1 (code-block style 0), lossless 5/3 or lossy
+9/7, with any number of quality layers and byte budgets (HT refinement
+passes where they are used); J2K, JP2 or JPX;
 one tile or a tile grid with tile and image offsets; gray or 3-component
 RGB (RCT for 5/3, ICT for 9/7), 8 to 16-bit unsigned samples; PLT
 markers.  Everything else raises NotImplementedError naming the ROADMAP
@@ -109,13 +110,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def check_encode(image: np.ndarray, opts: Options) -> None:
     """Raise NotImplementedError for what `encode` does not run yet: the
-    options of ROADMAP items 6b and 7."""
-    if not opts.lossless and (opts.num_layers > 1
-                              or opts.compression_ratio > 1.0):
-        raise _not_ported("PCRD on 9/7 (lossy quality layers and byte "
-                          "budgets)", "7")
-    if not opts.lossless and effective_ht_refinement(opts):
-        raise _not_ported("lossy 9/7 coding with HT refinement passes", "7")
+    options of ROADMAP item 6b."""
     if not opts.high_throughput and opts.code_block_style:
         raise _not_ported(f"code-block style {opts.code_block_style:#x}",
                           "6b")
@@ -147,12 +142,10 @@ def batch_takes(images: Sequence[np.ndarray], opts: Options) -> bool:
 def check_sharded(image: np.ndarray, opts: Options) -> None:
     """Raise NotImplementedError for what the tile-sharded path
     (parallel/sharded.py) does not run: multi-tile images, layers, byte
-    budgets and Part-1 are in; the geometry gates are the sharded path's
-    own (ValueError there)."""
+    budgets, Part-1 and lossy 9/7 are in; the geometry gates are the
+    sharded path's own (ValueError there)."""
     if opts.format != Format.J2K:
         raise _not_ported(f"the {opts.format} format", "6b")
-    if not opts.high_throughput and not opts.lossless:
-        raise _not_ported("lossy EBCOT (Part 1) coding", "7")
     if not opts.high_throughput and opts.code_block_style:
         raise _not_ported(f"code-block style {opts.code_block_style:#x}",
                           "6b")
@@ -644,10 +637,13 @@ def _chunk_frames(n_frames: int, pixels_per_frame: int,
 def _encode_batch_fused(batch: np.ndarray, header: Header, tile: geo.Tile,
                         plan, opts: Options, precision: int, signed: bool,
                         nl0: int, use_mct: bool, main: bytes, kind: str,
-                        dev) -> List[bytes]:
+                        dev, rate_budget: Optional[int]) -> List[bytes]:
     """The fused device HT encode (models/fused_encode.py), one device
-    program per chunk of frames, then native serialization and Tier-2 (or,
-    with PLT, the Python Tier-2 on natively serialized segments)."""
+    program per chunk of frames, then native serialization and Tier-2 at
+    one layer without a budget or PLT; otherwise the natively serialized
+    segments (one truncation point a block) go through the PCRD of each
+    frame (quality layers, the byte budget) and the Python Tier-2, as the
+    JAX package's fused branch."""
     n_frames = batch.shape[0]
     chunk = _chunk_frames(n_frames, int(np.prod(batch.shape[1:])),
                           FUSED_CHUNK_BYTES // FUSED_BYTES_PER_SAMPLE)
@@ -658,7 +654,8 @@ def _encode_batch_fused(batch: np.ndarray, header: Header, tile: geo.Tile,
         pool, totals = fused_encode.fused_encode_chunk(
             sub, plan, nl0, kind, use_mct, precision, signed, dev)
         counters.add("enc.fused_chunks")
-        if not opts.enable_plt:
+        if (header.coding_style.num_layers == 1 and rate_budget is None
+                and not opts.enable_plt):
             for body in fused_encode.fetch_bodies(pool, totals, n, plan,
                                                   header, tile):
                 out.append(main + cw.write_sot(0, 12 + 2 + len(body), 0, 1)
@@ -675,7 +672,8 @@ def _encode_batch_fused(batch: np.ndarray, header: Header, tile: geo.Tile,
                     results.append(t1.T1EncodeResult(seg, 1, [p],
                                                      [len(seg)]))
             out.append(main + _assemble_packets(header, tile, enc_state,
-                                                job_slots, results, 0, opts)
+                                                job_slots, results, 0, opts,
+                                                rate_budget)
                        + cw.write_eoc())
     return out
 
@@ -735,13 +733,14 @@ def encode_batch(images: Sequence[np.ndarray],
     no HT refinement, backend "auto" or "native"), each chunk of frames
     runs the fused device HT encode (DC shift, RCT/ICT, DWT, block
     extraction and quantization, HT cleanup fields, bit packing, pool
-    compaction) and the host serializes and assembles packets in C++.
+    compaction) and the host serializes and assembles packets in C++
+    (with quality layers or a budget: a PCRD per frame, Python Tier-2).
     Part-1 lossless with one layer and no budget: where ebcot_fused.plan_for
     admits it, backend "device" or "auto" (path A) runs the device EBCOT
     encode up to the MQ segment pool, backend "hybrid" (path B) up to the
     decision streams, which the native MQ coder codes; the Python Tier-2
-    assembles packets.  Otherwise (quality layers, byte budgets, HT
-    refinement, lossy Part-1, backend "native" (path C)) the device
+    assembles packets.  Otherwise (HT refinement, Part-1 layers, byte
+    budgets, lossy Part-1, backend "native" (path C)) the device
     transforms and the host codes blocks, runs PCRD and assembles packets
     per frame.  `device` is where the device work runs; "cuda" without a
     card raises.  Counters: enc.fused_chunks, enc.ebcot_device_chunks,
@@ -787,7 +786,8 @@ def encode_batch(images: Sequence[np.ndarray],
                               "and precinct geometry", "6b")
     if plan is not None:
         out = _encode_batch_fused(batch, header, tile, plan, opts, precision,
-                                  signed, nl0, use_mct, main, kind, dev)
+                                  signed, nl0, use_mct, main, kind, dev,
+                                  rate_budget)
     elif eplan is not None:
         out = _encode_batch_ebcot(batch, header, tile, eplan, opts,
                                   precision, signed, nl0, use_mct, main, dev,

@@ -6,7 +6,8 @@ Integer math is exact in int32; `>>` on a signed torch integer tensor is an
 arithmetic shift (floor division by a power of two), as in jnp.  The ICT
 uses the JAX package's float32 constants and its left-to-right sums, each
 a separately rounded torch op, so it equals the JAX version bit for bit.
-The custom NxN MCT is not ported yet (ROADMAP Queue 1 item 7).
+`CustomMCT` is the JAX package's stand-alone NxN matrix transform; no
+option reaches it, in either package.
 """
 from __future__ import annotations
 
@@ -108,3 +109,35 @@ def inverse_ict(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
     g = y + m[1][1] * cb + m[1][2] * cr
     b = y + m[2][1] * cb
     return r, g, b
+
+
+# --- Custom NxN MCT (Part 2 style) ------------------------------------------
+
+class CustomMCT:
+    """An arbitrary NxN decorrelation matrix applied across components.
+
+    Forward multiplies the component vector by `matrix`, inverse by its
+    inverse (numpy.linalg.inv, once, on the host); both contract in float32
+    on the components' own device."""
+
+    def __init__(self, matrix: np.ndarray):
+        matrix = np.asarray(matrix, dtype=np.float64)
+        if matrix.ndim != 2 or matrix.shape[0] != matrix.shape[1]:
+            raise ValueError("MCT matrix must be square")
+        if abs(np.linalg.det(matrix)) < 1e-12:
+            raise ValueError("MCT matrix is singular")
+        self.matrix = matrix
+        self.inverse = np.linalg.inv(matrix)
+
+    @staticmethod
+    def _apply(m: np.ndarray, comps) -> torch.Tensor:
+        x = torch.as_tensor(comps).to(torch.float32)
+        w = torch.as_tensor(m, dtype=torch.float32, device=x.device)
+        return torch.einsum("ij,j...->i...", w, x)
+
+    def forward(self, comps) -> torch.Tensor:
+        """comps: [N, ...spatial] -> [N, ...spatial] float32."""
+        return self._apply(self.matrix, comps)
+
+    def backward(self, comps) -> torch.Tensor:
+        return self._apply(self.inverse, comps)

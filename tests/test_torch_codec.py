@@ -305,11 +305,8 @@ def test_options_and_config_from_reference():
 def _item_still_out(override):
     """The ROADMAP item an override of OPTS still raises with, or None for
     what the port runs since `encode` came (JP2, tiles, layers, budgets,
-    lossy Part-1)."""
-    lossy = override.get("lossless") is False
-    if lossy and ({"num_layers", "compression_ratio", "ht_refinement"}
-                  & set(override)):
-        return "7"
+    lossy Part-1) and since lossy layers, budgets and HT refinement came
+    (item 7)."""
     if (override.get("enable_sop") or override.get("enable_ppm")
             or override.get("backend") == "python"):
         return "6b"
@@ -327,7 +324,7 @@ def _item_still_out(override):
 def test_encode_outside_slice_raises(override):
     # what is still out raises naming its item; the rest matches the JAX
     # package's encode_batch: bytes for lossless, decodes within one grey
-    # level (and its PSNR - 0.05 dB) for lossy Part-1
+    # level (and its PSNR - 0.05 dB) for lossy, its layers and budgets too
     opts = dataclasses.replace(tp.options_from_reference(OPTS), **override)
     frames = _frames(2, (32, 32), 0)
     item = _item_still_out(override)
@@ -421,7 +418,9 @@ def test_import_leaves_jax_out():
             "go_jpeg2000_tpu_torch.models.transforms, "
             "go_jpeg2000_tpu_torch.models.encoder, "
             "go_jpeg2000_tpu_torch.models.decoder, "
-            "go_jpeg2000_tpu_torch.parallel; "
+            "go_jpeg2000_tpu_torch.parallel, "
+            "go_jpeg2000_tpu_torch.parallel.multihost, "
+            "go_jpeg2000_tpu_torch.entry; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'go_jpeg2000_tpu')))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

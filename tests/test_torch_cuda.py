@@ -1058,3 +1058,62 @@ def test_sharded_nccl_grids_match_one_process(cuda, dp, sp, tmp_path):
             if case[2]:
                 assert np.array_equal(pix, ref_pix), (rank, case[1])
     assert np.array_equal(single[0][1], img)
+
+
+def _config2_image(side, seed=0):
+    """bench.py's natural image: three-tap smoothed noise, RGB."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, 256, size=(side, side, 3)).astype(np.float64)
+    for ax in (0, 1):
+        a = (a + np.roll(a, 1, axis=ax) + np.roll(a, -1, axis=ax)) / 3
+    return a.astype(np.uint8)
+
+
+CONFIG2 = tp.Options(format=tp.Format.JP2, lossless=False, quality=98,
+                     num_resolutions=6, num_layers=3, compression_ratio=20.0,
+                     backend="native")
+
+
+@pytest.mark.cuda
+def test_config2_on_card_matches_cpu(cuda):
+    """BASELINE config 2 (lossy 9/7 + ICT, 3 layers and PCRD at 20:1, JP2)
+    at 256^2: the card's bytes and decode equal the CPU's, inside the
+    budget."""
+    img = _config2_image(256)
+    data = tp.encode(img, CONFIG2, device=cuda)
+    assert data == tp.encode(img, CONFIG2, device="cpu")
+    assert len(decoder.sniff_format(data)[1]) <= img.size // 20
+    assert np.array_equal(tp.decode(data, device=cuda),
+                          tp.decode(data, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_multihost_on_card_matches_card_encode(cuda):
+    """Two host processes, each with the transforms on the card: the bytes
+    of the card's single-process encode, lossless and lossy budgeted; the
+    decode of two hosts equals the card's decode."""
+    from go_jpeg2000_tpu_torch.parallel import (decode_multihost,
+                                                encode_multihost)
+    img = _config2_image(256, seed=5)
+    for opts in (tp.Options(format=tp.Format.J2K, lossless=True,
+                            num_resolutions=4, tile_size=(64, 64),
+                            high_throughput=True, num_layers=2,
+                            compression_ratio=6.0),
+                 tp.Options(format=tp.Format.J2K, lossless=False,
+                            num_resolutions=4, tile_size=(64, 64),
+                            high_throughput=True, num_layers=2,
+                            compression_ratio=12.0)):
+        data = encode_multihost(img, opts, n_hosts=2, device="cuda")
+        assert data == tp.encode(img, opts, device=cuda)
+        assert np.array_equal(decode_multihost(data, n_hosts=2,
+                                               device="cuda"),
+                              tp.decode(data, device=cuda))
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_card(cuda):
+    from go_jpeg2000_tpu_torch.entry import dryrun_multichip, entry
+    dryrun_multichip(1, device="cuda")
+    fn, args = entry(device="cuda")
+    pool, totals = fn(*args)
+    assert pool.is_cuda and int(totals.sum()) > 0
