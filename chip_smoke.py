@@ -166,12 +166,15 @@ sources in this checkout.  Phases, each of which raises on failure:
    decode_multihost), every host a process with its transforms on the
    card: a 4096x4096 RGB image in 512x512 tiles (64), HTJ2K lossless, 2
    layers at 6:1, at 1, 2 and 4 hosts after a warm-up, each codestream
-   equal to the card's single-process encode; compute wall, Mpix/s,
-   reduction rounds, efficiency against one host and the host's cores;
-   decode_multihost at 1, 2 and 4 hosts equal to the card's decode, and, of
-   the stream without a budget, to the input; then lossy 9/7 HT on a
-   2048x2048 RGB image, 2 layers at 12:1, over 2 hosts, equal to the
-   single-process encode, and its decode over 2 hosts;
+   equal to the card's single-process encode and that to the CPU run's;
+   compute wall, Mpix/s, reduction rounds, efficiency against one host
+   and the host's cores; decode_multihost at 1, 2 and 4 hosts equal to the
+   card's decode, and, of the stream without a budget, to the input; the
+   time the gather of a 2-host decode's samples takes across the pipes,
+   as one message against 1 MB pieces; then lossy 9/7 HT on a 2048x2048
+   RGB image, 2 layers at 12:1, over 2 hosts, equal to the single-process
+   encode and the CPU run's, and its decode over 2 hosts equal to the
+   card's and the CPU's decode;
 15. entry's fused HT encode program on the card, dryrun_multichip(1) (the
    four checks of the tile-sharded pipeline against the single-process
    encoder and decoder) and, with two or more cards, dryrun_multichip over
@@ -179,8 +182,9 @@ sources in this checkout.  Phases, each of which raises on failure:
 
 Each of the eight main paths, the sharded runs, the four single-image
 cases and each run of phases 12-15 runs with the launch counts set to 0
-just before it and read just after (a host process reports its own
-launches to the parent, multihost.kernel_launches).  The line before the last is a JSON summary of the
+just before it and read just after (a host process reports the launches
+of its measured run, after its warm-ups, to the parent).  The line before
+the last is a JSON summary of the
 kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the card's peak rate for their type, and the time
 of one PyTorch call that computes the same function where there is one
@@ -191,6 +195,9 @@ is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
 import json
+import math
+import multiprocessing as mp
+import os
 import subprocess
 import sys
 import time
@@ -1423,9 +1430,7 @@ def counted_run(tp, kernels, run, label, dwt_lib):
     kernels, and its levels through the DWT kernels of dwt_lib, with no
     plain levels.  Returns (result, launches of those kernels)."""
     dwt_cuda, ht_enc_cuda, ht_dec_cuda = kernels
-    for k in kernels:
-        k.reset_counts()
-    tp.counters.reset()
+    reset_all_counts(tp)
     result = run()
     torch.cuda.synchronize()
     launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
@@ -1891,9 +1896,7 @@ def ebcot_counted_run(tp, kernels, run, label):
     level, and the decode through the EBCOT branch and the assembly
     kernel.  Returns (result, launches of those kernels)."""
     dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda = kernels
-    for k in kernels:
-        k.reset_counts()
-    tp.counters.reset()
+    reset_all_counts(tp)
     result = run()
     torch.cuda.synchronize()
     launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
@@ -2196,9 +2199,7 @@ def sharded_counted_run(tp, kernels, run, label, dwt_lib, n_tiles):
     decode for every tile, every level the DWT kernels of dwt_lib, and the
     band statistics their kernel.  Returns (result, launches)."""
     dwt_cuda, ht_enc_cuda, ht_dec_cuda, band_stats = kernels
-    for k in kernels:
-        k.reset_counts()
-    tp.counters.reset()
+    reset_all_counts(tp)
     result = run()
     torch.cuda.synchronize()
     launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
@@ -2644,8 +2645,7 @@ def single_image_phase(tp, dev, card, launches):
     err = check_single_levels(dwt, dwt_cuda, transforms, dev)
     for label, image, opts, lib in single_image_cases(tp):
         mpix = image.shape[0] * image.shape[1] / 1e6
-        dwt_cuda.reset_counts()
-        tp.counters.reset()
+        reset_all_counts(tp)
         t0 = time.perf_counter()
         data = tp.encode(image, opts, device=dev)
         t1 = time.perf_counter()
@@ -2694,18 +2694,17 @@ def single_image_phase(tp, dev, card, launches):
     return err
 
 
+def reset_all_counts(tp):
+    """Every kernel's launch count, the plain levels and tp.counters to 0."""
+    from go_jpeg2000_tpu_torch.ops import reset_launches
+    reset_launches()
+    tp.counters.reset()
+
+
 def all_launches():
     """Every kernel's launch count in this process."""
-    from go_jpeg2000_tpu_torch.parallel import multihost
-    return multihost.kernel_launches()
-
-
-def reset_all_counts(tp):
-    from go_jpeg2000_tpu_torch.ops import (band_stats, dwt_cuda, ebcot_cuda,
-                                           ht_dec_cuda, ht_enc_cuda)
-    for mod in (dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda, band_stats):
-        mod.reset_counts()
-    tp.counters.reset()
+    from go_jpeg2000_tpu_torch.ops import kernel_launches
+    return kernel_launches()
 
 
 def add_launches(launches, counts, label, need):
@@ -2823,27 +2822,81 @@ def fused_layers_phase(tp, dev, card, launches):
 
 def multihost_run(tp, fn, label, launches, need, **kw):
     """One encode_multihost or decode_multihost call on "cuda" with every
-    count reset just before it; the hosts' launches (or this process's,
-    for one host) are added to `launches`.  Returns (result, stats)."""
+    count reset just before it; the launches of its measured run, which
+    the hosts report after their warm-ups, are added to `launches`.
+    Returns (result, stats)."""
     reset_all_counts(tp)
     stats = {}
     out = fn(_stats=stats, device="cuda", **kw)
     torch.cuda.synchronize()
-    counts = stats.get("host_launches") or all_launches()
-    add_launches(launches, counts, label, need)
+    add_launches(launches, stats["host_launches"], label, need)
     return out, stats
+
+
+def _transport_host(conn, shape, n_tiles):
+    """One host of gather_ms: n_tiles tiles of `shape`, as uint8 and then
+    as int32 samples, each sent to the parent once as one pipe message and
+    once through multihost._send_large (PIPE_CHUNK pieces)."""
+    from go_jpeg2000_tpu_torch.parallel import multihost
+    conn.send("ready")
+    for dt in (np.uint8, np.int32):
+        parts = [(t, np.full(shape, t, dt)) for t in range(n_tiles)]
+        for send in (conn.send, lambda o: multihost._send_large(conn, o)):
+            assert conn.recv() == "go"
+            send(parts)
+    conn.close()
+
+
+def gather_ms(n_hosts, shape, n_tiles):
+    """ms the parent takes to receive n_tiles tiles of `shape` from each of
+    n_hosts spawned processes: {(dtype, "one message" or "1 MB pieces"):
+    ms}, the hosts started before the clock."""
+    from go_jpeg2000_tpu_torch.parallel import multihost
+    ctx = mp.get_context("spawn")
+    conns, procs = [], []
+    try:
+        for _ in range(n_hosts):
+            a, b = ctx.Pipe()
+            procs.append(ctx.Process(target=_transport_host,
+                                     args=(b, shape, n_tiles), daemon=True))
+            procs[-1].start()
+            b.close()
+            conns.append(a)
+        for c in conns:
+            assert c.recv() == "ready"
+        out = {}
+        for dt in ("uint8", "int32"):
+            for how, recv in (("one message", lambda c: c.recv()),
+                              ("1 MB pieces", multihost._recv_large)):
+                for c in conns:
+                    c.send("go")
+                t0 = time.perf_counter()
+                for c in conns:
+                    recv(c)
+                out[(dt, how)] = (time.perf_counter() - t0) * 1e3
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    return out
 
 
 def config5_phase(tp, dev, card, launches):
     """Phase 14: BASELINE config 5, the multi-host decomposition, each host
     a process with its tiles' transforms on the card: a C5_SIDE^2 RGB image
     in C5_TILE^2 tiles, HTJ2K lossless, 2 layers at 6:1, at 1, 2 and 4
-    hosts after a warm-up, bytes equal to the card's single-process encode;
-    compute wall, Mpix/s, reduction rounds, efficiency against one host
-    and the host's cores.  decode_multihost at 1, 2 and 4 hosts equals the
-    card's decode, and, of the stream without a budget, the input.  Then
-    lossy 9/7 HT at C2_SIDE^2, 2 layers at 12:1, over 2 hosts."""
-    import os
+    hosts after a warm-up, bytes equal to the card's single-process encode,
+    and that to the CPU run's; compute wall, Mpix/s, reduction rounds,
+    efficiency against one host and the host's cores.  decode_multihost at
+    1, 2 and 4 hosts equals the card's decode, and, of the stream without
+    a budget, the input.  The gather of a 2-host decode's samples, timed
+    as one pipe message and in 1 MB pieces.  Then lossy 9/7 HT at
+    C2_SIDE^2, 2 layers at 12:1, over 2 hosts: bytes equal to the card's
+    and the CPU's single-process encode, the decode of 2 hosts to the
+    card's and the CPU's decode."""
     from go_jpeg2000_tpu_torch.parallel import (decode_multihost,
                                                 encode_multihost)
     img = np.stack([natural_image(C5_SIDE, C5_SIDE, seed=800 + c)
@@ -2853,6 +2906,11 @@ def config5_phase(tp, dev, card, launches):
                 tile_size=(C5_TILE, C5_TILE), num_layers=2)
     opts = tp.Options(compression_ratio=6.0, **base)
     single = tp.encode(img, opts, device=dev)
+    t0 = time.perf_counter()
+    if tp.encode(img, opts, device="cpu") != single:
+        raise AssertionError("config 5: CUDA and CPU codestreams differ")
+    print(f"config 5: CUDA and CPU single-process codestreams byte-identical "
+          f"(CPU encode {time.perf_counter() - t0:.1f} s)", flush=True)
     fwd = ("dwt53_fwd_level",)
     inv = ("dwt53_inv_level",)
     walls = {}
@@ -2889,6 +2947,16 @@ def config5_phase(tp, dev, card, launches):
                   f"({mpix / st['compute_wall_s']:.2f} Mpix/s), efficiency "
                   f"{walls[('dec', what, 1)] / (n * walls[('dec', what, n)]):.3f}"
                   f" against 1 host, equal to {what} [{card}]", flush=True)
+    n_tiles = (C5_SIDE // C5_TILE) ** 2 // 2
+    shape = (3, C5_TILE, C5_TILE)
+    mb = {dt: 2 * n_tiles * np.dtype(dt).itemsize * math.prod(shape) / 1e6
+          for dt in ("uint8", "int32")}
+    ms = gather_ms(2, shape, n_tiles)
+    print(f"config 5 gather of a 2-host decode's samples, {n_tiles} tiles "
+          f"{shape} a host: "
+          + "; ".join(f"{dt} ({mb[dt]:.1f} MB) {how} {t:.1f} ms"
+                      for (dt, how), t in ms.items())
+          + f"; host cores {os.cpu_count()} [{card}]", flush=True)
     lossy_img = np.stack([natural_image(C2_SIDE, C2_SIDE, seed=810 + c)
                           for c in range(3)], axis=-1)
     lossy = tp.Options(format=tp.Format.J2K, lossless=False,
@@ -2897,16 +2965,20 @@ def config5_phase(tp, dev, card, launches):
     data, st = multihost_run(
         tp, lambda **kw: encode_multihost(lossy_img, lossy, n_hosts=2, **kw),
         "config 5 lossy encode, 2 hosts", launches, ("dwt97_fwd_level",))
-    if data != tp.encode(lossy_img, lossy, device=dev):
-        raise AssertionError("config 5 lossy: 2 hosts' codestream differs "
-                             "from the single-process encode")
+    for where in (dev, "cpu"):
+        if data != tp.encode(lossy_img, lossy, device=where):
+            raise AssertionError("config 5 lossy: 2 hosts' codestream "
+                                 f"differs from the {where} encode")
     out, _st = multihost_run(
         tp, lambda **kw: decode_multihost(data, n_hosts=2, **kw),
         "config 5 lossy decode, 2 hosts", launches, ("dwt97_inv_level",))
-    if not np.array_equal(out, tp.decode(data, device=dev)):
-        raise AssertionError("config 5 lossy: the decode of 2 hosts differs")
-    print(f"config 5 lossy {lossy_img.shape}: 2 hosts byte-identical "
-          f"({len(data)} bytes), decode equal, PSNR "
+    for where in (dev, "cpu"):
+        if not np.array_equal(out, tp.decode(data, device=where)):
+            raise AssertionError("config 5 lossy: the decode of 2 hosts "
+                                 f"differs from the {where} decode")
+    print(f"config 5 lossy {lossy_img.shape}: 2 hosts byte-identical to the "
+          f"card's and the CPU's encode ({len(data)} bytes), decode equal to "
+          "the card's and the CPU's, PSNR "
           f"{psnr(out, lossy_img):.3f} dB [{card}]", flush=True)
     torch.cuda.empty_cache()
 

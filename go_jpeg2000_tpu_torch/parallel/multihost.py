@@ -45,8 +45,7 @@ from ..models import encoder as enc
 from ..models import rate as rate_mod
 from ..models import transforms
 from ..models.entropy_backend import require_native
-from ..ops import (band_stats, cuda_build, dwt_cuda, ebcot_cuda, ht_dec_cuda,
-                   ht_enc_cuda)
+from ..ops import cuda_build, kernel_launches
 from ..options import Config, default_options
 from ..tcd import geometry as geo
 
@@ -74,13 +73,10 @@ class PipeComm:
         return self.conn.recv()
 
 
-def kernel_launches() -> Dict[str, int]:
-    """This process's launch count of every CUDA kernel of the port (each
-    wrapper counts its launches)."""
-    out: Dict[str, int] = {}
-    for mod in (dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda, band_stats):
-        out.update(mod.LAUNCHES)
-    return out
+def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The kernel launches of this process since `before` (kernel_launches
+    then): a measured run's own, without its warm-ups."""
+    return {k: v - before[k] for k, v in kernel_launches().items()}
 
 
 def _host_gate(opts) -> None:
@@ -188,8 +184,9 @@ def _image_dtype(header):
 
 
 # bytes a pipe message carries at most: a large object crosses in pieces of
-# this size (_send_large); on the H100 machine's host one message of 100 MB
-# crossed a pipe about ten times slower than the same bytes in 1 MB pieces
+# this size (_send_large).  On an 8-core H100 host the int32 samples of a
+# 2-host 4096^2 RGB decode (201 MB) crossed the pipes in 3.1 s as one
+# message a host and in 0.41 s in 1 MB pieces (chip_smoke.py, gather_ms)
 PIPE_CHUNK = 1 << 20
 
 
@@ -224,6 +221,7 @@ def _child_main(conn) -> None:
                 host_encode_local(image, opts, host_id, n_hosts, comm, device)
                 conn.send(("warm",))
                 assert conn.recv() == "go"
+            before = kernel_launches()
             parts = host_encode_local(image, opts, host_id, n_hosts, comm,
                                       device)
             rounds = comm.rounds
@@ -233,9 +231,10 @@ def _child_main(conn) -> None:
                 host_decode_local(data, config, host_id, n_hosts, device)
                 conn.send(("warm",))
                 assert conn.recv() == "go"
+            before = kernel_launches()
             parts = host_decode_local(data, config, host_id, n_hosts, device)
             rounds = 0
-        conn.send(("parts", rounds, kernel_launches()))
+        conn.send(("parts", rounds, _launches_since(before)))
         _send_large(conn, parts)
     except Exception as e:  # the traceback goes to the parent
         import traceback
@@ -268,9 +267,9 @@ def encode_multihost(image: np.ndarray, opts=None, n_hosts: int = 2,
     that many throwaway encodes in the hosts first, so that
     _stats["compute_wall_s"] measures the steady state.  _stats also gets
     "reduce_rounds", "gathered_bytes", the machine's "cpu_count" (the
-    hosts share its cores for block coding) and, from host processes,
-    "host_launches": their CUDA kernel launches, summed (kernel_launches;
-    an inline host's count in this process's own)."""
+    hosts share its cores for block coding) and "host_launches": the CUDA
+    kernel launches of the measured run alone, summed over the hosts
+    (kernel_launches in each host; one host runs in this process)."""
     opts = opts or default_options()
     _host_gate(opts)
     image = np.asarray(image)
@@ -278,21 +277,34 @@ def encode_multihost(image: np.ndarray, opts=None, n_hosts: int = 2,
     host_device = _prepare(device)
     if n_hosts <= 1:
         # one host: its half runs inline, with the numpy reducer
-        for _ in range(warmups):
-            host_encode_local(image, opts, 0, 1, rate_mod._np_allreduce,
-                              host_device(0))
-        t0 = time.perf_counter()
-        parts = host_encode_local(image, opts, 0, 1, rate_mod._np_allreduce,
-                                  host_device(0))
-        if _stats is not None:
-            _stats["compute_wall_s"] = time.perf_counter() - t0
-            _stats["reduce_rounds"] = 0
+        parts = _run_inline(
+            lambda: host_encode_local(image, opts, 0, 1,
+                                      rate_mod._np_allreduce,
+                                      host_device(0)),
+            warmups, _stats)
     else:
         parts = _run_hosts(
             lambda h: ("encode", image, opts, h, n_hosts, warmups,
                        host_device(h)),
             n_hosts, warmups, _stats)
     return _finalize(image, opts, parts, _stats)
+
+
+def _run_inline(run: Callable[[], list], warmups: int,
+                _stats: Optional[dict]) -> list:
+    """One host's half in this process: `warmups` throwaway runs, then the
+    measured one, its wall time, rounds (none: the numpy reducer) and
+    kernel launches in _stats as _run_hosts records them."""
+    for _ in range(warmups):
+        run()
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    parts = run()
+    if _stats is not None:
+        _stats["compute_wall_s"] = time.perf_counter() - t0
+        _stats["reduce_rounds"] = 0
+        _stats["host_launches"] = _launches_since(before)
+    return parts
 
 
 def _run_hosts(payload_for, n_hosts: int, warmups: int,
@@ -413,12 +425,9 @@ def decode_multihost(data: bytes, config=None, n_hosts: int = 2,
     dec.check_decode(header, config)
     host_device = _prepare(device)
     if n_hosts <= 1:
-        for _ in range(warmups):
-            host_decode_local(data, config, 0, 1, host_device(0))
-        t0 = time.perf_counter()
-        parts = host_decode_local(data, config, 0, 1, host_device(0))
-        if _stats is not None:
-            _stats["compute_wall_s"] = time.perf_counter() - t0
+        parts = _run_inline(
+            lambda: host_decode_local(data, config, 0, 1, host_device(0)),
+            warmups, _stats)
     else:
         parts = _run_hosts(
             lambda h: ("decode", data, config, h, n_hosts, warmups,

@@ -1090,8 +1090,10 @@ def test_config2_on_card_matches_cpu(cuda):
 @pytest.mark.cuda
 def test_multihost_on_card_matches_card_encode(cuda):
     """Two host processes, each with the transforms on the card: the bytes
-    of the card's single-process encode, lossless and lossy budgeted; the
-    decode of two hosts equals the card's decode."""
+    of the card's single-process encode, lossless and lossy budgeted, with
+    the launches of that encode and not of the hosts' warm-up; the decode
+    of two hosts equals the card's decode."""
+    from go_jpeg2000_tpu_torch.ops import kernel_launches, reset_launches
     from go_jpeg2000_tpu_torch.parallel import (decode_multihost,
                                                 encode_multihost)
     img = _config2_image(256, seed=5)
@@ -1103,8 +1105,14 @@ def test_multihost_on_card_matches_card_encode(cuda):
                             num_resolutions=4, tile_size=(64, 64),
                             high_throughput=True, num_layers=2,
                             compression_ratio=12.0)):
-        data = encode_multihost(img, opts, n_hosts=2, device="cuda")
-        assert data == tp.encode(img, opts, device=cuda)
+        reset_launches()
+        single = tp.encode(img, opts, device=cuda)
+        once = kernel_launches()
+        stats = {}
+        data = encode_multihost(img, opts, n_hosts=2, device="cuda",
+                                warmups=1, _stats=stats)
+        assert data == single
+        assert stats["host_launches"] == once
         assert np.array_equal(decode_multihost(data, n_hosts=2,
                                                device="cuda"),
                               tp.decode(data, device=cuda))

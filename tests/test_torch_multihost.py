@@ -20,6 +20,7 @@ import go_jpeg2000_tpu_torch as tp
 from go_jpeg2000_tpu.options import Format, Options
 from go_jpeg2000_tpu_torch.entry import dryrun_multichip, entry
 from go_jpeg2000_tpu_torch.models import rate
+from go_jpeg2000_tpu_torch.ops import kernel_launches
 from go_jpeg2000_tpu_torch.parallel import (decode_multihost,
                                             encode_multihost, multihost)
 
@@ -48,6 +49,8 @@ def test_inline_host_half_matches_encoder():
     assert (data, data) == _encode(img, opts)
     assert np.array_equal(tp.decode(data, device="cpu"), img)
     assert stats["compute_wall_s"] > 0 and stats["cpu_count"] >= 1
+    # the CPU's tensors launch no kernel; the inline host reports its counts
+    assert stats["host_launches"] == dict.fromkeys(kernel_launches(), 0)
 
 
 def test_two_processes_byte_identical_ht():
@@ -60,6 +63,7 @@ def test_two_processes_byte_identical_ht():
     assert (data, data) == _encode(img, opts)
     assert np.array_equal(tp.decode(data, device="cpu"), img)
     assert stats["gathered_bytes"] > 0
+    assert stats["host_launches"] == dict.fromkeys(kernel_launches(), 0)
 
 
 def test_four_processes_budgeted_pcrd():
