@@ -178,11 +178,30 @@ sources in this checkout.  Phases, each of which raises on failure:
 15. entry's fused HT encode program on the card, dryrun_multichip(1) (the
    four checks of the tile-sharded pipeline against the single-process
    encoder and decoder) and, with two or more cards, dryrun_multichip over
-   every card (NCCL).
+   every card (NCCL);
+16. the decode options through decode (one case also decode_batch), each
+   case with no level lifted plain: R1 a tile server's viewport (2900,
+   3100, 3924, 4124) of phase 10's 8192x8192 16-bit RGB lossless stream
+   (9 tiles decoded, 247 skipped), equal to the input's crop; R2 its
+   thumbnail at reduce_resolution=3 (1024x1024), equal to the CPU run's,
+   and the viewport of the thumbnail equal to the thumbnail's crop; R3
+   the config-2 image as HTJ2K lossless in 128x128 precincts with PLT, a
+   region (0, 0, 256, 256) decoded with packets skipped by PLT seek
+   (parsed plus skipped equal to the whole decode's packets), equal to
+   the input's crop; L1 phase 12's 3-layer JP2 from 1 and 2 layers and at
+   reduce_resolution=2, equal to the CPU run's, PSNR at 1, 2, 3 layers
+   not falling; C1 the config-2 image as HT lossless JP2 tagged sYCC and
+   YCbCr, converted, equal to the CPU run's, and the 14 colour converters
+   on 2048x2048 planes at 8 and 16 bits, card against CPU within one grey
+   level (the samples that differ printed); P1 the config-2 image's first
+   channel as an 8-bit HT lossless J2K with its SIZ marker rewritten to
+   signed 8-bit, 4-bit, 20-bit and 2x2 subsampled, each decoded to its
+   exact expected samples.  Wall ms of each case, the stages of a second
+   R1, R2 and R3 decode, and the phase's time.
 
 Each of the eight main paths, the sharded runs, the four single-image
-cases and each run of phases 12-15 runs with the launch counts set to 0
-just before it and read just after (a host process reports the launches
+cases, each run of phases 12-15 and each case of phase 16 runs with the
+launch counts set to 0 just before it and read just after (a host process reports the launches
 of its measured run, after its warm-ups, to the parent).  The line before
 the last is a JSON summary of the
 kernels, with each one's bound: the larger of its bytes over 3.35 TB/s
@@ -277,6 +296,14 @@ C2_RATIO = 20.0
 C5_SIDE = 4096
 C5_TILE = 512
 C5_HOSTS = (1, 2, 4)
+# phase 16, the decode options: R1's viewport of config 4's image (x0, y0,
+# x1, y1: 3 x 3 of its 256 tiles), R2's thumbnail (reduce_resolution),
+# R3's region of the config-2 image in 128^2 precincts, the converters'
+# plane side
+R1_AREA = (2900, 3100, 3924, 4124)
+THUMB_REDUCE = 3
+R3_AREA = (0, 0, 256, 256)
+CONVERT_SIDE = 2048
 # frame sides whose first level is checked on every level kernel (each
 # keeps its strip in registers, so any even width takes it)
 WIDE_SIDES = (4096, 8192)
@@ -2443,7 +2470,7 @@ def sharded_cpu_checks(tp, dev):
 
 def sharded_phase(tp, dev, card, launches):
     """Phase 10: config 4 at full width on a grid of one.  Returns (kernel
-    errors, kernel times)."""
+    errors, kernel times, (the lossless image, its codestream))."""
     from go_jpeg2000_tpu_torch.models import transforms
     from go_jpeg2000_tpu_torch.ops import (band_stats, dwt, dwt_cuda,
                                            ht_dec_cuda, ht_enc_cuda)
@@ -2481,9 +2508,10 @@ def sharded_phase(tp, dev, card, launches):
     torch.cuda.empty_cache()
     for label, (im, opts, data) in runs.items():
         sharded_timing(tp, label, im, opts, data, dev, card)
-    del img, img8, runs
+    lossless = (img, runs["config-4 lossless"][2])
+    del img8, runs
     sharded_cpu_checks(tp, dev)
-    return err, times
+    return err, times, lossless
 
 
 def natural_image_bits(h, w, bits, seed=0):
@@ -2748,7 +2776,7 @@ def config2_phase(tp, dev, card, launches):
     """Phase 12: BASELINE config 2 at its specified scale through encode
     and decode on the card: bytes and decode equal the CPU run's, the
     codestream inside its budget, PSNR beside OpenJPEG's at the same rate,
-    wall ms and the stages."""
+    wall ms and the stages.  Returns (image, JP2 file, its decode)."""
     from go_jpeg2000_tpu_torch.models.decoder import sniff_format
     img = config2_image()
     opts = tp.Options(format=tp.Format.JP2, lossless=False, quality=98,
@@ -2783,6 +2811,7 @@ def config2_phase(tp, dev, card, launches):
           flush=True)
     single_image_stages(tp, "config 2", img, opts, data, dev, card)
     torch.cuda.empty_cache()
+    return img, data, decoded
 
 
 def fused_layers_phase(tp, dev, card, launches):
@@ -3004,6 +3033,295 @@ def dryrun_phase(tp, card, launches):
         print(f"dryrun_multichip({n}): four checks passed, NCCL", flush=True)
 
 
+def relabel_siz(data, ssiz=None, sub=None):
+    """A one-component J2K codestream with its SIZ fields rewritten: Ssiz
+    (sign and precision) and, with `sub`, Xsiz, Ysiz, XTsiz and YTsiz
+    multiplied by it and XRsiz = YRsiz = sub (the component keeps its
+    grid, so the tile data stay valid)."""
+    import struct
+    b = bytearray(data)
+    if b[2:4] != b"\xff\x51" or b[40:42] != b"\x00\x01":
+        raise ValueError("not a one-component J2K codestream")
+    if ssiz is not None:
+        b[42] = ssiz
+    if sub:
+        for off in (8, 12, 24, 28):
+            struct.pack_into(">I", b, off,
+                             struct.unpack_from(">I", b, off)[0] * sub)
+        b[43] = b[44] = sub
+    return bytes(b)
+
+
+def options_run(tp, label, fn, launches, need):
+    """fn() with every launch count, the plain levels and tp.counters set
+    to 0 just before it: its launches added to `launches` (every kernel of
+    `need` launched), no level lifted plain.  Returns (result, wall ms,
+    counters)."""
+    from go_jpeg2000_tpu_torch.ops import dwt_cuda
+    reset_all_counts(tp)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    add_launches(launches, all_launches(), label, need)
+    if dwt_cuda.PLAIN_LEVELS:
+        raise AssertionError(f"{label}: {dwt_cuda.PLAIN_LEVELS} plain levels")
+    return out, ms, tp.counters.snapshot()
+
+
+def same(label, got, want):
+    """got must equal want: shape, dtype and every sample."""
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not np.array_equal(got, want)):
+        raise AssertionError(f"{label}: {got.shape} {got.dtype} differs from "
+                             f"the expected {want.shape} {want.dtype}")
+
+
+def timed(fn):
+    """(fn(), its wall ms on the host's clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def decode_stage_line(tp, label, data, cfg, dev, card):
+    """A second decode of a phase-16 case, timed in its stages: Python
+    Tier-2 (decoder.tile_pyramids less the block decode), native block
+    decode, device inverse (transforms.run_inverse), and the rest by
+    difference (the parse, the planes' assembly, stacking and narrowing,
+    the colour conversion and the crop)."""
+    from go_jpeg2000_tpu_torch.models import decoder, transforms
+    with StageClock([(decoder, "tile_pyramids", "tier2"),
+                     (decoder, "decode_blocks_batch", "block decode"),
+                     (transforms, "run_inverse", "device inverse")]) as clk:
+        t0 = time.perf_counter()
+        tp.decode(data, cfg, device=dev)
+        wall = time.perf_counter() - t0
+    d = dict(clk.seconds)
+    d["tier2"] -= d.get("block decode", 0.0)
+    print(f"stages {label}: wall {wall * 1e3:.1f} ms: Python Tier-2 "
+          f"{d['tier2'] * 1e3:.1f} ms, native block decode "
+          f"{d.get('block decode', 0.0) * 1e3:.1f} ms, device inverse "
+          f"{d['device inverse'] * 1e3:.1f} ms, the rest (parse, planes, "
+          f"stacking, narrowing, crop) {(wall - sum(d.values())) * 1e3:.1f} "
+          f"ms [{card}]", flush=True)
+
+
+def viewport_cases(tp, dev, card, launches, img, data):
+    """R1, a tile server's viewport of config 4's stream (tiles outside it
+    skipped), and R2, its thumbnail (reduce_resolution) and the viewport
+    of the thumbnail."""
+    need = ("dwt53_inv_level",)
+    x0, y0, x1, y1 = R1_AREA
+    h, w = img.shape[:2]
+    cols = -(-min(x1, w) // C4_TILE) - x0 // C4_TILE
+    rows = -(-min(y1, h) // C4_TILE) - y0 // C4_TILE
+    n_tiles = -(-h // C4_TILE) * -(-w // C4_TILE)
+    cfg = tp.Config(decode_area=R1_AREA)
+    out, ms, snap = options_run(tp, "R1 viewport",
+                                lambda: tp.decode(data, cfg, device=dev),
+                                launches, need)
+    same("R1 viewport", out, img[y0:y1, x0:x1])
+    tiles = (snap.get("dec.tiles_decoded", 0),
+             snap.get("dec.tiles_skipped", 0))
+    if tiles != (rows * cols, n_tiles - rows * cols):
+        raise AssertionError(f"R1 viewport: tiles decoded, skipped {tiles}")
+    print(f"R1 viewport {R1_AREA} of config 4's {img.shape} {img.dtype}: "
+          f"{tiles[0]} tiles decoded, {tiles[1]} skipped, equal to the "
+          f"input's crop; wall {ms:.1f} ms, plain levels 0 [{card}]",
+          flush=True)
+    decode_stage_line(tp, "R1 viewport", data, cfg, dev, card)
+    cfg = tp.Config(reduce_resolution=THUMB_REDUCE)
+    thumb, ms, _ = options_run(tp, "R2 thumbnail",
+                               lambda: tp.decode(data, cfg, device=dev),
+                               launches, need)
+    s = 1 << THUMB_REDUCE
+    if thumb.shape != (-(-h // s), -(-w // s), img.shape[2]):
+        raise AssertionError(f"R2 thumbnail: shape {thumb.shape}")
+    on_cpu, cpu_ms = timed(lambda: tp.decode(data, cfg, device="cpu"))
+    same("R2 thumbnail, CPU run", thumb, on_cpu)
+    cfg = tp.Config(decode_area=R1_AREA, reduce_resolution=THUMB_REDUCE)
+    crop, ms2, _ = options_run(tp, "R2 viewport of the thumbnail",
+                               lambda: tp.decode(data, cfg, device=dev),
+                               launches, need)
+    same("R2 viewport of the thumbnail", crop,
+         thumb[y0 // s:-(-y1 // s), x0 // s:-(-x1 // s)])
+    print(f"R2 thumbnail reduce_resolution={THUMB_REDUCE}: {thumb.shape}, "
+          f"equal to the CPU run's (CPU {cpu_ms:.1f} ms); its viewport "
+          f"{crop.shape} equal to the thumbnail's crop; wall {ms:.1f} ms, "
+          f"viewport {ms2:.1f} ms, plain levels 0 [{card}]", flush=True)
+    decode_stage_line(tp, "R2 thumbnail", data,
+                      tp.Config(reduce_resolution=THUMB_REDUCE), dev, card)
+
+
+def precinct_case(tp, dev, card, launches, img):
+    """R3: the config-2 image as HTJ2K lossless in one tile of 128^2
+    precincts with PLT; a region's packets skipped by PLT seek."""
+    need = ("dwt53_inv_level",)
+    opts = tp.Options(format=tp.Format.J2K, lossless=True,
+                      high_throughput=True, num_resolutions=6,
+                      precinct_size=[(7, 7)] * 6, enable_plt=True)
+    data, enc_ms = timed(lambda: tp.encode(img, opts, device=dev))
+    full, full_ms, snap = options_run(tp, "R3 whole decode",
+                                      lambda: tp.decode(data, device=dev),
+                                      launches, need)
+    same("R3 whole decode", full, img)
+    total = snap.get("dec.packets_parsed", 0)
+    cfg = tp.Config(decode_area=R3_AREA)
+    crop, ms, snap = options_run(tp, "R3 precinct seek",
+                                 lambda: tp.decode(data, cfg, device=dev),
+                                 launches, need)
+    x0, y0, x1, y1 = R3_AREA
+    same("R3 precinct seek", crop, img[y0:y1, x0:x1])
+    skipped = snap.get("dec.packets_skipped", 0)
+    parsed = snap.get("dec.packets_parsed", 0)
+    if skipped <= 0 or parsed + skipped != total:
+        raise AssertionError(f"R3: {parsed} packets parsed, {skipped} "
+                             f"skipped, {total} in the whole decode")
+    print(f"R3 precinct seek {R3_AREA} of {img.shape} in 128^2 precincts "
+          f"with PLT: {parsed} packets parsed, {skipped} skipped "
+          f"({snap.get('dec.packet_bytes_skipped', 0)} bytes) of {total}, "
+          f"equal to the input's crop; wall {ms:.1f} ms (whole decode "
+          f"{full_ms:.1f} ms, encode {enc_ms:.1f} ms), plain levels 0 "
+          f"[{card}]", flush=True)
+    decode_stage_line(tp, "R3 precinct seek", data, cfg, dev, card)
+
+
+def layers_case(tp, dev, card, launches, img, data, decoded):
+    """L1: config 2's 3-layer JP2 decoded from 1 and 2 layers and at
+    reduce_resolution=2, each equal to the CPU run's; PSNR must not fall
+    as layers are added."""
+    need = ("dwt97_inv_level",)
+    psnrs = []
+    for q in (1, 2):
+        cfg = tp.Config(quality_layers=q)
+        out, ms, _ = options_run(tp, f"L1 {q} layers",
+                                 lambda: tp.decode(data, cfg, device=dev),
+                                 launches, need)
+        same(f"L1 {q} layers, CPU run", out,
+             tp.decode(data, cfg, device="cpu"))
+        psnrs.append(psnr(out, img))
+        print(f"L1 config 2 from {q} of 3 layers: PSNR {psnrs[-1]:.3f} dB, "
+              f"equal to the CPU run's; wall {ms:.1f} ms, plain levels 0 "
+              f"[{card}]", flush=True)
+    psnrs.append(psnr(decoded, img))
+    if not psnrs[0] <= psnrs[1] <= psnrs[2]:
+        raise AssertionError(f"L1: PSNR falls as layers are added {psnrs}")
+    cfg = tp.Config(reduce_resolution=2)
+    out, ms, _ = options_run(tp, "L1 reduce_resolution=2",
+                             lambda: tp.decode(data, cfg, device=dev),
+                             launches, need)
+    same("L1 reduce_resolution=2, CPU run", out,
+         tp.decode(data, cfg, device="cpu"))
+    print(f"L1 PSNR at 1, 2, 3 layers: "
+          + ", ".join(f"{p:.3f}" for p in psnrs)
+          + f" dB; reduce_resolution=2 {out.shape}, equal to the CPU run's; "
+          f"wall {ms:.1f} ms, plain levels 0 [{card}]", flush=True)
+
+
+def converters_on_card(tp, dev, card):
+    """Each of the 14 colour converters on CONVERT_SIDE^2 planes (four;
+    CMYK and YCCK read the fourth) at 8 and 16 bits, card against CPU:
+    within one grey level; the samples that differ counted."""
+    from go_jpeg2000_tpu_torch.ops import colorspace
+    rng = np.random.RandomState(16)
+    spaces = [c for c in tp.ColorSpace
+              if colorspace.get_color_conversion(c) is not None]
+    if len(spaces) != 14:
+        raise AssertionError(f"{len(spaces)} converters, not 14")
+    for bits in (8, 16):
+        on_cpu = [torch.from_numpy(rng.randint(
+            0, 1 << bits, size=(CONVERT_SIDE, CONVERT_SIDE)).astype(
+                np.int32)) for _ in range(4)]
+        on_card = [t.to(dev) for t in on_cpu]
+        counts = []
+        t0 = time.perf_counter()
+        for space in spaces:
+            conv = colorspace.get_color_conversion(space)
+            got = torch.stack(conv(on_card, bits)).cpu()
+            diff = (got - torch.stack(conv(on_cpu, bits))).abs()
+            if int(diff.max()) > 1:
+                raise AssertionError(f"C1 {space.name} at {bits} bits: "
+                                     f"off by {int(diff.max())}")
+            counts.append(f"{space.name} {int((diff > 0).sum())}")
+        print(f"C1 converters, {CONVERT_SIDE}^2 planes at {bits} bits, card "
+              f"against CPU, all within 1, samples differing: "
+              + ", ".join(counts)
+              + f" ({(time.perf_counter() - t0) * 1e3:.1f} ms for both) "
+              f"[{card}]", flush=True)
+
+
+def colour_cases(tp, dev, card, launches, img):
+    """C1: the config-2 image as HT lossless JP2 tagged sYCC and YCbCr,
+    decoded (converted) on the card equal to the CPU run's; then the 14
+    converters, card against CPU."""
+    for space in ("SYCC", "YCBCR2"):
+        opts = tp.Options(format=tp.Format.JP2, lossless=True,
+                          high_throughput=True, num_resolutions=6,
+                          color_space=tp.ColorSpace[space])
+        data = tp.encode(img, opts, device=dev)
+        out, ms, _ = options_run(tp, f"C1 {space}",
+                                 lambda: tp.decode(data, device=dev),
+                                 launches, ("dwt53_inv_level",))
+        same(f"C1 {space}, CPU run", out, tp.decode(data, device="cpu"))
+        print(f"C1 JP2 tagged {space}: {out.shape} {out.dtype} converted, "
+              f"equal to the CPU run's; wall {ms:.1f} ms, plain levels 0 "
+              f"[{card}]", flush=True)
+    converters_on_card(tp, dev, card)
+
+
+def sample_cases(tp, dev, card, launches, img):
+    """P1: the config-2 image's first channel as an 8-bit HT lossless J2K
+    with only its SIZ fields rewritten: signed 8-bit, 4- and 20-bit
+    unsigned, 2x2 subsampled, each decoded to its exact expected result;
+    the signed one through decode_batch too."""
+    need = ("dwt53_inv_level",)
+    x = np.ascontiguousarray(img[:, :, 0])
+    data = tp.encode(x, tp.Options(format=tp.Format.J2K, lossless=True,
+                                   high_throughput=True, num_resolutions=6),
+                     device=dev)
+    xi = x.astype(np.int32)
+    cases = (("signed 8-bit", dict(ssiz=0x87), (xi - 128).astype(np.int8)),
+             ("4-bit", dict(ssiz=3),
+              np.clip(xi - 120, 0, 15).astype(np.uint8)),
+             ("20-bit", dict(ssiz=19), xi - 128 + (1 << 19)),
+             ("2x2 subsampled", dict(sub=2),
+              np.repeat(np.repeat(x, 2, 0), 2, 1)))
+    for label, kw, want in cases:
+        stream = relabel_siz(data, **kw)
+        out, ms, _ = options_run(tp, f"P1 {label}",
+                                 lambda: tp.decode(stream, device=dev),
+                                 launches, need)
+        same(f"P1 {label}", out, want)
+        print(f"P1 {label}: {out.shape} {out.dtype} as expected; wall "
+              f"{ms:.1f} ms, plain levels 0 [{card}]", flush=True)
+    stream = relabel_siz(data, **cases[0][1])
+    outs, ms, _ = options_run(tp, "P1 signed 8-bit, decode_batch",
+                              lambda: tp.decode_batch([stream, stream],
+                                                      device=dev),
+                              launches, need)
+    for out in outs:
+        same("P1 signed 8-bit, decode_batch", out, cases[0][2])
+    print(f"P1 signed 8-bit through decode_batch (2 frames): as expected; "
+          f"wall {ms:.1f} ms [{card}]", flush=True)
+
+
+def decode_options_phase(tp, dev, card, launches, c4, c2):
+    """Phase 16: the decode options through decode (and decode_batch) on
+    the card, on config 4's lossless stream (phase 10) and config 2's image
+    and JP2 (phase 12): R1-R3, L1, C1, P1."""
+    t0 = time.perf_counter()
+    img2, data2, decoded2 = c2
+    viewport_cases(tp, dev, card, launches, *c4)
+    precinct_case(tp, dev, card, launches, img2)
+    layers_case(tp, dev, card, launches, img2, data2, decoded2)
+    colour_cases(tp, dev, card, launches, img2)
+    sample_cases(tp, dev, card, launches, img2)
+    torch.cuda.empty_cache()
+    print(f"phase 16, decode options: {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -3107,7 +3425,7 @@ def main():
     ebcot_stages(tp, *ebcot_runs["EBCOT gray"], dev, card)
     torch.cuda.empty_cache()
 
-    e, t = sharded_phase(tp, dev, card, launches)
+    e, t, c4 = sharded_phase(tp, dev, card, launches)
     for k, v in e.items():
         err[k] = max(err.get(k, 0), v)
     times.update(t)
@@ -3115,10 +3433,11 @@ def main():
     for k, v in single_image_phase(tp, dev, card, launches).items():
         err[k] = max(err[k], v)
 
-    config2_phase(tp, dev, card, launches)
+    c2 = config2_phase(tp, dev, card, launches)
     fused_layers_phase(tp, dev, card, launches)
     config5_phase(tp, dev, card, launches)
     dryrun_phase(tp, card, launches)
+    decode_options_phase(tp, dev, card, launches, c4, c2)
 
     out = []
     for name, (replaces, src) in REPLACES.items():

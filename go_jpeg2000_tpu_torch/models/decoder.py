@@ -32,14 +32,26 @@ the block slots, and on the device the block-to-pyramid assembly (the
 ht_blocks_to_pyramid kernel on the card), the inverse 5/3 levels and the
 inverse RCT.  Streams the batch branches do not take (JP2 files, tiled
 images, differing shapes, quality layers, SOP/EPH/PPM/PPT, HT refinement
-passes, lossy Part-1, other code-block styles) go through `decode` one by
-one, as in the JAX package.  Counters: dec.device_ht_chunks,
-dec.host_ht_frames, dec.ebcot_frames, dec.tiles_decoded.
+passes, lossy Part-1, other code-block styles, signed samples or
+precisions outside 8 to 16 bits, subsampled components) and region or
+reduced decodes go through `decode` one by one, as in the JAX package.
+Counters: dec.device_ht_chunks, dec.host_ht_frames, dec.ebcot_frames,
+dec.tiles_decoded.
 
-Region, reduced-resolution and layered decodes, subsampled components,
-signed and sub-8-bit or over-16-bit samples, and the colour spaces that
-need a conversion raise NotImplementedError naming the ROADMAP item that
-brings them.
+`decode` takes the JAX package's decode options (Config): a region
+(`decode_area`: tiles outside it are skipped, and so are the packets of
+its tiles' precincts outside it, by PLT seek where every tile-part
+carries PLT, else their blocks), a reduced resolution
+(`reduce_resolution`: the bands of dropped resolutions are not decoded,
+and the inverse starts at the kept level), and fewer quality layers
+(`quality_layers`: later layers still parse, only the kept passes reach
+the block decoder).  Signed and 1- to 32-bit samples come back as int8 or
+uint8 up to 8 bits, int16 or uint16 up to 16, int32 above; subsampled
+components are decoded on their own grids and upsampled by sample
+replication; JP2 colour spaces with a converter (ops/colorspace.py) are
+converted to sRGB on the decode's device.  Counters as the JAX package's:
+dec.tiles_skipped, dec.packets_skipped, dec.packet_bytes_skipped,
+dec.blocks_skipped.
 """
 from __future__ import annotations
 
@@ -52,7 +64,7 @@ import torch
 from ..codestream.header import Header, TilePartInfo
 from ..codestream.parser import Parser
 from ..native import loader
-from ..ops import dwt, ht_dec, ht_dec_cuda, t1
+from ..ops import colorspace, dwt, ht_dec, ht_dec_cuda, t1
 from ..options import (ColorSpace, ComponentMetadata, Config, Format,
                        Metadata, ProgressionOrder)
 from ..tcd import geometry as geo
@@ -81,21 +93,6 @@ class DecodeError(ValueError):
     pass
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
-# the colour spaces whose JP2 decode the JAX package converts to RGB
-# (ops/colorspace.py get_color_conversion); sRGB, gray and unspecified
-# pass through unchanged
-CONVERTED_SPACES = frozenset({
-    ColorSpace.SYCC, ColorSpace.EYCC, ColorSpace.YCBCR2, ColorSpace.YCBCR3,
-    ColorSpace.PHOTO_YCC, ColorSpace.CMY, ColorSpace.CMYK, ColorSpace.YCCK,
-    ColorSpace.CIELAB, ColorSpace.CIEJAB, ColorSpace.ESRGB,
-    ColorSpace.ROMM_RGB, ColorSpace.YPBPR60, ColorSpace.YPBPR50})
-
-
 def sniff_format(data: bytes):
     """Returns (Format, codestream_bytes, jp2_info | None)."""
     if data[:4] == b"\xff\x4f\xff\x51":
@@ -107,20 +104,41 @@ def sniff_format(data: bytes):
     raise DecodeError("not a JPEG 2000 file (no JP2 signature or SOC)")
 
 
-def check_decode(header: Header, config: Config) -> None:
-    """Raise NotImplementedError for what `decode` does not run yet (ROADMAP
-    item 6b)."""
-    if config.decode_area is not None or config.reduce_resolution:
-        raise _not_ported("region and reduced-resolution decoding", "6b")
-    if config.quality_layers and not \
-            config.quality_layers >= header.coding_style.num_layers:
-        raise _not_ported("decoding fewer quality layers than the stream "
-                          "has", "6b")
-    if any(c.signed or not 8 <= c.precision <= 16
-           for c in header.components):
-        raise _not_ported("signed or out-of-range sample precision", "6b")
-    if any(c.dx != 1 or c.dy != 1 for c in header.components):
-        raise _not_ported("subsampled components", "6b")
+def _included_precincts(header: Header, tile: geo.Tile, area):
+    """The (comp, res, precinct) keys whose synthesis footprint meets the
+    region `area` (x0, y0, x1, y1 on the reference grid), as the JAX
+    package's: a precinct's rectangle at decomposition level nb widened by
+    8 * 2^nb * (dx, dy) on each side (the 9/7 synthesis reaches less than
+    4 * 2^nb; the 5/3 less)."""
+    ax0, ay0, ax1, ay1 = area
+    inc = set()
+    for c, tc in enumerate(tile.comps):
+        ci = header.components[c]
+        for res in tc.resolutions:
+            for band in res.bands:
+                nb = band.dec_level
+                sx, sy = ci.dx << nb, ci.dy << nb
+                mx, my = 8 * sx, 8 * sy
+                for p_idx, prec in enumerate(band.precincts):
+                    if not prec.code_blocks:
+                        continue
+                    if (prec.x1 * sx + mx > ax0 and prec.x0 * sx - mx < ax1
+                            and prec.y1 * sy + my > ay0
+                            and prec.y0 * sy - my < ay1):
+                        inc.add((c, res.r, p_idx))
+    return inc
+
+
+def _plt_lengths(parts: List[TilePartInfo]) -> Optional[List[int]]:
+    """Every packet's length from the tile-parts' PLT markers, or None
+    where a seek by them would not be sound: some tile-part carries no PLT
+    (the lengths would pair with the wrong packets), or the lengths do not
+    sum to the tile's body."""
+    if not all(tp.packet_lengths for tp in parts):
+        return None
+    lens = [n for tp in parts for n in tp.packet_lengths]
+    body = sum(tp.data_end - tp.data_start for tp in parts)
+    return lens if lens and sum(lens) == body else None
 
 
 def _parse(data: bytes):
@@ -131,20 +149,39 @@ def _parse(data: bytes):
     return header, parser.read_all_tile_parts(header), codestream, jp2
 
 
+def image_dtype(precision: int, signed: bool):
+    """The decoded image's dtype (the JAX package's rule): int8 or uint8 up
+    to 8 bits, int16 or uint16 up to 16, int32 above."""
+    if precision <= 8:
+        return np.int8 if signed else np.uint8
+    if precision <= 16:
+        return np.int16 if signed else np.uint16
+    return np.int32
+
+
 def decode(data: bytes, config: Optional[Config] = None,
            device="cuda") -> np.ndarray:
     """Decode a J2K codestream or a JP2 file to an array [H, W] (gray) or
-    [H, W, C], uint8 for up to 8-bit samples, else uint16.  The Tier-2 and
-    block decoding run on the host, each tile's inverse transform on
-    `device`; "cuda" without a card raises."""
+    [H, W, C] of image_dtype, honouring the Config's region, reduced
+    resolution and quality layers; a JP2 colour space with a converter
+    comes back as sRGB.  The Tier-2 and block decoding run on the host,
+    each tile's inverse transform and the colour conversion on `device`;
+    "cuda" without a card raises."""
     config = config or Config()
     dev = transforms.resolve_device(device)
     counters.add("dec.bytes_in", len(data))
     header, tile_parts, codestream, jp2 = _parse(data)
-    check_decode(header, config)
     image = _decode_tiles(header, tile_parts, codestream, config, dev)
     counters.add("dec.pixels_out", int(image.size))
-    return _apply_colorspace(image, jp2)
+    image = _apply_colorspace(image, header, jp2, dev)
+    if config.decode_area is not None:
+        x0, y0, x1, y1 = config.decode_area
+        s = 1 << config.reduce_resolution
+        image = image[max(0, y0 - header.y_offset) // s:
+                      max(0, y1 - header.y_offset + s - 1) // s,
+                      max(0, x0 - header.x_offset) // s:
+                      max(0, x1 - header.x_offset + s - 1) // s]
+    return image
 
 
 # what the host half of a tile's decode (tile_pyramids) raises on corrupt
@@ -154,56 +191,87 @@ def decode(data: bytes, config: Optional[Config] = None,
 CORRUPT_DATA_ERRORS = (ValueError, IndexError)
 
 
+def _plane_index(a: int, d: int, offset: int, s: int) -> int:
+    """A position `a` on the reference grid as an index into a component's
+    plane of subsampling `d` at the reduced resolution s = 2^reduce."""
+    return geo.ceil_div(geo.ceil_div(a, d) - geo.ceil_div(offset, d), s)
+
+
 def _decode_tiles(header: Header, tile_parts: List[TilePartInfo],
                   codestream: bytes, config: Config,
                   dev: torch.device) -> np.ndarray:
-    """Every tile present in the stream decoded into its place.  Per-tile
-    containment, for corrupt data only: a tile whose host decode raises one
-    of CORRUPT_DATA_ERRORS stays zero in a tiled image and raises in a
+    """Every tile present in the stream (and meeting the region, if any)
+    decoded into its place on its component's plane at the reduced
+    resolution; subsampled planes upsampled by sample replication, then
+    stacked and narrowed to image_dtype.  Per-tile containment, for
+    corrupt data only: a tile whose host decode raises one of
+    CORRUPT_DATA_ERRORS stays zero in a tiled image and raises in a
     single-tile one; every other error (the native library missing, a
     device inverse that fails) raises."""
-    out_h = header.height - header.y_offset
-    out_w = header.width - header.x_offset
+    reduce = max(0, config.reduce_resolution)
+    s = 1 << reduce
+    out_h = geo.ceil_div(header.height - header.y_offset, s)
+    out_w = geo.ceil_div(header.width - header.x_offset, s)
     if out_h * out_w > config.max_pixels:
         raise DecodeError(
             f"image {out_w}x{out_h} exceeds Config.max_pixels "
             f"({config.max_pixels}); raise the limit to decode")
-    n_comps = header.num_components
-    planes = np.zeros((n_comps, out_h, out_w), np.int32)
+    planes = [np.zeros((_plane_index(header.height, ci.dy, header.y_offset,
+                                     s),
+                        _plane_index(header.width, ci.dx, header.x_offset,
+                                     s)), np.int32)
+              for ci in header.components]
     parts_by_tile: Dict[int, List[TilePartInfo]] = {}
     for tp in tile_parts:
         parts_by_tile.setdefault(tp.tile_index, []).append(tp)
     multi_tile = len(parts_by_tile) > 1
+    area = config.decode_area
     require_native()
     for t_idx, parts in sorted(parts_by_tile.items()):
+        tx0, ty0, tx1, ty1 = header.tile_bounds(t_idx)
+        if area is not None and not (tx1 > area[0] and tx0 < area[2]
+                                     and ty1 > area[1] and ty0 < area[3]):
+            # tiles are independent (the DWT extends at tile edges)
+            counters.add("dec.tiles_skipped")
+            continue
         tile = geo.build_tile(header, t_idx,
                               parts[0] if parts[0].coding_style else None)
         try:
-            pyramids = tile_pyramids(header, tile, parts, codestream)
+            pyramids = tile_pyramids(header, tile, parts, codestream, config)
         except CORRUPT_DATA_ERRORS:
             if not multi_tile:
                 raise
             continue
-        comps = _inverse_tile(header, tile, pyramids, dev)
+        comps = _inverse_tile(header, tile, pyramids, dev, reduce)
         counters.add("dec.tiles_decoded")
-        tx0, ty0, _tx1, _ty1 = header.tile_bounds(t_idx)
-        for c, arr in enumerate(comps):
-            oy0, ox0 = ty0 - header.y_offset, tx0 - header.x_offset
-            planes[c, oy0:oy0 + arr.shape[0], ox0:ox0 + arr.shape[1]] = arr
-    dt = np.uint8 if header.components[0].precision <= 8 else np.uint16
-    image = planes[0] if n_comps == 1 else np.moveaxis(planes, 0, -1)
-    return image.astype(dt)
+        for ci, plane, arr in zip(header.components, planes, comps):
+            oy0 = _plane_index(ty0, ci.dy, header.y_offset, s)
+            ox0 = _plane_index(tx0, ci.dx, header.x_offset, s)
+            plane[oy0:oy0 + arr.shape[0], ox0:ox0 + arr.shape[1]] = arr
+    for c, ci in enumerate(header.components):
+        if planes[c].shape != (out_h, out_w):
+            planes[c] = np.repeat(np.repeat(planes[c], ci.dy, axis=0),
+                                  ci.dx, axis=1)[:out_h, :out_w]
+    image = planes[0] if len(planes) == 1 else np.stack(planes, axis=-1)
+    return image.astype(image_dtype(header.components[0].precision,
+                                    header.components[0].signed))
 
 
 def _tier2(header: Header, tile: geo.Tile, data: bytes,
            hdr_stream: Optional[bytes] = None,
-           tp0: Optional[TilePartInfo] = None):
+           tp0: Optional[TilePartInfo] = None, max_layers: int = 1 << 30,
+           inc=None, plt_lens: Optional[List[int]] = None):
     """The Python Tier-2 of one tile: every packet of its tile data `data`
     in the progression's order (SOP and EPH markers skipped; with
     `hdr_stream`, the packed PPM or PPT headers, the packet headers come
     from there).  Returns the per-precinct decoder state,
     (comp, res, precinct) -> one t2.PrecinctDecoder per band, whose blocks
-    hold their passes' bytes."""
+    hold their passes' bytes and, in keep_passes, keep_bytes and
+    keep_segments, their state after the last packet of a layer below
+    `max_layers` (the quality-layer checkpoint: later layers still parse,
+    so the state stays coherent).  With `plt_lens` (and no packed
+    headers), a packet of a precinct outside `inc` is skipped whole by its
+    PLT length."""
     pd_map: Dict[Tuple[int, int, int], List[t2.PrecinctDecoder]] = {}
     for c, tc in enumerate(tile.comps):
         for res in tc.resolutions:
@@ -214,11 +282,19 @@ def _tier2(header: Header, tile: geo.Tile, data: bytes,
     pos = hpos = 0
     use_sop = header.coding_style.has_sop
     use_eph = header.coding_style.has_eph
-    for pid in t2.packet_sequence(tile, header):
+    seek = plt_lens if hdr_stream is None else None
+    for n, pid in enumerate(t2.packet_sequence(tile, header)):
         if hdr_stream is None and pos >= len(data):
             break
         if hdr_stream is not None and hpos >= len(hdr_stream):
             break
+        if (seek is not None and n < len(seek)
+                and (pid.comp, pid.res, pid.precinct) not in inc):
+            # PLT seek: the whole packet (SOP, header, body, EPH)
+            pos += seek[n]
+            counters.add("dec.packets_skipped")
+            counters.add("dec.packet_bytes_skipped", seek[n])
+            continue
         counters.add("dec.packets_parsed")
         if use_sop and data[pos:pos + 2] == b"\xff\x91":
             pos += 6
@@ -238,17 +314,28 @@ def _tier2(header: Header, tile: geo.Tile, data: bytes,
             if use_eph and data[pos:pos + 2] == b"\xff\x92":
                 pos += 2
         pos = t2.apply_packet_body(data, pos, decoded, cb_style)
+        if pid.layer < max_layers:
+            for blk, _n_new, _chunks in decoded:
+                blk.keep_passes = blk.passes_done
+                blk.keep_bytes = len(blk.data)
+                blk.keep_segments = t2.finalize_segments(blk)
     return pd_map
 
 
 def tile_pyramids(header: Header, tile: geo.Tile,
-                  parts: List[TilePartInfo], codestream: bytes):
+                  parts: List[TilePartInfo], codestream: bytes,
+                  config: Optional[Config] = None):
     """The host half of one tile's decode: the Python Tier-2 over its
-    packets, then the native block decoder per component.  Returns each
-    component's pyramid in numpy: levels ascending, each a dict of bands
-    (int32 for 5/3, float32 dequantized at the midpoint for 9/7, as the JAX
-    package reconstructs), the top level holding LL ([{"LL": ..}] without
-    a decomposition level)."""
+    packets, then the native block decoder per component, for the passes of
+    the first `config.quality_layers` layers (all without), skipping the
+    bands that `config.reduce_resolution` drops and the precincts outside
+    `config.decode_area`.  Returns each component's pyramid in numpy:
+    levels ascending, each a dict of bands (int32 for 5/3, float32
+    dequantized at the midpoint for 9/7, as the JAX package reconstructs),
+    the top level holding LL ([{"LL": ..}] without a decomposition level);
+    a band not decoded stays zero."""
+    config = config or Config()
+    reduce = max(0, config.reduce_resolution)
     data = b"".join(codestream[tp.data_start:tp.data_end] for tp in parts)
     # packed packet headers (A.7.4 PPM, A.7.5 PPT): the headers come from
     # the packed stream, only SOP and the bodies stay in the tile data
@@ -259,7 +346,15 @@ def tile_pyramids(header: Header, tile: geo.Tile,
                               if tp.order < len(chunks))
     elif any(tp.packed_headers for tp in parts):
         hdr_stream = b"".join(tp.packed_headers for tp in parts)
-    pd_map = _tier2(header, tile, data, hdr_stream, parts[0])
+    # region decode: packets of precincts whose footprint misses the area
+    # are skipped by PLT seek where the lengths allow it; otherwise their
+    # headers still parse, but their blocks are not decoded
+    inc = plt_lens = None
+    if config.decode_area is not None:
+        inc = _included_precincts(header, tile, config.decode_area)
+        plt_lens = _plt_lengths(parts)
+    pd_map = _tier2(header, tile, data, hdr_stream, parts[0],
+                    config.quality_layers or 1 << 30, inc, plt_lens)
     lossless = header.coding_style.transform == 1
     pyramids = []
     for c, tc in enumerate(tile.comps):
@@ -272,22 +367,28 @@ def tile_pyramids(header: Header, tile: geo.Tile,
         jobs, slots = [], []
         for res in tc.resolutions:
             for b_i, band in enumerate(res.bands):
+                if band.dec_level <= reduce and band.name != "LL":
+                    continue   # a resolution reduce_resolution drops
                 target = pyramid[max(nl, 1) - 1 if band.name == "LL"
                                  else band.dec_level - 1][band.name]
                 mb = tc.quant.guard_bits + band.eps - 1
                 for p_idx in range(res.num_px * res.num_py):
                     pd = pd_map[(c, res.r, p_idx)][b_i]
+                    if inc is not None and (c, res.r, p_idx) not in inc:
+                        counters.add("dec.blocks_skipped",
+                                     len(pd.precinct.code_blocks))
+                        continue
                     for cb, blk in zip(pd.precinct.code_blocks, pd.blocks):
-                        if not blk.included or blk.passes_done == 0:
+                        if not blk.included or blk.keep_passes == 0:
                             continue
                         # lossy: midpoint-biased reconstruction of
                         # truncated EBCOT blocks (t1.STY_LOSSY_BIAS)
                         sty = cb_style if lossless else \
                             cb_style | t1.STY_LOSSY_BIAS
-                        jobs.append((bytes(blk.data), cb.w, cb.h,
-                                     mb - blk.zero_bitplanes,
-                                     blk.passes_done, band.name, sty,
-                                     t2.finalize_segments(blk)))
+                        jobs.append((bytes(blk.data[:blk.keep_bytes]), cb.w,
+                                     cb.h, mb - blk.zero_bitplanes,
+                                     blk.keep_passes, band.name, sty,
+                                     blk.keep_segments))
                         slots.append((target, band, cb))
         counters.add("dec.blocks_decoded", len(jobs))
         for (target, band, cb), coeffs in zip(slots,
@@ -312,10 +413,12 @@ def tile_pyramids(header: Header, tile: geo.Tile,
 
 
 def _inverse_tile(header: Header, tile: geo.Tile, pyramids,
-                  dev: torch.device) -> List[np.ndarray]:
-    """transforms.run_inverse of one tile's pyramids on `dev`, all
-    components in one call where they share their geometry (one call each
-    otherwise): int32 [h, w] per component."""
+                  dev: torch.device, reduce: int = 0) -> List[np.ndarray]:
+    """transforms.run_inverse of one tile's pyramids on `dev`, from the
+    level `reduce` keeps (only LL when it keeps none) at the origin
+    ceil((x0, y0) / 2^reduce), all components in one call where they share
+    their geometry (one call each otherwise): int32 [h, w] per component
+    at the reduced resolution."""
     kind = dwt.REV53 if header.coding_style.transform == 1 else dwt.IRR97
     precision = header.components[0].precision
     signed = header.components[0].signed
@@ -328,24 +431,38 @@ def _inverse_tile(header: Header, tile: geo.Tile, pyramids,
         use_mct = False
     out = []
     for comps in groups:
-        stacked = [{k: np.stack([pyramids[c][lev][k] for c in comps])
-                    for k in pyramids[comps[0]][lev]}
-                   for lev in range(len(pyramids[comps[0]]))]
         tc = tile.comps[comps[0]]
+        nl = tc.coding.num_decompositions
+        if nl - reduce <= 0:
+            top = max(nl, 1) - 1
+            stacked = [{"LL": np.stack([pyramids[c][top]["LL"]
+                                        for c in comps])}]
+        else:
+            stacked = [{k: np.stack([pyramids[c][lev][k] for c in comps])
+                        for k in pyramids[comps[0]][lev]}
+                       for lev in range(reduce, nl)]
         x = transforms.run_inverse(stacked, kind, use_mct, precision, signed,
-                                   tc.x0, tc.y0, dev)
+                                   geo.ceil_div(tc.x0, 1 << reduce),
+                                   geo.ceil_div(tc.y0, 1 << reduce), dev)
         out += list(x)
     return out
 
 
-def _apply_colorspace(image: np.ndarray, jp2) -> np.ndarray:
-    """The JP2 colour space: sRGB, gray and unspecified as they are; the
-    spaces the JAX package converts raise (ROADMAP item 6b)."""
-    if jp2 is not None and image.ndim == 3 \
-            and jp2.color_space in CONVERTED_SPACES:
-        raise _not_ported(f"the {jp2.color_space.name} colour conversion",
-                          "6b")
-    return image
+def _apply_colorspace(image: np.ndarray, header: Header, jp2,
+                      dev: torch.device) -> np.ndarray:
+    """The JP2 colour space converted to sRGB on `dev` where it has a
+    converter (ops/colorspace.py; CMYK and YCCK give 3 components of 4),
+    in the image's dtype; sRGB, gray and unspecified as they are."""
+    if jp2 is None or image.ndim != 3:
+        return image
+    conv = colorspace.get_color_conversion(jp2.color_space)
+    if conv is None:
+        return image
+    comps = [torch.from_numpy(image[:, :, i].astype(np.int32)).to(dev)
+             for i in range(image.shape[2])]
+    out = conv(comps, header.components[0].precision)
+    return np.stack([t.cpu().numpy() for t in out],
+                    axis=-1).astype(image.dtype)
 
 
 def decode_metadata(data: bytes) -> Metadata:
@@ -386,9 +503,10 @@ def decode_metadata(data: bytes) -> Metadata:
 def batch_refusal(parsed, config: Config) -> Optional[str]:
     """Why decode_batch's branches do not take these parsed streams
     together (decode does, one by one), or None: the JAX package's
-    conditions (one shape, one tile, no JP2, whole decodes), and the
-    branches' own (one layer, no SOP/EPH/PPM/PPT, HT or lossless Part-1 of
-    code-block style 0, one precision)."""
+    conditions (one shape, one tile, no JP2, whole decodes at full
+    resolution), and the branches' own (one layer, no SOP/EPH/PPM/PPT, HT
+    or lossless Part-1 of code-block style 0, one unsigned precision of 8
+    to 16 bits; fused_encode.plan_for refuses subsampled components)."""
     if config.decode_area is not None or config.reduce_resolution:
         return "a region or reduced-resolution decode"
     h0 = parsed[0][0]
@@ -639,7 +757,8 @@ def decode_batch(streams, config: Optional[Config] = None,
     frames (decode_chunk): host work (native calls, and the Python Tier-2
     for Part-1) and one device program on `device` per chunk.  Everything
     else (batch_refusal, and frames with HT refinement passes) goes
-    through `decode` one by one.  "cuda" without a card raises.  Counters:
+    through `decode` one by one, and so do region and reduced decodes.
+    "cuda" without a card raises.  Counters:
     dec.device_ht_chunks, dec.host_ht_frames, dec.ebcot_frames."""
     config = config or Config()
     dev = transforms.resolve_device(device)
@@ -657,7 +776,7 @@ def decode_batch(streams, config: Optional[Config] = None,
     starts = range(0, n_frames, chunk)
     outs = [decode_chunk(batch, batch.bodies[s:s + chunk], dev)
             for s in starts]
-    dt = np.uint8 if batch.precision <= 8 else np.uint16
+    dt = image_dtype(batch.precision, batch.signed)
     frames = []
     for s, out in zip(starts, outs):
         if out is None:

@@ -228,8 +228,11 @@ def inverse_pyramid(pyramid: List[Dict[str, torch.Tensor]], kind: str,
 def samples(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
             signed: bool, narrow: bool = True) -> torch.Tensor:
     """The inverse DWT's output [N, C, H, W] -> inverse RCT/ICT, rounding
-    half to even (9/7), DC shift, clamp and narrowing (16-bit as the int16
-    pattern; int32 kept with narrow=False)."""
+    half to even (9/7), DC shift (unsigned samples), clamp to the
+    precision's range and narrowing: int8 or uint8 up to 8 bits, int16 for
+    9 to 16 (signed samples as they are, unsigned ones as their int16 bit
+    pattern, torch having no uint16 arithmetic), int32 above 16 bits and
+    with narrow=False."""
     lossy = kind == dwt.IRR97
     c = x.shape[1]
     if use_mct and c >= 3:

@@ -149,14 +149,14 @@ def host_decode_local(data: bytes, config, host_id: int, n_hosts: int,
                       device="cuda") -> List[Tuple[int, np.ndarray]]:
     """One host's half of the decode: the whole per-tile chain (Tier-2 and
     block decoding on the host, the inverse transforms on `device`) for the
-    tiles it owns.  As in decoder._decode_tiles, a tile of a tiled image
-    whose data are corrupt is left out (it stays zero), a single tile's
-    raises, and every other error raises.  Returns [(tile index, samples
-    [C, th, tw] in the decoded image's dtype, uint8 or uint16)]."""
+    tiles it owns, with the Config's quality layers.  As in
+    decoder._decode_tiles, a tile of a tiled image whose data are corrupt
+    is left out (it stays zero), a single tile's raises, and every other
+    error raises.  Returns [(tile index, samples [C, th, tw] in the decoded
+    image's dtype, decoder.image_dtype)]."""
     config = config or Config()
     dev = transforms.resolve_device(device)
     header, parts_by_tile, codestream = _parse_for_hosts(data)
-    dec.check_decode(header, config)
     require_native()
     multi_tile = len(parts_by_tile) > 1
     dt = _image_dtype(header)
@@ -168,7 +168,8 @@ def host_decode_local(data: bytes, config, host_id: int, n_hosts: int,
         tile = geo.build_tile(header, t,
                               parts[0] if parts[0].coding_style else None)
         try:
-            pyramids = dec.tile_pyramids(header, tile, parts, codestream)
+            pyramids = dec.tile_pyramids(header, tile, parts, codestream,
+                                         config)
         except dec.CORRUPT_DATA_ERRORS:
             if not multi_tile:
                 raise
@@ -180,7 +181,8 @@ def host_decode_local(data: bytes, config, host_id: int, n_hosts: int,
 
 def _image_dtype(header):
     """The decoded image's dtype, as decode returns it."""
-    return np.uint8 if header.components[0].precision <= 8 else np.uint16
+    return dec.image_dtype(header.components[0].precision,
+                           header.components[0].signed)
 
 
 # bytes a pipe message carries at most: a large object crosses in pieces of
@@ -416,13 +418,16 @@ def decode_multihost(data: bytes, config=None, n_hosts: int = 2,
     """Decode with `n_hosts` separate OS processes, each running the whole
     per-tile chain for its tiles; no reduction crosses hosts (tiles are
     independent), the parent places the pixels.  Pixel-identical to
-    models.decoder.decode.  Full-frame decodes of raw J2K codestreams
-    only (ValueError otherwise)."""
+    models.decoder.decode, quality layers included.  Full-frame,
+    full-resolution decodes of raw J2K codestreams whose components are
+    not subsampled only (ValueError otherwise, as the JAX package's
+    refuses them)."""
     config = config or Config()
     if config.decode_area is not None or config.reduce_resolution:
         raise ValueError("decode_multihost: full-frame decodes only")
     header, _parts, _cs = _parse_for_hosts(data)
-    dec.check_decode(header, config)
+    if any(ci.dx != 1 or ci.dy != 1 for ci in header.components):
+        raise ValueError("decode_multihost: no subsampling")
     host_device = _prepare(device)
     if n_hosts <= 1:
         parts = _run_inline(

@@ -578,12 +578,12 @@ def _device_ht_decode(header, parts_by_tile, codestream, tiles: List[int],
 
 
 def _host_decode(header, parts_by_tile, codestream, tiles: List[int],
-                 th: int, tw: int, dev: torch.device):
+                 th: int, tw: int, dev: torch.device, config: Config):
     """Pyramid leaves [n, C, h, w] of `tiles` on dev through the host tile
     decode (decoder.tile_pyramids: the Python Tier-2 and the native block
-    decoder, 9/7 bands dequantized), as the JAX package's decode_sharded
-    decodes what its device branch refuses; a tile absent from the stream
-    keeps zero leaves."""
+    decoder, 9/7 bands dequantized, the Config's quality layers), as the
+    JAX package's decode_sharded decodes what its device branch refuses; a
+    tile absent from the stream keeps zero leaves."""
     cs = header.coding_style
     levels = cs.num_decompositions
     leaves = empty_leaves(len(tiles), header.num_components, th, tw, levels,
@@ -592,7 +592,7 @@ def _host_decode(header, parts_by_tile, codestream, tiles: List[int],
         if t not in parts_by_tile:
             continue
         pyrs = dec.tile_pyramids(header, geo.build_tile(header, t),
-                                 parts_by_tile[t], codestream)
+                                 parts_by_tile[t], codestream, config)
         for lev, entry in enumerate(leaves):
             for k, leaf in entry.items():
                 leaf[i] = torch.from_numpy(np.stack(
@@ -654,16 +654,16 @@ def decode_sharded(data: bytes, config: Optional[Config] = None,
     """Decode a multi-tile codestream on a (dp, sp) grid of ranks (default:
     this process alone), with the device work on `device`.  Each dp shard
     decodes its own tiles, then runs the sharded inverse over its sp ranks,
-    and every rank returns the whole image.  Single-layer HTJ2K streams
-    with every tile present take the device HT decode
-    (dec.sharded_device_ht_tiles); the rest (Part-1, quality layers,
-    SOP/EPH/PPM/PPT, HT refinement passes, absent tiles, which stay zero)
-    the host tile decode (dec.sharded_host_tiles), as in the JAX package.
+    and every rank returns the whole image, of decoder.image_dtype.
+    Single-layer HTJ2K streams with every tile present, decoded whole,
+    take the device HT decode (dec.sharded_device_ht_tiles); the rest
+    (Part-1, quality layers in the stream or in the Config, SOP/EPH/PPM/PPT,
+    HT refinement passes, absent tiles, which stay zero) the host tile
+    decode (dec.sharded_host_tiles), as in the JAX package.
 
     Gates: ValueError as the JAX package's (full-resolution whole decodes
-    only, >= 1 decomposition level, the encode's tile grid rules);
-    NotImplementedError for what `decode` does not run yet
-    (decoder.check_decode)."""
+    only, >= 1 decomposition level, the encode's tile grid rules, no
+    subsampling)."""
     config = config or Config()
     dev = transforms.resolve_device(device)
     grid = grid or make_grid()
@@ -682,27 +682,29 @@ def decode_sharded(data: bytes, config: Optional[Config] = None,
         parts_by_tile.setdefault(tp.tile_index, []).append(tp)
     if not parts_by_tile:
         raise dec.DecodeError("decode_sharded: codestream has no tile-parts")
-    dec.check_decode(header, config)
     n_comps = header.num_components
     precision = header.components[0].precision
+    signed = header.components[0].signed
     use_mct = bool(cs.mct) and n_comps >= 3
     kind = dwt.REV53 if cs.transform == 1 else dwt.IRR97
 
     tiles = _my_tiles(T, grid)
-    leaves = _device_ht_decode(header, parts_by_tile, codestream, tiles, th,
-                               tw, dev)
+    leaves = None
+    if not config.quality_layers:
+        leaves = _device_ht_decode(header, parts_by_tile, codestream, tiles,
+                                   th, tw, dev)
     if leaves is None:
         leaves = _host_decode(header, parts_by_tile, codestream, tiles, th,
-                              tw, dev)
+                              tw, dev, config)
     if grid.sp > 1:
         s, sp = grid.sp_rank, grid.sp
         leaves = [{k: v[:, :, s * v.shape[2] // sp:(s + 1) * v.shape[2] // sp]
                    for k, v in e.items()} for e in leaves]
-    pix = tile_inverse_step(leaves, use_mct, precision, False, kind, grid)
+    pix = tile_inverse_step(leaves, use_mct, precision, signed, kind, grid)
     del leaves
     rows = th // grid.sp
     per = -(-T // grid.dp)
-    dt = np.uint8 if precision <= 8 else np.uint16
+    dt = dec.image_dtype(precision, signed)
     if grid.size > 1:
         # every rank's row shards of its tiles, padded to ceil(T / dp)
         # tiles, gathered as bytes (gloo has no int16)

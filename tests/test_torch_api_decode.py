@@ -10,8 +10,10 @@ pixels exactly; lossy 9/7 streams within one grey level.  decode_metadata
 agrees field for field.  decode_batch hands what its batch branches do not
 take (multi-tile, refined, JP2) to decode; decode_sharded decodes Part-1,
 layered and absent-tile streams through the host tile decode, both equal to
-the JAX package's decode.  What is still out raises NotImplementedError
-naming its ROADMAP item."""
+the JAX package's decode.  The decode options (region, reduced and
+layered decodes, colour conversions, signed samples) give the JAX
+package's pixels and dtype; tests/test_torch_decode_options.py holds them
+in full."""
 import dataclasses
 import io
 
@@ -22,7 +24,7 @@ torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 
 import go_jpeg2000_tpu as jp2k
 import go_jpeg2000_tpu_torch as tp
-from go_jpeg2000_tpu.options import ColorSpace, Format, Options
+from go_jpeg2000_tpu.options import ColorSpace, Config, Format, Options
 from go_jpeg2000_tpu_torch.codestream.parser import Parser
 from go_jpeg2000_tpu_torch.parallel import decode_sharded
 
@@ -231,23 +233,32 @@ def test_decode_openjpeg_streams(shape, kw):
         assert np.array_equal(got, image)
 
 
-@pytest.mark.parametrize("config", [
-    tp.Config(reduce_resolution=1), tp.Config(decode_area=(0, 0, 8, 8)),
-    tp.Config(quality_layers=1)])
-def test_decode_options_still_out_raise(config):
+def _same(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want)
+
+
+# The next two tests keep the names of the refusals they held before the
+# decode options were ported; they now hold the options to the JAX
+# package's decode.
+@pytest.mark.parametrize("kw", [
+    dict(reduce_resolution=1), dict(decode_area=(0, 0, 8, 8)),
+    dict(quality_layers=1)])
+def test_decode_options_still_out_raise(kw):
     data = jp2k.encode(_image((32, 32), 0), _opts(num_layers=2))
-    with pytest.raises(NotImplementedError, match=r"item 6b\)"):
-        tp.decode(data, config, device="cpu")
+    _same(tp.decode(data, tp.Config(**kw), device="cpu"),
+          jp2k.decode(data, Config(**kw)))
 
 
 def test_colour_conversion_and_signed_still_out_raise():
     image = _image((32, 32, 3), 0)
     data = jp2k.encode(image, Options(color_space=ColorSpace.SYCC))
-    with pytest.raises(NotImplementedError, match=r"item 6b\)"):
-        tp.decode(data, device="cpu")
-    signed = jp2k.encode(np.zeros((16, 16), np.int16), _opts())
-    with pytest.raises(NotImplementedError, match=r"item 6b\)"):
-        tp.decode(signed, device="cpu")
+    _same(tp.decode(data, device="cpu"), jp2k.decode(data))
+    signed = jp2k.encode(
+        (_image((16, 16), 1).astype(np.int16) - 128) * 100, _opts())
+    got = tp.decode(signed, device="cpu")
+    _same(got, jp2k.decode(signed))
+    assert got.dtype == np.int16 and got.min() < 0
     with pytest.raises(ValueError):
         tp.decode(b"\x00\x00\x00\x0cjP  \r\n\x87\n" + b"\x00" * 16,
                   device="cpu")

@@ -10,7 +10,8 @@ device HT encode's reach must take it (enc.fused_chunks > 0 and no
 enc.host_entropy_frames); what fused_encode.plan_for refuses takes the
 counted host branch.  What the batch paths do not take goes through the
 single-image encode and decode, as in the JAX package; everything outside
-the slices must raise NotImplementedError naming its ROADMAP item."""
+the slices must raise NotImplementedError naming its ROADMAP item;
+decode_batch hands region and reduced decodes to decode."""
 import dataclasses
 import os
 import subprocess
@@ -24,7 +25,7 @@ torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 import go_jpeg2000_tpu_torch as tp
 from go_jpeg2000_tpu.models.decoder import decode_batch as jax_decode_batch
 from go_jpeg2000_tpu.models.encoder import encode_batch as jax_encode_batch
-from go_jpeg2000_tpu.options import Format, Options
+from go_jpeg2000_tpu.options import Config, Format, Options
 
 OPTS = Options(format=Format.J2K, lossless=True, high_throughput=True,
                num_resolutions=6)
@@ -358,13 +359,19 @@ def test_encode_rejects_mixed_shapes_and_signed():
 
 
 def test_decode_outside_slice_raises():
+    # (named for the refusals it held before the decode options were
+    # ported) reduced and region decodes go from decode_batch through
+    # decode one by one, as the JAX package's decode_batch sends them,
+    # and give its pixels and dtype
     stream = tp.encode_batch(_frames(1, (32, 32), 1),
                              tp.options_from_reference(OPTS), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tp.decode_batch(stream, tp.Config(reduce_resolution=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tp.decode_batch(stream, tp.Config(decode_area=(0, 0, 8, 8)),
-                        device="cpu")
+    for kw in (dict(reduce_resolution=1), dict(decode_area=(0, 0, 8, 8))):
+        got = tp.decode_batch(stream, tp.Config(**kw), device="cpu")
+        want = jax_decode_batch(stream, Config(**kw))
+        assert len(got) == len(want) == 1
+        assert got[0].dtype == want[0].dtype
+        assert got[0].shape == want[0].shape
+        assert np.array_equal(got[0], want[0])
     # JP2 files decode (through decode, one by one) as the JAX package does
     frames = _frames(2, (32, 40, 3), 2)
     jp2 = jax_encode_batch(frames, dataclasses.replace(OPTS,

@@ -1125,3 +1125,114 @@ def test_dryrun_multichip_on_card(cuda):
     fn, args = entry(device="cuda")
     pool, totals = fn(*args)
     assert pool.is_cuda and int(totals.sum()) > 0
+
+
+def _plain_levels_after(fn):
+    """fn() with dwt_cuda's launch counts and plain levels reset before it:
+    (result, inverse level launches, plain levels)."""
+    dwt_cuda.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (dwt_cuda.LAUNCHES["dwt53_inv_level"]
+                 + dwt_cuda.LAUNCHES["dwt97_inv_level"]), \
+        dwt_cuda.PLAIN_LEVELS
+
+
+@pytest.mark.cuda
+def test_precinct_seek_on_card_matches_cpu(cuda):
+    """A region of an HTJ2K lossless image in 32x32 precincts with PLT
+    (chip_smoke.py's R3 at 256^2): the card's decode skips the packets of
+    the precincts outside it by PLT seek, as the CPU's does, and equals
+    the input's crop, every level through the inverse 5/3 kernel."""
+    img = _config2_image(256, seed=3)
+    data = tp.encode(img, tp.Options(
+        format=tp.Format.J2K, lossless=True, high_throughput=True,
+        num_resolutions=4, precinct_size=[(5, 5)] * 4, enable_plt=True),
+        device="cpu")
+    cfg = tp.Config(decode_area=(0, 0, 40, 40))
+    snaps = []
+    for dev in (cuda, "cpu"):
+        tp.counters.reset()
+        crop, launched, plain = _plain_levels_after(
+            lambda: tp.decode(data, cfg, device=dev))
+        assert np.array_equal(crop, img[:40, :40])
+        snaps.append(tp.counters.snapshot())
+        if dev is cuda:
+            assert launched == 3 and plain == 0
+    assert snaps[0]["dec.packets_skipped"] > 0
+    for k in ("dec.packets_skipped", "dec.packets_parsed",
+              "dec.blocks_decoded"):
+        assert snaps[0][k] == snaps[1][k], k
+
+
+@pytest.mark.cuda
+def test_relabelled_samples_on_card(cuda):
+    """An 8-bit lossless stream with only its SIZ marker rewritten
+    (chip_smoke.py's P1 at 96x80): signed 8-bit, 4- and 20-bit, 2x2
+    subsampled decode on the card to their exact expected samples, as on
+    the CPU."""
+    from tests.siz_relabel import relabel, relabel_cases
+    x = _config2_image(96, seed=4)[:, :80, 0].copy()
+    for ht in (True, False):
+        data = tp.encode(x, tp.Options(format=tp.Format.J2K, lossless=True,
+                                       high_throughput=ht,
+                                       num_resolutions=4), device="cpu")
+        for name, (kw, want) in relabel_cases(x).items():
+            s = relabel(data, **kw)
+            got, launched, plain = _plain_levels_after(
+                lambda: tp.decode(s, device=cuda))
+            assert got.dtype == want.dtype and np.array_equal(got, want), \
+                name
+            assert launched == 3 and plain == 0
+            assert np.array_equal(tp.decode(s, device="cpu"), got)
+
+
+@pytest.mark.cuda
+def test_colour_converters_on_card_match_cpu(cuda):
+    """The 14 JP2 colour converters on the card against the CPU at 8 and
+    16 bits: equal (their divisions are IEEE divisions on both devices,
+    colorspace._div), CIELab, CIEJab and ROMM-RGB within one grey level
+    (a float64 pow on each device, rounded to float32); and a JP2 tagged
+    sYCC decodes to the CPU's pixels."""
+    from go_jpeg2000_tpu_torch.ops import colorspace
+    rng = np.random.RandomState(9)
+    spaces = [c for c in tp.ColorSpace
+              if colorspace.get_color_conversion(c) is not None]
+    assert len(spaces) == 14
+    for bits in (8, 16):
+        planes = [torch.from_numpy(rng.randint(
+            0, 1 << bits, size=(256, 256)).astype(np.int32))
+            for _ in range(4)]
+        on_card = [p.to(cuda) for p in planes]
+        for space in spaces:
+            conv = colorspace.get_color_conversion(space)
+            got = torch.stack(conv(on_card, bits))
+            assert got.is_cuda and got.dtype == torch.int32
+            diff = (got.cpu() - torch.stack(conv(planes, bits))).abs()
+            assert int(diff.max()) <= 1, space
+            if space.name not in ("CIELAB", "CIEJAB", "ROMM_RGB"):
+                assert int(diff.max()) == 0, space
+    img = _config2_image(128, seed=6)
+    data = tp.encode(img, tp.Options(lossless=True, high_throughput=True,
+                                     num_resolutions=4,
+                                     color_space=tp.ColorSpace.SYCC),
+                     device="cpu")
+    assert np.array_equal(tp.decode(data, device=cuda),
+                          tp.decode(data, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_layered_and_reduced_decode_on_card_matches_cpu(cuda):
+    """Config 2's options at 256^2 (chip_smoke.py's L1): the decodes from
+    1 and 2 of 3 layers and at reduce_resolution 1 and 2 equal the CPU's,
+    every level through the inverse 9/7 kernel."""
+    img = _config2_image(256)
+    data = tp.encode(img, CONFIG2, device="cpu")
+    for kw in (dict(quality_layers=1), dict(quality_layers=2),
+               dict(reduce_resolution=1), dict(reduce_resolution=2)):
+        cfg = tp.Config(**kw)
+        got, launched, plain = _plain_levels_after(
+            lambda: tp.decode(data, cfg, device=cuda))
+        assert np.array_equal(got, tp.decode(data, cfg, device="cpu")), kw
+        assert launched == 5 - kw.get("reduce_resolution", 0)
+        assert plain == 0
