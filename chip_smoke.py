@@ -197,10 +197,32 @@ sources in this checkout.  Phases, each of which raises on failure:
    channel as an 8-bit HT lossless J2K with its SIZ marker rewritten to
    signed 8-bit, 4-bit, 20-bit and 2x2 subsampled, each decoded to its
    exact expected samples.  Wall ms of each case, the stages of a second
-   R1, R2 and R3 decode, and the phase's time.
+   R1, R2 and R3 decode, and the phase's time;
+17. the encode options, each case with no level lifted plain, its wall
+   ms, its host/device split (the device programs with the fetches that
+   wait for them, against the rest) and its launches: M1 phase 10's
+   8192x8192 16-bit RGB image through encode_sharded as JP2 with PLT,
+   TLM, SOP and EPH (all 256 tiles through the device HT encode, then the
+   Python Tier-2), its round trip through decode exact, R1's viewport of
+   it (packets skipped by PLT seek printed), and at 2048x2048 the card's
+   bytes equal to the CPU run's; M2 a CT series of 64 signed 16-bit
+   512x512 slices through encode_batch and decode_batch, HTJ2K lossless
+   (the fused kernels) and Part-1 lossless on paths A (with SOP and EPH),
+   B and C, every round trip exact and 8 slices held to the CPU run's
+   bytes; M3 a 4-band 16-bit 4096x4096 image in 1024x1024 tiles, Part-1
+   lossy q85, 3 layers, TLM and PLT, and a 2-band 12-bit 2048x2048 image
+   lossless, through encode and decode, held to the CPU run at 2048x2048;
+   M4 every forward 5/3 level of extreme-valued 29-bit gray and 28-bit
+   RGB (after the RCT) through the kernel against the plain lifting, bit
+   for bit, then 20- and 29-bit gray 2048x2048 lossless, HTJ2K and
+   Part-1, round trips exact and bytes equal to the CPU run's; M5
+   2048x2048 RGB with code-block styles 0x3f and 0x15 at 2 layers,
+   lossless and lossy, a POC of three segments, PPM, and PPT with SOP and
+   EPH, each held to the CPU run and decoded; M6 backend "python" at
+   128x128, bytes equal to the native backend's.
 
 Each of the eight main paths, the sharded runs, the four single-image
-cases, each run of phases 12-15 and each case of phase 16 runs with the
+cases, each run of phases 12-15 and each case of phases 16 and 17 runs with the
 launch counts set to 0 just before it and read just after (a host process reports the launches
 of its measured run, after its warm-ups, to the parent).  The line before
 the last is a JSON summary of the
@@ -213,6 +235,7 @@ the block extraction, Tensor.index_copy_ for the assembly); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
+import dataclasses
 import json
 import math
 import multiprocessing as mp
@@ -304,6 +327,13 @@ R1_AREA = (2900, 3100, 3924, 4124)
 THUMB_REDUCE = 3
 R3_AREA = (0, 0, 256, 256)
 CONVERT_SIDE = 2048
+# phase 17, the encode options: M2's CT series (slices, side, slices held
+# to the CPU run), M3's multispectral image and tiles, the side of the
+# cases held to the CPU run (M3-M5), M6's python-backend image
+CT_SLICES, CT_SIDE, CT_CHECK = 64, 512, 8
+MS_SIDE, MS_TILE = 4096, 1024
+OPT_SIDE = 2048
+PY_SIDE = 128
 # frame sides whose first level is checked on every level kernel (each
 # keeps its strip in registers, so any even width takes it)
 WIDE_SIDES = (4096, 8192)
@@ -3322,6 +3352,401 @@ def decode_options_phase(tp, dev, card, launches, c4, c2):
           f"[{card}]", flush=True)
 
 
+# ------------------------------------------------ phase 17: encode options
+
+# the device stages of an encode or decode: the device programs (their
+# uploads and launches) and the fetches that wait for them; everything
+# else is the host's
+DEVICE_STAGES = (("models.transforms", "run_forward"),
+                 ("models.transforms", "dispatch_forward_batch"),
+                 ("models.transforms", "fetch_forward_batch"),
+                 ("models.fused_encode", "fused_encode_chunk"),
+                 ("models.fused_encode", "encode_pyramid"),
+                 ("models.fused_encode", "fetch_pool"),
+                 ("models.ebcot_fused", "ebcot_encode_chunk"),
+                 ("models.ebcot_fused", "ebcot_decisions_chunk"),
+                 ("models.ebcot_fused", "fetch"),
+                 ("parallel.sharded", "tile_transform_step"),
+                 ("models.decoder", "upload_parsed"),
+                 ("ops.ht_dec", "fused_decode"),
+                 ("ops.ht_dec_cuda", "blocks_to_pyramid"),
+                 ("models.transforms", "inverse_pyramid"),
+                 ("models.transforms", "dispatch_inverse_stacked"),
+                 ("models.decoder", "download"),
+                 ("models.transforms", "run_inverse"))
+
+
+def signed_image(h, w, lo, hi, seed):
+    """Smooth noise in [lo, hi), int16 (a CT slice's Hounsfield units)."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(lo, hi, size=(h, w)).astype(np.float32)
+    for ax in (0, 1):
+        a = (a + np.roll(a, 1, axis=ax) + np.roll(a, -1, axis=ax)) / 3
+    return np.round(a).astype(np.int16)
+
+
+def wide_image(shape, bits, seed):
+    """Smooth noise of `bits`-bit samples, uint32."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, 1 << bits, size=shape, dtype=np.int64).astype(
+        np.float64)
+    for ax in (0, 1):
+        a = (a + np.roll(a, 1, axis=ax) + np.roll(a, -1, axis=ax)) / 3
+    return np.round(a).astype(np.uint32)
+
+
+def extremes_image(shape, bits, seed):
+    """Each sample 0 or 2^bits - 1 at random, uint32: the largest detail
+    coefficients the 5/3 lifting makes of `bits`-bit samples."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 2, size=shape) * ((1 << bits) - 1)).astype(
+        np.uint32)
+
+
+class DeviceClock:
+    """Host-clock seconds spent in the device stages (DEVICE_STAGES) while
+    installed; a stage called inside another (run_forward's fetch) counts
+    once."""
+
+    def __enter__(self):
+        import importlib
+        self.seconds = 0.0
+        self.depth = 0
+        self.saved = []
+        for mod, name in DEVICE_STAGES:
+            mod = importlib.import_module(f"go_jpeg2000_tpu_torch.{mod}")
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._timed(fn))
+        return self
+
+    def _timed(self, fn):
+        def timed(*a, **kw):
+            self.depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.depth -= 1
+                if not self.depth:
+                    self.seconds += time.perf_counter() - t0
+        return timed
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
+        return False
+
+
+def case_run(tp, label, fn, launches, need, card):
+    """options_run with the case's host/device split printed: its wall ms,
+    the device stages' share (DeviceClock) against the rest, and its plain
+    levels (0, or options_run raises).  Returns (result, counters)."""
+    with DeviceClock() as clock:
+        out, ms, snap = options_run(tp, label, fn, launches, need)
+    dev_ms = clock.seconds * 1e3
+    print(f"{label}: wall {ms:.1f} ms, device programs and their fetches "
+          f"{dev_ms:.1f} ms, host {ms - dev_ms:.1f} ms "
+          f"({100 * (ms - dev_ms) / ms:.0f}%), plain levels 0 [{card}]",
+          flush=True)
+    return out, snap
+
+
+def held_to_cpu(label, on_card, on_cpu):
+    """The card's codestreams must equal the CPU run's."""
+    if on_card != on_cpu:
+        raise AssertionError(f"{label}: CUDA and CPU codestreams differ")
+    print(f"{label}: CUDA and CPU codestreams byte-identical", flush=True)
+
+
+HT_ENC = ("ht_extract_blocks", "ht_cleanup_fields", "ht_pack_bits",
+          "ht_compact_pool")
+EBCOT_ENC = ("ebcot_decision_slots", "ebcot_compact_rows", "ebcot_mq_encode",
+             "ebcot_pool_rows")
+
+
+def m1_tile_server(tp, dev, card, launches, c4):
+    """M1: config 4's 8192^2 16-bit RGB through encode_sharded as JP2 with
+    PLT, TLM, SOP and EPH (the device HT encode for every tile, then the
+    Python Tier-2 on its segments), the round trip through decode exact,
+    phase 16's R1 viewport read by PLT seek; at C4_CHECK^2 the card's bytes
+    equal the CPU run's."""
+    from go_jpeg2000_tpu_torch.parallel import encode_sharded
+    img = c4[0]
+    opts = dataclasses.replace(
+        config4_opts(tp, True, enable_plt=True, enable_tlm=True,
+                     enable_sop=True, enable_eph=True), format=tp.Format.JP2)
+    n_tiles = (C4_SIZE // C4_TILE) ** 2
+    data, snap = case_run(
+        tp, "M1 tile server encode_sharded, JP2 + PLT/TLM/SOP/EPH",
+        lambda: encode_sharded(img, opts, device=dev), launches,
+        ("dwt53_fwd_level", "band_stats") + HT_ENC, card)
+    tiles = (snap.get("enc.sharded_device_ht_tiles", 0),
+             snap.get("enc.sharded_host_entropy_tiles", 0))
+    if tiles != (n_tiles, 0):
+        raise AssertionError(f"M1: device HT tiles, host tiles {tiles}")
+    for marker in (b"\xff\x55", b"\xff\x58", b"\xff\x91", b"\xff\x92"):
+        if marker not in data:
+            raise AssertionError(f"M1: marker {marker.hex()} missing")
+    out, _ = case_run(tp, "M1 decode", lambda: tp.decode(data, device=dev),
+                      launches, ("dwt53_inv_level",), card)
+    same("M1 round trip", out, img)
+    cfg = tp.Config(decode_area=R1_AREA)
+    crop, snap = case_run(tp, "M1 R1 viewport",
+                          lambda: tp.decode(data, cfg, device=dev),
+                          launches, ("dwt53_inv_level",), card)
+    x0, y0, x1, y1 = R1_AREA
+    same("M1 R1 viewport", crop, img[y0:y1, x0:x1])
+    print(f"M1 {img.shape} {img.dtype}: {len(data)} bytes, device HT tiles "
+          f"{tiles[0]}, round trip exact; R1 viewport {R1_AREA}: tiles "
+          f"decoded {snap.get('dec.tiles_decoded', 0)}, skipped "
+          f"{snap.get('dec.tiles_skipped', 0)}, packets parsed "
+          f"{snap.get('dec.packets_parsed', 0)}, skipped by PLT seek "
+          f"{snap.get('dec.packets_skipped', 0)} [{card}]", flush=True)
+    small = config4_image(C4_CHECK, seed=4)
+    held_to_cpu(f"M1 at {C4_CHECK}^2",
+                encode_sharded(small, opts, device=dev),
+                encode_sharded(small, opts, device="cpu"))
+
+
+def m2_ct_series(tp, dev, card, launches):
+    """M2: a CT series, CT_SLICES signed 16-bit slices, through
+    encode_batch: HTJ2K lossless (the fused kernels), Part-1 lossless on
+    paths A (with SOP and EPH), B and C; every decode exact; CT_CHECK
+    slices held to the CPU run's bytes (Part-1 against the CPU's path C,
+    which gives the bytes of A and B)."""
+    series = [signed_image(CT_SIDE, CT_SIDE, -1024, 3072, 900 + i)
+              for i in range(CT_SLICES)]
+
+    def opts(**kw):
+        return tp.Options(format=tp.Format.J2K, lossless=True,
+                          num_resolutions=6, **kw)
+    cases = (("HTJ2K lossless (fused)", opts(high_throughput=True),
+              ("dwt53_fwd_level",) + HT_ENC, "enc.fused_chunks",
+              ("ht_magsgn_decode", "ht_blocks_to_pyramid",
+               "dwt53_inv_level")),
+             ("Part-1 path A + SOP/EPH", opts(backend="device",
+                                              enable_sop=True,
+                                              enable_eph=True),
+              ("dwt53_fwd_level", "ht_extract_blocks") + EBCOT_ENC,
+              "enc.ebcot_device_chunks", ("dwt53_inv_level",)),
+             ("Part-1 path B", opts(backend="hybrid"),
+              ("dwt53_fwd_level", "ht_extract_blocks",
+               "ebcot_decision_slots", "ebcot_compact_rows"),
+              "enc.ebcot_hybrid_chunks",
+              ("ht_blocks_to_pyramid", "dwt53_inv_level")),
+             ("Part-1 path C", opts(backend="native"), ("dwt53_fwd_level",),
+              "enc.host_entropy_frames",
+              ("ht_blocks_to_pyramid", "dwt53_inv_level")))
+    for label, o, need, path, dec_need in cases:
+        streams, snap = case_run(
+            tp, f"M2 CT series {label} encode_batch",
+            lambda: tp.encode_batch(series, o, device=dev), launches, need,
+            card)
+        if not snap.get(path, 0):
+            raise AssertionError(f"M2 {label}: no {path}")
+        frames, _ = case_run(tp, f"M2 CT series {label} decode_batch",
+                             lambda: tp.decode_batch(streams, device=dev),
+                             launches, dec_need, card)
+        for got, want in zip(frames, series):
+            same(f"M2 {label} round trip", got, want)
+        ref = (o if o.high_throughput
+               else dataclasses.replace(o, backend="native"))
+        held_to_cpu(f"M2 {label}, {CT_CHECK} slices",
+                    streams[:CT_CHECK],
+                    tp.encode_batch(series[:CT_CHECK], ref, device="cpu"))
+        print(f"M2 {label}: {CT_SLICES} x {series[0].shape} int16, "
+              f"{sum(map(len, streams))} bytes, round trip exact [{card}]",
+              flush=True)
+
+
+def m3_multispectral(tp, dev, card, launches):
+    """M3: a 4-band 16-bit MS_SIDE^2 image (RGB + NIR) in MS_TILE^2 tiles,
+    lossy 9/7 quality 85, 3 layers, TLM and PLT, through encode; a 2-band
+    12-bit (gray + alpha) OPT_SIDE^2 image, lossless; each at OPT_SIDE^2
+    held to the CPU run's bytes."""
+    def four_band(side, seed):
+        return np.stack([natural_image_bits(side, side, 16, seed=seed + b)
+                         for b in range(4)], axis=-1)
+    lossy = tp.Options(format=tp.Format.J2K, lossless=False, quality=85,
+                       num_resolutions=6, num_layers=3,
+                       tile_size=(MS_TILE, MS_TILE), enable_tlm=True,
+                       enable_plt=True)
+    img = four_band(MS_SIDE, 950)
+    data, _ = case_run(tp, "M3 4-band 16-bit encode", lambda: tp.encode(
+        img, lossy, device=dev), launches, ("dwt97_fwd_level",), card)
+    out, _ = case_run(tp, "M3 4-band 16-bit decode",
+                      lambda: tp.decode(data, device=dev), launches,
+                      ("dwt97_inv_level",), card)
+    mse = np.mean((out.astype(np.float64) - img) ** 2)
+    print(f"M3 4-band {img.shape} {img.dtype}: {len(data)} bytes "
+          f"({img.nbytes / len(data):.2f}:1), PSNR "
+          f"{10 * np.log10(65535.0 ** 2 / mse):.3f} dB [{card}]", flush=True)
+    small = four_band(OPT_SIDE, 960)
+    held_to_cpu(f"M3 4-band at {OPT_SIDE}^2",
+                tp.encode(small, lossy, device=dev),
+                tp.encode(small, lossy, device="cpu"))
+    ga = np.stack([natural_image_bits(OPT_SIDE, OPT_SIDE, 12, seed=970),
+                   natural_image_bits(OPT_SIDE, OPT_SIDE, 12, seed=971)],
+                  axis=-1)
+    lossless = tp.Options(format=tp.Format.J2K, lossless=True, precision=12,
+                          num_resolutions=6, high_throughput=True)
+    data, _ = case_run(tp, "M3 gray + alpha 12-bit encode",
+                       lambda: tp.encode(ga, lossless, device=dev),
+                       launches, ("dwt53_fwd_level",), card)
+    out, _ = case_run(tp, "M3 gray + alpha 12-bit decode",
+                      lambda: tp.decode(data, device=dev), launches,
+                      ("dwt53_inv_level",), card)
+    same("M3 gray + alpha round trip", out, ga)
+    held_to_cpu(f"M3 gray + alpha at {OPT_SIDE}^2", data,
+                tp.encode(ga, lossless, device="cpu"))
+
+
+def check_wide_forward_levels(tp, dev, card):
+    """M4's overflow check: every forward 5/3 level of 29-bit gray and of
+    28-bit RGB after the RCT (29-bit chroma), each sample at one extreme or
+    the other at random (detail coefficients past 2^30, whose lifting sums
+    come within a bit of int32's range), through the level kernel against
+    the plain lifting on the same card tensors, bit for bit.  Returns the
+    largest difference."""
+    from go_jpeg2000_tpu_torch.models import transforms
+    from go_jpeg2000_tpu_torch.ops import dwt
+    worst = 0
+    for label, img, bits, mct in (
+            ("29-bit gray", extremes_image((OPT_SIDE, OPT_SIDE), 29, 980),
+             29, False),
+            ("28-bit RGB after the RCT",
+             extremes_image((OPT_SIDE, OPT_SIDE, 3), 28, 981), 28, True)):
+        x = transforms.upload(np.moveaxis(img.reshape(
+            img.shape[0], img.shape[1], -1), -1, 0)[None], dev)
+        cur = transforms.coefficients(x, dwt.REV53, mct, bits,
+                                      False).reshape(-1, OPT_SIDE, OPT_SIDE)
+        wrapped = 0
+        for lev in range(5):
+            got = transforms.forward_level(cur, dwt.REV53, 0, 0)
+            want = dwt.forward_2d(cur, dwt.REV53)
+            for k in ("LL", "HL", "LH", "HH"):
+                worst = max(worst, int((got[k].to(torch.int64)
+                                        - want[k]).abs().max()))
+            wide = sum(int((want[k].to(torch.int64).abs() >= 1 << 30).sum())
+                       for k in ("HL", "LH", "HH"))
+            wrapped += wide
+            cur = got["LL"].contiguous()
+        if worst:
+            raise AssertionError(f"M4 {label}: the 5/3 level kernel differs "
+                                 f"from the plain lifting by {worst}")
+        print(f"M4 {label}: 5 forward 5/3 levels through the kernel equal "
+              f"the plain lifting bit for bit ({wrapped} detail samples of "
+              f"magnitude >= 2^30) [{card}]", flush=True)
+    return worst
+
+
+def m4_wide_samples(tp, dev, card, launches):
+    """M4: 20- and 29-bit gray OPT_SIDE^2 lossless through encode, HTJ2K and
+    Part-1, round trips exact and bytes equal to the CPU run's; the level
+    kernels held to the plain lifting on the overflow cases."""
+    err = check_wide_forward_levels(tp, dev, card)
+    for bits in (20, 29):
+        img = wide_image((OPT_SIDE, OPT_SIDE), bits, 990 + bits)
+        for ht in (True, False):
+            opts = tp.Options(format=tp.Format.J2K, lossless=True,
+                              precision=bits, num_resolutions=6,
+                              high_throughput=ht)
+            label = f"M4 {bits}-bit gray {'HTJ2K' if ht else 'Part-1'}"
+            data, _ = case_run(tp, f"{label} encode",
+                               lambda: tp.encode(img, opts, device=dev),
+                               launches, ("dwt53_fwd_level",), card)
+            out, _ = case_run(tp, f"{label} decode",
+                              lambda: tp.decode(data, device=dev),
+                              launches, ("dwt53_inv_level",), card)
+            same(f"{label} round trip", out, img.astype(np.int32))
+            held_to_cpu(label, data, tp.encode(img, opts, device="cpu"))
+    return err
+
+
+def m5_styles_progression(tp, dev, card, launches):
+    """M5: OPT_SIDE^2 RGB with Part-1 code-block styles 0x3f and
+    PTERM|TERMALL|LAZY at 2 layers, lossless and lossy; a POC of three
+    segments; PPM and PPT streams; each held to the CPU run and decoded by
+    the port (exactly where lossless)."""
+    img = np.stack([natural_image(OPT_SIDE, OPT_SIDE, seed=1000 + c)
+                    for c in range(3)], axis=-1)
+    base = dict(format=tp.Format.J2K, num_resolutions=6)
+    cases = []
+    for style in (0x3f, 0x10 | 0x04 | 0x01):
+        for lossless in (True, False):
+            cases.append((f"style {style:#x} 2 layers "
+                          f"{'lossless' if lossless else 'lossy q85'}",
+                          tp.Options(lossless=lossless, quality=85,
+                                     code_block_style=style, num_layers=2,
+                                     **base)))
+    cases += [("POC of three segments", tp.Options(
+                   lossless=True, high_throughput=True, num_layers=1,
+                   progression_changes=[(0, 0, 1, 2, 3, 0),
+                                        (2, 0, 1, 4, 3, 2),
+                                        (4, 0, 1, 6, 3, 4)], **base)),
+              ("PPM", tp.Options(lossless=True, high_throughput=True,
+                                 enable_ppm=True, **base)),
+              ("PPT + SOP/EPH", tp.Options(lossless=True,
+                                           high_throughput=True,
+                                           enable_ppt=True, enable_sop=True,
+                                           enable_eph=True, **base))]
+    for label, opts in cases:
+        kind = "dwt53" if opts.lossless else "dwt97"
+        data, _ = case_run(tp, f"M5 {label} encode",
+                           lambda: tp.encode(img, opts, device=dev),
+                           launches, (f"{kind}_fwd_level",), card)
+        out, _ = case_run(tp, f"M5 {label} decode",
+                          lambda: tp.decode(data, device=dev), launches,
+                          (f"{kind}_inv_level",), card)
+        if opts.lossless:
+            same(f"M5 {label} round trip", out, img)
+        else:
+            print(f"M5 {label}: PSNR {psnr(out, img):.3f} dB", flush=True)
+        held_to_cpu(f"M5 {label}", data, tp.encode(img, opts, device="cpu"))
+
+
+def m6_python_backend(tp, dev, card, launches):
+    """M6: backend "python" (the Python block coders) at PY_SIDE^2, the
+    transform on the card: bytes equal the native backend's, HTJ2K and
+    Part-1."""
+    img = np.stack([natural_image(PY_SIDE, PY_SIDE, seed=1100 + c)
+                    for c in range(3)], axis=-1)
+    for ht in (True, False):
+        opts = tp.Options(format=tp.Format.J2K, lossless=True,
+                          num_resolutions=4, high_throughput=ht,
+                          backend="python")
+        label = f"M6 python backend {'HTJ2K' if ht else 'Part-1'}"
+        data, _ = case_run(tp, label, lambda: tp.encode(img, opts,
+                                                        device=dev),
+                           launches, ("dwt53_fwd_level",), card)
+        native = tp.encode(img, dataclasses.replace(opts, backend="native"),
+                           device=dev)
+        if data != native:
+            raise AssertionError(f"{label}: bytes differ from the native "
+                                 "backend's")
+        same(f"{label} round trip", tp.decode(data, device=dev), img)
+        print(f"{label}: {img.shape}, bytes equal to the native backend's, "
+              f"round trip exact [{card}]", flush=True)
+
+
+def encode_options_phase(tp, dev, card, launches, c4):
+    """Phase 17: the encode options on the card, M1-M6.  Returns the 5/3
+    level kernel's largest difference from the plain lifting on M4's
+    overflow cases."""
+    t0 = time.perf_counter()
+    m1_tile_server(tp, dev, card, launches, c4)
+    m2_ct_series(tp, dev, card, launches)
+    m3_multispectral(tp, dev, card, launches)
+    err = m4_wide_samples(tp, dev, card, launches)
+    m5_styles_progression(tp, dev, card, launches)
+    m6_python_backend(tp, dev, card, launches)
+    torch.cuda.empty_cache()
+    print(f"phase 17, encode options: {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    return err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -3438,6 +3863,8 @@ def main():
     config5_phase(tp, dev, card, launches)
     dryrun_phase(tp, card, launches)
     decode_options_phase(tp, dev, card, launches, c4, c2)
+    err["dwt53_fwd_level"] = max(err["dwt53_fwd_level"], encode_options_phase(
+        tp, dev, card, launches, c4))
 
     out = []
     for name, (replaces, src) in REPLACES.items():

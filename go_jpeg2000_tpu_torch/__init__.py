@@ -12,10 +12,14 @@ Public API (the JAX package's, with an explicit device):
     encode_batch(images, opts=None, device="cuda") -> List[bytes]
     decode_batch(streams, config=None, device="cuda") -> List[np.ndarray]
 
-`encode` and `decode` take one image: gray or RGB, 8 to 16-bit unsigned,
-J2K or JP2, one tile or a tile grid with tile and image offsets, HTJ2K or
-Part-1 (EBCOT), lossless 5/3 or lossy 9/7, with any number of quality
-layers and a compression_ratio budget.  Per tile the device
+`encode` and `decode` take one image: any number of components, unsigned
+or signed samples of 1 to 29 bits lossless (31 lossy), J2K or JP2, one
+tile or a tile grid with tile and image offsets, HTJ2K or Part-1 (EBCOT,
+any code-block style), lossless 5/3 or lossy 9/7, with any number of
+quality layers, a compression_ratio budget, SOP, EPH, PLT, PPT, PPM and
+TLM markers and POC progression changes; backend "python" codes blocks
+with the Python coders.  `decode` also takes region, reduced and layered
+decodes and the JP2 colour spaces.  Per tile the device
 runs DC shift, RCT or ICT, the DWT levels and the 9/7 quantization (and
 their inverses on decode); the host runs the native block coder, PCRD and
 the Python Tier-2.  The batch API codes frames of one shape together:
@@ -41,9 +45,8 @@ encode_sharded, decode_sharded, make_grid; so is the multi-host
 decomposition (BASELINE config 5: one process a host, each owning its
 tiles): encode_multihost, decode_multihost.  go_jpeg2000_tpu_torch.entry
 holds entry and dryrun_multichip.  Tensors carry an explicit
-device: "cuda" without a card raises; tests pass device="cpu".  Options
-outside the slices raise NotImplementedError naming the ROADMAP item that
-brings them.
+device: "cuda" without a card raises; tests pass device="cpu".  What the
+JAX package refuses the port refuses too, with ValueError.
 """
 
 from .options import (ColorSpace, ComponentMetadata, Config, Format,

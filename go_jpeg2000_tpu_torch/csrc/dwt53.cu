@@ -97,6 +97,31 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return i;
 }
 
+// The lifting steps in int32 arithmetic that wraps modulo 2^32, as torch's
+// int32 (and XLA's) does: a 28- or 29-bit sample after the RCT overflows a
+// sum of two neighbours, and signed overflow is undefined in C++, so the
+// sums run in uint32_t.  `>>` of a negative int is an arithmetic shift in
+// nvcc.  Below 28 bits nothing wraps and the code is the same.
+__device__ __forceinline__ int wadd(int a, int b) {
+  return (int)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((uint32_t)a - (uint32_t)b);
+}
+// predict: c -/+ floor((l + r) / 2); update: c +/- floor((l + r + 2) / 4)
+__device__ __forceinline__ int predict_sub(int c, int l, int r) {
+  return wsub(c, wadd(l, r) >> 1);
+}
+__device__ __forceinline__ int predict_add(int c, int l, int r) {
+  return wadd(c, wadd(l, r) >> 1);
+}
+__device__ __forceinline__ int update_add(int c, int l, int r) {
+  return wadd(c, wadd(wadd(l, r), 2) >> 2);
+}
+__device__ __forceinline__ int update_sub(int c, int l, int r) {
+  return wsub(c, wadd(wadd(l, r), 2) >> 2);
+}
+
 // Row g (-ha <= g < h + hb) of a shard of h rows in a frame: from the halo
 // above or below where one is given, else the shard's own row (reflected).
 __device__ __forceinline__ const int* shard_row(const int* x, const int* above,
@@ -148,15 +173,15 @@ dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
 #pragma unroll
   for (int j = 1; j < FWD_STRIP + 2; j += 2) {
     if (j > rr + 1) break;
-    v[j].x -= (v[j - 1].x + v[j + 1].x) >> 1;
-    v[j].y -= (v[j - 1].y + v[j + 1].y) >> 1;
+    v[j].x = predict_sub(v[j].x, v[j - 1].x, v[j + 1].x);
+    v[j].y = predict_sub(v[j].y, v[j - 1].y, v[j + 1].y);
   }
   // vertical update on even rows r0 .. r0+rr-2 (register rows 2, 4, ..)
 #pragma unroll
   for (int j = 2; j < FWD_STRIP + 2; j += 2) {
     if (j > rr) break;
-    v[j].x += (v[j - 1].x + v[j + 1].x + 2) >> 2;
-    v[j].y += (v[j - 1].y + v[j + 1].y + 2) >> 2;
+    v[j].x = update_add(v[j].x, v[j - 1].x, v[j + 1].x);
+    v[j].y = update_add(v[j].y, v[j - 1].y, v[j + 1].y);
   }
   // horizontal lifting of each output row, then the stores: even rows to
   // LL | HL, odd rows to LH | HH; even columns low, odd columns high
@@ -168,9 +193,9 @@ dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
     if (k >= rr) break;
     const int a = v[k + 2].x, b = v[k + 2].y;
     const int next = __shfl_down_sync(0xffffffffu, a, 1);
-    const int d = b - ((a + next) >> 1);       // x[2p+1] -= (x[2p]+x[2p+2])/2
+    const int d = predict_sub(b, a, next);       // x[2p+1] -= (x[2p]+x[2p+2])/2
     const int prev = __shfl_up_sync(0xffffffffu, d, 1);
-    const int s0 = a + ((prev + d + 2) >> 2);  // x[2p] += (d[p-1]+d[p]+2)/4
+    const int s0 = update_add(a, prev, d);  // x[2p] += (d[p-1]+d[p]+2)/4
     if (out) {
       const int64_t o = obase + (int64_t)(k >> 1) * w2;
       if (k & 1) {
@@ -237,24 +262,24 @@ dwt53_inv_kernel(const int* __restrict__ ll, const int* __restrict__ hl,
   for (int j = 0; j < INV_STRIP + HALO; ++j) {
     if (j > rr + 2) break;
     const int prev = __shfl_up_sync(0xffffffffu, v[j].y, 1);
-    const int s0 = v[j].x - ((prev + v[j].y + 2) >> 2);
+    const int s0 = update_sub(v[j].x, prev, v[j].y);
     const int next = __shfl_down_sync(0xffffffffu, s0, 1);
     v[j].x = s0;
-    v[j].y += (s0 + next) >> 1;
+    v[j].y = predict_add(v[j].y, s0, next);
   }
   // then columns: undo the update on even rows r0 .. r0+rr (register rows
   // 1, 3, ..), then the predict on odd rows r0+1 .. r0+rr-1 (rows 2, 4, ..)
 #pragma unroll
   for (int j = 1; j < INV_STRIP + 2; j += 2) {
     if (j > rr + 1) break;
-    v[j].x -= (v[j - 1].x + v[j + 1].x + 2) >> 2;
-    v[j].y -= (v[j - 1].y + v[j + 1].y + 2) >> 2;
+    v[j].x = update_sub(v[j].x, v[j - 1].x, v[j + 1].x);
+    v[j].y = update_sub(v[j].y, v[j - 1].y, v[j + 1].y);
   }
 #pragma unroll
   for (int j = 2; j < INV_STRIP + 1; j += 2) {
     if (j > rr) break;
-    v[j].x += (v[j - 1].x + v[j + 1].x) >> 1;
-    v[j].y += (v[j - 1].y + v[j + 1].y) >> 1;
+    v[j].x = predict_add(v[j].x, v[j - 1].x, v[j + 1].x);
+    v[j].y = predict_add(v[j].y, v[j - 1].y, v[j + 1].y);
   }
   // rows r0 .. r0+rr-1 (register rows 1 .. rr), columns 2p and 2p+1 as one
   // 8-byte store

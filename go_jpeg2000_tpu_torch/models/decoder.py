@@ -32,8 +32,8 @@ the block slots, and on the device the block-to-pyramid assembly (the
 ht_blocks_to_pyramid kernel on the card), the inverse 5/3 levels and the
 inverse RCT.  Streams the batch branches do not take (JP2 files, tiled
 images, differing shapes, quality layers, SOP/EPH/PPM/PPT, HT refinement
-passes, lossy Part-1, other code-block styles, signed samples or
-precisions outside 8 to 16 bits, subsampled components) and region or
+passes, lossy Part-1, other code-block styles, subsampled components)
+and region or
 reduced decodes go through `decode` one by one, as in the JAX package.
 Counters: dec.device_ht_chunks, dec.host_ht_frames, dec.ebcot_frames,
 dec.tiles_decoded.
@@ -505,8 +505,9 @@ def batch_refusal(parsed, config: Config) -> Optional[str]:
     together (decode does, one by one), or None: the JAX package's
     conditions (one shape, one tile, no JP2, whole decodes at full
     resolution), and the branches' own (one layer, no SOP/EPH/PPM/PPT, HT
-    or lossless Part-1 of code-block style 0, one unsigned precision of 8
-    to 16 bits; fused_encode.plan_for refuses subsampled components)."""
+    or lossless Part-1 of code-block style 0; fused_encode.plan_for
+    refuses subsampled components).  Signed samples and any precision
+    batch, as in the JAX package."""
     if config.decode_area is not None or config.reduce_resolution:
         return "a region or reduced-resolution decode"
     h0 = parsed[0][0]
@@ -534,9 +535,6 @@ def batch_refusal(parsed, config: Config) -> Optional[str]:
         if (cs.has_sop or cs.has_eph or hdr.ppm
                 or any(tp.packed_headers for tp in tile_parts)):
             return "SOP/EPH/PPM/PPT markers"
-        if any(c.signed or not 8 <= c.precision <= 16
-               for c in hdr.components):
-            return "signed or out-of-range sample precision"
     return None
 
 
@@ -749,6 +747,12 @@ def decode_chunk(batch: Batch, bodies: List[bytes], dev: torch.device
         _pyramid_deltas(batch.plan, batch.nl) if lossy else None)
 
 
+def download(out: torch.Tensor, dt) -> np.ndarray:
+    """A chunk's narrow pixels, flat, to the host (this waits for the
+    device), viewed as the image's dtype `dt`."""
+    return out.cpu().numpy().view(dt)
+
+
 def decode_batch(streams, config: Optional[Config] = None,
                  device="cuda") -> List[np.ndarray]:
     """Decode codestreams or JP2 files to frames ([H, W] gray or
@@ -782,7 +786,7 @@ def decode_batch(streams, config: Optional[Config] = None,
         if out is None:
             frames += [decode(x, config, dev) for x in streams[s:s + chunk]]
             continue
-        arr = out.cpu().numpy().view(dt).reshape(-1, batch.n_comps, th, tw)
+        arr = download(out, dt).reshape(-1, batch.n_comps, th, tw)
         frames += [a[0] if batch.n_comps == 1 else np.moveaxis(a, 0, -1)
                    for a in arr]
         counters.add("dec.bytes_in",

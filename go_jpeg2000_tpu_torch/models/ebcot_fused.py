@@ -39,10 +39,12 @@ from .fused_encode import BlockPlan
 
 def plan_for(header: Header, tile: geo.Tile) -> Optional[BlockPlan]:
     """The lossless block plan of plain style-0 EBCOT code-blocks, or None
-    where the fused geometry does not apply; the decision kernel needs
-    blocks of whole 4-row stripes."""
+    where the fused geometry does not apply: the decision kernel needs
+    blocks of whole 4-row stripes, and a plane for each of a block's Mb
+    bitplanes (max_planes caps them at 29: gray samples of 27 bits and
+    up code on the host)."""
     plan = fused_encode.plan_for(header, tile, ht=False)
-    if plan is None or plan.cbh % 4:
+    if plan is None or plan.cbh % 4 or max_planes(plan) < int(plan.mb.max()):
         return None
     return plan
 

@@ -13,43 +13,51 @@ the fused branch (models/fused_encode.py) runs the whole device half of
 an HTJ2K encode on the card, with hand-written CUDA kernels for the DWT
 levels, block extraction, the HT cleanup fields, bit packing and pool
 compaction, and leaves the host only segment serialization and Tier-2 in
-C++ (or, with quality layers, a byte budget or PLT, a PCRD per frame and
-the Python Tier-2 on natively serialized segments).  The
-device EBCOT branch (models/ebcot_fused.py) runs the 5/3 transform, block
-extraction, the EBCOT Tier-1 decisions, their compaction and (path A) the
-MQ coder and the segment pool on the card, or (path B, backend "hybrid")
-MQ-codes the fetched decision streams on the host in C++; the Python
-Tier-2 assembles the packets.  The chunked branch, for what the device
-branches refuse (a band of several precincts, HT refinement passes,
-Part-1 quality layers, byte budgets and lossy Part-1) and for Part-1 with backend
-"native" (path C), runs the transforms on the device and the native block
-coder, a PCRD per frame and the Python Tier-2 on the host.  Frames of
-differing shapes, tiled and offset images go through `encode` one by one.
-Lossless codestreams are byte-identical to the JAX package's `encode` and
-`encode_batch`; lossy ones decode within one grey level of them (float32
-lifting drifts by ulps between program shapes, so a quantizer index can
-flip at a step boundary).
+C++ (or, with quality layers, a byte budget, SOP, EPH, PLT or PPT, a
+PCRD per frame and the Python Tier-2 on natively serialized segments).
+The device EBCOT branch (models/ebcot_fused.py) runs the 5/3 transform,
+block extraction, the EBCOT Tier-1 decisions, their compaction and (path
+A) the MQ coder and the segment pool on the card, or (path B, backend
+"hybrid") MQ-codes the fetched decision streams on the host in C++; the
+Python Tier-2 assembles the packets.  The chunked branch, for what the
+device branches refuse (a band of several precincts, HT refinement
+passes, Part-1 quality layers, code-block styles, byte budgets, lossy
+Part-1, PPM) and for backends "native" (path C) and "python", runs the
+transforms on the device and the block coder, a PCRD per frame and the
+Python Tier-2 on the host.  Frames of differing shapes, tiled and offset
+images go through `encode` one by one.  Lossless codestreams are
+byte-identical to the JAX package's `encode`; lossy ones decode within
+one grey level of them (float32 lifting drifts by ulps between program
+shapes, so a quantizer index can flip at a step boundary).
 
-The slices: HTJ2K or Part-1 (code-block style 0), lossless 5/3 or lossy
-9/7, with any number of quality layers and byte budgets (HT refinement
-passes where they are used); J2K, JP2 or JPX;
-one tile or a tile grid with tile and image offsets; gray or 3-component
-RGB (RCT for 5/3, ICT for 9/7), 8 to 16-bit unsigned samples; PLT
-markers.  Everything else raises NotImplementedError naming the ROADMAP
-item that brings it (`check_encode`).  The tile-sharded pipeline
-(parallel/sharded.py; its gate is `check_sharded`) assembles through
-`_assemble_with_budget` and `_finalize_codestream` too.
+What it takes is what the JAX package's encoders take: HTJ2K or Part-1
+with any code-block style, lossless 5/3 or lossy 9/7, any number of
+quality layers and byte budgets (HT refinement passes where they are
+used); J2K, JP2 or JPX; one tile or a tile grid with tile and image
+offsets; any number of components (RCT for 5/3 or ICT for 9/7 on the
+first three); unsigned or signed samples of 1 to 29 bits lossless (28
+under the RCT) and 31 lossy (`check_precision` raises ValueError past
+them, where the JAX package fails); SOP, EPH, PLT, PPT, PPM and TLM
+markers and POC progression changes; backend "python" codes the blocks
+with the Python oracles (ops/ht.py, ops/t1.py).  Two departures from the
+JAX package, where it is wrong: a signed image without `precision` gets
+the smallest width that holds every sample (`_natural_precision`), and
+`encode_batch` writes TLM and PPM as `encode` does.  The tile-sharded
+pipeline (parallel/sharded.py) and the multi-host decomposition
+(parallel/multihost.py) assemble through `_assemble_with_budget` and
+`_finalize_codestream` too.
 """
 from __future__ import annotations
 
 import math
+import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..codestream import writer as cw
 from ..codestream.header import (Capabilities, CodingStyle, ComponentInfo,
-                                 Header, Quantization)
+                                 Header, ProgressionChange, Quantization)
 from ..ops import dwt, quant as quant_ops, t1
 from ..options import Format, Options, default_options
 from ..tcd import geometry as geo
@@ -79,6 +87,18 @@ def _natural_precision(image: np.ndarray, opts: Options) -> Tuple[int, bool]:
         return 8, False
     if image.dtype == np.uint16:
         return 16, False
+    if image.dtype == np.int8:
+        return 8, True
+    if image.dtype == np.int16:
+        return 16, True
+    if np.issubdtype(image.dtype, np.integer):
+        lo, hi = int(image.min()), int(image.max())
+        if lo >= 0:
+            return max(1, hi.bit_length()), False
+        # the smallest signed width that holds every sample; the JAX
+        # package takes bit_length(max |x|), one bit short wherever a
+        # positive sample reaches 2^(P-1) or a negative one passes -2^(P-1)
+        return max(max(hi, 0).bit_length(), (-lo - 1).bit_length()) + 1, True
     raise ValueError(f"unsupported dtype {image.dtype}")
 
 
@@ -103,30 +123,19 @@ def _effective_quality(opts: Options) -> int:
     return opts.quality
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
-def check_encode(image: np.ndarray, opts: Options) -> None:
-    """Raise NotImplementedError for what `encode` does not run yet: the
-    options of ROADMAP item 6b."""
-    if not opts.high_throughput and opts.code_block_style:
-        raise _not_ported(f"code-block style {opts.code_block_style:#x}",
-                          "6b")
-    if (opts.enable_sop or opts.enable_eph or opts.enable_ppm
-            or opts.enable_ppt or opts.enable_tlm):
-        raise _not_ported("SOP/EPH/PPM/PPT/TLM markers", "6b")
-    if opts.progression_changes:
-        raise _not_ported("progression order changes (POC)", "6b")
-    if opts.backend not in ("auto", "native", "device", "hybrid"):
-        raise _not_ported(f"entropy backend {opts.backend!r}", "6b")
-    if image.dtype not in (np.uint8, np.uint16):
-        raise _not_ported(f"{image.dtype} samples", "6b")
-    if not (image.ndim == 2 or (image.ndim == 3 and image.shape[2] in (1, 3))):
-        raise _not_ported(f"images of shape {image.shape}", "6b")
-    if opts.precision and not 8 <= opts.precision <= 16:
-        raise _not_ported(f"{opts.precision}-bit samples", "6b")
+def check_precision(header: Header, opts: Options) -> None:
+    """Raise ValueError where the JAX package fails on the sample width: a
+    lossless step exponent above 31 does not fit the quantization marker's
+    five bits (more than 29-bit samples, 28 under the RCT), and lossy
+    samples above 31 bits do not fit the int32 transform."""
+    precision = header.components[0].precision
+    if not opts.lossless and precision > 31:
+        raise ValueError(f"{precision}-bit samples: a lossy encode takes "
+                         "at most 31 bits")
+    quants = [header.quantization] + list(header.comp_quant.values())
+    if any(s.exponent > 31 for q in quants for s in q.step_sizes):
+        raise ValueError(f"{precision}-bit samples: a lossless encode takes "
+                         "at most 29 bits (28 under the RCT)")
 
 
 def batch_takes(images: Sequence[np.ndarray], opts: Options) -> bool:
@@ -137,30 +146,6 @@ def batch_takes(images: Sequence[np.ndarray], opts: Options) -> bool:
     return (all(im.shape == im0.shape and im.dtype == im0.dtype
                 for im in images)
             and opts.tile_size == (0, 0) and opts.image_offset == (0, 0))
-
-
-def check_sharded(image: np.ndarray, opts: Options) -> None:
-    """Raise NotImplementedError for what the tile-sharded path
-    (parallel/sharded.py) does not run: multi-tile images, layers, byte
-    budgets, Part-1 and lossy 9/7 are in; the geometry gates are the
-    sharded path's own (ValueError there)."""
-    if opts.format != Format.J2K:
-        raise _not_ported(f"the {opts.format} format", "6b")
-    if not opts.high_throughput and opts.code_block_style:
-        raise _not_ported(f"code-block style {opts.code_block_style:#x}",
-                          "6b")
-    if (opts.enable_sop or opts.enable_eph or opts.enable_ppm
-            or opts.enable_ppt or opts.enable_tlm or opts.enable_plt):
-        raise _not_ported("SOP/EPH/PPM/PPT/TLM/PLT markers", "6b")
-    if opts.progression_changes:
-        raise _not_ported("progression order changes (POC)", "6b")
-    if opts.backend == "python":
-        raise _not_ported("entropy backend 'python'", "6b")
-    if image.dtype not in (np.uint8, np.uint16) or image.ndim not in (2, 3):
-        raise _not_ported(f"{image.dtype} images of shape {image.shape}",
-                          "6b")
-    if opts.precision and not 8 <= opts.precision <= 16:
-        raise _not_ported(f"{opts.precision}-bit samples", "6b")
 
 
 def build_header(image: np.ndarray, opts: Options) -> Header:
@@ -197,14 +182,44 @@ def build_header(image: np.ndarray, opts: Options) -> Header:
     if opts.high_throughput:
         cs.cb_style |= mk.CBSTYLE_HT
     cs.transform = 1 if opts.lossless else 0
+    if opts.enable_sop:
+        cs.scod |= mk.SCOD_SOP
+    if opts.enable_eph:
+        cs.scod |= mk.SCOD_EPH
     if opts.precinct_size:
         cs.scod |= mk.SCOD_PRECINCTS_DEFINED
         cs.precincts = [tuple(p) for p in opts.precinct_size]
     h.coding_style = cs
+    if opts.progression_changes:
+        h.poc = _progression_changes(opts, cs, n_comps)
     h.quantization = component_quant(h, opts, 0, precision)
     if opts.high_throughput:
         h.capabilities = Capabilities(pcap=mk.pcap_bit(15))
     return h
+
+
+def _progression_changes(opts: Options, cs: CodingStyle,
+                         n_comps: int) -> List[ProgressionChange]:
+    """The POC segments of opts.progression_changes, and, where they leave
+    a (layer, resolution, component) uncovered, a catch-all final segment
+    in the COD order: the POC governs the whole progression (A.6.6), and
+    OpenJPEG refuses a stream whose segments miss a packet."""
+    for pc in opts.progression_changes:
+        if len(pc) != 6:
+            raise ValueError(
+                f"progression_changes entries must be (res_start, "
+                f"comp_start, layer_end, res_end, comp_end, order); got {pc}")
+    poc = [ProgressionChange(*pc) for pc in opts.progression_changes]
+    numres = cs.num_decompositions + 1
+    covered = (any(p.res_start <= r < p.res_end
+                   and p.comp_start <= c < p.comp_end and l < p.layer_end
+                   for p in poc)
+               for r in range(numres) for c in range(n_comps)
+               for l in range(cs.num_layers))
+    if not all(covered):
+        poc.append(ProgressionChange(0, 0, cs.num_layers, numres, n_comps,
+                                     int(opts.progression_order)))
+    return poc
 
 
 def component_quant(h: Header, opts: Options, comp: int,
@@ -237,6 +252,18 @@ def _apply_comp_quants(header: Header, opts: Options, n_comps: int,
             header.comp_quant[c] = q
 
 
+def header_and_main(image: np.ndarray, opts: Options
+                    ) -> Tuple[Header, bytes]:
+    """The main header of `image` under `opts`, each component's
+    quantization in it (check_precision holds it to what the markers
+    take), and its bytes."""
+    header = build_header(image, opts)
+    n_comps = header.num_components
+    _apply_comp_quants(header, opts, n_comps, header.components[0].precision)
+    check_precision(header, opts)
+    return header, _write_main_header(header, opts, n_comps)
+
+
 def _write_main_header(header: Header, opts: Options, n_comps: int) -> bytes:
     out = bytearray()
     out += cw.write_soc()
@@ -247,6 +274,8 @@ def _write_main_header(header: Header, opts: Options, n_comps: int) -> bytes:
     out += cw.write_qcd(header.quantization)
     for c, q in sorted(header.comp_quant.items()):
         out += cw.write_qcc(c, n_comps, q)
+    if header.poc:
+        out += cw.write_poc(header.poc, n_comps)
     if opts.comment:
         out += cw.write_com(opts.comment)
     return bytes(out)
@@ -379,34 +408,52 @@ def _build_blocks(job_slots, results, num_layers: int,
 
 
 def _packets_to_tile_part(header: Header, tile: geo.Tile, enc_state,
-                          t_idx: int, opts: Options) -> bytes:
+                          t_idx: int, opts: Options) -> Tuple[bytes, bytes]:
     """Tier-2 packet assembly for one tile whose blocks already carry final
-    layer assignments."""
+    layer assignments.  Returns (tile-part, packed packet headers): with
+    PPT or PPM each packet header (and its EPH) goes to the packed stream,
+    which a PPT in the tile-part holds, or, with PPM, the main header
+    (the second value; b"" otherwise)."""
     pe_map: Dict[Tuple[int, int, int], List[t2.PrecinctEncoder]] = {}
     for key, entries in enc_state.items():
         pe_map[key] = [t2.PrecinctEncoder(prec, blocks)
                        for band, prec, blocks in entries]
+    use_sop = header.coding_style.has_sop
+    use_eph = header.coding_style.has_eph
+    packed = opts.enable_ppt or opts.enable_ppm
     packets: List[bytes] = []
+    packed_hdrs: List[bytes] = []
     for n, pid in enumerate(t2.packet_sequence(tile, header)):
         pes = pe_map.get((pid.comp, pid.res, pid.precinct), [])
         bw = BitWriter(stuffing=True)
-        body_chunks = t2.encode_packet_header(bw, pes, pid.layer)
+        body = b"".join(t2.encode_packet_header(bw, pes, pid.layer))
         bw.flush()
-        packets.append(t2.wrap_packet(bw.getvalue(), b"".join(body_chunks),
-                                      n, False, False))
+        if packed:
+            hdr = bw.getvalue()
+            if use_eph:
+                hdr += struct.pack(">H", mk.EPH)
+            packed_hdrs.append(hdr)
+            packets.append(t2.wrap_packet(b"", body, n, use_sop, False))
+        else:
+            packets.append(t2.wrap_packet(bw.getvalue(), body, n, use_sop,
+                                          use_eph))
     body = b"".join(packets)
     plt = cw.write_plt(0, [len(p) for p in packets]) if opts.enable_plt \
         else b""
-    sot_len = 12 + len(plt) + 2 + len(body)
-    return cw.write_sot(t_idx, sot_len, 0, 1) + plt + cw.write_sod() + body
+    ppt = cw.write_ppt(b"".join(packed_hdrs)) if opts.enable_ppt else b""
+    sot_len = 12 + len(plt) + len(ppt) + 2 + len(body)
+    tile_part = (cw.write_sot(t_idx, sot_len, 0, 1) + plt + ppt
+                 + cw.write_sod() + body)
+    return tile_part, b"".join(packed_hdrs) if opts.enable_ppm else b""
 
 
 def _assemble_packets(header: Header, tile: geo.Tile, enc_state, job_slots,
                       results, t_idx: int, opts: Options,
-                      rate_budget: Optional[int] = None) -> bytes:
+                      rate_budget: Optional[int] = None
+                      ) -> Tuple[bytes, bytes]:
     """Single-tile path: build blocks, run PCRD locally (one pass, as the
     JAX package's batch path: no correction of the overhead estimate),
-    assemble packets."""
+    assemble packets.  Returns (tile-part, PPM chunk)."""
     num_layers = header.coding_style.num_layers
     all_blocks, weights = _build_blocks(
         job_slots, results, num_layers, opts.lossless,
@@ -415,29 +462,43 @@ def _assemble_packets(header: Header, tile: geo.Tile, enc_state, job_slots,
     return _packets_to_tile_part(header, tile, enc_state, t_idx, opts)
 
 
+def _ppm_size(payload: int) -> int:
+    """Bytes of the PPM segments (cw.write_ppm) of `payload` bytes of
+    Nppm-prefixed chunks: 5 bytes of marker, length and Zppm a segment of
+    at most 65532."""
+    return payload + 5 * -(-max(1, payload) // 65532)
+
+
 def _assemble_with_budget(header: Header, opts: Options, states, all_blocks,
                           num_layers: int, rate_budget: Optional[int],
                           main: bytes, assign_fn, size_reduce=None,
-                          tile_ids=None) -> List[bytes]:
+                          tile_ids=None) -> Tuple[List[bytes], List[bytes]]:
     """PCRD (assign_fn) and Tier-2 of the tiles in `states` ((tile,
     enc_state) each, indices `tile_ids`, default 0..), correcting the
     bisection's estimate of the header overhead against the size actually
     assembled until the codestream meets rate_budget.  With several ranks
     each passes its own tiles and `size_reduce`, the sum of a local byte
     count over the ranks, so that every rank sees the whole codestream's
-    size.  Returns the tile-parts.  (The JAX package's function also
-    assembles PPM headers and TLM, which the port refuses before here.)"""
+    size, PPM and TLM included.  Returns the tile-parts and their PPM
+    chunks."""
     ids = tile_ids if tile_ids is not None else list(range(len(states)))
+    tlm = (len(cw.write_tlm([(t, 0) for t in range(header.num_tiles)]))
+           if opts.enable_tlm else 0)
 
-    def build_parts() -> List[bytes]:
-        return [_packets_to_tile_part(header, tile, enc_state, t_idx, opts)
-                for t_idx, (tile, enc_state) in zip(ids, states)]
+    def build_parts() -> Tuple[List[bytes], List[bytes]]:
+        parts = [_packets_to_tile_part(header, tile, enc_state, t_idx, opts)
+                 for t_idx, (tile, enc_state) in zip(ids, states)]
+        return [tp for tp, _ in parts], [hdrs for _, hdrs in parts]
 
-    def core_size(tile_parts) -> int:
+    def core_size(tile_parts, ppm_chunks) -> int:
         local = sum(len(tp) for tp in tile_parts)
+        ppm = sum(4 + len(c) for c in ppm_chunks)
         if size_reduce is not None:
             local = int(size_reduce(local))
-        return len(main) + 2 + local
+            if opts.enable_ppm:
+                ppm = int(size_reduce(ppm))
+        n = len(main) + 2 + local + tlm
+        return n + _ppm_size(ppm) if opts.enable_ppm else n
 
     def reset_blocks():
         for blk in all_blocks:
@@ -459,7 +520,7 @@ def _assemble_with_budget(header: Header, opts: Options, states, all_blocks,
     # a threshold, so re-targeting by (actual - estimate) converges in 2-3
     # rebuilds
     for _ in range(10):
-        total = core_size(parts)
+        total = core_size(*parts)
         if total <= rate_budget:
             if total > best_total:
                 best, best_total = parts, total
@@ -477,16 +538,16 @@ def _assemble_with_budget(header: Header, opts: Options, states, all_blocks,
         reset_blocks()
         est = assign_fn(target)
         parts = build_parts()
-        if target == 64 and core_size(parts) > rate_budget:
+        if target == 64 and core_size(*parts) > rate_budget:
             break   # minimum content still overshoots: unreachable
-    if core_size(parts) <= rate_budget and core_size(parts) > best_total:
+    if core_size(*parts) <= rate_budget and core_size(*parts) > best_total:
         best = parts
     if best is None:
         # unreachable even at minimum content: the smallest assembly, and
         # the overshoot is counted
         counters.add("enc.budget_overshoot")
         counters.add("enc.budget_overshoot_bytes",
-                     core_size(parts) - rate_budget)
+                     core_size(*parts) - rate_budget)
         best = parts
     return best
 
@@ -500,24 +561,33 @@ def _wrap(header: Header, opts: Options, codestream: bytes) -> bytes:
 
 
 def _finalize_codestream(header: Header, opts: Options, main: bytes,
-                         tile_parts: List[bytes], total_pixels: int) -> bytes:
-    """Main header, tile-parts and EOC, wrapped as opts.format asks (the
-    JAX package's function without PPM and TLM, which check_encode
-    refuses)."""
-    codestream = main + b"".join(tile_parts) + cw.write_eoc()
+                         tile_parts: List[bytes], ppm_chunks: List[bytes],
+                         total_pixels: int) -> bytes:
+    """Main header, PPM (the tile-parts' packed packet headers), TLM (the
+    tile-part lengths, A.4.17), the tile-parts and EOC, wrapped as
+    opts.format asks."""
+    out = bytearray(main)
+    if opts.enable_ppm:
+        out += cw.write_ppm(ppm_chunks)
+    if opts.enable_tlm:
+        out += cw.write_tlm([(t, len(tp)) for t, tp in enumerate(tile_parts)])
+    for tp in tile_parts:
+        out += tp
+    out += cw.write_eoc()
     counters.add("enc.pixels_in", total_pixels)
-    counters.add("enc.bytes_out", len(codestream))
-    return _wrap(header, opts, codestream)
+    counters.add("enc.bytes_out", len(out))
+    return _wrap(header, opts, bytes(out))
 
 
 def _code_blocks(block_jobs, opts: Options, num_layers: int,
                  rate_budget: Optional[int]):
-    """The native block coder on one tile's jobs, with HT refinement passes
-    where effective_ht_refinement turns them on; the EBCOT coder computes
-    the exact D.4.1 pass lengths only where asked and where PCRD reads them
-    (layers or a budget), else its monotone upper bounds."""
+    """The block coder of opts.backend (the native one, or the Python
+    oracles for "python") on one tile's jobs, with HT refinement passes
+    where effective_ht_refinement turns them on; the native EBCOT coder
+    computes the exact D.4.1 pass lengths only where asked and where PCRD
+    reads them (layers or a budget), else its monotone upper bounds."""
     return encode_blocks_batch(
-        block_jobs,
+        block_jobs, backend=opts.backend,
         ht_refinement=opts.high_throughput and effective_ht_refinement(opts),
         ht_require_exact=opts.lossless,
         exact_rates=opts.exact_rates and (num_layers > 1
@@ -526,9 +596,9 @@ def _code_blocks(block_jobs, opts: Options, num_layers: int,
 
 def _entropy_and_packets(header: Header, tile: geo.Tile, pyramids,
                          t_idx: int, opts: Options,
-                         rate_budget: Optional[int]) -> bytes:
+                         rate_budget: Optional[int]) -> Tuple[bytes, bytes]:
     """Single-tile host entropy + PCRD + packets for one frame (the JAX
-    package's batch-path body)."""
+    package's batch-path body); (tile-part, PPM chunk)."""
     enc_state, job_slots, block_jobs = _entropy_jobs(tile, pyramids)
     results = _code_blocks(block_jobs, opts,
                            header.coding_style.num_layers, rate_budget)
@@ -567,24 +637,22 @@ def _tile_entropy(header: Header, comps: List[np.ndarray], t_idx: int,
 
 def encode(image: np.ndarray, opts: Optional[Options] = None,
            device="cuda") -> bytes:
-    """Encode one image ([H, W] gray or [H, W, 3] RGB, 8 to 16-bit
-    unsigned) to a J2K codestream or a JP2 file, as the JAX package's
-    encode: per tile (opts.tile_size, tile_offset, image_offset), the
-    device transform and the host block coder (_tile_entropy); then one
-    PCRD over every tile's passes (quality layers, and the byte budget of
-    compression_ratio, corrected against the assembled size), and the
-    Tier-2 packets of each tile.  `device` is where the transforms run;
-    "cuda" without a card raises."""
+    """Encode one image ([H, W] or [H, W, C] of any C, unsigned or signed
+    integer samples of 1 to 29 bits lossless, 31 lossy) to a J2K
+    codestream or a JP2 file, as the JAX package's encode: per tile
+    (opts.tile_size, tile_offset, image_offset), the device transform and
+    the host block coder (_tile_entropy); then one PCRD over every tile's
+    passes (quality layers, and the byte budget of compression_ratio,
+    corrected against the assembled size), and the Tier-2 packets of each
+    tile, with the markers opts asks for.  `device` is where the
+    transforms run; "cuda" without a card raises."""
     opts = opts or default_options()
     dev = transforms.resolve_device(device)
     image = np.asarray(image)
-    check_encode(image, opts)
     comps = _image_components(image)
-    header = build_header(image, opts)
+    header, main = header_and_main(image, opts)
     precision = header.components[0].precision
     signed = header.components[0].signed
-    _apply_comp_quants(header, opts, len(comps), precision)
-    main = _write_main_header(header, opts, len(comps))
 
     num_layers = header.coding_style.num_layers
     rate_budget = rate_mod.byte_budget(image, opts)
@@ -601,11 +669,11 @@ def encode(image: np.ndarray, opts: Optional[Options] = None,
         all_blocks += blocks
         all_weights += wts
         states.append((tile, enc_state))
-    tile_parts = _assemble_with_budget(
+    tile_parts, ppm_chunks = _assemble_with_budget(
         header, opts, states, all_blocks, num_layers, rate_budget, main,
         lambda target: rate_mod.assign_layers(all_blocks, all_weights,
                                               num_layers, target))
-    return _finalize_codestream(header, opts, main, tile_parts,
+    return _finalize_codestream(header, opts, main, tile_parts, ppm_chunks,
                                 int(image.size))
 
 
@@ -634,19 +702,46 @@ def _chunk_frames(n_frames: int, pixels_per_frame: int,
     return max(1, -(-n_frames // n_chunks))
 
 
+def segment_results(segs) -> List[t1.T1EncodeResult]:
+    """Each block's (segment, numbps, distortion) from the fused HT encode
+    -> the host coder's result for a cleanup-only block: one pass, its
+    bitplanes signalled as 1 (the numbps the packet carries)."""
+    out = []
+    for seg, numbps, dist in segs:
+        if numbps == 0:
+            out.append(t1.T1EncodeResult(b"", 0, [], []))
+        else:
+            p = t1.PassInfo(2, 0, len(seg), dist, True)
+            out.append(t1.T1EncodeResult(seg, 1, [p], [len(seg)]))
+    return out
+
+
+def tile_part_markers(opts: Options) -> bool:
+    """Whether opts put markers inside the tile-parts or take the packet
+    headers out of them (SOP, EPH, PLT, PPT, PPM), which the native
+    single-layer Tier-2 of the fused HT encode does not write; TLM and
+    JP2 wrap its output."""
+    return bool(opts.enable_sop or opts.enable_eph or opts.enable_plt
+                or opts.enable_ppt or opts.enable_ppm)
+
+
 def _encode_batch_fused(batch: np.ndarray, header: Header, tile: geo.Tile,
                         plan, opts: Options, precision: int, signed: bool,
                         nl0: int, use_mct: bool, main: bytes, kind: str,
                         dev, rate_budget: Optional[int]) -> List[bytes]:
     """The fused device HT encode (models/fused_encode.py), one device
     program per chunk of frames, then native serialization and Tier-2 at
-    one layer without a budget or PLT; otherwise the natively serialized
-    segments (one truncation point a block) go through the PCRD of each
-    frame (quality layers, the byte budget) and the Python Tier-2, as the
-    JAX package's fused branch."""
+    one layer without a budget or markers in the tile-part; otherwise the
+    natively serialized segments (one truncation point a block) go
+    through the PCRD of each frame (quality layers, the byte budget) and
+    the Python Tier-2, as the JAX package's fused branch.  Each frame's
+    tile-part then goes through _finalize_codestream (TLM, PPM, JP2)."""
     n_frames = batch.shape[0]
-    chunk = _chunk_frames(n_frames, int(np.prod(batch.shape[1:])),
+    pixels = int(np.prod(batch.shape[1:]))
+    chunk = _chunk_frames(n_frames, pixels,
                           FUSED_CHUNK_BYTES // FUSED_BYTES_PER_SAMPLE)
+    native = (header.coding_style.num_layers == 1 and rate_budget is None
+              and not tile_part_markers(opts))
     out: List[bytes] = []
     for s in range(0, n_frames, chunk):
         sub = batch[s:s + chunk]
@@ -654,27 +749,20 @@ def _encode_batch_fused(batch: np.ndarray, header: Header, tile: geo.Tile,
         pool, totals = fused_encode.fused_encode_chunk(
             sub, plan, nl0, kind, use_mct, precision, signed, dev)
         counters.add("enc.fused_chunks")
-        if (header.coding_style.num_layers == 1 and rate_budget is None
-                and not opts.enable_plt):
-            for body in fused_encode.fetch_bodies(pool, totals, n, plan,
-                                                  header, tile):
-                out.append(main + cw.write_sot(0, 12 + 2 + len(body), 0, 1)
-                           + cw.write_sod() + body + cw.write_eoc())
-            continue
-        for segs in fused_encode.fetch_segments(pool, totals, n, plan):
-            enc_state, job_slots = _walk_geometry(tile)
-            results = []
-            for seg, numbps, dist in segs:
-                if numbps == 0:
-                    results.append(t1.T1EncodeResult(b"", 0, [], []))
-                else:
-                    p = t1.PassInfo(2, 0, len(seg), dist, True)
-                    results.append(t1.T1EncodeResult(seg, 1, [p],
-                                                     [len(seg)]))
-            out.append(main + _assemble_packets(header, tile, enc_state,
-                                                job_slots, results, 0, opts,
-                                                rate_budget)
-                       + cw.write_eoc())
+        if native:
+            parts = [(cw.write_sot(0, 12 + 2 + len(body), 0, 1)
+                      + cw.write_sod() + body, b"")
+                     for body in fused_encode.fetch_bodies(
+                         pool, totals, n, plan, header, tile)]
+        else:
+            parts = []
+            for segs in fused_encode.fetch_segments(pool, totals, n, plan):
+                enc_state, job_slots = _walk_geometry(tile)
+                parts.append(_assemble_packets(
+                    header, tile, enc_state, job_slots,
+                    segment_results(segs), 0, opts, rate_budget))
+        out += [_finalize_codestream(header, opts, main, [tp], [hdrs],
+                                     pixels) for tp, hdrs in parts]
     return out
 
 
@@ -697,12 +785,13 @@ def _encode_batch_ebcot(batch: np.ndarray, header: Header, tile: geo.Tile,
     """The device EBCOT encode (models/ebcot_fused.py), one device program
     per chunk of frames: path A (hybrid=False) codes the MQ segments on the
     device, path B (hybrid=True) fetches the decision streams and codes
-    them with the native MQ coder.  Then the Python Tier-2 per frame."""
+    them with the native MQ coder.  Then the Python Tier-2 per frame (with
+    the markers opts asks for) and _finalize_codestream."""
     n_frames = batch.shape[0]
+    pixels = int(np.prod(batch.shape[1:]))
     per_sample = (EBCOT_BYTES_PER_SAMPLE
                   + EBCOT_BYTES_PER_SAMPLE_PLANE * ebcot_fused.max_planes(plan))
-    chunk = _chunk_frames(n_frames, int(np.prod(batch.shape[1:])),
-                          FUSED_CHUNK_BYTES // per_sample)
+    chunk = _chunk_frames(n_frames, pixels, FUSED_CHUNK_BYTES // per_sample)
     program = (ebcot_fused.ebcot_decisions_chunk if hybrid
                else ebcot_fused.ebcot_encode_chunk)
     fetch = (ebcot_fused.fetch_results_hybrid if hybrid
@@ -717,9 +806,11 @@ def _encode_batch_ebcot(batch: np.ndarray, header: Header, tile: geo.Tile,
                      else "enc.ebcot_device_chunks")
         for i in range(sub.shape[0]):
             enc_state, job_slots = _walk_geometry(tile)
-            out.append(main + _assemble_packets(
-                header, tile, enc_state, job_slots,
-                results[i * nb:(i + 1) * nb], 0, opts) + cw.write_eoc())
+            tp, hdrs = _assemble_packets(header, tile, enc_state, job_slots,
+                                         results[i * nb:(i + 1) * nb], 0,
+                                         opts)
+            out.append(_finalize_codestream(header, opts, main, [tp],
+                                            [hdrs], pixels))
     return out
 
 
@@ -730,37 +821,36 @@ def encode_batch(images: Sequence[np.ndarray],
     of differing shapes or dtypes, and tiled or offset images, go one by
     one through `encode`, as in the JAX package.  HTJ2K: where
     fused_encode.plan_for admits the configuration (one precinct per band,
-    no HT refinement, backend "auto" or "native"), each chunk of frames
-    runs the fused device HT encode (DC shift, RCT/ICT, DWT, block
+    no HT refinement, no PPM, backend "auto" or "native"), each chunk of
+    frames runs the fused device HT encode (DC shift, RCT/ICT, DWT, block
     extraction and quantization, HT cleanup fields, bit packing, pool
     compaction) and the host serializes and assembles packets in C++
-    (with quality layers or a budget: a PCRD per frame, Python Tier-2).
-    Part-1 lossless with one layer and no budget: where ebcot_fused.plan_for
-    admits it, backend "device" or "auto" (path A) runs the device EBCOT
-    encode up to the MQ segment pool, backend "hybrid" (path B) up to the
-    decision streams, which the native MQ coder codes; the Python Tier-2
-    assembles packets.  Otherwise (HT refinement, Part-1 layers, byte
-    budgets, lossy Part-1, backend "native" (path C)) the device
+    (with quality layers, a budget, SOP, EPH, PLT or PPT: a PCRD per
+    frame, Python Tier-2).  Part-1 lossless, code-block style 0, one layer,
+    no budget and no PPM: where ebcot_fused.plan_for admits it, backend
+    "device" or "auto" (path A) runs the device EBCOT encode up to the MQ
+    segment pool, backend "hybrid" (path B) up to the decision streams,
+    which the native MQ coder codes; the Python Tier-2 assembles packets.
+    Otherwise (HT refinement, Part-1 layers, styles, byte budgets, lossy
+    Part-1, PPM, backend "native" (path C) or "python") the device
     transforms and the host codes blocks, runs PCRD and assembles packets
-    per frame.  `device` is where the device work runs; "cuda" without a
-    card raises.  Counters: enc.fused_chunks, enc.ebcot_device_chunks,
+    per frame.  Every frame's codestream equals `encode`'s of the frame,
+    TLM and PPM included (the JAX package's encode_batch drops TLM and
+    fails on PPM).  `device` is where the device work runs; "cuda" without
+    a card raises.  Counters: enc.fused_chunks, enc.ebcot_device_chunks,
     enc.ebcot_hybrid_chunks, enc.host_entropy_frames."""
     opts = opts or default_options()
     dev = transforms.resolve_device(device)
     images = [np.asarray(im) for im in images]
     if not images:
         return []
-    for im in images:
-        check_encode(im, opts)
     if not batch_takes(images, opts):
         return [encode(im, opts, dev) for im in images]
 
-    header = build_header(images[0], opts)
+    header, main = header_and_main(images[0], opts)
     precision = header.components[0].precision
     signed = header.components[0].signed
     n_comps = header.num_components
-    _apply_comp_quants(header, opts, n_comps, precision)
-    main = _write_main_header(header, opts, n_comps)
 
     tile = geo.build_tile(header, 0)
     use_mct = bool(header.coding_style.mct) and n_comps >= 3
@@ -773,17 +863,16 @@ def encode_batch(images: Sequence[np.ndarray],
     # frames ship in their narrow dtype; the cast to int32 runs on device
     batch = np.stack([np.stack(_image_components(im)) for im in images])
     n_frames, c, h, w = batch.shape
+    pixels = c * h * w
     plan = eplan = None
     if (opts.high_throughput and not effective_ht_refinement(opts)
-            and opts.backend in ("auto", "native")):
+            and not opts.enable_ppm and opts.backend in ("auto", "native")):
         plan = fused_encode.plan_for(header, tile, lossy=not opts.lossless)
     if (not opts.high_throughput and opts.lossless and num_layers == 1
             and rate_budget is None and not effective_ht_refinement(opts)
-            and opts.backend != "native"):
+            and not opts.enable_ppm and header.coding_style.cb_style == 0
+            and opts.backend in ("auto", "device", "hybrid")):
         eplan = ebcot_fused.plan_for(header, tile)
-        if eplan is None and opts.backend != "auto":
-            raise _not_ported(f"backend {opts.backend!r} on this code-block "
-                              "and precinct geometry", "6b")
     if plan is not None:
         out = _encode_batch_fused(batch, header, tile, plan, opts, precision,
                                   signed, nl0, use_mct, main, kind, dev,
@@ -794,7 +883,7 @@ def encode_batch(images: Sequence[np.ndarray],
                                   hybrid=opts.backend == "hybrid")
     else:
         counters.add("enc.host_entropy_frames", n_frames)
-        chunk = _chunk_frames(n_frames, c * h * w)
+        chunk = _chunk_frames(n_frames, pixels)
         out = []
         for s in range(0, n_frames, chunk):
             sub = batch[s:s + chunk]
@@ -804,9 +893,8 @@ def encode_batch(images: Sequence[np.ndarray],
             pyrs = transforms.fetch_forward_batch(flat, sub.shape[0], c, h,
                                                   w, nl0, x0, y0)
             for pyr in pyrs:
-                body = _entropy_and_packets(header, tile, pyr, 0, opts,
-                                            rate_budget)
-                out.append(main + body + cw.write_eoc())
-    counters.add("enc.pixels_in", int(batch.size))
-    counters.add("enc.bytes_out", sum(len(b) for b in out))
-    return [_wrap(header, opts, b) for b in out]
+                tp, hdrs = _entropy_and_packets(header, tile, pyr, 0, opts,
+                                                rate_budget)
+                out.append(_finalize_codestream(header, opts, main, [tp],
+                                                [hdrs], pixels))
+    return out

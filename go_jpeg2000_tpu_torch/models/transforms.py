@@ -93,8 +93,12 @@ def _decompose(x: torch.Tensor, levels: int, kind: str, u0: int, v0: int
 
 def _reconstruct(pyramid: List[Dict[str, torch.Tensor]], kind: str,
                  u0: int, v0: int) -> torch.Tensor:
-    """Inverse of _decompose (the same result as dwt.reconstruct)."""
-    levels = len(pyramid) if "HL" in pyramid[-1] else len(pyramid) - 1
+    """Inverse of _decompose (the same result as dwt.reconstruct).  A level
+    past the tile's size has empty detail bands, which the block plans
+    leave out of the decoders' pyramids (a top level of LL alone, as in a
+    16x16 frame at 5 levels): they come back here as zero-size tensors."""
+    levels = len(pyramid) if ("HL" in pyramid[-1] or len(pyramid) > 1) \
+        else 0
     if levels == 0:
         return pyramid[0]["LL"]
     top = pyramid[levels - 1]["LL"]
@@ -108,20 +112,34 @@ def _reconstruct(pyramid: List[Dict[str, torch.Tensor]], kind: str,
     cur = flat(top)
     for lev in range(levels, 0, -1):
         entry = pyramid[lev - 1]
-        bands = {k: flat(entry[k]) for k in ("HL", "LH", "HH")}
-        bands["LL"] = cur
-        cur = inverse_level(bands, kind, *origins[lev - 1])
+        h_ll, w_ll = cur.shape[-2:]
+        hl = flat(entry["HL"]) if "HL" in entry else cur.new_zeros(
+            (n, h_ll, 0))
+        lh = flat(entry["LH"]) if "LH" in entry else cur.new_zeros(
+            (n, 0, w_ll))
+        hh = flat(entry["HH"]) if "HH" in entry else cur.new_zeros(
+            (n, lh.shape[-2], hl.shape[-1]))
+        cur = inverse_level({"LL": cur, "HL": hl, "LH": lh, "HH": hh}, kind,
+                            *origins[lev - 1])
     return cur.reshape(lead + tuple(cur.shape[-2:]))
 
 
 def upload(batch: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host samples -> int32 tensor on `device`, shipped narrow.  uint16 has
-    no torch arithmetic, so it travels as its int16 bit pattern and is
-    masked back to 0..65535 after the widening cast."""
+    """Host samples -> int32 tensor on `device`, shipped narrow.  uint8,
+    int8, int16 and int32 travel as they are; uint16 has no torch
+    arithmetic, so it travels as its int16 bit pattern and is masked back
+    to 0..65535 after the widening cast; uint32 travels as its int32 bit
+    pattern, which is its value below 2^31 (samples of up to 31 bits, as
+    encoder.check_precision admits); other integer types are cast to int32
+    on the host, wrapping as the JAX package's astype does."""
     batch = np.ascontiguousarray(batch)
     if batch.dtype == np.uint16:
         t = torch.from_numpy(batch.view(np.int16)).to(device)
         return t.to(torch.int32) & 0xFFFF
+    if batch.dtype == np.uint32:
+        batch = batch.view(np.int32)
+    elif batch.dtype not in (np.uint8, np.int8, np.int16, np.int32):
+        batch = batch.astype(np.int32)
     return torch.from_numpy(batch).to(device).to(torch.int32)
 
 

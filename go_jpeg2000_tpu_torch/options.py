@@ -196,8 +196,9 @@ class Options:
     # "auto" (path A: decisions, MQ coder and segment pool on the device),
     # "hybrid" (path B: decisions on the device, the native MQ coder on the
     # host) and "native" (path C: the native C++ EBCOT coder on the host);
-    # `encode` codes every block natively.  "python" raises
-    # NotImplementedError (ROADMAP Queue 1 item 6b).
+    # `encode` codes every block natively.  "python" codes every block with
+    # the Python coders (ops/ht.py, ops/t1.py), the transforms still on the
+    # device, as in the JAX package.
     backend: str = "auto"
 
 

@@ -95,13 +95,10 @@ def host_encode_local(image: np.ndarray, opts, host_id: int, n_hosts: int,
     _host_gate(opts)
     dev = transforms.resolve_device(device)
     image = np.asarray(image)
-    enc.check_encode(image, opts)
     comps = enc._image_components(image)
-    header = enc.build_header(image, opts)
+    header, main = enc.header_and_main(image, opts)
     precision = header.components[0].precision
     signed = header.components[0].signed
-    enc._apply_comp_quants(header, opts, len(comps), precision)
-    main = enc._write_main_header(header, opts, len(comps))
     num_layers = header.coding_style.num_layers
     rate_budget = rate_mod.byte_budget(image, opts)
 
@@ -120,7 +117,7 @@ def host_encode_local(image: np.ndarray, opts, host_id: int, n_hosts: int,
         weights += w
         states.append((tile, enc_state))
 
-    tile_parts = enc._assemble_with_budget(
+    tile_parts, _ppm = enc._assemble_with_budget(
         header, opts, states, blocks, num_layers, rate_budget, main,
         lambda target: rate_mod.assign_layers_sharded(
             [blocks], [weights], num_layers, target, allreduce=comm),
@@ -275,7 +272,7 @@ def encode_multihost(image: np.ndarray, opts=None, n_hosts: int = 2,
     opts = opts or default_options()
     _host_gate(opts)
     image = np.asarray(image)
-    enc.check_encode(image, opts)
+    enc.header_and_main(image, opts)    # check_precision before any spawn
     host_device = _prepare(device)
     if n_hosts <= 1:
         # one host: its half runs inline, with the numpy reducer
@@ -456,14 +453,10 @@ def _finalize(image, opts, parts: List[Tuple[int, bytes]],
               _stats: Optional[dict]) -> bytes:
     """The codestream gather: tile-parts by tile index, the main header
     before them, EOC after (host 0's job on a real cluster)."""
-    comps = enc._image_components(image)
-    header = enc.build_header(image, opts)
-    enc._apply_comp_quants(header, opts, len(comps),
-                           header.components[0].precision)
-    main = enc._write_main_header(header, opts, len(comps))
+    header, main = enc.header_and_main(image, opts)
     ordered = [b for _t, b in sorted(parts)]
     if _stats is not None:
         _stats["gathered_bytes"] = sum(len(b) for b in ordered)
         _stats["cpu_count"] = os.cpu_count()
-    return enc._finalize_codestream(header, opts, main, ordered,
+    return enc._finalize_codestream(header, opts, main, ordered, [],
                                     int(image.size))

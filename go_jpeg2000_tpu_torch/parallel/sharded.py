@@ -13,11 +13,14 @@ One rank runs, on its device:
 - the device HT entropy (`_device_ht_entropy`, for _shard_fields_fn): per
   tile-origin class, the class's tiles gathered from the leaves, then the
   four HT encode kernels of csrc/ht_enc.cu (fused_encode.encode_pyramid)
-  and native Tier-2 on the host;
-- for layers, byte budgets and Part-1 the host entropy branch: the native
-  block coder per tile and the distributed PCRD (rate.assign_layers_sharded
-  with `GroupComm`, a float64 all_reduce over the dp ranks), each dp shard
-  assembling its own tile-parts;
+  and native Tier-2 on the host, or, with SOP, EPH, PLT, PPT or PPM, the
+  Python Tier-2 on the natively serialized segments;
+- for layers, byte budgets, Part-1 and backend "python" the host entropy
+  branch: the block coder per tile;
+- after either, where Python Tier-2 assembles, the distributed PCRD
+  (rate.assign_layers_sharded with `GroupComm`, a float64 all_reduce over
+  the dp ranks), each dp shard assembling its own tile-parts (and PPM
+  chunks) against the global byte count;
 - on decode, the native Tier-2 and MEL/VLC parse per class, the two HT
   decode kernels of csrc/ht_dec.cu (with the midpoint dequantization of 9/7
   streams) scattered into one leaf per band, and the inverse step
@@ -381,28 +384,42 @@ def fused_chunk_tiles(n_comps: int, th: int, tw: int) -> int:
                       enc.FUSED_CHUNK_BYTES)
 
 
-def _device_ht_entropy(header, pyr, tiles: List[int], levels: int, th: int,
-                       tw: int) -> Optional[Dict[int, bytes]]:
-    """Tile-parts of `tiles` through the device HT encode: per tile-origin
-    class, in chunks of FUSED_CHUNK_BYTES, the class's tiles gathered from
-    the leaves, the four HT encode kernels and native Tier-2.  None when a
-    class's geometry has no block plan."""
+def _device_ht_entropy(header, opts, pyr, tiles: List[int], levels: int,
+                       th: int, tw: int, assemble
+                       ) -> Optional[Dict[int, Tuple[bytes, bytes]]]:
+    """(tile-part, PPM chunk) of each of `tiles` through the device HT
+    encode: per tile-origin class, in chunks of FUSED_CHUNK_BYTES, the
+    class's tiles gathered from the leaves and the four HT encode kernels;
+    then native Tier-2, or, where opts put markers in the tile-parts
+    (encoder.tile_part_markers), the natively serialized segments through
+    `assemble` (the PCRD and the Python Tier-2, as the JAX package's
+    sharded encode).  None when a class's geometry has no block plan."""
     work = ht_plans(header, tiles)
     if work is None:
         return None
     per = fused_chunk_tiles(header.num_components, th, tw)
     counters.add("enc.sharded_device_ht_tiles", len(tiles))
-    parts: Dict[int, bytes] = {}
+    native = not enc.tile_part_markers(opts)
+    parts: Dict[int, Tuple[bytes, bytes]] = {}
+    coded: Dict[int, List] = {}
     for plan, rep, pos in work:
         for sub in _chunks(pos, per):
             out, totals = fused_encode.encode_pyramid(
                 gather_tiles(pyr, sub), plan, len(sub), levels)
+            if not native:
+                for i, segs in zip(sub, fused_encode.fetch_segments(
+                        out, totals, len(sub), plan)):
+                    coded[tiles[i]] = enc.segment_results(segs)
+                continue
             bodies = fused_encode.fetch_bodies(out, totals, len(sub), plan,
                                                header, rep)
             for i, body in zip(sub, bodies):
                 parts[tiles[i]] = (cw.write_sot(tiles[i], 12 + 2 + len(body),
-                                                0, 1) + cw.write_sod() + body)
-    return parts
+                                                0, 1) + cw.write_sod() + body,
+                                   b"")
+    if native:
+        return parts
+    return assemble([(t, coded[t]) for t in tiles])
 
 
 def _quantized(pyr, tile: geo.Tile, levels: int):
@@ -414,38 +431,57 @@ def _quantized(pyr, tile: geo.Tile, levels: int):
 
 
 def _host_entropy(header, opts, pyr, tiles: List[int], levels: int,
-                  num_layers: int, rate_budget, main: bytes, grid: Grid,
-                  n_comps: int) -> Dict[int, bytes]:
-    """Tile-parts of `tiles` through the host branch: the native block
-    coder per tile (HT with refinement passes where layers or a budget use
-    them, or Part-1), then the distributed PCRD and Tier-2, each dp shard
-    assembling its own tiles against the global byte count."""
+                  num_layers: int, rate_budget, assemble
+                  ) -> Dict[int, Tuple[bytes, bytes]]:
+    """(tile-part, PPM chunk) of each of `tiles` through the host branch:
+    the block coder of opts.backend per tile (HT with refinement passes
+    where layers or a budget use them, or Part-1 with its code-block
+    style), then `assemble`."""
     counters.add("enc.sharded_host_entropy_tiles", len(tiles))
     geoms = [geo.build_tile(header, t) for t in tiles]
     if header.coding_style.transform == 0 and tiles:
         pyr = _quantized(pyr, geoms[0], levels)
     host = [{k: v.cpu().numpy() for k, v in e.items()} for e in pyr]
-    cw_mct = enc.mct_comp_weights(header, opts.lossless, n_comps)
-    blocks, weights, states = [], [], []
-    for i, tile in enumerate(geoms):
+    coded = []
+    for i, (t, tile) in enumerate(zip(tiles, geoms)):
         pyramids = [{k: v[i] for k, v in e.items()} for e in host]
-        enc_state, job_slots, block_jobs = enc._entropy_jobs(tile, pyramids)
-        results = enc._code_blocks(block_jobs, opts, num_layers, rate_budget)
-        b, w = enc._build_blocks(job_slots, results, num_layers,
-                                 opts.lossless, cw_mct)
-        blocks += b
-        weights += w
-        states.append((tile, enc_state))
+        _state, _slots, block_jobs = enc._entropy_jobs(tile, pyramids)
+        coded.append((t, enc._code_blocks(block_jobs, opts, num_layers,
+                                          rate_budget)))
+    return assemble(coded)
+
+
+def _assembler(header, opts, num_layers: int, rate_budget, main: bytes,
+               grid: Grid, n_comps: int):
+    """The tail both entropy branches share: [(tile, its blocks' coder
+    results in canonical job order)] -> the distributed PCRD and Tier-2,
+    each dp shard assembling its own tiles against the global byte count
+    -> {tile: (tile-part, PPM chunk)}."""
+    cw_mct = enc.mct_comp_weights(header, opts.lossless, n_comps)
     comm = GroupComm(grid)
     size_reduce = None
     if grid.dp > 1:
         size_reduce = lambda local: comm(np.asarray([float(local)]), "sum")
-    tile_parts = enc._assemble_with_budget(
-        header, opts, states, blocks, num_layers, rate_budget, main,
-        lambda target: rate_mod.assign_layers_sharded(
-            [blocks], [weights], num_layers, target, allreduce=comm),
-        size_reduce=size_reduce, tile_ids=tiles)
-    return dict(zip(tiles, tile_parts))
+
+    def assemble(coded) -> Dict[int, Tuple[bytes, bytes]]:
+        blocks, weights, states = [], [], []
+        for t, results in coded:
+            tile = geo.build_tile(header, t)
+            enc_state, job_slots = enc._walk_geometry(tile)
+            b, w = enc._build_blocks(job_slots, results, num_layers,
+                                     opts.lossless, cw_mct)
+            blocks += b
+            weights += w
+            states.append((tile, enc_state))
+        tiles = [t for t, _ in coded]
+        tile_parts, ppm_chunks = enc._assemble_with_budget(
+            header, opts, states, blocks, num_layers, rate_budget, main,
+            lambda target: rate_mod.assign_layers_sharded(
+                [blocks], [weights], num_layers, target, allreduce=comm),
+            size_reduce=size_reduce, tile_ids=tiles)
+        return dict(zip(tiles, zip(tile_parts, ppm_chunks)))
+
+    return assemble
 
 
 def tile_batch(header, comps: Sequence[np.ndarray], tiles: Sequence[int],
@@ -474,33 +510,36 @@ def _gather_rows(pyr, grid: Grid):
 
 def encode_sharded(image, opts=None, grid: Optional[Grid] = None,
                    device="cuda") -> bytes:
-    """Encode a multi-tile image to a J2K codestream on a (dp, sp) grid of
-    ranks (parallel/mesh.py; default: this process alone), with the device
-    work on `device` ("cuda" without a card raises).  Every rank returns the
-    same codestream, byte-identical to the single-process encode.
+    """Encode a multi-tile image to a J2K codestream or a JP2 file on a
+    (dp, sp) grid of ranks (parallel/mesh.py; default: this process
+    alone), with the device work on `device` ("cuda" without a card
+    raises).  Every rank returns the same codestream, byte-identical to the
+    single-process encode on lossless input.  It takes what
+    encoder.encode takes: markers (SOP, EPH, PLT, PPT, PPM, TLM, POC),
+    code-block styles, backend "python", signed and wide samples and any
+    number of components.
 
     Single-layer HTJ2K without a budget takes the device HT entropy
-    (counted in enc.sharded_device_ht_tiles); layers, byte budgets and
-    Part-1 the host entropy branch (enc.sharded_host_entropy_tiles).
+    (counted in enc.sharded_device_ht_tiles), with native Tier-2, or, with
+    markers in the tile-parts, the Python Tier-2 on its segments; layers,
+    byte budgets, Part-1 and backend "python" the host entropy branch
+    (enc.sharded_host_entropy_tiles).
 
     Gates: ValueError as the JAX package's (no subsampling, >= 1
     decomposition level, a uniform tile grid with tile heights divisible by
-    sp * 2^levels and tile origins by 2^levels); NotImplementedError for
-    what the port does not run yet (encoder.check_sharded)."""
+    sp * 2^levels and tile origins by 2^levels), and encoder.check_precision's
+    sample widths."""
     opts = opts or default_options()
     dev = transforms.resolve_device(device)
     grid = grid or make_grid()
     image = np.asarray(image)
-    enc.check_sharded(image, opts)
     if opts.num_resolutions < 2:
         raise ValueError("encode_sharded: needs >= 1 decomposition level")
     comps = enc._image_components(image)
-    header = enc.build_header(image, opts)
+    header, main = enc.header_and_main(image, opts)
     precision = header.components[0].precision
     signed = header.components[0].signed
     n_comps = len(comps)
-    enc._apply_comp_quants(header, opts, n_comps, precision)
-    main = enc._write_main_header(header, opts, n_comps)
     levels = header.coding_style.num_decompositions
     T, th, tw = _check_grid(header, levels, grid.sp, "encode_sharded")
 
@@ -518,13 +557,17 @@ def encode_sharded(image, opts=None, grid: Optional[Grid] = None,
 
     num_layers = header.coding_style.num_layers
     rate_budget = rate_mod.byte_budget(image, opts)
+    assemble = _assembler(header, opts, num_layers, rate_budget, main, grid,
+                          n_comps)
     parts = None
     if (opts.high_throughput and not enc.effective_ht_refinement(opts)
-            and num_layers == 1 and rate_budget is None):
-        parts = _device_ht_entropy(header, pyr, tiles, levels, th, tw)
+            and num_layers == 1 and rate_budget is None
+            and opts.backend != "python"):
+        parts = _device_ht_entropy(header, opts, pyr, tiles, levels, th, tw,
+                                   assemble)
     if parts is None:
         parts = _host_entropy(header, opts, pyr, tiles, levels, num_layers,
-                              rate_budget, main, grid, n_comps)
+                              rate_budget, assemble)
     del pyr
     if grid.dp > 1:
         # every dp shard's tile-parts (NCCL: on this rank's current card)
@@ -532,7 +575,8 @@ def encode_sharded(image, opts=None, grid: Optional[Grid] = None,
         dist.all_gather_object(shards, parts, group=grid.dp_group)
         parts = {t: tp for shard in shards for t, tp in shard.items()}
     return enc._finalize_codestream(header, opts, main,
-                                    [parts[t] for t in range(T)],
+                                    [parts[t][0] for t in range(T)],
+                                    [parts[t][1] for t in range(T)],
                                     int(image.size))
 
 

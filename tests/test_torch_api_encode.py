@@ -11,8 +11,9 @@ the JAX package's float32 lifting rounds as torch's does, else decodes within
 one grey level and a PSNR at least the JAX package's minus 0.05 dB.  An odd
 image offset gives levels that the CUDA level kernels refuse
 (dwt_cuda.usable), which the card counts in PLAIN_LEVELS.  encode_batch
-hands uneven frames to encode, as the JAX package does; what is still out
-raises NotImplementedError naming its ROADMAP item."""
+hands uneven frames to encode, as the JAX package does; the encode
+options (styles, markers, POC, the python backend, other precisions,
+signed samples, four components) give the JAX package's bytes."""
 import dataclasses
 
 import numpy as np
@@ -190,8 +191,10 @@ def test_encode_batch_uneven_shapes_go_one_by_one():
 
 
 @pytest.mark.parametrize("override,item", [
-    # lossy layers, budgets and HT refinement (item 7) are in: they match
-    # the JAX package's encode
+    # (each case named the ROADMAP item it raised with before it was
+    # ported: 7 for lossy layers, budgets and HT refinement, 6b for the
+    # rest) every case now matches the JAX package's encode: the bytes for
+    # lossless, decodes within one grey level for lossy
     (dict(lossless=False, num_layers=2), None),
     (dict(lossless=False, compression_ratio=8.0), None),
     (dict(lossless=False, high_throughput=True, ht_refinement=True), None),
@@ -206,29 +209,37 @@ def test_encode_outside_slice_raises(override, item):
         tp.Options(format=tp.Format.J2K, lossless=True, num_resolutions=3),
         **override)
     image = _image((32, 32), 0)
-    if item is None:
-        ours = tp.encode(image, opts, device="cpu")
-        ref = jp2k.encode(image, dataclasses.replace(
-            Options(format=Format.J2K, lossless=True, num_resolutions=3),
-            **override))
-        budget = image.size / max(opts.compression_ratio, 1.0)
-        if len(ref) <= budget:     # 32x32 at 8:1: the headers overshoot
-            assert len(ours) <= budget
-        got, want = tp.decode(ours, device="cpu"), jp2k.decode(ref)
-        assert np.abs(got.astype(int) - want).max() <= 1
-        assert _psnr(got, image) >= _psnr(want, image) - 0.05
+    if override.get("precision"):
+        image = _image((32, 32), 0, bits=override["precision"])
+    ours = tp.encode(image, opts, device="cpu")
+    ref = jp2k.encode(image, dataclasses.replace(
+        Options(format=Format.J2K, lossless=True, num_resolutions=3),
+        **override))
+    got, want = tp.decode(ours, device="cpu"), jp2k.decode(ref)
+    if opts.lossless:
+        assert ours == ref
+        assert np.array_equal(got, image)
         return
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP Queue 1 item {item}\)"):
-        tp.encode(image, opts, device="cpu")
+    budget = image.size / max(opts.compression_ratio, 1.0)
+    if len(ref) <= budget:     # 32x32 at 8:1: the headers overshoot
+        assert len(ours) <= budget
+    assert np.abs(got.astype(int) - want).max() <= 1
+    assert _psnr(got, image) >= _psnr(want, image) - 0.05
 
 
-@pytest.mark.parametrize("image", [np.zeros((16, 16), np.int16),
-                                   np.zeros((16, 16, 4), np.uint8)])
+@pytest.mark.parametrize("image", [
+    (_image((16, 16), 4).astype(np.int16) - 128) * 100,
+    _image((16, 16, 4), 5)])
 def test_encode_refuses_signed_and_four_components(image):
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tp.encode(image, tp.Options(format=tp.Format.J2K, lossless=True),
-                  device="cpu")
+    # (named for the refusal it held before signed samples and any number
+    # of components were ported) both give the JAX package's bytes and
+    # decode exactly
+    opts = tp.Options(format=tp.Format.J2K, lossless=True)
+    ours = tp.encode(image, opts, device="cpu")
+    assert ours == jp2k.encode(image, Options(format=Format.J2K,
+                                              lossless=True))
+    got = tp.decode(ours, device="cpu")
+    assert got.dtype == image.dtype and np.array_equal(got, image)
 
 
 def test_cuda_without_card_raises():

@@ -9,9 +9,10 @@ be at least the JAX package's minus 0.05 dB.  Encodes inside the fused
 device HT encode's reach must take it (enc.fused_chunks > 0 and no
 enc.host_entropy_frames); what fused_encode.plan_for refuses takes the
 counted host branch.  What the batch paths do not take goes through the
-single-image encode and decode, as in the JAX package; everything outside
-the slices must raise NotImplementedError naming its ROADMAP item;
-decode_batch hands region and reduced decodes to decode."""
+single-image encode and decode, as in the JAX package; the markers, the
+python backend and signed samples match the JAX package too (PPM against
+its encode: its encode_batch fails on PPM); decode_batch hands region and
+reduced decodes to decode."""
 import dataclasses
 import os
 import subprocess
@@ -24,6 +25,7 @@ torch.set_num_threads(1)  # the suite runs in parallel workers on shared cores
 
 import go_jpeg2000_tpu_torch as tp
 from go_jpeg2000_tpu.models.decoder import decode_batch as jax_decode_batch
+from go_jpeg2000_tpu.models.encoder import encode as jp2k_encode
 from go_jpeg2000_tpu.models.encoder import encode_batch as jax_encode_batch
 from go_jpeg2000_tpu.options import Config, Format, Options
 
@@ -303,15 +305,17 @@ def test_options_and_config_from_reference():
     assert isinstance(pc, tp.Config) and pc.quality_layers == 1
 
 
-def _item_still_out(override):
-    """The ROADMAP item an override of OPTS still raises with, or None for
-    what the port runs since `encode` came (JP2, tiles, layers, budgets,
-    lossy Part-1) and since lossy layers, budgets and HT refinement came
-    (item 7)."""
-    if (override.get("enable_sop") or override.get("enable_ppm")
-            or override.get("backend") == "python"):
-        return "6b"
-    return None
+def _jax_streams(frames, override):
+    """The JAX package's streams for frames under OPTS with `override`: its
+    encode_batch, or, with PPM, which its encode_batch fails on (it
+    concatenates the (PPM chunk, tile-part) pair to bytes), its encode of
+    each frame, which the port's batch gives."""
+    opts = dataclasses.replace(OPTS, **override)
+    if override.get("enable_ppm"):
+        with pytest.raises(TypeError):
+            jax_encode_batch(frames, opts)
+        return [jp2k_encode(f, opts) for f in frames]
+    return jax_encode_batch(frames, opts)
 
 
 @pytest.mark.parametrize("override", [
@@ -323,19 +327,14 @@ def _item_still_out(override):
     dict(num_layers=2), dict(compression_ratio=10.0),
     dict(enable_sop=True), dict(enable_ppm=True), dict(backend="python")])
 def test_encode_outside_slice_raises(override):
-    # what is still out raises naming its item; the rest matches the JAX
-    # package's encode_batch: bytes for lossless, decodes within one grey
-    # level (and its PSNR - 0.05 dB) for lossy, its layers and budgets too
+    # (named for the refusals it held before the encode options were
+    # ported) every override matches the JAX package: bytes for lossless,
+    # decodes within one grey level (and its PSNR - 0.05 dB) for lossy,
+    # its layers and budgets too; SOP, PPM and the python backend included
     opts = dataclasses.replace(tp.options_from_reference(OPTS), **override)
     frames = _frames(2, (32, 32), 0)
-    item = _item_still_out(override)
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP Queue 1 item {item}\)"):
-            tp.encode_batch(frames, opts, device="cpu")
-        return
     ours = tp.encode_batch(frames, opts, device="cpu")
-    ref = jax_encode_batch(frames, dataclasses.replace(OPTS, **override))
+    ref = _jax_streams(frames, override)
     if opts.lossless:
         assert ours == ref
     for o, r, f in zip(tp.decode_batch(ours, device="cpu"),
@@ -347,15 +346,20 @@ def test_encode_outside_slice_raises(override):
 
 
 def test_encode_rejects_mixed_shapes_and_signed():
-    # frames of differing shapes go through encode one by one, as in the
-    # JAX package; signed samples are still out (item 6b)
+    # (named for the refusal of signed samples it held before they were
+    # ported) frames of differing shapes go through encode one by one, as
+    # in the JAX package; signed int16 frames batch and give its bytes
     opts = tp.options_from_reference(OPTS)
     frames = [_frames(1, (32, 32), 1)[0], _frames(1, (32, 24), 2)[0]]
     got = tp.encode_batch(frames, opts, device="cpu")
     assert got == jax_encode_batch(frames, OPTS)
     assert got == [tp.encode(f, opts, device="cpu") for f in frames]
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tp.encode_batch([np.zeros((16, 16), np.int16)], opts, device="cpu")
+    signed = [(f.astype(np.int16) - 128) * 200 for f in
+              _frames(2, (16, 16), 3)]
+    got = tp.encode_batch(signed, opts, device="cpu")
+    assert got == jax_encode_batch(signed, OPTS)
+    for d, f in zip(tp.decode_batch(got, device="cpu"), signed):
+        assert d.dtype == np.int16 and np.array_equal(d, f)
 
 
 def test_decode_outside_slice_raises():
@@ -434,3 +438,32 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True, cwd=root)
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("override", [
+    dict(), dict(lossless=False), dict(high_throughput=False),
+    dict(num_resolutions=7)])
+def test_decode_batch_levels_past_the_frame(override):
+    # 16x16 frames at 5 or 6 levels: the top levels' detail bands are
+    # empty and the block plans leave them out of the batch decode's
+    # pyramid, whose inverse raised KeyError before it made them zero-size;
+    # the JAX package's decode_batch raises KeyError on the HT ones too
+    # (its fused branch; go_jpeg2000_tpu/ops/dwt.py:226), its decode does
+    # not
+    import go_jpeg2000_tpu as jp2k
+    frames = _frames(2, (16, 16), 7)
+    opts = dataclasses.replace(OPTS, **override)
+    streams = jax_encode_batch(frames, opts)
+    tp.counters.reset()
+    got = tp.decode_batch(streams, device="cpu")
+    snap = tp.counters.snapshot()
+    assert snap.get("dec.device_ht_chunks", 0) + snap.get(
+        "dec.ebcot_frames", 0) > 0
+    if opts.high_throughput:
+        with pytest.raises(KeyError):
+            jax_decode_batch(streams)
+    for g, r, f in zip(got, [jp2k.decode(x) for x in streams], frames):
+        assert np.abs(g.astype(int) - r).max() <= (0 if opts.lossless
+                                                   else 1)
+        if opts.lossless:
+            assert np.array_equal(g, f)

@@ -1236,3 +1236,70 @@ def test_layered_and_reduced_decode_on_card_matches_cpu(cuda):
         assert np.array_equal(got, tp.decode(data, cfg, device="cpu")), kw
         assert launched == 5 - kw.get("reduce_resolution", 0)
         assert plain == 0
+
+
+def _extremes(shape, bits, seed):
+    """Each sample 0 or 2^bits - 1 at random: the largest 5/3 details."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 2, size=shape) * ((1 << bits) - 1)).astype(
+        np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["29-bit gray", "28-bit RGB after RCT",
+                                  "signed int16 batch"])
+def test_fwd53_kernel_wide_and_signed_samples(cuda, case):
+    # every forward 5/3 level of the kernel equals the plain lifting bit
+    # for bit where its lifting sums come within a bit of int32's range
+    # (the kernel sums in uint32_t, wrapping as torch's int32 does) and on
+    # signed samples
+    if case == "signed int16 batch":
+        rng = np.random.RandomState(3)
+        img = rng.randint(-32768, 32768, size=(4, 1, 256, 192)).astype(
+            np.int16)
+        bits, mct, signed = 16, False, True
+    else:
+        rgb = case.startswith("28")
+        bits = 28 if rgb else 29
+        img = np.moveaxis(_extremes((512, 384, 3 if rgb else 1), bits, 4),
+                          -1, 0)[None]
+        mct, signed = rgb, False
+    x = transforms.upload(img, cuda)
+    cur = transforms.coefficients(x, dwt.REV53, mct, bits, signed).reshape(
+        -1, *img.shape[-2:])
+    for _ in range(4):
+        dwt_cuda.reset_counts()
+        got = transforms.forward_level(cur, dwt.REV53, 0, 0)
+        assert dwt_cuda.LAUNCHES["dwt53_fwd_level"] == 1
+        want = dwt.forward_2d(cur, dwt.REV53)
+        for k in BANDS:
+            assert torch.equal(got[k], want[k]), k
+        cur = got["LL"].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(high_throughput=True, enable_sop=True,
+                                     enable_eph=True),
+                                dict(high_throughput=True, enable_ppt=True,
+                                     enable_tlm=True),
+                                dict(backend="device", enable_sop=True,
+                                     enable_eph=True)])
+def test_marker_batches_on_card_match_cpu(cuda, kw):
+    # the fused HT kernels' and device EBCOT's segments through the Python
+    # Tier-2 with markers: the card's bytes equal the CPU run's (path C
+    # on the CPU for Part-1, which gives path A's bytes)
+    rng = np.random.RandomState(8)
+    frames = [rng.randint(-2048, 2048, size=(256, 192)).astype(np.int16)
+              for _ in range(3)]
+    opts = tp.Options(format=tp.Format.J2K, lossless=True, num_resolutions=5,
+                      **kw)
+    tp.counters.reset()
+    got = tp.encode_batch(frames, opts, device=cuda)
+    snap = tp.counters.snapshot()
+    assert snap.get("enc.fused_chunks", 0) + snap.get(
+        "enc.ebcot_device_chunks", 0) == 1
+    ref = opts if opts.high_throughput else dataclasses.replace(
+        opts, backend="native")
+    assert got == tp.encode_batch(frames, ref, device="cpu")
+    for d, f in zip(tp.decode_batch(got, device=cuda), frames):
+        assert np.array_equal(d, f)

@@ -718,17 +718,16 @@ def test_header_and_guard_bits_match_jax():
     dict(lossless=False), dict(code_block_style=1), dict(num_layers=2),
     dict(backend="python")])
 def test_outside_slice_raises(override):
-    # code-block styles and the Python backend are still out (item 6b);
-    # lossy Part-1 and quality layers take the batch path's host branch
-    # and give the JAX package's encode_batch (bytes for lossless, decodes
-    # within one grey level for 9/7)
+    # (named for the refusals it held before styles and the python backend
+    # were ported) lossy Part-1, quality layers, code-block styles and the
+    # Python backend take the batch path's host branch (path C) and give
+    # the JAX package's encode_batch (bytes for lossless, decodes within
+    # one grey level for 9/7)
     opts = dataclasses.replace(tp.options_from_reference(OPTS), **override)
     frames = [natural_image(32, 32, 0)]
-    if "code_block_style" in override or "backend" in override:
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            tp.encode_batch(frames, opts, device="cpu")
-        return
+    tp.counters.reset()
     ours = tp.encode_batch(frames, opts, device="cpu")
+    assert tp.counters.snapshot().get("enc.host_entropy_frames", 0) == 1
     ref = jax_encode_batch(frames, dataclasses.replace(OPTS, **override))
     if opts.lossless:
         assert ours == ref

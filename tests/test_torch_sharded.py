@@ -232,9 +232,11 @@ def test_gates():
         # the last column of tiles is narrower
         encode_sharded(_img((32, 48), seed=6), tp.options_from_reference(
             _opts(lossless=True)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        encode_sharded(img, tp.Options(lossless=True, num_resolutions=3),
-                       device="cpu")          # JP2
+    # JP2 (refused before the encode options were ported) wraps the
+    # codestream as the JAX package's encode does
+    jp2 = Options(lossless=True, num_resolutions=3)
+    assert encode_sharded(img, tp.options_from_reference(jp2),
+                          device="cpu") == jenc.encode(img, jp2)
     ok = jenc.encode(img, _opts(lossless=True, high_throughput=True))
     with pytest.raises(ValueError):
         decode_sharded(ok, tp.Config(reduce_resolution=1), device="cpu")

@@ -1,8 +1,10 @@
 """The port's tile-sharded pipeline on gloo groups of ranks spawned on the
 CPU, (dp, sp) = (2, 1), (1, 2) and (2, 2): the four checks of the JAX
 package's dryrun_multichip.  Every rank must return the same codestream:
-for lossless HT (16-bit RGB) and for Part-1 with two layers and a byte
-budget (the distributed PCRD) byte-identical to the JAX package's
+for lossless HT (16-bit RGB, signed 16-bit RGB, and with SOP, EPH, PLT,
+TLM and PPM) and for Part-1 with two layers and a byte budget (the
+distributed PCRD; also with all six code-block styles, PPM and TLM)
+byte-identical to the JAX package's
 encoder.encode, for lossy 9/7 HT to the port's single-process encode (the
 halo lifting is exact whatever the grid).  decode_sharded must give every
 rank the lossless image back exactly, and the lossy decode of the
@@ -53,7 +55,19 @@ CASES = [("ht", IMAGE16, _opts(lossless=True, high_throughput=True), True),
          ("part1 budget", IMAGE, _opts(lossless=True, num_layers=2,
                                        compression_ratio=6.0), False),
          ("lossy ht", IMAGE, _opts(lossless=False, quality=85,
-                                   high_throughput=True), True)]
+                                   high_throughput=True), True),
+         # markers in the tile-parts: the device HT segments through the
+         # Python Tier-2; PPM and TLM counted over the ranks in the budget
+         ("ht markers", IMAGE, _opts(lossless=True, high_throughput=True,
+                                     enable_sop=True, enable_eph=True,
+                                     enable_plt=True, enable_tlm=True,
+                                     enable_ppm=True), True),
+         ("part1 styled ppm budget", IMAGE, _opts(
+             lossless=True, num_layers=2, compression_ratio=6.0,
+             code_block_style=0x3f, enable_ppm=True, enable_tlm=True),
+          False),
+         ("ht signed", (IMAGE16.astype(np.int32) - 32768).astype(np.int16),
+          _opts(lossless=True, high_throughput=True), True)]
 
 
 @pytest.fixture(scope="module")
