@@ -145,10 +145,11 @@ sources in this checkout.  Phases, each of which raises on failure:
    on a 4096-row, 3328-column 12-bit gray frame (precision 12; its last
    tile column 256 wide) in 1024x1024 tiles, 2 layers and a 6:1 budget;
    S4 a 750x1000 gray image at image offset (7, 3) and tile offset (5, 1)
-   in 256x256 tiles, HTJ2K lossless (its plain levels printed).  The level
-   kernels first on the first level of S1-S3's tile shapes, exact; then
-   each case's codestream and decode equal the CPU run's, S1-S3 launch
-   both level kernels of their kind with no plain level; wall Mpix/s and
+   in 256x256 tiles, HTJ2K lossless (odd level origins and sizes on every
+   tile).  The level kernels first on the first level of S1-S3's tile
+   shapes, exact; then each case's codestream and decode equal the CPU
+   run's, each case launches both level kernels of its kind with no plain
+   level (S4 both 5/3 kernels); wall Mpix/s and
    a second run's stages (device transform, host block coding, PCRD and
    Tier-2; Python Tier-2, native block decode, device inverse);
 12. BASELINE config 2 at its specified scale: bench.py's 2048x2048 RGB
@@ -219,10 +220,20 @@ sources in this checkout.  Phases, each of which raises on failure:
    2048x2048 RGB with code-block styles 0x3f and 0x15 at 2 layers,
    lossless and lossy, a POC of three segments, PPM, and PPT with SOP and
    EPH, each held to the CPU run and decoded; M6 backend "python" at
-   128x128, bytes equal to the native backend's.
+   128x128, bytes equal to the native backend's;
+18. odd geometry, each case with no level lifted plain: all four level
+   kernels at every origin parity on [3, 1, 1], [2, 1, 9], [2, 9, 1],
+   [2, 3, 3], [2, 35, 63], [1, 1079, 1919] and [24, 135, 240], one launch
+   each, bit for bit against the plain lifting (9/7 too), each timed alone
+   beside its bound and the plain lifting's time; H1 8 RGB 8-bit 1920x1080
+   frames (level 4's input has 135 rows), HTJ2K at 6 resolutions,
+   lossless and lossy q85, through encode_batch and decode_batch (the
+   fused encode, the device HT decode), lossless round trips exact, the
+   first 2 frames' bytes and decodes equal to the CPU run's, wall ms; S4's
+   stream decoded at reduce_resolution 1 and 2, equal to the CPU run's.
 
 Each of the eight main paths, the sharded runs, the four single-image
-cases, each run of phases 12-15 and each case of phases 16 and 17 runs with the
+cases, each run of phases 12-15 and each case of phases 16-18 runs with the
 launch counts set to 0 just before it and read just after (a host process reports the launches
 of its measured run, after its warm-ups, to the parent).  The line before
 the last is a JSON summary of the
@@ -337,6 +348,15 @@ PY_SIDE = 128
 # frame sides whose first level is checked on every level kernel (each
 # keeps its strip in registers, so any even width takes it)
 WIDE_SIDES = (4096, 8192)
+# phase 18, odd geometry: the level kernels' shapes [N, H, W] at every
+# origin parity (as tests/test_torch_cuda.py's), the 1080p batch (frames,
+# rows, columns; HD_CHECK of them held to the CPU run) and the reduced
+# decodes of S4's stream
+PARITY_SHAPES = ((3, 1, 1), (2, 1, 9), (2, 9, 1), (2, 3, 3), (2, 35, 63),
+                 (1, 1079, 1919), (24, 135, 240))
+HD = (8, 1080, 1920)
+HD_CHECK = 2
+S4_REDUCE = (1, 2)
 # NVIDIA H100 SXM data-sheet peaks (700 W): device memory 3.35 TB/s,
 # float32 outside the tensor cores 67 TFLOP/s (128 lanes an SM, an FMA
 # counted as two); int32 64 lanes an SM, 132 SMs at 1.98 GHz
@@ -2555,7 +2575,7 @@ def natural_image_bits(h, w, bits, seed=0):
 
 def single_image_cases(tp):
     """(label, image, options, DWT library whose kernels must take every
-    level, or None) of the single-image phase."""
+    level) of the single-image phase."""
     rgb = np.stack([natural_image(SINGLE_SIDE, SINGLE_SIDE, seed=500 + c)
                     for c in range(3)], axis=-1)
     tiles = (SINGLE_TILE, SINGLE_TILE)
@@ -2568,11 +2588,17 @@ def single_image_cases(tp):
          tp.Options(format=tp.Format.J2K, lossless=True, tile_size=tiles,
                     num_layers=2, compression_ratio=6.0, precision=12),
          "dwt53"),
-        ("S4 odd offsets", natural_image(*ODD, seed=520), tp.Options(
-            format=tp.Format.J2K, lossless=True, high_throughput=True,
-            image_offset=(7, 3), tile_offset=(5, 1), tile_size=(256, 256)),
-         None),
+        s4_case(tp),
     ]
+
+
+def s4_case(tp):
+    """S4 of the single-image phase: a small gray image at odd image and
+    tile offsets, so every tile's levels have odd origins and sizes."""
+    return ("S4 odd offsets", natural_image(*ODD, seed=520), tp.Options(
+        format=tp.Format.J2K, lossless=True, high_throughput=True,
+        image_offset=(7, 3), tile_offset=(5, 1), tile_size=(256, 256)),
+        "dwt53")
 
 
 def check_single_levels(dwt, dwt_cuda, transforms, dev):
@@ -2691,9 +2717,9 @@ def single_image_stages(tp, label, image, opts, data, dev, card):
 def single_image_phase(tp, dev, card, launches):
     """Phase 11: the single-image API (encode, decode) on S1-S4 (the cases
     of single_image_cases), each with the DWT counts and tp.counters reset
-    just before its encode and decode and read just after: S1-S3 must
-    launch both level kernels of their kind and lift no level plain; S4
-    prints its plain levels.  Bytes and decodes equal the port's CPU run;
+    just before its encode and decode and read just after: each must
+    launch both level kernels of its kind and lift no level plain (S4's
+    at odd origins and sizes).  Bytes and decodes equal the port's CPU run;
     S2 round-trips exactly, S1 prints its PSNR.  Then wall Mpix/s and the
     stages of a second run, with the card's name and power limit.  Adds
     the phase's launches to `launches`; returns the level kernels' largest
@@ -2713,14 +2739,14 @@ def single_image_phase(tp, dev, card, launches):
         counts = dict(dwt_cuda.LAUNCHES)
         plain = dwt_cuda.PLAIN_LEVELS
         snap = tp.counters.snapshot()
-        mine = {k: v for k, v in counts.items() if lib and k.startswith(lib)}
+        mine = {k: v for k, v in counts.items() if k.startswith(lib)}
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         print(f"{label} {image.shape} {image.dtype}: launches "
               f"{ {k: v for k, v in counts.items() if v} }, plain levels "
               f"{plain}, tiles decoded {snap.get('dec.tiles_decoded', 0)}",
               flush=True)
-        if lib and (min(mine.values()) <= 0 or plain):
+        if min(mine.values()) <= 0 or plain:
             raise AssertionError(f"{label}: a level did not run through the "
                                  f"{lib} kernels")
         if decoded.shape != image.shape or decoded.dtype != image.dtype:
@@ -3747,6 +3773,177 @@ def encode_options_phase(tp, dev, card, launches, c4):
     return err
 
 
+# --------------------------------------------------- phase 18: odd geometry
+
+
+def max_diff(got, want):
+    """The largest |got - want| of two tensors of one shape (0 when empty);
+    raises when the shapes differ."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)}, expected "
+                             f"{tuple(want.shape)}")
+    if not got.numel():
+        return 0
+    return (got.to(torch.float64) - want.to(torch.float64)).abs().max().item()
+
+
+def parity_input(dwt, kind, shape, gen, dev):
+    if kind == dwt.REV53:
+        return torch.randint(-(1 << 20), 1 << 20, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+    return torch.rand(shape, generator=gen, device=dev) * 255 - 128
+
+
+def check_parity_levels(dwt, dwt_cuda, transforms, dev, card):
+    """Phase 18a: all four level kernels at origin (4 + pu, 2 + pv) for
+    every parity (pu, pv) on PARITY_SHAPES (1-sample, 3-sample, tile- and
+    strip-crossing odd sizes, an odd 1080p frame, the 1080p batch's level
+    4), through transforms.forward_level and inverse_level: one launch
+    each, no plain level, bands at dwt.subband_shapes' sizes, equal to the
+    plain lifting bit for bit (9/7 too); each timed alone beside its bound
+    and the plain lifting's time.  These comparison launches are not the
+    main path's.  Returns the largest differences."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    err = {f"{lib}_{d}_level": 0 for lib in ("dwt53", "dwt97")
+           for d in ("fwd", "inv")}
+    for shape in PARITY_SHAPES:
+        for kind in (dwt.REV53, dwt.IRR97):
+            lib = "dwt53" if kind == dwt.REV53 else "dwt97"
+            x = parity_input(dwt, kind, shape, gen, dev)
+            rate = INT32_OPS_PER_S if kind == dwt.REV53 else FP32_OPS_PER_S
+            lim = bound(8 * x.numel(), OPS_PER_ELEMENT[lib] * x.numel(), rate)
+            for pu, pv in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                u0, v0 = 4 + pu, 2 + pv
+                dwt_cuda.reset_counts()
+                got = transforms.forward_level(x, kind, u0, v0)
+                ref = {k: v.contiguous() for k, v in
+                       dwt.forward_2d(x, kind, u0=u0, v0=v0).items()}
+                diff = {f"{lib}_fwd_level":
+                        max(max_diff(got[k], ref[k]) for k in ref)}
+                rec = transforms.inverse_level(ref, kind, u0, v0)
+                diff[f"{lib}_inv_level"] = max_diff(
+                    rec, dwt.inverse_2d(ref, kind, u0=u0, v0=v0))
+                torch.cuda.synchronize()
+                launched = {k: dwt_cuda.LAUNCHES[k] for k in diff}
+                plain = dwt_cuda.PLAIN_LEVELS
+                print(f"kernel check {lib} {shape} at origin {(u0, v0)}: "
+                      f"max|diff| {diff}, launches {launched}, plain levels "
+                      f"{plain}", flush=True)
+                if (any(diff.values()) or plain
+                        or set(launched.values()) != {1}):
+                    raise AssertionError(f"{lib} at {shape}, origin "
+                                         f"{(u0, v0)}: not the kernels, or "
+                                         "not exact")
+                for k, d in diff.items():
+                    err[k] = max(err[k], d)
+                fns = {f"{lib}_fwd_level": (
+                    lambda: transforms.forward_level(x, kind, u0, v0),
+                    lambda: dwt.forward_2d(x, kind, u0=u0, v0=v0)),
+                    f"{lib}_inv_level": (
+                    lambda: transforms.inverse_level(ref, kind, u0, v0),
+                    lambda: dwt.inverse_2d(ref, kind, u0=u0, v0=v0))}
+                for name, (fn, plain_fn) in fns.items():
+                    time_line(name, cuda_ms(fn, reps=10),
+                              cuda_ms(plain_fn, reps=3, warmup=1), *lim,
+                              device_ms(fn, reps=10),
+                              f"{list(shape)} at origin {(u0, v0)}", card)
+                del got, ref, rec
+    dwt_cuda.reset_counts()
+    torch.cuda.empty_cache()
+    return err
+
+
+def hd_frames():
+    """HD's 8-bit RGB frames (smooth noise, seeds 600 on)."""
+    n, h, w = HD
+    return [np.stack([natural_image(h, w, seed=600 + 3 * i + c)
+                      for c in range(3)], axis=-1) for i in range(n)]
+
+
+def hd_batch(tp, dev, card, launches):
+    """Phase 18b: the 1080p batch (HD), HTJ2K at 6 resolutions, lossless
+    and lossy q85, through encode_batch and decode_batch: the fused encode
+    and the device HT decode, the level kernels at every level (level 4's
+    input has 135 rows), no plain level; lossless round trips exact; the
+    first HD_CHECK frames' bytes and decodes equal to the CPU run's; wall
+    ms of the counted run and the median of three more."""
+    frames = hd_frames()
+    mpix = HD[0] * HD[1] * HD[2] / 1e6
+    for lossless in (True, False):
+        lib = "dwt53" if lossless else "dwt97"
+        opts = tp.Options(format=tp.Format.J2K, lossless=lossless,
+                          quality=85, num_resolutions=6,
+                          high_throughput=True)
+        label = f"H1 1080p {'lossless' if lossless else 'lossy q85'}"
+        streams, snap = case_run(
+            tp, f"{label} encode_batch",
+            lambda: tp.encode_batch(frames, opts, device=dev), launches,
+            (f"{lib}_fwd_level",) + HT_ENC, card)
+        if snap.get("enc.fused_chunks", 0) <= 0:
+            raise AssertionError(f"{label}: not the fused encode")
+        decoded, snap = case_run(
+            tp, f"{label} decode_batch",
+            lambda: tp.decode_batch(streams, device=dev), launches,
+            (f"{lib}_inv_level",) + HT_DEC_KERNELS, card)
+        if snap.get("dec.device_ht_chunks", 0) <= 0:
+            raise AssertionError(f"{label}: not the device HT decode")
+        if lossless and not all(np.array_equal(d, f)
+                                for d, f in zip(decoded, frames)):
+            raise AssertionError(f"{label}: round trip is not exact")
+        enc_ms = sorted(timed(lambda: tp.encode_batch(frames, opts,
+                                                      device=dev))[1]
+                        for _ in range(3))
+        dec_ms = sorted(timed(lambda: tp.decode_batch(streams,
+                                                      device=dev))[1]
+                        for _ in range(3))
+        quality = ("round trips exact" if lossless else "PSNR " + ", ".join(
+            f"{psnr(d, f):.3f}" for d, f in zip(decoded[:2], frames)) +
+            " dB (first two)")
+        print(f"{label} {HD[0]}x{HD[1:]} RGB: {sum(map(len, streams))} "
+              f"bytes, {quality}; wall (median of 3) encode {enc_ms[1]:.1f} "
+              f"ms ({mpix / enc_ms[1] * 1e3:.2f} Mpix/s), decode "
+              f"{dec_ms[1]:.1f} ms ({mpix / dec_ms[1] * 1e3:.2f} Mpix/s) "
+              f"[{card}]", flush=True)
+        held_to_cpu(f"{label} first {HD_CHECK} frames", streams[:HD_CHECK],
+                    tp.encode_batch(frames[:HD_CHECK], opts, device="cpu"))
+        on_cpu = tp.decode_batch(streams[:HD_CHECK], device="cpu")
+        for i, (d, c) in enumerate(zip(decoded, on_cpu)):
+            same(f"{label} frame {i} decode against the CPU's", d, c)
+        del streams, decoded
+        torch.cuda.empty_cache()
+
+
+def s4_reduced(tp, dev, card, launches):
+    """Phase 18c: S4's stream (odd origins and sizes on every tile)
+    decoded at reduce_resolution S4_REDUCE on the card: the inverse 5/3
+    kernel at every level, no plain level, equal to the CPU run's."""
+    label, image, opts, _lib = s4_case(tp)
+    data = tp.encode(image, opts, device=dev)
+    for r in S4_REDUCE:
+        cfg = tp.Config(reduce_resolution=r)
+        out, _snap = case_run(tp, f"{label} reduce_resolution={r}",
+                              lambda: tp.decode(data, cfg, device=dev),
+                              launches, ("dwt53_inv_level",), card)
+        same(f"{label} reduce_resolution={r} against the CPU's", out,
+             tp.decode(data, cfg, device="cpu"))
+        print(f"{label} reduce_resolution={r}: {out.shape}, equal to the "
+              f"CPU run's [{card}]", flush=True)
+
+
+def odd_geometry_phase(tp, dev, card, launches):
+    """Phase 18: odd geometry, 18a-18c.  Returns the level kernels' largest
+    differences from the plain lifting."""
+    from go_jpeg2000_tpu_torch.models import transforms
+    from go_jpeg2000_tpu_torch.ops import dwt, dwt_cuda
+    t0 = time.perf_counter()
+    err = check_parity_levels(dwt, dwt_cuda, transforms, dev, card)
+    hd_batch(tp, dev, card, launches)
+    s4_reduced(tp, dev, card, launches)
+    print(f"phase 18, odd geometry: {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    return err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -3865,6 +4062,8 @@ def main():
     decode_options_phase(tp, dev, card, launches, c4, c2)
     err["dwt53_fwd_level"] = max(err["dwt53_fwd_level"], encode_options_phase(
         tp, dev, card, launches, c4))
+    for k, v in odd_geometry_phase(tp, dev, card, launches).items():
+        err[k] = max(err[k], v)
 
     out = []
     for name, (replaces, src) in REPLACES.items():

@@ -17,24 +17,33 @@
 //
 // Design (both directions): a warp per (frame, strip of STRIP output rows,
 // tile of PAIRS output column pairs), no shared memory, no barrier and no
-// division in a loop.  Lane l holds column pair p = PAIRS * tile + l - 2,
-// that is columns 2p and 2p + 1; pairs off the frame read their columns
-// through the whole-sample symmetric extension, which keeps a column's
-// parity, so lifting the extended signal gives the extension of the lifted
-// signal exactly (the stencils are symmetric).  Each lane loads all its rows
-// into registers before it computes any, so every load of the strip is in
-// flight at once, lifts its two columns vertically in registers, and lifts
-// each row horizontally with four warp shuffles: each step reaches one pair,
-// alternately right (alpha, gamma: the next pair's even sample) and left
-// (beta, delta: the previous pair's odd sample).  A lane's value is then
-// right where every step's neighbours were: lanes 0..30 after the first
-// step, 1..30, 1..29, and 2..29 after the fourth, so lanes 0-1 and 30-31
-// are halo pairs and lanes 2..29 store.  Reads beyond the ideal: 7 rows per
-// STRIP and 4 pairs per 32, most of them hits in L2.  Any even width takes
-// the kernels.
+// division in a loop, in the pair frame of csrc/dwt53.cu: the level's
+// origin may have either parity (pu = u0 & 1, pv = v0 & 1); column pair q
+// holds local columns 2q - pu (globally even, low-pass) and 2q - pu + 1
+// (high-pass), band columns q - pu and q, rows the same way with pv, and a
+// strip starts at local row 32s - pv, on a low-pass row.  Lane l holds
+// column pair p = PAIRS * tile + l - 2; pairs and rows off the level read
+// their samples through the whole-sample symmetric extension, which keeps
+// a sample's global parity, so lifting the extended signal gives the
+// extension of the lifted signal exactly (the stencils are symmetric);
+// they are lifted and never stored.  The parity then decides nothing
+// inside the lifting: alpha and gamma always lift the odd (high-pass)
+// samples, beta and delta the even ones, the forward scales even samples
+// by 1/K and odd ones by K, the inverse the reverse.  Each lane loads all
+// its rows into registers before it computes any, so every load of the
+// strip is in flight at once, lifts its two columns vertically in
+// registers, and lifts each row horizontally with four warp shuffles: each
+// step reaches one pair, alternately right (alpha, gamma: the next pair's
+// even sample) and left (beta, delta: the previous pair's odd sample).  A
+// lane's value is then right where every step's neighbours were: lanes
+// 0..30 after the first step, 1..30, 1..29, and 2..29 after the fourth, so
+// lanes 0-1 and 30-31 are halo pairs and lanes 2..29 store.  Reads beyond
+// the ideal: 7 rows per STRIP and 4 pairs per 32, most of them hits in L2.
+// A 1-sample axis passes through at either parity, unlifted and unscaled,
+// as ops/dwt.py's _forward_1d_97 and _inverse_1d_97 do.
 //
 // The vertical halo is 7 rows.  Forward, for output rows [r0, r0 + rr),
-// r0 even:
+// r0 globally even and rr rounded up to whole row pairs:
 //   delta (even rows r0 .. r0+rr-2)  needs gamma rows r0-1 .. r0+rr-1,
 //   gamma (odd rows r0-1 .. r0+rr-1) needs beta  rows r0-2 .. r0+rr,
 //   beta  (even rows r0-2 .. r0+rr)  needs alpha rows r0-3 .. r0+rr+1,
@@ -62,9 +71,10 @@
 // lifting reaches 4 rows, so a 2-row shard takes rows of shards beyond its
 // neighbours; the halo brings them, already reflected at the global edges.
 //
-// Geometry: even origin, even H and W (>= 2) at this level; other levels
-// take the plain version.  Kernels launch on the caller's stream, allocate
-// nothing, and each entry point returns cudaGetLastError().
+// Geometry: any origin parity and any H, W >= 1 without halo rows; with
+// halo rows an even origin and even H and W >= 2 (ops/dwt_cuda.py checks).
+// Kernels launch on the caller's stream, allocate nothing, launch nothing
+// for an empty level, and each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +86,7 @@
 #define FWD_ABOVE 4
 #define INV_ABOVE 3
 #define THREADS 128
+static_assert(FWD_STRIP == INV_STRIP, "warp_task lays out one strip height");
 
 #define ALPHA_D -1.586134342059924
 #define BETA_D -0.052980118572961
@@ -90,7 +101,11 @@ __device__ __constant__ float kDelta = (float)DELTA_D;
 __device__ __constant__ float kK = (float)K_D;
 __device__ __constant__ float kInvK = (float)(1.0 / K_D);
 
+// Whole-sample symmetric extension of index i into [0, n).  A 1-sample axis
+// (only the general instance, ODD below, meets one) maps every index to 0.
+template <bool ODD>
 __device__ __forceinline__ int reflect(int i, int n) {
+  if (ODD && n == 1) return 0;
   while (i < 0 || i >= n) {
     if (i < 0) i = -i;
     if (i >= n) i = 2 * n - 2 - i;
@@ -100,6 +115,7 @@ __device__ __forceinline__ int reflect(int i, int n) {
 
 // Row g (-ha <= g < h + hb) of a shard of h rows in a frame: from the halo
 // above or below where one is given, else the shard's own row (reflected).
+template <bool ODD>
 __device__ __forceinline__ const float* shard_row(const float* x,
                                                   const float* above,
                                                   const float* below,
@@ -107,7 +123,7 @@ __device__ __forceinline__ const float* shard_row(const float* x,
                                                   int w, int ha, int hb) {
   if (g < 0 && above) return above + ((int64_t)frame * ha + ha + g) * w;
   if (g >= h && below) return below + ((int64_t)frame * hb + g - h) * w;
-  return x + ((int64_t)frame * h + reflect(g, h)) * w;
+  return x + ((int64_t)frame * h + reflect<ODD>(g, h)) * w;
 }
 
 // c + k * (l + r), each op rounded once
@@ -128,204 +144,317 @@ __device__ __forceinline__ float prev_b(float b) {
   return __shfl_up_sync(0xffffffffu, b, 1);
 }
 
-// The warp's task: tile task % tiles, strip (task / tiles) % strips, frame
-// task / (tiles * strips).  False for the spare warps of the last block.
+// Each kernel comes in two instances, as in csrc/dwt53.cu: ODD, the
+// general one (any origin parity, any H and W >= 1), and one for an even
+// origin, even H and W >= 2 and 8-byte aligned tensors, where every test
+// on the geometry folds away at compile time.
+//
+// A warp's task in the pair frame (as in csrc/dwt53.cu): tile task %
+// tiles, strip (task / tiles) % strips, frame task / (tiles * strips); m0
+// the strip's first row pair, r0 = 2 m0 - pv its first (low-pass, possibly
+// virtual) row, rr the rows r0 .. r0 + rr - 1 it covers (those below 0 are
+// virtual), re = rr rounded up to whole row pairs, the rows it lifts; p
+// the lane's column pair and c0 = 2p - pu its low column.  False for the
+// spare warps of the last block.
 struct Task {
-  int frame, r0, rr, p, lane;
+  int frame, m0, r0, rr, re, lane, p, c0;
 };
 
-__device__ __forceinline__ bool warp_task(int n, int h, int strips,
-                                          int tiles, int strip, Task* t) {
+template <bool ODD>
+__device__ __forceinline__ bool warp_task(int n, int h, int pu, int pv,
+                                          int strips, int tiles, Task* t) {
   const int64_t task =
       (int64_t)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   if (task >= (int64_t)n * strips * tiles) return false;
   t->lane = threadIdx.x & 31;
   const int64_t fs = task / tiles;
-  t->r0 = (int)(fs % strips) * strip;
+  t->m0 = (int)(fs % strips) * (FWD_STRIP / 2);
+  t->r0 = 2 * t->m0 - pv;
   t->frame = (int)(fs / strips);
-  t->rr = min(strip, h - t->r0);               // even: h and r0 are even
+  t->rr = min(FWD_STRIP, h - t->r0);
+  t->re = ODD ? t->rr + (t->rr & 1) : t->rr;
   t->p = (int)(task % tiles) * PAIRS + t->lane - 2;
+  t->c0 = 2 * t->p - pu;
   return true;
 }
 
-// x [n, h, w] -> ll, hl, lh, hh [n, h/2, w/2].  Register row j holds input
-// row r0 - 4 + j of the lane's two columns (S + 7 rows).
+// Band sizes of a level of n samples at origin parity o: low, high.
+__device__ __forceinline__ int low_size(int n, int o) {
+  return ((n + o + 1) >> 1) - o;
+}
+__device__ __forceinline__ int high_size(int n, int o) { return (n + o) >> 1; }
+
+// x [n, h, w] at origin parity (pu, pv) -> ll [n, nly, nlx], hl [n, nly,
+// nhx], lh [n, nhy, nlx], hh [n, nhy, nhx].  Register row j holds local row
+// r0 - 4 + j of the lane's two columns (S + 7 rows; global parity j & 1).
+template <bool ODD>
 __global__ void __launch_bounds__(THREADS)
 dwt97_fwd_kernel(const float* __restrict__ x, const float* __restrict__ above,
                  const float* __restrict__ below, float* __restrict__ ll,
                  float* __restrict__ hl, float* __restrict__ lh,
-                 float* __restrict__ hh, int n, int h, int w, int strips,
-                 int tiles, int vec) {
+                 float* __restrict__ hh, int n, int h, int w, int upar,
+                 int vpar, int strips, int tiles, int vec) {
+  const int pu = ODD ? upar : 0, pv = ODD ? vpar : 0;
   Task t;
-  if (!warp_task(n, h, strips, tiles, FWD_STRIP, &t)) return;  // whole warps
-  const int rr = t.rr;
-  const int w2 = w >> 1;
-  const int c0 = reflect(2 * t.p, w), c1 = reflect(2 * t.p + 1, w);
-  const bool pair = vec && c1 == c0 + 1;       // c0 even: one 8-byte load
+  if (!warp_task<ODD>(n, h, pu, pv, strips, tiles, &t)) return;
+  const int re = t.re;
+  const int x0 = reflect<ODD>(t.c0, w), x1 = reflect<ODD>(t.c0 + 1, w);
+  // vec: even origin and width, so x0 is even: one 8-byte load
+  const bool pair = (!ODD || vec) && x1 == x0 + 1;
 
   float2 v[FWD_STRIP + HALO];
 #pragma unroll
   for (int j = 0; j < FWD_STRIP + HALO; ++j) {
-    if (j > rr + 6) break;                     // rows r0 - 4 .. r0 + rr + 2
-    const float* row = shard_row(x, above, below, t.frame,
+    if (j > re + 6) break;                     // rows r0 - 4 .. r0 + re + 2
+    const float* row = shard_row<ODD>(x, above, below, t.frame,
                                  t.r0 - FWD_ABOVE + j, h, w, FWD_ABOVE,
                                  HALO - FWD_ABOVE);
     if (pair) {
-      v[j] = *reinterpret_cast<const float2*>(row + c0);
+      v[j] = *reinterpret_cast<const float2*>(row + x0);
     } else {
-      v[j].x = row[c0];
-      v[j].y = row[c1];
+      v[j].x = row[x0];
+      v[j].y = row[x1];
     }
   }
-  // vertical lifting: alpha on odd rows r0-3 .. r0+rr+1 (register rows 1,
-  // 3, ..), beta on even rows r0-2 .. r0+rr, gamma on odd rows r0-1 ..
-  // r0+rr-1, delta on even rows r0 .. r0+rr-2
+  // vertical lifting (a 1-row level has none): alpha on odd rows r0-3 ..
+  // r0+re+1 (register rows 1, 3, ..), beta on even rows r0-2 .. r0+re,
+  // gamma on odd rows r0-1 .. r0+re-1, delta on even rows r0 .. r0+re-2
+  if (!ODD || h > 1) {
 #pragma unroll
-  for (int j = 1; j < FWD_STRIP + 6; j += 2) {
-    if (j > rr + 5) break;
-    v[j].x = lift_add(v[j].x, kAlpha, v[j - 1].x, v[j + 1].x);
-    v[j].y = lift_add(v[j].y, kAlpha, v[j - 1].y, v[j + 1].y);
-  }
+    for (int j = 1; j < FWD_STRIP + 6; j += 2) {
+      if (j > re + 5) break;
+      v[j].x = lift_add(v[j].x, kAlpha, v[j - 1].x, v[j + 1].x);
+      v[j].y = lift_add(v[j].y, kAlpha, v[j - 1].y, v[j + 1].y);
+    }
 #pragma unroll
-  for (int j = 2; j < FWD_STRIP + 5; j += 2) {
-    if (j > rr + 4) break;
-    v[j].x = lift_add(v[j].x, kBeta, v[j - 1].x, v[j + 1].x);
-    v[j].y = lift_add(v[j].y, kBeta, v[j - 1].y, v[j + 1].y);
-  }
+    for (int j = 2; j < FWD_STRIP + 5; j += 2) {
+      if (j > re + 4) break;
+      v[j].x = lift_add(v[j].x, kBeta, v[j - 1].x, v[j + 1].x);
+      v[j].y = lift_add(v[j].y, kBeta, v[j - 1].y, v[j + 1].y);
+    }
 #pragma unroll
-  for (int j = 3; j < FWD_STRIP + 4; j += 2) {
-    if (j > rr + 3) break;
-    v[j].x = lift_add(v[j].x, kGamma, v[j - 1].x, v[j + 1].x);
-    v[j].y = lift_add(v[j].y, kGamma, v[j - 1].y, v[j + 1].y);
-  }
+    for (int j = 3; j < FWD_STRIP + 4; j += 2) {
+      if (j > re + 3) break;
+      v[j].x = lift_add(v[j].x, kGamma, v[j - 1].x, v[j + 1].x);
+      v[j].y = lift_add(v[j].y, kGamma, v[j - 1].y, v[j + 1].y);
+    }
 #pragma unroll
-  for (int j = 4; j < FWD_STRIP + 3; j += 2) {
-    if (j > rr + 2) break;
-    v[j].x = lift_add(v[j].x, kDelta, v[j - 1].x, v[j + 1].x);
-    v[j].y = lift_add(v[j].y, kDelta, v[j - 1].y, v[j + 1].y);
+    for (int j = 4; j < FWD_STRIP + 3; j += 2) {
+      if (j > re + 2) break;
+      v[j].x = lift_add(v[j].x, kDelta, v[j - 1].x, v[j + 1].x);
+      v[j].y = lift_add(v[j].y, kDelta, v[j - 1].y, v[j + 1].y);
+    }
   }
   // per output row: the vertical scaling (even rows x 1/K, odd rows x K),
   // the horizontal lifting (2D_SD: columns, then rows), and the stores with
-  // the horizontal scaling: even rows to LL | HL, odd rows to LH | HH; even
-  // columns low (x 1/K), odd columns high (x K)
-  const bool out = t.lane >= 2 && t.lane < 2 + PAIRS && t.p < w2;
-  const int64_t obase =
-      ((int64_t)t.frame * (h >> 1) + (t.r0 >> 1)) * w2 + t.p;
+  // the horizontal scaling: low rows to LL | HL, high rows to LH | HH; low
+  // columns (x 1/K) to LL | LH, high columns (x K) to HL | HH.  A 1-sample
+  // axis is neither lifted nor scaled.
+  const int nlx = ODD ? low_size(w, pu) : w >> 1;
+  const int nhx = ODD ? high_size(w, pu) : w >> 1;
+  const bool live = t.lane >= 2 && t.lane < 2 + PAIRS;
+  const bool lo_ok = live && (ODD ? t.c0 >= 0 && t.c0 < w : t.p < nlx);
+  const bool hi_ok = ODD ? live && t.c0 + 1 < w : lo_ok;
+  // band offsets of row pair m0: low rows m0 - pv, high rows m0
+  const int64_t lrow =
+      (int64_t)t.frame * (ODD ? low_size(h, pv) : h >> 1) + t.m0 - pv;
+  const int64_t hrow =
+      (int64_t)t.frame * (ODD ? high_size(h, pv) : h >> 1) + t.m0;
+  const int64_t ll0 = lrow * nlx + t.p - pu, hl0 = lrow * nhx + t.p;
+  const int64_t lh0 = hrow * nlx + t.p - pu, hh0 = hrow * nhx + t.p;
 #pragma unroll
   for (int k = 0; k < FWD_STRIP; ++k) {
-    if (k >= rr) break;
-    const float s = (k & 1) ? kK : kInvK;
-    float a = __fmul_rn(v[k + 4].x, s), b = __fmul_rn(v[k + 4].y, s);
-    b = lift_add(b, kAlpha, a, next_a(a));     // x[2p+1] += a(x[2p]+x[2p+2])
-    a = lift_add(a, kBeta, prev_b(b), b);      // x[2p] += b(x[2p-1]+x[2p+1])
-    b = lift_add(b, kGamma, a, next_a(a));
-    a = lift_add(a, kDelta, prev_b(b), b);
-    if (out) {
-      const int64_t o = obase + (int64_t)(k >> 1) * w2;
-      const float lo = __fmul_rn(a, kInvK), hi = __fmul_rn(b, kK);
-      if (k & 1) {
-        lh[o] = lo;
-        hh[o] = hi;
-      } else {
-        ll[o] = lo;
-        hl[o] = hi;
-      }
+    if (k >= t.rr) break;
+    if (ODD && t.r0 + k < 0) continue;         // virtual row (warp-uniform)
+    float a = v[k + 4].x, b = v[k + 4].y;
+    if (!ODD || h > 1) {
+      const float s = (k & 1) ? kK : kInvK;
+      a = __fmul_rn(a, s);
+      b = __fmul_rn(b, s);
+    }
+    float lo = a, hi = b;
+    if (!ODD || w > 1) {
+      b = lift_add(b, kAlpha, a, next_a(a));   // x[2p+1] += a(x[2p]+x[2p+2])
+      a = lift_add(a, kBeta, prev_b(b), b);    // x[2p] += b(x[2p-1]+x[2p+1])
+      b = lift_add(b, kGamma, a, next_a(a));
+      a = lift_add(a, kDelta, prev_b(b), b);
+      lo = __fmul_rn(a, kInvK);
+      hi = __fmul_rn(b, kK);
+    }
+    const int64_t o = k >> 1;
+    if (k & 1) {
+      if (lo_ok) lh[lh0 + o * nlx] = lo;
+      if (hi_ok) hh[hh0 + o * nhx] = hi;
+    } else {
+      if (lo_ok) ll[ll0 + o * nlx] = lo;
+      if (hi_ok) hl[hl0 + o * nhx] = hi;
     }
   }
 }
 
-// ll, hl, lh, hh [n, h/2, w/2] -> out [n, h, w].  Register row j holds
-// interleaved row r0 - 3 + j of the lane's two columns (S + 7 rows): an odd
-// (high-pass) row when j is even.
+// ll, hl, lh, hh (shapes as the forward kernel's) -> out [n, h, w] at
+// origin parity (pu, pv).  Register row j holds interleaved local row
+// r0 - 3 + j of the lane's two columns (S + 7 rows): a high-pass row when
+// j is even.
+template <bool ODD>
 __global__ void __launch_bounds__(THREADS)
 dwt97_inv_kernel(const float* __restrict__ ll, const float* __restrict__ hl,
                  const float* __restrict__ lh, const float* __restrict__ hh,
                  const float* __restrict__ above,
                  const float* __restrict__ below, float* __restrict__ out,
-                 int n, int h, int w, int strips, int tiles) {
+                 int n, int h, int w, int upar, int vpar, int strips,
+                 int tiles, int vec) {
+  const int pu = ODD ? upar : 0, pv = ODD ? vpar : 0;
   Task t;
-  if (!warp_task(n, h, strips, tiles, INV_STRIP, &t)) return;  // whole warps
-  const int rr = t.rr;
-  const int w2 = w >> 1;
-  // column 2p reflects to an even column, the low half's sample c0 / 2;
-  // column 2p + 1 to an odd one, the high half's sample c1 / 2
-  const int m0 = reflect(2 * t.p, w) >> 1, m1 = reflect(2 * t.p + 1, w) >> 1;
-  const int64_t bbase = (int64_t)t.frame * (h >> 1) * w2;
+  if (!warp_task<ODD>(n, h, pu, pv, strips, tiles, &t)) return;
+  const int re = t.re;
+  const int nlx = ODD ? low_size(w, pu) : w >> 1;
+  const int nhx = ODD ? high_size(w, pu) : w >> 1;
+  // the band columns of the lane's low and high samples: column c0 reflects
+  // to a low (globally even) column, c0 + 1 to a high one; a 1-column
+  // level has only the one its parity gives
+  int ml = 0, mh = 0;
+  bool rl = !pu, rh = pu;
+  if (!ODD || w > 1) {
+    ml = ((reflect<ODD>(t.c0, w) + pu) >> 1) - pu;
+    mh = (reflect<ODD>(t.c0 + 1, w) + pu) >> 1;
+    rl = rh = true;
+  }
+  const int nly = ODD ? low_size(h, pv) : h >> 1;
+  const int nhy = ODD ? high_size(h, pv) : h >> 1;
+  // the frame's first sample in each band (one offset at an even geometry)
+  const int64_t bll = (int64_t)t.frame * nly * nlx;
+  const int64_t bhl = (int64_t)t.frame * nly * nhx;
+  const int64_t blh = (int64_t)t.frame * nhy * nlx;
+  const int64_t bhh = (int64_t)t.frame * nhy * nhx;
 
   // every row's loads first, with nothing that waits for them in between
   float2 v[INV_STRIP + HALO];
 #pragma unroll
   for (int j = 0; j < INV_STRIP + HALO; ++j) {
-    if (j > rr + 6) break;                     // rows r0 - 3 .. r0 + rr + 3
+    if (j > re + 6) break;                     // rows r0 - 3 .. r0 + re + 3
     const int g = t.r0 - INV_ABOVE + j;
     const float *lo, *hi;
     if (g < 0 && above) {
       lo = above + ((int64_t)t.frame * INV_ABOVE + INV_ABOVE + g) * w;
-      hi = lo + w2;
+      hi = lo + nlx;
     } else if (g >= h && below) {
       lo = below + ((int64_t)t.frame * (HALO - INV_ABOVE) + g - h) * w;
-      hi = lo + w2;
+      hi = lo + nlx;
     } else {
-      const int r = reflect(g, h);
-      const int64_t i = bbase + (int64_t)(r >> 1) * w2;
-      lo = ((r & 1) ? lh : ll) + i;
-      hi = ((r & 1) ? hh : hl) + i;
+      const int r = reflect<ODD>(g, h) + pv;   // bit 0: the row's parity
+      const int m = (r >> 1) - ((r & 1) ? 0 : pv);   // its band row
+      lo = ((r & 1) ? lh + blh : ll + bll) + (int64_t)m * nlx;
+      hi = ((r & 1) ? hh + bhh : hl + bhl) + (int64_t)m * nhx;
     }
-    v[j].x = lo[m0];
-    v[j].y = hi[m1];
+    v[j].x = rl ? lo[ml] : 0.0f;
+    v[j].y = rh ? hi[mh] : 0.0f;
   }
   // 2D_SR: rows first: the horizontal scaling (even column x K, odd x
   // 1/K), four shuffles, then the vertical scaling (register row 0 is odd:
-  // even j x 1/K, odd j x K)
+  // even j x 1/K, odd j x K); a 1-sample axis is neither lifted nor scaled
 #pragma unroll
   for (int j = 0; j < INV_STRIP + HALO; ++j) {
-    if (j > rr + 6) break;
-    float a = __fmul_rn(v[j].x, kK), b = __fmul_rn(v[j].y, kInvK);
-    a = lift_sub(a, kDelta, prev_b(b), b);
-    b = lift_sub(b, kGamma, a, next_a(a));
-    a = lift_sub(a, kBeta, prev_b(b), b);
-    b = lift_sub(b, kAlpha, a, next_a(a));
-    const float s = (j & 1) ? kK : kInvK;
-    v[j].x = __fmul_rn(a, s);
-    v[j].y = __fmul_rn(b, s);
+    if (j > re + 6) break;
+    float a = v[j].x, b = v[j].y;
+    if (!ODD || w > 1) {
+      a = __fmul_rn(a, kK);
+      b = __fmul_rn(b, kInvK);
+      a = lift_sub(a, kDelta, prev_b(b), b);
+      b = lift_sub(b, kGamma, a, next_a(a));
+      a = lift_sub(a, kBeta, prev_b(b), b);
+      b = lift_sub(b, kAlpha, a, next_a(a));
+    }
+    if (!ODD || h > 1) {
+      const float s = (j & 1) ? kK : kInvK;
+      a = __fmul_rn(a, s);
+      b = __fmul_rn(b, s);
+    }
+    v[j].x = a;
+    v[j].y = b;
   }
-  // then columns: delta on even rows r0-2 .. r0+rr+2 (register rows 1, 3,
-  // ..), gamma on odd rows r0-1 .. r0+rr+1, beta on even rows r0 .. r0+rr,
-  // alpha on odd rows r0+1 .. r0+rr-1
+  // then columns: delta on even rows r0-2 .. r0+re+2 (register rows 1, 3,
+  // ..), gamma on odd rows r0-1 .. r0+re+1, beta on even rows r0 .. r0+re,
+  // alpha on odd rows r0+1 .. r0+re-1
+  if (!ODD || h > 1) {
 #pragma unroll
-  for (int j = 1; j < INV_STRIP + 6; j += 2) {
-    if (j > rr + 5) break;
-    v[j].x = lift_sub(v[j].x, kDelta, v[j - 1].x, v[j + 1].x);
-    v[j].y = lift_sub(v[j].y, kDelta, v[j - 1].y, v[j + 1].y);
-  }
+    for (int j = 1; j < INV_STRIP + 6; j += 2) {
+      if (j > re + 5) break;
+      v[j].x = lift_sub(v[j].x, kDelta, v[j - 1].x, v[j + 1].x);
+      v[j].y = lift_sub(v[j].y, kDelta, v[j - 1].y, v[j + 1].y);
+    }
 #pragma unroll
-  for (int j = 2; j < INV_STRIP + 5; j += 2) {
-    if (j > rr + 4) break;
-    v[j].x = lift_sub(v[j].x, kGamma, v[j - 1].x, v[j + 1].x);
-    v[j].y = lift_sub(v[j].y, kGamma, v[j - 1].y, v[j + 1].y);
-  }
+    for (int j = 2; j < INV_STRIP + 5; j += 2) {
+      if (j > re + 4) break;
+      v[j].x = lift_sub(v[j].x, kGamma, v[j - 1].x, v[j + 1].x);
+      v[j].y = lift_sub(v[j].y, kGamma, v[j - 1].y, v[j + 1].y);
+    }
 #pragma unroll
-  for (int j = 3; j < INV_STRIP + 4; j += 2) {
-    if (j > rr + 3) break;
-    v[j].x = lift_sub(v[j].x, kBeta, v[j - 1].x, v[j + 1].x);
-    v[j].y = lift_sub(v[j].y, kBeta, v[j - 1].y, v[j + 1].y);
-  }
+    for (int j = 3; j < INV_STRIP + 4; j += 2) {
+      if (j > re + 3) break;
+      v[j].x = lift_sub(v[j].x, kBeta, v[j - 1].x, v[j + 1].x);
+      v[j].y = lift_sub(v[j].y, kBeta, v[j - 1].y, v[j + 1].y);
+    }
 #pragma unroll
-  for (int j = 4; j < INV_STRIP + 3; j += 2) {
-    if (j > rr + 2) break;
-    v[j].x = lift_sub(v[j].x, kAlpha, v[j - 1].x, v[j + 1].x);
-    v[j].y = lift_sub(v[j].y, kAlpha, v[j - 1].y, v[j + 1].y);
+    for (int j = 4; j < INV_STRIP + 3; j += 2) {
+      if (j > re + 2) break;
+      v[j].x = lift_sub(v[j].x, kAlpha, v[j - 1].x, v[j + 1].x);
+      v[j].y = lift_sub(v[j].y, kAlpha, v[j - 1].y, v[j + 1].y);
+    }
   }
-  // rows r0 .. r0+rr-1 (register rows 3 .. rr+2), columns 2p and 2p+1 as
-  // one 8-byte store
-  if (t.lane < 2 || t.lane >= 2 + PAIRS || t.p >= w2) return;
-  float2* o = reinterpret_cast<float2*>(
-      out + ((int64_t)t.frame * h + t.r0) * w) + t.p;
+  // rows r0 .. r0+rr-1 (register rows 3 .. rr+2), columns c0 and c0 + 1; at
+  // an even origin and width (vec) as one 8-byte store
+  if (t.lane < 2 || t.lane >= 2 + PAIRS) return;
+  if (!ODD) {
+    if (t.p >= (w >> 1)) return;
+    float2* o = reinterpret_cast<float2*>(
+                    out + ((int64_t)t.frame * h + t.r0) * w) + t.p;
+#pragma unroll
+    for (int k = 0; k < INV_STRIP; ++k) {
+      if (k >= t.rr) break;
+      o[(int64_t)k * (w >> 1)] = v[k + 3];
+    }
+    return;
+  }
+  const bool lo_ok = t.c0 >= 0 && t.c0 < w, hi_ok = t.c0 + 1 < w;
+  if (vec && !hi_ok) return;
+  const int64_t obase = ((int64_t)t.frame * h + t.r0) * w;
 #pragma unroll
   for (int k = 0; k < INV_STRIP; ++k) {
-    if (k >= rr) break;
-    o[(int64_t)k * w2] = v[k + 3];
+    if (k >= t.rr) break;
+    if (t.r0 + k < 0) continue;                // virtual row
+    float* row = out + obase + (int64_t)k * w;
+    if (vec) {
+      reinterpret_cast<float2*>(row)[t.p] = v[k + 3];
+    } else {
+      if (lo_ok) row[t.c0] = v[k + 3].x;
+      if (hi_ok) row[t.c0 + 1] = v[k + 3].y;
+    }
   }
+}
+
+static unsigned blocks_for(int64_t tasks) {
+  const int per_block = THREADS / 32;
+  return (unsigned)((tasks + per_block - 1) / per_block);
+}
+
+// Warp tasks of a level: strips of FWD_STRIP (= INV_STRIP) rows in the
+// pair frame, tiles of PAIRS column pairs.
+static int64_t level_tasks(int n, int h, int w, int pu, int pv, int* strips,
+                           int* tiles) {
+  *strips = (h + pv + FWD_STRIP - 1) / FWD_STRIP;
+  *tiles = (((w + pu + 1) >> 1) + PAIRS - 1) / PAIRS;
+  return (int64_t)n * *strips * *tiles;
+}
+
+// The even instance's geometry: even origin, even H and W >= 2.
+static bool even_level(int h, int w, int pu, int pv) {
+  return !pu && !pv && !(h & 1) && !(w & 1) && h >= 2 && w >= 2;
+}
+
+static bool aligned8(const void* a, const void* b, const void* c) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c)) & 7) == 0;
 }
 
 extern "C" {
@@ -336,36 +465,49 @@ int dwt97_halo_rows(void) { return HALO; }
 int dwt97_fwd_above(void) { return FWD_ABOVE; }
 int dwt97_inv_above(void) { return INV_ABOVE; }
 
-static unsigned blocks_for(int64_t tasks) {
-  const int per_block = THREADS / 32;
-  return (unsigned)((tasks + per_block - 1) / per_block);
-}
-
+// pu, pv: the level origin's parity (u0 & 1, v0 & 1)
 int dwt97_fwd_level(const void* x, const void* above, const void* below,
                     void* ll, void* hl, void* lh, void* hh, int n, int h,
-                    int w, void* stream) {
-  const int strips = (h + FWD_STRIP - 1) / FWD_STRIP;
-  const int tiles = (w / 2 + PAIRS - 1) / PAIRS;
-  const int vec = ((reinterpret_cast<uintptr_t>(x) |
-                    reinterpret_cast<uintptr_t>(above) |
-                    reinterpret_cast<uintptr_t>(below)) & 7) == 0;
-  dwt97_fwd_kernel<<<blocks_for((int64_t)n * strips * tiles), THREADS, 0,
-                     (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)above, (const float*)below, (float*)ll,
-      (float*)hl, (float*)lh, (float*)hh, n, h, w, strips, tiles, vec);
+                    int w, int pu, int pv, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0) return 0;
+  int strips, tiles;
+  const int64_t tasks = level_tasks(n, h, w, pu, pv, &strips, &tiles);
+  const int vec = !pu && !(w & 1) && aligned8(x, above, below);
+  if (even_level(h, w, pu, pv) && vec)
+    dwt97_fwd_kernel<false><<<blocks_for(tasks), THREADS, 0,
+                              (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)above, (const float*)below, (float*)ll,
+        (float*)hl, (float*)lh, (float*)hh, n, h, w, pu, pv, strips, tiles,
+        vec);
+  else
+    dwt97_fwd_kernel<true><<<blocks_for(tasks), THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)above, (const float*)below, (float*)ll,
+        (float*)hl, (float*)lh, (float*)hh, n, h, w, pu, pv, strips, tiles,
+        vec);
   return (int)cudaGetLastError();
 }
 
 int dwt97_inv_level(const void* ll, const void* hl, const void* lh,
                     const void* hh, const void* above, const void* below,
-                    void* out, int n, int h, int w, void* stream) {
-  const int strips = (h + INV_STRIP - 1) / INV_STRIP;
-  const int tiles = (w / 2 + PAIRS - 1) / PAIRS;
-  dwt97_inv_kernel<<<blocks_for((int64_t)n * strips * tiles), THREADS, 0,
-                     (cudaStream_t)stream>>>(
-      (const float*)ll, (const float*)hl, (const float*)lh, (const float*)hh,
-      (const float*)above, (const float*)below, (float*)out, n, h, w, strips,
-      tiles);
+                    void* out, int n, int h, int w, int pu, int pv,
+                    void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0) return 0;
+  int strips, tiles;
+  const int64_t tasks = level_tasks(n, h, w, pu, pv, &strips, &tiles);
+  const int vec = !pu && !(w & 1) && aligned8(out, out, out);
+  if (even_level(h, w, pu, pv) && vec)
+    dwt97_inv_kernel<false><<<blocks_for(tasks), THREADS, 0,
+                              (cudaStream_t)stream>>>(
+        (const float*)ll, (const float*)hl, (const float*)lh, (const float*)hh,
+        (const float*)above, (const float*)below, (float*)out, n, h, w, pu, pv,
+        strips, tiles, vec);
+  else
+    dwt97_inv_kernel<true><<<blocks_for(tasks), THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const float*)ll, (const float*)hl, (const float*)lh, (const float*)hh,
+        (const float*)above, (const float*)below, (float*)out, n, h, w, pu, pv,
+        strips, tiles, vec);
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,9 @@ subband coordinate parity (tile origins need not be even), with
 whole-sample symmetric extension.  It runs on the tensor's own device and
 is the plain version of the hand-written CUDA level kernels in
 ops/dwt_cuda.py (csrc/dwt53.cu, csrc/dwt97.cu): the CPU path, the oracle
-the kernels are held to on the card, and the route for levels the kernels
-do not take (odd sizes or origins).
+the kernels are held to on the card, and the route for the levels the
+kernels do not take (a row shard's level with halo rows at an odd origin
+or size, which no caller makes).
 
   5/3:  H[2n+1] -= floor((X[2n] + X[2n+2]) / 2)
         L[2n]   += floor((H[2n-1] + H[2n+1] + 2) / 4)

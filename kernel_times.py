@@ -10,7 +10,7 @@ the 9/7 levels (dwt97_fwd_level, dwt97_inv_level) of one checkout of the
 PyTorch/CUDA port on one CUDA device, at the shapes of chip_smoke.py, and
 prints one JSON line.
 
-    python3 kernel_times.py [--tree DIR] [--ptxas] [--config4]
+    python3 kernel_times.py [--tree DIR] [--ptxas] [--config4] [--dwt-only]
 
 DIR is the root of a checkout of the repository (default: the directory of
 this script).  Its go_jpeg2000_tpu_torch is imported and its CUDA sources
@@ -60,7 +60,15 @@ generators (this script's copy):
   the bands it returns;
 - 9/7: forward_2d_97 on float32 [16, 512, 512] (the HT lossy batch's level
   1) and [768, 512, 512] (config 4's lossy level 1), and inverse_2d_97 on
-  the bands it returns.
+  the bands it returns;
+- odd geometry: both 5/3 and both 9/7 levels through
+  transforms.forward_level and inverse_level on [1, 1079, 1919] at origin
+  (1, 1) and [24, 135, 240] (the 1080p batch's level 4) at origin (0, 0):
+  the kernels where the checkout's dwt_cuda.usable takes such a level,
+  else (a parent's) the plain lifting, with the plain levels a call
+  counts; and chip_smoke.py's S4 (750x1000 gray at odd image and tile
+  offsets, 12 tiles) through encode and decode, its launches and plain
+  levels, and the median of 5 walls of each on the host's clock.
 Each kernel: mean of 20 calls by CUDA events after 3 warm-ups, and the
 kernel's device time alone (chip_smoke.py device_ms: the calls queued
 behind a spin kernel); the MQ coder's cycles per
@@ -68,6 +76,8 @@ decision of the longest block from the CUDA-event time at 1.98 GHz.  The
 two pool compactions also by CUDA events around their Python wrappers,
 and beside the time alone of one torch copy_ of their output's bytes;
 and the launch floor, a one-element add_ alone.
+--dwt-only times the launch floor, the DWT levels (even and odd) and S4
+only.
 --config4 also times config 4's lossless encode (8192x8192 16-bit RGB,
 512x512 tiles, 5 resolutions) in chip_smoke.py's stages, medians of 3
 after a warm-up: the transform step (the level kernels and band_stats)
@@ -150,17 +160,26 @@ def ptxas(tree, cuda_build):
     return out, sass
 
 
+def instance_name(m):
+    """A kernel's name from a match of its mangled symbol, with the
+    instance of a kernel templated on a bool, <true> or <false> (the DWT
+    levels' ODD: <false> is the even-geometry instance)."""
+    if not m.group(2):
+        return m.group(1)
+    return m.group(1) + ("<true>" if m.group(2) == "ILb1EE" else "<false>")
+
+
 def sass_counts(text):
     """{kernel: {"instructions": n, opcode: n for SASS_OPS}} from
     cuobjdump -sass, for the kernels KERNELS names."""
     out = {}
     for part in text.split("Function : ")[1:]:
-        m = re.match(r"_Z\d+(" + "|".join(KERNELS) + ")", part)
+        m = re.match(r"_Z\d+(" + "|".join(KERNELS) + r")(ILb[01]EE)?", part)
         if not m:
             continue
         ops = re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", part)
-        out[m.group(1)] = dict(
+        out[instance_name(m)] = dict(
             instructions=len(ops),
             **{k: sum(o.startswith(k) for o in ops) for k in SASS_OPS})
     return out
@@ -173,12 +192,12 @@ def ptxas_lines(text):
     lines = text.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '_Z\d+(" + "|".join(KERNELS)
-                      + ")", line)
+                      + r")(ILb[01]EE)?", line)
         if m:
             props = [x.split("ptxas info    :")[-1].strip()
                      for x in lines[i + 1:i + 4]
                      if "stack frame" in x or "Used" in x]
-            out[m.group(1)] = "; ".join(props)
+            out[instance_name(m)] = "; ".join(props)
     return out
 
 
@@ -458,12 +477,124 @@ def magsgn_timing(cs, tp, decoder, ht_dec_cuda, frames, opts, dev):
             "bound_ms": cs.magsgn_bound(qinfo, blocks)[0]}
 
 
+def dwt_levels(cs, dwt_cuda, dev):
+    """The four level kernels at even origins: 5/3 on [32, 512, 512] and
+    [768, 512, 512], 9/7 on [16, 512, 512] and [768, 512, 512]."""
+    import torch
+    result = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n in (cs.N_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):
+        x = torch.randint(-(1 << 15), 1 << 15, (n, cs.H, cs.W),
+                          generator=gen, device=dev, dtype=torch.int32)
+        bands = dwt_cuda.forward_2d_53(x)
+        for name, fn in (
+                ("dwt53_fwd_level", lambda: dwt_cuda.forward_2d_53(x)),
+                ("dwt53_inv_level", lambda: dwt_cuda.inverse_2d_53(bands))):
+            result[f"{name} [{n},{cs.H},{cs.W}]"] = {
+                "ms": cs.cuda_ms(fn),
+                "alone_ms": cs.device_ms(fn),
+                "bound_ms": cs.bound(8 * x.numel(), 0, 1)[0]}
+        del x, bands
+        torch.cuda.empty_cache()
+    for n in (cs.N_LOSSY_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):
+        x = torch.rand((n, cs.H, cs.W), generator=gen, device=dev) * 255 - 128
+        bands = dwt_cuda.forward_2d_97(x)
+        lim = cs.bound(8 * x.numel(), cs.OPS_PER_ELEMENT["dwt97"] * x.numel(),
+                       cs.FP32_OPS_PER_S)[0]
+        for name, fn in (
+                ("dwt97_fwd_level", lambda: dwt_cuda.forward_2d_97(x)),
+                ("dwt97_inv_level", lambda: dwt_cuda.inverse_2d_97(bands))):
+            result[f"{name} [{n},{cs.H},{cs.W}]"] = {
+                "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+                "bound_ms": lim}
+        del x, bands
+        torch.cuda.empty_cache()
+    return result
+
+
+# odd shapes [N, H, W] and level origins (u0, v0): an odd 1080p frame at
+# origin (1, 1), and the 1080p batch's level 4 (135 rows)
+ODD_LEVELS = (((1, 1079, 1919), (1, 1)), ((24, 135, 240), (0, 0)))
+
+
+def odd_levels(cs, dev):
+    """The four levels on ODD_LEVELS through transforms.forward_level and
+    inverse_level: the level kernels where the checkout's dwt_cuda.usable
+    takes the level, else the plain lifting (a parent's); each by CUDA
+    events and alone, with the plain levels a call counts."""
+    import torch
+    from go_jpeg2000_tpu_torch.models import transforms
+    from go_jpeg2000_tpu_torch.ops import dwt, dwt_cuda
+    result = {}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for kind in (dwt.REV53, dwt.IRR97):
+        lib = "dwt53" if kind == dwt.REV53 else "dwt97"
+        rate = cs.INT32_OPS_PER_S if kind == dwt.REV53 else cs.FP32_OPS_PER_S
+        for shape, (u0, v0) in ODD_LEVELS:
+            if kind == dwt.REV53:
+                x = torch.randint(-(1 << 15), 1 << 15, shape, generator=gen,
+                                  device=dev, dtype=torch.int32)
+            else:
+                x = torch.rand(shape, generator=gen, device=dev) * 255 - 128
+            bands = {k: v.contiguous() for k, v in
+                     dwt.forward_2d(x, kind, u0=u0, v0=v0).items()}
+            lim = cs.bound(8 * x.numel(), cs.OPS_PER_ELEMENT[lib] * x.numel(),
+                           rate)[0]
+            for name, fn in (
+                    (f"{lib}_fwd_level",
+                     lambda: transforms.forward_level(x, kind, u0, v0)),
+                    (f"{lib}_inv_level",
+                     lambda: transforms.inverse_level(bands, kind, u0, v0))):
+                dwt_cuda.reset_counts()
+                fn()
+                torch.cuda.synchronize()
+                result[f"{name} {list(shape)} at origin {(u0, v0)}"] = {
+                    "plain_levels_a_call": dwt_cuda.PLAIN_LEVELS,
+                    "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+                    "bound_ms": lim}
+            del x, bands
+            torch.cuda.empty_cache()
+    return result
+
+
+def s4_walls(cs, tp, dev, reps=5):
+    """chip_smoke.py's S4 (750x1000 gray at odd offsets, 12 tiles) through
+    encode and decode on the card: the plain levels and level launches of
+    one encode and decode, then the median wall ms of `reps` of each after
+    a warm-up, host clock, each ending in a synchronise."""
+    import torch
+    from go_jpeg2000_tpu_torch.ops import dwt_cuda
+    label, image, opts, _lib = cs.s4_case(tp)
+    dwt_cuda.reset_counts()
+    data = tp.encode(image, opts, device=dev)
+    tp.decode(data, device=dev)
+    torch.cuda.synchronize()
+    out = {"plain_levels": dwt_cuda.PLAIN_LEVELS,
+           "launches": {k: v for k, v in dwt_cuda.LAUNCHES.items() if v}}
+
+    def wall(fn):
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ms)
+
+    out["encode_ms"] = wall(lambda: tp.encode(image, opts, device=dev))
+    out["decode_ms"] = wall(lambda: tp.decode(data, device=dev))
+    out["encode_median_ms"] = out["encode_ms"][reps // 2]
+    out["decode_median_ms"] = out["decode_ms"][reps // 2]
+    return {label: out}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--config4", action="store_true")
     ap.add_argument("--profiler-probe", type=int, default=0, metavar="N")
+    ap.add_argument("--dwt-only", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -495,6 +626,12 @@ def main():
     result["launch floor"] = {
         "what": "a one-element add_, alone",
         "alone_ms": cs.device_ms(lambda: tiny.add_(1))}
+    result.update(dwt_levels(cs, dwt_cuda, dev))
+    result.update(odd_levels(cs, dev))
+    result.update(s4_walls(cs, tp, dev))
+    if args.dwt_only:
+        print(json.dumps(result), flush=True)
+        return 0
     _plan, planes, inputs = cs.ebcot_inputs(tp, cs.ebcot_gray(), dev)
     fn = lambda: ebcot_cuda.decision_slots(*inputs, planes)  # noqa: E731
     slots = fn()
@@ -639,34 +776,6 @@ def main():
         result[f"ht_magsgn_decode {label}"] = magsgn_timing(
             cs, tp, decoder, ht_dec_cuda, frames, opts, dev)
         del frames
-        torch.cuda.empty_cache()
-
-    gen = torch.Generator(device=dev).manual_seed(0)
-    for n in (cs.N_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):
-        x = torch.randint(-(1 << 15), 1 << 15, (n, cs.H, cs.W),
-                          generator=gen, device=dev, dtype=torch.int32)
-        bands = dwt_cuda.forward_2d_53(x)
-        for name, fn in (
-                ("dwt53_fwd_level", lambda: dwt_cuda.forward_2d_53(x)),
-                ("dwt53_inv_level", lambda: dwt_cuda.inverse_2d_53(bands))):
-            result[f"{name} [{n},{cs.H},{cs.W}]"] = {
-                "ms": cs.cuda_ms(fn),
-                "alone_ms": cs.device_ms(fn),
-                "bound_ms": cs.bound(8 * x.numel(), 0, 1)[0]}
-        del x, bands
-        torch.cuda.empty_cache()
-    for n in (cs.N_LOSSY_GRAY, 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2):
-        x = torch.rand((n, cs.H, cs.W), generator=gen, device=dev) * 255 - 128
-        bands = dwt_cuda.forward_2d_97(x)
-        lim = cs.bound(8 * x.numel(), cs.OPS_PER_ELEMENT["dwt97"] * x.numel(),
-                       cs.FP32_OPS_PER_S)[0]
-        for name, fn in (
-                ("dwt97_fwd_level", lambda: dwt_cuda.forward_2d_97(x)),
-                ("dwt97_inv_level", lambda: dwt_cuda.inverse_2d_97(bands))):
-            result[f"{name} [{n},{cs.H},{cs.W}]"] = {
-                "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
-                "bound_ms": lim}
-        del x, bands
         torch.cuda.empty_cache()
 
     if args.config4:

@@ -9,8 +9,9 @@ decode equal to the JAX package's, and to the input where no budget
 truncates the stream.  Lossy 9/7 at one layer: bytes equal where
 the JAX package's float32 lifting rounds as torch's does, else decodes within
 one grey level and a PSNR at least the JAX package's minus 0.05 dB.  An odd
-image offset gives levels that the CUDA level kernels refuse
-(dwt_cuda.usable), which the card counts in PLAIN_LEVELS.  encode_batch
+image offset gives levels at odd origins and sizes, which the CUDA level
+kernels take too (dwt_cuda.usable refuses none; the card would count a
+refused level in PLAIN_LEVELS).  encode_batch
 hands uneven frames to encode, as the JAX package does; the encode
 options (styles, markers, POC, the python backend, other precisions,
 signed samples, four components) give the JAX package's bytes."""
@@ -144,14 +145,17 @@ def test_default_options_encode_and_decode():
 
 
 def test_odd_offsets_take_plain_levels(monkeypatch):
-    # the levels dwt_cuda.usable refuses (an odd origin or size) lift plain,
-    # and the card counts them in PLAIN_LEVELS; even tiles at even origins
-    # take the kernels at every level
+    # the level kernels take every level at any origin and size: at image
+    # offset (7, 3) the tiles' levels have odd origins and sizes, and none
+    # is refused (none would lift plain, or count in PLAIN_LEVELS, on the
+    # card), as at offset (0, 0)
     seen = []
+    shapes = []
     fwd, inv = transforms.forward_level, transforms.inverse_level
 
     def spy_fwd(x, kind, u0, v0, above=None, below=None):
         seen.append(dwt_cuda.usable(*x.shape[-2:], u0, v0, kind))
+        shapes.append(tuple(x.shape[-2:]) + (u0, v0))
         return fwd(x, kind, u0, v0, above, below)
 
     def spy_inv(bands, kind, u0, v0, above=None, below=None):
@@ -163,8 +167,9 @@ def test_odd_offsets_take_plain_levels(monkeypatch):
     monkeypatch.setattr(transforms, "forward_level", spy_fwd)
     monkeypatch.setattr(transforms, "inverse_level", spy_inv)
     image = _image((64, 64), seed=8)
-    for offset, any_plain in (((0, 0), False), ((7, 3), True)):
+    for offset, odd in (((0, 0), False), ((7, 3), True)):
         seen.clear()
+        shapes.clear()
         opts = Options(format=Format.J2K, lossless=True, num_resolutions=3,
                        high_throughput=True, tile_size=(32, 32),
                        image_offset=offset)
@@ -172,7 +177,9 @@ def test_odd_offsets_take_plain_levels(monkeypatch):
                          device="cpu")
         assert data == jp2k.encode(image, opts)
         assert np.array_equal(tp.decode(data, device="cpu"), image)
-        assert seen and (not all(seen)) == any_plain
+        assert seen and all(seen)
+        assert any(h & 1 or w & 1 or u & 1 or v & 1
+                   for h, w, u, v in shapes) == odd
 
 
 def test_encode_batch_uneven_shapes_go_one_by_one():

@@ -14,7 +14,9 @@ float32 squares taken in another order, within a relative 1e-5.  The bit
 packer's words and bits are equal exactly on edge rows (zero lengths,
 spills at every offset, exact fills, rows off 16 bytes) and on the
 streams of every legal code-block shape; all four DWT level kernels are
-exact at any even width, the inverse 5/3 in its halo form too.  The HT
+exact at any even width, the inverse 5/3 in its halo form too, and at
+every origin parity on 1-sample, 3-sample, odd and 1080p shapes (one
+launch each, no plain level; an empty level launches nothing).  The HT
 decode kernels' outputs are equal bit for bit, float32 leaves too.  The
 EBCOT kernels' slots, decision pools, MQ segments and lengths are equal
 exactly (MQ segments also to the native coder's), on the MQ stress
@@ -136,9 +138,92 @@ def test_lossy_codec_on_card_matches_cpu(cuda):
     assert all(np.array_equal(d, c) for d, c in zip(decoded, on_cpu))
 
 
+# shapes [N, H, W] of the parity tests: 1-sample axes, 3-sample axes,
+# tile- and strip-crossing odd sizes, an odd-sized 1080p frame and the
+# 1080p batch's level 4
+PARITY_SHAPES = [(3, 1, 1), (2, 1, 9), (2, 9, 1), (2, 3, 3), (2, 35, 63),
+                 (1, 1079, 1919), (24, 135, 240)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [dwt.REV53, dwt.IRR97])
+@pytest.mark.parametrize("pu,pv", [(0, 0), (1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("shape", PARITY_SHAPES)
+def test_level_kernels_every_parity(cuda, shape, pu, pv, kind):
+    """All four level kernels at origin (4 + pu, 2 + pv), through
+    transforms.forward_level and inverse_level: one launch each, no plain
+    level, equal to the plain lifting bit for bit (9/7 too) at the band
+    sizes of dwt.subband_shapes."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 2 * pu + pv)
+    if kind == dwt.REV53:
+        x = torch.randint(-(1 << 20), 1 << 20, shape, generator=g,
+                          device=cuda, dtype=torch.int32)
+    else:
+        x = torch.randn(shape, generator=g, device=cuda) * 200
+    lib = "dwt53" if kind == dwt.REV53 else "dwt97"
+    u0, v0 = 4 + pu, 2 + pv
+    dwt_cuda.reset_counts()
+    got = transforms.forward_level(x, kind, u0, v0)
+    ref = {k: v.contiguous()
+           for k, v in dwt.forward_2d(x, kind, u0=u0, v0=v0).items()}
+    shapes = dwt.subband_shapes(shape[1], shape[2], 1, u0, v0)[0]
+    for k in BANDS:
+        assert tuple(got[k].shape) == (shape[0],) + shapes[k], k
+        assert torch.equal(got[k], ref[k]), k
+    rec = transforms.inverse_level(ref, kind, u0, v0)
+    assert torch.equal(rec, dwt.inverse_2d(ref, kind, u0=u0, v0=v0))
+    if kind == dwt.REV53:
+        assert torch.equal(rec, x)
+    torch.cuda.synchronize()
+    assert dwt_cuda.LAUNCHES[f"{lib}_fwd_level"] == 1
+    assert dwt_cuda.LAUNCHES[f"{lib}_inv_level"] == 1
+    assert dwt_cuda.PLAIN_LEVELS == 0
+
+
+@pytest.mark.cuda
+def test_level_kernels_parity_empty_levels(cuda):
+    """A level with an empty axis (a 1-column tile at an odd origin gives
+    its next level 0 columns) launches nothing and lifts nothing plain."""
+    for kind, dtype in ((dwt.REV53, torch.int32), (dwt.IRR97, torch.float32)):
+        x = torch.zeros((2, 5, 0), dtype=dtype, device=cuda)
+        dwt_cuda.reset_counts()
+        got = transforms.forward_level(x, kind, 1, 1)
+        assert {k: tuple(v.shape) for k, v in got.items()} == {
+            "LL": (2, 2, 0), "HL": (2, 2, 0), "LH": (2, 3, 0),
+            "HH": (2, 3, 0)}
+        assert tuple(transforms.inverse_level(got, kind, 1, 1).shape) == \
+            (2, 5, 0)
+        assert sum(dwt_cuda.LAUNCHES.values()) == 0
+        assert dwt_cuda.PLAIN_LEVELS == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lossless", [True, False])
+def test_reduced_decode_odd_offsets_on_card_matches_cpu(cuda, lossless):
+    """A stream at image offset (3, 5) and tile offset (1, 2) (odd level
+    origins and sizes on every tile) decoded on the card at
+    reduce_resolution 0, 1 and 2: equal to the CPU run, every level
+    through the inverse kernels, none plain."""
+    rng = np.random.RandomState(11)
+    img = rng.randint(0, 256, (75, 61)).astype(np.uint8)
+    opts = tp.Options(format=tp.Format.J2K, lossless=lossless, quality=85,
+                      high_throughput=True, num_resolutions=4,
+                      image_offset=(3, 5), tile_offset=(1, 2),
+                      tile_size=(32, 32))
+    data = tp.encode(img, opts, device="cpu")
+    for r in (0, 1, 2):
+        cfg = tp.Config(reduce_resolution=r)
+        got, launched, plain = _plain_levels_after(
+            lambda: tp.decode(data, cfg, device=cuda))
+        assert np.array_equal(got, tp.decode(data, cfg, device="cpu")), r
+        assert launched > 0 and plain == 0
+    if lossless:
+        assert np.array_equal(tp.decode(data, device=cuda), img)
+
+
 API_CASES = {
-    # (image shape, dtype, options, level kernels that take every level, or
-    # None where every tile origin is odd and every level lifts plain)
+    # (image shape, dtype, options, the level kernels that take every
+    # level, at odd tile origins and sizes too)
     "ht_tiles_layers": ((96, 128, 3), np.uint8, tp.Options(
         format=tp.Format.J2K, lossless=True, high_throughput=True,
         num_layers=3, tile_size=(64, 64)), "dwt53"),
@@ -149,7 +234,7 @@ API_CASES = {
     "defaults": ((96, 128, 3), np.uint8, tp.Options(), "dwt97"),
     "odd_offsets": ((100, 75), np.uint8, tp.Options(
         format=tp.Format.J2K, lossless=True, image_offset=(7, 3),
-        tile_offset=(5, 1), tile_size=(32, 32)), None),
+        tile_offset=(5, 1), tile_size=(32, 32)), "dwt53"),
 }
 
 
@@ -163,12 +248,9 @@ def test_single_image_api_on_card_matches_cpu(cuda, case):
     dwt_cuda.reset_counts()
     on_card = tp.encode(image, opts, device=cuda)
     decoded = tp.decode(on_card, device=cuda)
-    if kernel is None:
-        assert dwt_cuda.PLAIN_LEVELS > 0
-    else:
-        assert dwt_cuda.LAUNCHES[f"{kernel}_fwd_level"] > 0
-        assert dwt_cuda.LAUNCHES[f"{kernel}_inv_level"] > 0
-        assert dwt_cuda.PLAIN_LEVELS == 0
+    assert dwt_cuda.LAUNCHES[f"{kernel}_fwd_level"] > 0
+    assert dwt_cuda.LAUNCHES[f"{kernel}_inv_level"] > 0
+    assert dwt_cuda.PLAIN_LEVELS == 0
     assert on_card == tp.encode(image, opts, device="cpu")
     assert np.array_equal(decoded, tp.decode(on_card, device="cpu"))
     if opts.lossless and opts.compression_ratio <= 1.0:

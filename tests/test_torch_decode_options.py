@@ -9,9 +9,10 @@ the JAX package's; layered decodes (quality_layers) at every layer count
 and reduced decodes (reduce_resolution) at every level, HT and Part-1,
 lossless and 9/7, with the levels the card's level kernels refuse
 (dwt_cuda.usable; dwt_cuda.PLAIN_LEVELS counts them on the card) counted
-at even and odd image offsets.  Lossless decodes equal the JAX package's
-exactly, dtype included; lossy 9/7 decodes within one grey level.  Colour
-spaces and sample types are in tests/test_torch_decode_samples.py."""
+at even and odd image offsets: none, odd origins included.  Lossless
+decodes equal the JAX package's exactly, dtype included; lossy 9/7
+decodes within one grey level.  Colour spaces and sample types are in
+tests/test_torch_decode_samples.py."""
 import numpy as np
 import pytest
 import torch
@@ -166,13 +167,15 @@ def test_reduced_decode_every_level(layered, monkeypatch):
 
 @pytest.mark.parametrize("offset", [(0, 0), (3, 5)])
 def test_reduced_decode_at_image_offsets(offset, monkeypatch):
-    """Odd image offsets give odd level origins: the plain levels (what
-    dwt_cuda.PLAIN_LEVELS counts on the card) are those dwt_cuda.usable
-    refuses, none at an even offset."""
+    """Odd image offsets give odd level origins, and the level kernels take
+    them: the plain levels (what dwt_cuda.PLAIN_LEVELS counts on the card,
+    the levels dwt_cuda.usable refuses) are none at either offset, and the
+    odd offset's decodes do run levels at odd origins."""
     img = make_image((48, 40), 8)
     data = jp2k.encode(img, ht_opts(num_resolutions=4, image_offset=offset))
     seen = _levels_seen(monkeypatch)
     plain = []
+    odd = []
     for r in (0, 1, 2, 3, 4):
         seen.clear()
         if r == 4:   # more than the stream's 3 levels: both raise
@@ -186,7 +189,9 @@ def test_reduced_decode_at_image_offsets(offset, monkeypatch):
         if r == 0:
             assert np.array_equal(got, img)
         plain.append(len([s for s in seen if not dwt_cuda.usable(*s)]))
+        odd.append(len([s for s in seen if any(v & 1 for v in s)]))
+    assert plain == [0, 0, 0, 0]
     if offset == (0, 0):
-        assert plain == [0, 0, 0, 0]
+        assert odd == [0, 0, 0, 0]
     else:
-        assert plain[0] > 0 and plain[-1] == 0
+        assert odd[0] > 0 and odd[-1] == 0

@@ -87,21 +87,25 @@ def test_multilevel_matches_pallas_decompose():
 
 
 def test_usable_gating():
-    assert dwt_cuda.usable(512, 512, 0, 0)
-    assert dwt_cuda.usable(2048, 2048, 0, 0)
-    assert dwt_cuda.usable(2, 2, 0, 0)
-    assert not dwt_cuda.usable(511, 512, 0, 0)    # odd size
-    assert not dwt_cuda.usable(512, 512, 1, 0)    # odd origin
-    assert not dwt_cuda.usable(512, 512, 0, 3)
-    # both 5/3 kernels hold their strips in registers: any even width, the
-    # inverse too
-    assert dwt_cuda.usable(16, 4096, 0, 0)
-    assert dwt_cuda.usable(8192, 8192, 0, 0, dwt.REV53, inverse=False)
+    # every level without halo rows takes the kernels: any origin parity,
+    # odd sizes, 1-sample axes, and empty ones (which launch nothing)
+    for u0, v0 in ((0, 0), (1, 0), (0, 3), (7, 5)):
+        for h, w in ((512, 512), (511, 512), (1079, 1919), (1, 1), (1, 9),
+                     (9, 1), (2, 3), (0, 5), (135, 240)):
+            assert dwt_cuda.usable(h, w, u0, v0)
+            assert dwt_cuda.usable(h, w, u0, v0, dwt.REV53, inverse=True)
+    # a row shard's level (halo rows) keeps the even rule
+    assert dwt_cuda.usable(512, 512, 0, 0, halo=True)
+    assert dwt_cuda.usable(2, 2, 0, 0, halo=True)
     for w in (2, 3058, 3060, 4096, 8192, 65536):
-        assert dwt_cuda.usable(16, w, 0, 0, inverse=True)
-        assert dwt_cuda.usable(w, w, 0, 0, dwt.REV53, inverse=True)
-    assert not dwt_cuda.usable(16, 4095, 0, 0, inverse=True)
-    assert not dwt_cuda.usable(16, 4096, 0, 1, inverse=True)
+        assert dwt_cuda.usable(16, w, 0, 0, inverse=True, halo=True)
+        assert dwt_cuda.usable(w, w, 0, 0, dwt.REV53, inverse=True,
+                               halo=True)
+    assert not dwt_cuda.usable(511, 512, 0, 0, halo=True)    # odd size
+    assert not dwt_cuda.usable(512, 512, 1, 0, halo=True)    # odd origin
+    assert not dwt_cuda.usable(512, 512, 0, 3, halo=True)
+    assert not dwt_cuda.usable(16, 4095, 0, 0, inverse=True, halo=True)
+    assert not dwt_cuda.usable(1, 4096, 0, 0, inverse=True, halo=True)
     assert not hasattr(dwt_cuda, "MAX_SMEM_BYTES")
 
 
@@ -176,42 +180,81 @@ def test_97_decompose_reconstruct(case):
 
 
 def _reflect(i, n):
+    if n == 1:
+        return 0
     while i < 0 or i >= n:
         i = -i if i < 0 else 2 * n - 2 - i
     return i
+
+
+def _axis_lift(lift, n, parity):
+    """The kernels' lifting of one axis of a window whose first sample has
+    `parity`: the plain 1-D lifting, or, on a level axis of one sample,
+    Annex F's 1-sample rule at that sample's parity on each of the
+    window's copies of it (the kernels do not lift such an axis)."""
+    if n > 1:
+        return lambda sub, axis: lift(sub, axis, parity)
+    return lambda sub, axis: torch.cat(
+        [lift(sub.narrow(axis, i, 1), axis, parity)
+         for i in range(sub.shape[axis])], dim=axis)
+
+
+def _tiles(x, lift, inverse, strip, pairs, rows, halo_pairs, pu, pv,
+           row_of=None):
+    """A level kernel's decomposition in plain torch, on the interleaved
+    signal x [n, h, w] at origin parity (pu, pv), in the kernels' pair
+    frame: strip s covers local rows 32s - pv .. (the first a low-pass
+    row), rounded up to whole row pairs, and tile t column pairs
+    pairs * t .., pair q holding local columns 2q - pu and 2q - pu + 1.
+    Each (strip, tile) lifts only its window, extended by `rows` = (above,
+    below) rows and by `halo_pairs` = (left, right) column pairs, read
+    through repeated symmetric reflection (or by `row_of`); the windows'
+    centres inside the level are concatenated.  Forward: columns, then
+    rows; inverse: rows, then columns."""
+    n, h, w = x.shape
+    up, down = rows
+    left, right = halo_pairs
+    row_of = row_of or (lambda g: x[:, _reflect(g, h)])
+    # a window starts on a row and a column of the parity of `up` and 0; a
+    # 1-sample axis has its level's parity
+    vlift = _axis_lift(lift, h, up & 1 if h > 1 else pv)
+    hlift = _axis_lift(lift, w, 0 if w > 1 else pu)
+    out = torch.empty_like(x)
+    for r0 in range(-pv, h, strip):
+        rr = min(strip, h - r0)
+        band = torch.stack([row_of(g) for g in range(
+            r0 - up, r0 + rr + (rr & 1) + down)], dim=1)
+        for q0 in range(0, (w + pu + 1) // 2, pairs):
+            c_first = 2 * (q0 - left) - pu
+            cols = [_reflect(c, w) for c in range(
+                c_first, 2 * (q0 + pairs + right) - pu)]
+            sub = band[:, :, cols]
+            if inverse:                               # rows, then columns
+                sub = vlift(hlift(sub, 2), 1)[:, up:up + rr]
+            else:                                     # columns, then rows
+                sub = hlift(vlift(sub, 1)[:, up:up + rr], 2)
+            r_lo, c_lo = max(r0, 0), max(2 * q0 - pu, 0)
+            c_hi = min(2 * (q0 + pairs) - pu, w)
+            out[:, r_lo:r0 + rr, c_lo:c_hi] = \
+                sub[:, r_lo - r0:, c_lo - c_first:c_hi - c_first]
+    return out
 
 
 # output column pairs of one warp's tile in csrc/dwt97.cu (lanes 2 .. 29)
 TILE_PAIRS_97 = 28
 
 
-def _tiles_97(x, inverse, rows=None, halo_pairs=2):
-    """The 9/7 kernels' decomposition in plain torch, on the interleaved
-    signal x [n, h, w]: each (strip of STRIP_ROWS rows, tile of TILE_PAIRS_97
-    column pairs) lifts only its window, extended by `rows` = (above, below)
-    rows (by default the kernels' halo: forward 4 above and 3 below,
-    inverse 3 and 4) and by `halo_pairs` column pairs a side, read through
-    repeated symmetric reflection; the windows' centres are concatenated."""
-    n, h, w = x.shape
-    above, below = rows or dwt.HALO_DEPTH[(dwt.IRR97, inverse)]
+def _tiles_97(x, inverse, rows=None, halo_pairs=2, pu=0, pv=0):
+    """The 9/7 kernels' decomposition in plain torch (_tiles), on the
+    interleaved signal x [n, h, w] at origin parity (pu, pv): strips of
+    STRIP_ROWS rows, tiles of TILE_PAIRS_97 column pairs, `rows` = (above,
+    below) rows (by default the kernels' halo: forward 4 above and 3
+    below, inverse 3 and 4) and `halo_pairs` column pairs a side."""
     lift = dwt._inverse_1d_97 if inverse else dwt._forward_1d_97
-    strip = dwt_cuda.STRIP_ROWS[(dwt.IRR97, inverse)]
-    out = torch.empty_like(x)
-    for r0 in range(0, h, strip):
-        rr = min(strip, h - r0)
-        ys = [_reflect(g, h) for g in range(r0 - above, r0 + rr + below)]
-        for p0 in range(0, w // 2, TILE_PAIRS_97):
-            pp = min(TILE_PAIRS_97, w // 2 - p0)
-            cols = [_reflect(c, w) for c in range(
-                2 * (p0 - halo_pairs), 2 * (p0 + TILE_PAIRS_97 + halo_pairs))]
-            sub = x[:, ys][:, :, cols]
-            if inverse:                               # rows, then columns
-                sub = lift(lift(sub, 2, 0), 1, above & 1)[:, above:above + rr]
-            else:                                     # columns, then rows
-                sub = lift(lift(sub, 1, above & 1)[:, above:above + rr], 2, 0)
-            c = 2 * halo_pairs
-            out[:, r0:r0 + rr, 2 * p0:2 * (p0 + pp)] = sub[:, :, c:c + 2 * pp]
-    return out
+    return _tiles(x, lift, inverse,
+                  dwt_cuda.STRIP_ROWS[(dwt.IRR97, inverse)], TILE_PAIRS_97,
+                  rows or dwt.HALO_DEPTH[(dwt.IRR97, inverse)],
+                  (halo_pairs, halo_pairs), pu, pv)
 
 
 @pytest.mark.parametrize("h", [2, 4, 6, 10, 34])
@@ -231,9 +274,11 @@ def test_97_strip_halo_depth(h):
             assert not torch.equal(_tiles_97(x, True, rows=rows), inv)
 
 
-def _bands_of(y):
-    return {"LL": y[:, 0::2, 0::2], "HL": y[:, 0::2, 1::2],
-            "LH": y[:, 1::2, 0::2], "HH": y[:, 1::2, 1::2]}
+def _bands_of(y, pu=0, pv=0):
+    """The four bands of an interleaved level at origin parity (pu, pv):
+    low-pass rows and columns are the globally even ones."""
+    return {"LL": y[:, pv::2, pu::2], "HL": y[:, pv::2, 1 - pu::2],
+            "LH": y[:, 1 - pv::2, pu::2], "HH": y[:, 1 - pv::2, 1 - pu::2]}
 
 
 @pytest.mark.parametrize("w", [2, 4, 6, 10, 54, 56, 58, 114, 130])
@@ -257,19 +302,22 @@ def test_97_tile_decomposition(h, w):
 
 
 def test_97_usable_and_refusals():
-    assert dwt_cuda.usable(512, 512, 0, 0, dwt.IRR97)
-    assert dwt_cuda.usable(2048, 2048, 0, 0, dwt.IRR97)
-    assert dwt_cuda.usable(2, 2, 0, 0, dwt.IRR97)
-    assert not dwt_cuda.usable(512, 511, 0, 0, dwt.IRR97)
-    assert not dwt_cuda.usable(512, 512, 0, 1, dwt.IRR97)
-    # every level kernel keeps its strip in registers: any even width, the
-    # inverse 5/3 as well
+    # every 9/7 level without halo rows takes the kernels, at any origin
+    # and size; halo levels keep the even rule
     for inverse in (False, True):
-        assert dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97, inverse=inverse)
-        assert dwt_cuda.usable(8192, 8192, 0, 0, dwt.IRR97, inverse=inverse)
-    assert dwt_cuda.usable(16, 3060, 0, 0, dwt.REV53, inverse=True)
-    assert dwt_cuda.usable(16, 2560, 0, 0, dwt.REV53)
-    assert dwt_cuda.usable(16, 2560, 0, 0, dwt.REV53, inverse=True)
+        for u0, v0 in ((0, 0), (1, 1), (3, 0), (0, 5)):
+            for h, w in ((512, 512), (512, 511), (1, 1), (3, 2), (1079, 1919),
+                         (16, 2560), (8192, 8192)):
+                assert dwt_cuda.usable(h, w, u0, v0, dwt.IRR97,
+                                       inverse=inverse)
+        assert dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97, inverse=inverse,
+                               halo=True)
+        assert not dwt_cuda.usable(512, 511, 0, 0, dwt.IRR97,
+                                   inverse=inverse, halo=True)
+        assert not dwt_cuda.usable(512, 512, 0, 1, dwt.IRR97,
+                                   inverse=inverse, halo=True)
+    # the wrappers refuse a tensor off the CPU and the card, and halo rows
+    # at an odd geometry
     x = torch.empty((1, 4, 4), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError):
         dwt_cuda.forward_2d_97(x)
@@ -277,6 +325,10 @@ def test_97_usable_and_refusals():
              for k in BANDS}
     with pytest.raises(ValueError):
         dwt_cuda.inverse_2d_97(bands)
+    x5 = torch.empty((1, 5, 4), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="halo rows"):
+        dwt_cuda.forward_2d_97(x5, above=torch.empty(
+            (1, 4, 4), dtype=torch.float32, device="meta"))
 
 
 # output column pairs of one warp's tile in csrc/dwt53.cu (lanes 1 .. 30)
@@ -293,21 +345,17 @@ def _unpair(rows):
     return out
 
 
-def _tiles_53(x, rows=None, halo_pairs=(1, 1), above=None, below=None):
-    """The inverse 5/3 kernel's decomposition in plain torch, on the
-    interleaved signal x [n, h, w] (a row shard when `above` [n, 1, w] or
-    `below` [n, 2, w], pair_rows' layout, are given): each (strip of
-    STRIP_ROWS rows, tile of TILE_PAIRS_53 column pairs) lifts only its
-    window, rows first, extended by `rows` = (above, below) rows (by default
-    the kernel's halo, 1 and 2) and by `halo_pairs` = (left, right) column
-    pairs (the kernel's lanes 0 and 31), read through repeated symmetric
-    reflection or from the halo rows; the windows' centres are
-    concatenated."""
-    n, h, w = x.shape
-    up, down = rows or dwt.HALO_DEPTH[(dwt.REV53, True)]
-    left, right = halo_pairs
-    strip = dwt_cuda.STRIP_ROWS[(dwt.REV53, True)]
-    lift = dwt._inverse_1d_53
+def _tiles_53(x, rows=None, halo_pairs=(1, 1), above=None, below=None,
+              inverse=True, pu=0, pv=0):
+    """The 5/3 kernels' decomposition in plain torch (_tiles), on the
+    interleaved signal x [n, h, w] at origin parity (pu, pv) (a row shard
+    of the inverse when `above` [n, 1, w] or `below` [n, 2, w], pair_rows'
+    layout, are given): strips of STRIP_ROWS rows, tiles of TILE_PAIRS_53
+    column pairs, `rows` = (above, below) rows (by default the kernel's
+    halo: forward 2 and 1, inverse 1 and 2) and `halo_pairs` = (left,
+    right) column pairs (the kernels' lanes 0 and 31), read through
+    repeated symmetric reflection or from the halo rows."""
+    h = x.shape[1]
     ext_above = None if above is None else _unpair(above)
     ext_below = None if below is None else _unpair(below)
 
@@ -318,20 +366,11 @@ def _tiles_53(x, rows=None, halo_pairs=(1, 1), above=None, below=None):
             return ext_below[:, g - h]
         return x[:, _reflect(g, h)]
 
-    out = torch.empty_like(x)
-    for r0 in range(0, h, strip):
-        rr = min(strip, h - r0)
-        band = torch.stack([row(g) for g in range(r0 - up, r0 + rr + down)],
-                           dim=1)
-        for p0 in range(0, w // 2, TILE_PAIRS_53):
-            pp = min(TILE_PAIRS_53, w // 2 - p0)
-            cols = [_reflect(c, w) for c in range(
-                2 * (p0 - left), 2 * (p0 + TILE_PAIRS_53 + right))]
-            sub = lift(lift(band[:, :, cols], 2, 0), 1, up & 1)
-            c = 2 * left
-            out[:, r0:r0 + rr, 2 * p0:2 * (p0 + pp)] = \
-                sub[:, up:up + rr, c:c + 2 * pp]
-    return out
+    lift = dwt._inverse_1d_53 if inverse else dwt._forward_1d_53
+    return _tiles(x, lift, inverse,
+                  dwt_cuda.STRIP_ROWS[(dwt.REV53, inverse)], TILE_PAIRS_53,
+                  rows or dwt.HALO_DEPTH[(dwt.REV53, inverse)], halo_pairs,
+                  pu, pv, row_of=row)
 
 
 @pytest.mark.parametrize("w", [2, 4, 6, 10, 58, 62, 64, 130])
@@ -374,3 +413,114 @@ def test_53_inverse_tiles_halo_form(sp, rows, w):
     for g, p in zip(got, plain):
         assert torch.equal(g, p)
     assert torch.equal(torch.cat(got, dim=-2), x)
+
+
+# (h, w, pu, pv) of the parity tests: odd and 1-sample sizes, strips of
+# either parity, widths that cross a tile (30 pairs: 59, 61, 63; 28 pairs:
+# 55, 57)
+PARITY_SIDES = (1, 2, 3, 5, 33, 35)
+PARITIES = [(pu, pv) for pu in (0, 1) for pv in (0, 1)]
+PARITY_53 = [(h, w) + p for h in PARITY_SIDES
+             for w in PARITY_SIDES + (59, 61, 63) for p in PARITIES]
+PARITY_97 = [(h, w) + p for h in PARITY_SIDES
+             for w in PARITY_SIDES + (55, 57) for p in PARITIES]
+# the cases whose plain level is also held to the JAX package's jnp level,
+# at every parity: every height and the tile-crossing widths on one shape
+# each (eager jnp compiles its ops anew for every shape, about 1.5 s a
+# shape and direction on the CPU, so not all 102 shapes)
+JAX_SHAPES = {dwt.REV53: {(1, 3), (2, 1), (3, 2), (5, 35), (33, 61),
+                          (35, 5)},
+              dwt.IRR97: {(1, 2), (2, 3), (3, 1), (5, 33), (33, 57),
+                          (35, 35)}}
+
+
+def _parity_input(kind, h, w, pu, pv):
+    seed = 1000 * h + 10 * w + 2 * pu + pv
+    if kind == dwt.REV53:
+        return _ints((2, h, w), seed, -30000, 30000)
+    return _floats((2, h, w), seed)
+
+
+def _check_parity_forward(kind, tiles, h, w, pu, pv):
+    """The kernels' model at origin parity (pu, pv) equals the plain level
+    bit for bit, and on JAX_SHAPES the plain level the JAX package's jnp
+    level."""
+    x = _parity_input(kind, h, w, pu, pv)
+    # an origin of either parity away from 0: (4 + pu, 2 + pv)
+    u0, v0 = 4 + pu, 2 + pv
+    plain = dwt.forward_2d(torch.from_numpy(x), kind, u0=u0, v0=v0)
+    got = _bands_of(tiles(torch.from_numpy(x), False, pu, pv), pu, pv)
+    shapes = dwt.subband_shapes(h, w, 1, u0, v0)[0]
+    for k in BANDS:
+        assert tuple(plain[k].shape[-2:]) == shapes[k], k
+        assert torch.equal(got[k], plain[k]), k
+    if (h, w) in JAX_SHAPES[kind]:
+        ref = jdwt.forward_2d(x, kind, u0=u0, v0=v0)
+        for k in BANDS:
+            _eq(plain[k], ref[k])
+
+
+def _check_parity_inverse(kind, tiles, h, w, pu, pv):
+    x = _parity_input(kind, h, w, pu, pv)
+    u0, v0 = 4 + pu, 2 + pv
+    bands = {k: v.contiguous()
+             for k, v in _bands_of(torch.from_numpy(x), pu, pv).items()}
+    plain = dwt.inverse_2d(bands, kind, u0=u0, v0=v0)
+    assert torch.equal(tiles(torch.from_numpy(x), True, pu, pv), plain)
+    if (h, w) in JAX_SHAPES[kind]:
+        _eq(plain, jdwt.inverse_2d({k: v.numpy() for k, v in bands.items()},
+                                   kind, u0=u0, v0=v0))
+
+
+def _model_53(x, inverse, pu, pv):
+    return _tiles_53(x, inverse=inverse, pu=pu, pv=pv)
+
+
+def _model_97(x, inverse, pu, pv):
+    return _tiles_97(x, inverse, pu=pu, pv=pv)
+
+
+@pytest.mark.parametrize("h,w,pu,pv", PARITY_53)
+def test_53_forward_parity_tiles(h, w, pu, pv):
+    # csrc/dwt53.cu's forward warps in the pair frame at every origin
+    # parity and at odd and 1-sample sizes
+    _check_parity_forward(dwt.REV53, _model_53, h, w, pu, pv)
+
+
+@pytest.mark.parametrize("h,w,pu,pv", PARITY_53)
+def test_53_inverse_parity_tiles(h, w, pu, pv):
+    _check_parity_inverse(dwt.REV53, _model_53, h, w, pu, pv)
+
+
+@pytest.mark.parametrize("h,w,pu,pv", PARITY_97)
+def test_97_forward_parity_tiles(h, w, pu, pv):
+    # csrc/dwt97.cu's warps in the pair frame, bit for bit
+    _check_parity_forward(dwt.IRR97, _model_97, h, w, pu, pv)
+
+
+@pytest.mark.parametrize("h,w,pu,pv", PARITY_97)
+def test_97_inverse_parity_tiles(h, w, pu, pv):
+    _check_parity_inverse(dwt.IRR97, _model_97, h, w, pu, pv)
+
+
+@pytest.mark.parametrize("kind", [dwt.REV53, dwt.IRR97])
+def test_parity_windows_need_their_halo(kind):
+    # at odd parity and size too, one row or one column pair fewer on a
+    # side of the kernels' windows gives another result
+    h, w, pu, pv = 67, 125, 1, 1
+    x = torch.from_numpy(_parity_input(kind, h, w, pu, pv))
+    for inverse in (False, True):
+        up, down = dwt.HALO_DEPTH[(kind, inverse)]
+        if kind == dwt.REV53:
+            full = _tiles_53(x, inverse=inverse, pu=pu, pv=pv)
+            fewer = [_tiles_53(x, rows=r, inverse=inverse, pu=pu, pv=pv)
+                     for r in ((up - 1, down), (up, down - 1))]
+            fewer += [_tiles_53(x, halo_pairs=p, inverse=inverse, pu=pu,
+                                pv=pv) for p in ((0, 1), (1, 0))]
+        else:
+            full = _tiles_97(x, inverse, pu=pu, pv=pv)
+            fewer = [_tiles_97(x, inverse, rows=r, pu=pu, pv=pv)
+                     for r in ((up - 1, down), (up, down - 1))]
+            fewer += [_tiles_97(x, inverse, halo_pairs=1, pu=pu, pv=pv)]
+        for f in fewer:
+            assert not torch.equal(f, full)
