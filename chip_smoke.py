@@ -7,8 +7,9 @@ Needs one CUDA device, nvcc and g++; builds every kernel it runs from the
 sources in this checkout.  Phases, each of which raises on failure:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
-2. build: the CUDA sources dwt53.cu, dwt97.cu, ht_enc.cu, ht_dec.cu,
-   ebcot_enc.cu and band_stats.cu (one nvcc per source, run in parallel)
+2. build: the CUDA sources dwt53.cu, dwt97.cu, dwt_edges.cu, ht_enc.cu,
+   ht_dec.cu, ebcot_enc.cu and band_stats.cu (one nvcc per source, run in
+   parallel)
    and the native coder (g++, from the port's own copy of j2k_native.cpp);
 3. each DWT kernel against its plain torch version on the card: the 5/3
    pair at every level shape of a [32, 512, 512] batch down to 16x16, the
@@ -123,10 +124,13 @@ sources in this checkout.  Phases, each of which raises on failure:
 10. the tile-sharded pipeline (go_jpeg2000_tpu_torch.parallel) at BASELINE
    config 4's full width on a grid of one: first the four DWT level
    kernels in their halo form on sp = 2 and 4 row shards of the level-1
-   batch [768, 512, 512] and on batches whose shards have 2 rows, with the
-   halos the exchange would build, equal bit for bit to the unsharded
-   kernels (NCCL with two or more ranks cannot run on one card), and the
-   unsharded level kernels timed there with their device time alone; then
+   batch [768, 512, 512] and on batches whose shards have 2 rows, each
+   shard on the edges the packing kernel writes (dwt_pack_edges, one slot
+   a shard, as the gather would give them), equal bit for bit to the
+   unsharded kernels, and the packing kernel equal to its plain version;
+   the halo form at sp = 2 and 4 timed by events and alone beside the
+   unsharded kernels (timed there with their device time alone) and the
+   bound, and the packing kernel on one shard's slot; then
    encode_sharded and decode_sharded of an 8192x8192 16-bit RGB image
    (bench.py's smooth noise) in 512x512 tiles, 5 resolutions, HTJ2K
    lossless (round trip exact), and of the same image >> 8 lossy at
@@ -230,10 +234,21 @@ sources in this checkout.  Phases, each of which raises on failure:
    lossless and lossy q85, through encode_batch and decode_batch (the
    fused encode, the device HT decode), lossless round trips exact, the
    first 2 frames' bytes and decodes equal to the CPU run's, wall ms; S4's
-   stream decoded at reduce_resolution 1 and 2, equal to the CPU run's.
+   stream decoded at reduce_resolution 1 and 2, equal to the CPU run's;
+19. config 4 on row shards: phase 10's image through encode_sharded and
+   decode_sharded, HTJ2K lossless and the image >> 8 lossy at q85, on
+   (dp, sp) = (1, 4) and (2, 2) grids of gloo ranks, spawned processes
+   that share the one card: every rank's codestream byte-identical to
+   phase 10's, the lossless decode exact, the lossy decode equal to phase
+   10's; per rank the halo levels' and the packing kernel's launches (all
+   > 0), no plain level, the wall of the encode and of the decode, and
+   the transform and inverse steps (medians of 3) with the edge round
+   trip (packing, the gloo gather through the host, the upload) timed
+   apart; with four cards also (2, 2) on NCCL, a rank a card.
 
 Each of the eight main paths, the sharded runs, the four single-image
-cases, each run of phases 12-15 and each case of phases 16-18 runs with the
+cases, each run of phases 12-15, each case of phases 16-18 and each
+rank's runs of phase 19 run with the
 launch counts set to 0 just before it and read just after (a host process reports the launches
 of its measured run, after its warm-ups, to the parent).  The line before
 the last is a JSON summary of the
@@ -247,6 +262,7 @@ is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
 import dataclasses
+import hashlib
 import json
 import math
 import multiprocessing as mp
@@ -265,6 +281,7 @@ N_LOSSY_GRAY = 16
 LOSSY_RGB = (2, 2048, 2048)      # frames, height, width
 SRC = {"dwt53": "go_jpeg2000_tpu_torch/csrc/dwt53.cu",
        "dwt97": "go_jpeg2000_tpu_torch/csrc/dwt97.cu",
+       "dwt_edges": "go_jpeg2000_tpu_torch/csrc/dwt_edges.cu",
        "ht_enc": "go_jpeg2000_tpu_torch/csrc/ht_enc.cu",
        "ht_dec": "go_jpeg2000_tpu_torch/csrc/ht_dec.cu",
        "ebcot_enc": "go_jpeg2000_tpu_torch/csrc/ebcot_enc.cu",
@@ -278,6 +295,10 @@ REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
                                 "dwt97"),
             "dwt97_inv_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:123",
                                 "dwt97"),
+            # the send side of the row-shard lifting's ppermute exchanges
+            # (_odd_update_sharded, _even_update_sharded)
+            "dwt_pack_edges": ("go_jpeg2000_tpu/parallel/sharded.py:27",
+                               "dwt_edges"),
             "ht_extract_blocks":
                 ("go_jpeg2000_tpu/models/fused_encode.py:191", "ht_enc"),
             "ht_cleanup_fields": ("go_jpeg2000_tpu/ops/ht_tpu.py:286",
@@ -2161,11 +2182,15 @@ def config4_opts(tp, lossless, **kw):
 def check_halo_kernels(dwt, dwt_cuda, psh, dev, card):
     """Phase 10a: the four level kernels in their halo form on sp = 2 and 4
     row shards of the config-4 level-1 batch [768, 512, 512], and on
-    batches whose shards have 2 rows, with the halos the exchange would
-    build, against the unsharded kernels bit for bit; the halo form's time
-    at sp = 4 beside the unsharded kernel's."""
+    batches whose shards have 2 rows, each shard on the edges the packing
+    kernel writes into its slot (as the gather would give them), against
+    the unsharded kernels bit for bit, and the packing kernel against its
+    plain version on every shard; the halo form's time at sp = 2 and 4 by
+    events and alone beside the unsharded kernel's and the bound, and the
+    packing kernel's on one shard of the sp = 4 split.  Returns (errors,
+    the packing kernel's times, its library call's ms)."""
     gen = torch.Generator(device=dev).manual_seed(11)
-    err, times, alone = {}, {}, {}
+    err, times, alone, halo = {}, {}, {}, {}
     n = 3 * (C4_SIZE // C4_TILE) ** 2
     for kind in (dwt.REV53, dwt.IRR97):
         lib = "dwt53" if kind == dwt.REV53 else "dwt97"
@@ -2189,45 +2214,62 @@ def check_halo_kernels(dwt, dwt_cuda, psh, dev, card):
                                             for b in ref.values()))]
                 back = torch.cat(psh.inverse_level_split(split, kind), dim=-2)
                 e_i = (back - ref_inv).abs().max().item()
+                e_p = max(max_diff(dwt_cuda.pack_edges(src),
+                                   dwt.pack_edges(src))
+                          for src in shards + split)
                 torch.cuda.synchronize()
                 print(f"halo check {lib} {shape} sp={sp} (shards of "
                       f"{shape[1] // sp} rows): fwd max|diff| {e_f}, inv "
-                      f"max|diff| {e_i} against the unsharded kernels",
-                      flush=True)
-                if e_f or e_i:
+                      f"max|diff| {e_i} against the unsharded kernels; "
+                      f"dwt_pack_edges max|diff| {e_p} against its plain "
+                      f"version", flush=True)
+                if e_f or e_i or e_p:
                     raise AssertionError(f"{lib} halo kernels disagree with "
-                                         f"the unsharded ones at {shape}, "
-                                         f"sp={sp}")
+                                         f"the unsharded ones, or the "
+                                         f"packing kernel with its plain "
+                                         f"version, at {shape}, sp={sp}")
                 for k, e in ((f"{lib}_fwd_level", e_f),
-                             (f"{lib}_inv_level", e_i)):
+                             (f"{lib}_inv_level", e_i),
+                             ("dwt_pack_edges", e_p)):
                     err[k] = max(err.get(k, 0), e)
-                if shape[1] == C4_TILE and sp == 4:
+                if shape[1] != C4_TILE:
+                    continue
+                halo[(lib, sp)] = tuple(
+                    f(g, reps=5) for g in (
+                        lambda: psh.forward_level_split(shards, kind),
+                        lambda: psh.inverse_level_split(split, kind))
+                    for f in (cuda_ms, device_ms))
+                if sp == 4:
                     times[lib] = (
-                        cuda_ms(lambda: psh.forward_level_split(shards, kind),
-                                reps=5),
                         cuda_ms(lambda: fwd(x), reps=5),
                         cuda_ms(lambda: psh.forward_level_split(
-                            shards, kind, dwt.forward_2d_halo), reps=2,
-                            warmup=1),
-                        cuda_ms(lambda: psh.inverse_level_split(split, kind),
-                                reps=5),
+                            shards, kind, dwt.forward_2d_halo,
+                            dwt.pack_edges), reps=2, warmup=1),
                         cuda_ms(lambda: inv(ref), reps=5),
                         cuda_ms(lambda: psh.inverse_level_split(
-                            split, kind, dwt.inverse_2d_halo), reps=2,
-                            warmup=1),
+                            split, kind, dwt.inverse_2d_halo,
+                            dwt.pack_edges), reps=2, warmup=1),
                         # a level reads and writes each 4-byte sample once
                         bound(8 * x.numel(), 0, 1)[0])
                     alone[lib] = (
                         device_ms(lambda: fwd(x), reps=5),
                         device_ms(lambda: inv(ref), reps=5))
+                    if kind == dwt.REV53:
+                        pack = pack_times(dwt, dwt_cuda, shards[0], card)
             del x, ref, ref_inv
-    for lib, (hf, uf, pf, hi, ui, pi, lim) in times.items():
-        print(f"time {lib} halo form, 4 row shards of [{n},{C4_TILE},"
-              f"{C4_TILE}] (4 launches and the halo rows): forward {hf:.4f} "
-              f"ms (unsharded kernel {uf:.4f} ms, plain halo lifting "
-              f"{pf:.4f} ms), inverse {hi:.4f} ms (unsharded {ui:.4f} ms, "
-              f"plain {pi:.4f} ms), bound {lim:.4f} ms (bytes) [{card}]",
+    for (lib, sp), (fe, fa, ie, ia) in halo.items():
+        uf, _pf, ui, _pi, lim = times[lib]
+        af, ai = alone[lib]
+        print(f"time {lib} halo form, {sp} row shards of [{n},{C4_TILE},"
+              f"{C4_TILE}] ({sp} packing launches, {sp} level launches): "
+              f"forward ev {fe:.4f} ms, alone {fa:.4f} ms "
+              f"({100 * lim / fa:.1f}% of the bound; unsharded kernel ev "
+              f"{uf:.4f}, alone "
+              f"{af:.4f}); inverse ev {ie:.4f} ms, alone {ia:.4f} ms "
+              f"({100 * lim / ia:.1f}% of the bound; unsharded ev {ui:.4f}, "
+              f"alone {ai:.4f}); bound {lim:.4f} ms (bytes) [{card}]",
               flush=True)
+    for lib, (uf, pf, ui, pi, lim) in times.items():
         for name, ms, plain_ms, dev_ms in (
                 (f"{lib}_fwd_level", uf, pf, alone[lib][0]),
                 (f"{lib}_inv_level", ui, pi, alone[lib][1])):
@@ -2236,7 +2278,32 @@ def check_halo_kernels(dwt, dwt_cuda, psh, dev, card):
                       "unsharded (plain: the halo lifting of 4 shards)",
                       card)
     torch.cuda.empty_cache()
-    return err
+    ms, plain_ms, lim, library_ms = pack
+    return (err, {"dwt_pack_edges": (ms, plain_ms) + lim},
+            {"dwt_pack_edges": library_ms})
+
+
+def pack_times(dwt, dwt_cuda, rows, card):
+    """The packing kernel on one row shard's slot: (ms by events, the plain
+    version's ms, its bound, the ms of one torch index_select of the same
+    rows)."""
+    out = dwt_cuda.pack_edges(rows)
+    idx = torch.tensor([r if r < out.shape[1] // 2
+                        else r + rows.shape[1] - out.shape[1]
+                        for r in range(out.shape[1])], device=rows.device)
+    if not torch.equal(rows.index_select(1, idx), out):
+        raise AssertionError("the library call packs other rows")
+    # reads and writes each slot word once
+    lim = bound(8 * out.numel(), 0, 1)
+    ms = cuda_ms(lambda: dwt_cuda.pack_edges(rows))
+    plain_ms = cuda_ms(lambda: dwt.pack_edges(rows))
+    library_ms = cuda_ms(lambda: rows.index_select(1, idx))
+    time_line("dwt_pack_edges", ms, plain_ms, lim[0], lim[1],
+              device_ms(lambda: dwt_cuda.pack_edges(rows)),
+              f"one shard {tuple(rows.shape)} -> its slot "
+              f"{tuple(out.shape)}; torch index_select {library_ms:.4f} ms",
+              card)
+    return ms, plain_ms, lim, library_ms
 
 
 def check_band_stats(band_stats, leaves, card):
@@ -2520,12 +2587,14 @@ def sharded_cpu_checks(tp, dev):
 
 def sharded_phase(tp, dev, card, launches):
     """Phase 10: config 4 at full width on a grid of one.  Returns (kernel
-    errors, kernel times, (the lossless image, its codestream))."""
+    errors, kernel times, library ms, (the lossless image, its
+    codestream), phase 19's references: {label: sha256 of the codestream
+    and of the decode})."""
     from go_jpeg2000_tpu_torch.models import transforms
     from go_jpeg2000_tpu_torch.ops import (band_stats, dwt, dwt_cuda,
                                            ht_dec_cuda, ht_enc_cuda)
     from go_jpeg2000_tpu_torch.parallel import sharded as psh
-    err = check_halo_kernels(dwt, dwt_cuda, psh, dev, card)
+    err, times, library = check_halo_kernels(dwt, dwt_cuda, psh, dev, card)
     t0 = time.perf_counter()
     img = config4_image(C4_SIZE)
     img8 = (img >> 8).astype(np.uint8)
@@ -2533,16 +2602,17 @@ def sharded_phase(tp, dev, card, launches):
           flush=True)
     kernels = (dwt_cuda, ht_enc_cuda, ht_dec_cuda, band_stats)
     n_tiles = (C4_SIZE // C4_TILE) ** 2
-    runs = {}
+    runs, refs = {}, {}
     for label, im, opts, lib in (
             ("config-4 lossless", img, config4_opts(tp, True), "dwt53"),
             ("config-4 lossy", img8, config4_opts(tp, False), "dwt97")):
-        (data, _out), counts = sharded_counted_run(
+        (data, out), counts = sharded_counted_run(
             tp, kernels, lambda: sharded_path(tp, dev, label, im, opts),
             f"{label} main path", lib, n_tiles)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         runs[label] = (im, opts, data)
+        refs[label] = (sha256(data), sha256(out))
     # band_stats on the lossless pyramid of the main path's tile batch
     from go_jpeg2000_tpu_torch.models import encoder
     header = encoder.build_header(img, runs["config-4 lossless"][1])
@@ -2552,8 +2622,9 @@ def sharded_phase(tp, dev, card, launches):
     pyr, _stats = psh.tile_transform_step(x, C4_RES - 1, True, 16, False,
                                           dwt.REV53)
     del x
-    e, times = check_band_stats(band_stats, band_stats.leaves_of(pyr), card)
+    e, t = check_band_stats(band_stats, band_stats.leaves_of(pyr), card)
     err.update(e)
+    times.update(t)
     del pyr
     torch.cuda.empty_cache()
     for label, (im, opts, data) in runs.items():
@@ -2561,7 +2632,13 @@ def sharded_phase(tp, dev, card, launches):
     lossless = (img, runs["config-4 lossless"][2])
     del img8, runs
     sharded_cpu_checks(tp, dev)
-    return err, times, lossless
+    return err, times, library, lossless, refs
+
+
+def sha256(a) -> str:
+    """The SHA-256 of a codestream's bytes or of an array's samples."""
+    return hashlib.sha256(a if isinstance(a, bytes)
+                          else np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
 def natural_image_bits(h, w, bits, seed=0):
@@ -3944,6 +4021,255 @@ def odd_geometry_phase(tp, dev, card, launches):
     return err
 
 
+# ------------------------------------------ phase 19: config 4 on row shards
+
+# the (dp, sp) grids of gloo ranks that share the one card, and the grid of
+# NCCL ranks, a card each, where there are four cards
+ROW_SHARD_GRIDS = ((1, 4), (2, 2))
+NCCL_GRID = (2, 2)
+STEP_REPS = 3
+
+
+def free_port() -> int:
+    """A free TCP port on this host for a process group's rendezvous."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def grid_steps(tp, im, opts, grid, dev):
+    """This rank's transform step on the row shard of its tiles and the
+    inverse step on the pyramid it gives, each synchronised with every rank
+    starting together, medians of STEP_REPS ms, and in each the edge round
+    trip (sharded.level_edges: the packing launch, the gather and, on gloo,
+    the download and the upload), synchronised around each call."""
+    import torch.distributed as dist
+    from go_jpeg2000_tpu_torch.models import encoder, transforms
+    from go_jpeg2000_tpu_torch.ops import dwt
+    from go_jpeg2000_tpu_torch.parallel import sharded as psh
+    header = encoder.build_header(im, opts)
+    comps = encoder._image_components(im)
+    levels = header.coding_style.num_decompositions
+    T, th, _tw = psh._check_grid(header, levels, grid.sp, "chip_smoke")
+    rows = th // grid.sp
+    x = transforms.upload(psh.tile_batch(
+        header, comps, psh._my_tiles(T, grid), rows, grid.sp_rank * rows),
+        dev)
+    kind = dwt.REV53 if opts.lossless else dwt.IRR97
+    mct = bool(header.coding_style.mct) and len(comps) >= 3
+    prec = header.components[0].precision
+    level_edges = psh.level_edges
+    edge_s = [0.0]
+
+    def timed(src, g):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        edges = level_edges(src, g)
+        torch.cuda.synchronize()
+        edge_s[0] += time.perf_counter() - a
+        return edges
+
+    out = {k: [] for k in ("transform", "transform edges", "inverse",
+                           "inverse edges")}
+    psh.level_edges = timed
+    try:
+        for _ in range(STEP_REPS):
+            for what in ("transform", "inverse"):
+                dist.barrier()
+                torch.cuda.synchronize()
+                edge_s[0] = 0.0
+                a = time.perf_counter()
+                if what == "transform":
+                    pyr, _stats = psh.tile_transform_step(
+                        x, levels, mct, prec, False, kind, grid)
+                else:
+                    psh.tile_inverse_step(pyr, mct, prec, False, kind, grid)
+                torch.cuda.synchronize()
+                out[what].append((time.perf_counter() - a) * 1e3)
+                out[f"{what} edges"].append(edge_s[0] * 1e3)
+    finally:
+        psh.level_edges = level_edges
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def _grid_rank(rank, world, port, dp, sp, backend, img_path, refs, queue,
+               device="cuda"):
+    """One rank of phase 19: config 4 lossless, then the image >> 8 lossy
+    at q85, through encode_sharded and decode_sharded on the (dp, sp) grid,
+    every count reset just before each encode and read after its decode;
+    then grid_steps.  Puts (rank, {label: results}) on the queue, or
+    (rank, the error).  `device` "cpu" rehearses the phase without a card
+    (torch.cuda.synchronize stubbed by the caller)."""
+    import torch.distributed as dist
+    try:
+        import go_jpeg2000_tpu_torch as tp
+        from go_jpeg2000_tpu_torch.ops import (dwt_cuda, kernel_launches,
+                                               reset_launches)
+        from go_jpeg2000_tpu_torch.parallel import (decode_sharded,
+                                                    encode_sharded, make_grid)
+        from go_jpeg2000_tpu_torch.parallel import sharded as psh
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(rank if backend == "nccl" else 0)
+            dev = torch.device("cuda", torch.cuda.current_device())
+        dist.init_process_group(backend,
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=world, rank=rank)
+    except BaseException as exc:
+        queue.put((rank, f"{type(exc).__name__}: {exc}"))
+        raise
+    try:
+        grid = make_grid(dist.group.WORLD, dp=dp, sp=sp)
+        img = np.load(img_path)
+        n_tiles = len(psh._my_tiles((C4_SIZE // C4_TILE) ** 2, grid))
+        out = {}
+        for label, im, opts in (
+                ("config-4 lossless", img, config4_opts(tp, True)),
+                ("config-4 lossy", (img >> 8).astype(np.uint8),
+                 config4_opts(tp, False))):
+            dist.barrier()
+            reset_launches()
+            tp.counters.reset()
+            t0 = time.perf_counter()
+            data = encode_sharded(im, opts, grid=grid, device=dev)
+            t1 = time.perf_counter()
+            pix = decode_sharded(data, grid=grid, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            snap = tp.counters.snapshot()
+            stream, decode = refs[label]
+            out[label] = {
+                "launches": {k: v for k, v in kernel_launches().items() if v},
+                "plain": dwt_cuda.PLAIN_LEVELS,
+                "tiles": (snap.get("enc.sharded_device_ht_tiles", 0),
+                          snap.get("dec.sharded_device_ht_tiles", 0)),
+                "my_tiles": n_tiles,
+                "same_stream": sha256(data) == stream,
+                "decode_ok": (np.array_equal(pix, im) if opts.lossless
+                              else sha256(pix) == decode),
+                "bytes": len(data),
+                "encode_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3,
+                "steps": grid_steps(tp, im, opts, grid, dev)}
+            del data, pix
+        queue.put((rank, out))
+    except BaseException as exc:
+        queue.put((rank, f"{type(exc).__name__}: {exc}"))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_grid(dp, sp, backend, img_path, refs, timeout=600):
+    """Spawn the dp * sp ranks of one phase-19 grid and collect each rank's
+    results; raises if a rank fails or the grid outlasts `timeout` s, and
+    stops every rank it started."""
+    import queue as queue_mod
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    world = dp * sp
+    port = free_port()
+    procs = [ctx.Process(target=_grid_rank,
+                         args=(r, world, port, dp, sp, backend, img_path,
+                               refs, results), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.perf_counter() + timeout
+        while len(got) < world:
+            try:
+                rank, res = results.get(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except queue_mod.Empty:
+                raise AssertionError(f"phase 19 {backend} {(dp, sp)}: ranks "
+                                     f"{sorted(set(range(world)) - set(got))}"
+                                     f" gave no result in {timeout} s")
+            if isinstance(res, str):
+                raise AssertionError(f"phase 19 {backend} {(dp, sp)} rank "
+                                     f"{rank}: {res}")
+            got[rank] = res
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    return got
+
+
+def row_shard_phase(tp, card, launches, img, refs):
+    """Phase 19: config 4 (phase 10's image) on the ROW_SHARD_GRIDS of
+    gloo ranks sharing the one card, and on NCCL_GRID with a card a rank
+    where there are four: every rank's codestreams byte-identical to phase
+    10's (refs: sha256 of its streams and of its lossy decode), lossless
+    decodes exact, lossy decodes equal to phase 10's; the halo levels and
+    the packing kernel launched, no plain level, every tile through the
+    device HT encode and decode; walls and steps printed per rank, the
+    ranks' launches added to `launches`."""
+    import tempfile
+    t0 = time.perf_counter()
+    grids = [(dp, sp, "gloo") for dp, sp in ROW_SHARD_GRIDS]
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        grids.append(NCCL_GRID + ("nccl",))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config4.npy")
+        np.save(path, img)
+        for dp, sp, backend in grids:
+            t1 = time.perf_counter()
+            results = run_grid(dp, sp, backend, path, refs)
+            where = ("one card" if backend == "gloo"
+                     else f"{dp * sp} cards")
+            for rank in sorted(results):
+                for label, r in results[rank].items():
+                    lib = "dwt53" if "lossless" in label else "dwt97"
+                    need = (f"{lib}_fwd_level", f"{lib}_inv_level",
+                            "dwt_pack_edges")
+                    st = r["steps"]
+                    same = ("byte-identical to" if r["same_stream"]
+                            else "DIFFERS FROM")
+                    want = "the input" if lib == "dwt53" else "phase 10's"
+                    print(f"phase 19 {backend} (dp, sp) = {(dp, sp)} on "
+                          f"{where}, rank {rank}, {label}: codestream "
+                          f"{same} phase 10's ({r['bytes']} bytes), decode "
+                          f"{'equal to' if r['decode_ok'] else 'NOT EQUAL TO'}"
+                          f" {want}; launches {r['launches']}, plain levels "
+                          f"{r['plain']}, device HT tiles encode, decode "
+                          f"{r['tiles']} of {r['my_tiles']}; wall encode "
+                          f"{r['encode_ms']:.1f} ms, decode "
+                          f"{r['decode_ms']:.1f} ms (first run); transform "
+                          f"step {st['transform']:.2f} ms, of it the edge "
+                          f"round trip {st['transform edges']:.2f} ms; "
+                          f"inverse step {st['inverse']:.2f} ms, of it the "
+                          f"edge round trip {st['inverse edges']:.2f} ms "
+                          f"(medians of {STEP_REPS}) [{card}]", flush=True)
+                    if not (r["same_stream"] and r["decode_ok"]):
+                        raise AssertionError(f"phase 19 {backend} "
+                                             f"{(dp, sp)} rank {rank}: "
+                                             f"{label} differs from phase 10")
+                    if (r["plain"] or r["tiles"] != (r["my_tiles"],) * 2
+                            or any(r["launches"].get(k, 0) <= 0
+                                   for k in need)):
+                        raise AssertionError(f"phase 19 {backend} "
+                                             f"{(dp, sp)} rank {rank}: "
+                                             f"{label} did not run every "
+                                             "level, tile and the packing "
+                                             "through the kernels")
+                    for k, v in r["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+            print(f"phase 19 {backend} {(dp, sp)}: "
+                  f"{time.perf_counter() - t1:.1f} s", flush=True)
+    if cards < 4:
+        print(f"phase 19 NCCL (dp, sp) = {NCCL_GRID} over four cards: not "
+              f"run ({cards} card{'' if cards == 1 else 's'})", flush=True)
+    print(f"phase 19, config 4 on row shards: "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -3972,8 +4298,9 @@ def main():
     if not loader.available():
         raise RuntimeError("native library j2k_native.cpp did not build")
     t2 = time.perf_counter()
-    print(f"build: dwt53.cu, dwt97.cu, ht_enc.cu, ht_dec.cu, ebcot_enc.cu and "
-          f"band_stats.cu (nvcc, in parallel) {t1 - t0:.1f} s, "
+    print(f"build: dwt53.cu, dwt97.cu, dwt_edges.cu, ht_enc.cu, ht_dec.cu, "
+          f"ebcot_enc.cu and band_stats.cu (nvcc, in parallel) "
+          f"{t1 - t0:.1f} s, "
           f"j2k_native.cpp (g++) {t2 - t1:.1f} s", flush=True)
 
     err, times = check_kernels(dwt, dwt_cuda, dev, card, dwt.REV53)
@@ -4047,10 +4374,11 @@ def main():
     ebcot_stages(tp, *ebcot_runs["EBCOT gray"], dev, card)
     torch.cuda.empty_cache()
 
-    e, t, c4 = sharded_phase(tp, dev, card, launches)
+    e, t, lib_ms, c4, refs = sharded_phase(tp, dev, card, launches)
     for k, v in e.items():
         err[k] = max(err.get(k, 0), v)
     times.update(t)
+    library.update(lib_ms)
 
     for k, v in single_image_phase(tp, dev, card, launches).items():
         err[k] = max(err[k], v)
@@ -4064,6 +4392,7 @@ def main():
         tp, dev, card, launches, c4))
     for k, v in odd_geometry_phase(tp, dev, card, launches).items():
         err[k] = max(err[k], v)
+    row_shard_phase(tp, card, launches, c4[0], refs)
 
     out = []
     for name, (replaces, src) in REPLACES.items():

@@ -77,24 +77,29 @@
 //
 // Row shards (the halo form; replaces the row-shard lifting of
 // go_jpeg2000_tpu/parallel/sharded.py, _odd_update_sharded,
-// _even_update_sharded, _vlift53_sharded, _vlift53_inverse_sharded): x may be
-// one row shard of taller frames.  `above` [n, HA, w] and `below` [n, HB, w]
-// are then the rows of the globally extended signal just outside it (the
-// forward kernel's input rows; for the inverse, interleaved rows with the
-// low-pass half of the row first, [LL|HL] or [LH|HH]), and a warp reads
-// them where its strip reaches past the shard.  The JAX package exchanged
-// one row per lifting step; these are built once per level from every
-// shard's edge rows (parallel/sharded.py), so a shard of 2 rows, shorter
-// than the lifting's reach, still lifts exactly as the whole signal.  A null
-// pointer is a global edge, where the shard reflects on itself as before.
-//
-// Geometry: any origin parity and any H, W >= 1 without halo rows; with
-// halo rows an even origin and even H and W >= 2 (ops/dwt_cuda.py checks).
+// _even_update_sharded, _vlift53_sharded, _vlift53_inverse_sharded): x (for
+// the inverse, the bands) may be row shard `rank` of sp shards of one
+// signal.  `edges` [sp, n, e, w] then holds every shard's edge slot (its
+// first and last rows, packed by csrc/dwt_edges.cu; for the inverse,
+// interleaved rows with the low-pass half of the row first, [LL|HL] or
+// [LH|HH]), and a warp whose strip reaches past the shard reads each row
+// there through edge_row (csrc/dwt_edges.cuh): the global row, reflected
+// over the whole signal, from the slot of the shard that holds it, or from
+// its own rows where a reflection at a global edge leads back into the
+// shard.  The JAX package exchanged one row per lifting step; the slots
+// are exchanged once per level, so a shard of 2 rows, shorter than the
+// lifting's reach, still lifts exactly as the whole signal.  A null
+// `edges` is one shard: the signal is x itself.
+
+// Geometry: any origin parity and any H, W >= 1 without edges; a row shard
+// at an even origin and an even H >= 2, any W >= 1 (ops/dwt_cuda.py checks).
 // Kernels launch on the caller's stream, allocate nothing, launch nothing
 // for an empty level, and each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dwt_edges.cuh"
 
 #define FWD_STRIP 32      // forward: output rows per warp (even)
 #define INV_STRIP 32      // inverse: output rows per warp (even)
@@ -142,15 +147,22 @@ __device__ __forceinline__ int update_sub(int c, int l, int r) {
   return wsub(c, wadd(wadd(l, r), 2) >> 2);
 }
 
-// Row g (-ha <= g < h + hb) of a shard of h rows in a frame: from the halo
-// above or below where one is given, else the shard's own row (reflected).
-template <bool ODD>
-__device__ __forceinline__ const int* shard_row(const int* x, const int* above,
-                                                const int* below, int frame,
-                                                int g, int h, int w, int ha,
-                                                int hb) {
-  if (g < 0 && above) return above + ((int64_t)frame * ha + ha + g) * w;
-  if (g >= h && below) return below + ((int64_t)frame * hb + g - h) * w;
+// Row g (-FWD_ABOVE <= g < h + HALO - FWD_ABOVE) of a level of h rows in
+// a frame of n: with SHARD, x is row shard `rank` of sp, and a row outside
+// it is the row of the globally extended signal (shard_edge_row; GENERAL =
+// ODD takes any shard height, the even instance shards of at least
+// 2 * EDGE_ROWS rows); else x is the whole signal, reflected.
+template <bool ODD, bool SHARD>
+__device__ __forceinline__ const int* shard_row(const int* x,
+                                              const int* edges, int sp,
+                                              int rank, int e, int n,
+                                              int frame, int g, int h,
+                                              int w) {
+  if (SHARD) {
+    const int* row =
+        shard_edge_row<ODD>(edges, sp, rank, e, n, frame, &g, h, w);
+    return row ? row : x + ((int64_t)frame * h + g) * w;
+  }
   return x + ((int64_t)frame * h + reflect<ODD>(g, h)) * w;
 }
 
@@ -158,7 +170,16 @@ __device__ __forceinline__ const int* shard_row(const int* x, const int* above,
 // parity, any H and W >= 1.  The other takes an even origin, even H and W
 // >= 2 and 8-byte aligned tensors (most levels of every path), where the
 // pair frame is the level's own: every test on the geometry below folds
-// away at compile time, and the code is the even-origin kernel's.
+// away at compile time, and the code is the even-origin kernel's.  Each
+// comes again with SHARD, for a row shard (edges given): the even one for
+// shards of whole strips (h a multiple of 32), where a strip's own rows
+// take no test and the few beyond the shard are found with no loop or
+// division (shard_edge_row), the general one for any shard (2-row shards
+// too).  Without SHARD the code is the unsharded kernel's alone (but for
+// the inverse's run-time test below).  The inverse also takes a whole
+// level of whole strips as one shard, as its shard instance's strips
+// take no row test: at [32, 512, 512] on an H100 (700 W; kernel_times.py)
+// it ran 0.0272 ms alone, the unsharded instance 0.0311.
 //
 // A warp's task in the pair frame: tile task % tiles, strip (task / tiles)
 // % strips, frame task / (tiles * strips); m0 the strip's first row pair,
@@ -199,16 +220,18 @@ __device__ __forceinline__ int high_size(int n, int o) { return (n + o) >> 1; }
 // x [n, h, w] at origin parity (pu, pv) -> ll [n, nly, nlx], hl [n, nly,
 // nhx], lh [n, nhy, nlx], hh [n, nhy, nhx].  Register row j holds local row
 // r0 - 2 + j of the lane's two columns (global parity j & 1).
-template <bool ODD>
+template <bool ODD, bool SHARD>
 __global__ void __launch_bounds__(THREADS)
-dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
-                 const int* __restrict__ below, int* __restrict__ ll,
+dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ edges,
+                 int sp, int rank, int e, int* __restrict__ ll,
                  int* __restrict__ hl, int* __restrict__ lh,
                  int* __restrict__ hh, int n, int h, int w, int upar,
                  int vpar, int strips, int tiles, int vec) {
   const int pu = ODD ? upar : 0, pv = ODD ? vpar : 0;
   Task t;
   if (!warp_task<ODD>(n, h, pu, pv, strips, tiles, 1, &t)) return;
+  // the even shard instance takes shards of whole strips: rr = re = 32
+  if (SHARD && !ODD) t.rr = t.re = FWD_STRIP;
   const int re = t.re;
   const int x0 = reflect<ODD>(t.c0, w), x1 = reflect<ODD>(t.c0 + 1, w);
   // vec: even origin and width, so x0 is even: one 8-byte load
@@ -218,9 +241,13 @@ dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
 #pragma unroll
   for (int j = 0; j < FWD_STRIP + 3; ++j) {
     if (j > re + 2) break;                     // rows r0 - 2 .. r0 + re
+    const int g = t.r0 - FWD_ABOVE + j;
+    // a whole strip's own rows need no test (the even shard instance)
     const int* row =
-        shard_row<ODD>(x, above, below, t.frame, t.r0 - FWD_ABOVE + j, h, w,
-                       FWD_ABOVE, HALO - FWD_ABOVE);
+        SHARD && !ODD && j >= FWD_ABOVE && j < FWD_STRIP + FWD_ABOVE
+            ? x + ((int64_t)t.frame * h + g) * w
+            : shard_row<ODD, SHARD>(x, edges, sp, rank, e, n, t.frame, g, h,
+                                    w);
     if (pair) {
       v[j] = *reinterpret_cast<const int2*>(row + x0);
     } else {
@@ -294,16 +321,18 @@ dwt53_fwd_kernel(const int* __restrict__ x, const int* __restrict__ above,
 // ll, hl, lh, hh (shapes as the forward kernel's) -> out [n, h, w] at
 // origin parity (pu, pv).  Register row j holds interleaved local row
 // r0 - 1 + j of the lane's two columns: a high-pass row when j is even.
-template <bool ODD>
+template <bool ODD, bool SHARD>
 __global__ void __launch_bounds__(THREADS)
 dwt53_inv_kernel(const int* __restrict__ ll, const int* __restrict__ hl,
                  const int* __restrict__ lh, const int* __restrict__ hh,
-                 const int* __restrict__ above, const int* __restrict__ below,
+                 const int* __restrict__ edges, int sp, int rank, int e,
                  int* __restrict__ out, int n, int h, int w, int upar,
                  int vpar, int strips, int tiles, int vec) {
   const int pu = ODD ? upar : 0, pv = ODD ? vpar : 0;
   Task t;
   if (!warp_task<ODD>(n, h, pu, pv, strips, tiles, 1, &t)) return;
+  // the even shard instance takes shards of whole strips: rr = re = 32
+  if (SHARD && !ODD) t.rr = t.re = FWD_STRIP;
   const int re = t.re;
   const int nlx = ODD ? low_size(w, pu) : w >> 1;
   const int nhx = ODD ? high_size(w, pu) : w >> 1;
@@ -329,16 +358,25 @@ dwt53_inv_kernel(const int* __restrict__ ll, const int* __restrict__ hl,
 #pragma unroll
   for (int j = 0; j < INV_STRIP + HALO; ++j) {
     if (j > re + 2) break;                     // rows r0 - 1 .. r0 + re + 1
-    const int g = t.r0 - INV_ABOVE + j;
-    const int *lo, *hi;
-    if (g < 0 && above) {
-      lo = above + ((int64_t)t.frame * INV_ABOVE + INV_ABOVE + g) * w;
+    int g = t.r0 - INV_ABOVE + j;
+    // a whole strip's own rows need no test (the even shard instance)
+    const bool own = SHARD && !ODD && j >= INV_ABOVE &&
+                     j < INV_STRIP + INV_ABOVE;
+    // the unsharded instances test `edges` (null for them) at run time
+    // rather than at compile time: ptxas then keeps the even one at 109
+    // registers without a spill, where the folded test left it at 96
+    // registers and 12 bytes spilled, 3-8% slower on an H100
+    // (kernel_times.py --ptxas, --dwt-only)
+    const int* lo =
+        (SHARD ? !own : edges != nullptr)
+            ? shard_edge_row<ODD || !SHARD>(edges, sp, rank, e, n, t.frame,
+                                            &g, h, w)
+            : nullptr;
+    const int* hi;
+    if (lo) {
       hi = lo + nlx;
-    } else if (g >= h && below) {
-      lo = below + ((int64_t)t.frame * (HALO - INV_ABOVE) + g - h) * w;
-      hi = lo + nlx;
-    } else {
-      const int r = reflect<ODD>(g, h) + pv;   // bit 0: the row's parity
+    } else {                                   // a shard's own row: in range
+      const int r = (SHARD ? g : reflect<ODD>(g, h)) + pv;   // bit 0: parity
       const int m = (r >> 1) - ((r & 1) ? 0 : pv);   // its band row
       lo = ((r & 1) ? lh + blh : ll + bll) + (int64_t)m * nlx;
       hi = ((r & 1) ? hh + bhh : hl + bhl) + (int64_t)m * nhx;
@@ -453,46 +491,48 @@ int dwt53_fwd_above(void) { return FWD_ABOVE; }
 int dwt53_inv_above(void) { return INV_ABOVE; }
 
 // pu, pv: the level origin's parity (u0 & 1, v0 & 1)
-int dwt53_fwd_level(const void* x, const void* above, const void* below,
+// edges [sp, n, e, w] (null: one shard); x is shard `rank` of sp
+int dwt53_fwd_level(const void* x, const void* edges, int sp, int rank, int e,
                     void* ll, void* hl, void* lh, void* hh, int n, int h,
                     int w, int pu, int pv, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0) return 0;
   int strips, tiles;
   const int64_t tasks = level_tasks(n, h, w, pu, pv, &strips, &tiles);
-  const int vec = !pu && !(w & 1) && aligned8(x, above, below);
-  if (even_level(h, w, pu, pv) && vec)
-    dwt53_fwd_kernel<false><<<blocks_for(tasks), THREADS, 0,
-                              (cudaStream_t)stream>>>(
-        (const int*)x, (const int*)above, (const int*)below, (int*)ll,
-        (int*)hl, (int*)lh, (int*)hh, n, h, w, pu, pv, strips, tiles, vec);
-  else
-    dwt53_fwd_kernel<true><<<blocks_for(tasks), THREADS, 0,
-                             (cudaStream_t)stream>>>(
-        (const int*)x, (const int*)above, (const int*)below, (int*)ll,
-        (int*)hl, (int*)lh, (int*)hh, n, h, w, pu, pv, strips, tiles, vec);
+  const int vec = !pu && !(w & 1) && aligned8(x, edges, edges);
+  const bool fast = even_level(h, w, pu, pv) && vec &&
+                    (!edges || h % FWD_STRIP == 0);
+  auto* kernel = edges ? (fast ? dwt53_fwd_kernel<false, true>
+                               : dwt53_fwd_kernel<true, true>)
+                       : (fast ? dwt53_fwd_kernel<false, false>
+                               : dwt53_fwd_kernel<true, false>);
+  kernel<<<blocks_for(tasks), THREADS, 0, (cudaStream_t)stream>>>(
+    (const int*)x, (const int*)edges, sp, rank, e, (int*)ll, (int*)hl,
+    (int*)lh, (int*)hh, n, h, w, pu, pv, strips, tiles, vec);
   return (int)cudaGetLastError();
 }
 
 int dwt53_inv_level(const void* ll, const void* hl, const void* lh,
-                    const void* hh, const void* above, const void* below,
-                    void* out, int n, int h, int w, int pu, int pv,
+                    const void* hh, const void* edges, int sp, int rank,
+                    int e, void* out, int n, int h, int w, int pu, int pv,
                     void* stream) {
   if (n <= 0 || h <= 0 || w <= 0) return 0;
   int strips, tiles;
   const int64_t tasks = level_tasks(n, h, w, pu, pv, &strips, &tiles);
   const int vec = !pu && !(w & 1) && aligned8(out, out, out);
-  if (even_level(h, w, pu, pv) && vec)
-    dwt53_inv_kernel<false><<<blocks_for(tasks), THREADS, 0,
-                              (cudaStream_t)stream>>>(
-        (const int*)ll, (const int*)hl, (const int*)lh, (const int*)hh,
-        (const int*)above, (const int*)below, (int*)out, n, h, w, pu, pv,
-        strips, tiles, vec);
-  else
-    dwt53_inv_kernel<true><<<blocks_for(tasks), THREADS, 0,
-                             (cudaStream_t)stream>>>(
-        (const int*)ll, (const int*)hl, (const int*)lh, (const int*)hh,
-        (const int*)above, (const int*)below, (int*)out, n, h, w, pu, pv,
-        strips, tiles, vec);
+  const bool fast = even_level(h, w, pu, pv) && vec &&
+                    (!edges || h % FWD_STRIP == 0);
+  // a whole signal of whole strips is one shard (sp = 1: its rows beyond
+  // it are its own, reflected once): the shard instance, which tests no
+  // row of a strip, takes it faster than the unsharded one
+  const bool shard = edges || (fast && h % FWD_STRIP == 0);
+  auto* kernel = shard ? (fast ? dwt53_inv_kernel<false, true>
+                               : dwt53_inv_kernel<true, true>)
+                       : (fast ? dwt53_inv_kernel<false, false>
+                               : dwt53_inv_kernel<true, false>);
+  kernel<<<blocks_for(tasks), THREADS, 0, (cudaStream_t)stream>>>(
+    (const int*)ll, (const int*)hl, (const int*)lh, (const int*)hh,
+    (const int*)edges, sp, rank, e, (int*)out, n, h, w, pu, pv, strips,
+    tiles, vec);
   return (int)cudaGetLastError();
 }
 

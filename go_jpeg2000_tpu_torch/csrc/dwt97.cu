@@ -63,21 +63,24 @@
 // Row shards (the halo form; replaces the row-shard lifting of
 // go_jpeg2000_tpu/parallel/sharded.py, _odd_update_sharded,
 // _even_update_sharded, _vlift97_sharded, _vlift97_inverse_sharded): as in
-// csrc/dwt53.cu, x may be one row shard, and `above` [n, 4 (inverse 3), w]
-// and `below` [n, 3 (inverse 4), w] are the rows of the globally extended
-// signal just outside it (for the inverse, interleaved rows with the
-// low-pass half first), built once per level from every shard's edge rows.
-// A null pointer is a global edge, where the shard reflects on itself.  The
-// lifting reaches 4 rows, so a 2-row shard takes rows of shards beyond its
-// neighbours; the halo brings them, already reflected at the global edges.
-//
-// Geometry: any origin parity and any H, W >= 1 without halo rows; with
-// halo rows an even origin and even H and W >= 2 (ops/dwt_cuda.py checks).
+// csrc/dwt53.cu, x (for the inverse, the bands) may be row shard `rank` of
+// sp shards of one signal, and `edges` [sp, n, e, w] holds every shard's
+// edge slot (for the inverse, interleaved rows with the low-pass half
+// first), packed by csrc/dwt_edges.cu and exchanged once per level; a warp
+// reads each row its strip reaches past the shard through edge_row
+// (csrc/dwt_edges.cuh).  The lifting reaches 4 rows, so a 2-row shard
+// reads shards beyond its neighbours, and the reflection at a global edge
+// is taken over the whole signal.  A null `edges` is one shard.
+
+// Geometry: any origin parity and any H, W >= 1 without edges; a row shard
+// at an even origin and an even H >= 2, any W >= 1 (ops/dwt_cuda.py checks).
 // Kernels launch on the caller's stream, allocate nothing, launch nothing
 // for an empty level, and each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dwt_edges.cuh"
 
 #define FWD_STRIP 32      // forward: output rows per warp (even)
 #define INV_STRIP 32      // inverse: output rows per warp (even)
@@ -86,6 +89,13 @@
 #define FWD_ABOVE 4
 #define INV_ABOVE 3
 #define THREADS 128
+// CTAs an SM must hold, as ptxas' register target, of the shard kernels:
+// the unsharded even ones' occupancy (forward 96 registers, 5 CTAs;
+// inverse 114, 4), which their shard bodies exceed without it (142 and
+// 134 registers; the unsharded kernels take no such hint, which ptxas
+// would follow at the cost of their own choice)
+#define FWD_SHARD_BLOCKS 5
+#define INV_SHARD_BLOCKS 4
 static_assert(FWD_STRIP == INV_STRIP, "warp_task lays out one strip height");
 
 #define ALPHA_D -1.586134342059924
@@ -113,16 +123,22 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return i;
 }
 
-// Row g (-ha <= g < h + hb) of a shard of h rows in a frame: from the halo
-// above or below where one is given, else the shard's own row (reflected).
-template <bool ODD>
+// Row g (-FWD_ABOVE <= g < h + HALO - FWD_ABOVE) of a level of h rows in
+// a frame of n: with SHARD, x is row shard `rank` of sp, and a row outside
+// it is the row of the globally extended signal (shard_edge_row; GENERAL =
+// ODD takes any shard height, the even instance shards of at least
+// 2 * EDGE_ROWS rows); else x is the whole signal, reflected.
+template <bool ODD, bool SHARD>
 __device__ __forceinline__ const float* shard_row(const float* x,
-                                                  const float* above,
-                                                  const float* below,
-                                                  int frame, int g, int h,
-                                                  int w, int ha, int hb) {
-  if (g < 0 && above) return above + ((int64_t)frame * ha + ha + g) * w;
-  if (g >= h && below) return below + ((int64_t)frame * hb + g - h) * w;
+                                              const float* edges, int sp,
+                                              int rank, int e, int n,
+                                              int frame, int g, int h,
+                                              int w) {
+  if (SHARD) {
+    const float* row =
+        shard_edge_row<ODD>(edges, sp, rank, e, n, frame, &g, h, w);
+    return row ? row : x + ((int64_t)frame * h + g) * w;
+  }
   return x + ((int64_t)frame * h + reflect<ODD>(g, h)) * w;
 }
 
@@ -147,7 +163,9 @@ __device__ __forceinline__ float prev_b(float b) {
 // Each kernel comes in two instances, as in csrc/dwt53.cu: ODD, the
 // general one (any origin parity, any H and W >= 1), and one for an even
 // origin, even H and W >= 2 and 8-byte aligned tensors, where every test
-// on the geometry folds away at compile time.
+// on the geometry folds away at compile time; each again with SHARD for a
+// row shard (the even one for shards of whole strips, h a multiple of 32,
+// the general one for any), so the unsharded kernels carry no shard code.
 //
 // A warp's task in the pair frame (as in csrc/dwt53.cu): tile task %
 // tiles, strip (task / tiles) % strips, frame task / (tiles * strips); m0
@@ -187,16 +205,18 @@ __device__ __forceinline__ int high_size(int n, int o) { return (n + o) >> 1; }
 // x [n, h, w] at origin parity (pu, pv) -> ll [n, nly, nlx], hl [n, nly,
 // nhx], lh [n, nhy, nlx], hh [n, nhy, nhx].  Register row j holds local row
 // r0 - 4 + j of the lane's two columns (S + 7 rows; global parity j & 1).
-template <bool ODD>
-__global__ void __launch_bounds__(THREADS)
-dwt97_fwd_kernel(const float* __restrict__ x, const float* __restrict__ above,
-                 const float* __restrict__ below, float* __restrict__ ll,
-                 float* __restrict__ hl, float* __restrict__ lh,
-                 float* __restrict__ hh, int n, int h, int w, int upar,
-                 int vpar, int strips, int tiles, int vec) {
+template <bool ODD, bool SHARD>
+__device__ __forceinline__ void
+dwt97_fwd_body(const float* __restrict__ x, const float* __restrict__ edges,
+               int sp, int rank, int e, float* __restrict__ ll,
+               float* __restrict__ hl, float* __restrict__ lh,
+               float* __restrict__ hh, int n, int h, int w, int upar,
+               int vpar, int strips, int tiles, int vec) {
   const int pu = ODD ? upar : 0, pv = ODD ? vpar : 0;
   Task t;
   if (!warp_task<ODD>(n, h, pu, pv, strips, tiles, &t)) return;
+  // the even shard instance takes shards of whole strips: rr = re = 32
+  if (SHARD && !ODD) t.rr = t.re = FWD_STRIP;
   const int re = t.re;
   const int x0 = reflect<ODD>(t.c0, w), x1 = reflect<ODD>(t.c0 + 1, w);
   // vec: even origin and width, so x0 is even: one 8-byte load
@@ -206,9 +226,13 @@ dwt97_fwd_kernel(const float* __restrict__ x, const float* __restrict__ above,
 #pragma unroll
   for (int j = 0; j < FWD_STRIP + HALO; ++j) {
     if (j > re + 6) break;                     // rows r0 - 4 .. r0 + re + 2
-    const float* row = shard_row<ODD>(x, above, below, t.frame,
-                                 t.r0 - FWD_ABOVE + j, h, w, FWD_ABOVE,
-                                 HALO - FWD_ABOVE);
+    const int g = t.r0 - FWD_ABOVE + j;
+    // a whole strip's own rows need no test (the even shard instance)
+    const float* row =
+        SHARD && !ODD && j >= FWD_ABOVE && j < FWD_STRIP + FWD_ABOVE
+            ? x + ((int64_t)t.frame * h + g) * w
+            : shard_row<ODD, SHARD>(x, edges, sp, rank, e, n, t.frame, g, h,
+                                    w);
     if (pair) {
       v[j] = *reinterpret_cast<const float2*>(row + x0);
     } else {
@@ -296,17 +320,18 @@ dwt97_fwd_kernel(const float* __restrict__ x, const float* __restrict__ above,
 // origin parity (pu, pv).  Register row j holds interleaved local row
 // r0 - 3 + j of the lane's two columns (S + 7 rows): a high-pass row when
 // j is even.
-template <bool ODD>
-__global__ void __launch_bounds__(THREADS)
-dwt97_inv_kernel(const float* __restrict__ ll, const float* __restrict__ hl,
-                 const float* __restrict__ lh, const float* __restrict__ hh,
-                 const float* __restrict__ above,
-                 const float* __restrict__ below, float* __restrict__ out,
-                 int n, int h, int w, int upar, int vpar, int strips,
-                 int tiles, int vec) {
+template <bool ODD, bool SHARD>
+__device__ __forceinline__ void
+dwt97_inv_body(const float* __restrict__ ll, const float* __restrict__ hl,
+               const float* __restrict__ lh, const float* __restrict__ hh,
+               const float* __restrict__ edges, int sp, int rank, int e,
+               float* __restrict__ out, int n, int h, int w, int upar,
+               int vpar, int strips, int tiles, int vec) {
   const int pu = ODD ? upar : 0, pv = ODD ? vpar : 0;
   Task t;
   if (!warp_task<ODD>(n, h, pu, pv, strips, tiles, &t)) return;
+  // the even shard instance takes shards of whole strips: rr = re = 32
+  if (SHARD && !ODD) t.rr = t.re = FWD_STRIP;
   const int re = t.re;
   const int nlx = ODD ? low_size(w, pu) : w >> 1;
   const int nhx = ODD ? high_size(w, pu) : w >> 1;
@@ -333,16 +358,19 @@ dwt97_inv_kernel(const float* __restrict__ ll, const float* __restrict__ hl,
 #pragma unroll
   for (int j = 0; j < INV_STRIP + HALO; ++j) {
     if (j > re + 6) break;                     // rows r0 - 3 .. r0 + re + 3
-    const int g = t.r0 - INV_ABOVE + j;
-    const float *lo, *hi;
-    if (g < 0 && above) {
-      lo = above + ((int64_t)t.frame * INV_ABOVE + INV_ABOVE + g) * w;
+    int g = t.r0 - INV_ABOVE + j;
+    // a whole strip's own rows need no test (the even shard instance)
+    const bool own = SHARD && !ODD && j >= INV_ABOVE &&
+                     j < INV_STRIP + INV_ABOVE;
+    const float* lo =
+        SHARD && !own
+            ? shard_edge_row<ODD>(edges, sp, rank, e, n, t.frame, &g, h, w)
+            : nullptr;
+    const float* hi;
+    if (lo) {
       hi = lo + nlx;
-    } else if (g >= h && below) {
-      lo = below + ((int64_t)t.frame * (HALO - INV_ABOVE) + g - h) * w;
-      hi = lo + nlx;
-    } else {
-      const int r = reflect<ODD>(g, h) + pv;   // bit 0: the row's parity
+    } else {                                   // a shard's own row: in range
+      const int r = (SHARD ? g : reflect<ODD>(g, h)) + pv;   // bit 0: parity
       const int m = (r >> 1) - ((r & 1) ? 0 : pv);   // its band row
       lo = ((r & 1) ? lh + blh : ll + bll) + (int64_t)m * nlx;
       hi = ((r & 1) ? hh + bhh : hl + bhl) + (int64_t)m * nhx;
@@ -433,6 +461,49 @@ dwt97_inv_kernel(const float* __restrict__ ll, const float* __restrict__ hl,
   }
 }
 
+// The kernels: the unsharded ones with ptxas' own register choice, the
+// shard ones with FWD_SHARD_BLOCKS and INV_SHARD_BLOCKS as its target.
+// One template with a template-dependent bound, SHARD ? blocks : 1, is no
+// substitute: a bound of 1 CTA moves ptxas' choice for the unsharded
+// instances (even forward 96 -> 101 registers, 0.0143 -> 0.0189 ms alone
+// at [16, 512, 512] on an H100; kernel_times.py --ptxas).
+#define FWD_PARAMS                                                          \
+  const float *__restrict__ x, const float *__restrict__ edges, int sp,    \
+      int rank, int e, float *__restrict__ ll, float *__restrict__ hl,     \
+      float *__restrict__ lh, float *__restrict__ hh, int n, int h, int w,  \
+      int upar, int vpar, int strips, int tiles, int vec
+#define FWD_ARGS                                                            \
+  x, edges, sp, rank, e, ll, hl, lh, hh, n, h, w, upar, vpar, strips,      \
+      tiles, vec
+#define INV_PARAMS                                                          \
+  const float *__restrict__ ll, const float *__restrict__ hl,              \
+      const float *__restrict__ lh, const float *__restrict__ hh,          \
+      const float *__restrict__ edges, int sp, int rank, int e,            \
+      float *__restrict__ out, int n, int h, int w, int upar, int vpar,    \
+      int strips, int tiles, int vec
+#define INV_ARGS                                                            \
+  ll, hl, lh, hh, edges, sp, rank, e, out, n, h, w, upar, vpar, strips,    \
+      tiles, vec
+
+template <bool ODD>
+__global__ void __launch_bounds__(THREADS) dwt97_fwd_kernel(FWD_PARAMS) {
+  dwt97_fwd_body<ODD, false>(FWD_ARGS);
+}
+template <bool ODD>
+__global__ void __launch_bounds__(THREADS, FWD_SHARD_BLOCKS)
+    dwt97_fwd_shard_kernel(FWD_PARAMS) {
+  dwt97_fwd_body<ODD, true>(FWD_ARGS);
+}
+template <bool ODD>
+__global__ void __launch_bounds__(THREADS) dwt97_inv_kernel(INV_PARAMS) {
+  dwt97_inv_body<ODD, false>(INV_ARGS);
+}
+template <bool ODD>
+__global__ void __launch_bounds__(THREADS, INV_SHARD_BLOCKS)
+    dwt97_inv_shard_kernel(INV_PARAMS) {
+  dwt97_inv_body<ODD, true>(INV_ARGS);
+}
+
 static unsigned blocks_for(int64_t tasks) {
   const int per_block = THREADS / 32;
   return (unsigned)((tasks + per_block - 1) / per_block);
@@ -466,48 +537,45 @@ int dwt97_fwd_above(void) { return FWD_ABOVE; }
 int dwt97_inv_above(void) { return INV_ABOVE; }
 
 // pu, pv: the level origin's parity (u0 & 1, v0 & 1)
-int dwt97_fwd_level(const void* x, const void* above, const void* below,
+// edges [sp, n, e, w] (null: one shard); x is shard `rank` of sp
+int dwt97_fwd_level(const void* x, const void* edges, int sp, int rank, int e,
                     void* ll, void* hl, void* lh, void* hh, int n, int h,
                     int w, int pu, int pv, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0) return 0;
   int strips, tiles;
   const int64_t tasks = level_tasks(n, h, w, pu, pv, &strips, &tiles);
-  const int vec = !pu && !(w & 1) && aligned8(x, above, below);
-  if (even_level(h, w, pu, pv) && vec)
-    dwt97_fwd_kernel<false><<<blocks_for(tasks), THREADS, 0,
-                              (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)above, (const float*)below, (float*)ll,
-        (float*)hl, (float*)lh, (float*)hh, n, h, w, pu, pv, strips, tiles,
-        vec);
-  else
-    dwt97_fwd_kernel<true><<<blocks_for(tasks), THREADS, 0,
-                             (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)above, (const float*)below, (float*)ll,
-        (float*)hl, (float*)lh, (float*)hh, n, h, w, pu, pv, strips, tiles,
-        vec);
+  const int vec = !pu && !(w & 1) && aligned8(x, edges, edges);
+  const bool fast = even_level(h, w, pu, pv) && vec &&
+                    (!edges || h % FWD_STRIP == 0);
+  auto* kernel = edges ? (fast ? dwt97_fwd_shard_kernel<false>
+                               : dwt97_fwd_shard_kernel<true>)
+                       : (fast ? dwt97_fwd_kernel<false>
+                               : dwt97_fwd_kernel<true>);
+  kernel<<<blocks_for(tasks), THREADS, 0, (cudaStream_t)stream>>>(
+    (const float*)x, (const float*)edges, sp, rank, e, (float*)ll,
+    (float*)hl, (float*)lh, (float*)hh, n, h, w, pu, pv, strips, tiles,
+    vec);
   return (int)cudaGetLastError();
 }
 
 int dwt97_inv_level(const void* ll, const void* hl, const void* lh,
-                    const void* hh, const void* above, const void* below,
-                    void* out, int n, int h, int w, int pu, int pv,
+                    const void* hh, const void* edges, int sp, int rank,
+                    int e, void* out, int n, int h, int w, int pu, int pv,
                     void* stream) {
   if (n <= 0 || h <= 0 || w <= 0) return 0;
   int strips, tiles;
   const int64_t tasks = level_tasks(n, h, w, pu, pv, &strips, &tiles);
   const int vec = !pu && !(w & 1) && aligned8(out, out, out);
-  if (even_level(h, w, pu, pv) && vec)
-    dwt97_inv_kernel<false><<<blocks_for(tasks), THREADS, 0,
-                              (cudaStream_t)stream>>>(
-        (const float*)ll, (const float*)hl, (const float*)lh, (const float*)hh,
-        (const float*)above, (const float*)below, (float*)out, n, h, w, pu, pv,
-        strips, tiles, vec);
-  else
-    dwt97_inv_kernel<true><<<blocks_for(tasks), THREADS, 0,
-                             (cudaStream_t)stream>>>(
-        (const float*)ll, (const float*)hl, (const float*)lh, (const float*)hh,
-        (const float*)above, (const float*)below, (float*)out, n, h, w, pu, pv,
-        strips, tiles, vec);
+  const bool fast = even_level(h, w, pu, pv) && vec &&
+                    (!edges || h % FWD_STRIP == 0);
+  auto* kernel = edges ? (fast ? dwt97_inv_shard_kernel<false>
+                               : dwt97_inv_shard_kernel<true>)
+                       : (fast ? dwt97_inv_kernel<false>
+                               : dwt97_inv_kernel<true>);
+  kernel<<<blocks_for(tasks), THREADS, 0, (cudaStream_t)stream>>>(
+    (const float*)ll, (const float*)hl, (const float*)lh, (const float*)hh,
+    (const float*)edges, sp, rank, e, (float*)out, n, h, w, pu, pv,
+    strips, tiles, vec);
   return (int)cudaGetLastError();
 }
 

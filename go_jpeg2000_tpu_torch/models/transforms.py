@@ -5,10 +5,12 @@ multi-level 5/3 or 9/7 DWT forward (+ deadzone quantization for 9/7), and
 the inverse chain (midpoint dequantization for 9/7), for batches of frames
 and, through run_forward and run_inverse, for one tile at its origin.  Each level goes through the hand-written CUDA kernel
 (ops/dwt_cuda.py) when the tensor is on the card and `dwt_cuda.usable`
-admits the level (every level at any origin and size; a row shard's level
-with halo rows at an even geometry), and through the plain torch lifting
-(ops/dwt.py) otherwise; a CUDA level that takes the plain version is
-counted in `dwt_cuda.PLAIN_LEVELS`.  Components of equal shape batch as
+admits the level (every level at any origin and size), and through the
+plain torch lifting (ops/dwt.py) otherwise; a CUDA level that takes the
+plain version is counted in `dwt_cuda.PLAIN_LEVELS`.  A row shard's level
+(edges given) always goes to the wrapper: the kernel on the card, the
+plain halo form on the CPU, a ValueError where the halo form is not
+defined.  Components of equal shape batch as
 [N, C, H, W] so one launch covers every frame and component.  Nothing here falls back
 to the CPU: tensors stay on the device they were given, and a failed
 kernel build or launch raises.
@@ -41,36 +43,32 @@ _INVERSE_KERNEL = {dwt.REV53: dwt_cuda.inverse_2d_53,
                    dwt.IRR97: dwt_cuda.inverse_2d_97}
 
 
-def forward_level(x: torch.Tensor, kind: str, u0: int, v0: int, above=None,
-                  below=None) -> Dict[str, torch.Tensor]:
-    """One level of x [N, H, W] at origin (u0, v0); a row shard (origin
-    even) passes its halo rows (dwt.forward_2d_halo)."""
+def forward_level(x: torch.Tensor, kind: str, u0: int, v0: int, edges=None,
+                  rank: int = 0) -> Dict[str, torch.Tensor]:
+    """One level of x [N, H, W] at origin (u0, v0); row shard `rank` of a
+    signal (origin even) passes every shard's edge slot, `edges`
+    (dwt.forward_2d_halo)."""
     h, w = x.shape[-2:]
-    halo = above is not None or below is not None
-    if x.is_cuda and dwt_cuda.usable(h, w, u0, v0, kind, halo=halo):
-        return _FORWARD_KERNEL[kind](x, above, below, u0, v0)
+    if edges is not None or (x.is_cuda
+                             and dwt_cuda.usable(h, w, u0, v0, kind)):
+        return _FORWARD_KERNEL[kind](x, edges, rank, u0, v0)
     if x.is_cuda:
         dwt_cuda.count_plain_level()
-    if not halo:
-        return dwt.forward_2d(x, kind, u0=u0, v0=v0)
-    return dwt.forward_2d_halo(x, kind, above, below)
+    return dwt.forward_2d(x, kind, u0=u0, v0=v0)
 
 
 def inverse_level(bands: Dict[str, torch.Tensor], kind: str, u0: int,
-                  v0: int, above=None, below=None) -> torch.Tensor:
+                  v0: int, edges=None, rank: int = 0) -> torch.Tensor:
     """Inverse of forward_level (dwt.inverse_2d_halo for a row shard)."""
     ll = bands["LL"]
     h = ll.shape[-2] + bands["LH"].shape[-2]
     w = ll.shape[-1] + bands["HL"].shape[-1]
-    halo = above is not None or below is not None
-    if ll.is_cuda and dwt_cuda.usable(h, w, u0, v0, kind, inverse=True,
-                                      halo=halo):
-        return _INVERSE_KERNEL[kind](bands, above, below, u0, v0)
+    if edges is not None or (ll.is_cuda and dwt_cuda.usable(
+            h, w, u0, v0, kind, inverse=True)):
+        return _INVERSE_KERNEL[kind](bands, edges, rank, u0, v0)
     if ll.is_cuda:
         dwt_cuda.count_plain_level()
-    if not halo:
-        return dwt.inverse_2d(bands, kind, u0=u0, v0=v0)
-    return dwt.inverse_2d_halo(bands, kind, above, below)
+    return dwt.inverse_2d(bands, kind, u0=u0, v0=v0)
 
 
 def _decompose(x: torch.Tensor, levels: int, kind: str, u0: int, v0: int

@@ -24,7 +24,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 # library name -> source file under csrc/
-SOURCES = {"dwt53": "dwt53.cu", "dwt97": "dwt97.cu", "ht_enc": "ht_enc.cu",
+SOURCES = {"dwt53": "dwt53.cu", "dwt97": "dwt97.cu",
+           "dwt_edges": "dwt_edges.cu", "ht_enc": "ht_enc.cu",
            "ht_dec": "ht_dec.cu", "ebcot_enc": "ebcot_enc.cu",
            "band_stats": "band_stats.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,7 +48,8 @@ def nvcc() -> str:
 
 def so_path(name: str) -> str:
     h = hashlib.sha256()
-    # the source and every header of csrc/ (row_copy.cuh is shared)
+    # the source and every header of csrc/ (row_copy.cuh and dwt_edges.cuh
+    # are shared)
     for path in [os.path.join(CSRC, SOURCES[name])] + sorted(
             os.path.join(CSRC, f) for f in os.listdir(CSRC)
             if f.endswith(".cuh")):

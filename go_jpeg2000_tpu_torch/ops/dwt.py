@@ -5,10 +5,9 @@ irreversible (float32) 9/7 lifting DWT, 2-D and multi-level, for any
 subband coordinate parity (tile origins need not be even), with
 whole-sample symmetric extension.  It runs on the tensor's own device and
 is the plain version of the hand-written CUDA level kernels in
-ops/dwt_cuda.py (csrc/dwt53.cu, csrc/dwt97.cu): the CPU path, the oracle
-the kernels are held to on the card, and the route for the levels the
-kernels do not take (a row shard's level with halo rows at an odd origin
-or size, which no caller makes).
+ops/dwt_cuda.py (csrc/dwt53.cu, csrc/dwt97.cu): the CPU path and the
+oracle the kernels are held to on the card (they take every level,
+a row shard's level at an even origin and height, any width).
 
   5/3:  H[2n+1] -= floor((X[2n] + X[2n+2]) / 2)
         L[2n]   += floor((H[2n-1] + H[2n+1] + 2) / 4)
@@ -195,17 +194,26 @@ def inverse_2d(bands: Dict[str, torch.Tensor], kind: str = REV53,
 # (_odd_update_sharded, _even_update_sharded, _vlift53_sharded,
 # _vlift97_sharded and their inverses, dwt_level_sharded,
 # idwt_level_sharded).  The JAX package exchanges one boundary row per
-# lifting step; here a level takes, once, the rows of the globally extended
-# signal that its vertical lifting reads beyond the shard (`above` and
-# `below`, built by parallel/sharded.py from every shard's edge rows), so a
-# shard of any even height lifts exactly as the whole signal does.  These
-# are the plain versions of the level kernels' halo inputs (csrc/dwt53.cu,
-# csrc/dwt97.cu).
+# lifting step; here each of the sp row shards of a signal packs its edge
+# rows once a level (pack_edges: its first and last EDGE_ROWS rows, or all
+# of them), every shard gets them all as one tensor `edges` [sp, N, E, W]
+# (parallel/sharded.py), and a shard reads each row of the globally
+# extended signal that its vertical lifting reaches beyond its own rows
+# from there, or from itself where the reflection at a global edge leads
+# back into it (halo_source).  So a shard of any even height lifts
+# exactly as the whole signal does.  These are the plain versions of the
+# level kernels' halo form (csrc/dwt53.cu, csrc/dwt97.cu) and of the edge
+# packing kernel (csrc/dwt_edges.cu), with the same contract.
 
 # rows of the signal that one level's vertical lifting reads (above, below)
 # a shard whose first row has an even global index, forward and inverse
 HALO_DEPTH = {(REV53, False): (2, 1), (IRR97, False): (4, 3),
               (REV53, True): (1, 2), (IRR97, True): (3, 4)}
+# rows at each end of a row shard that its edge slot carries: the
+# lifting's farthest reach beyond a shard (HALO_DEPTH), so every row that
+# another shard reads is among them; a shard of at most 2 * EDGE_ROWS rows
+# sends all of them
+EDGE_ROWS = max(max(d) for d in HALO_DEPTH.values())
 
 
 def reflect(i: int, n: int) -> int:
@@ -216,20 +224,42 @@ def reflect(i: int, n: int) -> int:
     return i
 
 
-def _extend_rows(x: torch.Tensor, above, below, depth: Tuple[int, int]
-                 ) -> torch.Tensor:
-    """[..., a + h + b, W]: x [..., h, W] between its halo rows; a missing
-    halo (a global edge) reflects on x itself."""
-    a, b = depth
-    h = x.shape[-2]
+def edge_count(h: int) -> int:
+    """Rows E of the edge slot of a shard of h rows (interleaved rows for
+    an inverse level)."""
+    return min(h, 2 * EDGE_ROWS)
 
-    def own(rows):
-        idx = torch.tensor([reflect(g, h) for g in rows], device=x.device)
-        return x.index_select(x.ndim - 2, idx)
 
-    above = own(range(-a, 0)) if above is None else above
-    below = own(range(h, h + b)) if below is None else below
-    return torch.cat([above, x, below], dim=-2)
+def halo_source(g: int, h: int, sp: int, rank: int) -> Tuple[int, int]:
+    """Row g (-4 <= g < h + 4, relative to the first row) of row shard
+    `rank` of sp shards of h rows, in the globally extended signal: (s, i)
+    with the global row reflected over the sp * h rows (whole-sample
+    symmetric extension) and split into its shard s and row i there.  For
+    s != rank, row i is at index edge_index(i, h) of edges[s]; for s ==
+    rank it is the shard's own row i."""
+    return divmod(reflect(rank * h + g, sp * h), h)
+
+
+def edge_index(i: int, h: int) -> int:
+    """Row i of a shard of h rows in its edge slot (the first EDGE_ROWS
+    rows, then the last EDGE_ROWS); AssertionError for a row the slot does
+    not carry."""
+    e = edge_count(h)
+    if i < e // 2:
+        return i
+    if i < h - e // 2:
+        raise AssertionError(f"row {i} of a shard of {h} rows is not an "
+                             "edge row")
+    return i - (h - e)
+
+
+def shard_edges(rows: torch.Tensor) -> torch.Tensor:
+    """The edge slot of a forward level's row shard rows [N, h, W]: its
+    first and last EDGE_ROWS rows [N, E, W], or all of them when it has no
+    more than twice that."""
+    if rows.shape[-2] <= 2 * EDGE_ROWS:
+        return rows
+    return torch.cat([rows[:, :EDGE_ROWS], rows[:, -EDGE_ROWS:]], dim=1)
 
 
 def pair_rows(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -242,18 +272,65 @@ def pair_rows(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
     return rows.reshape(rows.shape[:-3] + (-1, rows.shape[-1]))
 
 
-def forward_2d_halo(a: torch.Tensor, kind: str = REV53, above=None,
-                    below=None) -> Dict[str, torch.Tensor]:
-    """One 2-D level of a row shard a [..., h, W] (first row at an even
-    global index, h even, even column origin) whose vertical neighbours are
-    `above` [..., 2 or 4, W] and `below` [..., 1 or 3, W], rows of the
-    globally extended input (HALO_DEPTH); None at a global edge, where the
-    shard reflects on itself.  Without halos this is forward_2d."""
-    if above is None and below is None:
+def pair_edges(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The edge slot of an inverse level's row shard, from its bands' first
+    and last EDGE_ROWS / 2 rows only: shard_edges of its interleaved rows
+    in pair_rows' layout."""
+    if bands["LL"].shape[-2] <= EDGE_ROWS:
+        return pair_rows(bands)
+    k = EDGE_ROWS // 2
+    return torch.cat([pair_rows({b: v[:, :k] for b, v in bands.items()}),
+                      pair_rows({b: v[:, -k:] for b, v in bands.items()})],
+                     dim=1)
+
+
+def pack_edges(src, out=None) -> torch.Tensor:
+    """A row shard's edge slot [N, E, W]: shard_edges of a forward level's
+    rows (a tensor), pair_edges of an inverse level's bands (a dict);
+    written into `out` (a slot of edges) when it is given."""
+    got = pair_edges(src) if isinstance(src, dict) else shard_edges(src)
+    if out is None:
+        return got
+    return out.copy_(got)
+
+
+def halos_from_edges(edges: torch.Tensor, own: torch.Tensor, rank: int,
+                     depth: Tuple[int, int]):
+    """(above, below) [N, a, W] and [N, b, W] for depth = (a, b): the rows
+    of the globally extended signal just outside row shard `rank`, whose
+    own rows are `own` [N, h, W] (pair_rows' layout for an inverse level),
+    read from every shard's edge slot, edges [sp, N, E, W], or from the
+    shard itself (halo_source)."""
+    a, b = depth
+    h = own.shape[-2]
+    sp = edges.shape[0]
+    if edges.shape[-2] != edge_count(h):
+        raise ValueError(f"edge slots of {edges.shape[-2]} rows, expected "
+                         f"{edge_count(h)} for shards of {h} rows")
+
+    def rows(gs):
+        out = []
+        for g in gs:
+            s, i = halo_source(g, h, sp, rank)
+            out.append(own[:, i] if s == rank
+                       else edges[s][:, edge_index(i, h)])
+        return torch.stack(out, dim=1)
+
+    return rows(range(-a, 0)), rows(range(h, h + b))
+
+
+def forward_2d_halo(a: torch.Tensor, kind: str = REV53, edges=None,
+                    rank: int = 0) -> Dict[str, torch.Tensor]:
+    """One 2-D level of row shard `rank` a [N, h, W] (first row at an even
+    global index, h even, any W) of sp = edges.shape[0] shards of one
+    signal; edges [sp, N, E, W] holds every shard's pack_edges.  Without
+    edges this is forward_2d."""
+    if edges is None:
         return forward_2d(a, kind)
     depth = HALO_DEPTH[(kind, False)]
     fwd = _FORWARD_1D[kind]
-    ext = _extend_rows(a, above, below, depth)
+    above, below = halos_from_edges(edges, a, rank, depth)
+    ext = torch.cat([above, a, below], dim=-2)
     ext = fwd(ext, ext.ndim - 2, depth[0] & 1)          # vertical
     a = ext.narrow(ext.ndim - 2, depth[0], a.shape[-2])
     a = fwd(a, a.ndim - 1, 0)                           # horizontal
@@ -264,23 +341,23 @@ def forward_2d_halo(a: torch.Tensor, kind: str = REV53, above=None,
 
 
 def inverse_2d_halo(bands: Dict[str, torch.Tensor], kind: str = REV53,
-                    above=None, below=None) -> torch.Tensor:
-    """Inverse of forward_2d_halo: the bands of a row shard -> its rows
-    [..., h, W].  `above` [..., 1 or 3, W] and `below` [..., 2 or 4, W] are
-    interleaved rows of the globally extended input in pair_rows' layout;
-    None at a global edge.  Without halos this is inverse_2d."""
-    if above is None and below is None:
+                    edges=None, rank: int = 0) -> torch.Tensor:
+    """Inverse of forward_2d_halo: the bands of row shard `rank` -> its
+    rows [N, h, W]; edges [sp, N, E, W] holds every shard's pack_edges of
+    its bands (interleaved rows in pair_rows' layout).  Without edges this
+    is inverse_2d."""
+    if edges is None:
         return inverse_2d(bands, kind)
     depth = HALO_DEPTH[(kind, True)]
     inv = _INVERSE_1D[kind]
     rows = pair_rows(bands)
-    ext = _extend_rows(rows, above, below, depth)
+    above, below = halos_from_edges(edges, rows, rank, depth)
+    ext = torch.cat([above, rows, below], dim=-2)
     wl = bands["LL"].shape[-1]
     ext = _interleave(ext[..., :wl], ext[..., wl:], ext.ndim - 1, 0)
     ext = inv(ext, ext.ndim - 1, 0)                     # horizontal first
     ext = inv(ext, ext.ndim - 2, depth[0] & 1)          # then vertical
     return ext.narrow(ext.ndim - 2, depth[0], rows.shape[-2])
-
 
 # ------------------------------------------------------------- multi-level
 

@@ -11,12 +11,16 @@ Each takes a level at any origin (u0, v0) and of any size: the kernels
 work in a pair frame anchored at even global coordinates, so the origin's
 parity only moves the level's first column and row within it, and band
 sizes are those of dwt.subband_shapes (an empty level launches nothing).
-Each also takes the halo rows of a row shard (`above`, `below`: the rows
-of the globally extended signal just outside it, built by
-parallel/sharded.py), the form that stands for the JAX package's row-shard
-lifting (go_jpeg2000_tpu/parallel/sharded.py, _vlift53_sharded,
-_vlift97_sharded and their inverses), at an even origin and even sizes
-only: parallel/sharded.py calls at origin 0.
+Each also takes a row shard (`edges`, `rank`: shard `rank` of sp =
+edges.shape[0] shards of one signal, edges [sp, N, E, W] every shard's
+edge slot), the form that stands for the JAX package's row-shard lifting
+(go_jpeg2000_tpu/parallel/sharded.py, _vlift53_sharded, _vlift97_sharded
+and their inverses), at an even origin and an even height, any width:
+parallel/sharded.py calls at origin 0.  The kernels read the rows beyond
+the shard from `edges` themselves (csrc/dwt_edges.cuh).  pack_edges fills
+a shard's slot, one launch (csrc/dwt_edges.cu, dwt_pack_edges; it stands
+for the send side of the JAX package's ppermute exchanges,
+_odd_update_sharded and _even_update_sharded).
 
 A CPU tensor goes to the plain torch lifting in ops/dwt.py.  A CUDA tensor
 goes to the kernel, or the call raises: there is no fallback, and a failed
@@ -50,10 +54,13 @@ STRIP_ROWS = {(dwt.REV53, False): 32, (dwt.REV53, True): 32,
 HALO_ROWS = {dwt.REV53: 3, dwt.IRR97: 7}
 
 LAUNCHES: Dict[str, int] = {"dwt53_fwd_level": 0, "dwt53_inv_level": 0,
-                            "dwt97_fwd_level": 0, "dwt97_inv_level": 0}
+                            "dwt97_fwd_level": 0, "dwt97_inv_level": 0,
+                            "dwt_pack_edges": 0}
 PLAIN_LEVELS = 0
 
 BUILD_DIR = cuda_build.BUILD_DIR
+# the edge packing kernel's library (csrc/dwt_edges.cu)
+_EDGES_LIB = "dwt_edges"
 NVCC_FLAGS = cuda_build.NVCC_FLAGS
 # library name -> (source, kind, sample dtype)
 _LIBS = {"dwt53": ("dwt53.cu", dwt.REV53, torch.int32),
@@ -78,17 +85,18 @@ def count_plain_level() -> None:
 
 def usable(h: int, w: int, u0: int, v0: int, kind: str = dwt.REV53,
            inverse: bool = False, halo: bool = False) -> bool:
-    """Kernel eligibility for one level.  Without halo rows every level
+    """Kernel eligibility for one level.  Outside a row shard every level
     takes the kernels: any origin parity, any size (a 1-sample axis takes
     Annex F's rule, an empty one launches nothing).  A level of a row shard
-    (`halo`: rows above or below, parallel/sharded.py, which calls only at
-    origin 0) keeps the even rule: even origin and even sizes of at least
-    2; other halo levels take the plain halo lifting.  `kind` and `inverse`
-    name the kernel and are kept for the callers."""
+    (`halo`: edges given, parallel/sharded.py, which calls only at origin
+    0) takes them at an even origin and an even height of at least 2, any
+    width: the geometry the halo form is defined for, the plain one
+    (dwt.forward_2d_halo) too, and which parallel/sharded.py's grid gate
+    gives every level.  `kind` and `inverse` name the kernel and are kept
+    for the callers."""
     if not halo:
         return True
-    return not ((u0 & 1) or (v0 & 1) or (h & 1) or (w & 1) or h < 2
-                or w < 2)
+    return not ((u0 & 1) or (v0 & 1) or (h & 1) or h < 2)
 
 
 def build() -> Dict[str, str]:
@@ -96,7 +104,7 @@ def build() -> Dict[str, str]:
     one nvcc per source, all started together); returns {library name:
     path} for the DWT libraries."""
     paths = cuda_build.build()
-    return {name: paths[name] for name in _LIBS}
+    return {name: paths[name] for name in tuple(_LIBS) + (_EDGES_LIB,)}
 
 
 def load() -> Dict[str, ctypes.CDLL]:
@@ -122,10 +130,22 @@ def load() -> Dict[str, ctypes.CDLL]:
                                    f"ops/dwt_cuda.py disagree on STRIP/HALO")
             p = ctypes.c_void_p
             i = ctypes.c_int
+            getattr(lib, f"{name}_fwd_level").argtypes = (
+                [p, p] + [i] * 3 + [p] * 4 + [i] * 5 + [p])
+            getattr(lib, f"{name}_inv_level").argtypes = (
+                [p] * 5 + [i] * 3 + [p] + [i] * 5 + [p])
             for fn in (f"{name}_fwd_level", f"{name}_inv_level"):
                 getattr(lib, fn).restype = ctypes.c_int
-                getattr(lib, fn).argtypes = [p] * 7 + [i] * 5 + [p]
             libs[name] = lib
+        lib = cuda_build.load(_EDGES_LIB)
+        if lib.dwt_edge_rows() != dwt.EDGE_ROWS:
+            raise RuntimeError("csrc/dwt_edges.cuh and ops/dwt.py disagree "
+                               "on EDGE_ROWS")
+        lib.dwt_pack_edges.restype = ctypes.c_int
+        lib.dwt_pack_edges.argtypes = ([ctypes.c_void_p] * 5
+                                       + [ctypes.c_int] * 5
+                                       + [ctypes.c_void_p])
+        libs[_EDGES_LIB] = lib
         _libs.update(libs)
         return _libs
 
@@ -148,120 +168,172 @@ def _launch(lib_name: str, name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _halo_ptr(t, name: str, dtype: torch.dtype, shape, device) -> int:
-    """The device pointer of a halo input (None: a global edge, NULL)."""
-    if t is None:
-        return None
-    _check_cuda(t, name, dtype)
-    if tuple(t.shape) != shape or t.device != device:
-        raise ValueError(f"{name}: halo {tuple(t.shape)} on {t.device}, "
-                         f"expected {shape} on {device}")
-    return t.data_ptr()
+def _check_halo(name: str, h: int, w: int, u0: int, v0: int) -> None:
+    """A row shard's level needs the geometry the halo form is defined for
+    (usable), on the card and on the CPU alike."""
+    if not usable(h, w, u0, v0, halo=True):
+        raise ValueError(f"{name}: halo rows need an even origin and an "
+                         f"even height of at least 2, got {(h, w)} at "
+                         f"{(u0, v0)}")
 
 
-def _halo_level(name: str, above, below, h: int, w: int, u0: int,
-                v0: int) -> None:
-    """A level with halo rows must have the even geometry its kernels take
-    in that form (usable)."""
-    if (above is not None or below is not None) and not usable(
-            h, w, u0, v0, halo=True):
-        raise ValueError(f"{name}: halo rows need an even origin and even "
-                         f"sizes of at least 2, got {(h, w)} at {(u0, v0)}")
+def _edges_args(edges, rank, name: str, dtype: torch.dtype, n: int, h: int,
+                w: int, device):
+    """(pointer, sp, rank, E) of a row shard's edges for a level kernel
+    (NULL, 1, 0, 0 outside a row shard): one slot of dwt.edge_count(h) rows
+    per shard, and 0 <= rank < sp."""
+    if edges is None:
+        return None, 1, 0, 0
+    e = dwt.edge_count(h)
+    if (edges.device.type != "cuda" or edges.dtype != dtype
+            or not edges.is_contiguous() or edges.dim() != 4
+            or tuple(edges.shape[1:]) != (n, e, w) or edges.device != device
+            or not 0 <= rank < edges.shape[0]):
+        raise ValueError(f"{name}: edges {edges.dtype} "
+                         f"{tuple(edges.shape)} on {edges.device} for shard "
+                         f"{rank}, expected a contiguous {dtype} [sp, {n}, "
+                         f"{e}, {w}] on {device}")
+    return edges.data_ptr(), edges.shape[0], rank, e
 
 
-def _forward(x: torch.Tensor, kind: str, above=None, below=None, u0: int = 0,
-             v0: int = 0) -> Dict[str, torch.Tensor]:
+def _forward(x: torch.Tensor, kind: str, edges=None, rank: int = 0,
+             u0: int = 0, v0: int = 0) -> Dict[str, torch.Tensor]:
     lib = _LIB_OF_KIND[kind]
     name = f"{lib}_fwd_level"
     h, w = x.shape[-2:]
+    if edges is not None:
+        _check_halo(name, h, w, u0, v0)
     if x.device.type == "cpu":
-        if above is None and below is None:
+        if edges is None:
             return dwt.forward_2d(x, kind, u0=u0, v0=v0)
-        return dwt.forward_2d_halo(x, kind, above, below)
-    _halo_level(name, above, below, h, w, u0, v0)
+        return dwt.forward_2d_halo(x, kind, edges, rank)
     dtype = _LIBS[lib][2]
-    _check_cuda(x, name, dtype)
     n = x.shape[0]
-    a, b = dwt.HALO_DEPTH[(kind, False)]
-    halos = (_halo_ptr(above, name, dtype, (n, a, w), x.device),
-             _halo_ptr(below, name, dtype, (n, b, w), x.device))
+    shard = _edges_args(edges, rank, name, dtype, n, h, w, x.device)
+    _check_cuda(x, name, dtype)
     shapes = dwt.subband_shapes(h, w, 1, u0, v0)[0]
     bands = {k: torch.empty((n,) + shapes[k], dtype=x.dtype, device=x.device)
              for k in ("LL", "HL", "LH", "HH")}
     if n and h and w:
-        _launch(lib, name, x.device, x.data_ptr(), *halos,
+        _launch(lib, name, x.device, x.data_ptr(), *shard,
                 bands["LL"].data_ptr(), bands["HL"].data_ptr(),
                 bands["LH"].data_ptr(), bands["HH"].data_ptr(), n, h, w,
                 u0 & 1, v0 & 1)
     return bands
 
 
-def _inverse(bands: Dict[str, torch.Tensor], kind: str, above=None,
-             below=None, u0: int = 0, v0: int = 0) -> torch.Tensor:
+def _inverse(bands: Dict[str, torch.Tensor], kind: str, edges=None,
+             rank: int = 0, u0: int = 0, v0: int = 0) -> torch.Tensor:
     lib = _LIB_OF_KIND[kind]
     name = f"{lib}_inv_level"
     ll = bands["LL"]
     h = ll.shape[-2] + bands["LH"].shape[-2]
     w = ll.shape[-1] + bands["HL"].shape[-1]
+    if edges is not None:
+        _check_halo(name, h, w, u0, v0)
     if ll.device.type == "cpu":
-        if above is None and below is None:
+        if edges is None:
             return dwt.inverse_2d(bands, kind, u0=u0, v0=v0)
-        return dwt.inverse_2d_halo(bands, kind, above, below)
-    _halo_level(name, above, below, h, w, u0, v0)
+        return dwt.inverse_2d_halo(bands, kind, edges, rank)
     dtype = _LIBS[lib][2]
     n = ll.shape[0]
-    shapes = dwt.subband_shapes(h, w, 1, u0, v0)[0]
-    for k in ("LL", "HL", "LH", "HH"):
-        _check_cuda(bands[k], name, dtype)
-        if (tuple(bands[k].shape) != (n,) + shapes[k]
-                or bands[k].device != ll.device):
-            raise ValueError(f"{name}: band {k} {tuple(bands[k].shape)} on "
-                             f"{bands[k].device} is not one of a level of "
-                             f"{(n, h, w)} at origin parity "
-                             f"{(u0 & 1, v0 & 1)} on {ll.device}")
-    a, b = dwt.HALO_DEPTH[(kind, True)]
-    halos = (_halo_ptr(above, name, dtype, (n, a, w), ll.device),
-             _halo_ptr(below, name, dtype, (n, b, w), ll.device))
+    shard = _edges_args(edges, rank, name, dtype, n, h, w, ll.device)
+    _check_bands(bands, name, dtype, n, h, w, u0, v0)
     out = torch.empty((n, h, w), dtype=ll.dtype, device=ll.device)
     if n and h and w:
         _launch(lib, name, ll.device, ll.data_ptr(),
                 bands["HL"].data_ptr(), bands["LH"].data_ptr(),
-                bands["HH"].data_ptr(), *halos, out.data_ptr(), n, h, w,
+                bands["HH"].data_ptr(), *shard, out.data_ptr(), n, h, w,
                 u0 & 1, v0 & 1)
     return out
 
 
-def forward_2d_53(x: torch.Tensor, above=None, below=None, u0: int = 0,
+def _check_bands(bands, name: str, dtype: torch.dtype, n: int, h: int,
+                 w: int, u0: int, v0: int) -> None:
+    """The four bands of a level of [n, h, w] at origin (u0, v0): CUDA
+    tensors of `dtype` at dwt.subband_shapes' sizes on one device."""
+    shapes = dwt.subband_shapes(h, w, 1, u0, v0)[0]
+    dev = bands["LL"].device
+    for k in ("LL", "HL", "LH", "HH"):
+        _check_cuda(bands[k], name, dtype)
+        if tuple(bands[k].shape) != (n,) + shapes[k] or bands[k].device != dev:
+            raise ValueError(f"{name}: band {k} {tuple(bands[k].shape)} on "
+                             f"{bands[k].device} is not one of a level of "
+                             f"{(n, h, w)} at origin parity "
+                             f"{(u0 & 1, v0 & 1)} on {dev}")
+
+
+def pack_edges(src, out=None) -> torch.Tensor:
+    """A row shard's edge slot [N, E, W] (dwt.pack_edges): a forward level's
+    rows [N, h, W] (a tensor) -> their first and last dwt.EDGE_ROWS rows,
+    or all when h <= 2 * EDGE_ROWS; an inverse level's bands {LL, HL, LH,
+    HH} (a dict; LL and LH ceil(W/2) wide, HL and HH floor(W/2)) -> the
+    same rows of the interleaved level in dwt.pair_rows' layout.  h even,
+    W any.  Written into `out` (a slot of an [sp, N, E, W]
+    tensor) when given.  One launch of dwt_pack_edges on the card; the
+    plain version on the CPU."""
+    pairs = isinstance(src, dict)
+    first = src["LL"] if pairs else src
+    if first.device.type == "cpu":
+        return dwt.pack_edges(src, out)
+    name = "dwt_pack_edges"
+    if pairs:
+        n, h2, _ = first.shape
+        h, w = 2 * h2, first.shape[-1] + src["HL"].shape[-1]
+        _check_bands(src, name, first.dtype, n, h, w, 0, 0)
+        ptrs = [src[k].data_ptr() for k in ("LL", "HL", "LH", "HH")]
+    else:
+        _check_cuda(first, name, first.dtype)
+        n, h, w = first.shape
+        ptrs = [first.data_ptr(), None, None, None]
+    if first.element_size() != 4 or not usable(h, w, 0, 0, halo=True):
+        raise ValueError(f"{name}: a halo level of 4-byte samples and an "
+                         f"even height of at least 2, got {first.dtype} "
+                         f"{(h, w)}")
+    e = dwt.edge_count(h)
+    if out is None:
+        out = torch.empty((n, e, w), dtype=first.dtype, device=first.device)
+    elif (tuple(out.shape) != (n, e, w) or out.dtype != first.dtype
+          or out.device != first.device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}, expected a contiguous "
+                         f"{first.dtype} {(n, e, w)} on {first.device}")
+    if n:
+        _launch(_EDGES_LIB, name, first.device, *ptrs, out.data_ptr(), n, h,
+                w, e, int(pairs))
+    return out
+
+
+def forward_2d_53(x: torch.Tensor, edges=None, rank: int = 0, u0: int = 0,
                   v0: int = 0) -> Dict[str, torch.Tensor]:
     """One 2-D forward 5/3 level of x [N, H, W] int32 at origin (u0, v0).
     Returns {LL, HL, LH, HH} at the sizes of dwt.subband_shapes (each
-    [N, H/2, W/2] at an even origin and size).  For a row shard (even
-    origin and sizes), `above` [N, 2, W] and `below` [N, 1, W] are its halo
-    rows (dwt.forward_2d_halo); None at a global edge."""
-    return _forward(x, dwt.REV53, above, below, u0, v0)
+    [N, H/2, W/2] at an even origin and size).  For row shard `rank` of a
+    signal (even origin and height), `edges` [sp, N, E, W] holds every
+    shard's pack_edges (dwt.forward_2d_halo)."""
+    return _forward(x, dwt.REV53, edges, rank, u0, v0)
 
 
-def inverse_2d_53(bands: Dict[str, torch.Tensor], above=None, below=None,
+def inverse_2d_53(bands: Dict[str, torch.Tensor], edges=None, rank: int = 0,
                   u0: int = 0, v0: int = 0) -> torch.Tensor:
     """One 2-D inverse 5/3 level at origin (u0, v0): {LL, HL, LH, HH} int32
-    at the sizes of dwt.subband_shapes -> [N, H, W].  For a row shard,
-    `above` [N, 1, W] and `below` [N, 2, W] are its halo rows in
-    dwt.pair_rows' layout."""
-    return _inverse(bands, dwt.REV53, above, below, u0, v0)
+    at the sizes of dwt.subband_shapes -> [N, H, W].  For row shard `rank`,
+    `edges` [sp, N, E, W] holds every shard's pack_edges of its bands
+    (dwt.inverse_2d_halo)."""
+    return _inverse(bands, dwt.REV53, edges, rank, u0, v0)
 
 
-def forward_2d_97(x: torch.Tensor, above=None, below=None, u0: int = 0,
+def forward_2d_97(x: torch.Tensor, edges=None, rank: int = 0, u0: int = 0,
                   v0: int = 0) -> Dict[str, torch.Tensor]:
     """One 2-D forward 9/7 level of x [N, H, W] float32 at origin (u0, v0).
-    Returns {LL, HL, LH, HH} at the sizes of dwt.subband_shapes.  For a row
-    shard, `above` [N, 4, W] and `below` [N, 3, W] are its halo rows."""
-    return _forward(x, dwt.IRR97, above, below, u0, v0)
+    Returns {LL, HL, LH, HH} at the sizes of dwt.subband_shapes.  For row
+    shard `rank`, `edges` as forward_2d_53's."""
+    return _forward(x, dwt.IRR97, edges, rank, u0, v0)
 
 
-def inverse_2d_97(bands: Dict[str, torch.Tensor], above=None, below=None,
+def inverse_2d_97(bands: Dict[str, torch.Tensor], edges=None, rank: int = 0,
                   u0: int = 0, v0: int = 0) -> torch.Tensor:
     """One 2-D inverse 9/7 level at origin (u0, v0): {LL, HL, LH, HH}
-    float32 at the sizes of dwt.subband_shapes -> [N, H, W].  For a row
-    shard, `above` [N, 3, W] and `below` [N, 4, W] are its halo rows in
-    dwt.pair_rows' layout."""
-    return _inverse(bands, dwt.IRR97, above, below, u0, v0)
+    float32 at the sizes of dwt.subband_shapes -> [N, H, W].  For row shard
+    `rank`, `edges` as inverse_2d_53's."""
+    return _inverse(bands, dwt.IRR97, edges, rank, u0, v0)

@@ -10,7 +10,7 @@ collective runs.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Optional
 
 import torch.distributed as dist
 
@@ -24,7 +24,6 @@ class Grid:
     group: object = None           # every rank of the grid (None: one process)
     dp_group: object = None        # this rank's sp column across the dp shards
     sp_group: object = None        # the sp ranks of this rank's dp shard
-    sp_peers: List[int] = dataclasses.field(default_factory=lambda: [0])
 
     @property
     def size(self) -> int:
@@ -58,7 +57,7 @@ def make_grid(group=None, dp: Optional[int] = None,
         peers = ranks[d * sp:(d + 1) * sp]
         g = dist.new_group(peers)
         if d == grid.dp_rank:
-            grid.sp_group, grid.sp_peers = g, peers
+            grid.sp_group = g
     for s in range(sp):
         g = dist.new_group(ranks[s::sp])
         if s == grid.sp_rank:

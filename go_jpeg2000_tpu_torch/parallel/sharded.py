@@ -7,8 +7,9 @@ One rank runs, on its device:
 
 - the transform step (`tile_transform_step`, for make_tile_transform_step):
   DC shift, RCT or ICT, the multi-level DWT of its row shards through the
-  level kernels (csrc/dwt53.cu, dwt97.cu), whose halo inputs take the rows
-  that the vertical lifting reads beyond the shard, and the band statistics
+  level kernels (csrc/dwt53.cu, dwt97.cu), which read the rows that the
+  vertical lifting reaches beyond the shard from every shard's edge rows
+  (`edges`), and the band statistics
   (ops/band_stats.py, csrc/band_stats.cu), summed over the grid;
 - the device HT entropy (`_device_ht_entropy`, for _shard_fields_fn): per
   tile-origin class, the class's tiles gathered from the leaves, then the
@@ -25,18 +26,21 @@ One rank runs, on its device:
   decode kernels of csrc/ht_dec.cu (with the midpoint dequantization of 9/7
   streams) scattered into one leaf per band, and the inverse step
   (`tile_inverse_step`, for make_tile_inverse_step): the inverse level
-  kernels with halos, then inverse RCT or ICT, rounding, DC shift and
-  clamp.
+  kernels on the shards' edges, then inverse RCT or ICT, rounding, DC
+  shift and clamp.
 
 The halo exchange differs from the JAX package's, which sends one boundary
 row per lifting step with ppermute (two exchanges a 5/3 level, four a 9/7
-level).  Here each level exchanges once: every sp rank receives the first
-and last EDGE_ROWS rows of every other shard (dist.batch_isend_irecv, NCCL
-for CUDA tensors, gloo for CPU tensors) and builds the rows of the globally
-extended signal just outside its own shard, so a shard of 2 rows, shorter
-than the 9/7 lifting's reach of 4 rows, still lifts exactly as the whole
-tile.  Codestreams are byte-identical to the single-process encode (and,
-lossless, to the JAX package's encoder.encode) whatever the grid.
+level).  Here each level exchanges once: every sp rank packs its edge slot
+(its first and last dwt.EDGE_ROWS rows, one launch of the packing kernel,
+csrc/dwt_edges.cu) and gathers every rank's into one tensor, edges [sp, N,
+E, W] (`gather`: all_gather_into_tensor on NCCL; on gloo through the host
+and one upload), and the level kernel reads the rows of the globally
+extended signal just outside its shard from there itself, so a shard of 2
+rows, shorter than the 9/7 lifting's reach of 4 rows, still lifts exactly
+as the whole tile.  Codestreams are byte-identical to the single-process
+encode (and, lossless, to the JAX package's encoder.encode) whatever the
+grid.
 
 Streams that the device HT decode does not take (layered, Part-1,
 SOP/EPH/PPM/PPT, HT refinement passes, absent tiles) decode per tile on
@@ -59,18 +63,12 @@ from ..models import encoder as enc
 from ..models import fused_encode, transforms
 from ..models import rate as rate_mod
 from ..native import loader
-from ..ops import band_stats, dwt, ht_dec_cuda, quant
+from ..ops import band_stats, dwt, dwt_cuda, ht_dec_cuda, quant
 from ..options import Config, default_options
 from ..tcd import geometry as geo
 from ..utils import markers as mk
 from ..utils.metrics import counters
 from .mesh import Grid, make_grid
-
-# rows at each end of a row shard that the halo exchange carries: more than
-# any level's reach beyond the shard (dwt.HALO_DEPTH, at most 4), so the
-# reflected rows at the global edges are among them too
-EDGE_ROWS = 8
-
 
 
 # ------------------------------------------------------------ collectives
@@ -81,62 +79,21 @@ def _comm_device(group) -> torch.device:
                         else "cpu")
 
 
-def exchange(t: torch.Tensor, grid: Grid) -> List[torch.Tensor]:
-    """Every sp rank's `t` (equal shapes), in sp order, by point-to-point
-    sends and receives over the sp group."""
+def gather(t: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Every sp rank's `t` (equal shapes) stacked in sp order, [sp, *shape],
+    on t's device: one all_gather_into_tensor on NCCL; on gloo, gathered on
+    the host, then one upload."""
+    shape = (grid.sp,) + tuple(t.shape)
+    t = t.contiguous()
     if grid.sp == 1:
-        return [t]
-    dev = _comm_device(grid.sp_group)
-    src = t.contiguous().to(dev)
-    out = []
-    ops = []
-    for i, peer in enumerate(grid.sp_peers):
-        if i == grid.sp_rank:
-            out.append(src)
-            continue
-        buf = torch.empty_like(src)
-        out.append(buf)
-        ops.append(dist.P2POp(dist.isend, src, peer, group=grid.sp_group))
-        ops.append(dist.P2POp(dist.irecv, buf, peer, group=grid.sp_group))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return [o.to(t.device) for o in out]
-
-
-def shard_edges(rows: torch.Tensor) -> torch.Tensor:
-    """What one shard of rows [N, h, W] sends: its first and last EDGE_ROWS
-    rows, or all of them when it has no more than twice that."""
-    if rows.shape[-2] <= 2 * EDGE_ROWS:
-        return rows
-    return torch.cat([rows[:, :EDGE_ROWS], rows[:, -EDGE_ROWS:]], dim=1)
-
-
-def halos_from_edges(edges: Sequence[torch.Tensor], rank: int, h: int,
-                     depth: Tuple[int, int]):
-    """(above, below) of row shard `rank` of h rows: the `depth` rows of the
-    globally extended signal (whole-sample symmetric extension at the top
-    and bottom of the sp shards together) just outside it, gathered from
-    every shard's edges (shard_edges).  None at a global edge where the
-    shard's own reflection reaches no farther than itself."""
-    a, b = depth
-    total = len(edges) * h
-
-    def rows(gs):
-        out = []
-        for g in gs:
-            s, i = divmod(dwt.reflect(g, total), h)
-            if h > 2 * EDGE_ROWS and i >= EDGE_ROWS:
-                i -= h - 2 * EDGE_ROWS
-                if i < EDGE_ROWS:
-                    raise AssertionError("a halo row beyond the edge rows")
-            out.append(edges[s][:, i])
-        return torch.stack(out, dim=1).contiguous()
-
-    r0 = rank * h
-    above = None if rank == 0 and a < h else rows(range(r0 - a, r0))
-    below = (None if rank == len(edges) - 1 and b < h
-             else rows(range(r0 + h, r0 + h + b)))
-    return above, below
+        return t.reshape(shape)
+    if _comm_device(grid.sp_group).type == "cuda":
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t, group=grid.sp_group)
+        return out
+    host = torch.empty(shape, dtype=t.dtype)
+    dist.all_gather(list(host.unbind(0)), t.cpu(), group=grid.sp_group)
+    return host.to(t.device)
 
 
 class GroupComm:
@@ -174,19 +131,26 @@ def _flat(t: torch.Tensor) -> torch.Tensor:
     return t.reshape((-1,) + tuple(t.shape[-2:])).contiguous()
 
 
-def _halos(edge_rows: torch.Tensor, h: int, depth, grid: Optional[Grid]):
+def level_edges(src, grid: Optional[Grid]):
+    """edges [sp, N, E, W] of one level of this rank's row shard: its edge
+    slot (dwt_cuda.pack_edges of its rows, or of its bands for an inverse
+    level; one launch on the card) gathered over the sp ranks.  None on a
+    grid without row shards."""
     if grid is None or grid.sp == 1:
-        return None, None
-    return halos_from_edges(exchange(edge_rows, grid), grid.sp_rank, h,
-                            depth)
+        return None
+    return gather(dwt_cuda.pack_edges(src), grid)
 
 
-def _forward_level(x: torch.Tensor, kind: str, above, below):
-    return transforms.forward_level(x, kind, 0, 0, above, below)
+def _forward_level(x: torch.Tensor, kind: str, edges, rank: int):
+    return transforms.forward_level(x, kind, 0, 0, edges, rank)
 
 
-def _inverse_level(bands, kind: str, above, below):
-    return transforms.inverse_level(bands, kind, 0, 0, above, below)
+def _inverse_level(bands, kind: str, edges, rank: int):
+    return transforms.inverse_level(bands, kind, 0, 0, edges, rank)
+
+
+def _rank(grid: Optional[Grid]) -> int:
+    return 0 if grid is None else grid.sp_rank
 
 
 def dwt_multilevel_sharded(x: torch.Tensor, levels: int, kind: str,
@@ -194,15 +158,13 @@ def dwt_multilevel_sharded(x: torch.Tensor, levels: int, kind: str,
                            ) -> List[Dict[str, torch.Tensor]]:
     """Row shard x [N, C, h, W] of tiles whose origins are divisible by
     2^levels -> its pyramid, leaves [N, C, h/2^l, ...] contiguous (levels
-    ascending, LL with the last).  Each level exchanges its input's edge
-    rows over the sp ranks and runs the level kernel with halos."""
+    ascending, LL with the last).  Each level gathers every sp rank's edge
+    rows (level_edges) and runs the level kernel on them."""
     lead = tuple(x.shape[:2])
     cur = _flat(x)
-    depth = dwt.HALO_DEPTH[(kind, False)]
     out = []
     for lev in range(1, levels + 1):
-        above, below = _halos(shard_edges(cur), cur.shape[-2], depth, grid)
-        bands = _forward_level(cur, kind, above, below)
+        bands = _forward_level(cur, kind, level_edges(cur, grid), _rank(grid))
         entry = {k: bands[k].contiguous().reshape(
             lead + tuple(bands[k].shape[-2:])) for k in ("HL", "LH", "HH")}
         cur = bands["LL"].contiguous()
@@ -212,55 +174,55 @@ def dwt_multilevel_sharded(x: torch.Tensor, levels: int, kind: str,
     return out
 
 
-def _pair_edges(bands: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """shard_edges of an inverse level's interleaved input rows, built from
-    the bands' first and last rows only."""
-    h2 = bands["LL"].shape[-2]
-    if h2 <= EDGE_ROWS:
-        return dwt.pair_rows(bands)
-    k = EDGE_ROWS // 2
-    return torch.cat([dwt.pair_rows({b: v[:, :k] for b, v in bands.items()}),
-                      dwt.pair_rows({b: v[:, -k:] for b, v in bands.items()})],
-                     dim=1)
-
-
 def idwt_multilevel_sharded(pyr: List[Dict[str, torch.Tensor]], kind: str,
                             grid: Optional[Grid] = None) -> torch.Tensor:
     """Inverse of dwt_multilevel_sharded: the pyramid of a row shard ->
     its rows [N, C, h, W]."""
     lead = tuple(pyr[-1]["LL"].shape[:2])
-    depth = dwt.HALO_DEPTH[(kind, True)]
     cur = _flat(pyr[-1]["LL"])
     for lev in range(len(pyr), 0, -1):
         bands = {k: _flat(pyr[lev - 1][k]) for k in ("HL", "LH", "HH")}
         bands["LL"] = cur
-        above, below = _halos(_pair_edges(bands), 2 * cur.shape[-2], depth,
-                              grid)
-        cur = _inverse_level(bands, kind, above, below)
+        cur = _inverse_level(bands, kind, level_edges(bands, grid),
+                             _rank(grid))
     return cur.reshape(lead + tuple(cur.shape[-2:]))
 
 
+def _split_edges(srcs: Sequence, pack) -> torch.Tensor:
+    """edges [sp, N, E, W] of consecutive row shards in one process: each
+    shard's slot packed in place (`pack`: dwt_cuda.pack_edges, or
+    dwt.pack_edges, the plain version), standing in for the gather."""
+    pairs = isinstance(srcs[0], dict)
+    first = srcs[0]["LL"] if pairs else srcs[0]
+    n, h, w = first.shape
+    if pairs:
+        h, w = 2 * h, w + srcs[0]["HL"].shape[-1]
+    edges = first.new_empty((len(srcs), n, dwt.edge_count(h), w))
+    for r, src in enumerate(srcs):
+        pack(src, out=edges[r])
+    return edges
+
+
 def forward_level_split(shards: Sequence[torch.Tensor], kind: str,
-                        level=_forward_level) -> List[Dict[str, torch.Tensor]]:
+                        level=_forward_level, pack=dwt_cuda.pack_edges
+                        ) -> List[Dict[str, torch.Tensor]]:
     """One forward level of consecutive row shards [N, h, W] of one signal,
-    in one process: each shard with the halos that the exchange would give
-    it (how the halo kernels are held to the unsharded ones on one card).
-    `level` may be dwt.forward_2d_halo, the plain version."""
-    edges = [shard_edges(s) for s in shards]
-    depth = dwt.HALO_DEPTH[(kind, False)]
-    return [level(s, kind, *halos_from_edges(edges, r, s.shape[-2], depth))
-            for r, s in enumerate(shards)]
+    in one process: each shard on the edges the gather would give it (how
+    the halo kernels are held to the unsharded ones on one card).  `level`
+    may be dwt.forward_2d_halo and `pack` dwt.pack_edges, the plain
+    versions."""
+    edges = _split_edges(shards, pack)
+    return [level(s, kind, edges, r) for r, s in enumerate(shards)]
 
 
 def inverse_level_split(bands: Sequence[Dict[str, torch.Tensor]], kind: str,
-                        level=_inverse_level) -> List[torch.Tensor]:
+                        level=_inverse_level, pack=dwt_cuda.pack_edges
+                        ) -> List[torch.Tensor]:
     """One inverse level of consecutive row shards' bands, in one process
-    (forward_level_split's inverse; `level` may be dwt.inverse_2d_halo)."""
-    edges = [_pair_edges(b) for b in bands]
-    depth = dwt.HALO_DEPTH[(kind, True)]
-    return [level(b, kind, *halos_from_edges(edges, r, 2 * b["LL"].shape[-2],
-                                             depth))
-            for r, b in enumerate(bands)]
+    (forward_level_split's inverse; `level` may be dwt.inverse_2d_halo and
+    `pack` dwt.pack_edges)."""
+    edges = _split_edges(bands, pack)
+    return [level(b, kind, edges, r) for r, b in enumerate(bands)]
 
 
 # ------------------------------------------------------- transform steps
@@ -504,8 +466,8 @@ def _gather_rows(pyr, grid: Grid):
     """Whole leaves from every sp rank's row shards."""
     if grid.sp == 1:
         return pyr
-    return [{k: torch.cat(exchange(v, grid), dim=-2) for k, v in e.items()}
-            for e in pyr]
+    return [{k: torch.cat(tuple(gather(v, grid)), dim=-2)
+             for k, v in e.items()} for e in pyr]
 
 
 def encode_sharded(image, opts=None, grid: Optional[Grid] = None,

@@ -11,6 +11,7 @@ PyTorch/CUDA port on one CUDA device, at the shapes of chip_smoke.py, and
 prints one JSON line.
 
     python3 kernel_times.py [--tree DIR] [--ptxas] [--config4] [--dwt-only]
+                            [--halo-only]
 
 DIR is the root of a checkout of the repository (default: the directory of
 this script).  Its go_jpeg2000_tpu_torch is imported and its CUDA sources
@@ -61,6 +62,9 @@ generators (this script's copy):
 - 9/7: forward_2d_97 on float32 [16, 512, 512] (the HT lossy batch's level
   1) and [768, 512, 512] (config 4's lossy level 1), and inverse_2d_97 on
   the bands it returns;
+- even levels off the 32-row strip: the four levels through the
+  wrappers on [24, 1080, 1920], [24, 540, 960], [24, 270, 480] (the 1080p
+  batch's levels 1-3) and [768, 16, 16];
 - odd geometry: both 5/3 and both 9/7 levels through
   transforms.forward_level and inverse_level on [1, 1079, 1919] at origin
   (1, 1) and [24, 135, 240] (the 1080p batch's level 4) at origin (0, 0):
@@ -76,8 +80,13 @@ decision of the longest block from the CUDA-event time at 1.98 GHz.  The
 two pool compactions also by CUDA events around their Python wrappers,
 and beside the time alone of one torch copy_ of their output's bytes;
 and the launch floor, a one-element add_ alone.
---dwt-only times the launch floor, the DWT levels (even and odd) and S4
-only.
+- halo form: the four level kernels on sp = 2 and 4 row shards of config
+  4's level 1 [768, 512, 512] (sharded.forward_level_split and
+  inverse_level_split: every shard's edges, then its level launch), and,
+  where the checkout has the edge packing kernel, its sp packing launches
+  and its sp level launches (on edges packed beforehand), each alone.
+--dwt-only times the launch floor, the DWT levels (even, odd and the halo
+form) and S4 only; --halo-only the launch floor and the halo form only.
 --config4 also times config 4's lossless encode (8192x8192 16-bit RGB,
 512x512 tiles, 5 resolutions) in chip_smoke.py's stages, medians of 3
 after a warm-up: the transform step (the level kernels and band_stats)
@@ -162,11 +171,14 @@ def ptxas(tree, cuda_build):
 
 def instance_name(m):
     """A kernel's name from a match of its mangled symbol, with the
-    instance of a kernel templated on a bool, <true> or <false> (the DWT
-    levels' ODD: <false> is the even-geometry instance)."""
+    instance of a kernel templated on bools, e.g. <false, true> (the DWT
+    levels' ODD, then SHARD: <false, ...> is the even-geometry instance,
+    <..., true> a row shard's)."""
     if not m.group(2):
         return m.group(1)
-    return m.group(1) + ("<true>" if m.group(2) == "ILb1EE" else "<false>")
+    flags = re.findall(r"Lb([01])E", m.group(2))
+    return m.group(1) + "<" + ", ".join(
+        "true" if f == "1" else "false" for f in flags) + ">"
 
 
 def sass_counts(text):
@@ -174,7 +186,8 @@ def sass_counts(text):
     cuobjdump -sass, for the kernels KERNELS names."""
     out = {}
     for part in text.split("Function : ")[1:]:
-        m = re.match(r"_Z\d+(" + "|".join(KERNELS) + r")(ILb[01]EE)?", part)
+        m = re.match(r"_Z\d+(" + "|".join(KERNELS) + r")(I(?:Lb[01]E)+E)?",
+                     part)
         if not m:
             continue
         ops = re.findall(
@@ -192,7 +205,7 @@ def ptxas_lines(text):
     lines = text.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '_Z\d+(" + "|".join(KERNELS)
-                      + r")(ILb[01]EE)?", line)
+                      + r")(I(?:Lb[01]E)+E)?", line)
         if m:
             props = [x.split("ptxas info    :")[-1].strip()
                      for x in lines[i + 1:i + 4]
@@ -512,6 +525,111 @@ def dwt_levels(cs, dwt_cuda, dev):
     return result
 
 
+def halo_levels(cs, dev):
+    """The halo form of the four level kernels on sp = 2 and 4 row shards
+    of config 4's level 1, [768, 512, 512], in one process
+    (sharded.forward_level_split and inverse_level_split, as chip_smoke.py
+    phase 10a: each shard's edges and its level launch; the same calls in
+    every checkout), by CUDA events and alone, beside the bound."""
+    import torch
+    from go_jpeg2000_tpu_torch.ops import dwt, dwt_cuda
+    from go_jpeg2000_tpu_torch.parallel import sharded as psh
+    result = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = 3 * (cs.C4_SIZE // cs.C4_TILE) ** 2
+    for kind in (dwt.REV53, dwt.IRR97):
+        lib = "dwt53" if kind == dwt.REV53 else "dwt97"
+        x = torch.randint(-(1 << 15), 1 << 15, (n, cs.H, cs.W),
+                          generator=gen, device=dev, dtype=torch.int32)
+        if kind == dwt.IRR97:
+            x = x.to(torch.float32) / 128
+        bands = dwt.forward_2d(x, kind)
+        lim = cs.bound(8 * x.numel(), 0, 1)[0]
+        for sp in (2, 4):
+            shards = [t.contiguous() for t in torch.chunk(x, sp, dim=-2)]
+            split = [{k: v.contiguous() for k, v in zip(bands, parts)}
+                     for parts in zip(*(torch.chunk(b, sp, dim=-2)
+                                        for b in bands.values()))]
+            for way, fn in (
+                    ("fwd", lambda: psh.forward_level_split(shards, kind)),
+                    ("inv", lambda: psh.inverse_level_split(split, kind))):
+                result[f"{lib}_{way}_level halo sp={sp} [{n},{cs.H},"
+                       f"{cs.W}]"] = {
+                    "ms": cs.cuda_ms(fn, reps=10),
+                    "alone_ms": cs.device_ms(fn, reps=10),
+                    "bound_ms": lim}
+            if hasattr(dwt_cuda, "pack_edges"):
+                result.update(halo_parts(cs, dwt_cuda, psh, kind, shards,
+                                         split, f"{lib} sp={sp}"))
+            del shards, split
+        del x, bands
+        torch.cuda.empty_cache()
+    return result
+
+
+def halo_parts(cs, dwt_cuda, psh, kind, shards, split, label):
+    """The halo form's two parts alone, where the checkout has the edge
+    packing kernel: the sp packing launches into one edges tensor, and the
+    sp level launches on edges packed beforehand, each direction."""
+    out = {}
+    fwd = getattr(dwt_cuda, f"forward_2d_{kind}")
+    inv = getattr(dwt_cuda, f"inverse_2d_{kind}")
+    for way, srcs, level in (("fwd", shards, fwd), ("inv", split, inv)):
+        edges = psh._split_edges(srcs, dwt_cuda.pack_edges)
+
+        def packs():
+            for r, src in enumerate(srcs):
+                dwt_cuda.pack_edges(src, out=edges[r])
+
+        def levels():
+            for r, src in enumerate(srcs):
+                level(src, edges, r)
+
+        for part, fn in (("packs", packs), ("levels", levels)):
+            out[f"{label} {way} {part} alone"] = {
+                "ms": cs.cuda_ms(fn, reps=10),
+                "alone_ms": cs.device_ms(fn, reps=10),
+                "edges": list(edges.shape)}
+    return out
+
+
+# even levels whose heights are no multiple of the kernels' 32-row strip:
+# the 1080p batch's levels 1-3 (8 RGB frames) and 16x16 top levels
+EVEN_LEVELS = ((24, 1080, 1920), (24, 540, 960), (24, 270, 480),
+               (768, 16, 16))
+
+
+def even_levels(cs, dwt_cuda, dev):
+    """The four level kernels at EVEN_LEVELS, origin (0, 0), through the
+    wrappers (every checkout takes them in its even instance), by CUDA
+    events and alone, beside the bound."""
+    import torch
+    result = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for shape in EVEN_LEVELS:
+        x = torch.randint(-(1 << 15), 1 << 15, shape, generator=gen,
+                          device=dev, dtype=torch.int32)
+        for lib, y in (("dwt53", x), ("dwt97", x.to(torch.float32) / 128)):
+            kind = lib[3:]
+            bands = getattr(dwt_cuda, f"forward_2d_{kind}")(y)
+            rate = (cs.INT32_OPS_PER_S if lib == "dwt53"
+                    else cs.FP32_OPS_PER_S)
+            lim = cs.bound(8 * y.numel(),
+                           cs.OPS_PER_ELEMENT[lib] * y.numel(), rate)[0]
+            for name, fn in (
+                    (f"{lib}_fwd_level",
+                     lambda: getattr(dwt_cuda, f"forward_2d_{kind}")(y)),
+                    (f"{lib}_inv_level",
+                     lambda: getattr(dwt_cuda, f"inverse_2d_{kind}")(bands))):
+                result[f"{name} {list(shape)}"] = {
+                    "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn),
+                    "bound_ms": lim}
+            del bands
+        del x
+        torch.cuda.empty_cache()
+    return result
+
+
 # odd shapes [N, H, W] and level origins (u0, v0): an odd 1080p frame at
 # origin (1, 1), and the 1080p batch's level 4 (135 rows)
 ODD_LEVELS = (((1, 1079, 1919), (1, 1)), ((24, 135, 240), (0, 0)))
@@ -595,6 +713,7 @@ def main():
     ap.add_argument("--config4", action="store_true")
     ap.add_argument("--profiler-probe", type=int, default=0, metavar="N")
     ap.add_argument("--dwt-only", action="store_true")
+    ap.add_argument("--halo-only", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -626,7 +745,12 @@ def main():
     result["launch floor"] = {
         "what": "a one-element add_, alone",
         "alone_ms": cs.device_ms(lambda: tiny.add_(1))}
+    result.update(halo_levels(cs, dev))
+    if args.halo_only:
+        print(json.dumps(result), flush=True)
+        return 0
     result.update(dwt_levels(cs, dwt_cuda, dev))
+    result.update(even_levels(cs, dwt_cuda, dev))
     result.update(odd_levels(cs, dev))
     result.update(s4_walls(cs, tp, dev))
     if args.dwt_only:

@@ -16,7 +16,8 @@ spills at every offset, exact fills, rows off 16 bytes) and on the
 streams of every legal code-block shape; all four DWT level kernels are
 exact at any even width, the inverse 5/3 in its halo form too, and at
 every origin parity on 1-sample, 3-sample, odd and 1080p shapes (one
-launch each, no plain level; an empty level launches nothing).  The HT
+launch each, no plain level; an empty level launches nothing); the edge
+packing kernel's slots equal the plain version's.  The HT
 decode kernels' outputs are equal bit for bit, float32 leaves too.  The
 EBCOT kernels' slots, decision pools, MQ segments and lengths are equal
 exactly (MQ segments also to the native coder's), on the MQ stress
@@ -1047,8 +1048,155 @@ def test_halo_kernels_match_plain_and_unsharded(cuda, kind, sp, rows):
     assert torch.equal(rec.cpu(), torch.cat(plain_inv, dim=-2))
     torch.cuda.synchronize()
     lib = "dwt53" if kind == dwt.REV53 else "dwt97"
-    assert dwt_cuda.LAUNCHES[f"{lib}_fwd_level"] == \
-        before[f"{lib}_fwd_level"] + sp
+    for name in (f"{lib}_fwd_level", f"{lib}_inv_level"):
+        assert dwt_cuda.LAUNCHES[name] == before[name] + sp
+    # one packing launch a shard and a direction
+    assert dwt_cuda.LAUNCHES["dwt_pack_edges"] == \
+        before["dwt_pack_edges"] + 2 * sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 10, 58, 4100])
+@pytest.mark.parametrize("kind", [dwt.REV53, dwt.IRR97])
+def test_halo_kernels_whole_strips(cuda, kind, w):
+    """Shards of whole strips (32 and 64 rows: the level kernels' even shard
+    instance) at widths off the column tile, sp = 2 and 4, both
+    directions, equal the unsharded kernels."""
+    g = torch.Generator(device=cuda).manual_seed(w + 32)
+    for sp, rows in ((4, 128), (2, 128), (4, 256)):
+        x = torch.randint(-40000, 40000, (3, rows, w), generator=g,
+                          device=cuda, dtype=torch.int32)
+        if kind == dwt.IRR97:
+            x = x.to(torch.float32) / 64
+        fwd, inv, bands = _halo_split(x, sp, kind)
+        for k in BANDS:
+            assert torch.equal(torch.cat([f[k] for f in fwd], dim=-2),
+                               bands[k]), (sp, rows, k)
+        assert torch.equal(torch.cat(inv, dim=-2),
+                           dwt.inverse_2d(bands, kind)), (sp, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 10, 512, 4100])
+@pytest.mark.parametrize("rows", [2, 8, 34])
+def test_pack_edges_matches_plain(cuda, rows, w):
+    """The edge packing kernel, a forward shard's rows and an inverse
+    shard's bands, at widths of 16-byte and of 4-byte copies, into a slot
+    of an edges tensor too, equals dwt.pack_edges exactly."""
+    g = torch.Generator(device=cuda).manual_seed(rows * w)
+    x = torch.randint(-(1 << 30), 1 << 30, (3, rows, w), generator=g,
+                      device=cuda, dtype=torch.int32)
+    bands = {k: torch.randint(-(1 << 30), 1 << 30, (3, rows // 2, w // 2),
+                              generator=g, device=cuda, dtype=torch.int32)
+             for k in BANDS}
+    for src in (x, x.to(torch.float32), bands):
+        before = dwt_cuda.LAUNCHES["dwt_pack_edges"]
+        got = dwt_cuda.pack_edges(src)
+        slots = torch.zeros((2,) + tuple(got.shape), dtype=got.dtype,
+                            device=cuda)
+        dwt_cuda.pack_edges(src, out=slots[1])
+        assert dwt_cuda.LAUNCHES["dwt_pack_edges"] == before + 2
+        host = ({k: v.cpu() for k, v in src.items()}
+                if isinstance(src, dict) else src.cpu())
+        want = dwt.pack_edges(host)
+        assert got.shape[1] == dwt.edge_count(rows)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(slots[1].cpu(), want)
+        assert not slots[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 33, 4101])
+@pytest.mark.parametrize("kind", [dwt.REV53, dwt.IRR97])
+def test_halo_kernels_odd_widths(cuda, kind, w):
+    """Row shards at odd widths and one column (a single tile column's
+    levels: 3000 -> 1500 -> 750 -> 375), shards of 2, 34 and 64 rows at
+    sp = 2 and 4: the packing kernel equals dwt.pack_edges (bands of
+    ceil and floor half widths), and the halo form, both directions,
+    equals the unsharded kernels and the plain halo form, one packing and
+    one level launch a shard and direction."""
+    from go_jpeg2000_tpu_torch.parallel import sharded
+    g = torch.Generator(device=cuda).manual_seed(w + 33)
+    for sp, rows in ((2, 4), (4, 8), (2, 68), (4, 256)):
+        x = torch.randint(-40000, 40000, (3, rows, w), generator=g,
+                          device=cuda, dtype=torch.int32)
+        if kind == dwt.IRR97:
+            x = x.to(torch.float32) / 64
+        before = dict(dwt_cuda.LAUNCHES)
+        fwd, inv, bands = _halo_split(x, sp, kind)
+        torch.cuda.synchronize()
+        lib = "dwt53" if kind == dwt.REV53 else "dwt97"
+        for name in (f"{lib}_fwd_level", f"{lib}_inv_level"):
+            assert dwt_cuda.LAUNCHES[name] == before[name] + sp
+        assert dwt_cuda.LAUNCHES["dwt_pack_edges"] == \
+            before["dwt_pack_edges"] + 2 * sp
+        plain_fwd, plain_inv, _ = _halo_split(x.cpu(), sp, kind)
+        for k in BANDS:
+            got = torch.cat([f[k] for f in fwd], dim=-2)
+            assert torch.equal(got, bands[k]), (sp, rows, k)
+            assert torch.equal(got.cpu(), torch.cat(
+                [f[k] for f in plain_fwd], dim=-2)), (sp, rows, k)
+        rec = torch.cat(inv, dim=-2)
+        assert torch.equal(rec, dwt.inverse_2d(bands, kind)), (sp, rows)
+        assert torch.equal(rec.cpu(), torch.cat(plain_inv, dim=-2))
+        top = {k: v[:, :rows // sp // 2].contiguous() for k, v in bands.items()}
+        assert torch.equal(dwt_cuda.pack_edges(top).cpu(), dwt.pack_edges(
+            {k: v.cpu() for k, v in top.items()})), (sp, rows)
+
+
+@pytest.mark.cuda
+def test_sharded_row_shards_odd_width_on_card(cuda, tmp_path):
+    """encode_sharded and decode_sharded on a gloo grid of (dp, sp) =
+    (1, 2) ranks sharing the card, on one tile column 33 wide (level
+    widths 33, 17, 9) and on a 3000-wide single tile (3000, 1500, 750,
+    375, 188):
+    every rank's codestream equals the one-process encode's, lossless
+    decodes are exact, lossy decodes equal the one-process decode, and
+    every level ran through the halo kernels (no plain level)."""
+    import json
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from go_jpeg2000_tpu_torch.parallel import decode_sharded, encode_sharded
+    from tests import torch_dist_worker
+    loader.available()                 # build before the ranks start
+    dwt_cuda.load()
+    rng = np.random.RandomState(12)
+    img = rng.randint(0, 1 << 16, (64, 33, 3)).astype(np.uint16)
+    wide = rng.randint(0, 256, (64, 3000)).astype(np.uint8)
+    cases = [(img, tp.Options(format=tp.Format.J2K, lossless=True,
+                              high_throughput=True, num_resolutions=4,
+                              tile_size=(33, 16)), True),
+             ((img >> 8).astype(np.uint8), tp.Options(
+                 format=tp.Format.J2K, lossless=False, quality=85,
+                 high_throughput=True, num_resolutions=4,
+                 tile_size=(33, 16)), True),
+             (wide, tp.Options(format=tp.Format.J2K, lossless=True,
+                               high_throughput=True, num_resolutions=6),
+              True)]
+    single = []
+    for image, opts, _decode in cases:
+        data = encode_sharded(image, opts, device=cuda)
+        assert data == encode_sharded(image, opts, device="cpu")
+        single.append((data, decode_sharded(data, device=cuda)))
+    mp.spawn(torch_dist_worker.run,
+             args=(2, str(tmp_path / "rdv"), str(tmp_path), 1, 2, cases,
+                   "gloo", "cuda"), nprocs=2)
+    for rank in range(2):
+        with open(tmp_path / f"rank{rank}.pkl", "rb") as f:
+            got = pickle.load(f)
+        for (data, pix), (ref, ref_pix), case in zip(got, single, cases):
+            assert data == ref, (rank, case[1])
+            assert np.array_equal(pix, ref_pix), (rank, case[1])
+        with open(tmp_path / f"rank{rank}_launches.json") as f:
+            launches = json.load(f)
+        assert launches["plain_levels"] == 0, rank
+        for name in ("dwt53_fwd_level", "dwt53_inv_level",
+                     "dwt97_fwd_level", "dwt97_inv_level", "dwt_pack_edges"):
+            assert launches[name] > 0, (rank, name)
+    assert np.array_equal(single[0][1], img)
+    assert np.array_equal(single[2][1], wide)
 
 
 @pytest.mark.cuda

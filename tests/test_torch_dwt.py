@@ -8,6 +8,7 @@ in the same order), and test_dwt_pallas.py's tolerance against the Pallas
 of the level kernels' decompositions (_tiles_97, _tiles_53: strips, column
 tiles and their halos) equal the plain level bit for bit."""
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -94,17 +95,17 @@ def test_usable_gating():
                      (9, 1), (2, 3), (0, 5), (135, 240)):
             assert dwt_cuda.usable(h, w, u0, v0)
             assert dwt_cuda.usable(h, w, u0, v0, dwt.REV53, inverse=True)
-    # a row shard's level (halo rows) keeps the even rule
+    # a row shard's level (halo rows) needs an even origin and an even
+    # height; any width (a single tile column's levels go odd)
     assert dwt_cuda.usable(512, 512, 0, 0, halo=True)
     assert dwt_cuda.usable(2, 2, 0, 0, halo=True)
-    for w in (2, 3058, 3060, 4096, 8192, 65536):
+    for w in (1, 2, 375, 3058, 3060, 4095, 4096, 8192, 65536):
         assert dwt_cuda.usable(16, w, 0, 0, inverse=True, halo=True)
-        assert dwt_cuda.usable(w, w, 0, 0, dwt.REV53, inverse=True,
-                               halo=True)
-    assert not dwt_cuda.usable(511, 512, 0, 0, halo=True)    # odd size
+        assert dwt_cuda.usable(w + (w & 1), w, 0, 0, dwt.REV53,
+                               inverse=True, halo=True)
+    assert not dwt_cuda.usable(511, 512, 0, 0, halo=True)    # odd height
     assert not dwt_cuda.usable(512, 512, 1, 0, halo=True)    # odd origin
     assert not dwt_cuda.usable(512, 512, 0, 3, halo=True)
-    assert not dwt_cuda.usable(16, 4095, 0, 0, inverse=True, halo=True)
     assert not dwt_cuda.usable(1, 4096, 0, 0, inverse=True, halo=True)
     assert not hasattr(dwt_cuda, "MAX_SMEM_BYTES")
 
@@ -131,15 +132,35 @@ CASES_97 = [(2, 64, 64, 0, 0), (1, 33, 47, 1, 0), (2, 17, 9, 1, 1),
             (1, 2, 3, 0, 1), (3, 6, 10, 0, 0), (1, 1, 1, 0, 0)]
 
 
-@pytest.mark.parametrize("case", CASES_97)
-def test_97_level_matches_jax_eager(case):
+def _jax_eager_all(fn, cases):
+    """{case: fn(case)} of JAX eager computations, run on a few threads:
+    eager jnp compiles every op anew for each shape (about 55 ms an op on
+    the CPU), and XLA compiles in parallel, so the cases of one test share
+    the wall time of their compiles.  The results are eager's, bit for
+    bit."""
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip(cases, pool.map(fn, cases)))
+
+
+def _jax_97_level(case):
     n, h, w, u0, v0 = case
     x = _floats((n, h, w), h * w + u0)
     ref = jdwt.forward_2d(x, jdwt.IRR97, u0=u0, v0=v0)
+    return x, ref, jdwt.inverse_2d(ref, jdwt.IRR97, u0=u0, v0=v0)
+
+
+@pytest.fixture(scope="module")
+def jax_97_levels():
+    return _jax_eager_all(_jax_97_level, CASES_97)
+
+
+@pytest.mark.parametrize("case", CASES_97)
+def test_97_level_matches_jax_eager(case, jax_97_levels):
+    n, h, w, u0, v0 = case
+    x, ref, rec_ref = jax_97_levels[case]
     got = dwt.forward_2d(torch.from_numpy(x), dwt.IRR97, u0=u0, v0=v0)
     for k in BANDS:
         _eq(got[k], ref[k])
-    rec_ref = jdwt.inverse_2d(ref, jdwt.IRR97, u0=u0, v0=v0)
     rec = dwt.inverse_2d(got, dwt.IRR97, u0=u0, v0=v0)
     _eq(rec, rec_ref)
     np.testing.assert_allclose(rec.numpy(), x, rtol=0, atol=1e-3)
@@ -161,13 +182,27 @@ def test_97_level_matches_pallas(shape):
     np.testing.assert_allclose(got_inv.numpy(), x, rtol=1e-4, atol=0.02)
 
 
-@pytest.mark.parametrize("case", [(33, 47, 1, 0, 3), (64, 64, 0, 0, 5),
-                                  (8, 8, 3, 2, 3), (2, 3, 1, 1, 2)])
-def test_97_decompose_reconstruct(case):
+CASES_97_MULTI = [(33, 47, 1, 0, 3), (64, 64, 0, 0, 5), (8, 8, 3, 2, 3),
+                  (2, 3, 1, 1, 2)]
+
+
+def _jax_97_multi(case):
     h, w, u0, v0, levels = case
     x = _floats((2, h, w), h + w)
     kw = dict(kind=jdwt.IRR97, u0=u0, v0=v0)
     ref = jdwt.decompose(x, levels, **kw)
+    return x, ref, jdwt.reconstruct(ref, **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_97_multi():
+    return _jax_eager_all(_jax_97_multi, CASES_97_MULTI)
+
+
+@pytest.mark.parametrize("case", CASES_97_MULTI)
+def test_97_decompose_reconstruct(case, jax_97_multi):
+    h, w, u0, v0, levels = case
+    x, ref, rec_ref = jax_97_multi[case]
     got = dwt.decompose(torch.from_numpy(x), levels, dwt.IRR97, u0=u0, v0=v0)
     assert len(got) == len(ref)
     for g, r in zip(got, ref):
@@ -175,7 +210,7 @@ def test_97_decompose_reconstruct(case):
         for k in r:
             _eq(g[k], r[k])
     rec = dwt.reconstruct(got, dwt.IRR97, u0=u0, v0=v0)
-    _eq(rec, jdwt.reconstruct(ref, **kw))
+    _eq(rec, rec_ref)
     np.testing.assert_allclose(rec.numpy(), x, rtol=0, atol=2e-3)
 
 
@@ -303,7 +338,7 @@ def test_97_tile_decomposition(h, w):
 
 def test_97_usable_and_refusals():
     # every 9/7 level without halo rows takes the kernels, at any origin
-    # and size; halo levels keep the even rule
+    # and size; halo levels need an even origin and height, any width
     for inverse in (False, True):
         for u0, v0 in ((0, 0), (1, 1), (3, 0), (0, 5)):
             for h, w in ((512, 512), (512, 511), (1, 1), (3, 2), (1079, 1919),
@@ -312,7 +347,9 @@ def test_97_usable_and_refusals():
                                        inverse=inverse)
         assert dwt_cuda.usable(16, 2560, 0, 0, dwt.IRR97, inverse=inverse,
                                halo=True)
-        assert not dwt_cuda.usable(512, 511, 0, 0, dwt.IRR97,
+        assert dwt_cuda.usable(512, 511, 0, 0, dwt.IRR97, inverse=inverse,
+                               halo=True)
+        assert not dwt_cuda.usable(511, 512, 0, 0, dwt.IRR97,
                                    inverse=inverse, halo=True)
         assert not dwt_cuda.usable(512, 512, 0, 1, dwt.IRR97,
                                    inverse=inverse, halo=True)
@@ -327,8 +364,12 @@ def test_97_usable_and_refusals():
         dwt_cuda.inverse_2d_97(bands)
     x5 = torch.empty((1, 5, 4), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="halo rows"):
-        dwt_cuda.forward_2d_97(x5, above=torch.empty(
-            (1, 4, 4), dtype=torch.float32, device="meta"))
+        dwt_cuda.forward_2d_97(x5, edges=torch.empty(
+            (2, 1, 5, 4), dtype=torch.float32, device="meta"))
+    # on the CPU too: the plain halo form is not defined there either
+    with pytest.raises(ValueError, match="halo rows"):
+        dwt_cuda.forward_2d_97(torch.zeros((1, 5, 4)),
+                               edges=torch.zeros((2, 1, 5, 4)))
 
 
 # output column pairs of one warp's tile in csrc/dwt53.cu (lanes 1 .. 30)
@@ -345,25 +386,20 @@ def _unpair(rows):
     return out
 
 
-def _tiles_53(x, rows=None, halo_pairs=(1, 1), above=None, below=None,
-              inverse=True, pu=0, pv=0):
+def _tiles_53(x, rows=None, halo_pairs=(1, 1), outside=None, inverse=True,
+              pu=0, pv=0):
     """The 5/3 kernels' decomposition in plain torch (_tiles), on the
-    interleaved signal x [n, h, w] at origin parity (pu, pv) (a row shard
-    of the inverse when `above` [n, 1, w] or `below` [n, 2, w], pair_rows'
-    layout, are given): strips of STRIP_ROWS rows, tiles of TILE_PAIRS_53
-    column pairs, `rows` = (above, below) rows (by default the kernel's
-    halo: forward 2 and 1, inverse 1 and 2) and `halo_pairs` = (left,
-    right) column pairs (the kernels' lanes 0 and 31), read through
-    repeated symmetric reflection or from the halo rows."""
+    interleaved signal x [n, h, w] at origin parity (pu, pv): strips of
+    STRIP_ROWS rows, tiles of TILE_PAIRS_53 column pairs, `rows` = (above,
+    below) rows (by default the kernel's halo: forward 2 and 1, inverse 1
+    and 2) and `halo_pairs` = (left, right) column pairs (the kernels'
+    lanes 0 and 31), read through repeated symmetric reflection, or, for a
+    row shard, rows g outside it from `outside(g)`."""
     h = x.shape[1]
-    ext_above = None if above is None else _unpair(above)
-    ext_below = None if below is None else _unpair(below)
 
     def row(g):
-        if g < 0 and ext_above is not None:
-            return ext_above[:, ext_above.shape[1] + g]
-        if g >= h and ext_below is not None:
-            return ext_below[:, g - h]
+        if outside is not None and not 0 <= g < h:
+            return outside(g)
         return x[:, _reflect(g, h)]
 
     lift = dwt._inverse_1d_53 if inverse else dwt._forward_1d_53
@@ -371,6 +407,158 @@ def _tiles_53(x, rows=None, halo_pairs=(1, 1), above=None, below=None,
                   dwt_cuda.STRIP_ROWS[(dwt.REV53, inverse)], TILE_PAIRS_53,
                   rows or dwt.HALO_DEPTH[(dwt.REV53, inverse)], halo_pairs,
                   pu, pv, row_of=row)
+
+
+# ------------------------------------------- the halo form's edge addressing
+
+def _edge_row_model(edges, own, rank, g):
+    """csrc/dwt_edges.cuh edge_row, in numpy: row g (outside the shard) of
+    row shard `rank`, whose own rows are `own` [n, h, w], in the globally
+    extended signal of sp shards: the global row reflected over the sp * h
+    rows, from the shard's own rows or from the edge slot of the shard that
+    holds it, edges [sp, n, e, w] (first e/2 rows, then the last e/2)."""
+    sp, _n, e, _w = edges.shape
+    h = own.shape[1]
+    gg = rank * h + g
+    while gg < 0 or gg >= sp * h:
+        gg = -gg if gg < 0 else 2 * sp * h - 2 - gg
+    s, i = divmod(gg, h)
+    if s == rank:
+        return own[:, i], s
+    return edges[s][:, i if i < e // 2 else i - (h - e)], s
+
+
+def _slot_rows(h):
+    """csrc/dwt_edges.cuh edge_source_row: the shard rows an edge slot
+    holds, in order."""
+    e = min(h, 2 * dwt.EDGE_ROWS)
+    return [r if r < e // 2 else r + h - e for r in range(e)]
+
+
+def _pack_model(rows):
+    """csrc/dwt_edges.cu's forward packing in numpy: rows [n, h, w] ->
+    the slot."""
+    return rows[:, _slot_rows(rows.shape[1])]
+
+
+def _pair_row(bands, i):
+    """Interleaved row i of a level's bands [n, h/2, w/2], in numpy, as
+    dwt.pair_rows lays it out: [LL|HL] row i // 2 for an even i, [LH|HH]
+    for an odd one."""
+    lo, hi = ("LH", "HH") if i & 1 else ("LL", "HL")
+    return np.concatenate([bands[lo][:, i // 2], bands[hi][:, i // 2]],
+                          axis=-1)
+
+
+def _pack_pairs_model(bands):
+    """csrc/dwt_edges.cu's inverse packing in numpy: the bands -> the
+    slot's interleaved rows."""
+    h = 2 * bands["LL"].shape[1]
+    return np.stack([_pair_row(bands, i) for i in _slot_rows(h)], axis=1)
+
+
+def _pairs(bands):
+    """dwt.pair_rows in numpy: every interleaved row."""
+    return np.stack([_pair_row(bands, i)
+                     for i in range(2 * bands["LL"].shape[1])], axis=1)
+
+
+@pytest.mark.parametrize("w", [6, 7])
+@pytest.mark.parametrize("rows", [2, 4, 8, 34])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_edge_addressing_model(sp, rows, w):
+    """The kernels' addressing (numpy models of edge_row and the packing
+    kernel) against the plain contract (dwt.pack_edges: shard_edges and
+    pair_edges; dwt.halos_from_edges) and against the whole signal's own
+    reflected rows, forward and inverse, for every row each lifting
+    reaches, at an even and an odd width (low bands one column wider);
+    on shards of 2 and 4 rows the reflection at the global top and bottom
+    reaches into another shard, on longer ones it does not."""
+    x = _ints((3, sp * rows, w), 7 * sp + rows, -30000, 30000)
+    total = sp * rows
+    full = {"fwd": x, "inv": None}
+    band = {k: v.numpy() for k, v in dwt.forward_2d(torch.from_numpy(x),
+                                                    dwt.REV53).items()}
+    full["inv"] = _pairs(band)
+    shards = {"fwd": np.split(x, sp, axis=1),
+              "inv": [dict(zip(BANDS, parts)) for parts in zip(
+                  *(np.split(band[k], sp, axis=1) for k in BANDS))]}
+    crossed = 0
+    for way, inverse in (("fwd", False), ("inv", True)):
+        if inverse:
+            model = np.stack([_pack_pairs_model(b) for b in shards[way]])
+            own = [_pairs(b) for b in shards[way]]
+        else:
+            model = np.stack([_pack_model(r) for r in shards[way]])
+            own = shards[way]
+        src = [{k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in b.items()} if inverse
+               else torch.from_numpy(np.ascontiguousarray(b))
+               for b in shards[way]]
+        plain = torch.stack([dwt.pack_edges(b) for b in src])
+        np.testing.assert_array_equal(plain.numpy(), model)
+        assert plain.shape[2] == dwt.edge_count(rows)
+        for kind in (dwt.REV53, dwt.IRR97):
+            depth = dwt.HALO_DEPTH[(kind, inverse)]
+            for rank in range(sp):
+                above, below = dwt.halos_from_edges(
+                    plain, torch.from_numpy(own[rank]), rank, depth)
+                gs = list(range(-depth[0], 0)) + list(
+                    range(rows, rows + depth[1]))
+                got = torch.cat([above, below], dim=1).numpy()
+                for j, g in enumerate(gs):
+                    row, s = _edge_row_model(model, own[rank], rank, g)
+                    truth = full[way][:, _reflect(rank * rows + g, total)]
+                    np.testing.assert_array_equal(row, truth)
+                    np.testing.assert_array_equal(got[:, j], truth)
+                    crossed += (not 0 <= rank * rows + g < total
+                                and s != rank)
+    assert (crossed > 0) == (rows <= 4)
+
+
+def _halo_case(case):
+    """The JAX package's unsharded level of a halo case, eager."""
+    kind, sp, rows, w = case
+    x = (_ints((2, sp * rows, w), sp * rows, -30000, 30000)
+         if kind == dwt.REV53 else _floats((2, sp * rows, w), sp * rows))
+    ref = jdwt.forward_2d(x, kind)
+    return x, ref, jdwt.inverse_2d(ref, kind)
+
+
+# (kind, sp, rows a shard, width): shards of 2 rows; odd widths and a
+# single column, as a single tile column's levels have
+HALO_CASES = [(dwt.REV53, 4, 2, 10), (dwt.REV53, 2, 34, 10),
+              (dwt.IRR97, 4, 2, 10), (dwt.IRR97, 2, 34, 10),
+              (dwt.REV53, 4, 2, 9), (dwt.IRR97, 2, 34, 7),
+              (dwt.REV53, 2, 4, 1)]
+
+
+@pytest.fixture(scope="module")
+def jax_halo_levels():
+    return _jax_eager_all(_halo_case, HALO_CASES)
+
+
+@pytest.mark.parametrize("case", HALO_CASES)
+def test_plain_halo_form_matches_jax_level(case, jax_halo_levels):
+    """The plain halo form (dwt.forward_2d_halo and inverse_2d_halo on the
+    edges dwt.pack_edges packs) of sp row shards, shards of 2 rows too,
+    equals the JAX package's unsharded level bit for bit, 9/7 included,
+    at odd widths too."""
+    kind, sp, rows, _w = case
+    x, ref, rec_ref = jax_halo_levels[case]
+    from go_jpeg2000_tpu_torch.parallel import sharded
+    shards = list(torch.chunk(torch.from_numpy(x), sp, dim=-2))
+    got = sharded.forward_level_split(shards, kind, dwt.forward_2d_halo,
+                                      dwt.pack_edges)
+    for k in BANDS:
+        _eq(torch.cat([g[k] for g in got], dim=-2), ref[k])
+    split = [{k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in zip(BANDS, parts)}
+             for parts in zip(*(np.split(np.asarray(ref[k]), sp, axis=1)
+                                for k in BANDS))]
+    rec = sharded.inverse_level_split(split, kind, dwt.inverse_2d_halo,
+                                      dwt.pack_edges)
+    _eq(torch.cat(rec, dim=-2), rec_ref)
 
 
 @pytest.mark.parametrize("w", [2, 4, 6, 10, 58, 62, 64, 130])
@@ -393,9 +581,10 @@ def test_53_inverse_tile_decomposition(h, w):
 @pytest.mark.parametrize("sp,rows,w", [(2, 4, 10), (4, 8, 62), (2, 68, 64),
                                        (4, 16, 2), (2, 132, 130)])
 def test_53_inverse_tiles_halo_form(sp, rows, w):
-    # the same decomposition on sp row shards, reading the halo rows the
-    # exchange gives each shard (parallel/sharded.py), equals the plain halo
-    # lifting shard by shard and the unsharded inverse level
+    # the same decomposition on sp row shards, reading the rows beyond each
+    # shard as the kernel does (edge_row, on the edges the exchange gives
+    # every shard, parallel/sharded.py), equals the plain halo lifting shard
+    # by shard and the unsharded inverse level
     from go_jpeg2000_tpu_torch.parallel import sharded
     x = torch.from_numpy(_ints((3, rows, w), rows + w + sp, -30000, 30000))
     bands = dwt.forward_2d(x, dwt.REV53)
@@ -403,9 +592,10 @@ def test_53_inverse_tiles_halo_form(sp, rows, w):
              for parts in zip(*(torch.chunk(b, sp, dim=-2)
                                 for b in bands.values()))]
 
-    def tiles(b, kind, above, below):
-        il = dwt.pair_rows(b)
-        return _tiles_53(_unpair(il), above=above, below=below)
+    def tiles(b, kind, edges, rank):
+        own = dwt.pair_rows(b)
+        return _tiles_53(_unpair(own), outside=lambda g: _unpair(
+            _edge_row_model(edges, own, rank, g)[0]))
 
     got = sharded.inverse_level_split(split, dwt.REV53, level=tiles)
     plain = sharded.inverse_level_split(split, dwt.REV53,

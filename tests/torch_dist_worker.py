@@ -1,9 +1,11 @@
 """One rank of the port's tile-sharded pipeline on a torch.distributed group,
 for tests/test_torch_sharded_dist.py (gloo on the CPU) and
-tests/test_torch_cuda.py (NCCL, one card a rank).  Imports the port and
-torch only, never jax: the tests spawn these ranks with
-torch.multiprocessing, and each encodes and decodes the cases it is given
-and writes what it got to a file of its own."""
+tests/test_torch_cuda.py (NCCL, one card a rank; or gloo with every rank
+on one card).  Imports the port and torch only, never jax: the tests spawn
+these ranks with torch.multiprocessing, and each encodes and decodes the
+cases it is given and writes what it got, and the DWT kernels' launch
+counts, to files of its own."""
+import json
 import pickle
 
 import torch
@@ -11,7 +13,8 @@ import torch.distributed as dist
 
 
 def run(rank: int, world: int, rdv: str, out_dir: str, dp: int, sp: int,
-        cases, backend: str = "gloo") -> None:
+        cases, backend: str = "gloo", device: str = "cpu") -> None:
+    from go_jpeg2000_tpu_torch.ops import dwt_cuda
     from go_jpeg2000_tpu_torch.parallel import (decode_sharded,
                                                 encode_sharded, make_grid)
     if backend == "nccl":
@@ -19,7 +22,7 @@ def run(rank: int, world: int, rdv: str, out_dir: str, dp: int, sp: int,
         device = "cuda"
     else:
         torch.set_num_threads(1)      # the ranks share the host's cores
-        device = "cpu"
+    dwt_cuda.reset_counts()
     dist.init_process_group(backend, init_method=f"file://{rdv}",
                             world_size=world, rank=rank)
     try:
@@ -32,5 +35,8 @@ def run(rank: int, world: int, rdv: str, out_dir: str, dp: int, sp: int,
             got.append((data, pix))
         with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
             pickle.dump(got, f)
+        with open(f"{out_dir}/rank{rank}_launches.json", "w") as f:
+            json.dump(dict(dwt_cuda.LAUNCHES,
+                           plain_levels=dwt_cuda.PLAIN_LEVELS), f)
     finally:
         dist.destroy_process_group()
