@@ -244,7 +244,17 @@ sources in this checkout.  Phases, each of which raises on failure:
    > 0), no plain level, the wall of the encode and of the decode, and
    the transform and inverse steps (medians of 3) with the edge round
    trip (packing, the gloo gather through the host, the upload) timed
-   apart; with four cards also (2, 2) on NCCL, a rank a card.
+   apart; with four cards also (2, 2) on NCCL, a rank a card;
+20. the tools (go_jpeg2000_tpu_torch/tools, TOOL_RUNS): profile_stages on
+   the HT 5/3 path and the Part-1 paths A, B and C (reps 1),
+   profile_kernel_stages at 512 8 4, bench_config4_scale at 2048^2,
+   multihost_scaling at 1 and 2 hosts, benchmark_compare at 64 and 128;
+   each through its main on the card, asserting its own exactness.
+
+Every device idle share printed is a bracket over one run
+(tools/_clock.py idle_bracket): torch.profiler's share, an upper bound
+where it lost device events, and the lower bound from CUDA events around
+every device stage of the same run.
 
 Each of the eight main paths, the sharded runs, the four single-image
 cases, each run of phases 12-15, each case of phases 16-18 and each
@@ -1431,33 +1441,24 @@ def encode_stages(tp, frames, opts, dev):
             peak / batch.size)
 
 
-def idle_share(fn):
-    """(device idle share, device busy ms, wall ms, device events kept,
-    launch and copy calls) of fn() under torch.profiler: busy is the sum of
-    the card's kernel and copy events, wall the host clock to the end of a
-    synchronise.  The profiler may lose device events (kernel_times.py
-    --profiler-probe), so where fewer events than calls were kept the share
-    is an upper bound.  None
-    where the profiler records no device event."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    calls = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CPU
-                and e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel",
-                                       "cudaMemcpy", "cudaMemset")))
-    busy_us = sum(e.time_range.elapsed_us() for e in device)
-    if not busy_us:
-        return None
-    return (1 - busy_us * 1e-6 / wall, busy_us * 1e-3, wall * 1e3,
-            len(device), calls)
+def idle_line(label, fn, dev, card):
+    """Print fn()'s device idle share under torch.profiler, an upper bound
+    wherever the profiler kept fewer device events than launch and copy
+    calls (kernel_times.py --profiler-probe), and beside it the lower
+    bound of the same run from CUDA events: 1 - the outermost device
+    stages' event spans over the wall (tools/_clock.py idle_bracket)."""
+    from go_jpeg2000_tpu_torch.tools._clock import idle_bracket
+    b = idle_bracket(fn, dev)
+    lower = (f"; from CUDA events at least {b['lower']:.3f} (device stages' "
+             f"spans {b['spans_ms']:.2f} ms of that wall)")
+    if b["upper"] is None:
+        print(f"device idle share {label}: not measured (the profiler "
+              f"recorded no device event){lower} [{card}]", flush=True)
+        return
+    print(f"device idle share {label}: {b['upper']:.3f} (device busy "
+          f"{b['profiler_ms']:.2f} ms of {b['wall_ms']:.2f} ms wall under "
+          f"torch.profiler, {b['kept']} device events kept of {b['calls']} "
+          f"launch and copy calls){lower} [{card}]", flush=True)
 
 
 def decode_stages(tp, streams, dev):
@@ -1510,15 +1511,7 @@ def stage_lines(tp, label, frames, opts, streams, dev, card, reps):
     for what, fn in (
             ("encode", lambda: tp.encode_batch(frames, opts, device=dev)),
             ("decode", lambda: tp.decode_batch(streams, device=dev))):
-        share = idle_share(fn)
-        if share is None:
-            print(f"device idle share {label} {what}: not measured (the "
-                  f"profiler recorded no device event)", flush=True)
-            continue
-        print(f"device idle share {label} {what}: {share[0]:.3f} (device "
-              f"busy {share[1]:.2f} ms of {share[2]:.2f} ms wall under "
-              f"torch.profiler, {share[3]} device events kept of "
-              f"{share[4]} launch and copy calls) [{card}]", flush=True)
+        idle_line(f"{label} {what}", fn, dev, card)
 
 
 def counted_run(tp, kernels, run, label, dwt_lib):
@@ -2121,16 +2114,7 @@ def ebcot_stages(tp, frames, streams, dev, card, reps=3):
     for what, fn in (
             ("encode", lambda: tp.encode_batch(frames, opts, device=dev)),
             ("decode", lambda: tp.decode_batch(streams, device=dev))):
-        share = idle_share(fn)
-        if share is None:
-            print(f"device idle share EBCOT {what}: not measured (the "
-                  f"profiler recorded no device event)", flush=True)
-            continue
-        print(f"device idle share EBCOT {n}x{shape} {what} (path A): "
-              f"{share[0]:.3f} (device busy {share[1]:.2f} ms of "
-              f"{share[2]:.2f} ms wall under torch.profiler, {share[3]} "
-              f"device events kept of {share[4]} launch and copy calls) "
-              f"[{card}]", flush=True)
+        idle_line(f"EBCOT {n}x{shape} {what} (path A)", fn, dev, card)
 
 
 def ebcot_wall(tp, frames, streams, dev, card, label):
@@ -2540,15 +2524,7 @@ def sharded_timing(tp, label, img, opts, data, dev, card, reps=3):
     for what, fn in (
             ("encode", lambda: encode_sharded(img, opts, device=dev)),
             ("decode", lambda: decode_sharded(data, device=dev))):
-        share = idle_share(fn)
-        if share is None:
-            print(f"device idle share {label} {what}: not measured (the "
-                  f"profiler recorded no device event)", flush=True)
-            continue
-        print(f"device idle share {label} {what}: {share[0]:.3f} (device "
-              f"busy {share[1]:.2f} ms of {share[2]:.2f} ms wall under "
-              f"torch.profiler, {share[3]} device events kept of "
-              f"{share[4]} launch and copy calls) [{card}]", flush=True)
+        idle_line(f"{label} {what}", fn, dev, card)
 
 
 def sharded_cpu_checks(tp, dev):
@@ -2719,37 +2695,14 @@ def check_single_levels(dwt, dwt_cuda, transforms, dev):
     return err
 
 
-class StageClock:
-    """Host-clock seconds spent in named module functions while installed
-    (each wrapped function's calls summed); the wrapped functions return
-    host arrays, so the device work inside them is in their time."""
-
-    def __init__(self, wraps):
-        self.wraps = wraps          # (module, function name, stage label)
-        self.seconds = {}
-        self.saved = []
-
-    def __enter__(self):
-        for mod, name, label in self.wraps:
-            fn = getattr(mod, name)
-            self.saved.append((mod, name, fn))
-            setattr(mod, name, self._timed(fn, label))
-        return self
-
-    def _timed(self, fn, label):
-        def timed(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                self.seconds[label] = (self.seconds.get(label, 0.0)
-                                       + time.perf_counter() - t0)
-        return timed
-
-    def __exit__(self, *exc):
-        for mod, name, fn in reversed(self.saved):
-            setattr(mod, name, fn)
-        return False
+def stage_clock(wraps):
+    """A tools/_clock.py StageClock over (module, function name, stage
+    label) wraps, host clock only, not strict (a phase-16 case may skip a
+    stage); its `seconds` are each label's host seconds, a stage called
+    inside another counted in the inner one only."""
+    from go_jpeg2000_tpu_torch.tools._clock import Stage, StageClock
+    return StageClock([Stage(m, n, label) for m, n, label in wraps],
+                      strict=False)
 
 
 def single_image_stages(tp, label, image, opts, data, dev, card):
@@ -2763,7 +2716,7 @@ def single_image_stages(tp, label, image, opts, data, dev, card):
     transform, download: transforms.run_inverse)."""
     from go_jpeg2000_tpu_torch.models import decoder, encoder, transforms
     mpix = image.shape[0] * image.shape[1] / 1e6
-    with StageClock([(transforms, "run_forward", "device transform"),
+    with stage_clock([(transforms, "run_forward", "device transform"),
                      (encoder, "_code_blocks", "host block coding"),
                      (encoder, "_assemble_with_budget", "PCRD and Tier-2")]
                     ) as enc:
@@ -2772,7 +2725,7 @@ def single_image_stages(tp, label, image, opts, data, dev, card):
         enc_s = time.perf_counter() - t0
     if again != data:
         raise AssertionError(f"{label}: a second encode differs")
-    with StageClock([(decoder, "tile_pyramids", "tier2"),
+    with stage_clock([(decoder, "tile_pyramids", "tier2"),
                      (decoder, "decode_blocks_batch", "block decode"),
                      (transforms, "run_inverse", "device inverse")]) as dec:
         t0 = time.perf_counter()
@@ -2780,7 +2733,6 @@ def single_image_stages(tp, label, image, opts, data, dev, card):
         dec_s = time.perf_counter() - t0
     e = enc.seconds
     d = dict(dec.seconds)
-    d["tier2"] -= d.get("block decode", 0.0)
     print(f"stages {label} encode {enc_s * 1e3:.1f} ms ({mpix / enc_s:.2f} "
           f"Mpix/s): device transform {e['device transform'] * 1e3:.1f} ms, "
           f"host block coding {e['host block coding'] * 1e3:.1f} ms, PCRD "
@@ -3224,14 +3176,13 @@ def decode_stage_line(tp, label, data, cfg, dev, card):
     difference (the parse, the planes' assembly, stacking and narrowing,
     the colour conversion and the crop)."""
     from go_jpeg2000_tpu_torch.models import decoder, transforms
-    with StageClock([(decoder, "tile_pyramids", "tier2"),
+    with stage_clock([(decoder, "tile_pyramids", "tier2"),
                      (decoder, "decode_blocks_batch", "block decode"),
                      (transforms, "run_inverse", "device inverse")]) as clk:
         t0 = time.perf_counter()
         tp.decode(data, cfg, device=dev)
         wall = time.perf_counter() - t0
     d = dict(clk.seconds)
-    d["tier2"] -= d.get("block decode", 0.0)
     print(f"stages {label}: wall {wall * 1e3:.1f} ms: Python Tier-2 "
           f"{d['tier2'] * 1e3:.1f} ms, native block decode "
           f"{d.get('block decode', 0.0) * 1e3:.1f} ms, device inverse "
@@ -3457,28 +3408,6 @@ def decode_options_phase(tp, dev, card, launches, c4, c2):
 
 # ------------------------------------------------ phase 17: encode options
 
-# the device stages of an encode or decode: the device programs (their
-# uploads and launches) and the fetches that wait for them; everything
-# else is the host's
-DEVICE_STAGES = (("models.transforms", "run_forward"),
-                 ("models.transforms", "dispatch_forward_batch"),
-                 ("models.transforms", "fetch_forward_batch"),
-                 ("models.fused_encode", "fused_encode_chunk"),
-                 ("models.fused_encode", "encode_pyramid"),
-                 ("models.fused_encode", "fetch_pool"),
-                 ("models.ebcot_fused", "ebcot_encode_chunk"),
-                 ("models.ebcot_fused", "ebcot_decisions_chunk"),
-                 ("models.ebcot_fused", "fetch"),
-                 ("parallel.sharded", "tile_transform_step"),
-                 ("models.decoder", "upload_parsed"),
-                 ("ops.ht_dec", "fused_decode"),
-                 ("ops.ht_dec_cuda", "blocks_to_pyramid"),
-                 ("models.transforms", "inverse_pyramid"),
-                 ("models.transforms", "dispatch_inverse_stacked"),
-                 ("models.decoder", "download"),
-                 ("models.transforms", "run_inverse"))
-
-
 def signed_image(h, w, lo, hi, seed):
     """Smooth noise in [lo, hi), int16 (a CT slice's Hounsfield units)."""
     rng = np.random.RandomState(seed)
@@ -3506,48 +3435,17 @@ def extremes_image(shape, bits, seed):
         np.uint32)
 
 
-class DeviceClock:
-    """Host-clock seconds spent in the device stages (DEVICE_STAGES) while
-    installed; a stage called inside another (run_forward's fetch) counts
-    once."""
-
-    def __enter__(self):
-        import importlib
-        self.seconds = 0.0
-        self.depth = 0
-        self.saved = []
-        for mod, name in DEVICE_STAGES:
-            mod = importlib.import_module(f"go_jpeg2000_tpu_torch.{mod}")
-            fn = getattr(mod, name)
-            self.saved.append((mod, name, fn))
-            setattr(mod, name, self._timed(fn))
-        return self
-
-    def _timed(self, fn):
-        def timed(*a, **kw):
-            self.depth += 1
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                self.depth -= 1
-                if not self.depth:
-                    self.seconds += time.perf_counter() - t0
-        return timed
-
-    def __exit__(self, *exc):
-        for mod, name, fn in reversed(self.saved):
-            setattr(mod, name, fn)
-        return False
-
-
 def case_run(tp, label, fn, launches, need, card):
     """options_run with the case's host/device split printed: its wall ms,
-    the device stages' share (DeviceClock) against the rest, and its plain
-    levels (0, or options_run raises).  Returns (result, counters)."""
-    with DeviceClock() as clock:
+    the device stages' share against the rest, and its plain
+    levels (0, or options_run raises).  Returns (result, counters).  The
+    device stages are tools/_clock.py DEVICE_STAGES: the device programs
+    (their uploads and launches) and the fetches and downloads that wait
+    for them; everything else is the host's."""
+    from go_jpeg2000_tpu_torch.tools._clock import DEVICE_STAGES, StageClock
+    with StageClock(DEVICE_STAGES, strict=False) as clock:
         out, ms, snap = options_run(tp, label, fn, launches, need)
-    dev_ms = clock.seconds * 1e3
+    dev_ms = clock.attributed_s * 1e3
     print(f"{label}: wall {ms:.1f} ms, device programs and their fetches "
           f"{dev_ms:.1f} ms, host {ms - dev_ms:.1f} ms "
           f"({100 * (ms - dev_ms) / ms:.0f}%), plain levels 0 [{card}]",
@@ -4030,14 +3928,6 @@ NCCL_GRID = (2, 2)
 STEP_REPS = 3
 
 
-def free_port() -> int:
-    """A free TCP port on this host for a process group's rendezvous."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def grid_steps(tp, im, opts, grid, dev):
     """This rank's transform step on the row shard of its tiles and the
     inverse step on the pyramid it gives, each synchronised with every rank
@@ -4163,42 +4053,12 @@ def _grid_rank(rank, world, port, dp, sp, backend, img_path, refs, queue,
 
 def run_grid(dp, sp, backend, img_path, refs, timeout=600):
     """Spawn the dp * sp ranks of one phase-19 grid and collect each rank's
-    results; raises if a rank fails or the grid outlasts `timeout` s, and
-    stops every rank it started."""
-    import queue as queue_mod
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    world = dp * sp
-    port = free_port()
-    procs = [ctx.Process(target=_grid_rank,
-                         args=(r, world, port, dp, sp, backend, img_path,
-                               refs, results), daemon=True)
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        deadline = time.perf_counter() + timeout
-        while len(got) < world:
-            try:
-                rank, res = results.get(
-                    timeout=max(1.0, deadline - time.perf_counter()))
-            except queue_mod.Empty:
-                raise AssertionError(f"phase 19 {backend} {(dp, sp)}: ranks "
-                                     f"{sorted(set(range(world)) - set(got))}"
-                                     f" gave no result in {timeout} s")
-            if isinstance(res, str):
-                raise AssertionError(f"phase 19 {backend} {(dp, sp)} rank "
-                                     f"{rank}: {res}")
-            got[rank] = res
-        for p in procs:
-            p.join(timeout=60)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=30)
-    return got
+    results (tools/bench_config4_scale.py spawn_ranks); raises if a rank
+    fails or the grid outlasts `timeout` s, and stops every rank it
+    started."""
+    from go_jpeg2000_tpu_torch.tools.bench_config4_scale import spawn_ranks
+    return spawn_ranks(_grid_rank, dp * sp, (dp, sp, backend, img_path, refs),
+                       timeout, what=f"phase 19 {backend} {(dp, sp)}")
 
 
 def row_shard_phase(tp, card, launches, img, refs):
@@ -4268,6 +4128,35 @@ def row_shard_phase(tp, card, launches, img, refs):
               f"run ({cards} card{'' if cards == 1 else 's'})", flush=True)
     print(f"phase 19, config 4 on row shards: "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
+# ------------------------------------------------------ phase 20: the tools
+
+# each tool of go_jpeg2000_tpu_torch/tools and its arguments at a smoke size
+TOOL_RUNS = (("profile_stages", ["--path", "ht53", "--reps", "1"]),
+             ("profile_stages", ["--path", "ebcot", "--reps", "1"]),
+             ("profile_kernel_stages", ["512", "8", "4"]),
+             ("bench_config4_scale", ["2048"]),
+             ("multihost_scaling", ["--hosts", "1,2"]),
+             ("benchmark_compare", ["--sizes", "64,128"]))
+
+
+def tools_phase(card):
+    """Phase 20: every tool's main on the card at TOOL_RUNS' sizes, as a
+    user runs `python -m go_jpeg2000_tpu_torch.tools.<name>`; each asserts
+    its own exactness, and a tool that raises or returns non-zero fails the
+    smoke."""
+    import importlib
+    t0 = time.perf_counter()
+    for name, argv in TOOL_RUNS:
+        tool = importlib.import_module(f"go_jpeg2000_tpu_torch.tools.{name}")
+        t1 = time.perf_counter()
+        if tool.main(argv + ["--device", "cuda"]) != 0:
+            raise AssertionError(f"phase 20: {name} {argv} failed")
+        print(f"phase 20 {name} {' '.join(argv)}: "
+              f"{time.perf_counter() - t1:.1f} s [{card}]", flush=True)
+    print(f"phase 20, the tools: {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
 
 
 def main():
@@ -4393,6 +4282,8 @@ def main():
     for k, v in odd_geometry_phase(tp, dev, card, launches).items():
         err[k] = max(err[k], v)
     row_shard_phase(tp, card, launches, c4[0], refs)
+    torch.cuda.empty_cache()
+    tools_phase(card)
 
     out = []
     for name, (replaces, src) in REPLACES.items():

@@ -94,7 +94,10 @@ and the HT kernels (per tile-origin class: the gather, extraction,
 cleanup, packing and compaction), each synchronised; and the lossy leg
 (the image >> 8 at quality 85): the encode's transform step and the
 decode's inverse step, where the level kernels' savings should show end to
-end.
+end; then the same lossless steps, and the decode's MagSgn and assembly
+step and inverse step, with every kernel wrapper swapped for its plain
+torch version on the card (plain_kernels: the composite rows' "plain"
+time), medians of 2 after a warm-up.
 --ptxas also compiles the checkout's ht_enc.cu, ht_dec.cu, ebcot_enc.cu,
 dwt53.cu and dwt97.cu with -Xptxas -v and reports the registers, spills
 and static shared memory of the kernels KERNELS names, from cuobjdump
@@ -923,11 +926,65 @@ def main():
         ms = sorted(1e3 * r[3] for r in runs[1:])
         result["config-4 lossy decode stage inverse step"] = {
             "median_ms": ms[1], "ms": ms}
+        del img8, data
+        torch.cuda.empty_cache()
+        result.update(plain_steps(cs, cs.config4_image(cs.C4_SIZE),
+                                  cs.config4_opts(tp, True), dev))
     if args.profiler_probe:
         result["profiler probe"] = profiler_probe(cs, dwt_cuda, dev,
                                                   args.profiler_probe)
     print(json.dumps(result), flush=True)
     return 0
+
+
+def plain_kernels():
+    """(module, name, plain torch version) of every kernel wrapper of
+    config 4's steps: the levels through dwt_cuda.usable answering no
+    (transforms.forward_level and inverse_level then lift plain), the four
+    HT encode kernels, the two HT decode kernels and band_stats; each
+    plain version runs on the card's tensors."""
+    from go_jpeg2000_tpu_torch.models import fused_encode
+    from go_jpeg2000_tpu_torch.ops import (band_stats, dwt_cuda, ht_dec,
+                                           ht_dec_cuda, ht_enc, ht_enc_cuda)
+    return ((dwt_cuda, "usable", lambda *a, **k: False),
+            (ht_enc_cuda, "extract_blocks", fused_encode.extract_blocks),
+            (ht_enc_cuda, "cleanup_values", ht_enc.cleanup_values),
+            (ht_enc_cuda, "pack_streams",
+             lambda streams: [ht_enc.pack_bits(v, ln, nw)
+                              for v, ln, nw in streams]),
+            (ht_enc_cuda, "assemble_pool", ht_enc.assemble_pool),
+            (ht_dec_cuda, "magsgn_decode_blocks", ht_dec.magsgn_decode_blocks),
+            (ht_dec_cuda, "blocks_to_pyramid", ht_dec.blocks_to_pyramid),
+            (band_stats, "band_stats", band_stats.band_stats_plain))
+
+
+def plain_steps(cs, img, opts, dev):
+    """Config 4's lossless steps with plain_kernels swapped in, medians of
+    2 after a warm-up (ms): transform step, HT kernels, MagSgn and
+    assembly, inverse step; the codestream must equal the kernels'."""
+    from go_jpeg2000_tpu_torch.parallel import encode_sharded
+    data = encode_sharded(img, opts, device=dev)
+    swaps = plain_kernels()
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _f in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        if encode_sharded(img, opts, device=dev) != data:
+            raise AssertionError("config 4: the plain steps' codestream "
+                                 "differs from the kernels'")
+        enc = [cs.sharded_encode_stages(img, opts, dev) for _ in range(3)]
+        dec = [cs.sharded_decode_stages(data, dev) for _ in range(3)]
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    out = {}
+    for runs, i, name in ((enc, 2, "transform step"), (enc, 3, "HT kernels"),
+                          (dec, 2, "MagSgn and assembly"),
+                          (dec, 3, "inverse step")):
+        ms = sorted(1e3 * r[i] for r in runs[1:])
+        out[f"config-4 lossless {name} plain"] = {
+            "median_ms": (ms[0] + ms[1]) / 2, "ms": ms}
+    return out
 
 
 def profiler_probe(cs, dwt_cuda, dev, rounds):
