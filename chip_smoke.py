@@ -8,8 +8,8 @@ sources in this checkout.  Phases, each of which raises on failure:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
 2. build: the CUDA sources dwt53.cu, dwt97.cu, dwt_edges.cu, ht_enc.cu,
-   ht_dec.cu, ebcot_enc.cu and band_stats.cu (one nvcc per source, run in
-   parallel)
+   ht_dec.cu, ebcot_enc.cu, band_stats.cu and mct.cu (one nvcc per source,
+   run in parallel)
    and the native coder (g++, from the port's own copy of j2k_native.cpp);
 3. each DWT kernel against its plain torch version on the card: the 5/3
    pair at every level shape of a [32, 512, 512] batch down to 16x16, the
@@ -21,7 +21,18 @@ sources in this checkout.  Phases, each of which raises on failure:
    512] (9/7); all four level kernels also on the first level of a
    4096x4096 and an 8192x8192 frame (every one keeps its strip in
    registers, so any even width takes it): exact, one launch each, no
-   plain level, timed;
+   plain level, timed; then (3c) the colour head and tail of csrc/mct.cu:
+   mct_forward and mct_inverse against coefficients_plain and
+   samples_plain over tests/test_torch_cuda.py's grid (every upload dtype,
+   precisions 1-31, signed and unsigned, 1, 3 and 4 components, with and
+   without RCT/ICT, 5/3 and 9/7, narrowed and not, rows off 16 bytes and
+   single pixels) and the tail on floats past int32 and NaN, bit for bit;
+   each timed by CUDA events and alone beside its bound and its plain
+   version at config 4's tile batch (256 x 3 x 512 x 512, 16-bit RCT and
+   8-bit ICT) and the main paths' batches; config 4's transform and
+   inverse steps by CUDA events beside their one-pass bound, each traced
+   once by torch.profiler, where no device work but the step's own
+   kernels may take 20 us or more;
 4. each HT encode kernel (block extraction, cleanup fields, bit packing,
    pool compaction) against its plain torch version on the card, on the
    block batches of the main paths (32 gray 512x512 lossless, 2240 blocks;
@@ -295,7 +306,8 @@ SRC = {"dwt53": "go_jpeg2000_tpu_torch/csrc/dwt53.cu",
        "ht_enc": "go_jpeg2000_tpu_torch/csrc/ht_enc.cu",
        "ht_dec": "go_jpeg2000_tpu_torch/csrc/ht_dec.cu",
        "ebcot_enc": "go_jpeg2000_tpu_torch/csrc/ebcot_enc.cu",
-       "band_stats": "go_jpeg2000_tpu_torch/csrc/band_stats.cu"}
+       "band_stats": "go_jpeg2000_tpu_torch/csrc/band_stats.cu",
+       "mct": "go_jpeg2000_tpu_torch/csrc/mct.cu"}
 # kernel -> (the TPU kernel it replaces, its source's key in SRC)
 REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
                                 "dwt53"),
@@ -329,7 +341,14 @@ REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
             "ebcot_pool_rows": ("go_jpeg2000_tpu/ops/mq_device.py:220",
                                 "ebcot_enc"),
             "band_stats": ("go_jpeg2000_tpu/parallel/sharded.py:300",
-                           "band_stats")}
+                           "band_stats"),
+            # the jnp heads and tails XLA fused into the device programs
+            # (fused_encode._fused_fn, ht_tpu_decode.fused_decode_fn,
+            # sharded.make_tile_transform_step and make_tile_inverse_step):
+            # forward_rct / forward_ict with the DC shift, and inverse_rct /
+            # inverse_ict with the rounding, DC shift and clamp
+            "mct_forward": ("go_jpeg2000_tpu/ops/mct.py:46", "mct"),
+            "mct_inverse": ("go_jpeg2000_tpu/ops/mct.py:58", "mct")}
 HT_KERNELS = ("ht_extract_blocks", "ht_cleanup_fields", "ht_pack_bits",
               "ht_compact_pool")
 HT_DEC_KERNELS = ("ht_magsgn_decode", "ht_blocks_to_pyramid")
@@ -403,13 +422,15 @@ INT32_OPS_PER_S = 16.7e12
 # per leaf sample for assembly; for the EBCOT decisions per block sample
 # and coded bitplane (five passes over the block with up to 8 neighbour
 # reads a sample, and one fixpoint sweep); per slot for the decision
-# compaction; per decision for the MQ coder; per segment byte for the pool
+# compaction; per decision for the MQ coder; per segment byte for the pool;
+# per sample for the colour head and tail (int32 for 5/3, float32 for 9/7)
 OPS_PER_ELEMENT = {"dwt53": 10, "dwt97": 30, "ht_extract_blocks": 12,
                    "ht_cleanup_fields": 40, "ht_pack_bits": 12,
                    "ht_compact_pool": 4, "ht_magsgn_decode": 20,
                    "ht_blocks_to_pyramid": 12, "ebcot_decision_slots": 200,
                    "ebcot_compact_rows": 4, "ebcot_mq_encode": 30,
-                   "ebcot_pool_rows": 2}
+                   "ebcot_pool_rows": 2, "mct_forward": 4,
+                   "mct_inverse": 6}
 # the MQ coder's serial bound: cycles of one decision's dependent chain
 # (context state and Qe loads from shared memory, the interval update and
 # compare), at the SM clock the int32 rate above assumes
@@ -564,6 +585,238 @@ def check_wide_levels(dwt, dwt_cuda, transforms, dev, card):
     dwt_cuda.reset_counts()
     torch.cuda.empty_cache()
     return err
+
+
+MCT_DTYPES = (np.uint8, np.int8, np.int16, np.uint16, np.int32)
+MCT_PRECISIONS = (1, 8, 12, 16, 29, 30, 31)
+# [N, H, W] of every grid case: rows off 16 bytes, one pixel, aligned rows
+MCT_SHAPES = ((2, 3, 5), (1, 1, 1), (2, 16, 20))
+# the kernels a traced config-4 step may launch (symbol substrings): the
+# colour kernels, the level kernels, band_stats and its memsets; any other
+# event must stay under MCT_SMALL_US (the statistics' [L, 2] output)
+STEP_KERNELS = ("mct_fwd_kernel", "mct_inv_kernel", "dwt53_", "dwt97_",
+                "stats_kernel", "Memset")
+MCT_SMALL_US = 20.0
+
+
+def mct_samples(dtype, shape, seed):
+    """Samples over the dtype's whole range, its extremes included."""
+    info = np.iinfo(dtype)
+    rng = np.random.RandomState(seed)
+    a = rng.randint(info.min, int(info.max) + 1, size=shape, dtype=np.int64)
+    flat = a.reshape(-1)
+    flat[:2] = (info.min, info.max)[:flat.size]
+    return a.astype(dtype)
+
+
+def bits_diff(got, want):
+    """(max |got - want| as float64, whether the bits differ); float32 by
+    its bit pattern, NaN equal to NaN only bit for bit."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return float("inf"), True
+    if got.dtype == torch.float32:
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        same = torch.equal(got, want)
+    d = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    d = d[~torch.isnan(d)]
+    return (d.max().item() if d.numel() else 0.0), not same
+
+
+def check_mct_grid(transforms, mct_cuda, dev):
+    """Phase 3c: mct_forward and mct_inverse against coefficients_plain and
+    samples_plain on the card over tests/test_torch_cuda.py's grid (every
+    upload dtype, precisions 1-31, signed and unsigned, 1, 3 and 4
+    components, with and without RCT/ICT, 5/3 and 9/7, narrowed and not)
+    on MCT_SHAPES, and the tail on floats past int32, infinities and NaN:
+    bit for bit.  Returns the largest |diff| of each."""
+    err = {"mct_forward": 0.0, "mct_inverse": 0.0}
+    bad = []
+    cases = 0
+
+    def held(name, got, want, what):
+        nonlocal cases
+        d, differ = bits_diff(got, want)
+        err[name] = max(err[name], d)
+        cases += 1
+        if differ:
+            bad.append(f"{name} {what}")
+
+    t0 = time.perf_counter()
+    for di, dtype in enumerate(MCT_DTYPES):
+        for precision in MCT_PRECISIONS:
+            for signed in (False, True):
+                seed = precision * 7 + di * 2 + signed
+                for n, h, w in MCT_SHAPES:
+                    for c in (1, 3, 4):
+                        x = transforms.upload(
+                            mct_samples(dtype, (n, c, h, w), seed), dev)
+                        for kind in ("53", "97"):
+                            for mct in (False, True):
+                                what = (f"{np.dtype(dtype).name} {precision}"
+                                        f" bits signed {signed} {(n, c, h, w)}"
+                                        f" {kind} mct {mct}")
+                                ref = transforms.coefficients_plain(
+                                    x, kind, mct, precision, signed)
+                                held("mct_forward", mct_cuda.mct_forward(
+                                    x, kind, mct, precision, signed), ref,
+                                    what)
+                                g = torch.Generator(device=dev).manual_seed(
+                                    seed + c)
+                                noise = torch.randint(-4, 5, ref.shape,
+                                                      generator=g,
+                                                      device=dev)
+                                coef = (ref + noise.to(torch.int32)
+                                        if kind == "53" else
+                                        ref + noise.to(torch.float32) / 2)
+                                for narrow in (True, False):
+                                    held("mct_inverse", mct_cuda.mct_inverse(
+                                        coef, kind, mct, precision, signed,
+                                        narrow), transforms.samples_plain(
+                                        coef, kind, mct, precision, signed,
+                                        narrow), f"{what} narrow {narrow}")
+    vals = torch.tensor([3e9, -3e9, float("nan"), 2.0 ** 31, -2.0 ** 31, 2.5,
+                         -2.5, 0.5, float("inf"), -float("inf"), 1e38],
+                        device=dev)
+    x = vals[torch.arange(3 * 4 * 16, device=dev) % vals.numel()].reshape(
+        1, 3, 4, 16)
+    for precision in (8, 16, 31):
+        for signed in (False, True):
+            for mct in (False, True):
+                for narrow in (True, False):
+                    held("mct_inverse", mct_cuda.mct_inverse(
+                        x, "97", mct, precision, signed, narrow),
+                        transforms.samples_plain(x, "97", mct, precision,
+                                                 signed, narrow),
+                        f"floats past int32 {precision} {signed} {mct}")
+    torch.cuda.synchronize()
+    print(f"kernel check mct_forward, mct_inverse: {cases} cases against "
+          f"the plain versions, {len(bad)} differ, max|diff| "
+          f"{err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if bad:
+        raise AssertionError(f"mct kernels differ from plain: {bad[:5]}")
+    return err
+
+
+def mct_inputs(dev, n, c, side, dtype):
+    """Random samples [n, c, side, side] of dtype made on the card (uint16
+    as the bit pattern of int16)."""
+    g = torch.Generator(device=dev).manual_seed(n + c)
+    if dtype == torch.uint16:
+        return torch.randint(-32768, 32768, (n, c, side, side), generator=g,
+                             device=dev, dtype=torch.int16).view(torch.uint16)
+    return torch.randint(0, 256, (n, c, side, side), generator=g, device=dev,
+                         dtype=torch.uint8)
+
+
+def mct_times(transforms, mct_cuda, dev, card, err):
+    """Phase 3c: each colour kernel by CUDA events and alone beside its
+    bound and its plain version, at config 4's tile batch (256 tiles of
+    512x512 RGB: 16-bit RCT, and 8-bit ICT as the lossy leg) and at the
+    main paths' batches (32 gray and 4 RGB 8-bit 512x512).  At each of
+    these shapes the kernel's output is held bit for bit against its plain
+    version's first, and its largest |diff| folded into err.  Returns the
+    JSON line's times (config 4 lossless)."""
+    times = {}
+    for label, n, c, dtype, kind, mct, prec in (
+            ("config 4", 256, 3, torch.uint16, "53", True, 16),
+            ("config 4 lossy", 256, 3, torch.uint8, "97", True, 8),
+            ("gray main path", N_GRAY, 1, torch.uint8, "53", False, 8),
+            ("rgb main path", N_RGB, 3, torch.uint8, "53", True, 8)):
+        x = mct_inputs(dev, n, c, H, dtype)
+        coef = mct_cuda.mct_forward(x, kind, mct, prec, False)
+        out = mct_cuda.mct_inverse(coef, kind, mct, prec, False)
+        rate = INT32_OPS_PER_S if kind == "53" else FP32_OPS_PER_S
+        for name, fn, plain, nbytes in (
+                ("mct_forward",
+                 lambda: mct_cuda.mct_forward(x, kind, mct, prec, False),
+                 lambda: transforms.coefficients_plain(x, kind, mct, prec,
+                                                       False),
+                 x.numel() * x.element_size() + 4 * coef.numel()),
+                ("mct_inverse",
+                 lambda: mct_cuda.mct_inverse(coef, kind, mct, prec, False),
+                 lambda: transforms.samples_plain(coef, kind, mct, prec,
+                                                  False),
+                 4 * coef.numel() + out.numel() * out.element_size())):
+            what = (f"{label} [{n},{c},{H},{W}] {str(x.dtype)[6:]} {kind}"
+                    f" mct {mct}")
+            d, differ = bits_diff(fn(), plain())
+            if differ:
+                raise AssertionError(f"{name} differs from its plain version"
+                                     f" at {what}: max|diff| {d}")
+            err[name] = max(err[name], d)
+            lim = bound(nbytes, OPS_PER_ELEMENT[name] * coef.numel(), rate)
+            ms = cuda_ms(fn)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            time_line(name, ms, plain_ms, lim[0], lim[1], device_ms(fn),
+                      f"{what}, bit for bit, {nbytes / 1e6:.1f} MB", card)
+            if label == "config 4":
+                times[name] = (ms, plain_ms) + lim
+        del x, coef, out
+    torch.cuda.empty_cache()
+    return times
+
+
+def traced_kernels(fn):
+    """{device event name: [count, total us]} of one run of fn under
+    torch.profiler, after a run outside it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            entry = out.setdefault(e.name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += e.time_range.elapsed_us()
+    return out
+
+
+def mct_config4_steps(transforms, psh, dev, card):
+    """Phase 3c: config 4's transform step (mct_forward, the 4 forward
+    levels, band_stats) and inverse step (the 4 inverse levels,
+    mct_inverse) on the tile batch, lossless (16-bit RCT) and lossy (8-bit
+    ICT), by CUDA events (mean of 5 after 2 warm-ups) beside the one-pass
+    bound (the samples read once, the leaves written once, and back); each
+    step traced once with torch.profiler: no kernel but the step's own may
+    take MCT_SMALL_US or more (no whole-image torch op is left)."""
+    for label, dtype, kind, prec in (("lossless", torch.uint16, "53", 16),
+                                     ("lossy", torch.uint8, "97", 8)):
+        x = mct_inputs(dev, 256, 3, C4_TILE, dtype)
+        pyr, _stats = psh.tile_transform_step(x, C4_RES - 1, True, prec,
+                                              False, kind)
+        leaf_bytes = sum(4 * v.numel() for e in pyr for v in e.values())
+        steps = (("transform step",
+                  lambda: psh.tile_transform_step(x, C4_RES - 1, True, prec,
+                                                  False, kind),
+                  x.numel() * x.element_size() + leaf_bytes),
+                 ("inverse step",
+                  lambda: psh.tile_inverse_step(pyr, True, prec, False,
+                                                kind),
+                  leaf_bytes + x.numel() * x.element_size()))
+        for what, fn, nbytes in steps:
+            ms = cuda_ms(fn, reps=5, warmup=2)
+            events = traced_kernels(fn)
+            own = {k: v for k, v in events.items()
+                   if any(p in k for p in STEP_KERNELS)}
+            other = {k: v for k, v in events.items() if k not in own}
+            big = {k: v for k, v in other.items()
+                   if v[1] / v[0] >= MCT_SMALL_US}
+            names = sorted({k.split("(")[0].split("<")[0].split()[-1]
+                            for k in own})
+            print(f"config-4 {label} {what}: {ms:.4f} ms by events, bound "
+                  f"{bound(nbytes, 0, 1)[0]:.4f} ms ({nbytes / 1e6:.1f} MB); "
+                  f"traced kernels {names}, other device events "
+                  f"{ {k[:60]: (v[0], round(v[1], 1)) for k, v in other.items()} }"
+                  f" [{card}]", flush=True)
+            if big:
+                raise AssertionError(f"config-4 {label} {what}: device work "
+                                     f"outside its kernels: {big}")
+        del x, pyr
+        torch.cuda.empty_cache()
 
 
 def device_ms(fn, reps=20):
@@ -1492,12 +1745,18 @@ def decode_stages(tp, streams, dev):
 
 
 def stage_lines(tp, label, frames, opts, streams, dev, card, reps):
-    """The encode's and the decode's stages (medians of reps), and the
-    device idle share of one encode and one decode."""
+    """The encode's and the decode's stages (medians of reps), each device
+    program beside its one-pass bound (the encode's: the samples read and
+    the fetched pool written once; the decode's: the upload read and the
+    samples written once), and the device idle share of one encode and one
+    decode."""
     enc = [encode_stages(tp, frames, opts, dev) for _ in range(reps)]
     e = [float(np.median([st[i] for st in enc])) for i in range(3)]
+    nbytes = sum(f.nbytes for f in frames)
     print(f"encode stages {label} {len(frames)}x{frames[0].shape} (median of "
-          f"{reps}): device program {e[0] * 1e3:.2f} ms, device-to-host "
+          f"{reps}): device program {e[0] * 1e3:.2f} ms (its upload "
+          f"included; bound {bound(nbytes + enc[0][3], 0, 1)[0]:.4f} ms), "
+          f"device-to-host "
           f"copy of {enc[0][3]} bytes {e[1] * 1e3:.2f} ms, native Tier-2 "
           f"{e[2] * 1e3:.2f} ms; peak device memory {enc[0][4]:.1f} "
           f"bytes/sample [{card}]", flush=True)
@@ -1506,7 +1765,9 @@ def stage_lines(tp, label, frames, opts, streams, dev, card, reps):
     print(f"decode stages {label} {len(frames)}x{frames[0].shape} (median of "
           f"{reps}): native parse {d[0] * 1e3:.2f} ms, upload of "
           f"{dec[0][4]} bytes {d[1] * 1e3:.2f} ms, device program "
-          f"{d[2] * 1e3:.2f} ms, download {d[3] * 1e3:.2f} ms; peak device "
+          f"{d[2] * 1e3:.2f} ms (bound "
+          f"{bound(dec[0][4] + nbytes, 0, 1)[0]:.4f} ms), download "
+          f"{d[3] * 1e3:.2f} ms; peak device "
           f"memory {dec[0][5]:.1f} bytes/sample [{card}]", flush=True)
     for what, fn in (
             ("encode", lambda: tp.encode_batch(frames, opts, device=dev)),
@@ -1518,8 +1779,9 @@ def counted_run(tp, kernels, run, label, dwt_lib):
     """Run one main path with every count set to 0 just before it; check
     that its encode went through the fused encode and every HT encode
     kernel, its decode through the device HT decode and both HT decode
-    kernels, and its levels through the DWT kernels of dwt_lib, with no
-    plain levels.  Returns (result, launches of those kernels)."""
+    kernels, its levels through the DWT kernels of dwt_lib, with no plain
+    levels, and its head and tail through the colour kernels.  Returns (result, launches of those kernels)."""
+    from go_jpeg2000_tpu_torch.ops import mct_cuda
     dwt_cuda, ht_enc_cuda, ht_dec_cuda = kernels
     reset_all_counts(tp)
     result = run()
@@ -1528,6 +1790,7 @@ def counted_run(tp, kernels, run, label, dwt_lib):
                 if k.startswith(dwt_lib)}
     launches.update(ht_enc_cuda.LAUNCHES)
     launches.update(ht_dec_cuda.LAUNCHES)
+    launches.update(mct_cuda.LAUNCHES)
     snap = tp.counters.snapshot()
     paths = {k: snap.get(k, 0) for k in (
         "enc.fused_chunks", "enc.host_entropy_frames",
@@ -1985,7 +2248,9 @@ def ebcot_counted_run(tp, kernels, run, label):
     before it; check that the encode went through the device EBCOT encode,
     its four kernels, block extraction and the 5/3 kernels with no plain
     level, and the decode through the EBCOT branch and the assembly
-    kernel.  Returns (result, launches of those kernels)."""
+    kernel, and the head and tail through the colour kernels.  Returns
+    (result, launches of those kernels)."""
+    from go_jpeg2000_tpu_torch.ops import mct_cuda
     dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda = kernels
     reset_all_counts(tp)
     result = run()
@@ -1996,6 +2261,7 @@ def ebcot_counted_run(tp, kernels, run, label):
     launches["ht_blocks_to_pyramid"] = \
         ht_dec_cuda.LAUNCHES["ht_blocks_to_pyramid"]
     launches.update(ebcot_cuda.LAUNCHES)
+    launches.update(mct_cuda.LAUNCHES)
     snap = tp.counters.snapshot()
     paths = {k: snap.get(k, 0) for k in (
         "enc.ebcot_device_chunks", "enc.ebcot_hybrid_chunks",
@@ -2325,14 +2591,16 @@ def sharded_counted_run(tp, kernels, run, label, dwt_lib, n_tiles):
     """Run one config-4 path with every count set to 0 just before it; the
     encode must take the device HT entropy and the decode the device HT
     decode for every tile, every level the DWT kernels of dwt_lib, and the
-    band statistics their kernel.  Returns (result, launches)."""
+    band statistics their kernel, the head and tail the colour kernels.
+    Returns (result, launches)."""
+    from go_jpeg2000_tpu_torch.ops import mct_cuda
     dwt_cuda, ht_enc_cuda, ht_dec_cuda, band_stats = kernels
     reset_all_counts(tp)
     result = run()
     torch.cuda.synchronize()
     launches = {k: v for k, v in dwt_cuda.LAUNCHES.items()
                 if k.startswith(dwt_lib)}
-    for k in (ht_enc_cuda, ht_dec_cuda, band_stats):
+    for k in (ht_enc_cuda, ht_dec_cuda, band_stats, mct_cuda):
         launches.update(k.LAUNCHES)
     snap = tp.counters.snapshot()
     paths = {k: snap.get(k, 0) for k in (
@@ -4088,7 +4356,7 @@ def row_shard_phase(tp, card, launches, img, refs):
                 for label, r in results[rank].items():
                     lib = "dwt53" if "lossless" in label else "dwt97"
                     need = (f"{lib}_fwd_level", f"{lib}_inv_level",
-                            "dwt_pack_edges")
+                            "dwt_pack_edges", "mct_forward", "mct_inverse")
                     st = r["steps"]
                     same = ("byte-identical to" if r["same_stream"]
                             else "DIFFERS FROM")
@@ -4168,7 +4436,8 @@ def main():
     from go_jpeg2000_tpu_torch.native import loader
     from go_jpeg2000_tpu_torch.ops import (band_stats, cuda_build, dwt,
                                            dwt_cuda, ebcot_cuda, ht_dec_cuda,
-                                           ht_enc_cuda)
+                                           ht_enc_cuda, mct_cuda)
+    from go_jpeg2000_tpu_torch.parallel import sharded as psh
 
     dev = torch.device("cuda")
     card = card_line()
@@ -4183,12 +4452,13 @@ def main():
     ht_dec_cuda.load()
     ebcot_cuda.load()
     band_stats.load()
+    mct_cuda.load()
     t1 = time.perf_counter()
     if not loader.available():
         raise RuntimeError("native library j2k_native.cpp did not build")
     t2 = time.perf_counter()
     print(f"build: dwt53.cu, dwt97.cu, dwt_edges.cu, ht_enc.cu, ht_dec.cu, "
-          f"ebcot_enc.cu and band_stats.cu (nvcc, in parallel) "
+          f"ebcot_enc.cu, band_stats.cu and mct.cu (nvcc, in parallel) "
           f"{t1 - t0:.1f} s, "
           f"j2k_native.cpp (g++) {t2 - t1:.1f} s", flush=True)
 
@@ -4199,6 +4469,9 @@ def main():
     for k, e in check_wide_levels(dwt, dwt_cuda, transforms, dev,
                                   card).items():
         err[k] = max(err[k], e)
+    err.update(check_mct_grid(transforms, mct_cuda, dev))
+    times.update(mct_times(transforms, mct_cuda, dev, card, err))
+    mct_config4_steps(transforms, psh, dev, card)
     e, t, library = check_ht_kernels(tp, dev, card)
     err.update(e)
     times.update(t)
@@ -4237,7 +4510,7 @@ def main():
     for label, (frames, opts, streams, _dec) in runs.items():
         if label != "rgb":
             wall_mpix(tp, opts, frames, streams, dev, card, label)
-    for label, reps in (("gray", 3), ("lossy rgb", 1)):
+    for label, reps in (("gray", 3), ("rgb", 3), ("lossy rgb", 1)):
         frames, opts, streams, _dec = runs[label]
         stage_lines(tp, label, frames, opts, streams, dev, card, reps)
 

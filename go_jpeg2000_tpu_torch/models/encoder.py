@@ -161,6 +161,9 @@ def build_header(image: np.ndarray, opts: Options) -> Header:
     h.height = h_img + h.y_offset
     tw, th = opts.tile_size
     h.tile_x_offset, h.tile_y_offset = opts.tile_offset
+    if h.tile_x_offset > h.x_offset or h.tile_y_offset > h.y_offset:
+        # Header.validate's rule, which every decoder holds a stream to
+        raise ValueError("tile offset must not exceed image offset")
     h.tile_width = tw if tw > 0 else h.width - h.tile_x_offset
     h.tile_height = th if th > 0 else h.height - h.tile_y_offset
     h.components = [ComponentInfo.make(precision, signed) for _ in comps]

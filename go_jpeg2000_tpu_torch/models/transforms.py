@@ -10,8 +10,12 @@ plain torch lifting (ops/dwt.py) otherwise; a CUDA level that takes the
 plain version is counted in `dwt_cuda.PLAIN_LEVELS`.  A row shard's level
 (edges given) always goes to the wrapper: the kernel on the card, the
 plain halo form on the CPU, a ValueError where the halo form is not
-defined.  Components of equal shape batch as
-[N, C, H, W] so one launch covers every frame and component.  Nothing here falls back
+defined.  The head (DC shift, RCT or ICT) and the tail (inverse RCT or
+ICT, rounding, DC shift, clamp, narrowing) go through one launch each of
+the kernels of ops/mct_cuda.py on the card, and through their plain torch
+versions (coefficients_plain, samples_plain) on the CPU.  Components of
+equal shape batch as [N, C, H, W] so one launch covers every frame and
+component.  Nothing here falls back
 to the CPU: tensors stay on the device they were given, and a failed
 kernel build or launch raises.
 """
@@ -22,7 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops import dwt, dwt_cuda, mct, quant
+from ..ops import dwt, dwt_cuda, mct, mct_cuda, quant
 
 
 def resolve_device(device) -> torch.device:
@@ -127,28 +131,35 @@ def _reconstruct(pyramid: List[Dict[str, torch.Tensor]], kind: str,
 
 
 def upload(batch: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host samples -> int32 tensor on `device`, shipped narrow.  uint8,
-    int8, int16 and int32 travel as they are; uint16 has no torch
-    arithmetic, so it travels as its int16 bit pattern and is masked back
-    to 0..65535 after the widening cast; uint32 travels as its int32 bit
-    pattern, which is its value below 2^31 (samples of up to 31 bits, as
+    """Host samples -> a tensor on `device`, shipped narrow.  uint8, int8,
+    int16, uint16 and int32 travel as they are; uint32 travels as its int32
+    bit pattern, which is its value below 2^31 (samples of up to 31 bits, as
     encoder.check_precision admits); other integer types are cast to int32
-    on the host, wrapping as the JAX package's astype does."""
+    on the host, wrapping as the JAX package's astype does.  coefficients
+    widens the samples as it reads them (on the card mct_cuda.mct_forward,
+    on the CPU coefficients_plain)."""
     batch = np.ascontiguousarray(batch)
-    if batch.dtype == np.uint16:
-        t = torch.from_numpy(batch.view(np.int16)).to(device)
-        return t.to(torch.int32) & 0xFFFF
     if batch.dtype == np.uint32:
         batch = batch.view(np.int32)
-    elif batch.dtype not in (np.uint8, np.int8, np.int16, np.int32):
+    elif batch.dtype not in (np.uint8, np.int8, np.int16, np.uint16,
+                             np.int32):
         batch = batch.astype(np.int32)
-    return torch.from_numpy(batch).to(device).to(torch.int32)
+    return torch.from_numpy(batch).to(device)
 
 
 def coefficients(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
                  signed: bool) -> torch.Tensor:
-    """int32 [N, C, H, W] samples -> DC shift, then RCT (5/3) or ICT (9/7,
-    then float32): the DWT's input."""
+    """Samples [N, C, H, W] (as upload ships them) -> DC shift, then RCT
+    (5/3, int32) or ICT (9/7, float32): the DWT's input.  On the card one
+    launch of mct_cuda.mct_forward; on the CPU coefficients_plain."""
+    if x.device.type == "cpu":
+        return coefficients_plain(x, kind, use_mct, precision, signed)
+    return mct_cuda.mct_forward(x, kind, use_mct, precision, signed)
+
+
+def coefficients_plain(x: torch.Tensor, kind: str, use_mct: bool,
+                       precision: int, signed: bool) -> torch.Tensor:
+    """coefficients as torch ops (mct_forward's plain version)."""
     x = mct.dc_shift_forward(x.to(torch.int32), precision, signed)
     c = x.shape[1]
     if use_mct and c >= 3:
@@ -163,9 +174,9 @@ def coefficients(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
 def forward_pyramid(x: torch.Tensor, levels: int, kind: str, use_mct: bool,
                     precision: int, signed: bool, u0: int, v0: int
                     ) -> List[Dict[str, torch.Tensor]]:
-    """int32 [N, C, H, W] samples -> DC shift, RCT (5/3) or ICT (9/7, then
-    float32) and the multi-level DWT: the pyramid, leaves [N, C, h, w]
-    (int32 for 5/3, float32 for 9/7)."""
+    """Samples [N, C, H, W] (as upload ships them) -> DC shift, RCT (5/3)
+    or ICT (9/7, then float32) and the multi-level DWT: the pyramid,
+    leaves [N, C, h, w] (int32 for 5/3, float32 for 9/7)."""
     return _decompose(coefficients(x, kind, use_mct, precision, signed),
                       levels, kind, u0, v0)
 
@@ -175,13 +186,14 @@ def forward_transform_batch(x: torch.Tensor, levels: int, kind: str,
                             u0: int, v0: int,
                             quant_deltas: Optional[Sequence[float]] = None
                             ) -> torch.Tensor:
-    """int32 [N, C, H, W] samples -> the whole pyramid packed into one flat
-    tensor in the JAX package's tree-leaves order (levels ascending; keys
-    sorted: HH, HL, LH [, LL at the top level]).  5/3 (RCT): narrowed to
-    int16 when a lossless pyramid fits (precision <= 13).  9/7 (ICT, float32
-    lifting): with `quant_deltas`, one deadzone step per leaf in that order
-    (encoder._leaf_deltas), the leaves are quantized on the device and come
-    back as int32 indices, int16 when precision <= 10."""
+    """Samples [N, C, H, W] (as upload ships them) -> the whole pyramid
+    packed into one flat tensor in the JAX package's tree-leaves order
+    (levels ascending; keys sorted: HH, HL, LH [, LL at the top level]).
+    5/3 (RCT): narrowed to int16 when a lossless pyramid fits (precision
+    <= 13).  9/7 (ICT, float32 lifting): with `quant_deltas`, one deadzone
+    step per leaf in that order (encoder._leaf_deltas), the leaves are
+    quantized on the device and come back as int32 indices, int16 when
+    precision <= 10."""
     pyr = forward_pyramid(x, levels, kind, use_mct, precision, signed, u0,
                           v0)
     leaves = [entry[k] for entry in pyr for k in sorted(entry)]
@@ -247,12 +259,21 @@ def inverse_pyramid(pyramid: List[Dict[str, torch.Tensor]], kind: str,
 
 def samples(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
             signed: bool, narrow: bool = True) -> torch.Tensor:
-    """The inverse DWT's output [N, C, H, W] -> inverse RCT/ICT, rounding
-    half to even (9/7), DC shift (unsigned samples), clamp to the
-    precision's range and narrowing: int8 or uint8 up to 8 bits, int16 for
-    9 to 16 (signed samples as they are, unsigned ones as their int16 bit
-    pattern, torch having no uint16 arithmetic), int32 above 16 bits and
-    with narrow=False."""
+    """The inverse DWT's output [N, C, H, W] (int32 for 5/3, float32 for
+    9/7) -> inverse RCT/ICT, rounding half to even (9/7), DC shift
+    (unsigned samples), clamp to the precision's range and narrowing: int8
+    or uint8 up to 8 bits, int16 for 9 to 16 (signed samples as they are,
+    unsigned ones as their int16 bit pattern, torch having no uint16
+    arithmetic), int32 above 16 bits and with narrow=False.  On the card
+    one launch of mct_cuda.mct_inverse; on the CPU samples_plain."""
+    if x.device.type == "cpu":
+        return samples_plain(x, kind, use_mct, precision, signed, narrow)
+    return mct_cuda.mct_inverse(x, kind, use_mct, precision, signed, narrow)
+
+
+def samples_plain(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
+                  signed: bool, narrow: bool = True) -> torch.Tensor:
+    """samples as torch ops (mct_inverse's plain version)."""
     lossy = kind == dwt.IRR97
     c = x.shape[1]
     if use_mct and c >= 3:
@@ -263,13 +284,7 @@ def samples(x: torch.Tensor, kind: str, use_mct: bool, precision: int,
         x = torch.round(x).to(torch.int32)    # half to even, as jnp.rint
     x = mct.dc_shift_inverse(x, precision, signed)
     x = mct.clamp_to_precision(x, precision, signed)
-    if not narrow:
-        return x
-    if precision <= 8:
-        x = x.to(torch.int8 if signed else torch.uint8)
-    elif precision <= 16:
-        x = x.to(torch.int16)
-    return x
+    return x.to(mct.narrow_dtype(precision, signed, narrow))
 
 
 def inverse_transform_batch(flat: torch.Tensor, n: int, c: int, levels: int,

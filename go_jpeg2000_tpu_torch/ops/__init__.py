@@ -8,9 +8,11 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import band_stats, dwt_cuda, ebcot_cuda, ht_dec_cuda, ht_enc_cuda
+from . import (band_stats, dwt_cuda, ebcot_cuda, ht_dec_cuda, ht_enc_cuda,
+               mct_cuda)
 
-_COUNTED = (dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda, band_stats)
+_COUNTED = (dwt_cuda, ht_enc_cuda, ht_dec_cuda, ebcot_cuda, band_stats,
+            mct_cuda)
 
 
 def kernel_launches() -> Dict[str, int]:

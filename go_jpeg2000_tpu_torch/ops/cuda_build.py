@@ -2,7 +2,8 @@
 
 Each source compiles into a shared library with a plain C interface, bound
 with ctypes by its wrapper module (ops/dwt_cuda.py, ops/ht_enc_cuda.py,
-ops/ht_dec_cuda.py, ops/ebcot_cuda.py, ops/band_stats.py).
+ops/ht_dec_cuda.py, ops/ebcot_cuda.py, ops/band_stats.py,
+ops/mct_cuda.py).
 The libraries go into go_jpeg2000_tpu_torch/_build/, named by a hash of the
 source, the headers of csrc/ and the flags, so a library built from the
 same source is reused.
@@ -27,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"dwt53": "dwt53.cu", "dwt97": "dwt97.cu",
            "dwt_edges": "dwt_edges.cu", "ht_enc": "ht_enc.cu",
            "ht_dec": "ht_dec.cu", "ebcot_enc": "ebcot_enc.cu",
-           "band_stats": "band_stats.cu"}
+           "band_stats": "band_stats.cu", "mct": "mct.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -19,29 +19,49 @@ import torch
 
 # --- DC level shift (G.1.2) ------------------------------------------------
 
+def dc_offset(precision: int, signed: bool) -> int:
+    """The DC level shift: 2^(P-1) for unsigned samples, 0 for signed."""
+    return 0 if signed else 1 << (precision - 1)
+
+
 def dc_shift_forward(x: torch.Tensor, precision: int,
                      signed: bool) -> torch.Tensor:
     """Subtract 2^(P-1) from unsigned samples (no-op for signed)."""
     if signed:
         return x
-    return x - (1 << (precision - 1))
+    return x - dc_offset(precision, signed)
 
 
 def dc_shift_inverse(x: torch.Tensor, precision: int,
                      signed: bool) -> torch.Tensor:
     if signed:
         return x
-    return x + (1 << (precision - 1))
+    return x + dc_offset(precision, signed)
+
+
+def sample_range(precision: int, signed: bool) -> Tuple[int, int]:
+    """The component's legal sample range (lo, hi)."""
+    if signed:
+        return -(1 << (precision - 1)), (1 << (precision - 1)) - 1
+    return 0, (1 << precision) - 1
 
 
 def clamp_to_precision(x: torch.Tensor, precision: int,
                        signed: bool) -> torch.Tensor:
     """Clamp reconstructed samples to the component's legal range."""
-    if signed:
-        lo, hi = -(1 << (precision - 1)), (1 << (precision - 1)) - 1
-    else:
-        lo, hi = 0, (1 << precision) - 1
-    return torch.clamp(x, lo, hi)
+    return torch.clamp(x, *sample_range(precision, signed))
+
+
+def narrow_dtype(precision: int, signed: bool,
+                 narrow: bool = True) -> torch.dtype:
+    """The dtype reconstructed samples narrow to: int8 or uint8 up to 8
+    bits, int16 for 9 to 16 (an unsigned sample as its bit pattern, torch
+    having little uint16 arithmetic), int32 above 16 bits and unnarrowed."""
+    if narrow and precision <= 8:
+        return torch.int8 if signed else torch.uint8
+    if narrow and precision <= 16:
+        return torch.int16
+    return torch.int32
 
 
 # --- Reversible color transform (G.2) --------------------------------------

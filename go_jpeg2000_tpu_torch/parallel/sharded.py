@@ -230,11 +230,12 @@ def inverse_level_split(bands: Sequence[Dict[str, torch.Tensor]], kind: str,
 def tile_transform_step(batch: torch.Tensor, levels: int, use_mct: bool,
                         precision: int, signed: bool, kind: str,
                         grid: Optional[Grid] = None):
-    """This rank's row shard of its tiles, int32 samples [n, C, th/sp, tw]
-    -> (pyramid leaves [n, C, h, w], band statistics float32 [L, 2]): DC
-    shift, RCT or ICT, the sharded DWT, then per leaf (levels ascending; HL,
-    LH, HH, LL) the sum of squares and the nonzero count over the whole
-    grid."""
+    """This rank's row shard of its tiles, samples [n, C, th/sp, tw] as
+    transforms.upload ships them -> (pyramid leaves [n, C, h, w], band
+    statistics float32 [L, 2]): DC shift, RCT or ICT (on the card one
+    launch of mct_forward), the sharded DWT, then per leaf (levels
+    ascending; HL, LH, HH, LL) the sum of squares and the nonzero count
+    over the whole grid."""
     x = transforms.coefficients(batch, kind, use_mct, precision, signed)
     pyr = dwt_multilevel_sharded(x, levels, kind, grid)
     sums, counts = band_stats.band_stats(band_stats.leaves_of(pyr))
@@ -254,7 +255,8 @@ def tile_inverse_step(pyr: List[Dict[str, torch.Tensor]], use_mct: bool,
     """Pyramid leaves of this rank's row shard (int32, or float32
     dequantized for 9/7) -> its samples [n, C, th/sp, tw]: the sharded
     inverse DWT, inverse RCT or ICT, rounding, DC shift, clamp and
-    narrowing (transforms.samples)."""
+    narrowing (transforms.samples: on the card one launch of
+    mct_inverse)."""
     return transforms.samples(idwt_multilevel_sharded(pyr, kind, grid), kind,
                               use_mct, precision, signed)
 

@@ -9,9 +9,10 @@ N gray H^2 frames (512, 8), HTJ2K lossless, 6 resolutions, in chunks of
 CHUNK frames (4).  The JAX tool timed jitted prefixes of the program and
 took their differences; here each kernel wrapper of
 fused_encode.fused_encode_chunk (the DWT levels, block extraction, the
-cleanup fields, the bit packer, the pool compaction) and of
-ht_dec.fused_decode (MagSgn, assembly, the inverse levels, the tail:
-inverse colour transform, rounding, DC shift, clamp and narrowing) runs
+cleanup fields, the bit packer, the pool compaction, and the head: DC
+shift and colour transform) and of ht_dec.fused_decode (MagSgn, assembly,
+the inverse levels, the tail: inverse colour transform, rounding, DC
+shift, clamp and narrowing; head and tail one colour kernel each) runs
 under a StageClock (_clock.py) inside the program's own run, with the
 program's upload and its parse (native, on the host) as stages of their
 own.  Per stage: calls, host ms, the in-program event ms and, for each
@@ -50,6 +51,8 @@ ENCODE = (
     (Stage("models.fused_encode", "fused_encode_chunk", "program", True),
      ()),
     (Stage("models.transforms", "upload", "upload", True, arg_bytes(0)), ()),
+    (Stage("models.transforms", "coefficients",
+           "head (DC shift, colour transform)", True), ("mct_forward",)),
     (Stage("models.transforms", "forward_level", "DWT levels", True),
      ("dwt53_fwd_level",)),
     (Stage("ops.ht_enc_cuda", "extract_blocks", "block extraction", True),
@@ -72,7 +75,8 @@ DECODE = (
     (Stage("models.transforms", "inverse_level", "inverse DWT levels", True),
      ("dwt53_inv_level",)),
     (Stage("models.transforms", "samples",
-           "tail (inverse colour, DC shift, clamp, narrowing)", True), ()))
+           "tail (inverse colour, DC shift, clamp, narrowing)", True),
+     ("mct_inverse",)))
 
 
 def encode_chunks(frames, opts, chunk, dev):

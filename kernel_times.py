@@ -11,7 +11,7 @@ PyTorch/CUDA port on one CUDA device, at the shapes of chip_smoke.py, and
 prints one JSON line.
 
     python3 kernel_times.py [--tree DIR] [--ptxas] [--config4] [--dwt-only]
-                            [--halo-only]
+                            [--halo-only] [--mct-only]
 
 DIR is the root of a checkout of the repository (default: the directory of
 this script).  Its go_jpeg2000_tpu_torch is imported and its CUDA sources
@@ -85,15 +85,26 @@ and the launch floor, a one-element add_ alone.
   inverse_level_split: every shard's edges, then its level launch), and,
   where the checkout has the edge packing kernel, its sp packing launches
   and its sp level launches (on edges packed beforehand), each alone.
+- colour head and tail: transforms.upload of a host batch (the copy to
+  the card and, in a checkout before csrc/mct.cu, the widening on the
+  card), transforms.coefficients on what upload gives and
+  transforms.samples on the coefficients, at config 4's tile batch (256 x
+  3 x 512 x 512, 16-bit RCT, and 8-bit ICT as the lossy leg) and the gray
+  main path's (32 x 512 x 512 8-bit), each by CUDA events and (but
+  upload) alone: one launch of mct_forward or mct_inverse where the
+  checkout has ops/mct_cuda.py, else its chain of torch ops.
 --dwt-only times the launch floor, the DWT levels (even, odd and the halo
-form) and S4 only; --halo-only the launch floor and the halo form only.
+form) and S4 only; --halo-only the launch floor and the halo form only;
+--mct-only the launch floor and the colour head and tail only (with
+--config4, and config 4's steps).
 --config4 also times config 4's lossless encode (8192x8192 16-bit RGB,
 512x512 tiles, 5 resolutions) in chip_smoke.py's stages, medians of 3
-after a warm-up: the transform step (the level kernels and band_stats)
-and the HT kernels (per tile-origin class: the gather, extraction,
-cleanup, packing and compaction), each synchronised; and the lossy leg
-(the image >> 8 at quality 85): the encode's transform step and the
-decode's inverse step, where the level kernels' savings should show end to
+after a warm-up: the upload, the transform step (the head, the level
+kernels and band_stats) and the HT kernels (per tile-origin class: the
+gather, extraction, cleanup, packing and compaction), each synchronised,
+and its decode's inverse step (the inverse levels and the tail); and the
+lossy leg (the image >> 8 at quality 85): the encode's transform step and
+the decode's inverse step, where the level kernels' savings should show end to
 end; then the same lossless steps, and the decode's MagSgn and assembly
 step and inverse step, with every kernel wrapper swapped for its plain
 torch version on the card (plain_kernels: the composite rows' "plain"
@@ -528,6 +539,41 @@ def dwt_levels(cs, dwt_cuda, dev):
     return result
 
 
+def mct_heads(cs, dev):
+    """The colour head and tail of the checkout (module docstring), by
+    CUDA events (mean of 10 after 3 warm-ups) and alone (but the upload,
+    whose pageable copy waits for the host)."""
+    import torch
+    from go_jpeg2000_tpu_torch.models import transforms
+    kernels = importlib.util.find_spec(
+        "go_jpeg2000_tpu_torch.ops.mct_cuda") is not None
+    out = {}
+    for label, n, c, dtype, kind, prec in (
+            ("config 4", 256, 3, np.uint16, "53", 16),
+            ("config 4 lossy", 256, 3, np.uint8, "97", 8),
+            ("gray", 32, 1, np.uint8, "53", 8)):
+        batch = np.random.RandomState(n + c).randint(
+            0, 1 << prec, size=(n, c, 512, 512), dtype=dtype)
+        mct = c >= 3
+        x = transforms.upload(batch, dev)
+        coef = transforms.coefficients(x, kind, mct, prec, False)
+        fns = {"upload": lambda: transforms.upload(batch, dev),
+               "coefficients": lambda: transforms.coefficients(
+                   x, kind, mct, prec, False),
+               "samples": lambda: transforms.samples(coef, kind, mct, prec,
+                                                     False)}
+        r = {"shape": f"[{n},{c},512,512] {np.dtype(dtype).name} {kind}",
+             "colour kernels": kernels, "upload dtype": str(x.dtype)}
+        for name, fn in fns.items():
+            r[name] = {"ms": cs.cuda_ms(fn, reps=10)}
+            if name != "upload":
+                r[name]["alone_ms"] = cs.device_ms(fn, reps=10)
+        out[f"colour head and tail {label}"] = r
+        del x, coef, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def halo_levels(cs, dev):
     """The halo form of the four level kernels on sp = 2 and 4 row shards
     of config 4's level 1, [768, 512, 512], in one process
@@ -717,6 +763,7 @@ def main():
     ap.add_argument("--profiler-probe", type=int, default=0, metavar="N")
     ap.add_argument("--dwt-only", action="store_true")
     ap.add_argument("--halo-only", action="store_true")
+    ap.add_argument("--mct-only", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -748,6 +795,12 @@ def main():
     result["launch floor"] = {
         "what": "a one-element add_, alone",
         "alone_ms": cs.device_ms(lambda: tiny.add_(1))}
+    if args.mct_only:
+        result.update(mct_heads(cs, dev))
+        if args.config4:
+            result.update(config4_steps(cs, tp, dev))
+        print(json.dumps(result), flush=True)
+        return 0
     result.update(halo_levels(cs, dev))
     if args.halo_only:
         print(json.dumps(result), flush=True)
@@ -759,6 +812,7 @@ def main():
     if args.dwt_only:
         print(json.dumps(result), flush=True)
         return 0
+    result.update(mct_heads(cs, dev))
     _plan, planes, inputs = cs.ebcot_inputs(tp, cs.ebcot_gray(), dev)
     fn = lambda: ebcot_cuda.decision_slots(*inputs, planes)  # noqa: E731
     slots = fn()
@@ -906,30 +960,7 @@ def main():
         torch.cuda.empty_cache()
 
     if args.config4:
-        img = cs.config4_image(cs.C4_SIZE)
-        opts = cs.config4_opts(tp, True)
-        runs = [cs.sharded_encode_stages(img, opts, dev) for _ in range(4)]
-        for i, name in ((2, "transform step"), (3, "HT kernels")):
-            ms = sorted(1e3 * r[i] for r in runs[1:])
-            result[f"config-4 lossless encode stage {name}"] = {
-                "median_ms": ms[1], "ms": ms}
-        img8 = (img >> 8).astype(np.uint8)
-        del img
-        opts = cs.config4_opts(tp, False)
-        runs = [cs.sharded_encode_stages(img8, opts, dev) for _ in range(4)]
-        ms = sorted(1e3 * r[2] for r in runs[1:])
-        result["config-4 lossy encode stage transform step"] = {
-            "median_ms": ms[1], "ms": ms}
-        from go_jpeg2000_tpu_torch.parallel import encode_sharded
-        data = encode_sharded(img8, opts, device=dev)
-        runs = [cs.sharded_decode_stages(data, dev) for _ in range(4)]
-        ms = sorted(1e3 * r[3] for r in runs[1:])
-        result["config-4 lossy decode stage inverse step"] = {
-            "median_ms": ms[1], "ms": ms}
-        del img8, data
-        torch.cuda.empty_cache()
-        result.update(plain_steps(cs, cs.config4_image(cs.C4_SIZE),
-                                  cs.config4_opts(tp, True), dev))
+        result.update(config4_steps(cs, tp, dev))
     if args.profiler_probe:
         result["profiler probe"] = profiler_probe(cs, dwt_cuda, dev,
                                                   args.profiler_probe)
@@ -937,16 +968,61 @@ def main():
     return 0
 
 
+def config4_steps(cs, tp, dev):
+    """--config4: config 4's steps (module docstring), medians of 3 after a
+    warm-up, then plain_steps."""
+    import torch
+    result = {}
+    img = cs.config4_image(cs.C4_SIZE)
+    opts = cs.config4_opts(tp, True)
+    runs = [cs.sharded_encode_stages(img, opts, dev) for _ in range(4)]
+    for i, name in ((1, "upload"), (2, "transform step"),
+                    (3, "HT kernels")):
+        ms = sorted(1e3 * r[i] for r in runs[1:])
+        result[f"config-4 lossless encode stage {name}"] = {
+            "median_ms": ms[1], "ms": ms}
+    from go_jpeg2000_tpu_torch.parallel import encode_sharded
+    data = encode_sharded(img, opts, device=dev)
+    runs = [cs.sharded_decode_stages(data, dev) for _ in range(4)]
+    ms = sorted(1e3 * r[3] for r in runs[1:])
+    result["config-4 lossless decode stage inverse step"] = {
+        "median_ms": ms[1], "ms": ms}
+    img8 = (img >> 8).astype(np.uint8)
+    del img, data
+    opts = cs.config4_opts(tp, False)
+    runs = [cs.sharded_encode_stages(img8, opts, dev) for _ in range(4)]
+    ms = sorted(1e3 * r[2] for r in runs[1:])
+    result["config-4 lossy encode stage transform step"] = {
+        "median_ms": ms[1], "ms": ms}
+    data = encode_sharded(img8, opts, device=dev)
+    runs = [cs.sharded_decode_stages(data, dev) for _ in range(4)]
+    ms = sorted(1e3 * r[3] for r in runs[1:])
+    result["config-4 lossy decode stage inverse step"] = {
+        "median_ms": ms[1], "ms": ms}
+    del img8, data
+    torch.cuda.empty_cache()
+    result.update(plain_steps(cs, cs.config4_image(cs.C4_SIZE),
+                              cs.config4_opts(tp, True), dev))
+    return result
+
+
 def plain_kernels():
     """(module, name, plain torch version) of every kernel wrapper of
     config 4's steps: the levels through dwt_cuda.usable answering no
     (transforms.forward_level and inverse_level then lift plain), the four
-    HT encode kernels, the two HT decode kernels and band_stats; each
-    plain version runs on the card's tensors."""
-    from go_jpeg2000_tpu_torch.models import fused_encode
+    HT encode kernels, the two HT decode kernels, band_stats and, where
+    the checkout has them, the colour head and tail; each plain version
+    runs on the card's tensors."""
+    from go_jpeg2000_tpu_torch.models import fused_encode, transforms
     from go_jpeg2000_tpu_torch.ops import (band_stats, dwt_cuda, ht_dec,
                                            ht_dec_cuda, ht_enc, ht_enc_cuda)
-    return ((dwt_cuda, "usable", lambda *a, **k: False),
+    try:
+        from go_jpeg2000_tpu_torch.ops import mct_cuda
+        colour = ((mct_cuda, "mct_forward", transforms.coefficients_plain),
+                  (mct_cuda, "mct_inverse", transforms.samples_plain))
+    except ImportError:
+        colour = ()
+    return colour + ((dwt_cuda, "usable", lambda *a, **k: False),
             (ht_enc_cuda, "extract_blocks", fused_encode.extract_blocks),
             (ht_enc_cuda, "cleanup_values", ht_enc.cleanup_values),
             (ht_enc_cuda, "pack_streams",

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels (go_jpeg2000_tpu_torch/csrc/dwt53.cu,
-dwt97.cu, ht_enc.cu, ht_dec.cu, ebcot_enc.cu, band_stats.cu) against their
+dwt97.cu, ht_enc.cu, ht_dec.cu, ebcot_enc.cu, band_stats.cu, mct.cu) against their
 plain torch versions, on the card; the DWT level kernels also in their halo
 form on row shards down to 2 rows, against the unsharded level.
 Needs a CUDA device and nvcc; skips without a card.  Imports neither jax
@@ -31,8 +31,15 @@ ht_dec.stress_cases; the block extraction and the assembly also on
 block_layout.layout_stress_cases (leaves off 16 bytes), and neither
 wrapper makes a synchronizing call after a plan's first.  The band
 statistics' counts are equal, their float64 sums within a relative 1e-12 (the order of
-the atomics varies).  The tile-sharded encode and decode give the CPU's
-bytes and pixels."""
+the atomics varies).  The colour head and tail (csrc/mct.cu: mct_forward,
+mct_inverse) equal transforms.coefficients_plain and samples_plain on the
+card bit for bit, float32 too, over every sample dtype, precisions 1-31,
+1, 3 and 4 components, with and without RCT/ICT, narrowed and not, on
+rows off 16 bytes, single pixels and a row shard's view, and the tail on
+floats past int32 and NaN (where the plain version on the card saturates
+and gives 0 for NaN, and on the CPU gives INT_MIN: a difference of
+torch's, left as it is).  The tile-sharded encode and decode give the
+CPU's bytes and pixels."""
 import dataclasses
 
 import numpy as np
@@ -47,7 +54,7 @@ from go_jpeg2000_tpu_torch.native import loader
 from go_jpeg2000_tpu_torch.ops import (block_layout, dwt, dwt_cuda,
                                        ebcot_cuda, ebcot_device, ht_dec,
                                        ht_dec_cuda, ht_enc, ht_enc_cuda,
-                                       mq_device)
+                                       mct_cuda, mq_device)
 from go_jpeg2000_tpu_torch.tcd import geometry as geo
 
 BANDS = ("LL", "HL", "LH", "HH")
@@ -1533,3 +1540,134 @@ def test_marker_batches_on_card_match_cpu(cuda, kw):
     assert got == tp.encode_batch(frames, ref, device="cpu")
     for d, f in zip(tp.decode_batch(got, device=cuda), frames):
         assert np.array_equal(d, f)
+
+
+# ------------------------------------------ colour head and tail (mct.cu)
+
+MCT_DTYPES = (np.uint8, np.int8, np.int16, np.uint16, np.int32)
+MCT_PRECISIONS = (1, 8, 12, 16, 29, 30, 31)
+# [N, H, W]: rows off 16 bytes, a single pixel, aligned planes, odd planes
+MCT_SHAPES = ((2, 3, 5), (1, 1, 1), (2, 64, 64), (3, 17, 33))
+
+
+def _mct_samples(dtype, shape, seed):
+    """Samples over the dtype's whole range, its extremes included."""
+    info = np.iinfo(dtype)
+    rng = np.random.RandomState(seed)
+    a = rng.randint(info.min, int(info.max) + 1, size=shape, dtype=np.int64)
+    flat = a.reshape(-1)
+    flat[:2] = (info.min, info.max)[:flat.size]
+    return a.astype(dtype)
+
+
+def _bits_equal(got, want):
+    """Equal dtype, shape and bits (float32 compared as its bit pattern)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+def _mct_pair(x, coef, kind, use_mct, precision, signed):
+    """Both kernels against their plain versions on the card, each one
+    launch."""
+    before = dict(mct_cuda.LAUNCHES)
+    _bits_equal(mct_cuda.mct_forward(x, kind, use_mct, precision, signed),
+                transforms.coefficients_plain(x, kind, use_mct, precision,
+                                              signed))
+    for narrow in (True, False):
+        _bits_equal(mct_cuda.mct_inverse(coef, kind, use_mct, precision,
+                                         signed, narrow),
+                    transforms.samples_plain(coef, kind, use_mct, precision,
+                                             signed, narrow))
+    torch.cuda.synchronize()
+    assert mct_cuda.LAUNCHES["mct_forward"] == before["mct_forward"] + 1
+    assert mct_cuda.LAUNCHES["mct_inverse"] == before["mct_inverse"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("precision", MCT_PRECISIONS)
+@pytest.mark.parametrize("dtype", MCT_DTYPES, ids=lambda d: np.dtype(d).name)
+def test_mct_kernels_match_plain(cuda, dtype, precision, signed):
+    seed = precision * 7 + MCT_DTYPES.index(dtype) * 2 + signed
+    for n, h, w in MCT_SHAPES:
+        for c in (1, 3, 4):
+            batch = _mct_samples(dtype, (n, c, h, w), seed)
+            x = transforms.upload(batch, cuda)
+            assert x.dtype == torch.from_numpy(batch[:0]).dtype  # narrow
+            for kind in (dwt.REV53, dwt.IRR97):
+                for use_mct in (False, True):
+                    coef = transforms.coefficients_plain(
+                        x, kind, use_mct, precision, signed)
+                    # moved a little, so the tail also clamps and rounds
+                    g = torch.Generator(device=cuda).manual_seed(seed + c)
+                    noise = torch.randint(-4, 5, coef.shape, generator=g,
+                                          device=cuda)
+                    coef = (coef + noise.to(torch.int32) if kind == dwt.REV53
+                            else coef + noise.to(torch.float32) / 2)
+                    _mct_pair(x, coef, kind, use_mct, precision, signed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [dwt.REV53, dwt.IRR97])
+def test_mct_kernels_read_a_row_shard_view(cuda, kind):
+    # rows 2-5 of every frame's planes: frame and component strides of the
+    # whole batch, planes contiguous, read in place
+    batch = _mct_samples(np.uint16, (3, 4, 8, 24), 5)
+    full = transforms.upload(batch, cuda)
+    view = full[:, :, 2:6]
+    assert not view.is_contiguous()
+    coef_full = transforms.coefficients_plain(full, kind, True, 16, False)
+    coef = coef_full[:, :, 2:6]
+    _mct_pair(view, coef, kind, True, 16, False)
+    _bits_equal(mct_cuda.mct_forward(view, kind, True, 16, False),
+                mct_cuda.mct_forward(view.contiguous(), kind, True, 16,
+                                     False))
+    # a plane that is not contiguous (every other column) is copied first
+    cols = full[..., ::2]
+    _bits_equal(mct_cuda.mct_forward(cols, kind, False, 16, False),
+                transforms.coefficients_plain(cols, kind, False, 16, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("precision", [8, 16, 31])
+def test_mct_inverse_on_floats_past_int32_and_nan(cuda, precision, signed):
+    # the card's plain version saturates and takes NaN to 0; the kernel
+    # equals it (the CPU's plain version gives INT_MIN for all three)
+    vals = torch.tensor([3e9, -3e9, float("nan"), 2.0 ** 31, -2.0 ** 31,
+                         2.5, -2.5, 0.5, float("inf"), -float("inf"),
+                         1e38, 2147483520.0], device=cuda)
+    x = vals[torch.arange(3 * 4 * 16, device=cuda) % vals.numel()].reshape(
+        1, 3, 4, 16)
+    for use_mct in (False, True):
+        for narrow in (True, False):
+            _bits_equal(mct_cuda.mct_inverse(x, dwt.IRR97, use_mct,
+                                             precision, signed, narrow),
+                        transforms.samples_plain(x, dwt.IRR97, use_mct,
+                                                 precision, signed, narrow))
+
+
+@pytest.mark.cuda
+def test_mct_kernels_at_config4_size_and_through_the_routing(cuda):
+    # a quarter of config 4's tile batch (64 tiles of 512x512 16-bit RGB):
+    # coefficients and samples launch one kernel each on the card, exact,
+    # and the round trip gives the samples back
+    batch = _mct_samples(np.uint16, (64, 3, 512, 512), 9)
+    x = transforms.upload(batch, cuda)
+    mct_cuda.reset_counts()
+    for kind in (dwt.REV53, dwt.IRR97):
+        coef = transforms.coefficients(x, kind, True, 16, False)
+        _bits_equal(coef, transforms.coefficients_plain(x, kind, True, 16,
+                                                        False))
+        out = transforms.samples(coef, kind, True, 16, False)
+        _bits_equal(out, transforms.samples_plain(coef, kind, True, 16,
+                                                  False))
+        if kind == dwt.REV53:
+            assert np.array_equal(out.cpu().numpy().view(np.uint16), batch)
+    torch.cuda.synchronize()
+    assert mct_cuda.LAUNCHES == {"mct_forward": 2, "mct_inverse": 2}
+    with pytest.raises(ValueError):
+        mct_cuda.mct_inverse(coef.to(torch.int16), dwt.REV53, True, 16,
+                             False)
