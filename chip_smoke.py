@@ -33,27 +33,26 @@ sources in this checkout.  Phases, each of which raises on failure:
    inverse steps by CUDA events beside their one-pass bound, each traced
    once by torch.profiler, where no device work but the step's own
    kernels may take 20 us or more;
-4. each HT encode kernel (block extraction, cleanup fields, bit packing,
-   pool compaction) against its plain torch version on the card, on the
-   block batches of the main paths (32 gray 512x512 lossless, 2240 blocks;
-   2 RGB 2048x2048 lossy, 6144 blocks) and of 16-bit RGB, pure noise,
-   all-zero and ragged (96x80) frames, and of code-blocks of 32x32, 64x32,
-   32x128 and 128x32 (height x width): every integer output equal, the
-   distortion within a relative 1e-5 (a float32 sum taken in another
-   order); the cleanup kernel also on blocks with magnitudes near the
-   30-bit limit and on a config-4 tile-origin class (64 tiles of 512x512
-   16-bit RGB, 12,864 blocks), and so are the bit packer, one launch for
-   the three streams (pack_streams, as the main path calls it) and one a
-   stream (pack_bits), and the pool compaction; the compaction also on
-   ht_enc_cuda.pool_stress_cases (row widths off 4 words, full and empty
-   rows, 4.8 KB rows, one row, two rounds of its scan) with the word rows
-   0 and 1 words past a 16-byte boundary; kernel and plain times with CUDA
-   events on the 2240 blocks, and each kernel's device time alone, the
-   cleanup kernel's, the packer's and the compaction's on the config-4
-   class, and the compaction beside one PyTorch expression that computes
-   its output (torch.masked_select per stream and torch.cat), the lossless
-   extraction beside torch.take over the flat pyramid and a zero with the
-   slot index made beforehand;
+4. each HT encode kernel (block extraction, the cleanup pass with its bit
+   packing in one kernel, pool compaction) against its plain torch version
+   on the card, on the block batches of the main paths (32 gray 512x512
+   lossless, 2240 blocks; 2 RGB 2048x2048 lossy, 6144 blocks) and of
+   16-bit RGB, pure noise, all-zero and ragged (96x80) frames, and of
+   code-blocks of 32x32, 64x32, 32x128 and 128x32 (height x width): every
+   output equal bit for bit (the distortion's float32 bits too); the
+   cleanup kernel also on blocks with magnitudes near the 30-bit limit and
+   on config-4 tile-origin classes (64 tiles of 512x512, 12,864 blocks),
+   lossless 16-bit RGB and lossy, and so is the pool compaction on the
+   lossless class; the compaction also on ht_enc_cuda.pool_stress_cases
+   (row widths off 4 words, full and empty rows, 4.8 KB rows, one row, two
+   rounds of its scan) with the word rows 0 and 1 words past a 16-byte
+   boundary; kernel and plain times with CUDA events on the 2240 blocks,
+   and each kernel's device time alone, the cleanup kernel's on both
+   classes and the compaction's on the lossless one, and the compaction
+   beside one PyTorch expression that computes its output
+   (torch.masked_select per stream and torch.cat), the lossless extraction
+   beside torch.take over the flat pyramid and a zero with the slot index
+   made beforehand (no PyTorch call computes the cleanup pass);
 5. each HT decode kernel (MagSgn extraction, block-to-pyramid assembly
    with the midpoint dequantization of lossy plans) against its plain
    torch version on the card, on the native parse of the same frames'
@@ -323,9 +322,9 @@ REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
                                "dwt_edges"),
             "ht_extract_blocks":
                 ("go_jpeg2000_tpu/models/fused_encode.py:191", "ht_enc"),
-            "ht_cleanup_fields": ("go_jpeg2000_tpu/ops/ht_tpu.py:286",
-                                  "ht_enc"),
-            "ht_pack_bits": ("go_jpeg2000_tpu/ops/ht_tpu.py:124", "ht_enc"),
+            # cleanup_fields with its packing, _pack_bits (ht_tpu.py:124)
+            "ht_cleanup_pack": ("go_jpeg2000_tpu/ops/ht_tpu.py:286",
+                                "ht_enc"),
             "ht_compact_pool": ("go_jpeg2000_tpu/ops/ht_tpu.py:498",
                                 "ht_enc"),
             "ht_magsgn_decode": ("go_jpeg2000_tpu/ops/ht_tpu_decode.py:34",
@@ -349,8 +348,7 @@ REPLACES = {"dwt53_fwd_level": ("go_jpeg2000_tpu/ops/dwt_pallas.py:101",
             # inverse_ict with the rounding, DC shift and clamp
             "mct_forward": ("go_jpeg2000_tpu/ops/mct.py:46", "mct"),
             "mct_inverse": ("go_jpeg2000_tpu/ops/mct.py:58", "mct")}
-HT_KERNELS = ("ht_extract_blocks", "ht_cleanup_fields", "ht_pack_bits",
-              "ht_compact_pool")
+HT_KERNELS = ("ht_extract_blocks", "ht_cleanup_pack", "ht_compact_pool")
 HT_DEC_KERNELS = ("ht_magsgn_decode", "ht_blocks_to_pyramid")
 EBCOT_KERNELS = ("ebcot_decision_slots", "ebcot_compact_rows",
                  "ebcot_mq_encode", "ebcot_pool_rows")
@@ -417,20 +415,31 @@ FP64_OPS_PER_S = 34e12
 INT32_OPS_PER_S = 16.7e12
 # operations per element, counted from the kernel sources: per sample for
 # the DWT levels (float32 for 9/7, int32 for 5/3) and for block extraction
-# and the cleanup fields (per code-block sample); per field for packing;
-# per pool word for compaction; per block sample for MagSgn extraction;
+# and the cleanup pass (per code-block sample; its packing as below); per
+# pool word for compaction; per block sample for MagSgn extraction;
 # per leaf sample for assembly; for the EBCOT decisions per block sample
 # and coded bitplane (five passes over the block with up to 8 neighbour
 # reads a sample, and one fixpoint sweep); per slot for the decision
 # compaction; per decision for the MQ coder; per segment byte for the pool;
 # per sample for the colour head and tail (int32 for 5/3, float32 for 9/7)
 OPS_PER_ELEMENT = {"dwt53": 10, "dwt97": 30, "ht_extract_blocks": 12,
-                   "ht_cleanup_fields": 40, "ht_pack_bits": 12,
+                   "ht_cleanup_pack": 40,
                    "ht_compact_pool": 4, "ht_magsgn_decode": 20,
                    "ht_blocks_to_pyramid": 12, "ebcot_decision_slots": 200,
                    "ebcot_compact_rows": 4, "ebcot_mq_encode": 30,
                    "ebcot_pool_rows": 2, "mct_forward": 4,
                    "mct_inverse": 6}
+# the cleanup kernel's packing, as these blocks need it: per field of
+# non-zero length, the length's mask (shift, subtract, AND), the widened
+# shift into the 64-bit gather and its OR (two each), the bit position's
+# add and the word test; per stream word the fields fill, the zero test,
+# the index test, the store, the gather's 64-bit shift down (two), the
+# position's subtract and the index's increment; per quad pair, the scan
+# of its three bit counts: five steps of a 64-bit shuffle (two), a lane
+# test and a 64-bit add (two), and the counts packed into 64 bits (two)
+OPS_PER_FIELD = 9
+OPS_PER_WORD = 7
+OPS_PER_PAIR = 27
 # the MQ coder's serial bound: cycles of one decision's dependent chain
 # (context state and Qe loads from shared memory, the interval update and
 # compare), at the SM clock the int32 rate above assumes
@@ -903,10 +912,9 @@ def fused_args(header, batch, opts, dev):
 
 def ht_case(tp, frames, opts, dev):
     """The HT kernels and their plain versions on one frame batch: returns
-    (max |diff| per kernel, distortion relative error, inputs for timing).
-    Each plain stage takes the plain version's output of the stage before,
-    so each kernel is held against its plain version on the same
-    inputs."""
+    (max |diff| per kernel, inputs for timing).  Each plain stage takes the
+    plain version's output of the stage before, so each kernel is held
+    against its plain version on the same inputs."""
     from go_jpeg2000_tpu_torch.models import fused_encode, transforms
     from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
     header, _tile, plan, batch = fused_setup(tp, frames, opts)
@@ -920,21 +928,10 @@ def ht_case(tp, frames, opts, dev):
     got = K.extract_blocks(pyr, plan, n, levels)
     err["ht_extract_blocks"] = (got - blocks).abs().max().item()
     hs, ws = fused_encode._block_dims(plan, n, dev)
-    ref = ht_enc.cleanup_values(blocks, hs, ws)
-    got = K.cleanup_values(blocks, hs, ws)
-    err["ht_cleanup_fields"] = max((got[k] - ref[k]).abs().max().item()
-                                   for k in ref if k != "dist")
-    d_ref = ref["dist"].double()
-    dist_rel = ((got["dist"].double() - d_ref).abs()
-                / d_ref.clamp(min=1)).max().item()
-    widths = ht_enc.stream_words(plan.cbh, plan.cbw, plan.max_mn)
-    fields = [(ref[f"{s}_vals"], ref[f"{s}_lens"], nw)
-              for s, nw in zip(("ms", "vlc", "mel"), widths)]
-    packed, diff = [], pack_check(K, ht_enc, fields)
-    for vals, lens, nw in fields:
-        packed += list(ht_enc.pack_bits(vals, lens, nw))
-    err["ht_pack_bits"] = diff
-    pool_args = packed + [ref["numbps"], ref["u_max"], ref["dist"]]
+    ref = ht_enc.cleanup_fields(blocks, hs, ws, plan.max_mn)
+    err["ht_cleanup_pack"] = cleanup_diff(
+        K.cleanup_fields(blocks, hs, ws, plan.max_mn), ref)
+    pool_args = [ref[k] for k in POOL_ARGS]
     pool, totals = ht_enc.assemble_pool(*pool_args)
     kpool, ktotals = K.assemble_pool(*pool_args)
     err["ht_compact_pool"] = max(
@@ -942,34 +939,24 @@ def ht_case(tp, frames, opts, dev):
         (kpool[:pool.numel()].long() - pool.long()).abs().max().item())
     torch.cuda.synchronize()
     inputs = dict(pyr=pyr, plan=plan, n=n, levels=levels, blocks=blocks,
-                  hs=hs, ws=ws, ref=ref, fields=fields, pool_args=pool_args,
-                  pool=pool)
-    return err, dist_rel, inputs
+                  hs=hs, ws=ws, ref=ref, pool_args=pool_args, pool=pool)
+    return err, inputs
 
 
-def pack_check(K, ht_enc, fields):
-    """The bit packer against its plain version on one chunk's three
-    streams: one launch for all three (pack_streams, the main path's call)
-    and one a stream (pack_bits).  Returns the largest |diff| of words and
-    bits."""
-    diff = 0
-    for (vals, lens, nw), (kw, kb) in zip(fields, K.pack_streams(fields)):
-        words, bits = ht_enc.pack_bits(vals, lens, nw)
-        kw1, kb1 = K.pack_bits(vals, lens, nw)
-        diff = max(diff, (kw.long() - words.long()).abs().max().item(),
-                   (kb - bits).abs().max().item(),
-                   (kw1.long() - words.long()).abs().max().item(),
-                   (kb1 - bits).abs().max().item())
-    return diff
+# ht_enc.assemble_pool's arguments, as ht_enc.cleanup_fields names them
+POOL_ARGS = ("ms_words", "ms_bits", "vlc_words", "vlc_bits", "mel_words",
+             "mel_bits", "numbps", "u_max", "dist")
 
 
-def pack_bound(fields, nb):
-    """The bit packer's least time on one chunk's streams: it reads every
-    field's value and length and writes every word row and bit count."""
-    count = sum(v.numel() for v, _l, _nw in fields)
-    return bound(8 * count + 4 * nb * sum(nw for _v, _l, nw in fields)
-                 + 4 * nb * len(fields),
-                 OPS_PER_ELEMENT["ht_pack_bits"] * count, INT32_OPS_PER_S)
+def cleanup_diff(got, ref):
+    """The largest |diff| between two cleanup passes' outputs (words, bits
+    and meta; the distortion by its float32 bit pattern)."""
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"cleanup outputs {sorted(got)}, plain "
+                             f"{sorted(ref)}")
+    return max((got[k].view(torch.int32).long()
+                - ref[k].view(torch.int32).long()).abs().max().item()
+               if ref[k].numel() else 0 for k in ref)
 
 
 def ht_cases(tp):
@@ -1034,11 +1021,12 @@ def ht_blocks(tp, frames, opts, dev):
     return plan, blocks, hs, ws
 
 
-def extract_bound(pyr, blocks):
-    """ht_extract_blocks' bound: it reads every leaf sample once and
+def extract_bound(pyr, blocks, share=1.0):
+    """ht_extract_blocks' bound: it reads every leaf sample once (of a
+    class read in place, the class's `share` of the leaves' frames) and
     writes the block slots."""
     leaf_bytes = sum(4 * v.numel() for e in pyr for v in e.values())
-    return bound(leaf_bytes + 4 * blocks.numel(),
+    return bound(leaf_bytes * share + 4 * blocks.numel(),
                  OPS_PER_ELEMENT["ht_extract_blocks"] * blocks.numel(),
                  INT32_OPS_PER_S)
 
@@ -1115,24 +1103,19 @@ def config4_class(tp, lossless=True):
                               **({} if lossless else {"quality": 85}))
 
 
-def cleanup_check(K, ht_enc, blocks, hs, ws, label):
-    """The cleanup kernel against its plain version on one block batch:
-    integer outputs equal, the distortion within a relative 1e-5.  Returns
-    the plain outputs."""
-    ref = ht_enc.cleanup_values(blocks, hs, ws)
-    got = K.cleanup_values(blocks, hs, ws)
-    diff = max((got[k] - ref[k]).abs().max().item()
-               for k in ref if k != "dist")
-    d_ref = ref["dist"].double()
-    rel = ((got["dist"].double() - d_ref).abs()
-           / d_ref.clamp(min=1)).max().item()
-    print(f"kernel check ht_cleanup_fields {label} ({blocks.shape[0]} blocks "
-          f"of {blocks.shape[1]}x{blocks.shape[2]}): max|diff| {diff}, "
-          f"distortion relative error {rel:.3g}", flush=True)
-    if diff or not rel <= 1e-5:
-        raise AssertionError(f"{label}: ht_cleanup_fields disagrees with its "
+def cleanup_check(K, ht_enc, blocks, hs, ws, max_mn, label):
+    """The fused cleanup kernel against its plain version on one block
+    batch: every output bit for bit (words, bits, numbps, u_max, the
+    distortion's float32 bits).  Returns (the plain outputs, max|diff|)."""
+    ref = ht_enc.cleanup_fields(blocks, hs, ws, max_mn)
+    diff = cleanup_diff(K.cleanup_fields(blocks, hs, ws, max_mn), ref)
+    print(f"kernel check ht_cleanup_pack {label} ({blocks.shape[0]} blocks "
+          f"of {blocks.shape[1]}x{blocks.shape[2]}, max_mn {max_mn}): "
+          f"max|diff| {diff}", flush=True)
+    if diff:
+        raise AssertionError(f"{label}: ht_cleanup_pack disagrees with its "
                              "plain version")
-    return ref
+    return ref, diff
 
 
 def extreme_blocks(dev, seed=11):
@@ -1162,11 +1145,11 @@ def check_ht_kernels(tp, dev, card):
     timing = None
     for name, frames, opts in ht_cases(tp):
         label = case_label(name, frames, opts)
-        e, dist_rel, inputs = ht_case(tp, frames, opts, dev)
+        e, inputs = ht_case(tp, frames, opts, dev)
         print(f"kernel check {label} ({inputs['plan'].nb * inputs['n']} "
-              f"blocks, max_mn {inputs['plan'].max_mn}): max|diff| {e}, "
-              f"distortion relative error {dist_rel:.3g}", flush=True)
-        if any(e.values()) or not dist_rel <= 1e-5:
+              f"blocks, max_mn {inputs['plan'].max_mn}): max|diff| {e}",
+              flush=True)
+        if any(e.values()):
             raise AssertionError(f"{label}: an HT kernel disagrees with its "
                                  "plain version")
         for k in err:
@@ -1177,25 +1160,21 @@ def check_ht_kernels(tp, dev, card):
     t = timing
     pyr, plan, n, levels = t["pyr"], t["plan"], t["n"], t["levels"]
     blocks, hs, ws, ref = t["blocks"], t["hs"], t["ws"], t["ref"]
-    fields, pool_args, pool = t["fields"], t["pool_args"], t["pool"]
+    pool_args, pool = t["pool_args"], t["pool"]
     nb = blocks.shape[0]
     used = pool.numel() - 6 * nb
+    mn = plan.max_mn
     times = {
         "ht_extract_blocks": (
             cuda_ms(lambda: K.extract_blocks(pyr, plan, n, levels)),
             cuda_ms(lambda: fused_encode.extract_blocks(pyr, plan, n,
                                                         levels), reps=5),
             extract_bound(pyr, blocks)),
-        "ht_cleanup_fields": (
-            cuda_ms(lambda: K.cleanup_values(blocks, hs, ws)),
-            cuda_ms(lambda: ht_enc.cleanup_values(blocks, hs, ws), reps=3,
-                    warmup=1),
-            cleanup_bound(blocks, ref)),
-        "ht_pack_bits": (
-            cuda_ms(lambda: K.pack_streams(fields)),
-            cuda_ms(lambda: [ht_enc.pack_bits(*f) for f in fields], reps=3,
-                    warmup=1),
-            pack_bound(fields, nb)),
+        "ht_cleanup_pack": (
+            cuda_ms(lambda: K.cleanup_fields(blocks, hs, ws, mn)),
+            cuda_ms(lambda: ht_enc.cleanup_fields(blocks, hs, ws, mn),
+                    reps=3, warmup=1),
+            cleanup_bound(blocks, hs, ws, ref)),
         "ht_compact_pool": (
             cuda_ms(lambda: K.assemble_pool(*pool_args)),
             cuda_ms(lambda: ht_enc.assemble_pool(*pool_args), reps=5),
@@ -1203,8 +1182,7 @@ def check_ht_kernels(tp, dev, card):
     }
     kernel_fns = {
         "ht_extract_blocks": lambda: K.extract_blocks(pyr, plan, n, levels),
-        "ht_cleanup_fields": lambda: K.cleanup_values(blocks, hs, ws),
-        "ht_pack_bits": lambda: K.pack_streams(fields),
+        "ht_cleanup_pack": lambda: K.cleanup_fields(blocks, hs, ws, mn),
         "ht_compact_pool": lambda: K.assemble_pool(*pool_args)}
     for name, (ms, plain_ms, (bound_ms, by)) in times.items():
         time_line(name, ms, plain_ms, bound_ms, by,
@@ -1223,9 +1201,12 @@ def check_ht_kernels(tp, dev, card):
           f"kernel {times['ht_extract_blocks'][0]:.4f} ms (both by CUDA "
           f"events); the library call alone {take_alone:.4f} ms "
           f"[{card}]", flush=True)
-    cleanup_check(K, ht_enc, *extreme_blocks(dev), "magnitudes up to 2^30-1")
-    pack_err, pool_err = class_timing(tp, dev, card)
-    err["ht_pack_bits"] = max(err["ht_pack_bits"], pack_err)
+    print("time ht_cleanup_pack: library call none (no PyTorch call "
+          "computes the cleanup pass or packs its streams)", flush=True)
+    err["ht_cleanup_pack"] = max(err["ht_cleanup_pack"], cleanup_check(
+        K, ht_enc, *extreme_blocks(dev), 31, "magnitudes up to 2^30-1")[1])
+    cleanup_err, pool_err = class_timing(tp, dev, card)
+    err["ht_cleanup_pack"] = max(err["ht_cleanup_pack"], cleanup_err)
     err["ht_compact_pool"] = max(err["ht_compact_pool"], pool_err,
                                  check_pool_stress(dev))
     return err, {k: (a, b) + c for k, (a, b, c) in times.items()}, library
@@ -1287,78 +1268,85 @@ def pool_bound(nb, used):
                  OPS_PER_ELEMENT["ht_compact_pool"] * used, INT32_OPS_PER_S)
 
 
-def cleanup_bound(blocks, ref):
-    """The cleanup kernel's least time: it reads the blocks, their sizes and
-    the VLC table and writes every output once."""
-    return bound(4 * blocks.numel() + 8 * blocks.shape[0] + 4 * 8192
-                 + sum(4 * v.numel() for v in ref.values()),
-                 OPS_PER_ELEMENT["ht_cleanup_fields"] * blocks.numel(),
-                 INT32_OPS_PER_S)
+def cleanup_bound(blocks, hs, ws, out):
+    """The fused cleanup kernel's least time: it reads the blocks, their
+    sizes and the VLC table once and writes every output once (the three
+    streams' word rows, their bit counts and the meta); it does the cleanup
+    pass's operations for every block sample, the scan's for every quad
+    pair, and the packing's for every field of non-zero length and every
+    stream word, as these blocks need them (the plain version's field
+    lengths; `out`'s bit totals)."""
+    from go_jpeg2000_tpu_torch.ops import ht_enc
+    nb, h, w = blocks.shape
+    lens = ht_enc.cleanup_values(blocks, hs, ws)
+    fields = sum(int((lens[f"{s}_lens"] > 0).sum().item())
+                 for s in ("ms", "vlc", "mel"))
+    del lens
+    words = sum(int(((out[f"{s}_bits"].long() + 31) >> 5).sum().item())
+                for s in ("ms", "vlc", "mel"))
+    pairs = nb * ht_enc.field_counts(h, w)[0] // 8
+    return bound(4 * blocks.numel() + 8 * nb + 4 * 8192
+                 + sum(4 * v.numel() for v in out.values()),
+                 OPS_PER_ELEMENT["ht_cleanup_pack"] * blocks.numel()
+                 + OPS_PER_PAIR * pairs + OPS_PER_FIELD * fields
+                 + OPS_PER_WORD * words, INT32_OPS_PER_S)
 
 
 def class_timing(tp, dev, card):
-    """The cleanup kernel, the bit packer and the pool compaction on a
-    config-4 tile-origin class (12,864 16-bit blocks: two rounds of the
-    pool scan): each checked against its plain version on the class, then
-    timed.  Returns the packer's and the compaction's largest |diff|."""
+    """The fused cleanup kernel on config-4 tile-origin classes (12,864
+    blocks each), lossless (16-bit) and lossy, and the pool compaction on
+    the lossless class (two rounds of its scan): each checked against its
+    plain version on the class, then timed.  Returns the cleanup kernel's
+    and the compaction's largest |diff|."""
     from go_jpeg2000_tpu_torch.ops import ht_enc, ht_enc_cuda as K
-    frames, opts = config4_class(tp)
-    plan, blocks, hs, ws = ht_blocks(tp, frames, opts, dev)
-    del frames
-    ref = cleanup_check(K, ht_enc, blocks, hs, ws, "config-4 class")
-    t0 = time.perf_counter()
-    ht_enc.cleanup_values(blocks, hs, ws)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    bound_ms, by = cleanup_bound(blocks, ref)
-    fn = lambda: K.cleanup_values(blocks, hs, ws)   # noqa: E731
-    what = f"config-4 class: {blocks.shape[0]} blocks of 64x64, 16-bit RGB"
-    time_line("ht_cleanup_fields", cuda_ms(fn), plain_ms, bound_ms, by,
-              device_ms(fn), what, card)
-    nb = blocks.shape[0]
-    del blocks
-    fields = [(ref[f"{s}_vals"], ref[f"{s}_lens"], nw) for s, nw in zip(
-        ("ms", "vlc", "mel"), ht_enc.stream_words(plan.cbh, plan.cbw,
-                                                  plan.max_mn))]
-    diff = pack_check(K, ht_enc, fields)
-    print(f"kernel check ht_pack_bits config-4 class ({nb} blocks, max_mn "
-          f"{plan.max_mn}): max|diff| {diff}", flush=True)
-    if diff:
-        raise AssertionError("config-4 class: ht_pack_bits disagrees with "
-                             "its plain version")
-    t0 = time.perf_counter()
-    for f in fields:
-        ht_enc.pack_bits(*f)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    fn = lambda: K.pack_streams(fields)   # noqa: E731
-    time_line("ht_pack_bits", cuda_ms(fn), plain_ms, *pack_bound(fields, nb),
-              device_ms(fn),
-              f"{what}, three streams in one launch", card)
-    pool_args = [x for pair in fn() for x in pair] + [
-        ref["numbps"], ref["u_max"], ref["dist"]]
-    del ref, fields
-    pool, totals = ht_enc.assemble_pool(*pool_args)
-    t0 = time.perf_counter()
-    ht_enc.assemble_pool(*pool_args)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    kout, ktotals = K.assemble_pool(*pool_args)
-    pool_diff = max(int((ktotals != totals).sum().item()), int(
-        (kout[:pool.numel()] != pool).sum().item()))
-    print(f"kernel check ht_compact_pool config-4 class ({nb} blocks, "
-          f"{pool.numel() - 6 * nb} pool words): differing {pool_diff}",
-          flush=True)
-    if pool_diff:
-        raise AssertionError("config-4 class: ht_compact_pool disagrees "
-                             "with its plain version")
-    fn = lambda: K.assemble_pool(*pool_args)   # noqa: E731
-    time_line("ht_compact_pool", cuda_ms(fn), plain_ms,
-              *pool_bound(nb, pool.numel() - 6 * nb), device_ms(fn), what,
-              card)
-    del pool_args, pool, kout
-    torch.cuda.empty_cache()
-    return diff, pool_diff
+    cleanup_err = 0
+    for lossless in (True, False):
+        frames, opts = config4_class(tp, lossless)
+        plan, blocks, hs, ws = ht_blocks(tp, frames, opts, dev)
+        del frames
+        mn = plan.max_mn
+        kind = "lossless 16-bit RGB" if lossless else "lossy, the image >> 8"
+        what = (f"config-4 class: {blocks.shape[0]} blocks of 64x64, "
+                f"{kind}, max_mn {mn}")
+        ref, diff = cleanup_check(K, ht_enc, blocks, hs, ws, mn,
+                                  f"config-4 {kind} class")
+        cleanup_err = max(cleanup_err, diff)
+        t0 = time.perf_counter()
+        ht_enc.cleanup_fields(blocks, hs, ws, mn)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        fn = lambda: K.cleanup_fields(blocks, hs, ws, mn)   # noqa: E731
+        time_line("ht_cleanup_pack", cuda_ms(fn), plain_ms,
+                  *cleanup_bound(blocks, hs, ws, ref), device_ms(fn), what,
+                  card)
+        nb = blocks.shape[0]
+        del blocks
+        if not lossless:
+            del ref
+            continue
+        pool_args = [ref[k] for k in POOL_ARGS]
+        del ref
+        pool, totals = ht_enc.assemble_pool(*pool_args)
+        t0 = time.perf_counter()
+        ht_enc.assemble_pool(*pool_args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        kout, ktotals = K.assemble_pool(*pool_args)
+        pool_diff = max(int((ktotals != totals).sum().item()), int(
+            (kout[:pool.numel()] != pool).sum().item()))
+        print(f"kernel check ht_compact_pool config-4 class ({nb} blocks, "
+              f"{pool.numel() - 6 * nb} pool words): differing {pool_diff}",
+              flush=True)
+        if pool_diff:
+            raise AssertionError("config-4 class: ht_compact_pool disagrees "
+                                 "with its plain version")
+        fn = lambda: K.assemble_pool(*pool_args)   # noqa: E731
+        time_line("ht_compact_pool", cuda_ms(fn), plain_ms,
+                  *pool_bound(nb, pool.numel() - 6 * nb), device_ms(fn),
+                  what, card)
+        del pool_args, pool, kout
+        torch.cuda.empty_cache()
+    return cleanup_err, pool_diff
 
 
 def magsgn_bits(qinfo):
@@ -1554,9 +1542,69 @@ def check_layout_classes(tp, dev, card):
                   f"events) [{card}]", flush=True)
         del blocks, got
         torch.cuda.empty_cache()
+    err["ht_extract_blocks"] = max(err["ht_extract_blocks"],
+                                   check_extract_in_place(tp, dev, card))
     if any(err.values()):
         raise AssertionError(f"a layout kernel disagrees with its plain "
                              f"version on a config-4 class: {err}")
+    return err
+
+
+def check_extract_in_place(tp, dev, card):
+    """ht_extract_blocks with a tile index, as config 4's encode calls it:
+    every chunk of every tile-origin class of the whole tile batch's
+    leaves (64 tiles of 256 frames), lossless and lossy, read in place and
+    equal to the plain version (index_select, then the extraction); the
+    first chunk of each timed.  Returns the largest |diff|."""
+    from go_jpeg2000_tpu_torch.models import encoder, fused_encode, \
+        transforms
+    from go_jpeg2000_tpu_torch.ops import dwt, ht_enc_cuda as K
+    from go_jpeg2000_tpu_torch.parallel import sharded as psh
+    err = 0
+    img = config4_image(C4_SIZE)
+    for lossless in (True, False):
+        if not lossless:
+            img = (img >> 8).astype(np.uint8)
+        opts = config4_opts(tp, lossless)
+        header = encoder.build_header(img, opts)
+        prec = header.components[0].precision
+        comps = encoder._image_components(img)
+        encoder._apply_comp_quants(header, opts, len(comps), prec)
+        levels = header.coding_style.num_decompositions
+        T, th, tw = psh._check_grid(header, levels, 1, "chip_smoke")
+        tiles = list(range(T))
+        pyr = psh.tile_transform_step(
+            transforms.upload(psh.tile_batch(header, comps, tiles, th, 0),
+                              dev), levels,
+            bool(header.coding_style.mct) and len(comps) >= 3, prec, False,
+            dwt.REV53 if lossless else dwt.IRR97)[0]
+        per = psh.fused_chunk_tiles(len(comps), th, tw)
+        del comps
+        kind = "lossless" if lossless else "lossy"
+        for c, (plan, _rep, pos) in enumerate(psh.ht_plans(header, tiles)):
+            for s in range(0, len(pos), per):
+                sub = pos[s:s + per]
+                n = len(sub)
+                fn = lambda: K.extract_blocks(  # noqa: E731
+                    pyr, plan, n, levels, sub)
+                plain = lambda: fused_encode.extract_blocks(  # noqa: E731
+                    pyr, plan, n, levels, sub)
+                got = fn()
+                diff = (got - plain()).abs().max().item()
+                what = (f"config-4 {kind} class {c}, tiles {sub[0]}..."
+                        f"{sub[-1]}: {n} of {T} leaf frames read in place, "
+                        f"{got.shape[0]} blocks")
+                print(f"kernel check ht_extract_blocks {what}: max|diff| "
+                      f"{diff}", flush=True)
+                err = max(err, diff)
+                if c == 0 and s == 0:
+                    time_line("ht_extract_blocks", cuda_ms(fn),
+                              cuda_ms(plain, reps=3, warmup=1),
+                              *extract_bound(pyr, got, n / T),
+                              device_ms(fn), what, card)
+                del got
+        del pyr
+        torch.cuda.empty_cache()
     return err
 
 
@@ -2635,10 +2683,19 @@ def sharded_path(tp, dev, label, img, opts):
     return data, out
 
 
-def sharded_encode_stages(img, opts, dev):
+def class_encode(pyr, plan, sub, levels):
+    """The HT kernels of one chunk of a tile-origin class, as the sharded
+    encode calls them: (pool, totals)."""
+    from go_jpeg2000_tpu_torch.models import fused_encode
+    return fused_encode.encode_pyramid(pyr, plan, len(sub), levels,
+                                       tiles=sub)
+
+
+def sharded_encode_stages(img, opts, dev, encode=class_encode):
     """One config-4 encode in its stages, synchronised: (tile batch on the
-    host, upload, transform step, HT kernels, fetch and native Tier-2 s,
-    codestream bytes of the tiles, peak device bytes per sample)."""
+    host, upload, transform step, HT kernels (`encode` of each chunk of
+    each class), fetch and native Tier-2 s, codestream bytes of the tiles,
+    peak device bytes per sample)."""
     from go_jpeg2000_tpu_torch.models import encoder, fused_encode, transforms
     from go_jpeg2000_tpu_torch.ops import dwt
     from go_jpeg2000_tpu_torch.parallel import sharded as psh
@@ -2672,8 +2729,7 @@ def sharded_encode_stages(img, opts, dev):
         for s in range(0, len(pos), per):
             sub = pos[s:s + per]
             a = time.perf_counter()
-            out, totals = fused_encode.encode_pyramid(
-                psh.gather_tiles(pyr, sub), plan, len(sub), levels)
+            out, totals = encode(pyr, plan, sub, levels)
             torch.cuda.synchronize()
             b = time.perf_counter()
             bodies = fused_encode.fetch_bodies(out, totals, len(sub), plan,
@@ -3728,8 +3784,7 @@ def held_to_cpu(label, on_card, on_cpu):
     print(f"{label}: CUDA and CPU codestreams byte-identical", flush=True)
 
 
-HT_ENC = ("ht_extract_blocks", "ht_cleanup_fields", "ht_pack_bits",
-          "ht_compact_pool")
+HT_ENC = HT_KERNELS
 EBCOT_ENC = ("ebcot_decision_slots", "ebcot_compact_rows", "ebcot_mq_encode",
              "ebcot_pool_rows")
 

@@ -6,26 +6,27 @@
 //   ht_extract_blocks  <- go_jpeg2000_tpu/models/fused_encode.py
 //                         _extract_blocks (with the deadzone quantization
 //                         of lossy plans)
-//   ht_cleanup_fields  <- go_jpeg2000_tpu/ops/ht_tpu.py cleanup_fields (the
+//   ht_cleanup_pack    <- go_jpeg2000_tpu/ops/ht_tpu.py cleanup_fields (the
 //                         field computation, with _direct_enc_table, _bitlen
-//                         and _uvlc_fields)
-//   ht_pack_bits       <- go_jpeg2000_tpu/ops/ht_tpu.py _pack_bits and
-//                         _segmented_or_scan
+//                         and _uvlc_fields, and the packing of its three
+//                         streams, _pack_bits and _segmented_or_scan)
 //   ht_compact_pool    <- go_jpeg2000_tpu/ops/ht_tpu.py compact_pool and
 //                         cleanup_fields_compact
 // The plain torch versions are go_jpeg2000_tpu_torch/models/fused_encode.py
-// extract_blocks and ops/ht_enc.py cleanup_values, pack_bits and
-// assemble_pool; the wrappers, build and launch counts are in
-// ops/ht_enc_cuda.py.  Every kernel's integer output equals its plain
-// version's exactly.
+// extract_blocks and ops/ht_enc.py cleanup_fields and assemble_pool; the
+// wrappers, build and launch counts are in ops/ht_enc_cuda.py.  Every
+// kernel's output equals its plain version's exactly (the distortion too:
+// both sum float32 squares in float64 and round once).
 //
-// What bounds them on the H100: bytes.  Each does a few dozen integer
-// operations per sample or field, well under the card's integer rate, and
-// moves 8 to 30 bytes per sample (the block, the field values and lengths
-// as int32, the word rows, the pool), so the time is the bytes over the
-// 3.35 TB/s of device memory, plus launch latency on small batches.  What
-// the TPU forms did about the TPU does not carry over: they sorted and
-// OR-scanned because scatters serialize there.  Here:
+// What bounds them on the H100: bytes, but for the cleanup kernel.  The
+// others do a few integer operations per sample or word and move 8 to 16
+// bytes per sample (the leaves, the block, the word rows, the pool), so
+// their time is the bytes over the 3.35 TB/s of device memory, plus launch
+// latency on small batches; the cleanup kernel reads 4 bytes a sample and
+// writes about 4.4 (the rows at 31 bits a sample), and its few dozen
+// integer operations a sample bound it.  What the TPU forms did about the
+// TPU does not carry over: they sorted and OR-scanned because scatters
+// serialize there.  Here:
 //
 // * ht_extract_blocks: built for bytes.  The slots are written whole, as
 //   16-byte vectors in order: a thread stores EX_VECS vectors 256 apart, so
@@ -42,48 +43,40 @@
 //   or two aligned windows they fall in, realigned in registers (offset
 //   grids, odd band widths); no load reaches outside the slot row's run of
 //   the leaf.  Padding vectors (rows or columns past the band) are stored
-//   as zeros with no load.  9/7 leaves are quantized on the way:
-//   sign(c) * floor(|c| / delta) with IEEE division (__fdiv_rn; this file
-//   must not be built with --use_fast_math), which is what ops/quant.py
-//   quantize computes on the card and on the CPU; -0.0 gives 0.
-// * ht_cleanup_fields: one CUDA block per code-block.  It reads 4 bytes a
-//   sample and writes 17 int32 values and 17 int32 lengths a quad pair
-//   (about 17 bytes a sample), so the design is for bytes: the block is
-//   read once, with 16-byte loads into shared memory, and every field goes
-//   out in whole lines.  Every field is a pure function of the block's
+//   as zeros with no load.  A batch may be a subset of the leaves' frames
+//   (a tile-origin class of a tile batch): frame f then reads leaf frame
+//   tiles[f], so no gathered copy of the leaves is made.  9/7 leaves are
+//   quantized on the way: sign(c) * floor(|c| / delta) with IEEE division
+//   (__fdiv_rn; this file must not be built with --use_fast_math), which
+//   is what ops/quant.py quantize computes on the card and on the CPU;
+//   -0.0 gives 0.
+// * ht_cleanup_pack: one CUDA block per code-block, which computes every
+//   field of the cleanup pass and packs the three streams itself, so no
+//   field reaches device memory (the two kernels it replaced wrote 17
+//   values and 17 lengths as int32 a quad pair, 69.6 KB a 64x64 block,
+//   and read them back).  Every field is a pure function of the block's
 //   coefficients, and the line state of a quad needs only the quad row
-//   above, so nothing walks the block in sequence: phase 1, one thread per
-//   quad, puts rho, the quad's largest exponent and the n1/n3 exponents
-//   into shared memory (4 bytes a quad); phase 2, one thread per quad pair
-//   and a warp per 32 consecutive pairs, reads its samples and neighbours
-//   there, looks up the 8192-entry direct VLC table through the read-only
-//   cache (__ldg: lookups diverge, which constant memory would serialize)
-//   and puts the pair's 8 MagSgn, 6 VLC and 3 MEL fields into the warp's
-//   staging area in the output layout; the warp then writes each of the
-//   six arrays' 32-pair run with 16-byte stores, 512 contiguous bytes a
-//   store instruction.  A warp per 32 pairs, at most 8 warps: 256 threads
-//   and 54 KB of shared memory for a 64x64 block (4 CTAs an SM), fewer
-//   threads for smaller blocks.  numbps, u_max and the distortion are
-//   block reductions (warp shuffles; the distortion sums float32 squares in
-//   double, so it can differ from a float32 sum in its last bits).
-// * ht_pack_bits: one launch packs the three streams of a chunk, a CUDA
-//   block per (row, stream).  It reads 8 bytes a field (value and length)
-//   and writes a 4-byte word per 32 bits, so it is built for reads: each
-//   thread takes whole quads of 4 consecutive fields with one 16-byte load
-//   of the values and one of the lengths (scalar loads where a row is not
-//   16-byte aligned, F % 4 != 0), a warp's 32 loads cover 512 contiguous
-//   bytes, and every lane issues all its loads of a round (up to 4 quads)
-//   before it waits on any.  The lengths stay in registers: a warp sum,
-//   one barrier and a read of the eight warp totals give each warp its
-//   base, then warp shuffle scans give each quad its bit offset.  A quad
-//   (at most 128 bits) is assembled in registers as a 128-bit value
-//   shifted to its offset, five words at most; the words it owns whole are
-//   plain stores into a shared-memory row, only its first and last word
-//   are ORed there (atomicOr), and the row goes out with 16-byte stores,
-//   zeros past the stream included.  The row is at most 3968 words (15.5
-//   KB, a 64x64 MagSgn row) on the encode's paths, and at most 227 KB.
-//   Shifts by 32 or 64 are undefined in C++, so every such shift is
-//   guarded explicitly.
+//   above, so nothing walks the block in sequence.  The block is read once
+//   with 16-byte loads into shared memory, beside the three stream rows,
+//   zeroed (at 64x64: 16 KB of block, 4 KB of quad info, a MagSgn row of at
+//   most 15.5 KB, 2 KB of VLC and 192 bytes of MEL, about 38 KB: 5 CTAs an
+//   SM).  Phase 1, one thread per quad, puts rho, the quad's largest
+//   exponent and the n1/n3 exponents into shared memory (4 bytes a quad).
+//   Phase 2 takes rounds of one quad pair a thread: each thread reads its
+//   samples and neighbours there, looks up the 8192-entry direct VLC table
+//   through the read-only cache (__ldg: lookups diverge, which constant
+//   memory would serialize) and keeps the pair's 8 MagSgn, 6 VLC and 3 MEL
+//   fields in registers; one block-wide exclusive scan of the pair's bit
+//   counts (the three streams packed in one 64-bit sum: warp shuffles, the
+//   warp totals through shared memory, a running base across rounds) gives
+//   each pair its bit offset in each row, in pack_bits' order (pair-major,
+//   LSB first); the thread gathers its fields in a 64-bit register and
+//   puts each word as it fills: the words that lie whole inside its bits
+//   are stored, its first and last word are ORed (atomicOr), since the
+//   neighbouring pairs share them.  The rows then leave with 16-byte
+//   stores, zeros past the stream included, with the bit counts.  numbps,
+//   u_max and the distortion are block reductions (warp shuffles; the
+//   distortion sums the float32 squares in double and rounds once).
 // * ht_compact_pool: two launches, since the VLC and MEL rows' places need
 //   the whole MagSgn and VLC totals.  The scan is one CTA of 1024 threads
 //   over the three streams together, a thread a tile of 8 rows (a copy
@@ -156,17 +149,19 @@ __device__ __forceinline__ int4 quantize4(int4 x, float delta) {
 }
 
 // Slot vector v of a frame (frame_vecs of them): slot j = v >> slot_shift,
-// row r and first column c of the vector from v's low bits.  A thread
+// row r and first column c of the vector from v's low bits.  Frame f of the
+// batch reads leaf frame tiles[f] (f where tiles is null).  A thread
 // issues the loads of all its vectors before it quantizes or stores any.
 template <bool FLOAT>
 __global__ void __launch_bounds__(EX_THREADS) extract_kernel(
     const __grid_constant__ LeafPtrs leaves, const int4* __restrict__ desc,
-    int n_frames, int slot_shift, int row_shift, int frame_vecs,
-    int4* __restrict__ out) {
+    const int* __restrict__ tiles, int n_frames, int slot_shift,
+    int row_shift, int frame_vecs, int4* __restrict__ out) {
   const int v0 = blockIdx.x * (EX_THREADS * EX_VECS) + threadIdx.x;
   const int slot_mask = (1 << slot_shift) - 1;
   const int row_mask = (1 << row_shift) - 1;
   for (int f = blockIdx.y; f < n_frames; f += gridDim.y) {
+    const int64_t lf = tiles ? __ldg(tiles + f) : f;   // the leaf frame
     int4 val[EX_VECS];
     float delta[EX_VECS];
 #pragma unroll
@@ -181,7 +176,7 @@ __global__ void __launch_bounds__(EX_THREADS) extract_kernel(
       if (r >= d0.y || c >= d0.z) continue;         // padding: no load
       const int4 d1 = __ldg(desc + 2 * j + 1);      // off, fstride, delta
       const int* lo = static_cast<const int*>(leaves.p[d0.x]) +
-                      (int64_t)f * d1.y + d1.x + r * d0.w;
+                      lf * d1.y + d1.x + r * d0.w;
       val[u] = run_words(lo + c, lo, lo + d0.z);
       delta[u] = __int_as_float(d1.z);
     }
@@ -197,7 +192,7 @@ __global__ void __launch_bounds__(EX_THREADS) extract_kernel(
   }
 }
 
-// ------------------------------------------------------ ht_cleanup_fields
+// -------------------------------------------------------- ht_cleanup_pack
 
 // The four samples of quad (qy, qx), n0..n3 = TL, BL, TR, BR, from the
 // block in shared memory: magnitude and MagSgn value v = 2*(mag-1) + sign
@@ -221,66 +216,101 @@ __device__ __forceinline__ void load_quad(const int* blk, int w, int hb,
   }
 }
 
-// count int32 values from shared memory to dst, by the whole warp: 16-byte
-// stores when dst is 16-byte aligned (src always is), so each store
-// instruction writes 512 contiguous bytes; else 4-byte stores, still
-// contiguous across the warp.
-__device__ __forceinline__ void warp_store(int* __restrict__ dst,
-                                           const int* src, int count,
-                                           int lane) {
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    const int n4 = count >> 2;
-    for (int i = lane; i < n4; i += 32)
-      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
-    done = n4 << 2;
-  }
-  for (int i = done + lane; i < count; i += 32) dst[i] = src[i];
+// One stream word of a pair at word index wi of its shared row: `owned`
+// words lie whole inside the pair's bits and are stored, the others (the
+// pair's first and last word, which it shares with its neighbours) ORed.
+// Rows start zeroed, so zero words are skipped; words at or past n_words
+// are dropped.
+__device__ __forceinline__ void put_word(unsigned* row, int n_words, int wi,
+                                         unsigned word, bool owned) {
+  if (!word || wi >= n_words) return;
+  if (owned)
+    row[wi] = word;
+  else
+    atomicOr(&row[wi], word);
 }
 
-// A warp's staging area for the fields of its 32 quad pairs, one region
-// per output array, each in the array's own layout (pair-major):
-// MagSgn values and lengths (8 a pair), VLC (6), MEL (3).
-#define ST_MSV 0
-#define ST_MSL (ST_MSV + 8 * 32)
-#define ST_VLV (ST_MSL + 8 * 32)
-#define ST_VLL (ST_VLV + 6 * 32)
-#define ST_MEV (ST_VLL + 6 * 32)
-#define ST_MEL (ST_MEV + 3 * 32)
-#define STAGE_INTS (ST_MEL + 3 * 32)
+// A pair's N fields of one stream (lengths 0 .. 31, LSB first, in stream
+// order) at bit offset off of the stream's shared row: the fields gather
+// in a 64-bit register, each whole word leaves as it fills.
+template <int N>
+__device__ __forceinline__ void put_fields(unsigned* row, int n_words,
+                                           unsigned off, const int* v,
+                                           const int* l) {
+  int wi = (int)(off >> 5), nb = (int)(off & 31);
+  uint64_t acc = 0;
+  bool first = true;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (!l[k]) continue;
+    acc |= (uint64_t)((unsigned)v[k] & ((1u << l[k]) - 1u)) << nb;
+    nb += l[k];                                 // at most 31 + 31
+    if (nb >= 32) {
+      put_word(row, n_words, wi, (unsigned)acc, !first);
+      first = false;
+      ++wi;
+      acc >>= 32;
+      nb -= 32;
+    }
+  }
+  if (nb) put_word(row, n_words, wi, (unsigned)acc, false);
+}
 
-// Dynamic shared memory: the block [h * w] | quad info [qh * qwp] |
-// STAGE_INTS a warp.  The quad info word is
-// rho | emax << 8 | e(n1) << 16 | e(n3) << 24.
-__global__ void __launch_bounds__(THREADS) fields_kernel(
+// The rows of one stream: `words` int32 [Nb, n_words], `bits` [Nb].
+struct StreamOut {
+  int* words;
+  int* bits;
+  int n_words;
+};
+struct CleanupOut {
+  StreamOut s[3];                               // MagSgn, VLC, MEL
+};
+
+// Words rounded up to whole 16-byte vectors.
+__host__ __device__ __forceinline__ int round4(int n) {
+  return (n + 3) & ~3;
+}
+
+// Dynamic shared memory: the block [h * w] | quad info [qh * qwp] | the
+// MagSgn, VLC and MEL rows, each from a 16-byte boundary.  The quad info
+// word is rho | emax << 8 | e(n1) << 16 | e(n3) << 24.
+__global__ void __launch_bounds__(THREADS) cleanup_pack_kernel(
     const int* __restrict__ coeffs, const int* __restrict__ hs,
     const int* __restrict__ ws, int h, int w,
-    const int* __restrict__ tbl, int* __restrict__ ms_vals,
-    int* __restrict__ ms_lens, int* __restrict__ vlc_vals,
-    int* __restrict__ vlc_lens, int* __restrict__ mel_vals,
-    int* __restrict__ mel_lens, int* __restrict__ numbps,
-    int* __restrict__ u_max, float* __restrict__ dist) {
+    const int* __restrict__ tbl, const CleanupOut out,
+    int* __restrict__ numbps, int* __restrict__ u_max,
+    float* __restrict__ dist) {
   extern __shared__ __align__(16) int smem[];
   __shared__ unsigned s_maxmag;
   __shared__ int s_umax;
   __shared__ double s_dist[THREADS / 32];
+  __shared__ unsigned long long s_warp[2][THREADS / 32];
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   const int qh = h >> 1, qw = w >> 1, qwp = qw + (qw & 1), pairs = qwp >> 1;
   const int hb = min(hs[b], h), wb = min(ws[b], w);
+  const int n_ms = out.s[0].n_words, n_vl = out.s[1].n_words,
+            n_me = out.s[2].n_words;
   int* blk = smem;
   int* qinfo = smem + h * w;
-  int* stage = qinfo + ((qh * qwp + 3) & ~3) + warp * STAGE_INTS;
+  unsigned* ms_row = reinterpret_cast<unsigned*>(qinfo + round4(qh * qwp));
+  unsigned* vl_row = ms_row + round4(n_ms);
+  unsigned* me_row = vl_row + round4(n_vl);
   if (threadIdx.x == 0) {
     s_maxmag = 0u;
     s_umax = 0;
   }
 
-  // the block, read once with 16-byte loads (h * w is a multiple of 4)
+  // the block, read once with 16-byte loads (h * w is a multiple of 4),
+  // and the three rows zeroed
   const int4* src = reinterpret_cast<const int4*>(coeffs + (int64_t)b * h * w);
 #pragma unroll 4
   for (int i = threadIdx.x; i < (h * w) >> 2; i += blockDim.x)
     reinterpret_cast<int4*>(blk)[i] = __ldg(src + i);
+  const int row4 = (round4(n_ms) + round4(n_vl) + round4(n_me)) >> 2;
+  for (int i = threadIdx.x; i < row4; i += blockDim.x)
+    reinterpret_cast<int4*>(ms_row)[i] = make_int4(0, 0, 0, 0);
   __syncthreads();
 
   // phase 1: one thread per quad
@@ -303,20 +333,30 @@ __global__ void __launch_bounds__(THREADS) fields_kernel(
   }
   __syncthreads();
 
-  // phase 2: one thread per quad pair, a warp per 32 consecutive pairs;
-  // the fields go to the warp's staging area, then out with warp_store
+  // phase 2: a round of blockDim.x consecutive quad pairs, one a thread;
+  // each pair's fields stay in registers while one scan of their lengths
+  // (the three streams' sums packed in 64 bits: MagSgn below bit 32, VLC
+  // below 48, MEL above; no sum carries into the next) gives every pair
+  // its bit offset in each row, in pack_bits' order (pair-major)
   const int qh_b = (hb + 1) >> 1, qw_b = (wb + 1) >> 1;
   const int npairs = qh * pairs;
-  int umax = 0;
-  for (int base = warp * 32; base < npairs; base += blockDim.x) {
-    const int pi = base + lane;
+  int umax = 0, parity = 0;
+  unsigned long long carry = 0;
+  for (int rb = 0; rb < npairs; rb += blockDim.x) {
+    const int pi = rb + threadIdx.x;
+    int msv[8], msl[8], vlv[6], vll[6], mev[3], mel[3];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) msv[i] = msl[i] = 0;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) vlv[i] = vll[i] = 0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mev[i] = mel[i] = 0;
     if (pi < npairs) {
       const int qy = pi / pairs, p = pi - (pi / pairs) * pairs;
       const bool init = qy == 0;
       const int* row = qinfo + qy * qwp;
       const int* up = row - qwp;  // the quad row above (not read when init)
       int u[2], kap[2], uoff[2], rhos[2], azc[2], cwd[2], cwdl[2];
-      int msv[8], msl[8];
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         const int qx = 2 * p + k;
@@ -370,7 +410,7 @@ __global__ void __launch_bounds__(THREADS) fields_kernel(
         for (int i = 0; i < 4; ++i) {
           const int m = min(max(uu - ((ek >> i) & 1), 0), 31);
           const int len = (((rho >> i) & 1) && coded) ? m : 0;
-          msv[4 * k + i] = len ? (int)(v[i] & ((1u << len) - 1u)) : 0;
+          msv[4 * k + i] = len ? (int)v[i] : 0;
           msl[4 * k + i] = len;
         }
         u[k] = uu;
@@ -414,38 +454,69 @@ __global__ void __launch_bounds__(THREADS) fields_kernel(
         sv[3] = m3 ? N1.s : 0;
         sl[3] = m3 ? N1.sl : 0;
       }
-      int4* m4v = reinterpret_cast<int4*>(stage + ST_MSV + 8 * lane);
-      int4* m4l = reinterpret_cast<int4*>(stage + ST_MSL + 8 * lane);
-      m4v[0] = make_int4(msv[0], msv[1], msv[2], msv[3]);
-      m4v[1] = make_int4(msv[4], msv[5], msv[6], msv[7]);
-      m4l[0] = make_int4(msl[0], msl[1], msl[2], msl[3]);
-      m4l[1] = make_int4(msl[4], msl[5], msl[6], msl[7]);
-      int2* v2v = reinterpret_cast<int2*>(stage + ST_VLV + 6 * lane);
-      int2* v2l = reinterpret_cast<int2*>(stage + ST_VLL + 6 * lane);
-      v2v[0] = make_int2(cwd[0], cwd[1]);
-      v2l[0] = make_int2(cwdl[0], cwdl[1]);
-      v2v[1] = make_int2(sl[0] ? sv[0] : 0, sl[1] ? sv[1] : 0);
-      v2l[1] = make_int2(sl[0], sl[1]);
-      v2v[2] = make_int2(sl[2] ? sv[2] : 0, sl[3] ? sv[3] : 0);
-      v2l[2] = make_int2(sl[2], sl[3]);
-      const int mv[3] = {rhos[0] != 0, rhos[1] != 0, big};
-      const int ml[3] = {azc[0], azc[1], init && m3};
+      vlv[0] = cwd[0];
+      vlv[1] = cwd[1];
+      vll[0] = cwdl[0];
+      vll[1] = cwdl[1];
 #pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        stage[ST_MEV + 3 * lane + t] = ml[t] ? mv[t] : 0;
-        stage[ST_MEL + 3 * lane + t] = ml[t];
+      for (int t = 0; t < 4; ++t) {
+        vlv[2 + t] = sv[t];
+        vll[2 + t] = sl[t];
       }
+      mev[0] = rhos[0] != 0;
+      mev[1] = rhos[1] != 0;
+      mev[2] = big;
+      mel[0] = azc[0];
+      mel[1] = azc[1];
+      mel[2] = init && m3;
     }
-    __syncwarp();
-    const int np = min(32, npairs - base);
-    const int64_t row0 = (int64_t)b * npairs + base;
-    warp_store(ms_vals + 8 * row0, stage + ST_MSV, 8 * np, lane);
-    warp_store(ms_lens + 8 * row0, stage + ST_MSL, 8 * np, lane);
-    warp_store(vlc_vals + 6 * row0, stage + ST_VLV, 6 * np, lane);
-    warp_store(vlc_lens + 6 * row0, stage + ST_VLL, 6 * np, lane);
-    warp_store(mel_vals + 3 * row0, stage + ST_MEV, 3 * np, lane);
-    warp_store(mel_lens + 3 * row0, stage + ST_MEL, 3 * np, lane);
-    __syncwarp();
+
+    // the pair's bits per stream, then the block-wide exclusive scan
+    unsigned nms = 0, nvl = 0, nme = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) nms += msl[i];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) nvl += vll[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) nme += mel[i];
+    const unsigned long long own = nms | (unsigned long long)nvl << 32 |
+                                   (unsigned long long)nme << 48;
+    unsigned long long incl = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) s_warp[parity][warp] = incl;
+    __syncthreads();
+    unsigned long long off = carry + incl - own;
+    for (int k = 0; k < nwarps; ++k) {
+      const unsigned long long t = s_warp[parity][k];
+      off += k < warp ? t : 0ull;
+      carry += t;
+    }
+    parity ^= 1;
+    put_fields<8>(ms_row, n_ms, (unsigned)off, msv, msl);
+    put_fields<6>(vl_row, n_vl, (unsigned)(off >> 32) & 0xFFFFu, vlv, vll);
+    put_fields<3>(me_row, n_me, (unsigned)(off >> 48), mev, mel);
+  }
+  __syncthreads();
+
+  // the rows out, 16-byte stores where the row is 16-byte aligned
+  const unsigned* rows[3] = {ms_row, vl_row, me_row};
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const int n = out.s[s].n_words;
+    int* dst = out.s[s].words + (int64_t)b * n;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      for (int i = threadIdx.x; i < (n >> 2); i += blockDim.x)
+        reinterpret_cast<int4*>(dst)[i] =
+            reinterpret_cast<const int4*>(rows[s])[i];
+      done = n & ~3;
+    }
+    for (int i = done + threadIdx.x; i < n; i += blockDim.x)
+      dst[i] = (int)rows[s][i];
   }
 
   // block reductions: numbps, u_max, distortion
@@ -462,165 +533,14 @@ __global__ void __launch_bounds__(THREADS) fields_kernel(
   __syncthreads();
   if (threadIdx.x == 0) {
     double t = 0.0;
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) t += s_dist[i];
+    for (int i = 0; i < nwarps; ++i) t += s_dist[i];
     numbps[b] = bitlen(s_maxmag);
     u_max[b] = max(1, s_umax);
     dist[b] = (float)t;
+    out.s[0].bits[b] = (int)(carry & 0xFFFFFFFFull);
+    out.s[1].bits[b] = (int)((carry >> 32) & 0xFFFFull);
+    out.s[2].bits[b] = (int)(carry >> 48);
   }
-}
-
-// ----------------------------------------------------------- ht_pack_bits
-
-#define PACK_THREADS 256
-#define PACK_WARPS (PACK_THREADS / 32)
-#define PACK_QUADS 4        // quads a lane holds in registers in one round
-#define PACK_STREAMS 3
-
-// One stream of a pack launch: fields [rows, f] in, words [rows, n_words]
-// and bits [rows] out.
-struct PackStream {
-  const int* vals;
-  const int* lens;
-  int* words;
-  int* bits;
-  int f, n_words;
-};
-struct PackStreams {
-  PackStream s[PACK_STREAMS];
-};
-
-// fields 4q .. 4q+3 of a row; those past f are empty
-__device__ __forceinline__ void load_quad(const int* __restrict__ rv,
-                                          const int* __restrict__ rl, int q,
-                                          int f, bool vec, int4& v, int4& l) {
-  const int i = 4 * q;
-  if (vec && i + 3 < f) {
-    v = *reinterpret_cast<const int4*>(rv + i);
-    l = *reinterpret_cast<const int4*>(rl + i);
-    return;
-  }
-  v.x = i < f ? rv[i] : 0;
-  v.y = i + 1 < f ? rv[i + 1] : 0;
-  v.z = i + 2 < f ? rv[i + 2] : 0;
-  v.w = i + 3 < f ? rv[i + 3] : 0;
-  l.x = i < f ? rl[i] : 0;
-  l.y = i + 1 < f ? rl[i + 1] : 0;
-  l.z = i + 2 < f ? rl[i + 2] : 0;
-  l.w = i + 3 < f ? rl[i + 3] : 0;
-}
-
-__device__ __forceinline__ uint64_t field_bits(int v, int len) {
-  return (unsigned)v & (len >= 32 ? 0xffffffffu : (1u << len) - 1u);
-}
-
-// The quad's fields (lengths 0..32, total bits n) at bit offset off of the
-// shared row: interior words stored, the first and the last ORed.  Words
-// at or past n_words are dropped.
-__device__ __forceinline__ void place_quad(unsigned* row, int n_words,
-                                           int off, int4 v, int4 l, int n) {
-  if (n <= 0) return;
-  const uint64_t a = field_bits(v.x, l.x) | (field_bits(v.y, l.y) << l.x);
-  const uint64_t c = field_bits(v.z, l.z) | (field_bits(v.w, l.w) << l.z);
-  const int la = l.x + l.y;                     // 0 .. 64
-  const uint64_t lo = la >= 64 ? a : a | (c << la);
-  const uint64_t hi = la == 0 ? 0 : (la >= 64 ? c : c >> (64 - la));
-  const int b = off & 31, wi = off >> 5;
-  const uint64_t y0 = lo << b;
-  const uint64_t y1 = (hi << b) | (b ? lo >> (64 - b) : 0);
-  const unsigned w[5] = {(unsigned)y0, (unsigned)(y0 >> 32), (unsigned)y1,
-                         (unsigned)(y1 >> 32),
-                         b ? (unsigned)(hi >> (64 - b)) : 0u};
-  const int last = (b + n - 1) >> 5;            // 0 .. 4
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    if (k > last || wi + k >= n_words) break;
-    if (k == 0 || k == last)
-      atomicOr(&row[wi + k], w[k]);
-    else
-      row[wi + k] = w[k];
-  }
-}
-
-__global__ void __launch_bounds__(PACK_THREADS) pack_kernel(PackStreams ps) {
-  extern __shared__ int4 pack_row[];
-  __shared__ int warp_bits[2][PACK_WARPS];
-  const PackStream S = blockIdx.y == 0 ? ps.s[0]
-                       : (blockIdx.y == 1 ? ps.s[1] : ps.s[2]);
-  const int row = blockIdx.x, f = S.f, n_words = S.n_words;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int* rv = S.vals + (int64_t)row * f;
-  const int* rl = S.lens + (int64_t)row * f;
-  const bool vec =
-      ((reinterpret_cast<uintptr_t>(rv) | reinterpret_cast<uintptr_t>(rl)) &
-       15) == 0;
-  unsigned* srow = reinterpret_cast<unsigned*>(pack_row);
-  const int n4 = (n_words + 3) >> 2;
-  for (int i = threadIdx.x; i < n4; i += PACK_THREADS)
-    pack_row[i] = make_int4(0, 0, 0, 0);
-
-  // a round: warp w takes quads [rb + w*32*jq, rb + (w+1)*32*jq), lane l
-  // the quads l, l + 32, .. of that run
-  const int nq = (f + 3) >> 2;
-  const int jq = min(PACK_QUADS, (nq + PACK_THREADS - 1) / PACK_THREADS);
-  int carry = 0, parity = 0;
-  for (int rb = 0; rb < nq; rb += PACK_THREADS * jq) {
-    const int wb = rb + warp * 32 * jq;
-    int4 v[PACK_QUADS], l[PACK_QUADS];
-    int n[PACK_QUADS];
-    int wsum = 0;
-#pragma unroll
-    for (int j = 0; j < PACK_QUADS; ++j) {
-      const int q = wb + 32 * j + lane;
-      if (j < jq && q < nq) {
-        load_quad(rv, rl, q, f, vec, v[j], l[j]);
-      } else {
-        v[j] = make_int4(0, 0, 0, 0);
-        l[j] = make_int4(0, 0, 0, 0);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < PACK_QUADS; ++j) {
-      n[j] = l[j].x + l[j].y + l[j].z + l[j].w;
-      wsum += n[j];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
-    if (lane == 0) warp_bits[parity][warp] = wsum;
-    __syncthreads();                    // also orders the row's zeroing
-    int base = carry;
-#pragma unroll
-    for (int k = 0; k < PACK_WARPS; ++k) {
-      const int t = warp_bits[parity][k];
-      base += k < warp ? t : 0;
-      carry += t;
-    }
-    parity ^= 1;
-#pragma unroll
-    for (int j = 0; j < PACK_QUADS; ++j) {
-      if (j >= jq) break;
-      int incl = n[j];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      place_quad(srow, n_words, base + incl - n[j], v[j], l[j], n[j]);
-      base += __shfl_sync(0xffffffffu, incl, 31);
-    }
-  }
-  __syncthreads();
-  int* dst = S.words + (int64_t)row * n_words;
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    const int m4 = n_words >> 2;
-    for (int i = threadIdx.x; i < m4; i += PACK_THREADS)
-      reinterpret_cast<int4*>(dst)[i] = pack_row[i];
-    done = m4 << 2;
-  }
-  for (int i = done + threadIdx.x; i < n_words; i += PACK_THREADS)
-    dst[i] = (int)srow[i];
-  if (threadIdx.x == 0) S.bits[row] = carry;
 }
 
 // -------------------------------------------------------- ht_compact_pool
@@ -776,10 +696,12 @@ static int log2_exact(long long v) {
 }
 
 // desc: nb slot descriptors (LAYOUT_FIELDS int32 each, block_layout.cuh) on
-// the card; leaf_ptrs: n_leaves host pointers, passed by value
+// the card; leaf_ptrs: n_leaves host pointers, passed by value; tiles: null,
+// or int32 [n_frames] on the card, the leaf frame of each batch frame
 int ht_extract_blocks(const void* desc, const void* const* leaf_ptrs,
                       int n_leaves, int n_frames, int nb, int cbh, int cbw,
-                      int is_float, void* out, void* stream) {
+                      int is_float, const void* tiles, void* out,
+                      void* stream) {
   const int slot_shift = log2_exact((long long)cbh * cbw / 4);
   const int row_shift = log2_exact(cbw / 4);
   const long long frame_vecs = (long long)nb * cbh * cbw / 4;
@@ -794,65 +716,51 @@ int ht_extract_blocks(const void* desc, const void* const* leaf_ptrs,
             n_frames < 65535 ? n_frames : 65535);
   if (is_float)
     extract_kernel<true><<<grid, EX_THREADS, 0, (cudaStream_t)stream>>>(
-        leaves, (const int4*)desc, n_frames, slot_shift, row_shift,
-        (int)frame_vecs, (int4*)out);
+        leaves, (const int4*)desc, (const int*)tiles, n_frames, slot_shift,
+        row_shift, (int)frame_vecs, (int4*)out);
   else
     extract_kernel<false><<<grid, EX_THREADS, 0, (cudaStream_t)stream>>>(
-        leaves, (const int4*)desc, n_frames, slot_shift, row_shift,
-        (int)frame_vecs, (int4*)out);
+        leaves, (const int4*)desc, (const int*)tiles, n_frames, slot_shift,
+        row_shift, (int)frame_vecs, (int4*)out);
   return (int)cudaGetLastError();
 }
 
-// threads of the cleanup kernel for h x w blocks: a warp per 32 quad
-// pairs, at least 2 and at most THREADS / 32 warps
-static int fields_threads(int h, int w) {
+// threads of the cleanup kernel for h x w blocks: a thread per quad pair,
+// at least 2 and at most THREADS / 32 warps
+static int cleanup_threads(int h, int w) {
   const int qw = w >> 1, npairs = (h >> 1) * ((qw + (qw & 1)) >> 1);
   const int t = (npairs + 31) / 32 * 32;
   return t < 64 ? 64 : (t > THREADS ? THREADS : t);
 }
 
-static size_t fields_smem(int h, int w) {
+static size_t cleanup_smem(int h, int w, int n_ms, int n_vl, int n_me) {
   const int qw = w >> 1, quads = (h >> 1) * (qw + (qw & 1));
-  return sizeof(int) * ((size_t)h * w + ((quads + 3) & ~3) +
-                        (size_t)(fields_threads(h, w) / 32) * STAGE_INTS);
+  return sizeof(int) * ((size_t)h * w + round4(quads) + round4(n_ms) +
+                        round4(n_vl) + round4(n_me));
 }
 
-int ht_cleanup_fields(const void* coeffs, const void* hs, const void* ws,
-                      int nblocks, int h, int w, const void* tbl,
-                      void* ms_vals, void* ms_lens, void* vlc_vals,
-                      void* vlc_lens, void* mel_vals, void* mel_lens,
-                      void* numbps, void* u_max, void* dist, void* stream) {
-  const size_t smem = fields_smem(h, w);
-  const int rc = set_smem((const void*)fields_kernel, smem);
-  if (rc) return rc;
-  fields_kernel<<<nblocks, fields_threads(h, w), smem,
-                  (cudaStream_t)stream>>>(
-      (const int*)coeffs, (const int*)hs, (const int*)ws, h, w,
-      (const int*)tbl, (int*)ms_vals, (int*)ms_lens, (int*)vlc_vals,
-      (int*)vlc_lens, (int*)mel_vals, (int*)mel_lens, (int*)numbps,
-      (int*)u_max, (float*)dist);
-  return (int)cudaGetLastError();
-}
-
-// desc: nstreams (1 to 3) rows of 6 int64 (vals, lens, words, bits, f,
-// n_words), all streams of nrows rows; one launch
-int ht_pack_bits(const long long* desc, int nstreams, int nrows,
-                 void* stream) {
-  if (nstreams < 1 || nstreams > PACK_STREAMS)
+// coeffs int32 [nblocks, h, w]; the three streams' word rows [nblocks,
+// n_words] and bit counts [nblocks]
+int ht_cleanup_pack(const void* coeffs, const void* hs, const void* ws,
+                    int nblocks, int h, int w, const void* tbl,
+                    void* ms_words, int ms_n, void* ms_bits,
+                    void* vlc_words, int vlc_n, void* vlc_bits,
+                    void* mel_words, int mel_n, void* mel_bits,
+                    void* numbps, void* u_max, void* dist, void* stream) {
+  if (nblocks < 1 || h < 2 || w < 2 || (h & 1) || (w & 1) || ms_n < 0 ||
+      vlc_n < 0 || mel_n < 0)
     return (int)cudaErrorInvalidValue;
-  PackStreams ps = {};
-  size_t smem = 16;
-  for (int k = 0; k < nstreams; ++k) {
-    const long long* d = desc + 6 * k;
-    ps.s[k] = {(const int*)d[0], (const int*)d[1], (int*)d[2], (int*)d[3],
-               (int)d[4], (int)d[5]};
-    const size_t bytes = (size_t)((d[5] + 3) >> 2) * 16;
-    if (bytes > smem) smem = bytes;
-  }
-  const int rc = set_smem((const void*)pack_kernel, smem);
+  const size_t smem = cleanup_smem(h, w, ms_n, vlc_n, mel_n);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const int rc = set_smem((const void*)cleanup_pack_kernel, smem);
   if (rc) return rc;
-  pack_kernel<<<dim3(nrows, nstreams), PACK_THREADS, smem,
-                (cudaStream_t)stream>>>(ps);
+  CleanupOut out = {{{(int*)ms_words, (int*)ms_bits, ms_n},
+                     {(int*)vlc_words, (int*)vlc_bits, vlc_n},
+                     {(int*)mel_words, (int*)mel_bits, mel_n}}};
+  cleanup_pack_kernel<<<nblocks, cleanup_threads(h, w), smem,
+                        (cudaStream_t)stream>>>(
+      (const int*)coeffs, (const int*)hs, (const int*)ws, h, w,
+      (const int*)tbl, out, (int*)numbps, (int*)u_max, (float*)dist);
   return (int)cudaGetLastError();
 }
 

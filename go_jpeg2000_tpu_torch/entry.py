@@ -3,8 +3,9 @@ __graft_entry__.py).
 
 entry(device):        the single-device forward step on the main path: the
                       fused HT encode program (DC shift, five levels of the
-                      5/3 DWT, block extraction, HT cleanup fields, bit
-                      packing, pool compaction) on two gray 256^2 frames.
+                      5/3 DWT, block extraction, the HT cleanup pass with
+                      its bit packing, pool compaction) on two gray 256^2
+                      frames.
 dryrun_multichip(n):  the tile-sharded encode and decode on a grid of n
                       torch.distributed ranks (halo exchange over sp, the
                       distributed PCRD over dp), held to the single-process

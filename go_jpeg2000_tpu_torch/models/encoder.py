@@ -11,7 +11,7 @@ and `_finalize_codestream` wraps JP2.  `encode_batch` codes frames of one
 shape and one tile together, through the JAX package's three branches:
 the fused branch (models/fused_encode.py) runs the whole device half of
 an HTJ2K encode on the card, with hand-written CUDA kernels for the DWT
-levels, block extraction, the HT cleanup fields, bit packing and pool
+levels, block extraction, the HT cleanup pass with its bit packing and pool
 compaction, and leaves the host only segment serialization and Tier-2 in
 C++ (or, with quality layers, a byte budget, SOP, EPH, PLT or PPT, a
 PCRD per frame and the Python Tier-2 on natively serialized segments).
@@ -826,8 +826,8 @@ def encode_batch(images: Sequence[np.ndarray],
     fused_encode.plan_for admits the configuration (one precinct per band,
     no HT refinement, no PPM, backend "auto" or "native"), each chunk of
     frames runs the fused device HT encode (DC shift, RCT/ICT, DWT, block
-    extraction and quantization, HT cleanup fields, bit packing, pool
-    compaction) and the host serializes and assembles packets in C++
+    extraction and quantization, the HT cleanup pass with its bit packing,
+    pool compaction) and the host serializes and assembles packets in C++
     (with quality layers, a budget, SOP, EPH, PLT or PPT: a PCRD per
     frame, Python Tier-2).  Part-1 lossless, code-block style 0, one layer,
     no budget and no PPM: where ebcot_fused.plan_for admits it, backend

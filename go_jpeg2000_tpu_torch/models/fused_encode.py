@@ -7,20 +7,21 @@ the native ht_t2_{en,de}code_frames consume; the decoder uses them too.
 
 The device half, `fused_encode_chunk`, runs on the tensor's device: upload,
 DC shift, RCT/ICT and the DWT levels (models/transforms.py), then block
-extraction (with deadzone quantization for 9/7), the HT cleanup fields, bit
-packing and pool compaction (ops/ht_enc_cuda.py: the CUDA kernels on the
-card, their plain torch versions on the CPU).  What reaches the host is one
-int32 array, [6 x Nb meta | MagSgn | VLC | MEL], of which only the used
-prefix is copied (`fetch_pool`), never the coefficient pyramid.  The host
-then only serializes segments and assembles Tier-2 packets in C++
-(`fetch_bodies`, or `fetch_segments` for the Python Tier-2 with PLT).
+extraction (with deadzone quantization for 9/7), the HT cleanup pass with
+its bit packing, and pool compaction (ops/ht_enc_cuda.py: the CUDA kernels
+on the card, their plain torch versions on the CPU).  What reaches the
+host is one int32 array, [6 x Nb meta | MagSgn | VLC | MEL], of which
+only the used prefix is copied (`fetch_pool`), never the coefficient
+pyramid.  The host then only serializes segments and assembles Tier-2
+packets in C++ (`fetch_bodies`, or `fetch_segments` for the Python Tier-2
+with PLT).
 The pools hold exactly the streams' words, so nothing overflows and nothing
 is retried.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -197,21 +198,34 @@ def plan_blocks(header: Header, tile: geo.Tile,
                      deltas=tuple(deltas) if lossy else None)
 
 
-def extract_blocks(pyr, plan: BlockPlan, n: int, nl: int) -> torch.Tensor:
+def extract_blocks(pyr, plan: BlockPlan, n: int, nl: int,
+                   tiles: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Pyramid leaves [N, C, bh, bw] -> block batch int32 [N*nb, CBH, CBW]
     in canonical job order (frame-major); the plain version of the
     ht_extract_blocks kernel.  Lossy plans quantize each band with its own
     step (plan.deltas: one per band and component) as quant.quantize does.
+    With `tiles` (N positions) the batch is those frames of the leaves, as
+    the JAX program's jnp.take of a class's tiles before _extract_blocks
+    (ht_enc_cuda.check_tiles: ValueError unless every leaf holds the same
+    number of frames and each position lies below it).
 
     Offset grids (multi-tile plans): the band content is padded into its
     grid-aligned footprint, which leaves first-row/first-column slots with
     their valid samples at (oy, ox) instead of the kernel's expected
     top-left anchor; those slots are rolled up/left (the vacated area is
     zero padding, so the roll is clean)."""
+    if tiles is not None:
+        ht_enc_cuda.check_tiles("extract_blocks", tiles, n, [
+            ht_enc_cuda.band_leaf(pyr, s[1], s[2], nl).shape[0]
+            for s in plan.band_specs])
     per_band = []
     for bi, (c, lev, name, gy, gx, eh, ew, bh, bw, oy, ox) in \
             enumerate(plan.band_specs):
-        a = ht_enc_cuda.band_leaf(pyr, lev, name, nl)[:, c]
+        a = ht_enc_cuda.band_leaf(pyr, lev, name, nl)
+        if tiles is not None:
+            a = a.index_select(0, torch.tensor(list(tiles), dtype=torch.int64,
+                                               device=a.device))
+        a = a[:, c]
         if plan.deltas is not None:
             a = quant.quantize(a, plan.deltas[bi])
         ph, pw = gy * eh, gx * ew
@@ -253,7 +267,7 @@ def fused_encode_chunk(batch: np.ndarray, plan: BlockPlan, levels: int,
                                                       torch.Tensor]:
     """The device program of one chunk of frames [N, C, H, W] (narrow host
     samples): upload, DC shift, MCT, the DWT levels, then block extraction,
-    the HT cleanup fields, bit packing of the three streams and pool
+    the HT cleanup pass with its three streams packed, and pool
     compaction.  Returns the int32 array [6*Nb meta | MagSgn | VLC | MEL]
     (valid up to 6*Nb + sum(totals)) and the pools' word totals int64 [3],
     both on `device`."""
@@ -266,23 +280,24 @@ def fused_encode_chunk(batch: np.ndarray, plan: BlockPlan, levels: int,
         plan, batch.shape[0], levels)
 
 
-def encode_pyramid(pyr, plan: BlockPlan, n: int, levels: int
+def encode_pyramid(pyr, plan: BlockPlan, n: int, levels: int,
+                   tiles: Optional[Sequence[int]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The entropy half of fused_encode_chunk on the pyramid of n frames or
     tiles of one plan (leaves [n, C, h, w] on one device; a lossy plan
-    quantizes them): block extraction, the HT cleanup fields, bit packing
-    and pool compaction.  Returns the pool array and its word totals."""
-    blocks = ht_enc_cuda.extract_blocks(pyr, plan, n, levels)
+    quantizes them): block extraction, the HT cleanup pass with its streams
+    packed, and pool compaction.  With `tiles` (n positions) the batch is
+    those frames of the leaves, which may hold more (a tile-origin class of
+    a tile batch), read in place.  Returns the pool array and its word
+    totals."""
+    blocks = ht_enc_cuda.extract_blocks(pyr, plan, n, levels, tiles)
     del pyr
     hs, ws = _block_dims(plan, n, blocks.device)
-    f = ht_enc_cuda.cleanup_values(blocks, hs, ws)
+    f = ht_enc_cuda.cleanup_fields(blocks, hs, ws, plan.max_mn)
     del blocks
-    ms, vlc, mel = ht_enc_cuda.pack_streams(
-        (f.pop(f"{name}_vals"), f.pop(f"{name}_lens"), n_words)
-        for name, n_words in zip(("ms", "vlc", "mel"), ht_enc.stream_words(
-            plan.cbh, plan.cbw, plan.max_mn)))
-    return ht_enc_cuda.assemble_pool(*ms, *vlc, *mel, f["numbps"],
-                                     f["u_max"], f["dist"])
+    return ht_enc_cuda.assemble_pool(*(f[k] for k in (
+        "ms_words", "ms_bits", "vlc_words", "vlc_bits", "mel_words",
+        "mel_bits", "numbps", "u_max", "dist")))
 
 
 def fetch_pool(out: torch.Tensor, totals: torch.Tensor, n: int,

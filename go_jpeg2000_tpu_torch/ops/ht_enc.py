@@ -12,8 +12,9 @@ byte-oriented tails (MEL run-length coding, byte stuffing) stay on the host
 These are the plain versions of the CUDA kernels in csrc/ht_enc.cu
 (ops/ht_enc_cuda.py):
 
-  cleanup_values -> ht_cleanup_fields (field values and lengths, meta)
-  pack_bits      -> ht_pack_bits      (one stream's fields into words)
+  cleanup_fields -> ht_cleanup_pack   (cleanup_values, the field values,
+                                       lengths and meta, then pack_bits of
+                                       each stream into words)
   assemble_pool  -> ht_compact_pool   (meta rows + the three dense pools)
 
 and `cleanup_fields` / `cleanup_fields_compact` compose them as the JAX
@@ -303,7 +304,9 @@ def _values_group(c: torch.Tensor, hs: torch.Tensor, ws: torch.Tensor,
         out[f"{name}_lens"] = lens.to(torch.int32)
     out["numbps"] = numbps.to(torch.int32)
     out["u_max"] = u_max.to(torch.int32)
-    out["dist"] = (mags.to(torch.float32) ** 2).reshape(nb, -1).sum(dim=1)
+    # float32 squares summed in float64 and rounded once, as the kernel
+    out["dist"] = (mags.to(torch.float32) ** 2).to(torch.float64).reshape(
+        nb, -1).sum(dim=1).to(torch.float32)
     return out
 
 
@@ -325,7 +328,8 @@ def cleanup_values(coeffs: torch.Tensor, hs, ws) -> Dict[str, torch.Tensor]:
     coeffs: int32 [Nb, H, W], H and W even (zero-padded); hs, ws: the true
     block sizes [Nb].  Returns int32 tensors {ms,vlc,mel}_{vals,lens}
     [Nb, F] in stream order (`field_counts`), numbps and u_max [Nb] int32,
-    and dist [Nb] float32 (the sum of squared magnitudes)."""
+    and dist [Nb] float32 (the sum of squared magnitudes: float32 squares
+    summed in float64, rounded once)."""
     nb, h, w = coeffs.shape
     assert h % 2 == 0 and w % 2 == 0
     dev = coeffs.device

@@ -4,10 +4,11 @@ The port's counterpart of the JAX package's device HT encode program:
 
   extract_blocks -> ht_extract_blocks, replaces fused_encode._extract_blocks
                     (its slot descriptors, ops/block_layout.py, are kept on
-                    the card per plan; the leaves' pointers go by value)
-  cleanup_values -> ht_cleanup_fields, replaces ht_tpu.cleanup_fields
-  pack_streams   -> ht_pack_bits, replaces ht_tpu._pack_bits (one launch
-                    for a chunk's three streams; pack_bits is one stream)
+                    the card per plan; the leaves' pointers go by value;
+                    with `tiles`, the jnp.take of a class's tiles before it)
+  cleanup_fields -> ht_cleanup_pack, replaces ht_tpu.cleanup_fields with
+                    its packing (_pack_bits): the fields never leave the
+                    kernel, only the three streams' word rows do
   assemble_pool  -> ht_compact_pool, replaces ht_tpu.compact_pool and
                     cleanup_fields_compact
 
@@ -26,18 +27,15 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import block_layout, cuda_build, ht_enc
 
-LAUNCHES: Dict[str, int] = {"ht_extract_blocks": 0, "ht_cleanup_fields": 0,
-                            "ht_pack_bits": 0, "ht_compact_pool": 0}
-MAX_SMEM_BYTES = 232448
-# streams one ht_pack_bits launch takes (PACK_STREAMS in csrc/ht_enc.cu)
-PACK_STREAMS = 3
+LAUNCHES: Dict[str, int] = {"ht_extract_blocks": 0, "ht_cleanup_pack": 0,
+                            "ht_compact_pool": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -61,9 +59,9 @@ def load() -> ctypes.CDLL:
             raise RuntimeError("csrc/ht_enc.cu and ops/ht_enc_cuda.py "
                                "disagree on the slot layout or VLC table")
         p, i = ctypes.c_void_p, ctypes.c_int
-        sigs = {"ht_extract_blocks": [p, p, i, i, i, i, i, i, p, p],
-                "ht_cleanup_fields": [p, p, p, i, i, i, p] + [p] * 10,
-                "ht_pack_bits": [p, i, i, p],
+        sigs = {"ht_extract_blocks": [p, p, i, i, i, i, i, i, p, p, p],
+                "ht_cleanup_pack": [p, p, p, i, i, i, p] + [p, i, p] * 3
+                + [p] * 4,
                 "ht_compact_pool": [p, i, p, p, i, p, p, i, p,
                                     p, p, p, i, p, p, p, p]}
         for name, args in sigs.items():
@@ -132,129 +130,129 @@ def extract_layout(plan, n: int, n_comps: int, levels: int,
                                    (n, n_comps, levels, dev), build)
 
 
-def extract_blocks(pyr, plan, n: int, levels: int) -> torch.Tensor:
+def check_tiles(name: str, tiles: Sequence[int], n: int,
+                frames: Sequence[int]) -> None:
+    """Raise ValueError unless every leaf holds the same number of frames
+    (`frames`, one count a leaf) and `tiles` is n frames below it."""
+    f = frames[0]
+    if (any(x != f for x in frames) or len(tiles) != n
+            or any(not 0 <= t < f for t in tiles)):
+        raise ValueError(f"{name}: tiles {list(tiles)} for {n} frames of "
+                         f"leaves of {sorted(set(frames))} frames")
+
+
+_TILES: Dict[Tuple, torch.Tensor] = {}
+
+
+def _tile_index(tiles: Sequence[int], dev: torch.device) -> torch.Tensor:
+    """The leaf frames of a batch, int32 [n] on `dev`, made once per
+    positions and device."""
+    key = (tuple(int(t) for t in tiles), dev)
+    index = _TILES.get(key)
+    if index is None:
+        index = _TILES[key] = torch.tensor(key[0], dtype=torch.int32,
+                                           device=dev)
+    return index
+
+
+def extract_blocks(pyr, plan, n: int, levels: int,
+                   tiles: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Pyramid leaves -> the block batch int32 [n*nb, cbh, cbw] in canonical
     job order, zero-padded; lossy plans (plan.deltas) quantize on the way.
-    Leaves are int32 (5/3) or float32 (9/7) [n, C, bh, bw].  On the card
-    nothing is copied to or from the host after a plan's first call: the
-    slot descriptors stay there, and the leaves' pointers go to the kernel
-    by value."""
+    Leaves are int32 (5/3) or float32 (9/7) [n, C, bh, bw]; with `tiles`,
+    n host positions, the leaves hold any equal number of frames and frame
+    f of the batch is leaf frame tiles[f] (check_tiles: ValueError unless
+    each lies below it).  On the card nothing is copied to or from the host
+    after a plan's first call: the slot descriptors and the tile index stay
+    there, and the leaves' pointers go to the kernel by value."""
     spec = plan.band_specs[0]
     first = band_leaf(pyr, spec[1], spec[2], levels)
     dev = first.device
     if dev.type == "cpu":
         from ..models import fused_encode
-        return fused_encode.extract_blocks(pyr, plan, n, levels)
+        return fused_encode.extract_blocks(pyr, plan, n, levels, tiles)
     name = "ht_extract_blocks"
     keys, shapes, desc = extract_layout(plan, n, first.shape[1], levels, dev)
     dtype = torch.float32 if plan.deltas is not None else torch.int32
+    if tiles is not None:
+        check_tiles(name, tiles, n, [pyr[lv][band].shape[0]
+                                     for lv, band in keys])
     # the leaves (a strided one copied) stay referenced until the launch
     leaves, ptrs = [], []
     for (lv, band), shape in zip(keys, shapes):
         leaf = pyr[lv][band]
         if not leaf.is_contiguous():
             leaf = leaf.contiguous()
-        if (leaf.shape != shape or leaf.dtype != dtype
-                or leaf.get_device() != dev.index):
+        if ((tiles is None and leaf.shape[0] != n)
+                or leaf.shape[1:] != shape[1:]
+                or leaf.dtype != dtype or leaf.get_device() != dev.index):
             raise ValueError(f"{name}: leaf {band} of level {lv + 1} is "
                              f"{leaf.dtype} {tuple(leaf.shape)} on "
                              f"{leaf.device}, the plan wants {dtype} "
                              f"{shape} on {dev}")
         leaves.append(leaf)
         ptrs.append(leaf.data_ptr())
+    index = None if tiles is None else _tile_index(tiles, dev)
     out = torch.empty((n * plan.nb, plan.cbh, plan.cbw), dtype=torch.int32,
                       device=dev)
     if n:
         _launch(name, dev, desc.data_ptr(), (ctypes.c_void_p * len(ptrs))(
             *ptrs), len(ptrs), n, plan.nb, plan.cbh, plan.cbw,
-            int(dtype == torch.float32), out.data_ptr())
+            int(dtype == torch.float32),
+            None if index is None else index.data_ptr(), out.data_ptr())
     return out
 
 
 def cleanup_shape_supported(h: int, w: int) -> bool:
-    """Whether ht_cleanup_fields takes h x w blocks: every padded code-block
+    """Whether ht_cleanup_pack takes h x w blocks: every padded code-block
     shape, even h and w of at most 1024 each with h * w <= 4096 (the block,
-    its quad words and the field staging fit in shared memory)."""
+    its quad words and the three stream rows fit in shared memory)."""
     return (h > 0 and w > 0 and h % 2 == 0 and w % 2 == 0 and h <= 1024
             and w <= 1024 and h * w <= 4096)
 
 
-def cleanup_values(blocks: torch.Tensor, hs, ws) -> Dict[str, torch.Tensor]:
-    """Every HT cleanup field of int32 blocks [Nb, H, W] (H, W even) with
-    true sizes hs, ws [Nb]; the outputs of ht_enc.cleanup_values."""
+def cleanup_fields(blocks: torch.Tensor, hs, ws, max_mn: int
+                   ) -> Dict[str, torch.Tensor]:
+    """The HT cleanup pass of int32 blocks [Nb, H, W] (H, W even) with true
+    sizes hs, ws [Nb], its three streams packed, as ht_enc.cleanup_fields
+    gives it: {ms,vlc,mel}_words int32 [Nb, W] (uint32 bit patterns, zero
+    past the stream; W from ht_enc.stream_words with max_mn) and _bits
+    [Nb], numbps, u_max, dist.  max_mn (1 to 32) bounds the MagSgn field
+    bits; a row's bits past its words are dropped on the card (the plain
+    version raises)."""
     if blocks.device.type == "cpu":
-        return ht_enc.cleanup_values(blocks, hs, ws)
-    name = "ht_cleanup_fields"
+        return ht_enc.cleanup_fields(blocks, hs, ws, max_mn)
+    name = "ht_cleanup_pack"
     dev = blocks.device
     _check(blocks, name, torch.int32, 3, dev)
     nb, h, w = blocks.shape
-    if not cleanup_shape_supported(h, w) or blocks.data_ptr() % 16:
-        raise ValueError(f"{name}: blocks {tuple(blocks.shape)} not "
-                         "supported (even sizes of at most 1024, at most "
-                         "4096 samples, 16-byte aligned)")
+    if (not cleanup_shape_supported(h, w) or blocks.data_ptr() % 16
+            or not 1 <= max_mn <= 32):
+        raise ValueError(f"{name}: blocks {tuple(blocks.shape)} with max_mn "
+                         f"{max_mn} not supported (even sizes of at most "
+                         "1024, at most 4096 samples, 16-byte aligned; "
+                         "max_mn 1 to 32)")
     hs = torch.as_tensor(hs, dtype=torch.int32, device=dev).contiguous()
     ws = torch.as_tensor(ws, dtype=torch.int32, device=dev).contiguous()
     if hs.shape != (nb,) or ws.shape != (nb,):
         raise ValueError(f"{name}: hs, ws must be [{nb}]")
-    out = {}
-    for stream, f in zip(("ms", "vlc", "mel"), ht_enc.field_counts(h, w)):
-        for part in ("vals", "lens"):
-            out[f"{stream}_{part}"] = torch.empty(
-                (nb, f), dtype=torch.int32, device=dev)
+    out, args = {}, []
+    for stream, n_words in zip(("ms", "vlc", "mel"),
+                               ht_enc.stream_words(h, w, max_mn)):
+        words = out[f"{stream}_words"] = torch.empty(
+            (nb, n_words), dtype=torch.int32, device=dev)
+        bits = out[f"{stream}_bits"] = torch.empty(nb, dtype=torch.int32,
+                                                   device=dev)
+        args += [words.data_ptr(), n_words, bits.data_ptr()]
     out["numbps"] = torch.empty(nb, dtype=torch.int32, device=dev)
     out["u_max"] = torch.empty(nb, dtype=torch.int32, device=dev)
     out["dist"] = torch.empty(nb, dtype=torch.float32, device=dev)
     if nb:
         tbl = ht_enc.enc_table(dev, torch.int32)
         _launch(name, dev, blocks.data_ptr(), hs.data_ptr(), ws.data_ptr(),
-                nb, h, w, tbl.data_ptr(),
-                *(out[k].data_ptr() for k in (
-                    "ms_vals", "ms_lens", "vlc_vals", "vlc_lens",
-                    "mel_vals", "mel_lens", "numbps", "u_max", "dist")))
+                nb, h, w, tbl.data_ptr(), *args,
+                *(out[k].data_ptr() for k in ("numbps", "u_max", "dist")))
     return out
-
-
-def pack_streams(streams) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Pack up to three streams of one chunk's rows in one launch:
-    [(vals, lens, n_words)], fields int32 [Nb, F] of each stream (Nb shared,
-    F per stream) -> [(words int32 [Nb, n_words] holding uint32 bit
-    patterns, zero past the stream, total bits int32 [Nb])], each what
-    ht_enc.pack_bits gives.  A row's bits past n_words words are dropped
-    (ht_enc.pack_bits raises)."""
-    streams = list(streams)
-    if streams and streams[0][0].device.type == "cpu":
-        return [ht_enc.pack_bits(v, ln, nw) for v, ln, nw in streams]
-    name = "ht_pack_bits"
-    if not 1 <= len(streams) <= PACK_STREAMS:
-        raise ValueError(f"{name}: 1 to {PACK_STREAMS} streams, got "
-                         f"{len(streams)}")
-    dev = streams[0][0].device
-    nb = streams[0][0].shape[0]
-    desc = np.zeros((len(streams), 6), np.int64)
-    out = []
-    for k, (vals, lens, n_words) in enumerate(streams):
-        _check(vals, name, torch.int32, 2, dev)
-        _check(lens, name, torch.int32, 2, dev)
-        if (lens.shape != vals.shape or vals.shape[0] != nb
-                or not 0 <= n_words <= MAX_SMEM_BYTES // 4):
-            raise ValueError(f"{name}: fields {tuple(vals.shape)}, "
-                             f"{tuple(lens.shape)} with {n_words} words")
-        words = torch.empty((nb, n_words), dtype=torch.int32, device=dev)
-        bits = torch.empty(nb, dtype=torch.int32, device=dev)
-        desc[k] = (vals.data_ptr(), lens.data_ptr(), words.data_ptr(),
-                   bits.data_ptr(), vals.shape[1], n_words)
-        out.append((words, bits))
-    if nb:
-        _launch(name, dev, desc.ctypes.data, len(streams), nb)
-    return out
-
-
-def pack_bits(vals: torch.Tensor, lens: torch.Tensor, n_words: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each row's LSB-first fields [Nb, F] -> (words int32 [Nb, n_words]
-    holding uint32 bit patterns, total bits int32 [Nb]); ht_enc.pack_bits.
-    One stream of pack_streams."""
-    return pack_streams([(vals, lens, n_words)])[0]
 
 
 def assemble_pool(ms_words, ms_bits, vlc_words, vlc_bits, mel_words,

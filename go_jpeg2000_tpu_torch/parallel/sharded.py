@@ -12,10 +12,10 @@ One rank runs, on its device:
   (`edges`), and the band statistics
   (ops/band_stats.py, csrc/band_stats.cu), summed over the grid;
 - the device HT entropy (`_device_ht_entropy`, for _shard_fields_fn): per
-  tile-origin class, the class's tiles gathered from the leaves, then the
-  four HT encode kernels of csrc/ht_enc.cu (fused_encode.encode_pyramid)
-  and native Tier-2 on the host, or, with SOP, EPH, PLT, PPT or PPM, the
-  Python Tier-2 on the natively serialized segments;
+  tile-origin class, the three HT encode kernels of csrc/ht_enc.cu
+  (fused_encode.encode_pyramid; the extraction reads the class's tiles in
+  place in the leaves) and native Tier-2 on the host, or, with SOP, EPH,
+  PLT, PPT or PPM, the Python Tier-2 on the natively serialized segments;
 - for layers, byte budgets, Part-1 and backend "python" the host entropy
   branch: the block coder per tile;
 - after either, where Python Tier-2 assembles, the distributed PCRD
@@ -336,12 +336,6 @@ def ht_plans(header, tiles: Sequence[int]):
     return work
 
 
-def gather_tiles(pyr, sub: Sequence[int]):
-    """The leaves of the tiles at positions `sub`."""
-    idx = torch.tensor(list(sub), device=pyr[0]["HL"].device)
-    return [{k: v.index_select(0, idx) for k, v in e.items()} for e in pyr]
-
-
 def fused_chunk_tiles(n_comps: int, th: int, tw: int) -> int:
     """Tiles per device chunk of the HT encode (FUSED_CHUNK_BYTES)."""
     return _per_chunk(n_comps * th * tw, enc.FUSED_BYTES_PER_SAMPLE,
@@ -353,7 +347,7 @@ def _device_ht_entropy(header, opts, pyr, tiles: List[int], levels: int,
                        ) -> Optional[Dict[int, Tuple[bytes, bytes]]]:
     """(tile-part, PPM chunk) of each of `tiles` through the device HT
     encode: per tile-origin class, in chunks of FUSED_CHUNK_BYTES, the
-    class's tiles gathered from the leaves and the four HT encode kernels;
+    three HT encode kernels on the class's tiles, read in place;
     then native Tier-2, or, where opts put markers in the tile-parts
     (encoder.tile_part_markers), the natively serialized segments through
     `assemble` (the PCRD and the Python Tier-2, as the JAX package's
@@ -369,7 +363,7 @@ def _device_ht_entropy(header, opts, pyr, tiles: List[int], levels: int,
     for plan, rep, pos in work:
         for sub in _chunks(pos, per):
             out, totals = fused_encode.encode_pyramid(
-                gather_tiles(pyr, sub), plan, len(sub), levels)
+                pyr, plan, len(sub), levels, tiles=sub)
             if not native:
                 for i, segs in zip(sub, fused_encode.fetch_segments(
                         out, totals, len(sub), plan)):

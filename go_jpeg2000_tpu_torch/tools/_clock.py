@@ -122,7 +122,6 @@ DEVICE_STAGES = tuple(
         ("models.ebcot_fused", "ebcot_decisions_chunk"),
         ("models.ebcot_fused", "fetch"),
         ("parallel.sharded", "tile_transform_step"),
-        ("parallel.sharded", "gather_tiles"),
         ("parallel.sharded", "empty_leaves"),
         ("parallel.sharded", "place_tiles"),
         ("parallel.sharded", "tile_inverse_step"),

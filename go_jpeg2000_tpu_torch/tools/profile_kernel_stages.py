@@ -9,7 +9,7 @@ N gray H^2 frames (512, 8), HTJ2K lossless, 6 resolutions, in chunks of
 CHUNK frames (4).  The JAX tool timed jitted prefixes of the program and
 took their differences; here each kernel wrapper of
 fused_encode.fused_encode_chunk (the DWT levels, block extraction, the
-cleanup fields, the bit packer, the pool compaction, and the head: DC
+cleanup pass with its bit packing, the pool compaction, and the head: DC
 shift and colour transform) and of ht_dec.fused_decode (MagSgn, assembly,
 the inverse levels, the tail: inverse colour transform, rounding, DC
 shift, clamp and narrowing; head and tail one colour kernel each) runs
@@ -57,10 +57,8 @@ ENCODE = (
      ("dwt53_fwd_level",)),
     (Stage("ops.ht_enc_cuda", "extract_blocks", "block extraction", True),
      ("ht_extract_blocks",)),
-    (Stage("ops.ht_enc_cuda", "cleanup_values", "cleanup fields", True),
-     ("ht_cleanup_fields",)),
-    (Stage("ops.ht_enc_cuda", "pack_streams", "bit packing", True),
-     ("ht_pack_bits",)),
+    (Stage("ops.ht_enc_cuda", "cleanup_fields", "cleanup and packing", True),
+     ("ht_cleanup_pack",)),
     (Stage("ops.ht_enc_cuda", "assemble_pool", "pool compaction", True),
      ("ht_compact_pool",)))
 DECODE = (

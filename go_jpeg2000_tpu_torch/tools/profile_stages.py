@@ -147,7 +147,6 @@ SHARDED_ENCODE = HEADER + (
     Stage("parallel.sharded", "tile_transform_step",
           "transform step (DWT kernels, band_stats)", True),
     Stage("parallel.sharded", "ht_plans", "block plans"),
-    Stage("parallel.sharded", "gather_tiles", "class gather", True),
     Stage("models.fused_encode", "encode_pyramid", "HT kernels", True),
     Stage("models.fused_encode", "fetch_pool", "fetch", True, out_bytes),
     Stage("models.fused_encode", "t2_bodies", "native Tier-2"),

@@ -3,15 +3,16 @@
 compaction (ebcot_compact_rows), the MQ coder (ebcot_mq_encode), the
 segment pool (ebcot_pool_rows), the HT block extraction
 (ht_extract_blocks) and block-to-pyramid assembly (ht_blocks_to_pyramid),
-cleanup-field kernel (ht_cleanup_fields), bit packer
-(ht_pack_bits) and pool compaction (ht_compact_pool), the HT MagSgn decoder
+the cleanup pass with its bit packing (ht_cleanup_pack; in a checkout
+that packs apart, ht_cleanup_fields and ht_pack_bits) and pool compaction
+(ht_compact_pool), the HT MagSgn decoder
 (ht_magsgn_decode), the 5/3 levels (dwt53_fwd_level, dwt53_inv_level) and
 the 9/7 levels (dwt97_fwd_level, dwt97_inv_level) of one checkout of the
 PyTorch/CUDA port on one CUDA device, at the shapes of chip_smoke.py, and
 prints one JSON line.
 
     python3 kernel_times.py [--tree DIR] [--ptxas] [--config4] [--dwt-only]
-                            [--halo-only] [--mct-only]
+                            [--halo-only] [--mct-only] [--ht-only]
 
 DIR is the root of a checkout of the repository (default: the directory of
 this script).  Its go_jpeg2000_tpu_torch is imported and its CUDA sources
@@ -45,11 +46,11 @@ generators (this script's copy):
   a leaf); on the two lossless batches both
   layout kernels' library calls in the same run (torch.take over the
   flat pyramid, Tensor.index_copy_ into it, indices made beforehand);
-- cleanup: the blocks of the same three batches;
-- packing: the three streams' fields of the same three batches (made by
-  the checkout's cleanup kernel), packed by pack_bits, one call a stream,
-  which every checkout has, and, where the checkout has it, by
-  pack_streams, one launch for the three;
+- cleanup: the blocks of the same three batches, through the fused
+  kernel's wrapper (cleanup_fields) with its bound, or, in a checkout that
+  packs apart, the cleanup fields (cleanup_values), the packing of the
+  three streams in one launch (pack_streams) and the two together as its
+  main path runs them;
 - pool compaction: the packed streams of the same three batches, through
   the C entry point ht_compact_pool with the output sized beforehand;
 - MagSgn decode: the native parse of the HT lossless gray batch's
@@ -96,16 +97,21 @@ and the launch floor, a one-element add_ alone.
 --dwt-only times the launch floor, the DWT levels (even, odd and the halo
 form) and S4 only; --halo-only the launch floor and the halo form only;
 --mct-only the launch floor and the colour head and tail only (with
---config4, and config 4's steps).
+--config4, and config 4's steps); --ht-only the launch floor, the HT
+encode kernels and the assembly only (with --config4, and config 4's
+steps).
 --config4 also times config 4's lossless encode (8192x8192 16-bit RGB,
 512x512 tiles, 5 resolutions) in chip_smoke.py's stages, medians of 3
 after a warm-up: the upload, the transform step (the head, the level
-kernels and band_stats) and the HT kernels (per tile-origin class: the
-gather, extraction, cleanup, packing and compaction), each synchronised,
+kernels and band_stats) and the HT kernels (per tile-origin class:
+extraction, cleanup and packing, compaction; in a checkout that gathers
+the class's tiles first, the gather too), each synchronised,
 and its decode's inverse step (the inverse levels and the tail); and the
 lossy leg (the image >> 8 at quality 85): the encode's transform step and
-the decode's inverse step, where the level kernels' savings should show end to
-end; then the same lossless steps, and the decode's MagSgn and assembly
+HT kernels and the decode's inverse step; then each leg's HT kernels stage
+traced (config4_ht_trace: its wall, its device events by name and busy
+time, the host's runtime and allocator calls); then the same lossless
+steps, and the decode's MagSgn and assembly
 step and inverse step, with every kernel wrapper swapped for its plain
 torch version on the card (plain_kernels: the composite rows' "plain"
 time), medians of 2 after a warm-up.
@@ -139,8 +145,9 @@ T0 = time.perf_counter()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the kernels whose ptxas figures --ptxas reports
-KERNELS = ("extract_kernel", "to_pyramid_kernel", "fields_kernel",
-           "mq_kernel", "pack_kernel", "dwt53_fwd_kernel", "dwt53_inv_kernel",
+KERNELS = ("extract_kernel", "to_pyramid_kernel", "cleanup_pack_kernel",
+           "fields_kernel", "mq_kernel", "pack_kernel", "dwt53_fwd_kernel",
+           "dwt53_inv_kernel",
            "dwt97_fwd_kernel", "dwt97_inv_kernel",
            "decision_kernel", "block_stats_kernel", "magsgn_kernel",
            "count_kernel", "compact_write_kernel", "chunk_count_kernel",
@@ -282,8 +289,11 @@ def extract_call(ht_enc_cuda, pyr, plan, n, levels):
         leaves = [pyr[lv][band].contiguous() for lv, band in keys]
         ptrs = (ctypes.c_void_p * len(leaves))(
             *[leaf.data_ptr() for leaf in leaves])
+        # a checkout whose extraction reads a class's tiles in place takes
+        # the tile index (null: every frame) before the output
+        tiles = (None,) if fused_cleanup(ht_enc_cuda) else ()
         args = (table_dev.data_ptr(), ptrs, len(leaves), n, plan.nb,
-                plan.cbh, plan.cbw, int(lossy), out.data_ptr())
+                plan.cbh, plan.cbw, int(lossy), *tiles, out.data_ptr())
     else:
         leaves = [ht_enc_cuda.band_leaf(pyr, lev, name, levels).contiguous()
                   for (_c, lev, name, *_rest) in plan.band_specs]
@@ -764,6 +774,7 @@ def main():
     ap.add_argument("--dwt-only", action="store_true")
     ap.add_argument("--halo-only", action="store_true")
     ap.add_argument("--mct-only", action="store_true")
+    ap.add_argument("--ht-only", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -795,6 +806,12 @@ def main():
     result["launch floor"] = {
         "what": "a one-element add_, alone",
         "alone_ms": cs.device_ms(lambda: tiny.add_(1))}
+    if args.ht_only:
+        result.update(ht_encode_times(cs, tp, dev))
+        if args.config4:
+            result.update(config4_steps(cs, tp, dev))
+        print(json.dumps(result), flush=True)
+        return 0
     if args.mct_only:
         result.update(mct_heads(cs, dev))
         if args.config4:
@@ -861,6 +878,34 @@ def main():
         "copy_alone_ms": copy_alone_ms(cs, used)}
     del rows, lens, segs, kpool
 
+    result.update(ht_encode_times(cs, tp, dev))
+    lossless = tp.Options(format=tp.Format.J2K, lossless=True,
+                          num_resolutions=6, high_throughput=True)
+    for label, (frames, opts) in (
+            ("gray", (cs.main_gray(), lossless)),
+            ("config-4 class", cs.config4_class(tp)),
+            ("config-4 lossy class", cs.config4_class(tp, lossless=False))):
+        result[f"ht_magsgn_decode {label}"] = magsgn_timing(
+            cs, tp, decoder, ht_dec_cuda, frames, opts, dev)
+        del frames
+        torch.cuda.empty_cache()
+
+    if args.config4:
+        result.update(config4_steps(cs, tp, dev))
+    if args.profiler_probe:
+        result["profiler probe"] = profiler_probe(cs, dwt_cuda, dev,
+                                                  args.profiler_probe)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def ht_encode_times(cs, tp, dev):
+    """The HT encode kernels and the block assembly on the gray batch and
+    the config-4 classes (module docstring: extraction, assembly, cleanup,
+    pool compaction)."""
+    import torch
+    from go_jpeg2000_tpu_torch.ops import ht_dec_cuda, ht_enc, ht_enc_cuda
+    result = {}
     lossless = tp.Options(format=tp.Format.J2K, lossless=True,
                           num_resolutions=6, high_throughput=True)
     for label, (frames, opts) in (
@@ -885,7 +930,8 @@ def main():
             "bound_ms": cs.extract_bound(pyr, blocks)[0],
             "wrapper_ms": cs.cuda_ms(wrapper),
             "wrapper_alone_ms": cs.device_ms(wrapper),
-            "wrapper_host_ms": host_ms(wrapper)}
+            "wrapper_host_ms": host_ms(wrapper),
+            "entry_host_ms": host_ms(fn)}
         lossy = plan.deltas is not None
         nc = pyr[0]["HL"].shape[1]
         wrapper = lambda: ht_dec_cuda.blocks_to_pyramid(  # noqa: E731
@@ -905,33 +951,10 @@ def main():
             result[f"ht_extract_blocks {label}"]["library"] = take
             result[f"ht_blocks_to_pyramid {label}"]["library"] = copy
         del pyr, out, frames
-        fn = lambda: ht_enc_cuda.cleanup_values(blocks, hs, ws)  # noqa
-        result[f"ht_cleanup_fields {label}"] = {
-            "shape": shape, "ms": cs.cuda_ms(fn),
-            "alone_ms": cs.device_ms(fn)}
-        f = fn()
+        pool_args = cleanup_timing(cs, ht_enc, ht_enc_cuda, result, label,
+                                   shape, plan, blocks, hs, ws)
+        nb = blocks.shape[0]
         del blocks, hs, ws
-        fields = [(f[f"{s}_vals"], f[f"{s}_lens"], nw) for s, nw in zip(
-            ("ms", "vlc", "mel"), ht_enc.stream_words(plan.cbh, plan.cbw,
-                                                      plan.max_mn))]
-        f_meta = {k: f[k] for k in ("numbps", "u_max", "dist")}
-        del f
-        nb = fields[0][0].shape[0]
-        fns = {"pack_bits, 3 calls":
-               lambda: [ht_enc_cuda.pack_bits(*x) for x in fields]}
-        if hasattr(ht_enc_cuda, "pack_streams"):
-            fns["pack_streams, 1 call"] = \
-                lambda: ht_enc_cuda.pack_streams(fields)
-        for how, fn in fns.items():
-            result[f"ht_pack_bits {label}, {how}"] = {
-                "shape": f"{shape}, max_mn {plan.max_mn}",
-                "ms": cs.cuda_ms(fn),
-                "alone_ms": cs.device_ms(fn),
-                "bound_ms": cs.pack_bound(fields, nb)[0]}
-        pool_args = [x for vals, lens, nw in fields
-                     for x in ht_enc_cuda.pack_bits(vals, lens, nw)] + [
-            f_meta[k] for k in ("numbps", "u_max", "dist")]
-        del fields
         want, wtot = ht_enc_cuda.assemble_pool(*pool_args)
         fn, kout, ktot = pool_call(ht_enc_cuda, pool_args)
         fn()
@@ -946,26 +969,108 @@ def main():
             "bound_ms": cs.pool_bound(nb, used)[0],
             "wrapper_ms": cs.cuda_ms(
                 lambda: ht_enc_cuda.assemble_pool(*pool_args)),
+            "wrapper_host_ms": host_ms(
+                lambda: ht_enc_cuda.assemble_pool(*pool_args)),
+            "entry_host_ms": host_ms(fn),
             "copy_alone_ms": copy_alone_ms(cs, 4 * (6 * nb + used))}
-        del pool_args, want, kout, f_meta
+        del pool_args, want, kout
         torch.cuda.empty_cache()
+    return result
 
-    for label, (frames, opts) in (
-            ("gray", (cs.main_gray(), lossless)),
-            ("config-4 class", cs.config4_class(tp)),
-            ("config-4 lossy class", cs.config4_class(tp, lossless=False))):
-        result[f"ht_magsgn_decode {label}"] = magsgn_timing(
-            cs, tp, decoder, ht_dec_cuda, frames, opts, dev)
-        del frames
-        torch.cuda.empty_cache()
 
-    if args.config4:
-        result.update(config4_steps(cs, tp, dev))
-    if args.profiler_probe:
-        result["profiler probe"] = profiler_probe(cs, dwt_cuda, dev,
-                                                  args.profiler_probe)
-    print(json.dumps(result), flush=True)
-    return 0
+def cleanup_call(ht_enc, ht_enc_cuda, blocks, hs, ws, max_mn):
+    """ht_cleanup_pack through the library's C entry point with its outputs
+    allocated beforehand: the launch function."""
+    import torch
+    nb, h, w = blocks.shape
+    widths = ht_enc.stream_words(h, w, max_mn)
+    out = [torch.empty(nb * n if n else 1, dtype=torch.int32,
+                       device=blocks.device) for n in widths]
+    meta = torch.empty(6 * nb, dtype=torch.int32, device=blocks.device)
+    tbl = ht_enc.enc_table(blocks.device, torch.int32)
+    hs = torch.as_tensor(hs, dtype=torch.int32, device=blocks.device)
+    ws = torch.as_tensor(ws, dtype=torch.int32, device=blocks.device)
+    lib = ht_enc_cuda.load()
+    args = [blocks.data_ptr(), hs.data_ptr(), ws.data_ptr(), nb, h, w,
+            tbl.data_ptr()]
+    for k, (rows, n) in enumerate(zip(out, widths)):
+        args += [rows.data_ptr(), n, meta[k * nb:].data_ptr()]
+    args += [meta[3 * nb:].data_ptr(), meta[4 * nb:].data_ptr(),
+             meta[5 * nb:].data_ptr()]
+
+    def fn():
+        rc = lib.ht_cleanup_pack(*args,
+                                 torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"ht_cleanup_pack: CUDA error {rc}")
+        # the outputs and the inputs live as long as fn
+        return out, meta, hs, ws, blocks
+    return fn
+
+
+def fused_cleanup(ht_enc_cuda):
+    """Whether the checkout packs the streams in its cleanup kernel
+    (ht_cleanup_pack), or launches the cleanup fields and the bit packer
+    apart (ht_cleanup_fields, then ht_pack_bits)."""
+    return "ht_cleanup_pack" in ht_enc_cuda.LAUNCHES
+
+
+def cleanup_timing(cs, ht_enc, ht_enc_cuda, result, label, shape, plan,
+                   blocks, hs, ws):
+    """The cleanup pass of one block batch, through the checkout's
+    wrappers, by CUDA events and alone: the fused kernel, with its bound;
+    or the two kernels of a checkout that packs apart, each and together
+    (the cleanup, then one packing launch for the three streams, as its
+    main path calls them).  Returns ht_compact_pool's arguments."""
+    names = ("ms_words", "ms_bits", "vlc_words", "vlc_bits", "mel_words",
+             "mel_bits", "numbps", "u_max", "dist")
+    what = f"{shape}, max_mn {plan.max_mn}"
+    if fused_cleanup(ht_enc_cuda):
+        fn = lambda: ht_enc_cuda.cleanup_fields(  # noqa: E731
+            blocks, hs, ws, plan.max_mn)
+        out = fn()
+        result[f"ht_cleanup_pack {label}"] = {
+            "shape": what, "ms": cs.cuda_ms(fn),
+            "alone_ms": cs.device_ms(fn),
+            "bound_ms": cs.cleanup_bound(blocks, hs, ws, out)[0],
+            "wrapper_host_ms": host_ms(fn),
+            "entry_host_ms": host_ms(cleanup_call(ht_enc, ht_enc_cuda, blocks,
+                                                  hs, ws, plan.max_mn))}
+        return [out[k] for k in names]
+    widths = ht_enc.stream_words(plan.cbh, plan.cbw, plan.max_mn)
+
+    def both():
+        f = ht_enc_cuda.cleanup_values(blocks, hs, ws)
+        return f, ht_enc_cuda.pack_streams(
+            [(f[f"{s}_vals"], f[f"{s}_lens"], nw)
+             for s, nw in zip(("ms", "vlc", "mel"), widths)])
+    fn = lambda: ht_enc_cuda.cleanup_values(blocks, hs, ws)  # noqa: E731
+    result[f"ht_cleanup_fields {label}"] = {
+        "shape": shape, "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn)}
+    f, packed = both()
+    fields = [(f[f"{s}_vals"], f[f"{s}_lens"], nw)
+              for s, nw in zip(("ms", "vlc", "mel"), widths)]
+    fn = lambda: ht_enc_cuda.pack_streams(fields)  # noqa: E731
+    result[f"ht_pack_bits {label}, pack_streams, 1 call"] = {
+        "shape": what, "ms": cs.cuda_ms(fn), "alone_ms": cs.device_ms(fn)}
+    result[f"ht_cleanup_fields + ht_pack_bits {label}"] = {
+        "shape": what, "ms": cs.cuda_ms(both), "alone_ms": cs.device_ms(both)}
+    return [x for pair in packed for x in pair] + [
+        f[k] for k in ("numbps", "u_max", "dist")]
+
+
+def class_encode():
+    """The HT kernels of one chunk of a tile-origin class as the checkout's
+    sharded encode calls them, (pyr, plan, positions, levels) -> (pool,
+    totals): read in place (encode_pyramid's `tiles`), or, in a checkout
+    that gathers a class's tiles first, after sharded.gather_tiles."""
+    from go_jpeg2000_tpu_torch.models import fused_encode
+    from go_jpeg2000_tpu_torch.parallel import sharded as psh
+    if hasattr(psh, "gather_tiles"):
+        return lambda pyr, plan, sub, levels: fused_encode.encode_pyramid(
+            psh.gather_tiles(pyr, sub), plan, len(sub), levels)
+    return lambda pyr, plan, sub, levels: fused_encode.encode_pyramid(
+        pyr, plan, len(sub), levels, tiles=sub)
 
 
 def config4_steps(cs, tp, dev):
@@ -973,9 +1078,11 @@ def config4_steps(cs, tp, dev):
     warm-up, then plain_steps."""
     import torch
     result = {}
+    encode = class_encode()
     img = cs.config4_image(cs.C4_SIZE)
     opts = cs.config4_opts(tp, True)
-    runs = [cs.sharded_encode_stages(img, opts, dev) for _ in range(4)]
+    runs = [cs.sharded_encode_stages(img, opts, dev, encode)
+            for _ in range(4)]
     for i, name in ((1, "upload"), (2, "transform step"),
                     (3, "HT kernels")):
         ms = sorted(1e3 * r[i] for r in runs[1:])
@@ -990,10 +1097,12 @@ def config4_steps(cs, tp, dev):
     img8 = (img >> 8).astype(np.uint8)
     del img, data
     opts = cs.config4_opts(tp, False)
-    runs = [cs.sharded_encode_stages(img8, opts, dev) for _ in range(4)]
-    ms = sorted(1e3 * r[2] for r in runs[1:])
-    result["config-4 lossy encode stage transform step"] = {
-        "median_ms": ms[1], "ms": ms}
+    runs = [cs.sharded_encode_stages(img8, opts, dev, encode)
+            for _ in range(4)]
+    for i, name in ((2, "transform step"), (3, "HT kernels")):
+        ms = sorted(1e3 * r[i] for r in runs[1:])
+        result[f"config-4 lossy encode stage {name}"] = {
+            "median_ms": ms[1], "ms": ms}
     data = encode_sharded(img8, opts, device=dev)
     runs = [cs.sharded_decode_stages(data, dev) for _ in range(4)]
     ms = sorted(1e3 * r[3] for r in runs[1:])
@@ -1001,9 +1110,111 @@ def config4_steps(cs, tp, dev):
         "median_ms": ms[1], "ms": ms}
     del img8, data
     torch.cuda.empty_cache()
+    for lossless in (True, False):
+        result[f"config-4 {'lossless' if lossless else 'lossy'} HT "
+               f"stage trace"] = config4_ht_trace(cs, tp, dev, lossless)
+        torch.cuda.empty_cache()
     result.update(plain_steps(cs, cs.config4_image(cs.C4_SIZE),
                               cs.config4_opts(tp, True), dev))
     return result
+
+
+# seconds of host and card idling before each class of config4_ht_trace's
+# second loop: about the native Tier-2 of one class (PERF.md section 5)
+IDLE_S = 0.2
+
+
+def config4_ht_trace(cs, tp, dev, lossless=True):
+    """Config 4's HT kernels stage as the encode runs it (per tile-origin
+    class and chunk: the checkout's gather where it has one, then
+    encode_pyramid, then the totals read back, which waits for the card,
+    as fetch_pool does), after two untraced runs: the host wall of the
+    stage and of each call to its synchronize, and each call's host time
+    to its return (its launches); the same calls each after IDLE_S of
+    idling, as the encode runs them between native Tier-2; then one run under
+    torch.profiler: the device events by name (count, summed ms), the
+    device's busy time (the union of its events), and the host's runtime
+    and allocator calls by name (count, CPU ms): what fills the stage
+    between the kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from go_jpeg2000_tpu_torch.models import encoder, transforms
+    from go_jpeg2000_tpu_torch.ops import dwt
+    from go_jpeg2000_tpu_torch.parallel import sharded as psh
+    img = cs.config4_image(cs.C4_SIZE)
+    if not lossless:
+        img = (img >> 8).astype(np.uint8)
+    opts = cs.config4_opts(tp, lossless)
+    header = encoder.build_header(img, opts)
+    prec = header.components[0].precision
+    comps = encoder._image_components(img)
+    encoder._apply_comp_quants(header, opts, len(comps), prec)
+    levels = header.coding_style.num_decompositions
+    T, th, tw = psh._check_grid(header, levels, 1, "kernel_times")
+    tiles = list(range(T))
+    x = transforms.upload(psh.tile_batch(header, comps, tiles, th, 0), dev)
+    pyr, _stats = psh.tile_transform_step(
+        x, levels, bool(header.coding_style.mct) and len(comps) >= 3, prec,
+        False, dwt.REV53 if lossless else dwt.IRR97)
+    del x, img, comps
+    per = psh.fused_chunk_tiles(header.num_components, th, tw)
+    encode = class_encode()
+    work = [(plan, pos[s:s + per]) for plan, _rep, pos in
+            psh.ht_plans(header, tiles) for s in range(0, len(pos), per)]
+
+    def stage(idle=0.0):
+        calls, host = [], []
+        for plan, sub in work:
+            time.sleep(idle)
+            t0 = time.perf_counter()
+            out, totals = encode(pyr, plan, sub, levels)
+            t1 = time.perf_counter()
+            totals.cpu()
+            calls.append(1e3 * (time.perf_counter() - t0))
+            host.append(1e3 * (t1 - t0))
+            del out, totals
+        return calls, host
+    stage()
+    stage()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls, launch = stage()
+    wall = 1e3 * (time.perf_counter() - t0)
+    # the same calls, each after the host and the card have idled as long
+    # as the encode's native Tier-2 of a class takes (IDLE_S)
+    idle_calls, idle_launch = stage(IDLE_S)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stage()
+        torch.cuda.synchronize()
+    device, host, spans = {}, {}, []
+    for e in prof.events():
+        ms = e.time_range.elapsed_us() * 1e-3
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c, t = device.get(e.name, (0, 0.0))
+            device[e.name] = (c + 1, t + ms)
+            spans.append((e.time_range.start, e.time_range.end))
+        elif e.name.startswith(("cuda", "aten::")):
+            c, t = host.get(e.name, (0, 0.0))
+            host[e.name] = (c + 1, t + ms)
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    top = sorted(host.items(), key=lambda kv: -kv[1][1])[:20]
+    return {"what": f"config 4 {'lossless' if lossless else 'lossy'}, "
+                    f"{len(work)} class chunks",
+            "wall_ms": wall, "call_ms": calls, "launch_host_ms": launch,
+            "after_idle_call_ms": idle_calls,
+            "after_idle_launch_host_ms": idle_launch,
+            "device_busy_ms": busy * 1e-3,
+            "device": {k: {"count": c, "ms": t}
+                       for k, (c, t) in sorted(device.items())},
+            "host_top": {k: {"count": c, "ms": t} for k, (c, t) in top}}
 
 
 def plain_kernels():
@@ -1022,12 +1233,16 @@ def plain_kernels():
                   (mct_cuda, "mct_inverse", transforms.samples_plain))
     except ImportError:
         colour = ()
+    if fused_cleanup(ht_enc_cuda):
+        cleanup = ((ht_enc_cuda, "cleanup_fields", ht_enc.cleanup_fields),)
+    else:
+        cleanup = ((ht_enc_cuda, "cleanup_values", ht_enc.cleanup_values),
+                   (ht_enc_cuda, "pack_streams",
+                    lambda streams: [ht_enc.pack_bits(v, ln, nw)
+                                     for v, ln, nw in streams]))
     return colour + ((dwt_cuda, "usable", lambda *a, **k: False),
-            (ht_enc_cuda, "extract_blocks", fused_encode.extract_blocks),
-            (ht_enc_cuda, "cleanup_values", ht_enc.cleanup_values),
-            (ht_enc_cuda, "pack_streams",
-             lambda streams: [ht_enc.pack_bits(v, ln, nw)
-                              for v, ln, nw in streams]),
+            (ht_enc_cuda, "extract_blocks", fused_encode.extract_blocks)
+            ) + cleanup + (
             (ht_enc_cuda, "assemble_pool", ht_enc.assemble_pool),
             (ht_dec_cuda, "magsgn_decode_blocks", ht_dec.magsgn_decode_blocks),
             (ht_dec_cuda, "blocks_to_pyramid", ht_dec.blocks_to_pyramid),
@@ -1041,6 +1256,7 @@ def plain_steps(cs, img, opts, dev):
     from go_jpeg2000_tpu_torch.parallel import encode_sharded
     data = encode_sharded(img, opts, device=dev)
     swaps = plain_kernels()
+    encode = class_encode()
     saved = [(mod, name, getattr(mod, name)) for mod, name, _f in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1048,7 +1264,8 @@ def plain_steps(cs, img, opts, dev):
         if encode_sharded(img, opts, device=dev) != data:
             raise AssertionError("config 4: the plain steps' codestream "
                                  "differs from the kernels'")
-        enc = [cs.sharded_encode_stages(img, opts, dev) for _ in range(3)]
+        enc = [cs.sharded_encode_stages(img, opts, dev, encode)
+               for _ in range(3)]
         dec = [cs.sharded_decode_stages(data, dev) for _ in range(3)]
     finally:
         for mod, name, fn in saved:

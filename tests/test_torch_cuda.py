@@ -9,11 +9,13 @@ nor the JAX package, so it runs where only torch is installed:
 
 Tolerance: exact equality, for 9/7 too (the kernel rounds the plain
 version's float32 ops in the same order, without FMA contraction), and for
-every integer output of the HT encode kernels; their distortion, a sum of
-float32 squares taken in another order, within a relative 1e-5.  The bit
-packer's words and bits are equal exactly on edge rows (zero lengths,
-spills at every offset, exact fills, rows off 16 bytes) and on the
-streams of every legal code-block shape; all four DWT level kernels are
+every output of the HT encode kernels, the distortion's float32 bits too
+(both versions sum float32 squares in float64 and round once).  The fused
+cleanup-and-pack kernel's words, bits and meta are equal at every legal
+code-block shape, on ragged and odd true sizes, all-zero blocks, 30-bit
+magnitudes, rows filled exactly at max_mn, rows of a width off 4 words
+and more quad pairs than one round, and encode_pyramid's pool of a batch
+and of a class read in place; all four DWT level kernels are
 exact at any even width, the inverse 5/3 in its halo form too, and at
 every origin parity on 1-sample, 3-sample, odd and 1080p shapes (one
 launch each, no plain level; an empty level launches nothing); the edge
@@ -309,31 +311,52 @@ def test_ht_kernels_match_plain(cuda, case, lossless):
     blocks = ht_enc_cuda.extract_blocks(pyr, plan, 3, 5)
     assert torch.equal(blocks, fused_encode.extract_blocks(pyr, plan, 3, 5))
     hs, ws = fused_encode._block_dims(plan, 3, cuda)
-    got = ht_enc_cuda.cleanup_values(blocks, hs, ws)
-    ref = ht_enc.cleanup_values(blocks, hs, ws)
-    for k in ref:
-        if k == "dist":
-            torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=0)
-        else:
-            assert torch.equal(got[k], ref[k]), k
-    packed = []
-    for name, n_words in zip(("ms", "vlc", "mel"), ht_enc.stream_words(
-            plan.cbh, plan.cbw, plan.max_mn)):
-        w, b = ht_enc_cuda.pack_bits(ref[f"{name}_vals"],
-                                     ref[f"{name}_lens"], n_words)
-        rw, rb = ht_enc.pack_bits(ref[f"{name}_vals"], ref[f"{name}_lens"],
-                                  n_words)
-        assert torch.equal(w, rw) and torch.equal(b, rb), name
-        packed += [rw, rb]
-    args = packed + [ref["numbps"], ref["u_max"], ref["dist"]]
+    got = ht_enc_cuda.cleanup_fields(blocks, hs, ws, plan.max_mn)
+    ref = ht_enc.cleanup_fields(blocks, hs, ws, plan.max_mn)
+    _outputs_equal(got, ref)
+    args = [ref[k] for k in ("ms_words", "ms_bits", "vlc_words", "vlc_bits",
+                             "mel_words", "mel_bits", "numbps", "u_max",
+                             "dist")]
     out, totals = ht_enc_cuda.assemble_pool(*args)
     rout, rtotals = ht_enc.assemble_pool(*args)
     assert torch.equal(totals, rtotals)
     assert torch.equal(out[:rout.numel()], rout)
     torch.cuda.synchronize()
-    for k, n in (("ht_extract_blocks", 1), ("ht_cleanup_fields", 1),
-                 ("ht_pack_bits", 3), ("ht_compact_pool", 1)):
+    for k, n in (("ht_extract_blocks", 1), ("ht_cleanup_pack", 1),
+                 ("ht_compact_pool", 1)):
         assert ht_enc_cuda.LAUNCHES[k] == before[k] + n, k
+
+
+def _outputs_equal(got, ref):
+    """Every output of the cleanup pass equal bit for bit, the distortion's
+    float32 bits too."""
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape
+        assert torch.equal(got[k].view(torch.int32),
+                           ref[k].view(torch.int32)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lossless", [True, False])
+@pytest.mark.parametrize("tiles", [None, [2, 0]], ids=["batch", "class"])
+def test_encode_pyramid_pool_matches_plain(cuda, tiles, lossless):
+    """The whole device pool of encode_pyramid (extraction, the fused
+    cleanup and packing, the pool compaction), of the batch and of a
+    class of its frames read in place, against ht_enc.cleanup_fields_compact
+    of the plain extraction."""
+    plan, pyr = _block_batch(_case_frames("gray"), lossless, cuda)
+    n = 3 if tiles is None else len(tiles)
+    before = dict(ht_enc_cuda.LAUNCHES)
+    out, totals = fused_encode.encode_pyramid(pyr, plan, n, 5, tiles=tiles)
+    blocks = fused_encode.extract_blocks(pyr, plan, n, 5, tiles)
+    hs, ws = fused_encode._block_dims(plan, n, cuda)
+    ref, rtotals = ht_enc.cleanup_fields_compact(blocks, hs, ws, plan.max_mn)
+    assert torch.equal(totals, rtotals)
+    assert torch.equal(out[:ref.numel()], ref)
+    torch.cuda.synchronize()
+    for k in ("ht_extract_blocks", "ht_cleanup_pack", "ht_compact_pool"):
+        assert ht_enc_cuda.LAUNCHES[k] == before[k] + 1, k
 
 
 @pytest.mark.cuda
@@ -663,6 +686,26 @@ def test_layout_wrappers_never_wait_for_the_card(cuda, name):
 
 
 @pytest.mark.cuda
+def test_extract_wrapper_refuses_tiles_past_the_leaves(cuda):
+    """With `tiles`, the card's extraction refuses a position past the
+    leaves or below 0, a wrong count and leaves of unequal frames, and
+    launches nothing; a class of the frames equals the plain version."""
+    plan, n, _nc, levels, pyr, _slots = _layout_case("gray", cuda)
+    short = [dict(e) for e in pyr]
+    short[0]["HH"] = short[0]["HH"][:n - 1]
+    before = ht_enc_cuda.LAUNCHES["ht_extract_blocks"]
+    for leaves, tiles in ((pyr, [n, 0]), (pyr, [-1, 0]), (pyr, [0]),
+                          (short, [0, 1])):
+        with pytest.raises(ValueError):
+            ht_enc_cuda.extract_blocks(leaves, plan, 2, levels, tiles)
+    assert ht_enc_cuda.LAUNCHES["ht_extract_blocks"] == before
+    tiles = [n - 1, 0]
+    assert torch.equal(ht_enc_cuda.extract_blocks(pyr, plan, 2, levels, tiles),
+                       fused_encode.extract_blocks(pyr, plan, 2, levels,
+                                                   tiles))
+
+
+@pytest.mark.cuda
 def test_layout_wrappers_refuse_what_they_cannot_take(cuda):
     plan, n, nc, levels, pyr, slots = _layout_case("gray", cuda)
     bad = [dict(e) for e in pyr]
@@ -714,67 +757,68 @@ def test_mq_kernel_stress_streams(cuda, seed, base):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mag", [3000, (1 << 30) - 1])
 @pytest.mark.parametrize("shape", [(32, 32), (64, 32), (32, 128), (128, 32),
-                                   (64, 64), (4, 1024), (1024, 4), (2, 2)])
+                                   (64, 64), (4, 1024), (1024, 4), (2, 2),
+                                   (16, 16)])
 def test_cleanup_kernel_block_shapes(cuda, shape, mag):
-    """The cleanup kernel against its plain version on random blocks of
-    legal code-block shapes, magnitudes up to `mag` (2^30 - 1 is the
-    fields' limit), ragged true sizes."""
+    """The fused cleanup kernel against its plain version on random blocks
+    of legal code-block shapes, magnitudes up to `mag` (2^30 - 1 is the
+    fields' limit), ragged and odd true sizes, an all-zero block: every
+    output bit for bit."""
     h, w = shape
     rng = np.random.RandomState(h * 2048 + w)
     c = rng.randint(-mag, mag + 1, size=(40, h, w)).astype(np.int32)
     c[rng.rand(40, h, w) < 0.4] = 0
-    blocks = torch.from_numpy(c).to(cuda)
-    hs = torch.from_numpy(rng.randint(1, h + 1, 40).astype(np.int32)).to(cuda)
-    ws = torch.from_numpy(rng.randint(1, w + 1, 40).astype(np.int32)).to(cuda)
-    got = ht_enc_cuda.cleanup_values(blocks, hs, ws)
-    ref = ht_enc.cleanup_values(blocks, hs, ws)
-    for k in ref:
-        if k == "dist":
-            torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=0)
-        else:
-            assert torch.equal(got[k], ref[k]), k
+    c[0] = 0
+    hs = rng.randint(1, h + 1, 40).astype(np.int32)
+    ws = rng.randint(1, w + 1, 40).astype(np.int32)
+    hs[1], ws[1] = h, w
+    hs[2], ws[2] = max(1, h - 1), max(1, w - 1)
+    max_mn = 16 if mag < (1 << 14) else 31
+    _cleanup_matches_plain(torch.from_numpy(c).to(cuda),
+                           torch.from_numpy(hs).to(cuda),
+                           torch.from_numpy(ws).to(cuda), max_mn)
 
 
 @pytest.mark.cuda
 def test_cleanup_kernel_refuses_illegal_shapes(cuda):
     for shape in ((2, 2048, 2), (2, 128, 64), (2, 3, 4)):
         with pytest.raises(ValueError):
-            ht_enc_cuda.cleanup_values(
+            ht_enc_cuda.cleanup_fields(
                 torch.zeros(shape, dtype=torch.int32, device=cuda),
-                [1, 1], [1, 1])
+                [1, 1], [1, 1], 16)
+    for max_mn in (0, 33):
+        with pytest.raises(ValueError):
+            ht_enc_cuda.cleanup_fields(
+                torch.zeros((2, 4, 4), dtype=torch.int32, device=cuda),
+                [1, 1], [1, 1], max_mn)
 
 
-def _fields(rng, nb, f, maxlen, dev, offset=0):
-    """Random fields [nb, f] on dev (lengths 0 .. maxlen); with offset > 0
-    the tensors start `offset` int32 past an allocation, so their base is
-    not 16-byte aligned."""
-    lens = rng.randint(0, maxlen + 1, (nb, f)).astype(np.int32)
-    vals = rng.randint(-2 ** 31, 2 ** 31, (nb, f), dtype=np.int64)
-    out = []
-    for a in (vals.astype(np.int32), lens):
-        buf = torch.zeros(nb * f + offset, dtype=torch.int32, device=dev)
-        t = buf[offset:].view(nb, f)
-        t.copy_(torch.from_numpy(a))
-        out.append(t)
-    return out
-
-
-def _pack_matches_plain(streams):
-    """pack_streams (one launch) and pack_bits of each stream against
-    ht_enc.pack_bits, exactly."""
-    before = ht_enc_cuda.LAUNCHES["ht_pack_bits"]
-    got = ht_enc_cuda.pack_streams(streams)
+def _cleanup_matches_plain(blocks, hs, ws, max_mn):
+    """ht_enc_cuda.cleanup_fields (one launch) against ht_enc.cleanup_fields,
+    bit for bit."""
+    before = ht_enc_cuda.LAUNCHES["ht_cleanup_pack"]
+    got = ht_enc_cuda.cleanup_fields(blocks, hs, ws, max_mn)
     torch.cuda.synchronize()
-    assert ht_enc_cuda.LAUNCHES["ht_pack_bits"] == before + 1
-    for (vals, lens, n_words), (w, b) in zip(streams, got):
-        rw, rb = ht_enc.pack_bits(vals, lens, n_words)
-        assert torch.equal(w, rw) and torch.equal(b, rb)
-        w1, b1 = ht_enc_cuda.pack_bits(vals, lens, n_words)
-        assert torch.equal(w1, rw) and torch.equal(b1, rb)
+    assert ht_enc_cuda.LAUNCHES["ht_cleanup_pack"] == before + 1
+    _outputs_equal(got, ht_enc.cleanup_fields(blocks, hs, ws, max_mn))
 
 
-def _words(lens):
-    return int((lens.long().sum(1).max().item() + 31) // 32)
+def _filled_blocks(h, w, dev, tries=4096, seed=0):
+    """Blocks whose MagSgn bits are exactly h * w * mm for one mm, so the
+    row of ht_enc.stream_words(h, w, mm) words is filled to its last bit:
+    (blocks, mm), found among random blocks by the plain version."""
+    rng = np.random.RandomState(seed)
+    c = rng.randint(-300, 301, size=(tries, h, w)).astype(np.int32)
+    c[rng.rand(tries, h, w) < 0.1] = 0
+    c = torch.from_numpy(c).to(dev)
+    full = torch.full((tries,), h, dtype=torch.int32, device=dev)
+    wide = torch.full((tries,), w, dtype=torch.int32, device=dev)
+    bits = ht_enc.cleanup_values(c, full, wide)["ms_lens"].sum(1).cpu()
+    hit = bits % (h * w) == 0
+    mm = int(torch.bincount(bits[hit] // (h * w)).argmax())
+    sel = torch.nonzero(bits == mm * h * w).flatten()[:8].to(dev)
+    assert len(sel) and ht_enc.stream_words(h, w, mm)[0] * 32 == mm * h * w
+    return c[sel].contiguous(), mm
 
 
 @pytest.mark.cuda
@@ -782,52 +826,53 @@ def _words(lens):
                                   "f6", "f6_offset", "f1537",
                                   "f1537_offset", "rounds"])
 def test_pack_kernel_edge_rows(cuda, case):
-    """Rows of all-zero lengths; 31-bit fields that spill at every bit
-    offset 0..31 (row r starts with an r-bit field); rows that fill
-    n_words exactly; F not a multiple of 4 with row bases off 16 bytes,
-    also from a tensor base off 16 bytes; rows longer than one round of
-    the kernel."""
+    """The fused kernel's packing at its edges: all-zero blocks (every
+    row empty); 30-bit magnitudes (fields spill at every bit offset); a
+    MagSgn row filled exactly at max_mn (16x16 and 8x32 blocks); rows of a
+    width off 4 words, stored by 4 bytes (6x10 blocks, and 2x2 with rows
+    of one word); rows of 1537 words and more (4x1024, 1024x4); more quad
+    pairs than one round of the CTA's threads (64x64 and 1024x2)."""
     rng = np.random.RandomState(len(case))
-    if case == "zeros":
-        vals, lens = _fields(rng, 5, 40, 0, cuda)
-        streams = [(vals, lens, 3)]
-    elif case == "spill":
-        vals, lens = _fields(rng, 32, 40, 31, cuda)
-        lens.fill_(31)
-        lens[:, 0] = torch.arange(32, dtype=torch.int32, device=cuda)
-        streams = [(vals, lens, _words(lens)), (vals, lens, _words(lens) + 5)]
-    elif case in ("fill", "fill32"):
-        bits = 16 if case == "fill" else 32
-        vals, lens = _fields(rng, 6, 64, 0, cuda)
-        lens.fill_(bits)
-        streams = [(vals, lens, 2 * bits)]
-    elif case.startswith("f"):
-        f = int(case[1:].split("_")[0])
-        vals, lens = _fields(rng, 7, f, 31, cuda,
-                             offset=1 if case.endswith("offset") else 0)
-        streams = [(vals, lens, _words(lens)), (vals, lens, _words(lens) + 3)]
-    else:
-        vals, lens = _fields(rng, 3, 9000, 12, cuda)
-        streams = [(vals, lens, _words(lens))]
-    _pack_matches_plain(streams)
+    shapes = {"zeros": [(64, 64)], "spill": [(64, 64), (32, 32)],
+              "fill": [(16, 16)], "fill32": [(8, 32)], "f6": [(6, 10)],
+              "f6_offset": [(2, 2)], "f1537": [(4, 1024)],
+              "f1537_offset": [(1024, 4)], "rounds": [(64, 64), (1024, 2)]}
+    for h, w in shapes[case]:
+        if case.startswith("fill"):
+            c, max_mn = _filled_blocks(h, w, cuda)
+        else:
+            mag = (1 << 30) - 1 if case == "spill" else 3000
+            c = rng.randint(-mag, mag + 1, (9, h, w)).astype(np.int32)
+            c[rng.rand(9, h, w) < 0.3] = 0
+            if case == "zeros":
+                c[:] = 0
+            c = torch.from_numpy(c).to(cuda)
+            max_mn = 31 if case == "spill" else 16
+        nb = c.shape[0]
+        hs = torch.from_numpy(rng.randint(1, h + 1, nb).astype(np.int32))
+        ws = torch.from_numpy(rng.randint(1, w + 1, nb).astype(np.int32))
+        if case.startswith("fill"):
+            hs.fill_(h)
+            ws.fill_(w)
+        _cleanup_matches_plain(c, hs.to(cuda), ws.to(cuda), max_mn)
 
 
 @pytest.mark.cuda
 def test_pack_kernel_block_shapes(cuda):
-    """The three streams of every legal code-block shape (powers of two
+    """The fused kernel at every legal code-block shape (powers of two
     from 4 to 1024 a side, at most 4096 samples: 4x4 .. 64x64, 32x128,
-    4x1024, ..) in one launch, with field_counts and stream_words."""
+    4x1024, ..), bit for bit."""
     rng = np.random.RandomState(8)
     for a in range(2, 11):
         for b in range(2, 13 - a):
             h, w = 1 << a, 1 << b
-            fc = ht_enc.field_counts(h, w)
-            widths = ht_enc.stream_words(h, w, 20)
-            streams = []
-            for f, n_words, maxlen in zip(fc, widths, (20, 5, 1)):
-                vals, lens = _fields(rng, 9, f, maxlen, cuda)
-                streams.append((vals, lens, n_words))
-            _pack_matches_plain(streams)
+            c = rng.randint(-5000, 5001, (9, h, w)).astype(np.int32)
+            c[rng.rand(9, h, w) < 0.5] = 0
+            hs = rng.randint(1, h + 1, 9).astype(np.int32)
+            ws = rng.randint(1, w + 1, 9).astype(np.int32)
+            _cleanup_matches_plain(torch.from_numpy(c).to(cuda),
+                                   torch.from_numpy(hs).to(cuda),
+                                   torch.from_numpy(ws).to(cuda), 20)
 
 
 @pytest.mark.cuda

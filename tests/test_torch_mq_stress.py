@@ -199,13 +199,13 @@ def test_cleanup_wrapper_takes_legal_shapes_on_cpu(shape):
     c[rng.rand(3, h, w) < 0.5] = 0
     hs = np.asarray([h, max(1, h - 1), max(1, h // 2)], np.int32)
     ws = np.asarray([w, max(1, w // 2 + 1), max(1, w - 1)], np.int32)
-    got = ht_enc_cuda.cleanup_values(torch.from_numpy(c), hs, ws)
-    for stream, f in zip(("ms", "vlc", "mel"), ht_enc.field_counts(h, w)):
-        for part in ("vals", "lens"):
-            assert got[f"{stream}_{part}"].shape == (3, f)
+    got = ht_enc_cuda.cleanup_fields(torch.from_numpy(c), hs, ws, 16)
+    for stream, n in zip(("ms", "vlc", "mel"), ht_enc.stream_words(h, w, 16)):
+        assert got[f"{stream}_words"].shape == (3, n)
+        assert got[f"{stream}_bits"].shape == (3,)
     if h * w > 64 and min(h, w) > 2 and max(h, w) < 1024:
         return          # the JAX comparison at the extreme shapes only
-    words = ht_enc.cleanup_fields(torch.from_numpy(c), hs, ws, 16)
+    words = got
     ref = ht_tpu._fields_fn(h, w, 16)(c, hs, ws)
     for k in ("ms", "vlc", "mel"):
         np.testing.assert_array_equal(words[f"{k}_words"].numpy().view(
