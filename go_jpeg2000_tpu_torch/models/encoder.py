@@ -49,6 +49,7 @@ pipeline (parallel/sharded.py) and the multi-host decomposition
 """
 from __future__ import annotations
 
+import itertools
 import math
 import struct
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -753,10 +754,8 @@ def _encode_batch_fused(batch: np.ndarray, header: Header, tile: geo.Tile,
             sub, plan, nl0, kind, use_mct, precision, signed, dev)
         counters.add("enc.fused_chunks")
         if native:
-            parts = [(cw.write_sot(0, 12 + 2 + len(body), 0, 1)
-                      + cw.write_sod() + body, b"")
-                     for body in fused_encode.fetch_bodies(
-                         pool, totals, n, plan, header, tile)]
+            bodies = fused_encode.fetch_bodies(pool, totals, n, plan, header,
+                                               tile)
         else:
             parts = []
             for segs in fused_encode.fetch_segments(pool, totals, n, plan):
@@ -764,8 +763,12 @@ def _encode_batch_fused(batch: np.ndarray, header: Header, tile: geo.Tile,
                 parts.append(_assemble_packets(
                     header, tile, enc_state, job_slots,
                     segment_results(segs), 0, opts, rate_budget))
-        out += [_finalize_codestream(header, opts, main, [tp], [hdrs],
-                                     pixels) for tp, hdrs in parts]
+        with counters.span("enc.finalize"):
+            if native:
+                parts = [(cw.write_sot(0, 12 + 2 + len(body), 0, 1)
+                          + cw.write_sod() + body, b"") for body in bodies]
+            out += [_finalize_codestream(header, opts, main, [tp], [hdrs],
+                                         pixels) for tp, hdrs in parts]
     return out
 
 
@@ -817,6 +820,10 @@ def _encode_batch_ebcot(batch: np.ndarray, header: Header, tile: geo.Tile,
     return out
 
 
+# encode_batch calls in this process: the number its enc.batch span carries
+_BATCH_CALLS = itertools.count(1)
+
+
 def encode_batch(images: Sequence[np.ndarray],
                  opts: Optional[Options] = None,
                  device="cuda") -> List[bytes]:
@@ -841,7 +848,9 @@ def encode_batch(images: Sequence[np.ndarray],
     TLM and PPM included (the JAX package's encode_batch drops TLM and
     fails on PPM).  `device` is where the device work runs; "cuda" without
     a card raises.  Counters: enc.fused_chunks, enc.ebcot_device_chunks,
-    enc.ebcot_hybrid_chunks, enc.host_entropy_frames."""
+    enc.ebcot_hybrid_chunks, enc.host_entropy_frames; under a torch
+    profiler, the spans enc.batch, enc.header, enc.stack and the fused
+    path's (utils/metrics.py)."""
     opts = opts or default_options()
     dev = transforms.resolve_device(device)
     images = [np.asarray(im) for im in images]
@@ -849,55 +858,64 @@ def encode_batch(images: Sequence[np.ndarray],
         return []
     if not batch_takes(images, opts):
         return [encode(im, opts, dev) for im in images]
+    with counters.span("enc.batch", str(next(_BATCH_CALLS))):
+        with counters.span("enc.header"):
+            header, main = header_and_main(images[0], opts)
+            precision = header.components[0].precision
+            signed = header.components[0].signed
+            n_comps = header.num_components
 
-    header, main = header_and_main(images[0], opts)
-    precision = header.components[0].precision
-    signed = header.components[0].signed
-    n_comps = header.num_components
-
-    tile = geo.build_tile(header, 0)
-    use_mct = bool(header.coding_style.mct) and n_comps >= 3
-    nl0 = tile.comps[0].coding.num_decompositions
-    x0, y0 = tile.comps[0].x0, tile.comps[0].y0
-    kind = dwt.REV53 if opts.lossless else dwt.IRR97
-    deltas = None if opts.lossless else _leaf_deltas(tile, nl0)
-    num_layers = header.coding_style.num_layers
-    rate_budget = rate_mod.byte_budget(images[0], opts)
-    # frames ship in their narrow dtype; the cast to int32 runs on device
-    batch = np.stack([np.stack(_image_components(im)) for im in images])
-    n_frames, c, h, w = batch.shape
-    pixels = c * h * w
-    plan = eplan = None
-    if (opts.high_throughput and not effective_ht_refinement(opts)
-            and not opts.enable_ppm and opts.backend in ("auto", "native")):
-        plan = fused_encode.plan_for(header, tile, lossy=not opts.lossless)
-    if (not opts.high_throughput and opts.lossless and num_layers == 1
-            and rate_budget is None and not effective_ht_refinement(opts)
-            and not opts.enable_ppm and header.coding_style.cb_style == 0
-            and opts.backend in ("auto", "device", "hybrid")):
-        eplan = ebcot_fused.plan_for(header, tile)
-    if plan is not None:
-        out = _encode_batch_fused(batch, header, tile, plan, opts, precision,
-                                  signed, nl0, use_mct, main, kind, dev,
-                                  rate_budget)
-    elif eplan is not None:
-        out = _encode_batch_ebcot(batch, header, tile, eplan, opts,
-                                  precision, signed, nl0, use_mct, main, dev,
-                                  hybrid=opts.backend == "hybrid")
-    else:
-        counters.add("enc.host_entropy_frames", n_frames)
-        chunk = _chunk_frames(n_frames, pixels)
-        out = []
-        for s in range(0, n_frames, chunk):
-            sub = batch[s:s + chunk]
-            flat = transforms.dispatch_forward_batch(
-                sub, nl0, kind, use_mct, precision, signed, x0, y0, dev,
-                deltas)
-            pyrs = transforms.fetch_forward_batch(flat, sub.shape[0], c, h,
-                                                  w, nl0, x0, y0)
-            for pyr in pyrs:
-                tp, hdrs = _entropy_and_packets(header, tile, pyr, 0, opts,
-                                                rate_budget)
-                out.append(_finalize_codestream(header, opts, main, [tp],
-                                                [hdrs], pixels))
+            tile = geo.build_tile(header, 0)
+            use_mct = bool(header.coding_style.mct) and n_comps >= 3
+            nl0 = tile.comps[0].coding.num_decompositions
+            x0, y0 = tile.comps[0].x0, tile.comps[0].y0
+            kind = dwt.REV53 if opts.lossless else dwt.IRR97
+            deltas = None if opts.lossless else _leaf_deltas(tile, nl0)
+            num_layers = header.coding_style.num_layers
+            rate_budget = rate_mod.byte_budget(images[0], opts)
+        # frames ship in their narrow dtype; the cast to int32 runs on
+        # device
+        with counters.span("enc.stack"):
+            batch = np.stack([np.stack(_image_components(im))
+                              for im in images])
+        n_frames, c, h, w = batch.shape
+        pixels = c * h * w
+        with counters.span("enc.header"):
+            plan = eplan = None
+            if (opts.high_throughput and not effective_ht_refinement(opts)
+                    and not opts.enable_ppm
+                    and opts.backend in ("auto", "native")):
+                plan = fused_encode.plan_for(header, tile,
+                                             lossy=not opts.lossless)
+            if (not opts.high_throughput and opts.lossless
+                    and num_layers == 1 and rate_budget is None
+                    and not effective_ht_refinement(opts)
+                    and not opts.enable_ppm
+                    and header.coding_style.cb_style == 0
+                    and opts.backend in ("auto", "device", "hybrid")):
+                eplan = ebcot_fused.plan_for(header, tile)
+        if plan is not None:
+            out = _encode_batch_fused(batch, header, tile, plan, opts,
+                                      precision, signed, nl0, use_mct, main,
+                                      kind, dev, rate_budget)
+        elif eplan is not None:
+            out = _encode_batch_ebcot(batch, header, tile, eplan, opts,
+                                      precision, signed, nl0, use_mct, main,
+                                      dev, hybrid=opts.backend == "hybrid")
+        else:
+            counters.add("enc.host_entropy_frames", n_frames)
+            chunk = _chunk_frames(n_frames, pixels)
+            out = []
+            for s in range(0, n_frames, chunk):
+                sub = batch[s:s + chunk]
+                flat = transforms.dispatch_forward_batch(
+                    sub, nl0, kind, use_mct, precision, signed, x0, y0, dev,
+                    deltas)
+                pyrs = transforms.fetch_forward_batch(
+                    flat, sub.shape[0], c, h, w, nl0, x0, y0)
+                for pyr in pyrs:
+                    tp, hdrs = _entropy_and_packets(header, tile, pyr, 0,
+                                                    opts, rate_budget)
+                    out.append(_finalize_codestream(header, opts, main,
+                                                    [tp], [hdrs], pixels))
     return out

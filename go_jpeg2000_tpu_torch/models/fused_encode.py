@@ -31,6 +31,7 @@ from ..native import loader
 from ..ops import block_layout, ht_enc, ht_enc_cuda, quant
 from ..tcd import geometry as geo
 from ..utils import markers as mk
+from ..utils.metrics import counters
 from . import transforms
 
 
@@ -274,10 +275,17 @@ def fused_encode_chunk(batch: np.ndarray, plan: BlockPlan, levels: int,
     dev = torch.device(device)
     # no reference to the pyramid stays here: encode_pyramid frees it once
     # the blocks are extracted
-    return encode_pyramid(
-        transforms.forward_pyramid(transforms.upload(batch, dev), levels,
-                                   kind, use_mct, precision, signed, 0, 0),
-        plan, batch.shape[0], levels)
+    with counters.span("enc.launch"):
+        return encode_pyramid(
+            transforms.forward_pyramid(_upload(batch, dev), levels, kind,
+                                       use_mct, precision, signed, 0, 0),
+            plan, batch.shape[0], levels)
+
+
+def _upload(batch: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """transforms.upload under the fused path's enc.upload span."""
+    with counters.span("enc.upload"):
+        return transforms.upload(batch, dev)
 
 
 def encode_pyramid(pyr, plan: BlockPlan, n: int, levels: int,
@@ -307,13 +315,15 @@ def fetch_pool(out: torch.Tensor, totals: torch.Tensor, n: int,
     copy into pinned memory.  Returns (meta int32 [6, Nb], pool uint32,
     totals int64 [3])."""
     nmeta = 6 * plan.nb * n
-    tot = totals.cpu().numpy()
-    used = out[:nmeta + int(tot.sum())]
-    if used.is_cuda:
-        host = torch.empty(used.shape, dtype=used.dtype, pin_memory=True)
-        host.copy_(used)
-        used = host
-    arr = used.numpy()
+    with counters.span("enc.fetch.wait"):
+        tot = totals.cpu().numpy()
+    with counters.span("enc.fetch.copy"):
+        used = out[:nmeta + int(tot.sum())]
+        if used.is_cuda:
+            host = torch.empty(used.shape, dtype=used.dtype, pin_memory=True)
+            host.copy_(used)
+            used = host
+        arr = used.numpy()
     return arr[:nmeta].reshape(6, -1), arr[nmeta:].view(np.uint32), tot
 
 
@@ -349,14 +359,16 @@ def t2_bodies(meta: np.ndarray, pool: np.ndarray, tot: np.ndarray, n: int,
               ) -> List[bytes]:
     """The host tail of fetch_bodies: ht_t2_encode_frames on a fetched
     pool."""
-    numbps = meta[3]
-    geom = t2_geom(header, tile, plan)
-    mb = np.tile(geom["mb"], n)
-    # cleanup-only HT convention (matches the host path + OpenJPEG interop):
-    # one coding pass -> signal a single magnitude bitplane (zbp = Mb - 1)
-    zbp = np.where(numbps > 0, mb - 1, mb).astype(np.int32)
-    return loader.ht_t2_encode_frames(
-        pool, *_pool_placement(meta, tot), numbps, zbp, n, plan.nb, geom)
+    with counters.span("enc.t2"):
+        numbps = meta[3]
+        geom = t2_geom(header, tile, plan)
+        mb = np.tile(geom["mb"], n)
+        # cleanup-only HT convention (matches the host path + OpenJPEG
+        # interop): one coding pass -> signal a single magnitude bitplane
+        # (zbp = Mb - 1)
+        zbp = np.where(numbps > 0, mb - 1, mb).astype(np.int32)
+        return loader.ht_t2_encode_frames(
+            pool, *_pool_placement(meta, tot), numbps, zbp, n, plan.nb, geom)
 
 
 def fetch_segments(out: torch.Tensor, totals: torch.Tensor, n: int,

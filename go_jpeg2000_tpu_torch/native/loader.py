@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..ops import t1 as t1_py
+from ..utils.metrics import counters
 
 _NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_NATIVE_DIR)
@@ -571,7 +572,8 @@ def ht_t2_encode_frames(words: np.ndarray,
     def p64(a):
         return _ptr(np.ascontiguousarray(a, dtype=np.int64), ctypes.c_int64)
 
-    rc = lib.ht_t2_encode_frames(
+    # each pointer keeps its array alive (ndarray.ctypes.data_as)
+    args = (
         _ptr(words, ctypes.c_uint32),
         p64(ms_off), p64(ms_nw), _ptr(ms_bits, ctypes.c_int32),
         p64(vlc_off), p64(vlc_nw), _ptr(vlc_bits, ctypes.c_int32),
@@ -586,6 +588,8 @@ def ht_t2_encode_frames(words: np.ndarray,
         _ptr(geom["bp_block_xy"], ctypes.c_int32),
         _ptr(out, ctypes.c_uint8), _ptr(out_offsets, ctypes.c_int64),
         _ptr(out_lens, ctypes.c_int64), _nthreads())
+    with counters.span("enc.t2.native"):
+        rc = lib.ht_t2_encode_frames(*args)
     if rc != 0:
         raise RuntimeError(f"native ht_t2_encode_frames failed: {rc}")
     return [bytes(out[out_offsets[f]:out_offsets[f] + int(out_lens[f])])
